@@ -1,0 +1,333 @@
+"""Chip smoke test of the PyTorch/CUDA port: builds the CUDA kernels from the
+sources in this checkout, holds each against its plain PyTorch version on
+the card, drives ``repro_torch.core.ssa.anneal`` at K2000 width through the
+kernels, and prints what it measured.
+
+    python3 chip_smoke.py          # needs one CUDA GPU and nvcc
+
+Phases (any failure raises and exits non-zero):
+  1. card: name and power limit (nvidia-smi);
+  2. K3 ``local_field`` == its plain version, exactly, at the K2000 shape and
+     a ragged one; kernel, plain, torch.addmm times and the bound;
+  3. K1 ``ssa_plateau_packed`` == its plain version, all five outputs
+     exactly, at K2000 and G11 widths, eligible and not, a ragged shape and
+     a tied-energy shape; kernel and plain times and the bound; K1's time
+     under each trial tiling and with a bfloat16 J;
+  4. production path: anneal(K2000, 100 trials, tau=100, I0 1→32,
+     backend='cuda', record='best', track_energy=False) — K1 launched
+     m_shot × steps times, K3 never; best_H == the dense backend's; the
+     host set-up time of anneal();
+  5. trace path: the same with track_energy=True — K3 launched, K1 not;
+     energy traces and best_H == the dense backend's;
+  6. the kernels line; 7. the contract line (last).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA
+# cores and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+M_SHOT_PRODUCTION = 10
+M_SHOT_TRACE = 2
+
+
+def _fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def _time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
+    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
+
+
+def phase_card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(out)
+    return out
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.time()
+    _build.build()
+    print(f"[build] {_build.SOURCES} built for sm_90a in {time.time() - t0:.1f}s")
+    for name in _build.SOURCES:
+        for line in _build.ptxas_report(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas {name}] {line.strip()}")
+
+
+def _spins(gen, shape, device):
+    return (torch.randint(0, 2, shape, generator=gen) * 2 - 1).to(device)
+
+
+def _coupling(gen, n, dtype, device):
+    J = torch.randint(-1, 2, (n, n), generator=gen)
+    J = torch.triu(J, 1)
+    return (J + J.T).to(dtype).to(device)
+
+
+def phase_k3(dev):
+    from repro_torch.kernels import ssa_update
+    from repro_torch.kernels.ref import local_field_ref
+
+    gen = torch.Generator().manual_seed(3)
+    err = 0
+    for R, N, dtype in ((100, 2000, torch.float32), (100, 2000, torch.bfloat16),
+                        (13, 1000, torch.float32), (7, 97, torch.float32)):
+        m = _spins(gen, (R, N), dev).to(torch.float32)
+        h = torch.randint(-3, 4, (N,), generator=gen, dtype=torch.int32).to(dev)
+        J = _coupling(gen, N, dtype, dev)
+        got = ssa_update.local_field(m, h, J)
+        want = local_field_ref(m, h, J)
+        torch.cuda.synchronize()
+        e = _max_abs_err(got, want)
+        print(f"[K3] R={R} N={N} J={dtype}: max_abs_err={e}")
+        if e:
+            _fail(f"K3 local_field differs from its plain version at R={R} N={N} {dtype}")
+        err = max(err, e)
+    # Timing at the main path's shape: R=100 trials, K2000 width, f32 J.
+    R, N = 100, 2000
+    m = _spins(gen, (R, N), dev).to(torch.float32)
+    h = torch.zeros(N, dtype=torch.int32, device=dev)
+    J = _coupling(gen, N, torch.float32, dev)
+    hf = h.to(torch.float32)
+    ms = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=50)
+    plain_ms = _time_ms(lambda: local_field_ref(m, h, J), reps=50)
+    lib_ms = _time_ms(lambda: torch.addmm(hf, m, J), reps=50)
+    bound, by = _bound_ms(4 * (R * N + N * N + N + R * N), 2 * R * N * N)
+    print(f"[K3] R={R} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.addmm {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+
+
+def _plateau_inputs(gen, R, N, dev, dtype=torch.float32, flat=False):
+    """Random plateau inputs; ``flat`` zeroes J and h so every energy ties
+    and only keeping the first minimum matches."""
+    from repro_torch.core.rng import xorshift_init
+    from repro_torch.kernels.bitplane import pack_spins
+
+    m = _spins(gen, (1, R, N), dev)
+    bm = _spins(gen, (1, R, N), dev)
+    return dict(
+        m_packed=pack_spins(m),
+        itanh=torch.randint(-8, 8, (1, R, N), generator=gen, dtype=torch.int32).to(dev),
+        J=_coupling(gen, N, dtype, dev)[None] * (not flat),
+        h=torch.randint(-2, 3, (1, N), generator=gen, dtype=torch.int32).to(dev) * (not flat),
+        rng=xorshift_init(int(torch.randint(0, 2**31, (1,), generator=gen)), (R, N), dev)[None],
+        best_H=torch.full((1, R), 2**30, dtype=torch.int32, device=dev),
+        best_m_packed=pack_spins(bm),
+    )
+
+
+def phase_k1(dev):
+    from repro_torch.kernels import ssa_update
+    from repro_torch.kernels.ref import ssa_plateau_packed_ref
+
+    gen = torch.Generator().manual_seed(1)
+    names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
+    err = 0
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(100, 2000, 100, True, f32, False), (100, 2000, 100, False, f32, False),
+             (100, 800, 100, True, f32, False), (100, 800, 100, False, f32, False),
+             (13, 1001, 17, True, f32, False), (13, 1001, 17, False, f32, False),
+             (5, 2000, 9, True, bf16, False), (13, 1001, 17, True, f32, True)]
+    for R, N, C, elig, dtype, flat in cases:
+        x = _plateau_inputs(gen, R, N, dev, dtype, flat)
+        kw = dict(i0=32 if elig else 4, n_cycles=C, n_rnd=2, eligible=elig)
+        got = ssa_update.ssa_plateau_packed_batched(**x, **kw)
+        want = ssa_plateau_packed_ref(**x, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(names, got, want):
+            e = _max_abs_err(g, w)
+            if e:
+                _fail(f"K1 {name} differs from its plain version at "
+                      f"R={R} N={N} C={C} eligible={elig} {dtype}")
+            err = max(err, e)
+        print(f"[K1] R={R} N={N} C={C} eligible={elig} J={dtype} flat={flat}: "
+              "all five outputs equal")
+    # Timing at the main path's shape: K2000, 100 trials, one tau=100 plateau.
+    R, N, C = 100, 2000, 100
+    x = _plateau_inputs(gen, R, N, dev)
+    kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=True)
+    ms = _time_ms(lambda: ssa_update.ssa_plateau_packed_batched(**x, **kw), reps=5)
+    plain_ms = _time_ms(lambda: ssa_plateau_packed_ref(**x, **kw), reps=3)
+    _k1_sweep(x, kw)
+    nw = (N + 31) // 32
+    state_bytes = 4 * (R * nw + R * N + 4 * R * N + R + R * nw)
+    bound, by = _bound_ms(4 * N * N + 4 * N + 2 * state_bytes, 2 * R * N * N * (C + 1))
+    print(f"[K1] R={R} N={N} C={C}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def _k1_sweep(x, kw):
+    """K1 at the main path's shape under each trial tiling (the outputs must
+    not change) and with a bfloat16 J: where its time goes."""
+    from repro_torch.kernels import ssa_update
+
+    run = functools.partial(ssa_update.ssa_plateau_packed_batched, **kw)
+    want = run(**x)
+    chosen = ssa_update.TRIALS_PER_BLOCK
+    try:
+        for tpb in (1, 2, 4):
+            ssa_update.TRIALS_PER_BLOCK = tpb
+            if not all(torch.equal(a, b) for a, b in zip(run(**x), want)):
+                _fail(f"K1 output depends on the trial tiling ({tpb} per block)")
+            print(f"[K1 sweep] {tpb} trials per block: {_time_ms(lambda: run(**x), reps=5):.3f} ms")
+    finally:
+        ssa_update.TRIALS_PER_BLOCK = chosen
+    xb = dict(x, J=x["J"].to(torch.bfloat16))
+    print(f"[K1 sweep] bfloat16 J, {chosen} trials per block: "
+          f"{_time_ms(lambda: run(**xb), reps=5):.3f} ms")
+
+
+def _reset_counts():
+    from repro_torch.kernels import ssa_update
+
+    ssa_update.local_field.launches = 0
+    ssa_update.ssa_plateau_packed_batched.launches = 0
+
+
+def _counts():
+    from repro_torch.kernels import ssa_update
+
+    return (ssa_update.ssa_plateau_packed_batched.launches,
+            ssa_update.local_field.launches)
+
+
+def _anneal_pair(problem, hp, track_energy):
+    """The cuda run (timed, counted) and the dense-backend run on the card."""
+    import numpy as np
+
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.engine import make_backend, normalize_problem
+    from repro_torch.core.ssa import anneal
+
+    kw = dict(seed=0, record="best", track_energy=track_energy, device="cuda")
+    anneal(problem, dataclasses.replace(hp, m_shot=1),
+           config=SolverConfig(backend="cuda"), **kw)  # warm-up: first launches
+    t0 = time.time()
+    _, model = normalize_problem(problem)
+    make_backend("cuda", model, n_trials=hp.n_trials, device="cuda").init_state(0)
+    torch.cuda.synchronize()
+    print(f"[set-up] model, dense J and lanes of anneal(): {time.time() - t0:.3f}s")
+    _reset_counts()
+    t0 = time.time()
+    r = anneal(problem, hp, config=SolverConfig(backend="cuda"), **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _counts()
+    ref = anneal(problem, hp, config=SolverConfig(backend="dense"), **kw)
+    if not np.array_equal(r.best_energy, ref.best_energy):
+        _fail("anneal best_H differs between the cuda and dense backends")
+    if not np.array_equal(r.best_m, ref.best_m):
+        _fail("anneal best_m differs between the cuda and dense backends")
+    if track_energy and not (np.array_equal(r.energy_min, ref.energy_min)
+                             and np.array_equal(r.energy_mean, ref.energy_mean)):
+        _fail("anneal energy traces differ between the cuda and dense backends")
+    return r, wall, counts
+
+
+def phase_anneal(track_energy: bool):
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.ssa import SSAHyperParams
+
+    p = gset.load("K2000")
+    m_shot = M_SHOT_TRACE if track_energy else M_SHOT_PRODUCTION
+    hp = SSAHyperParams(n_trials=100, m_shot=m_shot, tau=100, i0_min=1, i0_max=32)
+    r, wall, (k1, k3) = _anneal_pair(p, hp, track_energy)
+    rate = hp.total_cycles * hp.n_trials * p.n / wall
+    tag = "trace" if track_energy else "production"
+    print(f"[{tag}] {p.name} N={p.n} trials={hp.n_trials} m_shot={m_shot} "
+          f"steps={hp.steps} tau={hp.tau}: best cut {r.overall_best_cut}, "
+          f"wall {wall:.3f}s, {rate:.4e} spin-cycles/s; "
+          f"K1 launches {k1}, K3 launches {k3}")
+    if not (np.all(np.isfinite(r.best_cut)) and r.best_m.shape == (hp.n_trials, p.n)
+            and set(np.unique(r.best_m)) <= {-1, 1}):
+        _fail("anneal returned malformed results")
+    cut = p.cut_value(r.best_m)
+    if not np.array_equal(cut, r.best_cut):
+        _fail("best_cut does not match the cut of best_m")
+    if track_energy:
+        if k3 == 0 or k1 != 0:
+            _fail(f"trace path: expected K3 > 0 and K1 == 0, got K3={k3}, K1={k1}")
+        if r.energy_min.shape != (hp.total_cycles,):
+            _fail("energy trace has the wrong length")
+    else:
+        if k1 != hp.m_shot * hp.steps or k3 != 0:
+            _fail(f"production path: expected K1 == {hp.m_shot * hp.steps} and "
+                  f"K3 == 0, got K1={k1}, K3={k3}")
+    return k1, k3
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import repro_torch.kernels.ssa_update  # noqa: F401 — fails alone, before any output
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: exact f32
+    dev = torch.device("cuda")
+    phase_card()
+    phase_build()
+    k3 = phase_k3(dev)
+    k1 = phase_k1(dev)
+    k1_launches, _ = phase_anneal(track_energy=False)
+    _, k3_launches = phase_anneal(track_energy=True)
+    kernels = [
+        dict(name="ssa_plateau_packed (K1)", route="cuda",
+             source="src/repro_torch/kernels/csrc/plateau.cu",
+             replaces="src/repro/kernels/ssa_update.py:329",
+             launches=k1_launches, **k1),
+        dict(name="local_field (K3)", route="cuda",
+             source="src/repro_torch/kernels/csrc/field.cu",
+             replaces="src/repro/kernels/ssa_update.py:90",
+             launches=k3_launches, **k3),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,90 @@
+"""Carry models and engine states across packages as numpy arrays.
+
+The JAX package and this port agree on every layout, but not on dtypes:
+this port carries uint32 words (xorshift lanes, packed spins) as int32
+tensors.  These helpers convert at that boundary and import nothing of the
+JAX package — a caller passes plain numpy arrays in and gets them out.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .core.engine import EngineState, PackedEngineState
+from .core.ising import IsingModel
+
+__all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arrays"]
+
+
+def ising_from_arrays(
+    n: int,
+    h: np.ndarray,
+    nbr_idx: np.ndarray,
+    nbr_w: np.ndarray,
+    edges: Optional[np.ndarray] = None,
+    weights: Optional[np.ndarray] = None,
+    name: str = "ising",
+) -> IsingModel:
+    """The port's model from another package's (h, nbr_idx, nbr_w) arrays.
+
+    With ``edges``/``weights`` the model is rebuilt by
+    :meth:`IsingModel.from_edges`, and a slot order that differs from the
+    given arrays raises ValueError.
+    """
+    model = IsingModel(
+        n=int(n),
+        h=np.asarray(h, np.int32),
+        nbr_idx=np.asarray(nbr_idx, np.int32),
+        nbr_w=np.asarray(nbr_w, np.int32),
+        name=name,
+    )
+    if edges is not None:
+        rebuilt = IsingModel.from_edges(int(n), edges, weights, h=h, name=name)
+        for a in ("h", "nbr_idx", "nbr_w"):
+            if not np.array_equal(getattr(rebuilt, a), getattr(model, a)):
+                raise ValueError(f"{a} differs from the edge list's slot order")
+    return model
+
+
+def _as_i32(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.astype(np.int32, copy=True)).to(device)
+
+
+def engine_state_from_arrays(
+    noise_state: np.ndarray,
+    m: np.ndarray,
+    itanh: np.ndarray,
+    best_H: np.ndarray,
+    best_m: np.ndarray,
+    *,
+    packed: bool = False,
+    device=None,
+) -> Union[EngineState, PackedEngineState]:
+    """Build an engine state from numpy arrays.
+
+    ``noise_state`` is the (4, T, N) uint32 lanes; ``m``/``best_m`` are
+    (T, N) ±1 spins, or (T, ceil(N/32)) uint32 words when ``packed``.
+    """
+    ns = _as_i32(noise_state, device)
+    it = _as_i32(itanh, device)
+    bh = _as_i32(best_H, device)
+    if packed:
+        return PackedEngineState(ns, _as_i32(m, device), it, bh, _as_i32(best_m, device))
+    spins = [torch.from_numpy(np.asarray(a, np.int8).copy()).to(device) for a in (m, best_m)]
+    return EngineState(ns, spins[0], it, bh, spins[1])
+
+
+def engine_state_to_arrays(
+    state: Union[EngineState, PackedEngineState],
+) -> Tuple[np.ndarray, ...]:
+    """(noise_state, m, itanh, best_H, best_m) as numpy arrays, with the
+    lanes and packed words as uint32 and unpacked spins as int8."""
+    ns, m, it, bh, bm = (t.cpu().numpy() for t in state)
+    if isinstance(state, PackedEngineState):
+        m, bm = m.view(np.uint32), bm.view(np.uint32)
+    return ns.view(np.uint32), m, it, bh, bm

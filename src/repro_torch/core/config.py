@@ -1,0 +1,115 @@
+"""Typed solver configuration (port of ``repro.core.config``).
+
+:class:`SolverConfig` holds the execution options of the plateau engine in
+one frozen, validated object.  This port honours the options of the
+single-problem annealer on one GPU; every option that the JAX package has
+but this port does not yet run raises :class:`NotImplementedError` naming
+the ROADMAP.md item it waits for — on the CPU as on the card, with no
+substitute path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+__all__ = ["SolverConfig", "not_ported"]
+
+_BACKENDS = ("sparse", "dense", "cuda")
+_LAYOUTS = ("dense", "packed")
+
+# What each option outside the ported slice waits for, by ROADMAP.md item.
+_WAITS = {
+    "threefry": "ROADMAP.md queue 2, K4 (threefry noise and the "
+                "pregenerated-noise plateau kernel)",
+    "pregen": "ROADMAP.md queue 2, K4 (the pregenerated-noise plateau kernel)",
+    "popcount": "ROADMAP.md queue 2, K2 (the XNOR-popcount chain kernel, "
+                "with the batched service of queue 1 step 4)",
+    "tiled": "ROADMAP.md queue 1 step 2 (j_mode='tiled': streamed J slabs)",
+    "ssqa": "ROADMAP.md queue 1 step 5 (SSQA and the other algorithm families)",
+    "autotune": "ROADMAP.md queue 1 step 5 (autotune, hp='auto')",
+    "spin": "ROADMAP.md queue 1 step 8 (spin sharding across GPUs)",
+    "auto_backend": "ROADMAP.md queue 1 step 3 (MIN_RESIDENT_N re-derived on "
+                    "the H100 before backend='auto' can choose)",
+}
+
+
+def not_ported(option: str, item: str) -> NotImplementedError:
+    """The error raised for an option outside the ported slice."""
+    return NotImplementedError(
+        f"{option} is not ported to repro_torch yet; it waits for {_WAITS[item]}"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Execution options of the plateau engine, in one object.
+
+    * ``backend`` — 'sparse' | 'dense' | 'cuda' (the resident CUDA kernels;
+      the counterpart of the JAX package's 'pallas').
+    * ``storage_layout`` — 'dense' | 'packed' inter-plateau spin state.
+    * ``field_mode`` — 'auto' (the backend's default, a dense contraction)
+      | 'dense'.
+    * ``j_mode`` — 'auto' | 'dense' (dense backend only).
+    * ``noise`` — 'xorshift'.
+    * ``noise_mode`` — 'auto' | 'streamed' (cuda: noise made in-kernel).
+    * ``partition`` — 'problem'.
+    * ``backend_opts`` — residual per-backend options as a key-sorted
+      tuple of (key, value) pairs.
+    """
+
+    backend: str = "sparse"
+    storage_layout: str = "dense"
+    field_mode: str = "auto"
+    j_mode: str = "auto"
+    noise: str = "xorshift"
+    noise_mode: str = "auto"
+    partition: str = "problem"
+    backend_opts: Tuple[Tuple[str, Any], ...] = ()
+
+    def __post_init__(self):
+        opts = dict(self.backend_opts) if self.backend_opts else {}
+        object.__setattr__(
+            self, "backend_opts", tuple(sorted(opts.items(), key=lambda kv: kv[0]))
+        )
+        if self.backend == "auto":
+            raise not_ported("backend='auto'", "auto_backend")
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"backend {self.backend!r} not in {_BACKENDS}")
+        if self.storage_layout not in _LAYOUTS:
+            raise ValueError(
+                f"storage_layout {self.storage_layout!r} not in {_LAYOUTS}"
+            )
+        _check_choice("field_mode", self.field_mode, ("auto", "dense"),
+                      {"popcount": "popcount"})
+        _check_choice("j_mode", self.j_mode, ("auto", "dense"), {"tiled": "tiled"})
+        _check_choice("noise", self.noise, ("xorshift",), {"threefry": "threefry"})
+        _check_choice("noise_mode", self.noise_mode, ("auto", "streamed"),
+                      {"pregen": "pregen"})
+        _check_choice("partition", self.partition, ("problem",),
+                      {"spin": "spin", "auto": "spin"})
+        if opts.get("n_replicas"):
+            raise not_ported("backend_opts n_replicas (SSQA)", "ssqa")
+
+    def engine_opts(self) -> Dict[str, Any]:
+        """kwargs for ``make_backend(**...)`` minus backend/noise.
+
+        Per-backend knobs are emitted only where the configured backend's
+        constructor takes them (sparse takes no field or J option).
+        """
+        out: Dict[str, Any] = {"storage_layout": self.storage_layout}
+        bk = self.backend
+        if self.field_mode != "auto" and bk != "sparse":
+            out["field_mode"] = self.field_mode
+        if self.j_mode != "auto" and bk == "dense":
+            out["j_mode"] = self.j_mode
+        if self.noise_mode != "auto" and bk == "cuda":
+            out["noise_mode"] = self.noise_mode
+        out.update(self.backend_opts)
+        return out
+
+
+def _check_choice(name: str, value, allowed, waiting: dict):
+    if value in waiting:
+        raise not_ported(f"{name}={value!r}", waiting[value])
+    if value not in allowed:
+        raise ValueError(f"{name} {value!r} not in {allowed}")

@@ -1,0 +1,628 @@
+"""Plateau-structured annealing engine (port of ``repro.core.engine``).
+
+HA-SSA treats the temperature *plateau* — τ cycles at constant I0 — as the
+unit of execution and of storage: the write-enable is a per-plateau
+predicate (I0 == I0max).  The engine advances one plateau at a time through
+a pluggable :class:`PlateauBackend`:
+
+* :class:`SparseBackend` / :class:`DenseBackend` — a Python loop over the
+  cycles of a plateau (:func:`run_plateau_scan`), one field contraction per
+  cycle: the field of the update of m(t) is reused for H(m(t)).
+* :class:`CudaBackend` — the resident CUDA plateau kernel K1
+  (:func:`repro_torch.kernels.ssa_update.ssa_plateau_packed`): one launch per
+  plateau, spins packed at the launch boundary, the xorshift noise stepped
+  inside the kernel.  Plateaus that must emit per-cycle outputs (energy
+  traces, trajectory planes) run the cycle loop over the CUDA field kernel
+  K3 instead.
+
+Tracking semantics, shared by every backend and by the kernels: within a
+plateau that starts at m(t0), the states it produces, m(t0+1) … m(t0+C),
+are folded into the running best under the plateau's eligibility; m(t0)
+belongs to the previous plateau, and the final state is folded by one
+extra field evaluation after the loop.
+
+Storage layouts: 'dense' keeps :class:`EngineState` (int8 spins), 'packed'
+keeps :class:`PackedEngineState` (32-bit words, see ``kernels.bitplane``).
+Results are bit-identical.
+
+Tensors live on the backend's ``device``: ``cuda`` unless the caller passes
+``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..kernels import ops as kops
+from ..kernels import ssa_update as kssa
+from ..kernels.bitplane import pack_spins, unpack_spins
+from .config import SolverConfig, not_ported
+from .ising import IsingModel, MaxCutProblem, local_fields_dense, local_fields_sparse
+from .rng import xorshift_init, xorshift_next_bits
+from .schedule import Schedule
+
+__all__ = [
+    "BIG_ENERGY",
+    "TILED_J_THRESHOLD",
+    "MAX_MODEL_SPINS",
+    "BaseResult",
+    "EngineState",
+    "PackedEngineState",
+    "pack_state",
+    "unpack_state",
+    "Plateau",
+    "PlateauBackend",
+    "SparseBackend",
+    "DenseBackend",
+    "CudaBackend",
+    "BACKENDS",
+    "make_backend",
+    "resolve_device",
+    "resolve_j_mode",
+    "normalize_problem",
+    "validate_model",
+    "finalize_cut",
+    "schedule_plateaus",
+    "tile_plateaus",
+    "run_plateau_scan",
+    "run_schedule",
+    "ssa_cycle_update",
+    "energy_from_field",
+    "pack_spins",
+    "unpack_spins",
+]
+
+# Sentinel "no solution yet" energy (any real H is far below this).
+BIG_ENERGY = 2**30
+
+# j_mode='auto' streams J in slabs above this spin count instead of holding
+# the dense (N, N) matrix (f32 J is 64 MB at N=4096).  The slab path is not
+# ported yet, so above it 'auto' raises.
+TILED_J_THRESHOLD = 4096
+
+# Admission ceiling on the spin count: rejects a corrupted shape early.
+MAX_MODEL_SPINS = 1 << 22
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks for
+    another.  Asking for ``cuda`` without a GPU raises; nothing falls back
+    to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# The p-bit update (Eq. 2a–2c) and the energy, shared by every backend
+# ---------------------------------------------------------------------------
+def ssa_cycle_update(field, itanh, r, i0, n_rnd):
+    """Elementwise epilogue of one SSA cycle.
+
+    Args:
+      field: int32[..., N]  h_i + Σ_j J_ij m_j(t)
+      itanh: int32[..., N]  Itanh_i(t)
+      r:     int32[..., N]  noise in {-1,+1}
+      i0:    int            pseudo-inverse temperature I0(t)
+      n_rnd: int            noise magnitude
+    Returns:
+      (m_new int8[..., N], itanh_new int32[..., N])
+    """
+    I = field + n_rnd * r + itanh  # noqa: E741 — Eq. (2a) current
+    itanh_new = torch.clamp(I, -i0, i0 - 1)                        # (2b)
+    m_new = torch.where(itanh_new >= 0, 1, -1).to(torch.int8)      # (2c)
+    return m_new, itanh_new
+
+
+def energy_from_field(m, field, h):
+    """H = -(h·m + m·field)/2, exact int32 (field = h + Jm; the sum is even)."""
+    m32 = m.to(torch.int32)
+    hm = (h * m32).sum(dim=-1, dtype=torch.int32)
+    mf = (m32 * field).sum(dim=-1, dtype=torch.int32)
+    return -(hm + mf) // 2
+
+
+# ---------------------------------------------------------------------------
+# Problem / result plumbing
+# ---------------------------------------------------------------------------
+def normalize_problem(
+    problem: Union[MaxCutProblem, IsingModel, Any],
+) -> Tuple[Optional[MaxCutProblem], IsingModel]:
+    """Split a problem into (maxcut-or-None, IsingModel).
+
+    Accepts a :class:`MaxCutProblem`, an :class:`IsingModel`, or any object
+    whose ``model`` attribute is an IsingModel.
+    """
+    if isinstance(problem, MaxCutProblem):
+        return problem, problem.to_ising()
+    if isinstance(problem, IsingModel):
+        return None, problem
+    model = getattr(problem, "model", None)
+    if isinstance(model, IsingModel):
+        return None, model
+    raise TypeError(
+        f"cannot interpret {type(problem).__name__} as an annealing problem; "
+        "pass a MaxCutProblem, an IsingModel, or an object with a .model"
+    )
+
+
+def validate_model(model: IsingModel, *, max_spins: int = MAX_MODEL_SPINS):
+    """Structural validation of an Ising model; raises ValueError."""
+    n = int(model.n)
+    if n <= 0:
+        raise ValueError(f"model {model.name!r}: need n > 0, got {n}")
+    if n > max_spins:
+        raise ValueError(
+            f"model {model.name!r}: n={n} exceeds the ceiling {max_spins}"
+        )
+    h = np.asarray(model.h)
+    idx = np.asarray(model.nbr_idx)
+    w = np.asarray(model.nbr_w)
+    if h.shape != (n,):
+        raise ValueError(f"model {model.name!r}: h shape {h.shape} != ({n},)")
+    if idx.ndim != 2 or idx.shape[0] != n or idx.shape != w.shape:
+        raise ValueError(
+            f"model {model.name!r}: adjacency shapes nbr_idx {idx.shape} / "
+            f"nbr_w {w.shape} inconsistent with n={n}"
+        )
+    for name, arr in (("h", h), ("nbr_w", w)):
+        if not np.all(np.isfinite(arr.astype(np.float64, copy=False))):
+            raise ValueError(f"model {model.name!r}: non-finite values in {name}")
+    if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= n):
+        raise ValueError(f"model {model.name!r}: neighbor indices outside [0, {n})")
+
+
+def finalize_cut(best_H, maxcut: Optional[MaxCutProblem]):
+    """Map best Ising energies to the reported objective (cut or -H)."""
+    if maxcut is not None:
+        return (maxcut.w_total - best_H) // 2
+    return -best_H
+
+
+@dataclasses.dataclass
+class BaseResult:
+    """Outcome fields of an annealing run (numpy, on the host)."""
+
+    best_cut: np.ndarray          # best objective per trial (cut for maxcut)
+    best_energy: np.ndarray       # Ising energy of the best tracked state
+    best_m: np.ndarray            # spins of the best tracked state
+    energy_mean: Optional[np.ndarray]  # per-cycle mean H over trials
+    energy_min: Optional[np.ndarray]   # per-cycle min H over trials
+
+    @property
+    def overall_best_cut(self) -> int:
+        return int(np.max(self.best_cut))
+
+    @property
+    def mean_best_cut(self) -> float:
+        return float(np.mean(self.best_cut))
+
+
+# ---------------------------------------------------------------------------
+# Plateaus: the schedule grouped into its execution unit
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Plateau:
+    """One constant-I0 run of cycles.  ``eligible`` is the storage
+    write-enable for the states this plateau produces."""
+
+    i0: int
+    length: int
+    eligible: bool
+
+
+def schedule_plateaus(sched: Schedule, storage: str = "i0max") -> Tuple[Plateau, ...]:
+    """Group one iteration's per-cycle schedule into plateaus.
+
+    storage='i0max' → HA-SSA eligibility; storage='all' → every plateau
+    eligible (conventional SSA).
+    """
+    i0 = np.asarray(sched.i0_per_cycle)
+    if storage == "i0max":
+        elig = np.asarray(sched.store_mask)
+    elif storage == "all":
+        elig = np.ones(len(i0), dtype=bool)
+    else:
+        raise ValueError(f"unknown storage {storage!r}")
+    out = []
+    start = 0
+    for k in range(1, len(i0) + 1):
+        if k == len(i0) or i0[k] != i0[start] or elig[k] != elig[start]:
+            out.append(Plateau(int(i0[start]), k - start, bool(elig[start])))
+            start = k
+    return tuple(out)
+
+
+def tile_plateaus(plateaus: Sequence[Plateau], total_cycles: int) -> Tuple[Plateau, ...]:
+    """Tile an iteration's plateau list to exactly ``total_cycles`` cycles,
+    truncating the final plateau (cycle-count duration, paper Fig. 12)."""
+    if not plateaus and total_cycles > 0:
+        raise ValueError("cannot tile an empty plateau sequence")
+    out = []
+    remaining = int(total_cycles)
+    while remaining > 0:
+        for p in plateaus:
+            if remaining <= 0:
+                break
+            take = min(p.length, remaining)
+            out.append(Plateau(p.i0, take, p.eligible))
+            remaining -= take
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Engine state and the shared one-plateau loop
+# ---------------------------------------------------------------------------
+class EngineState(NamedTuple):
+    """State carried between plateaus; spins are int8 ±1."""
+
+    noise_state: torch.Tensor  # (4, T, N) int32 xorshift lanes
+    m: torch.Tensor            # (T, N) int8 spins
+    itanh: torch.Tensor        # (T, N) int32 Itanh state
+    best_H: torch.Tensor       # (T,) int32 running best energy
+    best_m: torch.Tensor       # (T, N) int8 spins of the running best
+
+
+class PackedEngineState(NamedTuple):
+    """EngineState with spins stored as 32-bit words (1 bit per spin)."""
+
+    noise_state: torch.Tensor     # (4, T, N) int32
+    m_packed: torch.Tensor        # (T, ceil(N/32)) int32 words
+    itanh: torch.Tensor           # (T, N) int32
+    best_H: torch.Tensor          # (T,) int32
+    best_m_packed: torch.Tensor   # (T, ceil(N/32)) int32 words
+
+
+def pack_state(state: EngineState) -> PackedEngineState:
+    """Pack an engine state's spin planes (exact: spins are ±1)."""
+    return PackedEngineState(
+        state.noise_state, pack_spins(state.m), state.itanh, state.best_H,
+        pack_spins(state.best_m),
+    )
+
+
+def unpack_state(state: PackedEngineState, n: int) -> EngineState:
+    """Inverse of :func:`pack_state` for an N-spin model."""
+    return EngineState(
+        state.noise_state, unpack_spins(state.m_packed, n), state.itanh,
+        state.best_H, unpack_spins(state.best_m_packed, n),
+    )
+
+
+def run_plateau_scan(
+    field_fn: Callable[[torch.Tensor], torch.Tensor],
+    noise_step: Callable,
+    h: torch.Tensor,
+    n_rnd: int,
+    state: EngineState,
+    i0: int,
+    *,
+    length: int,
+    eligible: bool,
+    track_energy: bool = False,
+    emit: bool = False,
+):
+    """One constant-I0 plateau as a loop over cycles — one contraction each.
+
+    The field computed for the update of m(t) doubles as the field of
+    H(m(t)); cycle 0 skips best-tracking because m(t0) belongs to the
+    previous plateau, and one epilogue field evaluation folds the final
+    state — the resident kernel's semantics.
+
+    Returns (state', trace, planes): trace is (mean_H (C,) f32, min_H (C,)
+    int32) aligned to the produced states m(t0+1..t0+C) when
+    ``track_energy``; planes is the (C, T, ceil(N/32)) packed trajectory
+    when ``emit``.
+    """
+    i0 = int(i0)
+    need_H = bool(eligible) or bool(track_energy)
+    ns, m, itanh, best_H, best_m = state
+    means, mins, planes = [], [], []
+
+    def fold(m, field, best_H, best_m):
+        H = energy_from_field(m, field, h)
+        if eligible:
+            better = H < best_H
+            best_H = torch.where(better, H, best_H)
+            best_m = torch.where(better[..., None], m, best_m)
+        if track_energy:
+            means.append(H.to(torch.float32).mean())
+            mins.append(H.min())
+        return best_H, best_m
+
+    for c in range(int(length)):
+        field = field_fn(m)
+        if need_H and c >= 1:
+            best_H, best_m = fold(m, field, best_H, best_m)
+        ns, r = noise_step(ns)
+        m, itanh = ssa_cycle_update(field, itanh, r, i0, n_rnd)
+        if emit:
+            planes.append(pack_spins(m))
+    if need_H:
+        # Epilogue: the plateau's final state needs one extra field.
+        best_H, best_m = fold(m, field_fn(m), best_H, best_m)
+    trace = (torch.stack(means), torch.stack(mins)) if track_energy else None
+    return (
+        EngineState(ns, m, itanh, best_H, best_m),
+        trace,
+        torch.stack(planes) if emit else None,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Backends
+# ---------------------------------------------------------------------------
+class PlateauBackend:
+    """The execution protocol: init_state / run_plateau / run_plateaus /
+    finalize.  Subclasses provide the field contraction ``_field`` and may
+    override the plateau execution, as :class:`CudaBackend` does."""
+
+    name = "abstract"
+
+    def __init__(
+        self,
+        model: IsingModel,
+        *,
+        n_trials: int,
+        n_rnd: int = 2,
+        noise: str = "xorshift",
+        storage_layout: str = "dense",
+        n_replicas: int = 0,
+        device=None,
+    ):
+        if noise == "threefry":
+            raise not_ported("noise='threefry'", "threefry")
+        if noise != "xorshift":
+            raise ValueError(f"unknown noise {noise!r}")
+        if n_replicas:
+            raise not_ported("n_replicas (SSQA)", "ssqa")
+        if storage_layout not in ("dense", "packed"):
+            raise ValueError(f"unknown storage_layout {storage_layout!r}")
+        self.model = model
+        self.n_trials = int(n_trials)
+        self.n_rnd = int(n_rnd)
+        self.noise = noise
+        self.storage_layout = storage_layout
+        self.device = resolve_device(device)
+        self.h = torch.as_tensor(model.h, dtype=torch.int32, device=self.device)
+
+    def init_state(self, seed: int):
+        """Random ±1 start from the first noise draw of the lanes."""
+        ns = xorshift_init(seed, (self.n_trials, self.model.n), self.device)
+        ns, r0 = xorshift_next_bits(ns)
+        m0 = r0.to(torch.int8)
+        itanh0 = torch.where(m0 > 0, 0, -1).to(torch.int32)
+        best_H = torch.full(
+            (self.n_trials,), BIG_ENERGY, dtype=torch.int32, device=self.device
+        )
+        st = EngineState(ns, m0, itanh0, best_H, m0)
+        return pack_state(st) if self.storage_layout == "packed" else st
+
+    def run_plateau(self, state, i0, *, length: int, eligible: bool,
+                    track_energy: bool = False, emit: bool = False):
+        """Advance one plateau in this backend's storage layout (the packed
+        layout wraps the dense loop in the exact pack/unpack codec)."""
+        packed = self.storage_layout == "packed"
+        st = unpack_state(state, self.model.n) if packed else state
+        st, trace, planes = run_plateau_scan(
+            self._field, xorshift_next_bits, self.h, self.n_rnd, st, i0,
+            length=length, eligible=eligible, track_energy=track_energy,
+            emit=emit,
+        )
+        return (pack_state(st) if packed else st), trace, planes
+
+    def run_plateaus(self, state, plateaus: Sequence[Plateau]):
+        """Advance a whole plateau chain (record='best', no traces)."""
+        for p in plateaus:
+            state, _, _ = self.run_plateau(
+                state, p.i0, length=p.length, eligible=p.eligible
+            )
+        return state
+
+    def finalize(self, state) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(best_H, best_m int8) after the last plateau."""
+        if self.storage_layout == "packed":
+            return state.best_H, unpack_spins(state.best_m_packed, self.model.n)
+        return state.best_H, state.best_m
+
+    def _field(self, m: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class SparseBackend(PlateauBackend):
+    """Padded-adjacency gather field (4/8-regular G-set-class instances)."""
+
+    name = "sparse"
+
+    def __init__(self, model: IsingModel, **kw):
+        super().__init__(model, **kw)
+        _, self.nbr_idx, self.nbr_w = model.device_arrays(self.device)
+
+    def _field(self, m):
+        return local_fields_sparse(m, self.h, self.nbr_idx, self.nbr_w)
+
+
+def resolve_j_mode(j_mode: str, n: int) -> str:
+    """'auto' keeps the dense (N, N) J up to TILED_J_THRESHOLD spins; the
+    streamed-slab mode it would pick above is not ported yet."""
+    if j_mode == "auto":
+        j_mode = "tiled" if n > TILED_J_THRESHOLD else "dense"
+    if j_mode == "tiled":
+        raise not_ported(f"j_mode='tiled' (needed above {TILED_J_THRESHOLD} spins)",
+                         "tiled")
+    if j_mode != "dense":
+        raise ValueError(f"unknown j_mode {j_mode!r}")
+    return j_mode
+
+
+def _check_field_mode(field_mode: str):
+    if field_mode in ("popcount", "auto"):
+        # 'auto' picks the popcount contraction for every ±1-weight model.
+        raise not_ported(f"field_mode={field_mode!r}", "popcount")
+    if field_mode != "dense":
+        raise ValueError(f"unknown field_mode {field_mode!r}")
+
+
+class DenseBackend(PlateauBackend):
+    """(T, N)·(N, N) float32 matmul field (K2000-class dense instances).
+
+    The product is ``torch.matmul``, as the JAX package leaves it to XLA;
+    it is exact with TF32 off, which the constructor sets.
+    """
+
+    name = "dense"
+
+    def __init__(self, model: IsingModel, *, j_mode: str = "auto",
+                 field_mode: str = "dense", **kw):
+        super().__init__(model, **kw)
+        _check_field_mode(field_mode)
+        self.j_mode = resolve_j_mode(j_mode, model.n)
+        # TF32 keeps 10 mantissa bits: fields above 2^11 would stop being exact.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
+                                 device=self.device)
+
+    def _field(self, m):
+        return local_fields_dense(m, self.h, self.J)
+
+
+class CudaBackend(PlateauBackend):
+    """The resident CUDA plateau kernel: one launch per plateau.
+
+    Counterpart of the JAX package's ``PallasBackend`` with xorshift noise
+    and the dense field.  A plateau without per-cycle outputs runs K1
+    (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_packed`): spins
+    cross the launch boundary as 32-bit words and the noise lanes are
+    stepped inside the kernel, so no (C, T, N) noise buffer exists.
+    Plateaus that need per-cycle outputs (``track_energy``, trajectory
+    planes) run the cycle loop with the field from K3
+    (:func:`~repro_torch.kernels.ops.local_field`).
+
+    On CPU tensors (``device='cpu'``) both wrappers run their plain
+    versions — the path the CPU tests hold against the JAX package.
+    """
+
+    name = "cuda"
+
+    def __init__(self, model: IsingModel, *, noise_mode: str = "auto",
+                 field_mode: str = "dense", **kw):
+        super().__init__(model, **kw)
+        if noise_mode == "pregen":
+            raise not_ported("noise_mode='pregen'", "pregen")
+        if noise_mode not in ("auto", "streamed"):
+            raise ValueError(f"unknown noise_mode {noise_mode!r}")
+        _check_field_mode(field_mode)
+        self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
+                                 device=self.device)
+
+    def _field(self, m):
+        return kops.local_field(m, self.h, self.J)
+
+    def run_plateau(self, state, i0, *, length: int, eligible: bool,
+                    track_energy: bool = False, emit: bool = False):
+        if emit or track_energy:
+            return super().run_plateau(
+                state, i0, length=length, eligible=eligible,
+                track_energy=track_energy, emit=emit,
+            )
+        packed = self.storage_layout == "packed"
+        mp = state.m_packed if packed else pack_spins(state.m)
+        bmp = state.best_m_packed if packed else pack_spins(state.best_m)
+        mp_o, it_o, rng_o, bh_o, bmp_o = kssa.ssa_plateau_packed(
+            mp, state.itanh, self.J, self.h, state.noise_state, int(i0),
+            state.best_H, bmp, n_cycles=int(length), n_rnd=self.n_rnd,
+            eligible=bool(eligible),
+        )
+        if packed:
+            return PackedEngineState(rng_o, mp_o, it_o, bh_o, bmp_o), None, None
+        n = self.model.n
+        st = EngineState(rng_o, unpack_spins(mp_o, n), it_o, bh_o,
+                         unpack_spins(bmp_o, n))
+        return st, None, None
+
+
+BACKENDS = {
+    "sparse": SparseBackend,
+    "dense": DenseBackend,
+    "cuda": CudaBackend,
+}
+
+
+def make_backend(
+    backend: Optional[str] = None,
+    model: IsingModel = None,
+    *,
+    n_trials: int,
+    n_rnd: int = 2,
+    noise: Optional[str] = None,
+    device=None,
+    config: Optional[SolverConfig] = None,
+    **opts,
+) -> PlateauBackend:
+    """Build the named backend, optionally from ``config=SolverConfig(...)``,
+    whose engine options are merged under ``opts``."""
+    if config is not None:
+        backend = config.backend if backend is None else backend
+        noise = config.noise if noise is None else noise
+        opts = {**config.engine_opts(), **opts}
+    backend = "sparse" if backend is None else backend
+    if backend == "auto":
+        raise not_ported("backend='auto'", "auto_backend")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: {sorted(BACKENDS)}")
+    return BACKENDS[backend](model, n_trials=n_trials, n_rnd=n_rnd,
+               noise="xorshift" if noise is None else noise, device=device,
+               **opts)
+
+
+# ---------------------------------------------------------------------------
+# The backend-agnostic schedule runner
+# ---------------------------------------------------------------------------
+def run_schedule(
+    backend: PlateauBackend,
+    plateaus: Sequence[Plateau],
+    state,
+    *,
+    record: str = "best",
+    track_energy: bool = False,
+):
+    """Chain ``run_plateau`` over a plateau sequence.
+
+    record='best': eligible plateaus fold their states into the running
+    arg-best.  record='traj': eligible plateaus emit packed spin planes
+    instead, and the caller finds the best among them.
+
+    Returns (state, trace, planes): trace = (mean_H, min_H) over all cycles
+    when track_energy, planes concatenated over eligible plateaus when
+    record='traj'.
+    """
+    if record == "best" and not track_energy:
+        return backend.run_plateaus(state, tuple(plateaus)), None, None
+    tr_mean, tr_min, planes = [], [], []
+    for p in plateaus:
+        if record == "traj":
+            state, _, pl = backend.run_plateau(
+                state, p.i0, length=p.length, eligible=False, emit=p.eligible,
+            )
+            if pl is not None:
+                planes.append(pl)
+        elif record == "best":
+            state, tr, _ = backend.run_plateau(
+                state, p.i0, length=p.length, eligible=p.eligible,
+                track_energy=track_energy,
+            )
+            if tr is not None:
+                tr_mean.append(tr[0])
+                tr_min.append(tr[1])
+        else:
+            raise ValueError(f"unknown record {record!r}")
+    trace = (torch.cat(tr_mean), torch.cat(tr_min)) if tr_mean else None
+    planes_out = torch.cat(planes, dim=0) if planes else None
+    return state, trace, planes_out

@@ -1,0 +1,193 @@
+"""Ising-model substrate (port of ``repro.core.ising``).
+
+H = - Σ_i h_i m_i - 1/2 Σ_{i,j} J_ij m_i m_j, spins m_i ∈ {-1,+1}.
+MAX-CUT maps onto it with J_ij = -w_ij, h_i = 0.
+
+The model keeps two views, built on the host with numpy exactly as the JAX
+package builds them (same half-edge slot order):
+
+* padded adjacency ``(nbr_idx, nbr_w)`` of shape ``(N, max_deg)`` — padding
+  entries point at the row's own vertex with weight 0;
+* the dense symmetric ``J`` of shape ``(N, N)``.
+
+All coupling arithmetic is integer-valued; the dense contraction runs in
+float32, which is exact while every field stays below 2^24 (checked at
+construction).  On the GPU that needs TF32 off, which the dense backends
+set (``core.engine.DenseBackend``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = [
+    "IsingModel",
+    "MaxCutProblem",
+    "ising_energy",
+    "local_fields_dense",
+    "local_fields_sparse",
+]
+
+# Exactness bound for the float32 matmul path: fields must stay below 2^24.
+_F32_EXACT_BOUND = 1 << 24
+
+
+@dataclasses.dataclass(frozen=True)
+class IsingModel:
+    """An Ising model with padded-adjacency and dense views (numpy, host).
+
+    Attributes:
+      n: number of spins.
+      h: int32[n] biases.
+      nbr_idx: int32[n, max_deg] neighbour indices (padded with self-index).
+      nbr_w: int32[n, max_deg] coupling weights J_ij (padded with 0).
+      name: human-readable instance name.
+    """
+
+    n: int
+    h: np.ndarray
+    nbr_idx: np.ndarray
+    nbr_w: np.ndarray
+    name: str = "ising"
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.nbr_idx.shape[1])
+
+    @staticmethod
+    def from_edges(
+        n: int,
+        edges: np.ndarray,
+        weights: np.ndarray,
+        h: Optional[np.ndarray] = None,
+        name: str = "ising",
+    ) -> "IsingModel":
+        """Build from an undirected edge list (i, j, J_ij).
+
+        Each edge contributes two half-edges, i→j then j→i; a stable sort by
+        source vertex assigns the slots in that order, the same order as the
+        JAX package.
+        """
+        w_in = np.asarray(weights)
+        if np.issubdtype(w_in.dtype, np.floating) and not np.all(np.isfinite(w_in)):
+            raise ValueError("weights must be finite (got NaN/inf)")
+        h_in = None if h is None else np.asarray(h)
+        if (
+            h_in is not None
+            and np.issubdtype(h_in.dtype, np.floating)
+            and not np.all(np.isfinite(h_in))
+        ):
+            raise ValueError("h must be finite (got NaN/inf)")
+        edges = np.asarray(edges, dtype=np.int64)
+        weights = w_in.astype(np.int64)
+        if edges.ndim != 2 or edges.shape[1] != 2:
+            raise ValueError(f"edges must be (E,2), got {edges.shape}")
+        if len(weights) != len(edges):
+            raise ValueError("weights/edges length mismatch")
+        if len(edges) and np.any(edges[:, 0] == edges[:, 1]):
+            raise ValueError("self-loops are not Ising couplings")
+        e32 = edges.astype(np.int32)
+        src = e32.reshape(-1)                         # i0, j0, i1, j1, …
+        dst = e32[:, ::-1].reshape(-1)                # j0, i0, j1, i1, …
+        w2 = np.repeat(weights.astype(np.int32), 2)
+        deg = np.bincount(src, minlength=n)
+        max_deg = int(deg.max()) if len(edges) else 1
+        nbr_idx = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, max_deg))
+        nbr_w = np.zeros((n, max_deg), dtype=np.int32)
+        if len(edges):
+            order = np.argsort(src, kind="stable")
+            ss, dd, ww = src[order], dst[order], w2[order]
+            starts = np.concatenate([[0], np.cumsum(deg)[:-1]])
+            slot = (np.arange(len(ss)) - np.repeat(starts, deg)).astype(np.int64)
+            nbr_idx[ss, slot] = dd
+            nbr_w[ss, slot] = ww
+        hh = np.zeros(n, dtype=np.int64) if h_in is None else h_in.astype(np.int64)
+        model = IsingModel(
+            n=n,
+            h=hh.astype(np.int32),
+            nbr_idx=nbr_idx.astype(np.int32),
+            nbr_w=nbr_w.astype(np.int32),
+            name=name,
+        )
+        bound = int(np.abs(hh).max(initial=0) + np.abs(nbr_w).sum(axis=1).max(initial=0))
+        if bound >= _F32_EXACT_BOUND:
+            raise ValueError(
+                f"field bound {bound} exceeds float32-exact range; "
+                "use a smaller weight scale"
+            )
+        return model
+
+    def dense_J(self) -> np.ndarray:
+        """Materialize the symmetric dense coupling matrix (int32)."""
+        J = np.zeros((self.n, self.n), dtype=np.int64)
+        rows = np.repeat(np.arange(self.n), self.max_degree)
+        np.add.at(J, (rows, self.nbr_idx.reshape(-1)), self.nbr_w.reshape(-1))
+        return J.astype(np.int32)  # padded entries are (i, i, 0): harmless
+
+    def device_arrays(self, device=None):
+        """int32 tensors (h, nbr_idx, nbr_w) on ``device``."""
+        return tuple(
+            torch.as_tensor(a, dtype=torch.int32, device=device)
+            for a in (self.h, self.nbr_idx, self.nbr_w)
+        )
+
+
+# ---------------------------------------------------------------------------
+# Local-field and energy math.  Spins are ±1 tensors of shape [..., N]; every
+# sum is kept in int32 (torch would otherwise widen integer sums to int64).
+# ---------------------------------------------------------------------------
+def local_fields_sparse(m, h, nbr_idx, nbr_w):
+    """h_i + Σ_j J_ij m_j over the padded adjacency, int32."""
+    neigh = m.to(torch.int32)[..., nbr_idx]  # [..., N, D]
+    return h + (nbr_w * neigh).sum(dim=-1, dtype=torch.int32)
+
+
+def local_fields_dense(m, h, J_f32):
+    """h + m @ J in float32: exact for |field| < 2^24 (checked at build)."""
+    return h + torch.matmul(m.to(torch.float32), J_f32).to(torch.int32)
+
+
+def ising_energy(m, h, nbr_idx, nbr_w):
+    """H = -Σ h_i m_i - 1/2 Σ_ij J_ij m_i m_j (Eq. 1), int32 exact."""
+    m32 = m.to(torch.int32)
+    fields = local_fields_sparse(m32, torch.zeros_like(h), nbr_idx, nbr_w)
+    pair = (m32 * fields).sum(dim=-1, dtype=torch.int32) // 2
+    return -((h * m32).sum(dim=-1, dtype=torch.int32) + pair)
+
+
+@dataclasses.dataclass(frozen=True)
+class MaxCutProblem:
+    """A MAX-CUT instance G=(V,E,w) and its Ising embedding (J = -w, h = 0).
+
+    cut(m) = Σ_{(i,j)∈E} w_ij (1 - m_i m_j) / 2 = (w_total - H) / 2.
+    """
+
+    n: int
+    edges: np.ndarray  # (E, 2) int
+    weights: np.ndarray  # (E,) int
+    name: str = "maxcut"
+    best_known: Optional[int] = None
+
+    @property
+    def w_total(self) -> int:
+        return int(np.sum(self.weights))
+
+    def to_ising(self) -> IsingModel:
+        return IsingModel.from_edges(
+            self.n, self.edges, -np.asarray(self.weights), name=f"{self.name}-ising"
+        )
+
+    def cut_value(self, m) -> np.ndarray:
+        """Cut value of spin assignment m ([..., N] in {-1,+1}), numpy."""
+        m = np.asarray(m.cpu() if isinstance(m, torch.Tensor) else m, np.int64)
+        mi = m[..., self.edges[:, 0]]
+        mj = m[..., self.edges[:, 1]]
+        return np.sum(np.asarray(self.weights) * (1 - mi * mj), axis=-1) // 2
+
+    def cut_from_energy(self, H):
+        """cut = (w_total - H) // 2 (J = -w, h = 0)."""
+        return (self.w_total - H) // 2
+

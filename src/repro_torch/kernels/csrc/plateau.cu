@@ -1,0 +1,299 @@
+// K1 — one constant-I0 plateau of C cycles of the HA-SSA spin update, in
+// one launch, for B problems x R trials.
+//
+// Replaces: src/repro/kernels/ssa_update.py:_plateau_streamed_kernel
+// (wrappers ssa_plateau_packed_batched / ssa_plateau_packed), classical
+// mode.  Per cycle: field = m @ J + h; at c >= 1, when `eligible`, fold
+// H = -(h.m + m.field)/2 into the running best (strict <); step the
+// xorshift128 lanes (t = x ^ (x << 11); w' = (w ^ (w >> 19)) ^ (t ^ (t >> 8)))
+// and take the MSB of w' as +-1 noise; Itanh = clamp(field + n_rnd*r +
+// Itanh, -I0, I0-1); m = sign(Itanh).  After the loop one more field folds
+// the final state.  Spins enter and leave as 32-bit words, bit k of word w
+// = spin 32w+k; output words have 0 in every bit >= N.
+//
+// What bounds it on the H100: the arithmetic is 2·R·N²·(C+1) operations
+// (8.1e10 at K2000: N = 2000, R = 100, C = 100), 1.2 ms at the float32
+// CUDA-core peak of 67 TFLOP/s; the bytes it must move are ~24 MB (J once,
+// the state in and out), 7 us at 3.35 TB/s.  Operations bound it in
+// principle.  This design is far from that bound (about 15x on an H100 at
+// 700 W): every cycle needs all N spins of a trial before the next, so a
+// block owns whole trials and streams the whole of J (16 MB in float32 at
+// N = 2000) from L2 every cycle, one scalar load per element per thread.
+// Measured, a bfloat16 J (half the bytes) is only ~10% faster, so the
+// limit is the latency of those loads rather than L2's byte rate.
+//
+// Design: one block per (problem, TR trials), TR = 1, 2 or 4 (the result
+// does not depend on the tiling; 2 measured fastest at K2000).  J does not fit in shared memory (227 KB
+// per block), so it streams from L2 (50 MB holds K2000's J): thread j reads
+// column j of row k, so neighbouring threads read neighbouring addresses,
+// and each J element read is used for the block's TR trials.  The spins of
+// the block's trials live in shared memory as floats, double-buffered
+// (cur/next, [N][TR] so one vector load gives a spin of every trial), with
+// the running best spins as packed words beside them; Itanh and the four
+// lane words (20 B per element) stay in global memory, in the output
+// tensors, each touched once per cycle by the thread that owns its column.
+// The energy is reduced in int32 (exact: the sum is even and far below
+// 2^31), and packed words are made with warp ballots, so tail bits are 0.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
+
+namespace {
+
+constexpr int MAX_THREADS = 1024;
+constexpr int DEFAULT_SMEM = 48 * 1024;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// One shared-memory vector load of spin k of each of the block's trials.
+template <int TR> __device__ __forceinline__ void load_spins(const float* p, float* v);
+template <> __device__ __forceinline__ void load_spins<1>(const float* p, float* v) {
+  v[0] = p[0];
+}
+template <> __device__ __forceinline__ void load_spins<2>(const float* p, float* v) {
+  const float2 a = *reinterpret_cast<const float2*>(p);
+  v[0] = a.x; v[1] = a.y;
+}
+template <> __device__ __forceinline__ void load_spins<4>(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Packed word w of trial t of the spins in `m` ([N][TR] floats); called by
+// whole warps.  Bits at index >= N are 0.
+template <int TR>
+__device__ __forceinline__ uint32_t pack_word(const float* m, int t, int w, int N, int lane) {
+  const int k = (w << 5) + lane;
+  return __ballot_sync(0xffffffffu, k < N && m[k * TR + t] > 0.f);
+}
+
+template <typename JT, int TR>
+__global__ void __launch_bounds__(MAX_THREADS)
+plateau_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
+               const JT* __restrict__ J, const int* __restrict__ h,
+               const uint32_t* __restrict__ rng_in, int i0,
+               const int* __restrict__ bh_in, const uint32_t* __restrict__ bmp_in,
+               uint32_t* __restrict__ mp_out, int* __restrict__ it_out,
+               uint32_t* __restrict__ rng_out, int* __restrict__ bh_out,
+               uint32_t* __restrict__ bmp_out, int R, int N, int n_cycles, int n_rnd,
+               int eligible) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* m_cur = reinterpret_cast<float*>(smem_raw);  // [N][TR]
+  float* m_nxt = m_cur + (size_t)N * TR;              // [N][TR]
+  const int Nw = (N + 31) >> 5;
+  uint32_t* best_w = reinterpret_cast<uint32_t*>(m_nxt + (size_t)N * TR);  // [TR][Nw]
+  __shared__ int red[TR][32];
+  __shared__ int bh_s[TR];
+  __shared__ int better_s[TR];
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * TR;
+  const int nt = min(TR, R - t0);  // trials of this block; the rest are idle
+  const size_t RN = (size_t)R * N;
+  const size_t row0 = (size_t)b * R + t0;                     // first (b, trial) row
+  const size_t lane0 = (size_t)b * 4 * RN + (size_t)t0 * N;   // lane word 0 of row0
+  J += (size_t)b * N * N;
+  h += (size_t)b * N;
+
+  // Prologue: unpack spins, copy Itanh and the lanes to the outputs (the
+  // thread that owns column j copies it and is the only one to touch it).
+  for (int j = tid; j < N; j += nthr) {
+#pragma unroll
+    for (int t = 0; t < TR; ++t) {
+      float s = -1.f;
+      if (t < nt) {
+        const uint32_t wd = mp_in[(row0 + t) * Nw + (j >> 5)];
+        s = ((wd >> (j & 31)) & 1u) ? 1.f : -1.f;
+        const size_t e = (row0 + t) * N + j;
+        it_out[e] = it_in[e];
+        const size_t l = lane0 + (size_t)t * N + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) rng_out[l + q * RN] = rng_in[l + q * RN];
+      }
+      m_cur[j * TR + t] = s;
+      m_nxt[j * TR + t] = s;
+    }
+  }
+  for (int e = tid; e < TR * Nw; e += nthr) {
+    const int t = e / Nw;
+    best_w[e] = (t < nt) ? bmp_in[(row0 + t) * Nw + e % Nw] : 0u;
+  }
+  if (tid < TR) bh_s[tid] = (tid < nt) ? bh_in[row0 + tid] : 0;
+  __syncthreads();
+
+  for (int c = 0; c <= n_cycles; ++c) {
+    const bool last = (c == n_cycles);      // the epilogue field: no update
+    const bool fold = eligible && (c > 0 || last);
+    if (last && !fold) break;
+    int ep[TR];
+#pragma unroll
+    for (int t = 0; t < TR; ++t) ep[t] = 0;
+
+    for (int j = tid; j < N; j += nthr) {
+      float acc[TR];
+#pragma unroll
+      for (int t = 0; t < TR; ++t) acc[t] = 0.f;
+      const JT* Jc = J + j;
+#pragma unroll 8
+      for (int k = 0; k < N; ++k) {
+        const float jv = to_f32(Jc[(size_t)k * N]);
+        float mv[TR];
+        load_spins<TR>(m_cur + k * TR, mv);
+#pragma unroll
+        for (int t = 0; t < TR; ++t) acc[t] = fmaf(mv[t], jv, acc[t]);
+      }
+      const int hj = h[j];
+      float mj[TR];
+      load_spins<TR>(m_cur + j * TR, mj);
+#pragma unroll
+      for (int t = 0; t < TR; ++t) {
+        const int f = __float2int_rz(acc[t]) + hj;
+        const int s = mj[t] > 0.f ? 1 : -1;
+        ep[t] += s * (hj + f);
+        if (!last && t < nt) {
+          const size_t l = lane0 + (size_t)t * N + j;
+          const uint32_t x = rng_out[l], y = rng_out[l + RN];
+          const uint32_t z = rng_out[l + 2 * RN], w = rng_out[l + 3 * RN];
+          const uint32_t tt = x ^ (x << 11);
+          const uint32_t wn = (w ^ (w >> 19)) ^ (tt ^ (tt >> 8));
+          rng_out[l] = y;
+          rng_out[l + RN] = z;
+          rng_out[l + 2 * RN] = w;
+          rng_out[l + 3 * RN] = wn;
+          const int r = (wn >> 31) ? 1 : -1;
+          const size_t e = (row0 + t) * N + j;
+          const int I = min(max(f + n_rnd * r + it_out[e], -i0), i0 - 1);
+          it_out[e] = I;
+          m_nxt[j * TR + t] = I >= 0 ? 1.f : -1.f;
+        }
+      }
+    }
+
+    if (fold) {
+#pragma unroll
+      for (int t = 0; t < TR; ++t) {
+        const int v = warp_sum(ep[t]);
+        if (lane == 0) red[t][warp] = v;
+      }
+      __syncthreads();
+      if (warp == 0) {
+#pragma unroll
+        for (int t = 0; t < TR; ++t) {
+          const int v = warp_sum(lane < nwarps ? red[t][lane] : 0);
+          if (lane == 0) {
+            const int H = -v / 2;
+            const int better = (t < nt) && (H < bh_s[t]);
+            if (better) bh_s[t] = H;
+            better_s[t] = better;
+          }
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int t = 0; t < TR; ++t) {
+        if (better_s[t]) {
+          for (int w = warp; w < Nw; w += nwarps) {
+            const uint32_t word = pack_word<TR>(m_cur, t, w, N, lane);
+            if (lane == 0) best_w[t * Nw + w] = word;
+          }
+        }
+      }
+    }
+    if (!last) {
+      float* tmp = m_cur;
+      m_cur = m_nxt;
+      m_nxt = tmp;
+    }
+    __syncthreads();
+  }
+
+  for (int t = 0; t < nt; ++t) {
+    for (int w = warp; w < Nw; w += nwarps) {
+      const uint32_t word = pack_word<TR>(m_cur, t, w, N, lane);
+      if (lane == 0) mp_out[(row0 + t) * Nw + w] = word;
+    }
+  }
+  for (int e = tid; e < nt * Nw; e += nthr) bmp_out[row0 * Nw + e] = best_w[e];
+  if (tid < nt) bh_out[row0 + tid] = bh_s[tid];
+}
+
+template <typename JT, int TR>
+int launch(const void* mp_in, const void* it_in, const void* J, const void* h,
+           const void* rng_in, int i0, const void* bh_in, const void* bmp_in, void* mp_out,
+           void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B, int R, int N,
+           int n_cycles, int n_rnd, int eligible, cudaStream_t stream) {
+  const int Nw = (N + 31) / 32;
+  const size_t smem = sizeof(float) * 2 * (size_t)N * TR + sizeof(uint32_t) * (size_t)TR * Nw;
+  auto kernel = plateau_kernel<JT, TR>;
+  if (smem > DEFAULT_SMEM) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((R + TR - 1) / TR, B);
+  const int threads = std::min(MAX_THREADS, (N + 31) / 32 * 32);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const uint32_t*>(mp_in), static_cast<const int*>(it_in),
+      static_cast<const JT*>(J), static_cast<const int*>(h),
+      static_cast<const uint32_t*>(rng_in), i0, static_cast<const int*>(bh_in),
+      static_cast<const uint32_t*>(bmp_in), static_cast<uint32_t*>(mp_out),
+      static_cast<int*>(it_out), static_cast<uint32_t*>(rng_out),
+      static_cast<int*>(bh_out), static_cast<uint32_t*>(bmp_out), R, N, n_cycles, n_rnd,
+      eligible);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename JT>
+int launch_tr(int tr, const void* mp_in, const void* it_in, const void* J, const void* h,
+              const void* rng_in, int i0, const void* bh_in, const void* bmp_in,
+              void* mp_out, void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B,
+              int R, int N, int n_cycles, int n_rnd, int eligible, cudaStream_t s) {
+  switch (tr) {
+    case 1:
+      return launch<JT, 1>(mp_in, it_in, J, h, rng_in, i0, bh_in, bmp_in, mp_out, it_out,
+                           rng_out, bh_out, bmp_out, B, R, N, n_cycles, n_rnd, eligible, s);
+    case 2:
+      return launch<JT, 2>(mp_in, it_in, J, h, rng_in, i0, bh_in, bmp_in, mp_out, it_out,
+                           rng_out, bh_out, bmp_out, B, R, N, n_cycles, n_rnd, eligible, s);
+    case 4:
+      return launch<JT, 4>(mp_in, it_in, J, h, rng_in, i0, bh_in, bmp_in, mp_out, it_out,
+                           rng_out, bh_out, bmp_out, B, R, N, n_cycles, n_rnd, eligible, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+extern "C" int repro_ssa_plateau_packed(const void* mp_in, const void* it_in, const void* J,
+                                        const void* h, const void* rng_in, int i0,
+                                        const void* bh_in, const void* bmp_in, void* mp_out,
+                                        void* it_out, void* rng_out, void* bh_out,
+                                        void* bmp_out, int B, int R, int N, int n_cycles,
+                                        int n_rnd, int eligible, int j_bf16,
+                                        int trials_per_block, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (j_bf16) {
+    return launch_tr<__nv_bfloat16>(trials_per_block, mp_in, it_in, J, h, rng_in, i0, bh_in,
+                                    bmp_in, mp_out, it_out, rng_out, bh_out, bmp_out, B, R,
+                                    N, n_cycles, n_rnd, eligible, s);
+  }
+  return launch_tr<float>(trials_per_block, mp_in, it_in, J, h, rng_in, i0, bh_in, bmp_in,
+                          mp_out, it_out, rng_out, bh_out, bmp_out, B, R, N, n_cycles,
+                          n_rnd, eligible, s);
+}
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,212 @@
+"""Wrappers of the hand-written CUDA kernels of the SSA/HA-SSA spin update.
+
+Two kernels, each the port of one Pallas kernel of
+``repro/kernels/ssa_update.py``:
+
+* K3, :func:`local_field` — ``field = h + m @ J`` as a shared-memory-tiled
+  CUDA kernel (``csrc/field.cu``), int32 out.  The cycle loop's field when
+  per-cycle outputs are needed.
+* K1, :func:`ssa_plateau_packed_batched` and its B=1 slice
+  :func:`ssa_plateau_packed` — one constant-I0 plateau of C cycles in one
+  launch (``csrc/plateau.cu``): spins cross the launch boundary as 32-bit
+  words, the xorshift128 lanes are stepped in-kernel, the running best is
+  folded on the card.
+
+A wrapper takes its plain version (:mod:`.ref`) only for tensors on the
+CPU.  For CUDA tensors it checks device, dtype, shape and contiguity,
+allocates the outputs, launches on the current stream and raises if the
+launch reports an error; it never falls back.  Each wrapper counts its
+launches in a ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .bitplane import packed_words
+from .ref import local_field_ref, ssa_plateau_packed_ref
+
+__all__ = ["local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched"]
+
+# Trials per K1 block (1, 2 or 4).  Each block streams all of J from L2
+# every cycle and uses every J element once per trial it owns; 2 was the
+# fastest of the three at K2000 width on an H100 (chip_smoke.py measures
+# all three each run).  See csrc/plateau.cu.
+TRIALS_PER_BLOCK = 2
+
+# Dynamic shared memory one H100 block may use.
+_MAX_SMEM = 232448
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "repro_local_field": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_ssa_plateau_packed": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
+}
+
+
+def _entry(lib: str, fn: str):
+    lib_ = _build.library(lib)
+    f = getattr(lib_, fn)
+    if f.argtypes is None:
+        f.argtypes = _SIGNATURES[fn]
+        f.restype = ctypes.c_int
+        lib_.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib_.repro_cuda_error_string.restype = ctypes.c_char_p
+    return f, lib_
+
+
+def _device_of(*tensors) -> torch.device:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check(name: str, t: torch.Tensor, shape, dtypes):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(fn, lib, what: str, dev: torch.device, *args):
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err} ({msg})")
+
+
+_J_TYPES = (torch.float32, torch.bfloat16)
+
+
+def local_field(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor) -> torch.Tensor:
+    """K3: field = h + m @ J, int32 exact.
+
+    ``m`` (R, N) ±1 of any dtype, ``h`` (N,) integer, ``J`` (N, N) float32
+    or bfloat16, integer-valued.  Replaces
+    ``repro/kernels/ssa_update.py:local_field`` (``_field_kernel``).
+    """
+    dev = _device_of(m, h, J)
+    if dev.type == "cpu":
+        return local_field_ref(m, h, J)
+    if m.dim() != 2:
+        raise ValueError(f"m: expected (R, N), got shape {tuple(m.shape)}")
+    R, N = m.shape
+    mf = m.to(torch.float32).contiguous()
+    h32 = h.to(torch.int32).contiguous()
+    _check("h", h32, (N,), (torch.int32,))
+    _check("J", J, (N, N), _J_TYPES)
+    out = torch.empty((R, N), dtype=torch.int32, device=dev)
+    if R == 0 or N == 0:
+        return out
+    fn, lib = _entry("field", "repro_local_field")
+    _launch(fn, lib, "local_field", dev, mf.data_ptr(), J.data_ptr(), h32.data_ptr(),
+            out.data_ptr(), R, N, int(J.dtype == torch.bfloat16))
+    local_field.launches += 1
+    return out
+
+
+local_field.launches = 0
+
+
+def ssa_plateau_packed_batched(
+    m_packed: torch.Tensor,       # (B, R, Nw) int32 words
+    itanh: torch.Tensor,          # (B, R, N) int32
+    J: torch.Tensor,              # (B, N, N) float32 | bfloat16
+    h: torch.Tensor,              # (B, N) int32
+    rng: torch.Tensor,            # (B, 4, R, N) int32 xorshift lanes
+    i0: int,
+    best_H: torch.Tensor,         # (B, R) int32
+    best_m_packed: torch.Tensor,  # (B, R, Nw) int32 words
+    *,
+    n_cycles: int,
+    n_rnd: int = 2,
+    eligible: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """K1: one constant-I0 plateau for B problems × R trials, one launch.
+
+    Semantics are those of :func:`~repro_torch.kernels.ref.
+    ssa_plateau_packed_ref`.  Replaces
+    ``repro/kernels/ssa_update.py:ssa_plateau_packed_batched``
+    (``_plateau_streamed_kernel``) in its classical mode.
+
+    Returns (m_packed, itanh, rng, best_H, best_m_packed).
+    """
+    args = (m_packed, itanh, J, h, rng, best_H, best_m_packed)
+    dev = _device_of(*args)
+    if itanh.dim() != 3:
+        raise ValueError(f"itanh: expected (B, R, N), got shape {tuple(itanh.shape)}")
+    if dev.type == "cpu":
+        return ssa_plateau_packed_ref(
+            m_packed, itanh, J, h, rng, i0, best_H, best_m_packed,
+            n_cycles=n_cycles, n_rnd=n_rnd, eligible=eligible,
+        )
+    B, R, N = itanh.shape
+    nw = packed_words(N)
+    i32 = (torch.int32,)
+    _check("m_packed", m_packed, (B, R, nw), i32)
+    _check("itanh", itanh, (B, R, N), i32)
+    _check("J", J, (B, N, N), _J_TYPES)
+    _check("h", h, (B, N), i32)
+    _check("rng", rng, (B, 4, R, N), i32)
+    _check("best_H", best_H, (B, R), i32)
+    _check("best_m_packed", best_m_packed, (B, R, nw), i32)
+    if int(n_cycles) < 0:
+        raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
+    tpb = TRIALS_PER_BLOCK
+    smem = 4 * tpb * (2 * N + nw)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"N={N} needs {smem} B of shared memory per block (> {_MAX_SMEM})"
+        )
+    outs = tuple(torch.empty_like(t) for t in
+                 (m_packed, itanh, rng, best_H, best_m_packed))
+    if B == 0 or R == 0:
+        return outs
+    mp_o, it_o, rng_o, bh_o, bmp_o = outs
+    fn, lib = _entry("plateau", "repro_ssa_plateau_packed")
+    _launch(
+        fn, lib, "ssa_plateau_packed", dev,
+        m_packed.data_ptr(), itanh.data_ptr(), J.data_ptr(), h.data_ptr(),
+        rng.data_ptr(), int(i0), best_H.data_ptr(), best_m_packed.data_ptr(),
+        mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(), bh_o.data_ptr(),
+        bmp_o.data_ptr(), B, R, N, int(n_cycles), int(n_rnd), int(bool(eligible)),
+        int(J.dtype == torch.bfloat16), tpb,
+    )
+    ssa_plateau_packed_batched.launches += 1
+    return outs
+
+
+ssa_plateau_packed_batched.launches = 0
+
+
+def ssa_plateau_packed(
+    m_packed: torch.Tensor,       # (R, Nw)
+    itanh: torch.Tensor,          # (R, N)
+    J: torch.Tensor,              # (N, N)
+    h: torch.Tensor,              # (N,)
+    rng: torch.Tensor,            # (4, R, N)
+    i0: int,
+    best_H: torch.Tensor,         # (R,)
+    best_m_packed: torch.Tensor,  # (R, Nw)
+    *,
+    n_cycles: int,
+    n_rnd: int = 2,
+    eligible: bool = True,
+):
+    """B=1 slice of :func:`ssa_plateau_packed_batched` (the same kernel)."""
+    outs = ssa_plateau_packed_batched(
+        m_packed[None], itanh[None], J[None], h[None], rng[None], i0,
+        best_H[None], best_m_packed[None],
+        n_cycles=n_cycles, n_rnd=n_rnd, eligible=eligible,
+    )
+    return tuple(o[0] for o in outs)

@@ -1,0 +1,79 @@
+"""Annealing launcher of the PyTorch port (single problem).
+
+    python -m repro_torch.launch.anneal --problem K2000 --backend cuda \
+        --trials 100 --m-shot 20
+
+Solves one G-set instance (a real file under data/gset/ if present, the
+generated twin otherwise: G11, G12, G13, King1, K2000) with HA-SSA or SSA
+on the plateau engine.  ``--backend cuda`` runs each plateau as one launch
+of the CUDA plateau kernel; ``--track-energy`` and ``--record traj`` need
+per-cycle outputs and run the cycle loop over the CUDA field kernel.
+Runs on the GPU unless ``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.core import gset, memory
+from repro_torch.core.config import SolverConfig
+from repro_torch.core.ssa import SSAHyperParams, anneal
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--problem", default="G11",
+                    help="instance name (G11, G12, G13, King1, K2000)")
+    ap.add_argument("--trials", type=int, default=16)
+    ap.add_argument("--m-shot", type=int, default=20)
+    ap.add_argument("--tau", type=int, default=100)
+    ap.add_argument("--i0-min", type=int, default=1)
+    ap.add_argument("--i0-max", type=int, default=32)
+    ap.add_argument("--n-rnd", type=int, default=2)
+    ap.add_argument("--beta-shift", type=int, default=1)
+    ap.add_argument("--storage", choices=("i0max", "all"), default="i0max")
+    ap.add_argument("--storage-layout", choices=("dense", "packed"), default="dense",
+                    help="inter-plateau spin state: int8 spins or 32-bit words "
+                         "(bit-identical results)")
+    ap.add_argument("--backend", choices=("sparse", "dense", "cuda"), default="sparse")
+    ap.add_argument("--record", choices=("best", "traj"), default="best")
+    ap.add_argument("--track-energy", action="store_true",
+                    help="record per-cycle energy traces (the cycle loop)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the plain versions)")
+    args = ap.parse_args(argv)
+
+    hp = SSAHyperParams(
+        n_trials=args.trials, m_shot=args.m_shot, n_rnd=args.n_rnd,
+        i0_min=args.i0_min, i0_max=args.i0_max, tau=args.tau,
+        beta_shift=args.beta_shift,
+    )
+    p = gset.load(args.problem)
+    algo = "HA-SSA" if args.storage == "i0max" else "SSA"
+    print(f"{p.name}: N={p.n} |E|={len(p.edges)}; {hp.total_cycles} cycles "
+          f"× {hp.n_trials} trials; backend={args.backend}; device={args.device}; "
+          f"storage={args.storage} ({algo})")
+    cfg = SolverConfig(backend=args.backend, storage_layout=args.storage_layout)
+    t0 = time.time()
+    r = anneal(p, hp, seed=args.seed, storage=args.storage, record=args.record,
+               config=cfg, track_energy=args.track_energy, device=args.device)
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    spin_cycles = hp.total_cycles * hp.n_trials
+    print(f"best cut {r.overall_best_cut}  avg {r.mean_best_cut:.1f}  "
+          f"best energy {r.best_energy.min()}  ({dt:.1f}s, "
+          f"{spin_cycles/dt:.0f} trial-cycles/s, "
+          f"{spin_cycles*p.n/dt:.2e} spin-cycles/s)")
+    if p.best_known:
+        print(f"best known {p.best_known} → {100*r.overall_best_cut/p.best_known:.2f}%")
+    print(f"trajectory memory/iter: {memory.hassa_bits_per_iteration(p.n, hp)} bits "
+          f"(SSA would use {memory.ssa_bits_per_iteration(p.n, hp)}; "
+          f"{memory.memory_ratio(hp)}× saving)")
+
+
+if __name__ == "__main__":
+    main()

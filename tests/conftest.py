@@ -108,3 +108,9 @@ def _install_hypothesis_stub() -> None:
 
 
 _install_hypothesis_stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skipped on a host without one"
+    )

@@ -1,0 +1,177 @@
+"""``repro_torch.core.ssa.anneal`` against ``repro.core.ssa.anneal``, end to end.
+
+Small G11-like and K-like instances, the same seed and schedule, xorshift
+noise.  The JAX side runs ``backend='pallas'`` (its kernels in interpret
+mode); the port runs each of its backends on the CPU — 'cuda' there runs
+the kernels' plain versions.  best_H, best_m, the trajectory planes and the
+per-cycle minimum energy must be bit-identical.  The per-cycle mean energy
+is an f32 mean of 100-trial-or-fewer integer energies whose sum may pass
+2^24, so the two frameworks' summation orders may round it differently in
+the last bits: it is held to rtol 1e-6 (a few f32 ulps) and no looser.
+"""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import SolverConfig as JSolverConfig  # noqa: E402
+from repro.core import SSAHyperParams as JHP  # noqa: E402
+from repro.core import anneal as janneal  # noqa: E402
+from repro.core import gset as jgset  # noqa: E402
+from repro_torch.core import gset  # noqa: E402
+from repro_torch.core import ssa as tssa  # noqa: E402
+from repro_torch.core.config import SolverConfig  # noqa: E402
+from repro_torch.core.engine import make_backend, resolve_device  # noqa: E402
+from repro_torch.kernels import ssa_update  # noqa: E402
+
+HP = dict(n_trials=5, m_shot=2, tau=5, i0_min=1, i0_max=4)
+PROBLEMS = {
+    "K-like96": lambda g: g.complete_graph(96, seed=5),
+    "G11-like128": lambda g: g.toroidal_grid(128, seed=3),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(problem, layout, record, track_energy, storage="i0max",
+             schedule_kind="hassa", total_cycles=None):
+    return janneal(
+        PROBLEMS[problem](jgset), JHP(**HP), seed=1, storage=storage, record=record,
+        track_energy=track_energy, schedule_kind=schedule_kind,
+        total_cycles=total_cycles,
+        config=JSolverConfig(backend="pallas", noise="xorshift", storage_layout=layout),
+    )
+
+
+def _port_run(problem, backend, layout, record, track_energy, **kw):
+    return tssa.anneal(
+        PROBLEMS[problem](gset), tssa.SSAHyperParams(**HP), seed=1, record=record,
+        track_energy=track_energy, device="cpu",
+        config=SolverConfig(backend=backend, storage_layout=layout), **kw,
+    )
+
+
+def _assert_same(got, want, track_energy):
+    np.testing.assert_array_equal(got.best_energy, want.best_energy)
+    np.testing.assert_array_equal(got.best_m, want.best_m)
+    np.testing.assert_array_equal(got.best_cut, want.best_cut)
+    assert got.stored_bits_per_iter == want.stored_bits_per_iter
+    if want.traj is None:
+        assert got.traj is None
+    else:
+        assert got.traj.dtype == np.uint32
+        np.testing.assert_array_equal(got.traj, want.traj)
+    if track_energy:
+        np.testing.assert_array_equal(got.energy_min, want.energy_min)
+        np.testing.assert_allclose(got.energy_mean, want.energy_mean, rtol=1e-6, atol=0)
+    else:
+        assert got.energy_min is None and got.energy_mean is None
+
+
+@pytest.mark.parametrize("problem", sorted(PROBLEMS))
+@pytest.mark.parametrize("backend", ["cuda", "dense", "sparse"])
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+@pytest.mark.parametrize("record,track_energy", [("best", False), ("best", True), ("traj", False)])
+def test_anneal_matches_jax_pallas(problem, backend, layout, record, track_energy):
+    got = _port_run(problem, backend, layout, record, track_energy)
+    _assert_same(got, _jax_run(problem, layout, record, track_energy), track_energy)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(storage="all", schedule_kind="ssa"),
+    dict(total_cycles=27),
+], ids=["ssa-storage-all", "total-cycles"])
+@pytest.mark.parametrize("track_energy", [False, True])
+def test_anneal_variants_match_jax(kw, track_energy):
+    want = _jax_run("G11-like128", "dense", "best", track_energy, **kw)
+    got = _port_run("G11-like128", "cuda", "dense", "best", track_energy, **kw)
+    _assert_same(got, want, track_energy)
+
+
+def test_cuda_backend_plateau_paths_on_cpu_launch_nothing():
+    k1 = ssa_update.ssa_plateau_packed_batched.launches
+    k3 = ssa_update.local_field.launches
+    _port_run("K-like96", "cuda", "dense", "best", True)
+    _port_run("K-like96", "cuda", "packed", "traj", False)
+    assert (ssa_update.ssa_plateau_packed_batched.launches, ssa_update.local_field.launches) == (k1, k3)
+
+
+def test_solve_maxcut_and_cut_consistency():
+    p = gset.toroidal_grid(64, seed=1)
+    r = tssa.solve_maxcut(p, tssa.SSAHyperParams(n_trials=3, m_shot=1, tau=4, i0_max=4),
+                          config=SolverConfig(backend="dense"), device="cpu")
+    np.testing.assert_array_equal(p.cut_value(r.best_m), r.best_cut)
+    assert r.overall_best_cut == int(r.best_cut.max())
+
+
+# ---------------------------------------------------------------------------
+# Options outside the ported slice raise NotImplementedError naming the
+# ROADMAP item they wait for — on the CPU as on the card.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kw,item", [
+    (dict(noise="threefry"), "K4"),
+    (dict(field_mode="popcount"), "K2"),
+    (dict(noise_mode="pregen"), "K4"),
+    (dict(j_mode="tiled"), "step 2"),
+    (dict(partition="spin"), "step 8"),
+    (dict(partition="auto"), "step 8"),
+    (dict(backend="auto"), "step 3"),
+    (dict(backend_opts=(("n_replicas", 4),)), "step 5"),
+], ids=lambda v: str(v))
+def test_out_of_slice_config_raises(kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        SolverConfig(**kw)
+
+
+@pytest.mark.parametrize("backend,kw,item", [
+    ("cuda", dict(noise="threefry"), "K4"),
+    ("dense", dict(noise="threefry"), "K4"),
+    ("cuda", dict(field_mode="popcount"), "K2"),
+    ("cuda", dict(field_mode="auto"), "K2"),
+    ("dense", dict(field_mode="popcount"), "K2"),
+    ("cuda", dict(noise_mode="pregen"), "K4"),
+    ("dense", dict(j_mode="tiled"), "step 2"),
+    ("sparse", dict(n_replicas=4), "step 5"),
+    ("auto", {}, "step 3"),
+], ids=lambda v: str(v))
+def test_out_of_slice_backend_options_raise(backend, kw, item):
+    model = gset.toroidal_grid(16, seed=0).to_ising()
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        make_backend(backend, model, n_trials=2, device="cpu", **kw)
+
+
+def test_dense_j_above_threshold_raises():
+    model = gset.toroidal_grid(4100, seed=0).to_ising()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 2"):
+        make_backend("dense", model, n_trials=1, device="cpu")
+
+
+def test_anneal_hp_auto_and_ssqa_raise():
+    p = gset.toroidal_grid(16, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 5"):
+        tssa.anneal(p, "auto", device="cpu")
+
+    class SSQAish(tssa.SSAHyperParams):
+        n_replicas = 4
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 5"):
+        tssa.anneal(p, SSQAish(n_trials=4), device="cpu")
+
+
+def test_cuda_request_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device was requested"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA device was requested"):
+        tssa.anneal(gset.toroidal_grid(16, seed=0), tssa.SSAHyperParams(n_trials=2, m_shot=1, tau=2))
+
+
+def test_launcher_runs_on_cpu(capsys):
+    from repro_torch.launch import anneal as launcher
+
+    launcher.main(["--problem", "G11", "--trials", "2", "--m-shot", "1", "--tau", "3",
+                   "--i0-max", "4", "--backend", "cuda", "--device", "cpu",
+                   "--track-energy", "--storage-layout", "packed"])
+    out = capsys.readouterr().out
+    assert "best cut" in out and "3× saving" in out

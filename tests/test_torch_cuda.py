@@ -1,0 +1,99 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+A CUDA kernel has no CPU or interpret mode, so these tests are marked
+``cuda`` and skip on a host without a GPU.  On the GPU host:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX: the GPU host runs the port alone.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import gset  # noqa: E402
+from repro_torch.core.config import SolverConfig  # noqa: E402
+from repro_torch.core.rng import xorshift_init  # noqa: E402
+from repro_torch.core.ssa import SSAHyperParams, anneal  # noqa: E402
+from repro_torch.kernels import ssa_update  # noqa: E402
+from repro_torch.kernels.bitplane import pack_spins  # noqa: E402
+from repro_torch.kernels.ref import local_field_ref, ssa_plateau_packed_ref  # noqa: E402
+
+OUTS = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU or interpret mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: exact f32
+    return torch.device("cuda")
+
+
+def _coupling(rs, n):
+    J = np.triu(rs.integers(-3, 4, size=(n, n)), 1)
+    return J + J.T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(1, 16), (13, 100), (33, 257), (100, 2000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_local_field_kernel_matches_plain(cuda_device, r, n, dtype):
+    rs = np.random.default_rng(n)
+    m = torch.as_tensor(rs.choice([-1.0, 1.0], size=(r, n)), dtype=torch.float32, device=cuda_device)
+    h = torch.as_tensor(rs.integers(-4, 5, size=(n,)), dtype=torch.int32, device=cuda_device)
+    J = torch.as_tensor(_coupling(rs, n), dtype=getattr(torch, dtype), device=cuda_device)
+    before = ssa_update.local_field.launches
+    got = ssa_update.local_field(m, h, J)
+    assert ssa_update.local_field.launches == before + 1
+    assert torch.equal(got, local_field_ref(m, h, J))
+
+
+def _plateau_args(b, r, n, seed, flat, device):
+    rs = np.random.default_rng(seed)
+    J = torch.as_tensor(np.stack([_coupling(rs, n) * (not flat) for _ in range(b)]),
+                        dtype=torch.float32)
+    h = torch.as_tensor(rs.integers(-2, 3, size=(b, n)) * (not flat), dtype=torch.int32)
+    spins = torch.as_tensor(rs.choice([-1, 1], size=(2, b, r, n)), dtype=torch.int8)
+    best_H = torch.full((b, r), 2**30, dtype=torch.int32)
+    best_H[:, 0] = -10**6
+    args = dict(m_packed=pack_spins(spins[0]),
+                itanh=torch.as_tensor(rs.integers(-6, 6, size=(b, r, n)), dtype=torch.int32),
+                J=J, h=h, rng=xorshift_init(seed, (b, r, n)).movedim(0, 1).contiguous(),
+                best_H=best_H, best_m_packed=pack_spins(spins[1]))
+    return {k: v.to(device) for k, v in args.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,n,c,flat", [(1, 4, 36, 5, False), (1, 9, 100, 7, False),
+                                           (2, 3, 1001, 3, False), (1, 5, 70, 6, True),
+                                           (1, 100, 2000, 4, False)])
+@pytest.mark.parametrize("eligible", [True, False])
+def test_plateau_kernel_matches_plain(cuda_device, b, r, n, c, flat, eligible):
+    args = _plateau_args(b, r, n, seed=n + c, flat=flat, device=cuda_device)
+    before = ssa_update.ssa_plateau_packed_batched.launches
+    got = ssa_update.ssa_plateau_packed_batched(**args, i0=4, n_cycles=c, eligible=eligible)
+    assert ssa_update.ssa_plateau_packed_batched.launches == before + 1
+    want = ssa_plateau_packed_ref(**args, i0=4, n_cycles=c, eligible=eligible)
+    for name, g, w in zip(OUTS, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+@pytest.mark.parametrize("record,track_energy", [("best", False), ("best", True), ("traj", False)])
+def test_anneal_cuda_matches_dense_on_card(cuda_device, layout, record, track_energy):
+    p = gset.complete_graph(300, seed=7)
+    hp = SSAHyperParams(n_trials=7, m_shot=2, tau=6, i0_max=8)
+    runs = [anneal(p, hp, seed=3, record=record, track_energy=track_energy, device="cuda",
+                   config=SolverConfig(backend=bk, storage_layout=layout))
+            for bk in ("cuda", "dense")]
+    got, want = runs
+    np.testing.assert_array_equal(got.best_energy, want.best_energy)
+    np.testing.assert_array_equal(got.best_m, want.best_m)
+    if record == "traj":
+        np.testing.assert_array_equal(got.traj, want.traj)
+    if track_energy:
+        np.testing.assert_array_equal(got.energy_min, want.energy_min)
+        np.testing.assert_array_equal(got.energy_mean, want.energy_mean)
