@@ -6,20 +6,33 @@ kernels, and prints what it measured.
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
 Phases (any failure raises and exits non-zero):
-  1. card: name and power limit (nvidia-smi);
+  1. card: name and power limit (nvidia-smi); the three kernels built;
   2. K3 ``local_field`` == its plain version, exactly, at the K2000 shape and
      a ragged one; kernel, plain, torch.addmm times and the bound;
   3. K1 ``ssa_plateau_packed`` == its plain version, all five outputs
      exactly, at K2000 and G11 widths, eligible and not, a ragged shape and
      a tied-energy shape; kernel and plain times and the bound; K1's time
      under each trial tiling and with a bfloat16 J;
-  4. production path: anneal(K2000, 100 trials, tau=100, I0 1→32,
+  4. threefry: a (C, T, N) = (100, 100, 2000) pregen draw on the card, its
+     time, and its first cycles == the same draw on the CPU;
+  5. K4 ``ssa_plateau`` == its plain version, all four outputs exactly, at
+     K2000 and G11 widths, eligible and not, a ragged shape, a bfloat16 J,
+     a tied-energy shape and B = 2; kernel and plain times and the bound;
+  6. production path: anneal(K2000, 100 trials, tau=100, I0 1→32,
      backend='cuda', record='best', track_energy=False) — K1 launched
-     m_shot × steps times, K3 never; best_H == the dense backend's; the
-     host set-up time of anneal();
-  5. trace path: the same with track_energy=True — K3 launched, K1 not;
-     energy traces and best_H == the dense backend's;
-  6. the kernels line; 7. the contract line (last).
+     m_shot × steps times, K3 and K4 never; best_H == the dense backend's;
+     the host set-up time of anneal();
+  7. trace path: the same with track_energy=True — K3 launched, K1 and K4
+     not; energy traces and best_H == the dense backend's;
+  8. threefry pregen path: the production call with noise='threefry' — K4
+     launched m_shot × steps times, K1 and K3 never; best_H and best_m ==
+     the dense backend's with threefry on the card;
+  9. xorshift pregen path: noise_mode='pregen' — K4 only, best_H and best_m
+     == the streamed K1 run of phase 6;
+ 10. memory at K2000, measured and not asserted: the per-plateau state plus
+     noise buffer of the pregen (dense layout) and streamed (packed layout)
+     datapaths, and the peak device memory of one anneal() call of each;
+ 11. the kernels line; 12. the contract line (last).
 """
 from __future__ import annotations
 
@@ -219,22 +232,104 @@ def _k1_sweep(x, kw):
           f"{_time_ms(lambda: run(**xb), reps=5):.3f} ms")
 
 
+def phase_threefry(dev):
+    """One pregen plateau's threefry draw at K2000 width, timed; its first
+    cycles must equal the same draw made on the CPU."""
+    from repro_torch.core.rng import threefry_key, threefry_noise_cycles
+
+    C, T, N = 100, 100, 2000
+    key = threefry_key(2000)
+    _, noise = threefry_noise_cycles(key, C, (T, N), dev)
+    _, cpu = threefry_noise_cycles(key, 3, (T, N), "cpu")
+    torch.cuda.synchronize()
+    if not torch.equal(noise[:3].cpu(), cpu):
+        _fail("threefry draw on the card differs from the CPU draw")
+    plus = (noise == 1).float().mean().item()
+    if tuple(noise.shape) != (C, T, N) or not 0.49 < plus < 0.51:
+        _fail(f"threefry draw malformed: shape {tuple(noise.shape)}, share of +1 {plus}")
+    ms = _time_ms(lambda: threefry_noise_cycles(key, C, (T, N), dev), reps=5)
+    print(f"[threefry] (C, T, N)=({C}, {T}, {N}) pregen draw: {ms:.3f} ms "
+          f"({C * T * N / ms / 1e6:.3f} G draws/s); share of +1 {plus:.5f}; "
+          "first 3 cycles == CPU draw")
+    return ms
+
+
+def _pregen_inputs(gen, B, R, N, C, dev, dtype=torch.float32, flat=False):
+    """Random K4 inputs; ``flat`` zeroes J and h (every energy ties)."""
+    return dict(
+        m=_spins(gen, (B, R, N), dev).to(torch.float32),
+        itanh=torch.randint(-8, 8, (B, R, N), generator=gen, dtype=torch.int32).to(dev),
+        J=torch.stack([_coupling(gen, N, dtype, dev) for _ in range(B)]) * (not flat),
+        h=torch.randint(-2, 3, (B, N), generator=gen, dtype=torch.int32).to(dev) * (not flat),
+        noise=_spins(gen, (B, C, R, N), dev).to(torch.int8),
+        best_H=torch.full((B, R), 2**30, dtype=torch.int32, device=dev),
+        best_m=_spins(gen, (B, R, N), dev).to(torch.int8),
+    )
+
+
+def phase_k4(dev):
+    from repro_torch.kernels import ssa_update
+    from repro_torch.kernels.ref import ssa_plateau_ref
+
+    gen = torch.Generator().manual_seed(4)
+    names = ("m", "itanh", "best_H", "best_m")
+    err = 0
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(1, 100, 2000, 100, True, f32, False), (1, 100, 2000, 100, False, f32, False),
+             (1, 100, 800, 100, True, f32, False), (1, 100, 800, 100, False, f32, False),
+             (1, 13, 1001, 17, True, f32, False), (1, 13, 1001, 17, False, f32, False),
+             (1, 5, 2000, 9, True, bf16, False), (1, 13, 1001, 17, True, f32, True),
+             (2, 7, 1001, 9, True, f32, False)]
+    for B, R, N, C, elig, dtype, flat in cases:
+        x = _pregen_inputs(gen, B, R, N, C, dev, dtype, flat)
+        kw = dict(i0=32 if elig else 4, n_rnd=2, eligible=elig)
+        got = ssa_update.ssa_plateau_batched(**x, **kw)
+        want = ssa_plateau_ref(**x, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(names, got, want):
+            e = _max_abs_err(g, w)
+            if e or g.dtype != w.dtype:
+                _fail(f"K4 {name} differs from its plain version at "
+                      f"B={B} R={R} N={N} C={C} eligible={elig} {dtype} flat={flat}")
+            err = max(err, e)
+        print(f"[K4] B={B} R={R} N={N} C={C} eligible={elig} J={dtype} flat={flat}: "
+              "all four outputs equal")
+    # Timing at the main path's shape: K2000, 100 trials, one tau=100 plateau.
+    R, N, C = 100, 2000, 100
+    x = _pregen_inputs(gen, 1, R, N, C, dev)
+    kw = dict(i0=32, n_rnd=2, eligible=True)
+    ms = _time_ms(lambda: ssa_update.ssa_plateau_batched(**x, **kw), reps=5)
+    plain_ms = _time_ms(lambda: ssa_plateau_ref(**x, **kw), reps=3)
+    state_bytes = 4 * R * N + 4 * R * N + 4 * R + R * N  # m, itanh, best_H, best_m
+    bound, by = _bound_ms(4 * N * N + 4 * N + 2 * state_bytes + C * R * N,
+                          2 * R * N * N * (C + 1))
+    print(f"[K4] R={R} N={N} C={C}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
 def _reset_counts():
     from repro_torch.kernels import ssa_update
 
     ssa_update.local_field.launches = 0
     ssa_update.ssa_plateau_packed_batched.launches = 0
+    ssa_update.ssa_plateau_batched.launches = 0
 
 
 def _counts():
+    """Launches of (K1, K3, K4) since the last reset."""
     from repro_torch.kernels import ssa_update
 
     return (ssa_update.ssa_plateau_packed_batched.launches,
-            ssa_update.local_field.launches)
+            ssa_update.local_field.launches,
+            ssa_update.ssa_plateau_batched.launches)
 
 
-def _anneal_pair(problem, hp, track_energy):
-    """The cuda run (timed, counted) and the dense-backend run on the card."""
+def _anneal_run(problem, hp, cfg, track_energy, dense_ref=True):
+    """The cuda run (timed, counted, its peak device memory measured) and,
+    with ``dense_ref``, the dense-backend run with the same noise on the
+    card, which it must equal."""
     import numpy as np
 
     from repro_torch.core.config import SolverConfig
@@ -242,62 +337,115 @@ def _anneal_pair(problem, hp, track_energy):
     from repro_torch.core.ssa import anneal
 
     kw = dict(seed=0, record="best", track_energy=track_energy, device="cuda")
-    anneal(problem, dataclasses.replace(hp, m_shot=1),
-           config=SolverConfig(backend="cuda"), **kw)  # warm-up: first launches
+    anneal(problem, dataclasses.replace(hp, m_shot=1), config=cfg, **kw)  # warm-up
     t0 = time.time()
     _, model = normalize_problem(problem)
-    make_backend("cuda", model, n_trials=hp.n_trials, device="cuda").init_state(0)
+    make_backend(config=cfg, model=model, n_trials=hp.n_trials, device="cuda").init_state(0)
     torch.cuda.synchronize()
-    print(f"[set-up] model, dense J and lanes of anneal(): {time.time() - t0:.3f}s")
+    print(f"[set-up] model, dense J and noise state of anneal(): {time.time() - t0:.3f}s")
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.time()
-    r = anneal(problem, hp, config=SolverConfig(backend="cuda"), **kw)
+    r = anneal(problem, hp, config=cfg, **kw)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = _counts()
-    ref = anneal(problem, hp, config=SolverConfig(backend="dense"), **kw)
-    if not np.array_equal(r.best_energy, ref.best_energy):
-        _fail("anneal best_H differs between the cuda and dense backends")
-    if not np.array_equal(r.best_m, ref.best_m):
-        _fail("anneal best_m differs between the cuda and dense backends")
-    if track_energy and not (np.array_equal(r.energy_min, ref.energy_min)
-                             and np.array_equal(r.energy_mean, ref.energy_mean)):
-        _fail("anneal energy traces differ between the cuda and dense backends")
-    return r, wall, counts
+    peak = torch.cuda.max_memory_allocated() - live
+    if dense_ref:
+        ref = anneal(problem, hp, config=SolverConfig(backend="dense", noise=cfg.noise), **kw)
+        if not np.array_equal(r.best_energy, ref.best_energy):
+            _fail(f"anneal best_H differs between cuda and dense backends ({cfg})")
+        if not np.array_equal(r.best_m, ref.best_m):
+            _fail(f"anneal best_m differs between cuda and dense backends ({cfg})")
+        if track_energy and not (np.array_equal(r.energy_min, ref.energy_min)
+                                 and np.array_equal(r.energy_mean, ref.energy_mean)):
+            _fail("anneal energy traces differ between the cuda and dense backends")
+    return r, wall, counts, peak
 
 
-def phase_anneal(track_energy: bool):
+def phase_anneal(path: str, streamed=None):
+    """One main path of anneal() at K2000 width; returns (result, launches
+    of (K1, K3, K4), peak device bytes of the call)."""
     import numpy as np
 
     from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
     from repro_torch.core.ssa import SSAHyperParams
 
     p = gset.load("K2000")
+    track_energy = path == "trace"
     m_shot = M_SHOT_TRACE if track_energy else M_SHOT_PRODUCTION
     hp = SSAHyperParams(n_trials=100, m_shot=m_shot, tau=100, i0_min=1, i0_max=32)
-    r, wall, (k1, k3) = _anneal_pair(p, hp, track_energy)
+    cfg = {
+        "production": SolverConfig(backend="cuda", noise="xorshift"),
+        "trace": SolverConfig(backend="cuda", noise="xorshift"),
+        "threefry-pregen": SolverConfig(backend="cuda", noise="threefry"),
+        "xorshift-pregen": SolverConfig(backend="cuda", noise="xorshift",
+                                        noise_mode="pregen"),
+    }[path]
+    r, wall, (k1, k3, k4), peak = _anneal_run(p, hp, cfg, track_energy,
+                                              dense_ref=streamed is None)
     rate = hp.total_cycles * hp.n_trials * p.n / wall
-    tag = "trace" if track_energy else "production"
-    print(f"[{tag}] {p.name} N={p.n} trials={hp.n_trials} m_shot={m_shot} "
+    print(f"[{path}] {p.name} N={p.n} trials={hp.n_trials} m_shot={m_shot} "
           f"steps={hp.steps} tau={hp.tau}: best cut {r.overall_best_cut}, "
           f"wall {wall:.3f}s, {rate:.4e} spin-cycles/s; "
-          f"K1 launches {k1}, K3 launches {k3}")
+          f"K1 launches {k1}, K3 launches {k3}, K4 launches {k4}; "
+          f"peak device memory of the call {peak} B")
     if not (np.all(np.isfinite(r.best_cut)) and r.best_m.shape == (hp.n_trials, p.n)
             and set(np.unique(r.best_m)) <= {-1, 1}):
         _fail("anneal returned malformed results")
     cut = p.cut_value(r.best_m)
     if not np.array_equal(cut, r.best_cut):
         _fail("best_cut does not match the cut of best_m")
-    if track_energy:
-        if k3 == 0 or k1 != 0:
-            _fail(f"trace path: expected K3 > 0 and K1 == 0, got K3={k3}, K1={k1}")
+    plateaus = hp.m_shot * hp.steps
+    if path == "trace":
+        if k3 == 0 or k1 != 0 or k4 != 0:
+            _fail(f"trace path: expected K3 > 0, K1 == K4 == 0, got {k1, k3, k4}")
         if r.energy_min.shape != (hp.total_cycles,):
             _fail("energy trace has the wrong length")
-    else:
-        if k1 != hp.m_shot * hp.steps or k3 != 0:
-            _fail(f"production path: expected K1 == {hp.m_shot * hp.steps} and "
-                  f"K3 == 0, got K1={k1}, K3={k3}")
-    return k1, k3
+    elif path == "production":
+        if (k1, k3, k4) != (plateaus, 0, 0):
+            _fail(f"production path: expected (K1, K3, K4) == ({plateaus}, 0, 0), "
+                  f"got {k1, k3, k4}")
+    elif (k1, k3, k4) != (0, 0, plateaus):
+        _fail(f"{path} path: expected (K1, K3, K4) == (0, 0, {plateaus}), got {k1, k3, k4}")
+    if streamed is not None and not (np.array_equal(r.best_energy, streamed.best_energy)
+                                     and np.array_equal(r.best_m, streamed.best_m)):
+        _fail("xorshift pregen (K4) differs from the streamed K1 run")
+    return r, (k1, k3, k4), peak
+
+
+def phase_memory():
+    """Per-plateau state plus noise buffer of each datapath at K2000, the
+    way benchmarks/timing.py reckons them: the pregen baseline in the dense
+    layout with its (C, T, N) int8 buffer, the streamed kernel in the
+    packed layout with none."""
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.engine import make_backend
+    from repro_torch.core.memory import tree_device_bytes
+
+    model = gset.load("K2000").to_ising()
+    T, tau = 100, 100
+    out = {}
+    for mode, layout in (("pregen", "dense"), ("streamed", "packed")):
+        cfg = SolverConfig(backend="cuda", noise="xorshift", noise_mode=mode,
+                           storage_layout=layout)
+        bk = make_backend(config=cfg, model=model, n_trials=T, device="cuda")
+        state = bk.init_state(0)
+        state_bytes = tree_device_bytes(state)
+        noise_bytes = 0
+        if mode == "pregen":
+            _, noise = bk._pregen_noise(bk.init_state(0).noise_state, tau)
+            noise_bytes = tree_device_bytes(noise)
+        out[mode] = state_bytes + noise_bytes
+        print(f"[memory] {mode} ({layout} layout): state {state_bytes} B + noise buffer "
+              f"{noise_bytes} B = {out[mode]} B ({out[mode] / (T * model.n):.3f} B per "
+              "(trial, spin))")
+    print(f"[memory] pregen / streamed: {out['pregen'] / out['streamed']:.4f}x")
+    return out
 
 
 def main():
@@ -311,8 +459,15 @@ def main():
     phase_build()
     k3 = phase_k3(dev)
     k1 = phase_k1(dev)
-    k1_launches, _ = phase_anneal(track_energy=False)
-    _, k3_launches = phase_anneal(track_energy=True)
+    phase_threefry(dev)
+    k4 = phase_k4(dev)
+    streamed, (k1_launches, _, _), streamed_peak = phase_anneal("production")
+    _, (_, k3_launches, _), _ = phase_anneal("trace")
+    _, (_, _, k4_launches), _ = phase_anneal("threefry-pregen")
+    _, _, pregen_peak = phase_anneal("xorshift-pregen", streamed=streamed)
+    print(f"[memory] peak device memory of one anneal() call, xorshift: pregen "
+          f"{pregen_peak} B, streamed {streamed_peak} B")
+    phase_memory()
     kernels = [
         dict(name="ssa_plateau_packed (K1)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
@@ -322,6 +477,10 @@ def main():
              source="src/repro_torch/kernels/csrc/field.cu",
              replaces="src/repro/kernels/ssa_update.py:90",
              launches=k3_launches, **k3),
+        dict(name="ssa_plateau (K4)", route="cuda",
+             source="src/repro_torch/kernels/csrc/plateau_pregen.cu",
+             replaces="src/repro/kernels/ssa_update.py:150",
+             launches=k4_launches, **k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -67,10 +67,15 @@ def engine_state_from_arrays(
 ) -> Union[EngineState, PackedEngineState]:
     """Build an engine state from numpy arrays.
 
-    ``noise_state`` is the (4, T, N) uint32 lanes; ``m``/``best_m`` are
-    (T, N) ±1 spins, or (T, ceil(N/32)) uint32 words when ``packed``.
+    ``noise_state`` is the (4, T, N) uint32 xorshift lanes or a (2,) uint32
+    threefry key; ``m``/``best_m`` are (T, N) ±1 spins, or (T, ceil(N/32))
+    uint32 words when ``packed``.
     """
-    ns = _as_i32(noise_state, device)
+    key = np.asarray(noise_state)
+    if key.shape == (2,):
+        ns = tuple(int(k) for k in key.astype(np.uint32))
+    else:
+        ns = _as_i32(noise_state, device)
     it = _as_i32(itanh, device)
     bh = _as_i32(best_H, device)
     if packed:
@@ -83,7 +88,11 @@ def engine_state_to_arrays(
     state: Union[EngineState, PackedEngineState],
 ) -> Tuple[np.ndarray, ...]:
     """(noise_state, m, itanh, best_H, best_m) as numpy arrays, with the
-    lanes and packed words as uint32 and unpacked spins as int8."""
+    lanes (or the threefry key) and packed words as uint32 and unpacked
+    spins as int8."""
+    if isinstance(state.noise_state, tuple):
+        state = state._replace(noise_state=torch.tensor(
+            np.asarray(state.noise_state, np.uint32).view(np.int32)))
     ns, m, it, bh, bm = (t.cpu().numpy() for t in state)
     if isinstance(state, PackedEngineState):
         m, bm = m.view(np.uint32), bm.view(np.uint32)

@@ -10,7 +10,7 @@ substitute path.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["SolverConfig", "not_ported"]
 
@@ -19,9 +19,6 @@ _LAYOUTS = ("dense", "packed")
 
 # What each option outside the ported slice waits for, by ROADMAP.md item.
 _WAITS = {
-    "threefry": "ROADMAP.md queue 2, K4 (threefry noise and the "
-                "pregenerated-noise plateau kernel)",
-    "pregen": "ROADMAP.md queue 2, K4 (the pregenerated-noise plateau kernel)",
     "popcount": "ROADMAP.md queue 2, K2 (the XNOR-popcount chain kernel, "
                 "with the batched service of queue 1 step 4)",
     "tiled": "ROADMAP.md queue 1 step 2 (j_mode='tiled': streamed J slabs)",
@@ -50,8 +47,11 @@ class SolverConfig:
     * ``field_mode`` — 'auto' (the backend's default, a dense contraction)
       | 'dense'.
     * ``j_mode`` — 'auto' | 'dense' (dense backend only).
-    * ``noise`` — 'xorshift'.
-    * ``noise_mode`` — 'auto' | 'streamed' (cuda: noise made in-kernel).
+    * ``noise`` — 'xorshift' | 'threefry' (``jax.random``'s generator).
+    * ``noise_mode`` — 'auto' | 'streamed' | 'pregen' (cuda only):
+      'streamed' makes xorshift noise inside the plateau kernel, 'pregen'
+      draws a (C, T, N) noise buffer per plateau for the pregenerated-noise
+      kernel; 'auto' streams xorshift and pregenerates threefry.
     * ``partition`` — 'problem'.
     * ``backend_opts`` — residual per-backend options as a key-sorted
       tuple of (key, value) pairs.
@@ -82,9 +82,13 @@ class SolverConfig:
         _check_choice("field_mode", self.field_mode, ("auto", "dense"),
                       {"popcount": "popcount"})
         _check_choice("j_mode", self.j_mode, ("auto", "dense"), {"tiled": "tiled"})
-        _check_choice("noise", self.noise, ("xorshift",), {"threefry": "threefry"})
-        _check_choice("noise_mode", self.noise_mode, ("auto", "streamed"),
-                      {"pregen": "pregen"})
+        _check_choice("noise", self.noise, ("xorshift", "threefry"))
+        _check_choice("noise_mode", self.noise_mode, ("auto", "streamed", "pregen"))
+        if self.noise_mode == "streamed" and self.noise != "xorshift":
+            raise ValueError(
+                "noise_mode='streamed' requires the xorshift noise family "
+                "(threefry cannot be generated in-kernel)"
+            )
         _check_choice("partition", self.partition, ("problem",),
                       {"spin": "spin", "auto": "spin"})
         if opts.get("n_replicas"):
@@ -108,8 +112,8 @@ class SolverConfig:
         return out
 
 
-def _check_choice(name: str, value, allowed, waiting: dict):
-    if value in waiting:
+def _check_choice(name: str, value, allowed, waiting: Optional[dict] = None):
+    if waiting and value in waiting:
         raise not_ported(f"{name}={value!r}", waiting[value])
     if value not in allowed:
         raise ValueError(f"{name} {value!r} not in {allowed}")

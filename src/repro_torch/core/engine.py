@@ -8,12 +8,15 @@ a pluggable :class:`PlateauBackend`:
 * :class:`SparseBackend` / :class:`DenseBackend` — a Python loop over the
   cycles of a plateau (:func:`run_plateau_scan`), one field contraction per
   cycle: the field of the update of m(t) is reused for H(m(t)).
-* :class:`CudaBackend` — the resident CUDA plateau kernel K1
-  (:func:`repro_torch.kernels.ssa_update.ssa_plateau_packed`): one launch per
-  plateau, spins packed at the launch boundary, the xorshift noise stepped
-  inside the kernel.  Plateaus that must emit per-cycle outputs (energy
-  traces, trajectory planes) run the cycle loop over the CUDA field kernel
-  K3 instead.
+* :class:`CudaBackend` — a resident CUDA plateau kernel, one launch per
+  plateau: with streamed noise K1
+  (:func:`repro_torch.kernels.ssa_update.ssa_plateau_packed`: spins packed
+  at the launch boundary, the xorshift noise stepped inside the kernel),
+  with pregenerated noise K4 (:func:`repro_torch.kernels.ssa_update.
+  ssa_plateau`: a (C, T, N) noise buffer drawn before the launch — always
+  for threefry, on request for xorshift).  Plateaus that must emit
+  per-cycle outputs (energy traces, trajectory planes) run the cycle loop
+  over the CUDA field kernel K3 instead.
 
 Tracking semantics, shared by every backend and by the kernels: within a
 plateau that starts at m(t0), the states it produces, m(t0+1) … m(t0+C),
@@ -31,6 +34,7 @@ Tensors live on the backend's ``device``: ``cuda`` unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -41,7 +45,15 @@ from ..kernels import ssa_update as kssa
 from ..kernels.bitplane import pack_spins, unpack_spins
 from .config import SolverConfig, not_ported
 from .ising import IsingModel, MaxCutProblem, local_fields_dense, local_fields_sparse
-from .rng import xorshift_init, xorshift_next_bits
+from .rng import (
+    threefry_key,
+    threefry_noise,
+    threefry_noise_cycles,
+    threefry_split,
+    xorshift_init,
+    xorshift_next_bits,
+    xorshift_noise_cycles,
+)
 from .schedule import Schedule
 
 __all__ = [
@@ -62,6 +74,7 @@ __all__ = [
     "make_backend",
     "resolve_device",
     "resolve_j_mode",
+    "resolve_noise_mode",
     "normalize_problem",
     "validate_model",
     "finalize_cut",
@@ -261,9 +274,11 @@ def tile_plateaus(plateaus: Sequence[Plateau], total_cycles: int) -> Tuple[Plate
 # Engine state and the shared one-plateau loop
 # ---------------------------------------------------------------------------
 class EngineState(NamedTuple):
-    """State carried between plateaus; spins are int8 ±1."""
+    """State carried between plateaus; spins are int8 ±1.  The noise state
+    is the (4, T, N) int32 xorshift lanes, or the threefry key (a pair of
+    Python ints, kept on the host)."""
 
-    noise_state: torch.Tensor  # (4, T, N) int32 xorshift lanes
+    noise_state: Any           # (4, T, N) int32 lanes | (k0, k1) key
     m: torch.Tensor            # (T, N) int8 spins
     itanh: torch.Tensor        # (T, N) int32 Itanh state
     best_H: torch.Tensor       # (T,) int32 running best energy
@@ -273,7 +288,7 @@ class EngineState(NamedTuple):
 class PackedEngineState(NamedTuple):
     """EngineState with spins stored as 32-bit words (1 bit per spin)."""
 
-    noise_state: torch.Tensor     # (4, T, N) int32
+    noise_state: Any              # (4, T, N) int32 lanes | (k0, k1) key
     m_packed: torch.Tensor        # (T, ceil(N/32)) int32 words
     itanh: torch.Tensor           # (T, N) int32
     best_H: torch.Tensor          # (T,) int32
@@ -372,15 +387,11 @@ class PlateauBackend:
         *,
         n_trials: int,
         n_rnd: int = 2,
-        noise: str = "xorshift",
+        noise: str = "threefry",
         storage_layout: str = "dense",
         n_replicas: int = 0,
         device=None,
     ):
-        if noise == "threefry":
-            raise not_ported("noise='threefry'", "threefry")
-        if noise != "xorshift":
-            raise ValueError(f"unknown noise {noise!r}")
         if n_replicas:
             raise not_ported("n_replicas (SSQA)", "ssqa")
         if storage_layout not in ("dense", "packed"):
@@ -392,11 +403,25 @@ class PlateauBackend:
         self.storage_layout = storage_layout
         self.device = resolve_device(device)
         self.h = torch.as_tensor(model.h, dtype=torch.int32, device=self.device)
+        lanes = (self.n_trials, model.n)
+        if noise == "xorshift":
+            self._noise_init = functools.partial(xorshift_init, lanes=lanes,
+                                                 device=self.device)
+            self._noise_step = xorshift_next_bits
+        elif noise == "threefry":
+            self._noise_init = threefry_key
+
+            def step(key):
+                key, sub = threefry_split(key)
+                return key, threefry_noise(sub, lanes, self.device)
+
+            self._noise_step = step
+        else:
+            raise ValueError(f"unknown noise {noise!r}")
 
     def init_state(self, seed: int):
-        """Random ±1 start from the first noise draw of the lanes."""
-        ns = xorshift_init(seed, (self.n_trials, self.model.n), self.device)
-        ns, r0 = xorshift_next_bits(ns)
+        """Random ±1 start from the first noise draw."""
+        ns, r0 = self._noise_step(self._noise_init(seed))
         m0 = r0.to(torch.int8)
         itanh0 = torch.where(m0 > 0, 0, -1).to(torch.int32)
         best_H = torch.full(
@@ -412,7 +437,7 @@ class PlateauBackend:
         packed = self.storage_layout == "packed"
         st = unpack_state(state, self.model.n) if packed else state
         st, trace, planes = run_plateau_scan(
-            self._field, xorshift_next_bits, self.h, self.n_rnd, st, i0,
+            self._field, self._noise_step, self.h, self.n_rnd, st, i0,
             length=length, eligible=eligible, track_energy=track_energy,
             emit=emit,
         )
@@ -470,6 +495,20 @@ def _check_field_mode(field_mode: str):
         raise ValueError(f"unknown field_mode {field_mode!r}")
 
 
+def resolve_noise_mode(noise_mode: str, noise: str) -> str:
+    """Resident-kernel noise datapath: 'streamed' (in-kernel xorshift, no
+    noise buffer, K1) vs 'pregen' (a per-plateau (C, T, N) buffer, K4).
+    'auto' streams whenever the source is xorshift; threefry cannot be
+    reproduced in-kernel, so it always pregenerates."""
+    if noise_mode == "auto":
+        return "streamed" if noise == "xorshift" else "pregen"
+    if noise_mode not in ("streamed", "pregen"):
+        raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    if noise_mode == "streamed" and noise != "xorshift":
+        raise ValueError("noise_mode='streamed' requires noise='xorshift'")
+    return noise_mode
+
+
 class DenseBackend(PlateauBackend):
     """(T, N)·(N, N) float32 matmul field (K2000-class dense instances).
 
@@ -494,18 +533,25 @@ class DenseBackend(PlateauBackend):
 
 
 class CudaBackend(PlateauBackend):
-    """The resident CUDA plateau kernel: one launch per plateau.
+    """The resident CUDA plateau kernels: one launch per plateau.
 
-    Counterpart of the JAX package's ``PallasBackend`` with xorshift noise
-    and the dense field.  A plateau without per-cycle outputs runs K1
-    (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_packed`): spins
-    cross the launch boundary as 32-bit words and the noise lanes are
-    stepped inside the kernel, so no (C, T, N) noise buffer exists.
+    Counterpart of the JAX package's ``PallasBackend`` with the dense
+    field.  A plateau without per-cycle outputs runs one kernel:
+
+    * ``noise_mode='streamed'`` (xorshift's default): K1
+      (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_packed`) — spins
+      cross the launch boundary as 32-bit words and the noise lanes are
+      stepped inside the kernel, so no (C, T, N) noise buffer exists;
+    * ``noise_mode='pregen'`` (threefry's only datapath; opt-in for
+      xorshift, bit-identical to streamed): K4
+      (:func:`~repro_torch.kernels.ssa_update.ssa_plateau`) over the
+      plateau's (C, T, N) int8 noise, drawn before the launch.
+
     Plateaus that need per-cycle outputs (``track_energy``, trajectory
     planes) run the cycle loop with the field from K3
     (:func:`~repro_torch.kernels.ops.local_field`).
 
-    On CPU tensors (``device='cpu'``) both wrappers run their plain
+    On CPU tensors (``device='cpu'``) the wrappers run their plain
     versions — the path the CPU tests hold against the JAX package.
     """
 
@@ -514,16 +560,21 @@ class CudaBackend(PlateauBackend):
     def __init__(self, model: IsingModel, *, noise_mode: str = "auto",
                  field_mode: str = "dense", **kw):
         super().__init__(model, **kw)
-        if noise_mode == "pregen":
-            raise not_ported("noise_mode='pregen'", "pregen")
-        if noise_mode not in ("auto", "streamed"):
-            raise ValueError(f"unknown noise_mode {noise_mode!r}")
+        self.noise_mode = resolve_noise_mode(noise_mode, self.noise)
         _check_field_mode(field_mode)
         self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
                                  device=self.device)
 
     def _field(self, m):
         return kops.local_field(m, self.h, self.J)
+
+    def _pregen_noise(self, ns, length: int):
+        """The plateau's (C, T, N) int8 noise and the noise state after it:
+        the same draws, in the same order, as C cycles of the loop."""
+        if self.noise == "threefry":
+            return threefry_noise_cycles(ns, length, (self.n_trials, self.model.n),
+                                         self.device)
+        return xorshift_noise_cycles(ns, length)
 
     def run_plateau(self, state, i0, *, length: int, eligible: bool,
                     track_energy: bool = False, emit: bool = False):
@@ -533,6 +584,15 @@ class CudaBackend(PlateauBackend):
                 track_energy=track_energy, emit=emit,
             )
         packed = self.storage_layout == "packed"
+        if self.noise_mode == "pregen":
+            st = unpack_state(state, self.model.n) if packed else state
+            ns, noise = self._pregen_noise(st.noise_state, length)
+            m_o, it_o, bh_o, bm_o = kssa.ssa_plateau(
+                st.m.to(torch.float32), st.itanh, self.J, self.h, noise, int(i0),
+                st.best_H, st.best_m, n_rnd=self.n_rnd, eligible=bool(eligible),
+            )
+            out = EngineState(ns, m_o.to(torch.int8), it_o, bh_o, bm_o)
+            return (pack_state(out) if packed else out), None, None
         mp = state.m_packed if packed else pack_spins(state.m)
         bmp = state.best_m_packed if packed else pack_spins(state.best_m)
         mp_o, it_o, rng_o, bh_o, bmp_o = kssa.ssa_plateau_packed(
@@ -578,7 +638,7 @@ def make_backend(
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {sorted(BACKENDS)}")
     return BACKENDS[backend](model, n_trials=n_trials, n_rnd=n_rnd,
-               noise="xorshift" if noise is None else noise, device=device,
+               noise="threefry" if noise is None else noise, device=device,
                **opts)
 
 

@@ -1,6 +1,9 @@
-"""Xorshift128 noise lanes: one independent lane per (trial, spin).
+"""Noise sources of the p-bits: xorshift128 lanes and threefry draws.
 
-Port of the xorshift half of ``repro.core.rng``.  The FPGA's spin gates draw
+Port of ``repro.core.rng``.
+
+**xorshift128** (the production source): one independent lane per (trial,
+spin).  The FPGA's spin gates draw
 one noise bit per cycle from a XOR-shift generator; here each (trial, spin)
 lane carries a Marsaglia xorshift128 state of four 32-bit words, seeded by
 the same SplitMix avalanche as the JAX package so that both produce the same
@@ -11,6 +14,26 @@ arithmetic, so the lanes are carried as ``int32`` tensors holding the
 uint32 bit patterns, and the right shifts go through :func:`_srl`, a
 logical shift.  A kernel that takes the lanes reads the same bytes as
 ``uint32``.
+
+**threefry** (the JAX package's default for ``anneal()``): the noise of
+``jax.random`` — a key chain on the host, one split per cycle, and a
+counter-based draw on the device.  It reproduces ``jax.random`` as the
+JAX package runs it: jax >= 0.5 with ``jax_threefry_partitionable=True``
+(the default since 0.5) and 64-bit types off.  jax < 0.5 defaulted to the
+non-partitionable scheme, whose counters and splits differ, so its draws
+are not these.  In the partitionable scheme
+
+* a draw of ``shape`` hashes the flat element index, split into
+  (hi, lo) 32-bit counters, under the key: bits = b1 ^ b2 of
+  ``threefry2x32(key, (hi, lo))``;
+* ``split(key)`` is that draw of shape (2,): the output pairs are the new
+  key and the subkey;
+* ``bernoulli(sub, 0.5)`` is true — noise +1 — exactly when bit 31 of the
+  bits is 0.
+
+The words are carried as ``int64`` tensors masked to 32 bits (torch has no
+logical shift or unsigned compare on 32-bit words); keys are pairs of
+Python ints.
 """
 from __future__ import annotations
 
@@ -23,6 +46,12 @@ __all__ = [
     "xorshift_init",
     "xorshift_next_bits",
     "xorshift_lanes_ok",
+    "xorshift_noise_cycles",
+    "threefry2x32",
+    "threefry_key",
+    "threefry_split",
+    "threefry_noise",
+    "threefry_noise_cycles",
 ]
 
 
@@ -70,6 +99,16 @@ def xorshift_next_bits(state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     return new_state, noise
 
 
+def xorshift_noise_cycles(state: torch.Tensor, n_cycles: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n_cycles`` successive steps of the lanes: (state after them,
+    (C,) + lanes int8 ±1 noise), the pregenerated noise of a plateau."""
+    draws = []
+    for _ in range(int(n_cycles)):
+        state, r = xorshift_next_bits(state)
+        draws.append(r.to(torch.int8))
+    return state, torch.stack(draws)
+
+
 def xorshift_lanes_ok(state, axis: int = 0) -> bool:
     """Integrity check on carried lanes: no all-zero lane (xorshift's fixed
     point).  ``axis`` is the 4-word state axis."""
@@ -77,3 +116,96 @@ def xorshift_lanes_ok(state, axis: int = 0) -> bool:
     if arr.ndim <= axis or arr.shape[axis] != 4:
         return False
     return not bool(np.all(arr == 0, axis=axis).any())
+
+
+# ---------------------------------------------------------------------------
+# threefry2x32 and the jax.random noise built on it
+# ---------------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Key = Tuple[int, int]
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds, as ``jax.random`` computes it.
+
+    Works on Python ints or ``int64`` tensors holding 32-bit words (keys
+    and counters broadcast against each other); returns the two output
+    words, masked to 32 bits.
+    """
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def threefry_key(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off: the seed is taken
+    as a 32-bit integer, so the high word is 0 and the low word is
+    ``seed mod 2**32``."""
+    return (0, int(seed) & _M32)
+
+
+def threefry_split(key: Key) -> Tuple[Key, Key]:
+    """``key, sub = jax.random.split(key)`` on the host."""
+    k0, k1 = key
+    a0, a1 = threefry2x32(k0, k1, 0, 0)
+    b0, b1 = threefry2x32(k0, k1, 0, 1)
+    return (a0, a1), (b0, b1)
+
+
+def _draw_sign(k0, k1, n: int, device) -> torch.Tensor:
+    """bit 31 of (b1 ^ b2) for flat counters 0..n-1 under keys (k0, k1),
+    which may be (C, 1) tensors; returns True where the noise is +1."""
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    hi = lo >> 32
+    b0, b1 = threefry2x32(k0, k1, hi, lo & _M32)
+    return ((b0 ^ b1) >> 31) == 0
+
+
+def threefry_noise(key: Key, shape: Tuple[int, ...], device=None) -> torch.Tensor:
+    """±1 int32 noise of ``shape`` from one key — the port of
+    ``repro.core.rng.threefry_noise``."""
+    n = int(np.prod(shape)) if shape else 1
+    plus = _draw_sign(key[0], key[1], n, device)
+    return torch.where(plus, 1, -1).to(torch.int32).reshape(shape)
+
+
+# Elements per vectorised draw: bounds the int64 temporaries of a
+# pregenerated plateau (about ten live tensors of 8 B per element).
+_DRAW_CHUNK = 1 << 22
+
+
+def threefry_noise_cycles(key: Key, n_cycles: int, shape: Tuple[int, ...],
+                          device=None) -> Tuple[Key, torch.Tensor]:
+    """``n_cycles`` successive per-cycle draws in one pass.
+
+    The key chain (one split per cycle) runs on the host; the draws run on
+    ``device`` with the cycles' subkeys broadcast, in chunks of whole
+    cycles.  Returns (key after the last split, (C,) + shape int8 ±1
+    noise) — equal to C calls of ``key, sub = split(key);
+    threefry_noise(sub, shape)``.
+    """
+    subs = []
+    for _ in range(int(n_cycles)):
+        key, sub = threefry_split(key)
+        subs.append(sub)
+    n = int(np.prod(shape)) if shape else 1
+    out = torch.empty((len(subs), n), dtype=torch.int8, device=device)
+    per = max(1, _DRAW_CHUNK // max(n, 1))
+    for c0 in range(0, len(subs), per):
+        ks = torch.tensor(subs[c0:c0 + per], dtype=torch.int64).to(device)
+        plus = _draw_sign(ks[:, 0:1], ks[:, 1:2], n, device)
+        out[c0:c0 + per] = torch.where(plus, 1, -1).to(torch.int8)
+    return key, out.reshape((len(subs),) + tuple(shape))

@@ -12,7 +12,8 @@ storage policy (every plateau vs only I0 == I0max) and duration control
 of :mod:`repro_torch.core.engine`: ``m_shot`` iterations of ``steps``
 plateaus, each advanced by the configured backend — with
 ``SolverConfig(backend='cuda')`` one launch of the CUDA plateau kernel per
-plateau when no per-cycle output is asked for.
+plateau when no per-cycle output is asked for (K1 with streamed xorshift
+noise, K4 with pregenerated noise).
 """
 from __future__ import annotations
 
@@ -119,8 +120,10 @@ def anneal(
 
     ``storage='i0max'`` + ``schedule_kind='hassa'`` is the paper's HA-SSA;
     ``storage='all'`` + ``schedule_kind='ssa'`` is conventional SSA.
-    ``config`` holds the execution options (default ``SolverConfig()``:
-    sparse backend, xorshift noise, dense layout).  ``device`` defaults to
+    ``config`` holds the execution options.  Without one, ``anneal()``
+    runs ``SolverConfig(noise='threefry')`` (sparse backend, threefry
+    noise, dense layout), as the JAX package's ``anneal()`` does: its
+    historical default noise is threefry, not ``SolverConfig``'s xorshift.  ``device`` defaults to
     ``cuda``; pass ``device='cpu'`` to run on the CPU.
 
     ``record='best'`` tracks the running arg-best over storage-eligible
@@ -133,7 +136,7 @@ def anneal(
         raise not_ported(f"hp={hp!r}", "autotune")
     if getattr(hp, "n_replicas", 0):
         raise not_ported("SSQA hyper-parameters (n_replicas)", "ssqa")
-    cfg = SolverConfig() if config is None else config
+    cfg = SolverConfig(noise="threefry") if config is None else config
     maxcut, model = normalize_problem(problem)
     sched = hp.schedule(schedule_kind)
     bk = make_backend(

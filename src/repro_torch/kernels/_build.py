@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` beside this
 file (listed in .gitignore), compiled for Hopper (``sm_90a``) with a plain C
-interface.  The hash covers the source and the flags, so an edited source
-is rebuilt and an unchanged one is reused.  :func:`build` starts one nvcc
+interface.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  :func:`build` starts one nvcc
 per missing library, all at once; :func:`library` builds on first use.
 Nothing is built or loaded when this module is imported.
 """
@@ -23,7 +24,7 @@ __all__ = ["SOURCES", "build", "library", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("field", "plateau")
+SOURCES = ("field", "plateau", "plateau_pregen")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +46,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(repr(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -23,50 +23,23 @@
 // limit is the latency of those loads rather than L2's byte rate.
 //
 // Design: one block per (problem, TR trials), TR = 1, 2 or 4 (the result
-// does not depend on the tiling; 2 measured fastest at K2000).  J does not fit in shared memory (227 KB
-// per block), so it streams from L2 (50 MB holds K2000's J): thread j reads
-// column j of row k, so neighbouring threads read neighbouring addresses,
-// and each J element read is used for the block's TR trials.  The spins of
-// the block's trials live in shared memory as floats, double-buffered
-// (cur/next, [N][TR] so one vector load gives a spin of every trial), with
-// the running best spins as packed words beside them; Itanh and the four
-// lane words (20 B per element) stay in global memory, in the output
-// tensors, each touched once per cycle by the thread that owns its column.
-// The energy is reduced in int32 (exact: the sum is even and far below
-// 2^31), and packed words are made with warp ballots, so tail bits are 0.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// does not depend on the tiling; 2 measured fastest at K2000).  J does not
+// fit in shared memory (227 KB per block), so it streams from L2 (50 MB
+// holds K2000's J) every cycle; the cycle loop is plateau_cycle.cuh's,
+// shared with K4.  The spins of the block's trials live in shared memory
+// as floats, double-buffered, with the running best spins as packed words
+// beside them; Itanh and the four lane words (20 B per element) stay in
+// global memory, in the output tensors, each touched once per cycle by the
+// thread that owns its column.  Packed words are made with warp ballots,
+// so tail bits are 0.
+#include "plateau_cycle.cuh"
 
 #include <algorithm>
-#include <cstdint>
 
 namespace {
 
-constexpr int MAX_THREADS = 1024;
-constexpr int DEFAULT_SMEM = 48 * 1024;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// One shared-memory vector load of spin k of each of the block's trials.
-template <int TR> __device__ __forceinline__ void load_spins(const float* p, float* v);
-template <> __device__ __forceinline__ void load_spins<1>(const float* p, float* v) {
-  v[0] = p[0];
-}
-template <> __device__ __forceinline__ void load_spins<2>(const float* p, float* v) {
-  const float2 a = *reinterpret_cast<const float2*>(p);
-  v[0] = a.x; v[1] = a.y;
-}
-template <> __device__ __forceinline__ void load_spins<4>(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using plateau::DEFAULT_SMEM;
+using plateau::MAX_THREADS;
 
 // Packed word w of trial t of the spins in `m` ([N][TR] floats); called by
 // whole warps.  Bits at index >= N are 0.
@@ -75,6 +48,37 @@ __device__ __forceinline__ uint32_t pack_word(const float* m, int t, int w, int 
   const int k = (w << 5) + lane;
   return __ballot_sync(0xffffffffu, k < N && m[k * TR + t] > 0.f);
 }
+
+// Noise stepped from the carried xorshift128 lanes (in the output tensor);
+// the running best as packed words in shared memory.
+template <int TR>
+struct StreamedIO {
+  uint32_t* rng;  // lane word 0 of the block's first trial; words RN apart
+  size_t RN;
+  uint32_t* best_w;  // [TR][Nw] shared
+  int N, Nw;
+
+  __device__ __forceinline__ int noise(int t, int j, int) {
+    const size_t l = (size_t)t * N + j;
+    const uint32_t x = rng[l], y = rng[l + RN];
+    const uint32_t z = rng[l + 2 * RN], w = rng[l + 3 * RN];
+    const uint32_t tt = x ^ (x << 11);
+    const uint32_t wn = (w ^ (w >> 19)) ^ (tt ^ (tt >> 8));
+    rng[l] = y;
+    rng[l + RN] = z;
+    rng[l + 2 * RN] = w;
+    rng[l + 3 * RN] = wn;
+    return (wn >> 31) ? 1 : -1;
+  }
+
+  __device__ __forceinline__ void store_best(int t, const float* m) {
+    const int lane = threadIdx.x & 31;
+    for (int w = threadIdx.x >> 5; w < Nw; w += blockDim.x >> 5) {
+      const uint32_t word = pack_word<TR>(m, t, w, N, lane);
+      if (lane == 0) best_w[t * Nw + w] = word;
+    }
+  }
+};
 
 template <typename JT, int TR>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -91,9 +95,7 @@ plateau_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in
   float* m_nxt = m_cur + (size_t)N * TR;              // [N][TR]
   const int Nw = (N + 31) >> 5;
   uint32_t* best_w = reinterpret_cast<uint32_t*>(m_nxt + (size_t)N * TR);  // [TR][Nw]
-  __shared__ int red[TR][32];
   __shared__ int bh_s[TR];
-  __shared__ int better_s[TR];
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
@@ -103,8 +105,6 @@ plateau_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in
   const size_t RN = (size_t)R * N;
   const size_t row0 = (size_t)b * R + t0;                     // first (b, trial) row
   const size_t lane0 = (size_t)b * 4 * RN + (size_t)t0 * N;   // lane word 0 of row0
-  J += (size_t)b * N * N;
-  h += (size_t)b * N;
 
   // Prologue: unpack spins, copy Itanh and the lanes to the outputs (the
   // thread that owns column j copies it and is the only one to touch it).
@@ -132,91 +132,10 @@ plateau_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in
   if (tid < TR) bh_s[tid] = (tid < nt) ? bh_in[row0 + tid] : 0;
   __syncthreads();
 
-  for (int c = 0; c <= n_cycles; ++c) {
-    const bool last = (c == n_cycles);      // the epilogue field: no update
-    const bool fold = eligible && (c > 0 || last);
-    if (last && !fold) break;
-    int ep[TR];
-#pragma unroll
-    for (int t = 0; t < TR; ++t) ep[t] = 0;
-
-    for (int j = tid; j < N; j += nthr) {
-      float acc[TR];
-#pragma unroll
-      for (int t = 0; t < TR; ++t) acc[t] = 0.f;
-      const JT* Jc = J + j;
-#pragma unroll 8
-      for (int k = 0; k < N; ++k) {
-        const float jv = to_f32(Jc[(size_t)k * N]);
-        float mv[TR];
-        load_spins<TR>(m_cur + k * TR, mv);
-#pragma unroll
-        for (int t = 0; t < TR; ++t) acc[t] = fmaf(mv[t], jv, acc[t]);
-      }
-      const int hj = h[j];
-      float mj[TR];
-      load_spins<TR>(m_cur + j * TR, mj);
-#pragma unroll
-      for (int t = 0; t < TR; ++t) {
-        const int f = __float2int_rz(acc[t]) + hj;
-        const int s = mj[t] > 0.f ? 1 : -1;
-        ep[t] += s * (hj + f);
-        if (!last && t < nt) {
-          const size_t l = lane0 + (size_t)t * N + j;
-          const uint32_t x = rng_out[l], y = rng_out[l + RN];
-          const uint32_t z = rng_out[l + 2 * RN], w = rng_out[l + 3 * RN];
-          const uint32_t tt = x ^ (x << 11);
-          const uint32_t wn = (w ^ (w >> 19)) ^ (tt ^ (tt >> 8));
-          rng_out[l] = y;
-          rng_out[l + RN] = z;
-          rng_out[l + 2 * RN] = w;
-          rng_out[l + 3 * RN] = wn;
-          const int r = (wn >> 31) ? 1 : -1;
-          const size_t e = (row0 + t) * N + j;
-          const int I = min(max(f + n_rnd * r + it_out[e], -i0), i0 - 1);
-          it_out[e] = I;
-          m_nxt[j * TR + t] = I >= 0 ? 1.f : -1.f;
-        }
-      }
-    }
-
-    if (fold) {
-#pragma unroll
-      for (int t = 0; t < TR; ++t) {
-        const int v = warp_sum(ep[t]);
-        if (lane == 0) red[t][warp] = v;
-      }
-      __syncthreads();
-      if (warp == 0) {
-#pragma unroll
-        for (int t = 0; t < TR; ++t) {
-          const int v = warp_sum(lane < nwarps ? red[t][lane] : 0);
-          if (lane == 0) {
-            const int H = -v / 2;
-            const int better = (t < nt) && (H < bh_s[t]);
-            if (better) bh_s[t] = H;
-            better_s[t] = better;
-          }
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int t = 0; t < TR; ++t) {
-        if (better_s[t]) {
-          for (int w = warp; w < Nw; w += nwarps) {
-            const uint32_t word = pack_word<TR>(m_cur, t, w, N, lane);
-            if (lane == 0) best_w[t * Nw + w] = word;
-          }
-        }
-      }
-    }
-    if (!last) {
-      float* tmp = m_cur;
-      m_cur = m_nxt;
-      m_nxt = tmp;
-    }
-    __syncthreads();
-  }
+  StreamedIO<TR> io{rng_out + lane0, RN, best_w, N, Nw};
+  m_cur = plateau::run_cycles<JT, TR>(io, m_cur, m_nxt, J + (size_t)b * N * N,
+                                      h + (size_t)b * N, it_out + row0 * N, bh_s, nt, N, i0,
+                                      n_cycles, n_rnd, eligible);
 
   for (int t = 0; t < nt; ++t) {
     for (int w = warp; w < Nw; w += nwarps) {

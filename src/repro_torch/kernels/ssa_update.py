@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA kernels of the SSA/HA-SSA spin update.
 
-Two kernels, each the port of one Pallas kernel of
+Three kernels, each the port of one Pallas kernel of
 ``repro/kernels/ssa_update.py``:
 
 * K3, :func:`local_field` — ``field = h + m @ J`` as a shared-memory-tiled
@@ -11,6 +11,10 @@ Two kernels, each the port of one Pallas kernel of
   launch (``csrc/plateau.cu``): spins cross the launch boundary as 32-bit
   words, the xorshift128 lanes are stepped in-kernel, the running best is
   folded on the card.
+* K4, :func:`ssa_plateau_batched` and its B=1 slice :func:`ssa_plateau` —
+  the same plateau with pregenerated noise (``csrc/plateau_pregen.cu``):
+  float32 spins, int8 best spins and a (B, C, R, N) int8 noise buffer.
+  The path of threefry noise and of ``noise_mode='pregen'``.
 
 A wrapper takes its plain version (:mod:`.ref`) only for tensors on the
 CPU.  For CUDA tensors it checks device, dtype, shape and contiguity,
@@ -27,14 +31,15 @@ import torch
 
 from . import _build
 from .bitplane import packed_words
-from .ref import local_field_ref, ssa_plateau_packed_ref
+from .ref import local_field_ref, ssa_plateau_packed_ref, ssa_plateau_ref
 
-__all__ = ["local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched"]
+__all__ = ["local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched",
+           "ssa_plateau", "ssa_plateau_batched"]
 
-# Trials per K1 block (1, 2 or 4).  Each block streams all of J from L2
-# every cycle and uses every J element once per trial it owns; 2 was the
-# fastest of the three at K2000 width on an H100 (chip_smoke.py measures
-# all three each run).  See csrc/plateau.cu.
+# Trials per K1 and K4 block (1, 2 or 4).  Each block streams all of J from
+# L2 every cycle and uses every J element once per trial it owns; 2 was the
+# fastest of the three for K1 at K2000 width on an H100 (chip_smoke.py
+# measures all three each run).  See csrc/plateau.cu.
 TRIALS_PER_BLOCK = 2
 
 # Dynamic shared memory one H100 block may use.
@@ -44,6 +49,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "repro_local_field": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_ssa_plateau_packed": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
+    "repro_ssa_plateau": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8 + [_P],
 }
 
 
@@ -75,6 +81,16 @@ def _check(name: str, t: torch.Tensor, shape, dtypes):
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _trials_per_block(N: int, smem_per_trial: int) -> int:
+    """TRIALS_PER_BLOCK, after checking that the block's shared memory
+    (``smem_per_trial`` bytes for each trial it owns) fits."""
+    tpb = TRIALS_PER_BLOCK
+    if tpb * smem_per_trial > _MAX_SMEM:
+        raise ValueError(f"N={N} needs {tpb * smem_per_trial} B of shared memory "
+                         f"per block (> {_MAX_SMEM})")
+    return tpb
 
 
 def _launch(fn, lib, what: str, dev: torch.device, *args):
@@ -162,12 +178,7 @@ def ssa_plateau_packed_batched(
     _check("best_m_packed", best_m_packed, (B, R, nw), i32)
     if int(n_cycles) < 0:
         raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
-    tpb = TRIALS_PER_BLOCK
-    smem = 4 * tpb * (2 * N + nw)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"N={N} needs {smem} B of shared memory per block (> {_MAX_SMEM})"
-        )
+    tpb = _trials_per_block(N, 4 * (2 * N + nw))
     outs = tuple(torch.empty_like(t) for t in
                  (m_packed, itanh, rng, best_H, best_m_packed))
     if B == 0 or R == 0:
@@ -208,5 +219,86 @@ def ssa_plateau_packed(
         m_packed[None], itanh[None], J[None], h[None], rng[None], i0,
         best_H[None], best_m_packed[None],
         n_cycles=n_cycles, n_rnd=n_rnd, eligible=eligible,
+    )
+    return tuple(o[0] for o in outs)
+
+
+def ssa_plateau_batched(
+    m: torch.Tensor,       # (B, R, N) float32 ±1
+    itanh: torch.Tensor,   # (B, R, N) int32
+    J: torch.Tensor,       # (B, N, N) float32 | bfloat16
+    h: torch.Tensor,       # (B, N) int32
+    noise: torch.Tensor,   # (B, C, R, N) int8 ±1
+    i0: int,
+    best_H: torch.Tensor,  # (B, R) int32
+    best_m: torch.Tensor,  # (B, R, N) int8
+    *,
+    n_rnd: int = 2,
+    eligible: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """K4: one constant-I0 plateau of C = ``noise.shape[1]`` cycles with
+    pregenerated noise, for B problems × R trials, one launch.
+
+    Semantics are those of :func:`~repro_torch.kernels.ref.ssa_plateau_ref`.
+    Replaces ``repro/kernels/ssa_update.py:ssa_plateau_batched``
+    (``_plateau_kernel``).
+
+    Returns (m float32, itanh, best_H, best_m int8).
+    """
+    args = (m, itanh, J, h, noise, best_H, best_m)
+    dev = _device_of(*args)
+    if dev.type == "cpu":
+        return ssa_plateau_ref(m, itanh, J, h, noise, i0, best_H, best_m,
+                               n_rnd=n_rnd, eligible=eligible)
+    if m.dim() != 3 or noise.dim() != 4:
+        raise ValueError(f"m: expected (B, R, N) and noise (B, C, R, N), got "
+                         f"{tuple(m.shape)} and {tuple(noise.shape)}")
+    B, R, N = m.shape
+    C = noise.shape[1]
+    _check("m", m, (B, R, N), (torch.float32,))
+    _check("itanh", itanh, (B, R, N), (torch.int32,))
+    _check("J", J, (B, N, N), _J_TYPES)
+    _check("h", h, (B, N), (torch.int32,))
+    _check("noise", noise, (B, C, R, N), (torch.int8,))
+    _check("best_H", best_H, (B, R), (torch.int32,))
+    _check("best_m", best_m, (B, R, N), (torch.int8,))
+    tpb = _trials_per_block(N, 4 * 2 * N)
+    outs = tuple(torch.empty_like(t) for t in (m, itanh, best_H, best_m))
+    if B == 0 or R == 0:
+        return outs
+    m_o, it_o, bh_o, bm_o = outs
+    fn, lib = _entry("plateau_pregen", "repro_ssa_plateau")
+    _launch(
+        fn, lib, "ssa_plateau", dev,
+        m.data_ptr(), itanh.data_ptr(), J.data_ptr(), h.data_ptr(), noise.data_ptr(),
+        int(i0), best_H.data_ptr(), best_m.data_ptr(),
+        m_o.data_ptr(), it_o.data_ptr(), bh_o.data_ptr(), bm_o.data_ptr(),
+        B, R, N, C, int(n_rnd), int(bool(eligible)),
+        int(J.dtype == torch.bfloat16), tpb,
+    )
+    ssa_plateau_batched.launches += 1
+    return outs
+
+
+ssa_plateau_batched.launches = 0
+
+
+def ssa_plateau(
+    m: torch.Tensor,       # (R, N) float32
+    itanh: torch.Tensor,   # (R, N) int32
+    J: torch.Tensor,       # (N, N)
+    h: torch.Tensor,       # (N,) int32
+    noise: torch.Tensor,   # (C, R, N) int8
+    i0: int,
+    best_H: torch.Tensor,  # (R,) int32
+    best_m: torch.Tensor,  # (R, N) int8
+    *,
+    n_rnd: int = 2,
+    eligible: bool = True,
+):
+    """B=1 slice of :func:`ssa_plateau_batched` (the same kernel)."""
+    outs = ssa_plateau_batched(
+        m[None], itanh[None], J[None], h[None], noise[None], i0,
+        best_H[None], best_m[None], n_rnd=n_rnd, eligible=eligible,
     )
     return tuple(o[0] for o in outs)

@@ -6,7 +6,9 @@
 Solves one G-set instance (a real file under data/gset/ if present, the
 generated twin otherwise: G11, G12, G13, King1, K2000) with HA-SSA or SSA
 on the plateau engine.  ``--backend cuda`` runs each plateau as one launch
-of the CUDA plateau kernel; ``--track-energy`` and ``--record traj`` need
+of a CUDA plateau kernel: the streamed-noise kernel for ``--noise xorshift``
+(the default), the pregenerated-noise kernel for ``--noise threefry`` or
+``--noise-mode pregen``; ``--track-energy`` and ``--record traj`` need
 per-cycle outputs and run the cycle loop over the CUDA field kernel.
 Runs on the GPU unless ``--device cpu`` is given.
 """
@@ -38,6 +40,11 @@ def main(argv=None):
                     help="inter-plateau spin state: int8 spins or 32-bit words "
                          "(bit-identical results)")
     ap.add_argument("--backend", choices=("sparse", "dense", "cuda"), default="sparse")
+    ap.add_argument("--noise", choices=("xorshift", "threefry"), default="xorshift")
+    ap.add_argument("--noise-mode", choices=("auto", "streamed", "pregen"), default="auto",
+                    help="cuda backend: in-kernel xorshift noise (streamed) or a "
+                         "per-plateau noise buffer (pregen); auto streams xorshift "
+                         "and pregenerates threefry")
     ap.add_argument("--record", choices=("best", "traj"), default="best")
     ap.add_argument("--track-energy", action="store_true",
                     help="record per-cycle energy traces (the cycle loop)")
@@ -54,9 +61,11 @@ def main(argv=None):
     p = gset.load(args.problem)
     algo = "HA-SSA" if args.storage == "i0max" else "SSA"
     print(f"{p.name}: N={p.n} |E|={len(p.edges)}; {hp.total_cycles} cycles "
-          f"× {hp.n_trials} trials; backend={args.backend}; device={args.device}; "
+          f"× {hp.n_trials} trials; backend={args.backend}; noise={args.noise}; "
+          f"device={args.device}; "
           f"storage={args.storage} ({algo})")
-    cfg = SolverConfig(backend=args.backend, storage_layout=args.storage_layout)
+    cfg = SolverConfig(backend=args.backend, storage_layout=args.storage_layout,
+                       noise=args.noise, noise_mode=args.noise_mode)
     t0 = time.time()
     r = anneal(p, hp, seed=args.seed, storage=args.storage, record=args.record,
                config=cfg, track_energy=args.track_energy, device=args.device)

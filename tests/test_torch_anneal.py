@@ -48,7 +48,7 @@ def _port_run(problem, backend, layout, record, track_energy, **kw):
     return tssa.anneal(
         PROBLEMS[problem](gset), tssa.SSAHyperParams(**HP), seed=1, record=record,
         track_energy=track_energy, device="cpu",
-        config=SolverConfig(backend=backend, storage_layout=layout), **kw,
+        config=SolverConfig(backend=backend, noise="xorshift", storage_layout=layout), **kw,
     )
 
 
@@ -92,9 +92,11 @@ def test_anneal_variants_match_jax(kw, track_energy):
 def test_cuda_backend_plateau_paths_on_cpu_launch_nothing():
     k1 = ssa_update.ssa_plateau_packed_batched.launches
     k3 = ssa_update.local_field.launches
+    k4 = ssa_update.ssa_plateau_batched.launches
     _port_run("K-like96", "cuda", "dense", "best", True)
     _port_run("K-like96", "cuda", "packed", "traj", False)
-    assert (ssa_update.ssa_plateau_packed_batched.launches, ssa_update.local_field.launches) == (k1, k3)
+    assert (ssa_update.ssa_plateau_packed_batched.launches, ssa_update.local_field.launches,
+            ssa_update.ssa_plateau_batched.launches) == (k1, k3, k4)
 
 
 def test_solve_maxcut_and_cut_consistency():
@@ -110,9 +112,7 @@ def test_solve_maxcut_and_cut_consistency():
 # ROADMAP item they wait for — on the CPU as on the card.
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
-    (dict(noise="threefry"), "K4"),
     (dict(field_mode="popcount"), "K2"),
-    (dict(noise_mode="pregen"), "K4"),
     (dict(j_mode="tiled"), "step 2"),
     (dict(partition="spin"), "step 8"),
     (dict(partition="auto"), "step 8"),
@@ -125,12 +125,9 @@ def test_out_of_slice_config_raises(kw, item):
 
 
 @pytest.mark.parametrize("backend,kw,item", [
-    ("cuda", dict(noise="threefry"), "K4"),
-    ("dense", dict(noise="threefry"), "K4"),
     ("cuda", dict(field_mode="popcount"), "K2"),
     ("cuda", dict(field_mode="auto"), "K2"),
     ("dense", dict(field_mode="popcount"), "K2"),
-    ("cuda", dict(noise_mode="pregen"), "K4"),
     ("dense", dict(j_mode="tiled"), "step 2"),
     ("sparse", dict(n_replicas=4), "step 5"),
     ("auto", {}, "step 3"),
@@ -139,6 +136,48 @@ def test_out_of_slice_backend_options_raise(backend, kw, item):
     model = gset.toroidal_grid(16, seed=0).to_ising()
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         make_backend(backend, model, n_trials=2, device="cpu", **kw)
+
+
+# threefry noise and the pregen datapath (K4) are ported: accepted and run.
+@pytest.mark.parametrize("kw", [
+    dict(noise="threefry"),
+    dict(noise_mode="pregen"),
+    dict(backend="cuda", noise="threefry"),
+    dict(backend="cuda", noise="threefry", noise_mode="pregen"),
+    dict(backend="cuda", noise="xorshift", noise_mode="pregen"),
+    dict(backend="dense", noise="threefry"),
+], ids=lambda v: str(v))
+def test_ported_noise_config_runs(kw):
+    cfg = SolverConfig(**kw)
+    r = tssa.anneal(gset.toroidal_grid(16, seed=0),
+                    tssa.SSAHyperParams(n_trials=2, m_shot=1, tau=3, i0_max=4),
+                    config=cfg, device="cpu")
+    assert r.best_m.shape == (2, 16)
+
+
+@pytest.mark.parametrize("backend,kw", [
+    ("cuda", dict(noise="threefry")),
+    ("dense", dict(noise="threefry")),
+    ("cuda", dict(noise_mode="pregen")),
+    ("cuda", dict(noise="xorshift", noise_mode="pregen")),
+], ids=lambda v: str(v))
+def test_ported_noise_backend_options_run(backend, kw):
+    model = gset.toroidal_grid(16, seed=0).to_ising()
+    bk = make_backend(backend, model, n_trials=2, device="cpu", **kw)
+    assert bk.noise == kw.get("noise", "threefry")
+    if backend == "cuda":
+        assert bk.noise_mode == "pregen"
+    st, _, _ = bk.run_plateau(bk.init_state(1), 4, length=3, eligible=True)
+    assert bk.finalize(st)[1].shape == (2, 16)
+
+
+def test_threefry_streamed_raises():
+    with pytest.raises(ValueError, match="requires the xorshift"):
+        SolverConfig(noise="threefry", noise_mode="streamed")
+    model = gset.toroidal_grid(16, seed=0).to_ising()
+    with pytest.raises(ValueError, match="requires noise='xorshift'"):
+        make_backend("cuda", model, n_trials=2, device="cpu", noise="threefry",
+                     noise_mode="streamed")
 
 
 def test_dense_j_above_threshold_raises():

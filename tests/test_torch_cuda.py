@@ -18,7 +18,11 @@ from repro_torch.core.rng import xorshift_init  # noqa: E402
 from repro_torch.core.ssa import SSAHyperParams, anneal  # noqa: E402
 from repro_torch.kernels import ssa_update  # noqa: E402
 from repro_torch.kernels.bitplane import pack_spins  # noqa: E402
-from repro_torch.kernels.ref import local_field_ref, ssa_plateau_packed_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    local_field_ref,
+    ssa_plateau_packed_ref,
+    ssa_plateau_ref,
+)
 
 OUTS = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
 
@@ -87,7 +91,7 @@ def test_anneal_cuda_matches_dense_on_card(cuda_device, layout, record, track_en
     p = gset.complete_graph(300, seed=7)
     hp = SSAHyperParams(n_trials=7, m_shot=2, tau=6, i0_max=8)
     runs = [anneal(p, hp, seed=3, record=record, track_energy=track_energy, device="cuda",
-                   config=SolverConfig(backend=bk, storage_layout=layout))
+                   config=SolverConfig(backend=bk, noise="xorshift", storage_layout=layout))
             for bk in ("cuda", "dense")]
     got, want = runs
     np.testing.assert_array_equal(got.best_energy, want.best_energy)
@@ -97,3 +101,58 @@ def test_anneal_cuda_matches_dense_on_card(cuda_device, layout, record, track_en
     if track_energy:
         np.testing.assert_array_equal(got.energy_min, want.energy_min)
         np.testing.assert_array_equal(got.energy_mean, want.energy_mean)
+
+
+def _pregen_args(b, r, n, c, seed, flat, dtype, device):
+    rs = np.random.default_rng(seed)
+    best_H = torch.full((b, r), 2**30, dtype=torch.int32)
+    best_H[:, 0] = -10**6
+    args = dict(
+        m=torch.as_tensor(rs.choice([-1.0, 1.0], size=(b, r, n)), dtype=torch.float32),
+        itanh=torch.as_tensor(rs.integers(-6, 6, size=(b, r, n)), dtype=torch.int32),
+        J=torch.as_tensor(np.stack([_coupling(rs, n) * (not flat) for _ in range(b)]),
+                          dtype=getattr(torch, dtype)),
+        h=torch.as_tensor(rs.integers(-2, 3, size=(b, n)) * (not flat), dtype=torch.int32),
+        noise=torch.as_tensor(rs.choice([-1, 1], size=(b, c, r, n)), dtype=torch.int8),
+        best_H=best_H,
+        best_m=torch.as_tensor(rs.choice([-1, 1], size=(b, r, n)), dtype=torch.int8),
+    )
+    return {k: v.to(device) for k, v in args.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,n,c,flat,dtype", [
+    (1, 4, 36, 5, False, "float32"), (1, 13, 1001, 7, False, "float32"),
+    (2, 3, 1001, 3, False, "float32"), (1, 5, 70, 6, True, "float32"),
+    (1, 9, 257, 4, False, "bfloat16"), (1, 100, 2000, 4, False, "float32"),
+    (1, 3, 40, 0, False, "float32"),
+])
+@pytest.mark.parametrize("eligible", [True, False])
+def test_pregen_plateau_kernel_matches_plain(cuda_device, b, r, n, c, flat, dtype, eligible):
+    args = _pregen_args(b, r, n, c, seed=n + c, flat=flat, dtype=dtype, device=cuda_device)
+    before = ssa_update.ssa_plateau_batched.launches
+    got = ssa_update.ssa_plateau_batched(**args, i0=4, eligible=eligible)
+    assert ssa_update.ssa_plateau_batched.launches == before + 1
+    want = ssa_plateau_ref(**args, i0=4, eligible=eligible)
+    for name, g, w in zip(("m", "itanh", "best_H", "best_m"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+@pytest.mark.parametrize("noise", ["threefry", "xorshift"])
+def test_anneal_pregen_matches_dense_on_card(cuda_device, layout, noise):
+    p = gset.complete_graph(300, seed=7)
+    hp = SSAHyperParams(n_trials=7, m_shot=2, tau=6, i0_max=8)
+    before = (ssa_update.ssa_plateau_batched.launches,
+              ssa_update.ssa_plateau_packed_batched.launches)
+    got = anneal(p, hp, seed=3, track_energy=False, device="cuda",
+                 config=SolverConfig(backend="cuda", noise=noise, noise_mode="pregen",
+                                     storage_layout=layout))
+    after = (ssa_update.ssa_plateau_batched.launches,
+             ssa_update.ssa_plateau_packed_batched.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (hp.m_shot * hp.steps, 0)
+    want = anneal(p, hp, seed=3, track_energy=False, device="cuda",
+                  config=SolverConfig(backend="dense", noise=noise, storage_layout=layout))
+    np.testing.assert_array_equal(got.best_energy, want.best_energy)
+    np.testing.assert_array_equal(got.best_m, want.best_m)

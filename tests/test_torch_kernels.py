@@ -4,7 +4,8 @@ On CPU tensors the wrappers of ``repro_torch.kernels.ssa_update`` run their
 plain versions; those are held bit for bit against the Pallas kernels run
 in interpret mode, as ``tests/test_kernels.py`` runs them.  The CUDA
 kernels themselves are held against these plain versions on the card by
-``tests/test_torch_cuda.py``.
+``tests/test_torch_cuda.py``.  K4's plain version is also held against the
+JAX package's own plain version, ``repro.kernels.ref.ssa_plateau_ref``.
 """
 import numpy as np
 import pytest
@@ -14,9 +15,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import rng as jrng  # noqa: E402
+from repro.core import schedule as jschedule  # noqa: E402
 from repro.kernels import bitplane as jbitplane  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import ssa_update as jssa  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.core import schedule  # noqa: E402
 from repro_torch.core.engine import EngineState, PackedEngineState  # noqa: E402
 from repro_torch.kernels import ops, ssa_update  # noqa: E402
 
@@ -121,3 +126,87 @@ def test_convert_round_trips_engine_states():
         for a, b in zip(back, (case["rng"], spins[0], case["itanh"], case["best_H"], spins[1])):
             np.testing.assert_array_equal(a, b)
             assert a.dtype == b.dtype
+
+
+# ---------------------------------------------------------------------------
+# K4: the pregenerated-noise plateau
+# ---------------------------------------------------------------------------
+K4_OUTS = ("m", "itanh", "best_H", "best_m")
+
+
+def _pregen_case(b, r, n, c, seed, flat=False):
+    """Random (B, ...) inputs of K4; ``flat`` zeroes J and h, so every
+    state ties at H = 0 and only the first minimum (strict <) matches."""
+    rs = np.random.default_rng(seed)
+    best_H = np.full((b, r), 2**30, np.int32)
+    best_H[:, 0] = -10**6  # a trial whose best cannot improve keeps its spins
+    return dict(
+        m=rs.choice([-1.0, 1.0], size=(b, r, n)).astype(np.float32),
+        itanh=rs.integers(-6, 6, size=(b, r, n)).astype(np.int32),
+        J=np.stack([_coupling(rs, n) for _ in range(b)]).astype(np.float32) * (not flat),
+        h=rs.integers(-2, 3, size=(b, n)).astype(np.int32) * (not flat),
+        noise=rs.choice([-1, 1], size=(b, c, r, n)).astype(np.int8),
+        best_H=best_H,
+        best_m=rs.choice([-1, 1], size=(b, r, n)).astype(np.int8),
+    )
+
+
+@pytest.mark.parametrize("b,r,n,c,flat,dtype", [
+    (1, 4, 36, 5, False, "float32"),
+    (1, 9, 100, 7, False, "float32"),
+    (1, 3, 161, 3, False, "bfloat16"),
+    (1, 5, 40, 6, True, "float32"),
+    (2, 3, 33, 4, False, "float32"),
+    (1, 13, 101, 2, False, "float32"),
+])
+@pytest.mark.parametrize("eligible", [True, False])
+def test_pregen_plateau_plain_matches_pallas_and_ref(b, r, n, c, flat, dtype, eligible):
+    case = _pregen_case(b, r, n, c, seed=b + r + n + c, flat=flat)
+    i0 = 4
+    jx = {k: jnp.asarray(v) for k, v in case.items()}
+    jx["J"] = jx["J"].astype(getattr(jnp, dtype))
+    want = jssa.ssa_plateau_batched(
+        jx["m"], jx["itanh"], jx["J"], jx["h"], jx["noise"], jnp.int32(i0),
+        jx["best_H"], jx["best_m"], n_rnd=2, eligible=eligible, block_r=8,
+    )
+    args = {k: torch.from_numpy(v) for k, v in case.items()}
+    args["J"] = args["J"].to(getattr(torch, dtype))
+    before = ssa_update.ssa_plateau_batched.launches
+    got = ssa_update.ssa_plateau_batched(**args, i0=i0, n_rnd=2, eligible=eligible)
+    assert ssa_update.ssa_plateau_batched.launches == before  # plain path
+    assert [g.dtype for g in got] == [torch.float32, torch.int32, torch.int32, torch.int8]
+    for name, g, w in zip(K4_OUTS, got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    for k in range(b):  # the JAX package's own plain version, per problem
+        ref = jref.ssa_plateau_ref(*(jx[key][k] for key in ("m", "itanh", "J", "h", "noise")),
+                                   i0, jx["best_H"][k], jx["best_m"][k],
+                                   n_rnd=2, eligible=eligible)
+        for name, g, w in zip(K4_OUTS, got, ref):
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(w), err_msg=name)
+
+
+def test_pregen_plateau_b1_slice_equals_batched():
+    case = {k: torch.from_numpy(v) for k, v in _pregen_case(2, 3, 40, 5, seed=4).items()}
+    outs = ssa_update.ssa_plateau_batched(**case, i0=2, eligible=True)
+    for k in range(2):
+        single = ssa_update.ssa_plateau(**{key: v[k] for key, v in case.items()},
+                                        i0=2, eligible=True)
+        for name, o, s in zip(K4_OUTS, outs, single):
+            assert torch.equal(o[k], s), name
+
+
+@pytest.mark.parametrize("storage", ["i0max", "all"])
+def test_anneal_resident_matches_jax(storage):
+    rs = np.random.default_rng(11)
+    n = 48
+    J = _coupling(rs, n).astype(np.float32)
+    h = rs.integers(-2, 3, size=(n,)).astype(np.int32)
+    kw = dict(m_shot=2, n_trials=5, n_rnd=2, storage=storage, seed=3)
+    want = jops.anneal_resident(jnp.asarray(J), jnp.asarray(h),
+                                jschedule.hassa_schedule(1, 8, 4, 1), block_r=8, **kw)
+    before = ssa_update.ssa_plateau_batched.launches
+    got = ops.anneal_resident(torch.from_numpy(J), torch.from_numpy(h),
+                              schedule.hassa_schedule(1, 8, 4, 1), **kw)
+    assert ssa_update.ssa_plateau_batched.launches == before  # plain path on the CPU
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
