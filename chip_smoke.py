@@ -6,7 +6,7 @@ kernels, and prints what it measured.
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
 Phases (any failure raises and exits non-zero):
-  1. card: name and power limit (nvidia-smi); the three kernels built;
+  1. card: name and power limit (nvidia-smi); the four kernels built;
   2. K3 ``local_field`` == its plain version, exactly, at the K2000 shape and
      a ragged one; kernel, plain, torch.addmm times and the bound;
   3. K1 ``ssa_plateau_packed`` == its plain version, all five outputs
@@ -32,7 +32,18 @@ Phases (any failure raises and exits non-zero):
  10. memory at K2000, measured and not asserted: the per-plateau state plus
      noise buffer of the pregen (dense layout) and streamed (packed layout)
      datapaths, and the peak device memory of one anneal() call of each;
- 11. the kernels line; 12. the contract line (last).
+ 11. K2 ``ssa_plateau_popcount`` == its plain version, all five outputs
+     exactly, at K2000 width over one Table II iteration (R=100, C=600),
+     G11 width, a ragged N with 3 magnitude planes, a tied-energy shape
+     with every state folded, I0 and fold changing mid-chain, and B = 2;
+     kernel and plain times and the bound; K2's time under each trial
+     tiling;
+ 12. popcount path: anneal(K2000 and G11, field_mode='popcount') — K2
+     launched m_shot times (one per iteration's chain), K1, K3 and K4
+     never; best_H and best_m == the K1 run with the same seed; no dense J
+     held, and at K2000 the call's peak device memory below the f32 J's
+     bytes;
+ 13. the kernels line; 14. the contract line (last).
 """
 from __future__ import annotations
 
@@ -50,6 +61,10 @@ import torch
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# 32-bit population counts: 16 per SM per clock (NVIDIA CUDA C++ documentation,
+# arithmetic instruction throughput, compute capability 9.0), 132 SMs,
+# 1.98 GHz boost clock.
+PEAK_POPC = 16 * 132 * 1.98e9
 
 M_SHOT_PRODUCTION = 10
 M_SHOT_TRACE = 2
@@ -74,9 +89,9 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound_ms(n_bytes: float, n_ops: float):
+def _bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -315,23 +330,27 @@ def _reset_counts():
     ssa_update.local_field.launches = 0
     ssa_update.ssa_plateau_packed_batched.launches = 0
     ssa_update.ssa_plateau_batched.launches = 0
+    ssa_update.ssa_plateau_popcount_batched.launches = 0
 
 
 def _counts():
-    """Launches of (K1, K3, K4) since the last reset."""
+    """Launches of (K1, K3, K4, K2) since the last reset."""
     from repro_torch.kernels import ssa_update
 
     return (ssa_update.ssa_plateau_packed_batched.launches,
             ssa_update.local_field.launches,
-            ssa_update.ssa_plateau_batched.launches)
+            ssa_update.ssa_plateau_batched.launches,
+            ssa_update.ssa_plateau_popcount_batched.launches)
 
 
 def _anneal_run(problem, hp, cfg, track_energy, dense_ref=True):
     """The cuda run (timed, counted, its peak device memory measured) and,
     with ``dense_ref``, the dense-backend run with the same noise on the
-    card, which it must equal."""
+    card, which it must equal.  Returns (result, wall s, launches, peak
+    device bytes, the backend the timed call built)."""
     import numpy as np
 
+    from repro_torch.core import ssa
     from repro_torch.core.config import SolverConfig
     from repro_torch.core.engine import make_backend, normalize_problem
     from repro_torch.core.ssa import anneal
@@ -342,14 +361,24 @@ def _anneal_run(problem, hp, cfg, track_energy, dense_ref=True):
     _, model = normalize_problem(problem)
     make_backend(config=cfg, model=model, n_trials=hp.n_trials, device="cuda").init_state(0)
     torch.cuda.synchronize()
-    print(f"[set-up] model, dense J and noise state of anneal(): {time.time() - t0:.3f}s")
+    print(f"[set-up] model, couplings and noise state of anneal(): {time.time() - t0:.3f}s")
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    built = []
+
+    def recording(*a, **k):
+        built.append(make_backend(*a, **k))
+        return built[-1]
+
+    ssa.make_backend = recording
     _reset_counts()
     t0 = time.time()
-    r = anneal(problem, hp, config=cfg, **kw)
-    torch.cuda.synchronize()
+    try:
+        r = anneal(problem, hp, config=cfg, **kw)
+        torch.cuda.synchronize()
+    finally:
+        ssa.make_backend = make_backend
     wall = time.time() - t0
     counts = _counts()
     peak = torch.cuda.max_memory_allocated() - live
@@ -362,12 +391,12 @@ def _anneal_run(problem, hp, cfg, track_energy, dense_ref=True):
         if track_energy and not (np.array_equal(r.energy_min, ref.energy_min)
                                  and np.array_equal(r.energy_mean, ref.energy_mean)):
             _fail("anneal energy traces differ between the cuda and dense backends")
-    return r, wall, counts, peak
+    return r, wall, counts, peak, built[0]
 
 
 def phase_anneal(path: str, streamed=None):
     """One main path of anneal() at K2000 width; returns (result, launches
-    of (K1, K3, K4), peak device bytes of the call)."""
+    of (K1, K3, K4, K2), peak device bytes of the call)."""
     import numpy as np
 
     from repro_torch.core import gset
@@ -385,13 +414,13 @@ def phase_anneal(path: str, streamed=None):
         "xorshift-pregen": SolverConfig(backend="cuda", noise="xorshift",
                                         noise_mode="pregen"),
     }[path]
-    r, wall, (k1, k3, k4), peak = _anneal_run(p, hp, cfg, track_energy,
-                                              dense_ref=streamed is None)
+    r, wall, (k1, k3, k4, k2), peak, _ = _anneal_run(p, hp, cfg, track_energy,
+                                                     dense_ref=streamed is None)
     rate = hp.total_cycles * hp.n_trials * p.n / wall
     print(f"[{path}] {p.name} N={p.n} trials={hp.n_trials} m_shot={m_shot} "
           f"steps={hp.steps} tau={hp.tau}: best cut {r.overall_best_cut}, "
           f"wall {wall:.3f}s, {rate:.4e} spin-cycles/s; "
-          f"K1 launches {k1}, K3 launches {k3}, K4 launches {k4}; "
+          f"K1 launches {k1}, K3 launches {k3}, K4 launches {k4}, K2 launches {k2}; "
           f"peak device memory of the call {peak} B")
     if not (np.all(np.isfinite(r.best_cut)) and r.best_m.shape == (hp.n_trials, p.n)
             and set(np.unique(r.best_m)) <= {-1, 1}):
@@ -400,6 +429,8 @@ def phase_anneal(path: str, streamed=None):
     if not np.array_equal(cut, r.best_cut):
         _fail("best_cut does not match the cut of best_m")
     plateaus = hp.m_shot * hp.steps
+    if k2:
+        _fail(f"{path} path launched K2 {k2} times")
     if path == "trace":
         if k3 == 0 or k1 != 0 or k4 != 0:
             _fail(f"trace path: expected K3 > 0, K1 == K4 == 0, got {k1, k3, k4}")
@@ -414,7 +445,7 @@ def phase_anneal(path: str, streamed=None):
     if streamed is not None and not (np.array_equal(r.best_energy, streamed.best_energy)
                                      and np.array_equal(r.best_m, streamed.best_m)):
         _fail("xorshift pregen (K4) differs from the streamed K1 run")
-    return r, (k1, k3, k4), peak
+    return r, (k1, k3, k4, k2), peak
 
 
 def phase_memory():
@@ -448,6 +479,148 @@ def phase_memory():
     return out
 
 
+def _popcount_inputs(rs, B, R, N, w_max, C, dev, sched="hassa", flat=False):
+    """Random K2 inputs from a numpy generator: B symmetric couplings in
+    [-w_max, w_max] packed to one plane count, their planes in K2's layout
+    as the cuda backend holds them; ``flat`` zeroes J and h (every energy
+    ties); ``sched`` 'hassa' tiles the Table II chain (I0 1→32, τ = 100) to
+    C cycles, 'random' draws I0 and fold per cycle, 'all' folds every
+    state."""
+    import numpy as np
+
+    from repro_torch.core.engine import plateau_cycle_schedules, schedule_plateaus, tile_plateaus
+    from repro_torch.core.rng import xorshift_init
+    from repro_torch.core.ssa import SSAHyperParams
+    from repro_torch.kernels.bitplane import PackedJ, pack_couplings, pack_spins
+    from repro_torch.kernels.ssa_update import popcount_planes
+
+    nb = max(1, w_max.bit_length())
+    pjs = []
+    for _ in range(B):
+        J = np.triu(rs.integers(-w_max, w_max + 1, (N, N)), 1) * (not flat)
+        pjs.append(pack_couplings(J + J.T, nb, device=dev))
+    if sched == "hassa":
+        plateaus = schedule_plateaus(SSAHyperParams(tau=100, i0_min=1, i0_max=32).schedule())
+        i0, fold = plateau_cycle_schedules(tile_plateaus(plateaus, C))
+    else:
+        i0 = rs.integers(1, 33, C).astype(np.int32)
+        fold = (rs.integers(0, 2, C + 1) if sched == "random"
+                else np.ones(C + 1, np.int64)).astype(np.int32)
+    spins = torch.from_numpy(rs.choice([-1, 1], (2, B, R, N)).astype(np.int8)).to(dev)
+    i32 = functools.partial(torch.tensor, dtype=torch.int32, device=dev)
+    sign, mags, base = popcount_planes(PackedJ(*(torch.stack(a) for a in zip(*pjs))))
+    return dict(
+        m_packed=pack_spins(spins[0]),
+        itanh=i32(rs.integers(-8, 8, (B, R, N))),
+        sign=sign,
+        mags=mags,
+        base=base,
+        h=i32(rs.integers(-2, 3, (B, N)) * (not flat)),
+        rng=torch.stack([xorshift_init(int(rs.integers(2**31)), (R, N), dev)
+                         for _ in range(B)]),
+        i0_sched=i32(i0),
+        fold_sched=i32(fold),
+        best_H=torch.full((B, R), 2**30, dtype=torch.int32, device=dev),
+        best_m_packed=pack_spins(spins[1]),
+    )
+
+
+def phase_k2(dev):
+    import numpy as np
+
+    from repro_torch.kernels import ssa_update
+    from repro_torch.kernels.ref import ssa_plateau_popcount_ref
+
+    rs = np.random.default_rng(2)
+    names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
+    err = 0
+    cases = [(1, 100, 2000, 1, 600, "hassa", False), (1, 100, 800, 1, 600, "hassa", False),
+             (1, 13, 37, 7, 50, "random", False), (1, 13, 1001, 1, 17, "all", True),
+             (1, 7, 800, 1, 40, "random", False), (2, 7, 1001, 3, 9, "random", False)]
+    for B, R, N, w_max, C, sched, flat in cases:
+        x = _popcount_inputs(rs, B, R, N, w_max, C, dev, sched, flat)
+        want = ssa_plateau_popcount_ref(**x, n_rnd=2)
+        # The planes in K2's layout (the backend's), then as packed (the
+        # wrapper lays them out for the launch).
+        for planes in ("laid out", "packed"):
+            if planes == "packed":
+                x.update(sign=x["sign"].contiguous(), mags=x["mags"].contiguous())
+            got = ssa_update.ssa_plateau_popcount_batched(**x, n_rnd=2)
+            torch.cuda.synchronize()
+            for name, g, w in zip(names, got, want):
+                e = _max_abs_err(g, w)
+                if e or g.dtype != w.dtype or g.shape != w.shape:
+                    _fail(f"K2 {name} differs from its plain version at B={B} R={R} "
+                          f"N={N} w_max={w_max} C={C} sched={sched} flat={flat} "
+                          f"planes {planes}")
+                err = max(err, e)
+        print(f"[K2] B={B} R={R} N={N} nb={x['mags'].shape[1]} C={C} sched={sched} "
+              f"flat={flat}: all five outputs equal, planes laid out and packed")
+    # Timing at the main path's shape: K2000, 100 trials, one Table II
+    # iteration (6 plateaus of tau = 100) per launch, planes laid out as the
+    # backend holds them.
+    R, N, C = 100, 2000, 600
+    x = _popcount_inputs(rs, 1, R, N, 1, C, dev)
+    run = functools.partial(ssa_update.ssa_plateau_popcount_batched, **x, n_rnd=2)
+    ms = _time_ms(run, reps=10)
+    plain_ms = _time_ms(lambda: ssa_plateau_popcount_ref(**x, n_rnd=2), reps=2)
+    nb, nw = x["mags"].shape[1], x["sign"].shape[-1]
+    fields = C + int(x["fold_sched"][-1].item() > 0)  # the epilogue field only when folded
+    state_bytes = 4 * (R * nw + R * N + 4 * R * N + R + R * nw)
+    n_bytes = 4 * (1 + nb) * N * nw + 8 * N + 4 * (2 * C + 1) + 2 * state_bytes
+    bound, by = _bound_ms(n_bytes, R * N * nw * nb * fields, PEAK_POPC)
+    print(f"[K2] R={R} N={N} nb={nb} C={C}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({by}; {R * N * nw * nb * fields:.4e} popcounts)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def phase_popcount_anneal(name: str, k1_run=None, peak_below_j=False) -> int:
+    """anneal(field_mode='popcount') on a G-set twin at the paper's
+    configuration: K2 once per iteration and nothing else, the K1 run's
+    answer, and no dense J (no float tensor of N² elements) held by the
+    backend the call built.  With ``peak_below_j`` the call's peak device
+    memory must also stay below the bytes of the f32 J.  That holds at
+    K2000 (16 MB J against ~12 MB), not at G11: there the noise lanes' input
+    and output copies (2 × 1.28 MB for 100 trials) alone reach the 2.56 MB
+    J.  Returns K2's launches."""
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.memory import tree_device_bytes
+    from repro_torch.core.ssa import SSAHyperParams, anneal
+
+    p = gset.load(name)
+    hp = SSAHyperParams(n_trials=100, m_shot=M_SHOT_PRODUCTION, tau=100, i0_min=1, i0_max=32)
+    cfg = SolverConfig(backend="cuda", field_mode="popcount", noise="xorshift")
+    r, wall, counts, peak, bk = _anneal_run(p, hp, cfg, track_energy=False, dense_ref=False)
+    rate = hp.total_cycles * hp.n_trials * p.n / wall
+    pj_bytes = tree_device_bytes(bk.packed_j)
+    j_bytes = 4 * p.n * p.n
+    print(f"[popcount] {p.name} N={p.n} trials={hp.n_trials} m_shot={hp.m_shot} "
+          f"steps={hp.steps} tau={hp.tau}: best cut {r.overall_best_cut}, wall {wall:.3f}s, "
+          f"{rate:.4e} spin-cycles/s; (K1, K3, K4, K2) launches {counts}; "
+          f"peak device memory of the call {peak} B; packed couplings {pj_bytes} B "
+          f"(f32 J would be {j_bytes} B)")
+    if counts != (0, 0, 0, hp.m_shot):
+        _fail(f"popcount path: expected (K1, K3, K4, K2) == (0, 0, 0, {hp.m_shot}), "
+              f"got {counts}")
+    dense = [k for k, v in vars(bk).items() if torch.is_tensor(v) and v.is_floating_point()
+             and v.numel() >= p.n * p.n]
+    if hasattr(bk, "J") or dense or (peak_below_j and peak >= j_bytes):
+        _fail(f"popcount path holds a dense J (peak {peak} B, f32 J {j_bytes} B)")
+    if k1_run is None:
+        k1_run = anneal(p, hp, config=SolverConfig(backend="cuda", noise="xorshift"), seed=0,
+                        record="best", track_energy=False, device="cuda")
+    if not (np.array_equal(r.best_energy, k1_run.best_energy)
+            and np.array_equal(r.best_m, k1_run.best_m)):
+        _fail(f"popcount anneal() on {p.name} differs from the K1 run with the same seed")
+    if not np.array_equal(p.cut_value(r.best_m), r.best_cut):
+        _fail("best_cut does not match the cut of best_m")
+    return counts[3]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -461,13 +634,16 @@ def main():
     k1 = phase_k1(dev)
     phase_threefry(dev)
     k4 = phase_k4(dev)
-    streamed, (k1_launches, _, _), streamed_peak = phase_anneal("production")
-    _, (_, k3_launches, _), _ = phase_anneal("trace")
-    _, (_, _, k4_launches), _ = phase_anneal("threefry-pregen")
+    streamed, (k1_launches, _, _, _), streamed_peak = phase_anneal("production")
+    _, (_, k3_launches, _, _), _ = phase_anneal("trace")
+    _, (_, _, k4_launches, _), _ = phase_anneal("threefry-pregen")
     _, _, pregen_peak = phase_anneal("xorshift-pregen", streamed=streamed)
     print(f"[memory] peak device memory of one anneal() call, xorshift: pregen "
           f"{pregen_peak} B, streamed {streamed_peak} B")
     phase_memory()
+    k2 = phase_k2(dev)
+    k2_launches = phase_popcount_anneal("K2000", k1_run=streamed, peak_below_j=True)
+    phase_popcount_anneal("G11")
     kernels = [
         dict(name="ssa_plateau_packed (K1)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
@@ -481,6 +657,10 @@ def main():
              source="src/repro_torch/kernels/csrc/plateau_pregen.cu",
              replaces="src/repro/kernels/ssa_update.py:150",
              launches=k4_launches, **k4),
+        dict(name="ssa_plateau_popcount (K2)", route="cuda",
+             source="src/repro_torch/kernels/csrc/popcount.cu",
+             replaces="src/repro/kernels/ssa_update.py:668",
+             launches=k2_launches, **k2),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ import torch
 
 from .core.engine import EngineState, PackedEngineState
 from .core.ising import IsingModel
+from .kernels.bitplane import PackedJ
 
-__all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arrays"]
+__all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arrays",
+           "packed_j_from_arrays"]
 
 
 def ising_from_arrays(
@@ -53,6 +55,14 @@ def _as_i32(a, device) -> torch.Tensor:
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     return torch.from_numpy(a.astype(np.int32, copy=True)).to(device)
+
+
+def packed_j_from_arrays(sign: np.ndarray, mags: np.ndarray, base: np.ndarray,
+                         device=None) -> PackedJ:
+    """The port's :class:`PackedJ` from another package's coupling planes:
+    ``sign`` (..., N, Nw) and ``mags`` (..., n_bits, N, Nw) uint32 words,
+    ``base`` (..., N) integers."""
+    return PackedJ(_as_i32(sign, device), _as_i32(mags, device), _as_i32(base, device))
 
 
 def engine_state_from_arrays(

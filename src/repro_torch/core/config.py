@@ -19,8 +19,6 @@ _LAYOUTS = ("dense", "packed")
 
 # What each option outside the ported slice waits for, by ROADMAP.md item.
 _WAITS = {
-    "popcount": "ROADMAP.md queue 2, K2 (the XNOR-popcount chain kernel, "
-                "with the batched service of queue 1 step 4)",
     "tiled": "ROADMAP.md queue 1 step 2 (j_mode='tiled': streamed J slabs)",
     "ssqa": "ROADMAP.md queue 1 step 5 (SSQA and the other algorithm families)",
     "autotune": "ROADMAP.md queue 1 step 5 (autotune, hp='auto')",
@@ -44,8 +42,10 @@ class SolverConfig:
     * ``backend`` — 'sparse' | 'dense' | 'cuda' (the resident CUDA kernels;
       the counterpart of the JAX package's 'pallas').
     * ``storage_layout`` — 'dense' | 'packed' inter-plateau spin state.
-    * ``field_mode`` — 'auto' (the backend's default, a dense contraction)
-      | 'dense'.
+    * ``field_mode`` — 'auto' (the backend's default, a dense contraction:
+      'auto' is not forwarded, as in the JAX package) | 'dense' |
+      'popcount' (XNOR-popcount on the coupling bitplanes; on 'cuda' the
+      plateau-chain kernel K2, which needs streamed xorshift noise).
     * ``j_mode`` — 'auto' | 'dense' (dense backend only).
     * ``noise`` — 'xorshift' | 'threefry' (``jax.random``'s generator).
     * ``noise_mode`` — 'auto' | 'streamed' | 'pregen' (cuda only):
@@ -79,8 +79,7 @@ class SolverConfig:
             raise ValueError(
                 f"storage_layout {self.storage_layout!r} not in {_LAYOUTS}"
             )
-        _check_choice("field_mode", self.field_mode, ("auto", "dense"),
-                      {"popcount": "popcount"})
+        _check_choice("field_mode", self.field_mode, ("auto", "dense", "popcount"))
         _check_choice("j_mode", self.j_mode, ("auto", "dense"), {"tiled": "tiled"})
         _check_choice("noise", self.noise, ("xorshift", "threefry"))
         _check_choice("noise_mode", self.noise_mode, ("auto", "streamed", "pregen"))

@@ -9,7 +9,8 @@ a pluggable :class:`PlateauBackend`:
   cycles of a plateau (:func:`run_plateau_scan`), one field contraction per
   cycle: the field of the update of m(t) is reused for H(m(t)).
 * :class:`CudaBackend` — a resident CUDA plateau kernel, one launch per
-  plateau: with streamed noise K1
+  plateau (with ``field_mode='popcount'``, one launch of K2 per plateau
+  chain): with streamed noise K1
   (:func:`repro_torch.kernels.ssa_update.ssa_plateau_packed`: spins packed
   at the launch boundary, the xorshift noise stepped inside the kernel),
   with pregenerated noise K4 (:func:`repro_torch.kernels.ssa_update.
@@ -23,6 +24,12 @@ plateau that starts at m(t0), the states it produces, m(t0+1) … m(t0+C),
 are folded into the running best under the plateau's eligibility; m(t0)
 belongs to the previous plateau, and the final state is folded by one
 extra field evaluation after the loop.
+
+Field arithmetic (``field_mode``): 'dense' contracts the (N, N) J;
+'popcount' contracts the coupling bitplanes of ``kernels.bitplane.PackedJ``
+by XNOR-popcount, integers only, and holds no J at all; 'auto' picks
+popcount up to POPCOUNT_AUTO_MAX_BITS magnitude planes.  Results are
+bit-identical.
 
 Storage layouts: 'dense' keeps :class:`EngineState` (int8 spins), 'packed'
 keeps :class:`PackedEngineState` (32-bit words, see ``kernels.bitplane``).
@@ -42,9 +49,20 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels import ssa_update as kssa
-from ..kernels.bitplane import pack_spins, unpack_spins
+from ..kernels.bitplane import (
+    adjacency_weight_bits,
+    pack_couplings_from_adjacency,
+    pack_spins,
+    unpack_spins,
+)
 from .config import SolverConfig, not_ported
-from .ising import IsingModel, MaxCutProblem, local_fields_dense, local_fields_sparse
+from .ising import (
+    IsingModel,
+    MaxCutProblem,
+    local_fields_dense,
+    local_fields_popcount,
+    local_fields_sparse,
+)
 from .rng import (
     threefry_key,
     threefry_noise,
@@ -59,7 +77,9 @@ from .schedule import Schedule
 __all__ = [
     "BIG_ENERGY",
     "TILED_J_THRESHOLD",
+    "POPCOUNT_TILE_N",
     "MAX_MODEL_SPINS",
+    "POPCOUNT_AUTO_MAX_BITS",
     "BaseResult",
     "EngineState",
     "PackedEngineState",
@@ -73,8 +93,11 @@ __all__ = [
     "BACKENDS",
     "make_backend",
     "resolve_device",
+    "resolve_field_mode",
     "resolve_j_mode",
     "resolve_noise_mode",
+    "model_weight_bits",
+    "plateau_cycle_schedules",
     "normalize_problem",
     "validate_model",
     "finalize_cut",
@@ -93,8 +116,15 @@ BIG_ENERGY = 2**30
 
 # j_mode='auto' streams J in slabs above this spin count instead of holding
 # the dense (N, N) matrix (f32 J is 64 MB at N=4096).  The slab path is not
-# ported yet, so above it 'auto' raises.
+# ported yet, so above it 'auto' raises.  The popcount field row-tiles its
+# contraction above the same count, POPCOUNT_TILE_N rows at a time.
 TILED_J_THRESHOLD = 4096
+POPCOUNT_TILE_N = 512
+
+# field_mode='auto' uses the XNOR-popcount contraction up to this many
+# magnitude bitplanes (the paper's hardware is 4-bit); wider integer weights
+# take the dense contraction, whose cost does not grow with the bit depth.
+POPCOUNT_AUTO_MAX_BITS = 4
 
 # Admission ceiling on the spin count: rejects a corrupted shape early.
 MAX_MODEL_SPINS = 1 << 22
@@ -251,6 +281,26 @@ def schedule_plateaus(sched: Schedule, storage: str = "i0max") -> Tuple[Plateau,
             out.append(Plateau(int(i0[start]), k - start, bool(elig[start])))
             start = k
     return tuple(out)
+
+
+def plateau_cycle_schedules(plateaus: Sequence[Plateau]) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-cycle schedule operands of the plateau-chain kernel K2.
+
+    Flattens a plateau chain into ``(i0_sched (C,), fold_sched (C+1,))``
+    int32 host arrays: ``i0_sched[c]`` is the I0 of cycle c and
+    ``fold_sched[c]`` the storage write-enable of the plateau that produced
+    the state current at cycle c — 0 at c = 0 (the chain's incoming state
+    belongs to the previous chain), the eligibility of cycle c−1's plateau
+    for c ≥ 1, so ``fold_sched[C]`` covers the final state.  One K2 launch
+    over them equals chaining one plateau at a time.
+    """
+    i0s, elig = [], []
+    for p in plateaus:
+        i0s.extend([int(p.i0)] * int(p.length))
+        elig.extend([int(bool(p.eligible))] * int(p.length))
+    if not i0s:
+        raise ValueError("empty plateau chain")
+    return np.asarray(i0s, np.int32), np.asarray([0] + elig, np.int32)
 
 
 def tile_plateaus(plateaus: Sequence[Plateau], total_cycles: int) -> Tuple[Plateau, ...]:
@@ -475,24 +525,34 @@ class SparseBackend(PlateauBackend):
 
 
 def resolve_j_mode(j_mode: str, n: int) -> str:
-    """'auto' keeps the dense (N, N) J up to TILED_J_THRESHOLD spins; the
-    streamed-slab mode it would pick above is not ported yet."""
+    """'auto' picks tiled above TILED_J_THRESHOLD spins, dense below."""
     if j_mode == "auto":
-        j_mode = "tiled" if n > TILED_J_THRESHOLD else "dense"
-    if j_mode == "tiled":
-        raise not_ported(f"j_mode='tiled' (needed above {TILED_J_THRESHOLD} spins)",
-                         "tiled")
-    if j_mode != "dense":
+        return "tiled" if n > TILED_J_THRESHOLD else "dense"
+    if j_mode not in ("dense", "tiled"):
         raise ValueError(f"unknown j_mode {j_mode!r}")
     return j_mode
 
 
-def _check_field_mode(field_mode: str):
-    if field_mode in ("popcount", "auto"):
-        # 'auto' picks the popcount contraction for every ±1-weight model.
-        raise not_ported(f"field_mode={field_mode!r}", "popcount")
-    if field_mode != "dense":
+def model_weight_bits(model: IsingModel) -> int:
+    """Magnitude bitplanes a model's couplings need (coalesced max |J_ij|)."""
+    return adjacency_weight_bits(model.n, model.nbr_idx, model.nbr_w)
+
+
+def resolve_field_mode(field_mode: str, j_bits: int) -> str:
+    """Field arithmetic: 'popcount' (XNOR-popcount on the coupling
+    bitplanes, exact integers) or 'dense' (the (N, N) J).  'auto' takes
+    popcount while the couplings fit POPCOUNT_AUTO_MAX_BITS magnitude
+    planes: the contraction costs one pass per plane."""
+    if field_mode == "auto":
+        return "popcount" if int(j_bits) <= POPCOUNT_AUTO_MAX_BITS else "dense"
+    if field_mode not in ("dense", "popcount"):
         raise ValueError(f"unknown field_mode {field_mode!r}")
+    return field_mode
+
+
+def _resolve_field_mode(field_mode: str, model: IsingModel) -> str:
+    bits = model_weight_bits(model) if field_mode == "auto" else 1
+    return resolve_field_mode(field_mode, bits)
 
 
 def resolve_noise_mode(noise_mode: str, noise: str) -> str:
@@ -514,6 +574,12 @@ class DenseBackend(PlateauBackend):
 
     The product is ``torch.matmul``, as the JAX package leaves it to XLA;
     it is exact with TF32 off, which the constructor sets.
+
+    ``field_mode='popcount'`` (or 'auto' within POPCOUNT_AUTO_MAX_BITS
+    planes) packs the couplings as bitplanes and takes the field from
+    :func:`~repro_torch.core.ising.local_fields_popcount`, row-tiled at
+    POPCOUNT_TILE_N above TILED_J_THRESHOLD spins; no J exists then, dense or
+    tiled, and any noise is accepted.
     """
 
     name = "dense"
@@ -521,22 +587,33 @@ class DenseBackend(PlateauBackend):
     def __init__(self, model: IsingModel, *, j_mode: str = "auto",
                  field_mode: str = "dense", **kw):
         super().__init__(model, **kw)
-        _check_field_mode(field_mode)
         self.j_mode = resolve_j_mode(j_mode, model.n)
+        self.field_mode = _resolve_field_mode(field_mode, model)
+        if self.field_mode == "popcount":
+            self.packed_j = pack_couplings_from_adjacency(
+                model.n, model.nbr_idx, model.nbr_w, device=self.device)
+            self._pc_tile = None if model.n <= TILED_J_THRESHOLD else POPCOUNT_TILE_N
+            return
+        if self.j_mode == "tiled":
+            raise not_ported(f"j_mode='tiled' (needed above {TILED_J_THRESHOLD} spins)",
+                             "tiled")
         # TF32 keeps 10 mantissa bits: fields above 2^11 would stop being exact.
         torch.backends.cuda.matmul.allow_tf32 = False
         self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
                                  device=self.device)
 
     def _field(self, m):
+        if self.field_mode == "popcount":
+            return local_fields_popcount(pack_spins(m), self.h, self.packed_j,
+                                         tile_n=self._pc_tile)
         return local_fields_dense(m, self.h, self.J)
 
 
 class CudaBackend(PlateauBackend):
     """The resident CUDA plateau kernels: one launch per plateau.
 
-    Counterpart of the JAX package's ``PallasBackend`` with the dense
-    field.  A plateau without per-cycle outputs runs one kernel:
+    Counterpart of the JAX package's ``PallasBackend``.  With the dense
+    field, a plateau without per-cycle outputs runs one kernel:
 
     * ``noise_mode='streamed'`` (xorshift's default): K1
       (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_packed`) — spins
@@ -551,6 +628,15 @@ class CudaBackend(PlateauBackend):
     planes) run the cycle loop with the field from K3
     (:func:`~repro_torch.kernels.ops.local_field`).
 
+    ``field_mode='popcount'`` (or 'auto' within POPCOUNT_AUTO_MAX_BITS
+    planes) holds the couplings as ``PackedJ`` bitplanes and no J, and runs
+    K2 (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_popcount`):
+    :meth:`run_plateaus` makes one launch per plateau chain, with the
+    per-cycle I0 and fold schedules built on the host and copied to the
+    device once.  K2 steps xorshift lanes in-kernel, so popcount requires
+    ``noise_mode='streamed'``, as the JAX package's ``PallasBackend`` does;
+    the cycle loop of per-cycle outputs takes the plain popcount field.
+
     On CPU tensors (``device='cpu'``) the wrappers run their plain
     versions — the path the CPU tests hold against the JAX package.
     """
@@ -561,12 +647,60 @@ class CudaBackend(PlateauBackend):
                  field_mode: str = "dense", **kw):
         super().__init__(model, **kw)
         self.noise_mode = resolve_noise_mode(noise_mode, self.noise)
-        _check_field_mode(field_mode)
-        self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
-                                 device=self.device)
+        self.field_mode = _resolve_field_mode(field_mode, model)
+        if self.field_mode == "popcount":
+            if self.noise_mode != "streamed":
+                raise ValueError(
+                    "field_mode='popcount' on the cuda backend requires "
+                    "noise_mode='streamed' (noise='xorshift'): the plateau-chain "
+                    "kernel K2 generates its noise in-kernel"
+                )
+            # In K2's plane layout once, so no launch copies the planes.
+            self.packed_j = kssa.popcount_planes(pack_couplings_from_adjacency(
+                model.n, model.nbr_idx, model.nbr_w, device=self.device))
+            self._schedules = {}
+        else:
+            self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
+                                     device=self.device)
 
     def _field(self, m):
+        if self.field_mode == "popcount":
+            return local_fields_popcount(pack_spins(m), self.h, self.packed_j)
         return kops.local_field(m, self.h, self.J)
+
+    def _device_schedules(self, plateaus: Tuple[Plateau, ...]):
+        """(i0_sched, fold_sched) of a chain on the device: built on the
+        host and copied in one transfer, once per distinct chain."""
+        sched = self._schedules.get(plateaus)
+        if sched is None:
+            i0_sched, fold_sched = plateau_cycle_schedules(plateaus)
+            both = torch.from_numpy(np.concatenate([i0_sched, fold_sched])).to(self.device)
+            sched = self._schedules[plateaus] = (both[:len(i0_sched)],
+                                                 both[len(i0_sched):])
+        return sched
+
+    def _popcount_chain(self, state, plateaus: Tuple[Plateau, ...]):
+        """One K2 launch over a plateau chain, in either storage layout."""
+        packed = self.storage_layout == "packed"
+        mp = state.m_packed if packed else pack_spins(state.m)
+        bmp = state.best_m_packed if packed else pack_spins(state.best_m)
+        i0_sched, fold_sched = self._device_schedules(plateaus)
+        pj = self.packed_j
+        mp_o, it_o, rng_o, bh_o, bmp_o = kssa.ssa_plateau_popcount(
+            mp, state.itanh, pj.sign, pj.mags, pj.base, self.h, state.noise_state,
+            i0_sched, fold_sched, state.best_H, bmp, n_rnd=self.n_rnd,
+        )
+        if packed:
+            return PackedEngineState(rng_o, mp_o, it_o, bh_o, bmp_o)
+        n = self.model.n
+        return EngineState(rng_o, unpack_spins(mp_o, n), it_o, bh_o, unpack_spins(bmp_o, n))
+
+    def run_plateaus(self, state, plateaus: Sequence[Plateau]):
+        """Under popcount, the whole chain is one K2 launch; otherwise one
+        launch per plateau."""
+        if self.field_mode != "popcount" or not plateaus:
+            return super().run_plateaus(state, plateaus)
+        return self._popcount_chain(state, tuple(plateaus))
 
     def _pregen_noise(self, ns, length: int):
         """The plateau's (C, T, N) int8 noise and the noise state after it:
@@ -583,6 +717,10 @@ class CudaBackend(PlateauBackend):
                 state, i0, length=length, eligible=eligible,
                 track_energy=track_energy, emit=emit,
             )
+        if self.field_mode == "popcount":
+            # One plateau is a chain of constant I0: fold [0] + [eligible]*C.
+            chain = (Plateau(int(i0), int(length), bool(eligible)),)
+            return self._popcount_chain(state, chain), None, None
         packed = self.storage_layout == "packed"
         if self.noise_mode == "pregen":
             st = unpack_state(state, self.model.n) if packed else state

@@ -23,11 +23,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.bitplane import PackedJ, popcount_u32
+
 __all__ = [
     "IsingModel",
     "MaxCutProblem",
     "ising_energy",
     "local_fields_dense",
+    "local_fields_popcount",
     "local_fields_sparse",
 ]
 
@@ -148,6 +151,46 @@ def local_fields_sparse(m, h, nbr_idx, nbr_w):
 def local_fields_dense(m, h, J_f32):
     """h + m @ J in float32: exact for |field| < 2^24 (checked at build)."""
     return h + torch.matmul(m.to(torch.float32), J_f32).to(torch.int32)
+
+
+def _popcount_fields_block(m_words, sign, mags):
+    """XNOR-popcount contraction of one row block, minus the h/base terms.
+
+    m_words: int32[..., Nw] packed spins; sign: int32[..., R, Nw];
+    mags: int32[..., n_bits, R, Nw] (words as uint32 bit patterns).
+    Returns int32[..., R]: Σ_b 2^{b+1} · popcount(XNOR(m, sign_r) & mags[b, r]).
+    """
+    # XNOR(a, b) = a ^ ~b; the AND with the magnitude mask confines the
+    # contraction to real couplings (tail bits are 0 there).
+    x = m_words[..., None, :] ^ ~sign  # [..., R, Nw]
+    acc = popcount_u32(x & mags[..., 0, :, :]).sum(dim=-1, dtype=torch.int32) << 1
+    for b in range(1, mags.shape[-3]):
+        pc = popcount_u32(x & mags[..., b, :, :]).sum(dim=-1, dtype=torch.int32)
+        acc = acc + (pc << (b + 1))
+    return acc
+
+
+def local_fields_popcount(m_words, h, packed_j: PackedJ, *, tile_n: Optional[int] = None):
+    """Field contraction on 32-bit bitplanes, all in int32 (and the int64
+    of the popcount itself): no float value anywhere.
+
+        field_i = h_i + base_i + Σ_b 2^{b+1}·popcount(XNOR(m, sign_i) & mag_bi)
+
+    equals ``h + m @ J`` exactly for any integer J.  ``m_words`` are int32
+    packed spins [..., Nw] (tail bits may hold anything: the magnitude masks
+    kill them).  ``tile_n`` row-tiles the contraction so the broadcast XNOR
+    buffer stays O(tile_n·Nw) per trial; None contracts all rows at once.
+    """
+    sign, mags, base = packed_j
+    n = sign.shape[-2]
+    if tile_n is None or int(tile_n) >= n:
+        return h + base + _popcount_fields_block(m_words, sign, mags)
+    tile_n = int(tile_n)
+    cols = [
+        _popcount_fields_block(m_words, sign[..., t:t + tile_n, :], mags[..., t:t + tile_n, :])
+        for t in range(0, n, tile_n)
+    ]
+    return h + base + torch.cat(cols, dim=-1)
 
 
 def ising_energy(m, h, nbr_idx, nbr_w):

@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "build", "library", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("field", "plateau", "plateau_pregen")
+SOURCES = ("field", "plateau", "plateau_pregen", "popcount")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -11,10 +11,12 @@ from typing import Tuple
 
 import torch
 
+from ..core.ising import local_fields_popcount
 from ..core.rng import xorshift_next_bits
-from .bitplane import pack_spins, unpack_spins
+from .bitplane import PackedJ, pack_spins, unpack_spins
 
-__all__ = ["local_field_ref", "ssa_plateau_packed_ref", "ssa_plateau_ref"]
+__all__ = ["local_field_ref", "ssa_plateau_packed_ref", "ssa_plateau_popcount_ref",
+           "ssa_plateau_ref"]
 
 
 def local_field_ref(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor) -> torch.Tensor:
@@ -130,3 +132,62 @@ def ssa_plateau_ref(
     if eligible:
         bh, bm = fold(m, local_field_ref(m, hb, Jf), bh, bm)
     return m, itanh, bh, bm
+
+
+def ssa_plateau_popcount_ref(
+    m_packed: torch.Tensor,       # (B, R, Nw) int32 words
+    itanh: torch.Tensor,          # (B, R, N) int32
+    sign: torch.Tensor,           # (B, N, Nw) int32 words, PackedJ.sign
+    mags: torch.Tensor,           # (B, nb, N, Nw) int32 words, PackedJ.mags
+    base: torch.Tensor,           # (B, N) int32, PackedJ.base
+    h: torch.Tensor,              # (B, N) int32
+    rng: torch.Tensor,            # (B, 4, R, N) int32 xorshift lanes
+    i0_sched: torch.Tensor,       # (C,) int32 per-cycle I0
+    fold_sched: torch.Tensor,     # (C+1,) int32 per-state fold write-enable
+    best_H: torch.Tensor,         # (B, R) int32
+    best_m_packed: torch.Tensor,  # (B, R, Nw) int32 words
+    *,
+    n_rnd: int = 2,
+) -> Tuple[torch.Tensor, ...]:
+    """A plateau chain of C = ``len(i0_sched)`` cycles for B problems, with
+    the XNOR-popcount field; integer arithmetic only.
+
+    Each cycle c: field = h + base + Σ_b 2^(b+1)·popcount(XNOR(m, sign) &
+    mags[b]); when ``fold_sched[c] > 0``, fold H = -(h·m + m·field)/2 of the
+    state current at c into the running best (strict ``<``, so the first
+    minimum is kept; the best words are the state's words as they stand);
+    step the xorshift lanes and take the new word's MSB as ±1 noise;
+    Itanh = clamp(field + n_rnd·r + Itanh, -i0_sched[c], i0_sched[c]-1);
+    m = sign(Itanh).  After the loop, ``fold_sched[C]`` folds the final
+    state with one more field.  Spin words come out with zero tail bits,
+    as the JAX kernel's do for ``n_rnd >= 1``.
+
+    Returns (m_packed, itanh, rng, best_H, best_m_packed).
+    """
+    n = itanh.shape[-1]
+    i0s = [int(v) for v in i0_sched.tolist()]
+    folds = [int(v) > 0 for v in fold_sched.tolist()]
+    if len(folds) != len(i0s) + 1:
+        raise ValueError(f"fold_sched needs C+1 = {len(i0s) + 1} entries, got {len(folds)}")
+    pj = PackedJ(sign[:, None], mags[:, None], base[:, None])
+    hb = h.to(torch.int32)[:, None, :]
+    mw, lanes = m_packed, rng.transpose(0, 1)
+    bh, bmp = best_H, best_m_packed
+
+    def fold(mw, f, bh, bmp):
+        m32 = unpack_spins(mw, n).to(torch.int32)
+        H = -((hb * m32).sum(-1, dtype=torch.int32)
+              + (m32 * f).sum(-1, dtype=torch.int32)) // 2
+        better = H < bh
+        return torch.where(better, H, bh), torch.where(better[..., None], mw, bmp)
+
+    for c, i0 in enumerate(i0s):
+        f = local_fields_popcount(mw, hb, pj)
+        if folds[c]:
+            bh, bmp = fold(mw, f, bh, bmp)
+        lanes, r = xorshift_next_bits(lanes)
+        itanh = torch.clamp(f + n_rnd * r + itanh, -i0, i0 - 1)
+        mw = pack_spins(torch.where(itanh >= 0, 1, -1))
+    if folds[-1]:
+        bh, bmp = fold(mw, local_fields_popcount(mw, hb, pj), bh, bmp)
+    return mw, itanh, lanes.transpose(0, 1).contiguous(), bh, bmp

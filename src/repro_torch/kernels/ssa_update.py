@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA kernels of the SSA/HA-SSA spin update.
 
-Three kernels, each the port of one Pallas kernel of
+Four kernels, each the port of one Pallas kernel of
 ``repro/kernels/ssa_update.py``:
 
 * K3, :func:`local_field` — ``field = h + m @ J`` as a shared-memory-tiled
@@ -15,6 +15,11 @@ Three kernels, each the port of one Pallas kernel of
   the same plateau with pregenerated noise (``csrc/plateau_pregen.cu``):
   float32 spins, int8 best spins and a (B, C, R, N) int8 noise buffer.
   The path of threefry noise and of ``noise_mode='pregen'``.
+* K2, :func:`ssa_plateau_popcount_batched` and its B=1 slice
+  :func:`ssa_plateau_popcount` — a whole plateau chain (per-cycle I0 and
+  fold write-enable) in one launch with the XNOR-popcount field on the
+  bitplanes of ``PackedJ`` (``csrc/popcount.cu``), integers only, xorshift
+  noise stepped in-kernel.  The path of ``field_mode='popcount'``.
 
 A wrapper takes its plain version (:mod:`.ref`) only for tensors on the
 CPU.  For CUDA tensors it checks device, dtype, shape and contiguity,
@@ -30,17 +35,26 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .bitplane import packed_words
-from .ref import local_field_ref, ssa_plateau_packed_ref, ssa_plateau_ref
+from .bitplane import PackedJ, packed_words
+from .ref import (
+    local_field_ref,
+    ssa_plateau_packed_ref,
+    ssa_plateau_popcount_ref,
+    ssa_plateau_ref,
+)
 
 __all__ = ["local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched",
-           "ssa_plateau", "ssa_plateau_batched"]
+           "ssa_plateau", "ssa_plateau_batched", "ssa_plateau_popcount",
+           "ssa_plateau_popcount_batched", "popcount_planes"]
 
 # Trials per K1 and K4 block (1, 2 or 4).  Each block streams all of J from
 # L2 every cycle and uses every J element once per trial it owns; 2 was the
 # fastest of the three for K1 at K2000 width on an H100 (chip_smoke.py
 # measures all three each run).  See csrc/plateau.cu.
 TRIALS_PER_BLOCK = 2
+
+# Trials per K2 block: TR in csrc/popcount.cu, fixed there.
+_POPCOUNT_TRIALS_PER_BLOCK = 2
 
 # Dynamic shared memory one H100 block may use.
 _MAX_SMEM = 232448
@@ -50,6 +64,7 @@ _SIGNATURES = {
     "repro_local_field": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_ssa_plateau_packed": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
     "repro_ssa_plateau": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8 + [_P],
+    "repro_ssa_plateau_popcount": [_P] * 16 + [_I] * 6 + [_P],
 }
 
 
@@ -74,19 +89,19 @@ def _device_of(*tensors) -> torch.device:
     return dev
 
 
-def _check(name: str, t: torch.Tensor, shape, dtypes):
+def _check(name: str, t: torch.Tensor, shape, dtypes, contiguous: bool = True):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _trials_per_block(N: int, smem_per_trial: int) -> int:
-    """TRIALS_PER_BLOCK, after checking that the block's shared memory
-    (``smem_per_trial`` bytes for each trial it owns) fits."""
-    tpb = TRIALS_PER_BLOCK
+def _trials_per_block(N: int, smem_per_trial: int, tpb: int = None) -> int:
+    """``tpb`` (default TRIALS_PER_BLOCK), after checking that the block's
+    shared memory (``smem_per_trial`` bytes for each trial it owns) fits."""
+    tpb = TRIALS_PER_BLOCK if tpb is None else tpb
     if tpb * smem_per_trial > _MAX_SMEM:
         raise ValueError(f"N={N} needs {tpb * smem_per_trial} B of shared memory "
                          f"per block (> {_MAX_SMEM})")
@@ -300,5 +315,132 @@ def ssa_plateau(
     outs = ssa_plateau_batched(
         m[None], itanh[None], J[None], h[None], noise[None], i0,
         best_H[None], best_m[None], n_rnd=n_rnd, eligible=eligible,
+    )
+    return tuple(o[0] for o in outs)
+
+
+def popcount_planes(packed_j: PackedJ) -> PackedJ:
+    """``packed_j`` with each (N, Nw) plane stored [Nw][N], the layout K2
+    reads: the shapes stay, the planes become transposed views, so
+    :func:`ssa_plateau_popcount_batched` hands them to the kernel without a
+    copy.  Made once per set of couplings; the plain popcount field reads
+    the views as it reads any planes."""
+    def t(x):
+        return x.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+    return packed_j._replace(sign=t(packed_j.sign), mags=t(packed_j.mags))
+
+
+def ssa_plateau_popcount_batched(
+    m_packed: torch.Tensor,       # (B, R, Nw) int32 words
+    itanh: torch.Tensor,          # (B, R, N) int32
+    sign: torch.Tensor,           # (B, N, Nw) int32 words, PackedJ.sign
+    mags: torch.Tensor,           # (B, nb, N, Nw) int32 words, PackedJ.mags
+    base: torch.Tensor,           # (B, N) int32, PackedJ.base
+    h: torch.Tensor,              # (B, N) int32
+    rng: torch.Tensor,            # (B, 4, R, N) int32 xorshift lanes
+    i0_sched: torch.Tensor,       # (C,) int32 per-cycle I0
+    fold_sched: torch.Tensor,     # (C+1,) int32 per-state fold write-enable
+    best_H: torch.Tensor,         # (B, R) int32
+    best_m_packed: torch.Tensor,  # (B, R, Nw) int32 words
+    *,
+    n_rnd: int = 2,
+    jperp_sched=None,
+    n_replicas: int = 0,
+) -> Tuple[torch.Tensor, ...]:
+    """K2: a plateau chain of C = ``len(i0_sched)`` cycles for B problems ×
+    R trials, one launch, with the XNOR-popcount field.
+
+    Semantics are those of :func:`~repro_torch.kernels.ref.
+    ssa_plateau_popcount_ref`; the schedules come from
+    :func:`repro_torch.core.engine.plateau_cycle_schedules`.  Replaces
+    ``repro/kernels/ssa_update.py:ssa_plateau_popcount_batched``
+    (``_plateau_popcount_kernel``) in its classical mode: the SSQA ring
+    mode (``jperp_sched``, ``n_replicas``) is not ported and raises.
+
+    ``sign`` and ``mags`` may be in any memory layout; planes not already
+    stored [Nw][N] (see :func:`popcount_planes`) are copied to it for the
+    launch.
+
+    Returns (m_packed, itanh, rng, best_H, best_m_packed).
+    """
+    if jperp_sched is not None or n_replicas:
+        raise ValueError("K2's SSQA ring mode (jperp_sched, n_replicas) is not ported; "
+                         "it waits for ROADMAP.md queue 1 step 5")
+    args = (m_packed, itanh, sign, mags, base, h, rng, i0_sched, fold_sched, best_H,
+            best_m_packed)
+    dev = _device_of(*args)
+    if itanh.dim() != 3 or mags.dim() != 4 or i0_sched.dim() != 1:
+        raise ValueError(f"itanh: expected (B, R, N), mags (B, nb, N, Nw) and i0_sched "
+                         f"(C,), got {tuple(itanh.shape)}, {tuple(mags.shape)} and "
+                         f"{tuple(i0_sched.shape)}")
+    if dev.type == "cpu":
+        return ssa_plateau_popcount_ref(*args, n_rnd=n_rnd)
+    B, R, N = itanh.shape
+    nb, C = mags.shape[1], i0_sched.shape[0]
+    nw = packed_words(N)
+    i32 = (torch.int32,)
+    _check("m_packed", m_packed, (B, R, nw), i32)
+    _check("itanh", itanh, (B, R, N), i32)
+    _check("sign", sign, (B, N, nw), i32, contiguous=False)
+    _check("mags", mags, (B, nb, N, nw), i32, contiguous=False)
+    _check("base", base, (B, N), i32)
+    _check("h", h, (B, N), i32)
+    _check("rng", rng, (B, 4, R, N), i32)
+    _check("i0_sched", i0_sched, (C,), i32)
+    _check("fold_sched", fold_sched, (C + 1,), i32)
+    _check("best_H", best_H, (B, R), i32)
+    _check("best_m_packed", best_m_packed, (B, R, nw), i32)
+    if nb < 1:
+        raise ValueError("mags: need at least one magnitude plane")
+    _trials_per_block(N, 4 * 3 * nw, _POPCOUNT_TRIALS_PER_BLOCK)
+    outs = tuple(torch.empty_like(t) for t in
+                 (m_packed, itanh, rng, best_H, best_m_packed))
+    if B == 0 or R == 0:
+        return outs
+    # The kernel reads each plane transposed, [Nw][N]: thread j owns row j,
+    # and a warp's loads of one word index fall on consecutive addresses.
+    # No copy when the planes come from popcount_planes.
+    sign_t = sign.transpose(1, 2).contiguous()
+    mags_t = mags.transpose(2, 3).contiguous()
+    mp_o, it_o, rng_o, bh_o, bmp_o = outs
+    fn, lib = _entry("popcount", "repro_ssa_plateau_popcount")
+    _launch(
+        fn, lib, "ssa_plateau_popcount", dev,
+        m_packed.data_ptr(), itanh.data_ptr(), sign_t.data_ptr(), mags_t.data_ptr(),
+        base.data_ptr(), h.data_ptr(), rng.data_ptr(), i0_sched.data_ptr(),
+        fold_sched.data_ptr(), best_H.data_ptr(), best_m_packed.data_ptr(),
+        mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(), bh_o.data_ptr(),
+        bmp_o.data_ptr(), B, R, N, nb, C, int(n_rnd),
+    )
+    ssa_plateau_popcount_batched.launches += 1
+    return outs
+
+
+ssa_plateau_popcount_batched.launches = 0
+
+
+def ssa_plateau_popcount(
+    m_packed: torch.Tensor,       # (R, Nw)
+    itanh: torch.Tensor,          # (R, N)
+    sign: torch.Tensor,           # (N, Nw)
+    mags: torch.Tensor,           # (nb, N, Nw)
+    base: torch.Tensor,           # (N,)
+    h: torch.Tensor,              # (N,)
+    rng: torch.Tensor,            # (4, R, N)
+    i0_sched: torch.Tensor,       # (C,)
+    fold_sched: torch.Tensor,     # (C+1,)
+    best_H: torch.Tensor,         # (R,)
+    best_m_packed: torch.Tensor,  # (R, Nw)
+    *,
+    n_rnd: int = 2,
+    jperp_sched=None,
+    n_replicas: int = 0,
+):
+    """B=1 slice of :func:`ssa_plateau_popcount_batched` (the same kernel)."""
+    outs = ssa_plateau_popcount_batched(
+        m_packed[None], itanh[None], sign[None], mags[None], base[None], h[None],
+        rng[None], i0_sched, fold_sched, best_H[None], best_m_packed[None],
+        n_rnd=n_rnd, jperp_sched=jperp_sched, n_replicas=n_replicas,
     )
     return tuple(o[0] for o in outs)

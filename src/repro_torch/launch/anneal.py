@@ -8,8 +8,11 @@ generated twin otherwise: G11, G12, G13, King1, K2000) with HA-SSA or SSA
 on the plateau engine.  ``--backend cuda`` runs each plateau as one launch
 of a CUDA plateau kernel: the streamed-noise kernel for ``--noise xorshift``
 (the default), the pregenerated-noise kernel for ``--noise threefry`` or
-``--noise-mode pregen``; ``--track-energy`` and ``--record traj`` need
-per-cycle outputs and run the cycle loop over the CUDA field kernel.
+``--noise-mode pregen``; with ``--field-mode popcount`` (xorshift noise
+only) each iteration's plateau chain is one launch of the XNOR-popcount
+chain kernel.  ``--track-energy`` and ``--record traj`` need per-cycle
+outputs and run the cycle loop over the CUDA field kernel (or, under
+popcount, the plain popcount field).
 Runs on the GPU unless ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -45,6 +48,10 @@ def main(argv=None):
                     help="cuda backend: in-kernel xorshift noise (streamed) or a "
                          "per-plateau noise buffer (pregen); auto streams xorshift "
                          "and pregenerates threefry")
+    ap.add_argument("--field-mode", choices=("dense", "popcount", "auto"), default="dense",
+                    help="field arithmetic of the dense and cuda backends: 'popcount' "
+                         "= XNOR-popcount on the coupling bitplanes (bit-identical "
+                         "results); the sparse backend ignores it")
     ap.add_argument("--record", choices=("best", "traj"), default="best")
     ap.add_argument("--track-energy", action="store_true",
                     help="record per-cycle energy traces (the cycle loop)")
@@ -65,7 +72,8 @@ def main(argv=None):
           f"device={args.device}; "
           f"storage={args.storage} ({algo})")
     cfg = SolverConfig(backend=args.backend, storage_layout=args.storage_layout,
-                       noise=args.noise, noise_mode=args.noise_mode)
+                       noise=args.noise, noise_mode=args.noise_mode,
+                       field_mode=args.field_mode if args.backend != "sparse" else "auto")
     t0 = time.time()
     r = anneal(p, hp, seed=args.seed, storage=args.storage, record=args.record,
                config=cfg, track_energy=args.track_energy, device=args.device)

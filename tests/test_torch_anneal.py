@@ -112,7 +112,6 @@ def test_solve_maxcut_and_cut_consistency():
 # ROADMAP item they wait for — on the CPU as on the card.
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
-    (dict(field_mode="popcount"), "K2"),
     (dict(j_mode="tiled"), "step 2"),
     (dict(partition="spin"), "step 8"),
     (dict(partition="auto"), "step 8"),
@@ -125,9 +124,6 @@ def test_out_of_slice_config_raises(kw, item):
 
 
 @pytest.mark.parametrize("backend,kw,item", [
-    ("cuda", dict(field_mode="popcount"), "K2"),
-    ("cuda", dict(field_mode="auto"), "K2"),
-    ("dense", dict(field_mode="popcount"), "K2"),
     ("dense", dict(j_mode="tiled"), "step 2"),
     ("sparse", dict(n_replicas=4), "step 5"),
     ("auto", {}, "step 3"),
@@ -136,6 +132,35 @@ def test_out_of_slice_backend_options_raise(backend, kw, item):
     model = gset.toroidal_grid(16, seed=0).to_ising()
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         make_backend(backend, model, n_trials=2, device="cpu", **kw)
+
+
+# field_mode='popcount' (and 'auto', which picks it for ±1 weights) is ported:
+# the dense backend takes any noise, the cuda backend (K2) streamed xorshift
+# only — threefry, anneal()'s default, raises there, as in the JAX package.
+@pytest.mark.parametrize("kw", [dict(field_mode="popcount")], ids=lambda v: str(v))
+def test_ported_field_mode_config_runs(kw):
+    cfg = SolverConfig(**kw)
+    r = tssa.anneal(gset.toroidal_grid(16, seed=0),
+                    tssa.SSAHyperParams(n_trials=2, m_shot=1, tau=3, i0_max=4),
+                    config=cfg, device="cpu")
+    assert cfg.field_mode == "popcount" and r.best_m.shape == (2, 16)
+
+
+@pytest.mark.parametrize("backend,kw", [
+    ("cuda", dict(field_mode="popcount", noise="xorshift")),
+    ("cuda", dict(field_mode="auto")),
+    ("dense", dict(field_mode="popcount")),
+], ids=lambda v: str(v))
+def test_ported_field_mode_backend_options(backend, kw):
+    model = gset.toroidal_grid(16, seed=0).to_ising()
+    if kw.get("noise") is None and backend == "cuda":
+        with pytest.raises(ValueError, match="streamed"):
+            make_backend(backend, model, n_trials=2, device="cpu", **kw)
+        return
+    bk = make_backend(backend, model, n_trials=2, device="cpu", **kw)
+    assert bk.field_mode == "popcount" and not hasattr(bk, "J")
+    st, _, _ = bk.run_plateau(bk.init_state(1), 4, length=3, eligible=True)
+    assert bk.finalize(st)[1].shape == (2, 16)
 
 
 # threefry noise and the pregen datapath (K4) are ported: accepted and run.

@@ -13,14 +13,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import gset  # noqa: E402
+from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.config import SolverConfig  # noqa: E402
 from repro_torch.core.rng import xorshift_init  # noqa: E402
 from repro_torch.core.ssa import SSAHyperParams, anneal  # noqa: E402
 from repro_torch.kernels import ssa_update  # noqa: E402
-from repro_torch.kernels.bitplane import pack_spins  # noqa: E402
+from repro_torch.kernels.bitplane import PackedJ, pack_couplings, pack_spins  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     local_field_ref,
     ssa_plateau_packed_ref,
+    ssa_plateau_popcount_ref,
     ssa_plateau_ref,
 )
 
@@ -154,5 +156,73 @@ def test_anneal_pregen_matches_dense_on_card(cuda_device, layout, noise):
     assert (after[0] - before[0], after[1] - before[1]) == (hp.m_shot * hp.steps, 0)
     want = anneal(p, hp, seed=3, track_energy=False, device="cuda",
                   config=SolverConfig(backend="dense", noise=noise, storage_layout=layout))
+    np.testing.assert_array_equal(got.best_energy, want.best_energy)
+    np.testing.assert_array_equal(got.best_m, want.best_m)
+
+
+def _popcount_args(b, r, n, w_max, c, sched, flat, seed, device):
+    rs = np.random.default_rng(seed)
+    nb = max(1, w_max.bit_length())
+    pjs = []
+    for _ in range(b):
+        J = np.triu(rs.integers(-w_max, w_max + 1, (n, n)), 1) * (not flat)
+        pjs.append(pack_couplings(J + J.T, nb))
+    if sched == "hassa":  # Table II: I0 1→32, tau = 100, tiled to c cycles
+        chain = engine.schedule_plateaus(SSAHyperParams(tau=100).schedule())
+        i0, fold = engine.plateau_cycle_schedules(engine.tile_plateaus(chain, c))
+    else:
+        i0 = rs.integers(1, 33, c)
+        fold = rs.integers(0, 2, c + 1) if sched == "random" else np.ones(c + 1)
+    spins = torch.as_tensor(rs.choice([-1, 1], size=(2, b, r, n)), dtype=torch.int8)
+    best_H = torch.full((b, r), 2**30, dtype=torch.int32)
+    best_H[:, 0] = -10**6
+    i32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32)  # noqa: E731
+    args = dict(m_packed=pack_spins(spins[0]), itanh=i32(rs.integers(-8, 8, (b, r, n))),
+                sign=torch.stack([p.sign for p in pjs]), mags=torch.stack([p.mags for p in pjs]),
+                base=torch.stack([p.base for p in pjs]),
+                h=i32(rs.integers(-2, 3, (b, n)) * (not flat)),
+                rng=xorshift_init(seed, (b, r, n)).movedim(0, 1).contiguous(),
+                i0_sched=i32(i0), fold_sched=i32(fold), best_H=best_H,
+                best_m_packed=pack_spins(spins[1]))
+    return {k: v.to(device) for k, v in args.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,n,w_max,c,sched,flat", [
+    (1, 100, 2000, 1, 600, "hassa", False),   # K2000, one Table II iteration
+    (1, 100, 800, 1, 600, "hassa", False),    # G11 width
+    (1, 13, 37, 7, 50, "random", False),      # ragged N, 3 magnitude planes
+    (1, 13, 1001, 1, 17, "all", True),        # tied energies, every state folded
+    (1, 7, 800, 1, 40, "random", False),      # I0 and fold changing mid-chain
+    (2, 7, 1001, 3, 9, "random", False),      # B = 2, 2 planes
+])
+def test_popcount_chain_kernel_matches_plain(cuda_device, b, r, n, w_max, c, sched, flat):
+    args = _popcount_args(b, r, n, w_max, c, sched, flat, seed=n + c, device=cuda_device)
+    want = ssa_plateau_popcount_ref(**args, n_rnd=2)
+    # The planes as packed, then in K2's layout (the cuda backend's).
+    laid_out = ssa_update.popcount_planes(PackedJ(args["sign"], args["mags"], args["base"]))
+    for x in (args, dict(args, sign=laid_out.sign, mags=laid_out.mags)):
+        before = ssa_update.ssa_plateau_popcount_batched.launches
+        got = ssa_update.ssa_plateau_popcount_batched(**x, n_rnd=2)
+        assert ssa_update.ssa_plateau_popcount_batched.launches == before + 1
+        for name, g, w in zip(OUTS, got, want):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+def test_anneal_popcount_matches_k1_on_card(cuda_device, layout):
+    p = gset.complete_graph(300, seed=7)
+    hp = SSAHyperParams(n_trials=7, m_shot=2, tau=6, i0_max=8)
+    before = (ssa_update.ssa_plateau_popcount_batched.launches,
+              ssa_update.ssa_plateau_packed_batched.launches)
+    got = anneal(p, hp, seed=3, track_energy=False, device="cuda",
+                 config=SolverConfig(backend="cuda", noise="xorshift", field_mode="popcount",
+                                     storage_layout=layout))
+    after = (ssa_update.ssa_plateau_popcount_batched.launches,
+             ssa_update.ssa_plateau_packed_batched.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (hp.m_shot, 0)
+    want = anneal(p, hp, seed=3, track_energy=False, device="cuda",
+                  config=SolverConfig(backend="cuda", noise="xorshift", storage_layout=layout))
     np.testing.assert_array_equal(got.best_energy, want.best_energy)
     np.testing.assert_array_equal(got.best_m, want.best_m)
