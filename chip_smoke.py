@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the CUDA kernels from the
 sources in this checkout, holds each against its plain PyTorch version on
-the card, drives ``repro_torch.core.ssa.anneal`` at K2000 width through the
-kernels, and prints what it measured.
+the card, drives ``repro_torch.core.ssa.anneal`` and
+``repro_torch.core.ssqa.anneal_ssqa`` at K2000 width through the kernels,
+and prints what it measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
@@ -43,7 +44,24 @@ Phases (any failure raises and exits non-zero):
      never; best_H and best_m == the K1 run with the same seed; no dense J
      held, and at K2000 the call's peak device memory below the f32 J's
      bytes;
- 13. the kernels line; 14. the contract line (last).
+ 13. K1's SSQA ring mode == its plain version, all five outputs exactly, at
+     K2000 width with 96 trials: rings of 8 (C=100, J⊥=4), 2 and 16, and
+     B = 2; kernel and plain times at rings of 8 and the bound, kernel
+     times at rings of 2 and 16;
+ 14. K2's SSQA ring mode == its plain version at K2000 width, 96 trials,
+     rings of 8, one Table II iteration (C=600) with the ssqa_schedule J⊥
+     ramp, and B = 2; kernel and plain times and the bound, kernel times at
+     rings of 2 and 16;
+ 15. SSQA path: anneal_ssqa(K2000, 96 trials, rings of 8, J⊥max 4, tau=100,
+     I0 1→32) on cuda (dense field), cuda (popcount) and the dense backend
+     on the card — equal best_H and best_m; K1 launched 10 times classical
+     (the J⊥ = 0 plateau) and 50 times in ring mode, K2 10 times in ring
+     mode, K4 never; with threefry (m_shot=2) K1 and K2 never, K4 only on
+     the J⊥ = 0 plateaus and K3 for the others, equal to the dense backend;
+ 16. BENCH_ssqa.json reproduced: hp='auto' on the K2000 twin resolves to its
+     hyper-parameters, and seeds 0–2 give its cycles_to_target for SSA and
+     SSQA (energy traces through K3 on the cuda backend);
+ 17. the kernels line; 18. the contract line (last).
 """
 from __future__ import annotations
 
@@ -61,13 +79,16 @@ import torch
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# 32-bit population counts: 16 per SM per clock (NVIDIA CUDA C++ documentation,
-# arithmetic instruction throughput, compute capability 9.0), 132 SMs,
-# 1.98 GHz boost clock.
+# 32-bit population counts: 16 per SM per clock, and 32-bit integer adds: 64
+# (NVIDIA CUDA C++ documentation, arithmetic instruction throughput, compute
+# capability 9.0), 132 SMs, 1.98 GHz boost clock.
 PEAK_POPC = 16 * 132 * 1.98e9
+PEAK_INT32 = 64 * 132 * 1.98e9
 
 M_SHOT_PRODUCTION = 10
 M_SHOT_TRACE = 2
+# SSQA at K2000: SSQAHyperParams' defaults (96 trials, rings of 8, J⊥max 4).
+SSQA_TRIALS, SSQA_RING, SSQA_JPERP_MAX = 96, 8, 4
 
 
 def _fail(msg: str):
@@ -329,18 +350,23 @@ def _reset_counts():
 
     ssa_update.local_field.launches = 0
     ssa_update.ssa_plateau_packed_batched.launches = 0
+    ssa_update.ssa_plateau_packed_batched.ring_launches = 0
     ssa_update.ssa_plateau_batched.launches = 0
     ssa_update.ssa_plateau_popcount_batched.launches = 0
+    ssa_update.ssa_plateau_popcount_batched.ring_launches = 0
 
 
 def _counts():
-    """Launches of (K1, K3, K4, K2) since the last reset."""
+    """Launches of (K1, K3, K4, K2, K1 in ring mode, K2 in ring mode) since
+    the last reset; the K1 and K2 counts include their ring-mode launches."""
     from repro_torch.kernels import ssa_update
 
     return (ssa_update.ssa_plateau_packed_batched.launches,
             ssa_update.local_field.launches,
             ssa_update.ssa_plateau_batched.launches,
-            ssa_update.ssa_plateau_popcount_batched.launches)
+            ssa_update.ssa_plateau_popcount_batched.launches,
+            ssa_update.ssa_plateau_packed_batched.ring_launches,
+            ssa_update.ssa_plateau_popcount_batched.ring_launches)
 
 
 def _anneal_run(problem, hp, cfg, track_energy, dense_ref=True):
@@ -359,7 +385,8 @@ def _anneal_run(problem, hp, cfg, track_energy, dense_ref=True):
     anneal(problem, dataclasses.replace(hp, m_shot=1), config=cfg, **kw)  # warm-up
     t0 = time.time()
     _, model = normalize_problem(problem)
-    make_backend(config=cfg, model=model, n_trials=hp.n_trials, device="cuda").init_state(0)
+    make_backend(config=cfg, model=model, n_trials=hp.n_trials, device="cuda",
+                 n_replicas=getattr(hp, "n_replicas", 0)).init_state(0)
     torch.cuda.synchronize()
     print(f"[set-up] model, couplings and noise state of anneal(): {time.time() - t0:.3f}s")
     torch.cuda.synchronize()
@@ -414,8 +441,8 @@ def phase_anneal(path: str, streamed=None):
         "xorshift-pregen": SolverConfig(backend="cuda", noise="xorshift",
                                         noise_mode="pregen"),
     }[path]
-    r, wall, (k1, k3, k4, k2), peak, _ = _anneal_run(p, hp, cfg, track_energy,
-                                                     dense_ref=streamed is None)
+    r, wall, (k1, k3, k4, k2, k1_ring, k2_ring), peak, _ = _anneal_run(
+        p, hp, cfg, track_energy, dense_ref=streamed is None)
     rate = hp.total_cycles * hp.n_trials * p.n / wall
     print(f"[{path}] {p.name} N={p.n} trials={hp.n_trials} m_shot={m_shot} "
           f"steps={hp.steps} tau={hp.tau}: best cut {r.overall_best_cut}, "
@@ -429,8 +456,8 @@ def phase_anneal(path: str, streamed=None):
     if not np.array_equal(cut, r.best_cut):
         _fail("best_cut does not match the cut of best_m")
     plateaus = hp.m_shot * hp.steps
-    if k2:
-        _fail(f"{path} path launched K2 {k2} times")
+    if k2 or k1_ring or k2_ring:
+        _fail(f"{path} path launched K2 {k2} times, ring modes of K1/K2 {k1_ring}/{k2_ring}")
     if path == "trace":
         if k3 == 0 or k1 != 0 or k4 != 0:
             _fail(f"trace path: expected K3 > 0, K1 == K4 == 0, got {k1, k3, k4}")
@@ -501,7 +528,7 @@ def _popcount_inputs(rs, B, R, N, w_max, C, dev, sched="hassa", flat=False):
         pjs.append(pack_couplings(J + J.T, nb, device=dev))
     if sched == "hassa":
         plateaus = schedule_plateaus(SSAHyperParams(tau=100, i0_min=1, i0_max=32).schedule())
-        i0, fold = plateau_cycle_schedules(tile_plateaus(plateaus, C))
+        i0, fold, _ = plateau_cycle_schedules(tile_plateaus(plateaus, C))
     else:
         i0 = rs.integers(1, 33, C).astype(np.int32)
         fold = (rs.integers(0, 2, C + 1) if sched == "random"
@@ -600,12 +627,12 @@ def phase_popcount_anneal(name: str, k1_run=None, peak_below_j=False) -> int:
     j_bytes = 4 * p.n * p.n
     print(f"[popcount] {p.name} N={p.n} trials={hp.n_trials} m_shot={hp.m_shot} "
           f"steps={hp.steps} tau={hp.tau}: best cut {r.overall_best_cut}, wall {wall:.3f}s, "
-          f"{rate:.4e} spin-cycles/s; (K1, K3, K4, K2) launches {counts}; "
+          f"{rate:.4e} spin-cycles/s; (K1, K3, K4, K2, K1 ring, K2 ring) launches {counts}; "
           f"peak device memory of the call {peak} B; packed couplings {pj_bytes} B "
           f"(f32 J would be {j_bytes} B)")
-    if counts != (0, 0, 0, hp.m_shot):
-        _fail(f"popcount path: expected (K1, K3, K4, K2) == (0, 0, 0, {hp.m_shot}), "
-              f"got {counts}")
+    if counts != (0, 0, 0, hp.m_shot, 0, 0):
+        _fail(f"popcount path: expected (K1, K3, K4, K2, K1 ring, K2 ring) == "
+              f"(0, 0, 0, {hp.m_shot}, 0, 0), got {counts}")
     dense = [k for k, v in vars(bk).items() if torch.is_tensor(v) and v.is_floating_point()
              and v.numel() >= p.n * p.n]
     if hasattr(bk, "J") or dense or (peak_below_j and peak >= j_bytes):
@@ -619,6 +646,223 @@ def phase_popcount_anneal(name: str, k1_run=None, peak_below_j=False) -> int:
     if not np.array_equal(p.cut_value(r.best_m), r.best_cut):
         _fail("best_cut does not match the cut of best_m")
     return counts[3]
+
+
+def phase_k1_ring(dev):
+    """K1's SSQA ring mode against its plain version at K2000 width."""
+    from repro_torch.kernels import ssa_update
+    from repro_torch.kernels.ref import ssa_plateau_packed_ref
+
+    gen = torch.Generator().manual_seed(5)
+    names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
+    err = 0
+    cases = [(1, SSQA_TRIALS, 2000, 100, SSQA_RING, True),
+             (1, SSQA_TRIALS, 2000, 100, SSQA_RING, False),
+             (1, SSQA_TRIALS, 2000, 20, 2, True), (1, SSQA_TRIALS, 2000, 20, 16, True),
+             (2, 12, 1001, 9, 4, True)]
+    for B, R, N, C, nr, elig in cases:
+        x = _plateau_inputs(gen, R, N, dev)
+        if B > 1:
+            y = _plateau_inputs(gen, R, N, dev)
+            x = {k: torch.cat([x[k], y[k]]) for k in x}
+        kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=elig, jperp=SSQA_JPERP_MAX,
+                  n_replicas=nr)
+        got = ssa_update.ssa_plateau_packed_batched(**x, **kw)
+        want = ssa_plateau_packed_ref(**x, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(names, got, want):
+            e = _max_abs_err(g, w)
+            if e:
+                _fail(f"K1 ring mode {name} differs from its plain version at "
+                      f"B={B} R={R} N={N} C={C} ring={nr} eligible={elig}")
+            err = max(err, e)
+        print(f"[K1 ring] B={B} R={R} N={N} C={C} ring={nr} J⊥={SSQA_JPERP_MAX} "
+              f"eligible={elig}: all five outputs equal")
+    # Timing at the SSQA path's shape: K2000, 96 trials in rings of 8, tau=100.
+    R, N, C = SSQA_TRIALS, 2000, 100
+    x = _plateau_inputs(gen, R, N, dev)
+    kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=True, jperp=SSQA_JPERP_MAX,
+              n_replicas=SSQA_RING)
+    ms = _time_ms(lambda: ssa_update.ssa_plateau_packed_batched(**x, **kw), reps=3)
+    plain_ms = _time_ms(lambda: ssa_plateau_packed_ref(**x, **kw), reps=3)
+    nw = (N + 31) // 32
+    state_bytes = 4 * (R * nw + R * N + 4 * R * N + R + R * nw)
+    n_ops = 2 * R * N * N * (C + 1) + 2 * R * N * C  # the field, and the coupling's adds
+    bound, by = _bound_ms(4 * N * N + 4 * N + 2 * state_bytes, n_ops)
+    print(f"[K1 ring] R={R} N={N} C={C} ring={SSQA_RING}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
+    # Rings of 2 and 16 on the same inputs: one pass width (csrc/ring.cuh's
+    # RING_G) serves every ring size.
+    for nr in (2, 16):
+        kw_nr = dict(kw, n_replicas=nr)
+        t = _time_ms(lambda: ssa_update.ssa_plateau_packed_batched(**x, **kw_nr), reps=3)
+        print(f"[K1 ring] R={R} N={N} C={C} ring={nr}: kernel {t:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def _ssqa_chain(C, tau=100):
+    """(i0, fold, jperp) of the SSQA schedule (I0 1→32, J⊥ 0→4) tiled to C
+    cycles."""
+    from repro_torch.core.engine import plateau_cycle_schedules, schedule_plateaus, tile_plateaus
+    from repro_torch.core.ssqa import SSQAHyperParams
+
+    hp = SSQAHyperParams(n_trials=SSQA_TRIALS, n_replicas=SSQA_RING, tau=tau,
+                         jperp_max=SSQA_JPERP_MAX)
+    return plateau_cycle_schedules(tile_plateaus(schedule_plateaus(hp.schedule()), C))
+
+
+def phase_k2_ring(dev):
+    """K2's SSQA ring mode against its plain version at K2000 width."""
+    import numpy as np
+
+    from repro_torch.kernels import ssa_update
+    from repro_torch.kernels.ref import ssa_plateau_popcount_ref
+
+    rs = np.random.default_rng(6)
+    names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
+    err = 0
+    for B, R, N, w_max, C, tau in ((1, SSQA_TRIALS, 2000, 1, 600, 100),
+                                   (2, 16, 1001, 3, 60, 10)):
+        x = _popcount_inputs(rs, B, R, N, w_max, C, dev)
+        i0, fold, jperp = _ssqa_chain(C, tau)
+        x.update(i0_sched=torch.tensor(i0, device=dev), fold_sched=torch.tensor(fold, device=dev))
+        kw = dict(n_rnd=2, jperp_sched=torch.tensor(jperp, device=dev), n_replicas=SSQA_RING)
+        want = ssa_plateau_popcount_ref(**x, **kw)
+        got = ssa_update.ssa_plateau_popcount_batched(**x, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(names, got, want):
+            e = _max_abs_err(g, w)
+            if e or g.dtype != w.dtype or g.shape != w.shape:
+                _fail(f"K2 ring mode {name} differs from its plain version at B={B} R={R} "
+                      f"N={N} w_max={w_max} C={C}")
+            err = max(err, e)
+        print(f"[K2 ring] B={B} R={R} N={N} nb={x['mags'].shape[1]} C={C} ring={SSQA_RING} "
+              f"J⊥ ramp {jperp.min()}→{jperp.max()}: all five outputs equal")
+    # Timing at the SSQA path's shape: K2000, 96 trials in rings of 8, one
+    # Table II iteration per launch (the x of the first case above).
+    R, N, C = SSQA_TRIALS, 2000, 600
+    x = _popcount_inputs(rs, 1, R, N, 1, C, dev)
+    i0, fold, jperp = _ssqa_chain(C)
+    x.update(i0_sched=torch.tensor(i0, device=dev), fold_sched=torch.tensor(fold, device=dev))
+    kw = dict(n_rnd=2, jperp_sched=torch.tensor(jperp, device=dev), n_replicas=SSQA_RING)
+    ms = _time_ms(lambda: ssa_update.ssa_plateau_popcount_batched(**x, **kw), reps=5)
+    plain_ms = _time_ms(lambda: ssa_plateau_popcount_ref(**x, **kw), reps=1)
+    nb, nw = x["mags"].shape[1], x["sign"].shape[-1]
+    fields = C + int(fold[-1] > 0)
+    state_bytes = 4 * (R * nw + R * N + 4 * R * N + R + R * nw)
+    n_bytes = 4 * (1 + nb) * N * nw + 8 * N + 4 * (3 * C + 1) + 2 * state_bytes
+    popc, adds = R * N * nw * nb * fields, 2 * R * N * C
+    t_ops = (popc / PEAK_POPC + adds / PEAK_INT32) * 1e3
+    t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"[K2 ring] R={R} N={N} nb={nb} C={C} ring={SSQA_RING}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {popc:.4e} popcounts, "
+          f"{adds:.4e} coupling adds)")
+    for nr in (2, 16):
+        kw_nr = dict(kw, n_replicas=nr)
+        t = _time_ms(lambda: ssa_update.ssa_plateau_popcount_batched(**x, **kw_nr), reps=3)
+        print(f"[K2 ring] R={R} N={N} nb={nb} C={C} ring={nr}: kernel {t:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def phase_ssqa_anneal():
+    """anneal_ssqa on K2000 at SSQAHyperParams' widths: the cuda backend with
+    the dense field (K1: classical on the J⊥ = 0 plateau, ring mode on the
+    rest) and with popcount (K2 in ring mode, one chain per iteration), both
+    equal to the dense backend on the card; then threefry, whose coupled
+    plateaus take the cycle loop over K3.  Returns the launches of K1 and K2
+    in ring mode of the two main runs."""
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.engine import schedule_plateaus
+    from repro_torch.core.ssqa import SSQAHyperParams
+
+    p = gset.load("K2000")
+    hp = SSQAHyperParams(n_trials=SSQA_TRIALS, n_replicas=SSQA_RING, jperp_max=SSQA_JPERP_MAX,
+                         m_shot=M_SHOT_PRODUCTION, tau=100, i0_min=1, i0_max=32)
+    coupled = hp.m_shot * sum(1 for pl in schedule_plateaus(hp.schedule()) if pl.jperp)
+    results = {}
+    for name, cfg, dense_ref in (
+            ("dense field", SolverConfig(backend="cuda", noise="xorshift"), True),
+            ("popcount", SolverConfig(backend="cuda", noise="xorshift", field_mode="popcount"),
+             False)):
+        r, wall, counts, peak, _ = _anneal_run(p, hp, cfg, track_energy=False,
+                                               dense_ref=dense_ref)
+        results[name] = (r, counts)
+        rate = hp.total_cycles * hp.n_trials * p.n / wall
+        print(f"[ssqa {name}] {p.name} N={p.n} trials={hp.n_trials} ring={hp.n_replicas} "
+              f"J⊥max={hp.jperp_max} m_shot={hp.m_shot} steps={hp.steps} tau={hp.tau}: "
+              f"best cut {r.overall_best_cut}, wall {wall:.3f}s, {rate:.4e} spin-cycles/s; "
+              f"(K1, K3, K4, K2, K1 ring, K2 ring) launches {counts}; "
+              f"peak device memory of the call {peak} B")
+        if not np.array_equal(p.cut_value(r.best_m), r.best_cut):
+            _fail(f"ssqa {name}: best_cut does not match the cut of best_m")
+    (rd, cd), (rp, cp) = results["dense field"], results["popcount"]
+    plateaus = hp.m_shot * hp.steps
+    if cd != (plateaus, 0, 0, 0, coupled, 0):
+        _fail(f"ssqa dense field: expected (K1, K3, K4, K2, K1 ring, K2 ring) == "
+              f"({plateaus}, 0, 0, 0, {coupled}, 0), got {cd}")
+    if cp != (0, 0, 0, hp.m_shot, 0, hp.m_shot):
+        _fail(f"ssqa popcount: expected (K1, K3, K4, K2, K1 ring, K2 ring) == "
+              f"(0, 0, 0, {hp.m_shot}, 0, {hp.m_shot}), got {cp}")
+    if not (np.array_equal(rd.best_energy, rp.best_energy)
+            and np.array_equal(rd.best_m, rp.best_m)):
+        _fail("ssqa: popcount (K2 ring) differs from the dense field (K1 ring)")
+    hp2 = dataclasses.replace(hp, m_shot=M_SHOT_TRACE)
+    r, wall, counts, _, _ = _anneal_run(p, hp2, SolverConfig(backend="cuda", noise="threefry"),
+                                        track_energy=False)
+    print(f"[ssqa threefry] m_shot={hp2.m_shot}: best cut {r.overall_best_cut}, "
+          f"wall {wall:.3f}s; (K1, K3, K4, K2, K1 ring, K2 ring) launches {counts}")
+    k1, k3, k4, k2, _, _ = counts
+    if k1 or k2 or k3 == 0 or k4 != hp2.m_shot:
+        _fail(f"ssqa threefry: expected K1 == K2 == 0, K3 > 0 and K4 == {hp2.m_shot} "
+              f"(the J⊥ = 0 plateaus), got {counts}")
+    return cd[4], cp[5]
+
+
+def phase_bench_ssqa():
+    """BENCH_ssqa.json reproduced: hp='auto' on the K2000 twin resolves to
+    the recorded hyper-parameters, and each seed's cycles to the target cut
+    (the best-so-far cut per cycle of anneal(track_energy=True), as
+    benchmarks/pt_compare.py computes it) equal the recorded ones."""
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.autotune import resolve_hyperparams
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.ssa import SSAHyperParams, anneal
+    from repro_torch.core.ssqa import SSQAHyperParams
+
+    bench = json.loads((Path(__file__).resolve().parent / "BENCH_ssqa.json").read_text())
+    p = gset.complete_graph(2000, seed=2000, name="K2000")
+    budget = dict(n_trials=16, m_shot=2)
+    hps = {"ssa": resolve_hyperparams("auto", p, base=SSAHyperParams(**budget))[0],
+           "ssqa": resolve_hyperparams("auto", p, base=SSQAHyperParams(**budget),
+                                       algo="ssqa")[0]}
+    for algo, hp in hps.items():
+        if repr(hp) != bench[algo]["hp"]:
+            _fail(f"hp='auto' on K2000 resolves to {hp!r}, BENCH_ssqa.json has "
+                  f"{bench[algo]['hp']}")
+    cfg = SolverConfig(backend="cuda", noise="xorshift")
+    t0 = time.time()
+    for row in bench["seeds"]:
+        trace = {}
+        for algo, hp in hps.items():
+            r = anneal(p, hp, seed=row["seed"], config=cfg, track_energy=True, device="cuda")
+            trace[algo] = (p.w_total - np.minimum.accumulate(r.energy_min)) // 2
+        target = int(bench["target_frac"] * min(int(t[-1]) for t in trace.values()))
+        got = {a: (int(t[-1]), int(np.argmax(t >= target)) + 1) for a, t in trace.items()}
+        want = {a: (row[a]["final_cut"], row[a]["cycles_to_target"]) for a in trace}
+        print(f"[bench_ssqa] seed {row['seed']}: target {target} (recorded "
+              f"{row['target_cut']}); (final cut, cycles to target) {got}, recorded {want}")
+        if target != row["target_cut"] or got != want:
+            _fail(f"BENCH_ssqa.json seed {row['seed']} not reproduced")
+    print(f"[bench_ssqa] hp, targets, final cuts and cycles_to_target of all three seeds "
+          f"equal BENCH_ssqa.json ({time.time() - t0:.1f}s)")
 
 
 def main():
@@ -644,6 +888,10 @@ def main():
     k2 = phase_k2(dev)
     k2_launches = phase_popcount_anneal("K2000", k1_run=streamed, peak_below_j=True)
     phase_popcount_anneal("G11")
+    k1_ring = phase_k1_ring(dev)
+    k2_ring = phase_k2_ring(dev)
+    k1_ring_launches, k2_ring_launches = phase_ssqa_anneal()
+    phase_bench_ssqa()
     kernels = [
         dict(name="ssa_plateau_packed (K1)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
@@ -661,6 +909,14 @@ def main():
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
              launches=k2_launches, **k2),
+        dict(name="ssa_plateau_packed ring mode (K1, SSQA)", route="cuda",
+             source="src/repro_torch/kernels/csrc/plateau.cu",
+             replaces="src/repro/kernels/ssa_update.py:329",
+             launches=k1_ring_launches, **k1_ring),
+        dict(name="ssa_plateau_popcount ring mode (K2, SSQA)", route="cuda",
+             source="src/repro_torch/kernels/csrc/popcount.cu",
+             replaces="src/repro/kernels/ssa_update.py:668",
+             launches=k2_ring_launches, **k2_ring),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

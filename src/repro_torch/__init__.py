@@ -5,6 +5,8 @@ module's counterpart is found at the same path:
 
   core.rng, core.ising, core.gset, core.schedule, core.config,
   core.engine, core.ssa, core.memory    — the single-problem annealer
+  core.ssqa, core.autotune              — SSQA (Trotter-replica rings) and
+                                          the hyper-parameter determination
   kernels.bitplane, kernels.ref,
   kernels.ssa_update, kernels.ops       — the spin codec, the plain
                                           versions and the CUDA kernels
@@ -15,3 +17,17 @@ The package imports torch and numpy only.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; a CUDA request without a GPU
 raises instead of continuing on the CPU.
 """
+import importlib
+
+__all__ = ["SSQAHyperParams", "anneal_ssqa", "resolve_hyperparams"]
+
+# Exported names, imported on first use: importing a numpy-only submodule
+# (core.schedule, core.gset) does not load torch or the engine.
+_EXPORTS = {"SSQAHyperParams": "core.ssqa", "anneal_ssqa": "core.ssqa",
+            "resolve_hyperparams": "core.autotune"}
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -20,8 +20,6 @@ _LAYOUTS = ("dense", "packed")
 # What each option outside the ported slice waits for, by ROADMAP.md item.
 _WAITS = {
     "tiled": "ROADMAP.md queue 1 step 2 (j_mode='tiled': streamed J slabs)",
-    "ssqa": "ROADMAP.md queue 1 step 5 (SSQA and the other algorithm families)",
-    "autotune": "ROADMAP.md queue 1 step 5 (autotune, hp='auto')",
     "spin": "ROADMAP.md queue 1 step 8 (spin sharding across GPUs)",
     "auto_backend": "ROADMAP.md queue 1 step 3 (MIN_RESIDENT_N re-derived on "
                     "the H100 before backend='auto' can choose)",
@@ -90,8 +88,6 @@ class SolverConfig:
             )
         _check_choice("partition", self.partition, ("problem",),
                       {"spin": "spin", "auto": "spin"})
-        if opts.get("n_replicas"):
-            raise not_ported("backend_opts n_replicas (SSQA)", "ssqa")
 
     def engine_opts(self) -> Dict[str, Any]:
         """kwargs for ``make_backend(**...)`` minus backend/noise.

@@ -10,7 +10,8 @@ a pluggable :class:`PlateauBackend`:
   cycle: the field of the update of m(t) is reused for H(m(t)).
 * :class:`CudaBackend` — a resident CUDA plateau kernel, one launch per
   plateau (with ``field_mode='popcount'``, one launch of K2 per plateau
-  chain): with streamed noise K1
+  chain; SSQA plateaus with J⊥ ≠ 0 run the kernels' ring modes): with
+  streamed noise K1
   (:func:`repro_torch.kernels.ssa_update.ssa_plateau_packed`: spins packed
   at the launch boundary, the xorshift noise stepped inside the kernel),
   with pregenerated noise K4 (:func:`repro_torch.kernels.ssa_update.
@@ -24,6 +25,11 @@ plateau that starts at m(t0), the states it produces, m(t0+1) … m(t0+C),
 are folded into the running best under the plateau's eligibility; m(t0)
 belongs to the previous plateau, and the final state is folded by one
 extra field evaluation after the loop.
+
+SSQA (a backend built with ``n_replicas``): the trial axis holds T/R
+Trotter rings of R consecutive replicas, and a plateau's J⊥ adds
+``J⊥ · (m[k-1] + m[k+1])`` (:func:`replica_coupling`) to the update field
+only; best tracking and energy traces keep the classical energy.
 
 Field arithmetic (``field_mode``): 'dense' contracts the (N, N) J;
 'popcount' contracts the coupling bitplanes of ``kernels.bitplane.PackedJ``
@@ -55,6 +61,7 @@ from ..kernels.bitplane import (
     pack_spins,
     unpack_spins,
 )
+from ..kernels.ref import replica_coupling
 from .config import SolverConfig, not_ported
 from .ising import (
     IsingModel,
@@ -98,6 +105,7 @@ __all__ = [
     "resolve_noise_mode",
     "model_weight_bits",
     "plateau_cycle_schedules",
+    "replica_coupling",
     "normalize_problem",
     "validate_model",
     "finalize_cut",
@@ -254,15 +262,19 @@ class BaseResult:
 @dataclasses.dataclass(frozen=True)
 class Plateau:
     """One constant-I0 run of cycles.  ``eligible`` is the storage
-    write-enable for the states this plateau produces."""
+    write-enable for the states this plateau produces; ``jperp`` the SSQA
+    replica coupling J⊥ held over it (0, the classical value, disables the
+    coupling)."""
 
     i0: int
     length: int
     eligible: bool
+    jperp: int = 0
 
 
 def schedule_plateaus(sched: Schedule, storage: str = "i0max") -> Tuple[Plateau, ...]:
-    """Group one iteration's per-cycle schedule into plateaus.
+    """Group one iteration's per-cycle schedule into plateaus, split where
+    I0, eligibility or J⊥ changes.
 
     storage='i0max' → HA-SSA eligibility; storage='all' → every plateau
     eligible (conventional SSA).
@@ -274,33 +286,42 @@ def schedule_plateaus(sched: Schedule, storage: str = "i0max") -> Tuple[Plateau,
         elig = np.ones(len(i0), dtype=bool)
     else:
         raise ValueError(f"unknown storage {storage!r}")
+    jp = sched.jperp_per_cycle
+    jp = np.zeros(len(i0), np.int64) if jp is None else np.asarray(jp)
     out = []
     start = 0
     for k in range(1, len(i0) + 1):
-        if k == len(i0) or i0[k] != i0[start] or elig[k] != elig[start]:
-            out.append(Plateau(int(i0[start]), k - start, bool(elig[start])))
+        if (k == len(i0) or i0[k] != i0[start] or elig[k] != elig[start]
+                or jp[k] != jp[start]):
+            out.append(Plateau(int(i0[start]), k - start, bool(elig[start]), int(jp[start])))
             start = k
     return tuple(out)
 
 
-def plateau_cycle_schedules(plateaus: Sequence[Plateau]) -> Tuple[np.ndarray, np.ndarray]:
+def plateau_cycle_schedules(
+    plateaus: Sequence[Plateau],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-cycle schedule operands of the plateau-chain kernel K2.
 
-    Flattens a plateau chain into ``(i0_sched (C,), fold_sched (C+1,))``
-    int32 host arrays: ``i0_sched[c]`` is the I0 of cycle c and
-    ``fold_sched[c]`` the storage write-enable of the plateau that produced
-    the state current at cycle c — 0 at c = 0 (the chain's incoming state
-    belongs to the previous chain), the eligibility of cycle c−1's plateau
-    for c ≥ 1, so ``fold_sched[C]`` covers the final state.  One K2 launch
-    over them equals chaining one plateau at a time.
+    Flattens a plateau chain into ``(i0_sched (C,), fold_sched (C+1,),
+    jperp_sched (C,))`` int32 host arrays: ``i0_sched[c]`` is the I0 of
+    cycle c, ``fold_sched[c]`` the storage write-enable of the plateau that
+    produced the state current at cycle c — 0 at c = 0 (the chain's
+    incoming state belongs to the previous chain), the eligibility of cycle
+    c−1's plateau for c ≥ 1, so ``fold_sched[C]`` covers the final state —
+    and ``jperp_sched[c]`` the replica coupling of cycle c's update (all 0
+    for a classical chain).  One K2 launch over them equals chaining one
+    plateau at a time.
     """
-    i0s, elig = [], []
+    i0s, elig, jps = [], [], []
     for p in plateaus:
         i0s.extend([int(p.i0)] * int(p.length))
         elig.extend([int(bool(p.eligible))] * int(p.length))
+        jps.extend([int(p.jperp)] * int(p.length))
     if not i0s:
         raise ValueError("empty plateau chain")
-    return np.asarray(i0s, np.int32), np.asarray([0] + elig, np.int32)
+    return (np.asarray(i0s, np.int32), np.asarray([0] + elig, np.int32),
+            np.asarray(jps, np.int32))
 
 
 def tile_plateaus(plateaus: Sequence[Plateau], total_cycles: int) -> Tuple[Plateau, ...]:
@@ -315,7 +336,7 @@ def tile_plateaus(plateaus: Sequence[Plateau], total_cycles: int) -> Tuple[Plate
             if remaining <= 0:
                 break
             take = min(p.length, remaining)
-            out.append(Plateau(p.i0, take, p.eligible))
+            out.append(Plateau(p.i0, take, p.eligible, p.jperp))
             remaining -= take
     return tuple(out)
 
@@ -373,6 +394,8 @@ def run_plateau_scan(
     eligible: bool,
     track_energy: bool = False,
     emit: bool = False,
+    jperp: int = 0,
+    n_replicas: int = 0,
 ):
     """One constant-I0 plateau as a loop over cycles — one contraction each.
 
@@ -381,13 +404,18 @@ def run_plateau_scan(
     previous plateau, and one epilogue field evaluation folds the final
     state — the resident kernel's semantics.
 
+    With ``jperp`` ≠ 0 and ``n_replicas`` > 0 (SSQA) the update field gains
+    ``jperp · replica_coupling(m, n_replicas)``; the best fold and the
+    traces keep the base field.
+
     Returns (state', trace, planes): trace is (mean_H (C,) f32, min_H (C,)
     int32) aligned to the produced states m(t0+1..t0+C) when
     ``track_energy``; planes is the (C, T, ceil(N/32)) packed trajectory
     when ``emit``.
     """
-    i0 = int(i0)
+    i0, jperp = int(i0), int(jperp)
     need_H = bool(eligible) or bool(track_energy)
+    couple = bool(jperp) and int(n_replicas) > 0
     ns, m, itanh, best_H, best_m = state
     means, mins, planes = [], [], []
 
@@ -407,6 +435,8 @@ def run_plateau_scan(
         if need_H and c >= 1:
             best_H, best_m = fold(m, field, best_H, best_m)
         ns, r = noise_step(ns)
+        if couple:
+            field = field + jperp * replica_coupling(m, n_replicas)
         m, itanh = ssa_cycle_update(field, itanh, r, i0, n_rnd)
         if emit:
             planes.append(pack_spins(m))
@@ -442,8 +472,6 @@ class PlateauBackend:
         n_replicas: int = 0,
         device=None,
     ):
-        if n_replicas:
-            raise not_ported("n_replicas (SSQA)", "ssqa")
         if storage_layout not in ("dense", "packed"):
             raise ValueError(f"unknown storage_layout {storage_layout!r}")
         self.model = model
@@ -451,6 +479,13 @@ class PlateauBackend:
         self.n_rnd = int(n_rnd)
         self.noise = noise
         self.storage_layout = storage_layout
+        self.n_replicas = int(n_replicas)
+        if self.n_replicas:
+            if self.n_replicas < 2:
+                raise ValueError("n_replicas must be >= 2 (or 0 to disable)")
+            if self.n_trials % self.n_replicas:
+                raise ValueError(f"n_trials {self.n_trials} not divisible by "
+                                 f"n_replicas {self.n_replicas}")
         self.device = resolve_device(device)
         self.h = torch.as_tensor(model.h, dtype=torch.int32, device=self.device)
         lanes = (self.n_trials, model.n)
@@ -481,15 +516,17 @@ class PlateauBackend:
         return pack_state(st) if self.storage_layout == "packed" else st
 
     def run_plateau(self, state, i0, *, length: int, eligible: bool,
-                    track_energy: bool = False, emit: bool = False):
+                    track_energy: bool = False, emit: bool = False, jperp: int = 0):
         """Advance one plateau in this backend's storage layout (the packed
-        layout wraps the dense loop in the exact pack/unpack codec)."""
+        layout wraps the dense loop in the exact pack/unpack codec).
+        ``jperp`` is the plateau's SSQA coupling, applied when the backend
+        was built with ``n_replicas``."""
         packed = self.storage_layout == "packed"
         st = unpack_state(state, self.model.n) if packed else state
         st, trace, planes = run_plateau_scan(
             self._field, self._noise_step, self.h, self.n_rnd, st, i0,
             length=length, eligible=eligible, track_energy=track_energy,
-            emit=emit,
+            emit=emit, jperp=jperp, n_replicas=self.n_replicas,
         )
         return (pack_state(st) if packed else st), trace, planes
 
@@ -497,7 +534,7 @@ class PlateauBackend:
         """Advance a whole plateau chain (record='best', no traces)."""
         for p in plateaus:
             state, _, _ = self.run_plateau(
-                state, p.i0, length=p.length, eligible=p.eligible
+                state, p.i0, length=p.length, eligible=p.eligible, jperp=p.jperp
             )
         return state
 
@@ -618,11 +655,16 @@ class CudaBackend(PlateauBackend):
     * ``noise_mode='streamed'`` (xorshift's default): K1
       (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_packed`) — spins
       cross the launch boundary as 32-bit words and the noise lanes are
-      stepped inside the kernel, so no (C, T, N) noise buffer exists;
+      stepped inside the kernel, so no (C, T, N) noise buffer exists.  An
+      SSQA plateau (a backend with ``n_replicas``, the plateau's J⊥ ≠ 0)
+      runs K1's ring mode; a plateau with J⊥ = 0, such as the first of
+      every SSQA schedule, runs the classical K1;
     * ``noise_mode='pregen'`` (threefry's only datapath; opt-in for
       xorshift, bit-identical to streamed): K4
       (:func:`~repro_torch.kernels.ssa_update.ssa_plateau`) over the
-      plateau's (C, T, N) int8 noise, drawn before the launch.
+      plateau's (C, T, N) int8 noise, drawn before the launch.  K4 has no
+      ring mode, in the JAX package either: an SSQA plateau with J⊥ ≠ 0
+      runs the cycle loop over K3.
 
     Plateaus that need per-cycle outputs (``track_energy``, trajectory
     planes) run the cycle loop with the field from K3
@@ -632,10 +674,12 @@ class CudaBackend(PlateauBackend):
     planes) holds the couplings as ``PackedJ`` bitplanes and no J, and runs
     K2 (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_popcount`):
     :meth:`run_plateaus` makes one launch per plateau chain, with the
-    per-cycle I0 and fold schedules built on the host and copied to the
-    device once.  K2 steps xorshift lanes in-kernel, so popcount requires
-    ``noise_mode='streamed'``, as the JAX package's ``PallasBackend`` does;
-    the cycle loop of per-cycle outputs takes the plain popcount field.
+    per-cycle I0, fold and J⊥ schedules built on the host and copied to the
+    device once per distinct chain; a chain whose J⊥ schedule is not all 0
+    runs K2's ring mode.  K2 steps xorshift lanes in-kernel, so popcount
+    requires ``noise_mode='streamed'``, as the JAX package's
+    ``PallasBackend`` does; the cycle loop of per-cycle outputs takes the
+    plain popcount field.
 
     On CPU tensors (``device='cpu'``) the wrappers run their plain
     versions — the path the CPU tests hold against the JAX package.
@@ -669,14 +713,18 @@ class CudaBackend(PlateauBackend):
         return kops.local_field(m, self.h, self.J)
 
     def _device_schedules(self, plateaus: Tuple[Plateau, ...]):
-        """(i0_sched, fold_sched) of a chain on the device: built on the
-        host and copied in one transfer, once per distinct chain."""
+        """(i0_sched, fold_sched, jperp_sched or None) of a chain on the
+        device: built on the host and copied in one transfer, once per
+        distinct chain; ``jperp_sched`` is None for a chain without
+        coupling."""
         sched = self._schedules.get(plateaus)
         if sched is None:
-            i0_sched, fold_sched = plateau_cycle_schedules(plateaus)
-            both = torch.from_numpy(np.concatenate([i0_sched, fold_sched])).to(self.device)
-            sched = self._schedules[plateaus] = (both[:len(i0_sched)],
-                                                 both[len(i0_sched):])
+            i0_sched, fold_sched, jperp_sched = plateau_cycle_schedules(plateaus)
+            flat = torch.from_numpy(np.concatenate([i0_sched, fold_sched, jperp_sched]))
+            flat = flat.to(self.device)
+            C = len(i0_sched)
+            sched = self._schedules[plateaus] = (
+                flat[:C], flat[C:2 * C + 1], flat[2 * C + 1:] if jperp_sched.any() else None)
         return sched
 
     def _popcount_chain(self, state, plateaus: Tuple[Plateau, ...]):
@@ -684,11 +732,12 @@ class CudaBackend(PlateauBackend):
         packed = self.storage_layout == "packed"
         mp = state.m_packed if packed else pack_spins(state.m)
         bmp = state.best_m_packed if packed else pack_spins(state.best_m)
-        i0_sched, fold_sched = self._device_schedules(plateaus)
+        i0_sched, fold_sched, jperp_sched = self._device_schedules(plateaus)
         pj = self.packed_j
         mp_o, it_o, rng_o, bh_o, bmp_o = kssa.ssa_plateau_popcount(
             mp, state.itanh, pj.sign, pj.mags, pj.base, self.h, state.noise_state,
             i0_sched, fold_sched, state.best_H, bmp, n_rnd=self.n_rnd,
+            jperp_sched=jperp_sched, n_replicas=self.n_replicas,
         )
         if packed:
             return PackedEngineState(rng_o, mp_o, it_o, bh_o, bmp_o)
@@ -711,15 +760,18 @@ class CudaBackend(PlateauBackend):
         return xorshift_noise_cycles(ns, length)
 
     def run_plateau(self, state, i0, *, length: int, eligible: bool,
-                    track_energy: bool = False, emit: bool = False):
-        if emit or track_energy:
+                    track_energy: bool = False, emit: bool = False, jperp: int = 0):
+        jperp = int(jperp)
+        # K4 has no ring mode: SSQA plateaus on the pregen datapath take the
+        # cycle loop over K3, as the JAX package's pregen path takes its scan.
+        if emit or track_energy or (jperp and self.noise_mode != "streamed"):
             return super().run_plateau(
                 state, i0, length=length, eligible=eligible,
-                track_energy=track_energy, emit=emit,
+                track_energy=track_energy, emit=emit, jperp=jperp,
             )
         if self.field_mode == "popcount":
             # One plateau is a chain of constant I0: fold [0] + [eligible]*C.
-            chain = (Plateau(int(i0), int(length), bool(eligible)),)
+            chain = (Plateau(int(i0), int(length), bool(eligible), jperp),)
             return self._popcount_chain(state, chain), None, None
         packed = self.storage_layout == "packed"
         if self.noise_mode == "pregen":
@@ -733,10 +785,13 @@ class CudaBackend(PlateauBackend):
             return (pack_state(out) if packed else out), None, None
         mp = state.m_packed if packed else pack_spins(state.m)
         bmp = state.best_m_packed if packed else pack_spins(state.best_m)
+        # Ring mode only where the plateau couples: J⊥ = 0 runs the
+        # classical kernel, as the JAX package's pallas backend does.
         mp_o, it_o, rng_o, bh_o, bmp_o = kssa.ssa_plateau_packed(
             mp, state.itanh, self.J, self.h, state.noise_state, int(i0),
             state.best_H, bmp, n_cycles=int(length), n_rnd=self.n_rnd,
-            eligible=bool(eligible),
+            eligible=bool(eligible), jperp=jperp,
+            n_replicas=self.n_replicas if jperp else 0,
         )
         if packed:
             return PackedEngineState(rng_o, mp_o, it_o, bh_o, bmp_o), None, None
@@ -808,13 +863,14 @@ def run_schedule(
         if record == "traj":
             state, _, pl = backend.run_plateau(
                 state, p.i0, length=p.length, eligible=False, emit=p.eligible,
+                jperp=p.jperp,
             )
             if pl is not None:
                 planes.append(pl)
         elif record == "best":
             state, tr, _ = backend.run_plateau(
                 state, p.i0, length=p.length, eligible=p.eligible,
-                track_energy=track_energy,
+                track_energy=track_energy, jperp=p.jperp,
             )
             if tr is not None:
                 tr_mean.append(tr[0])

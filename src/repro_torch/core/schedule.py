@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+from typing import Optional
 
 import numpy as np
 
-__all__ = ["Schedule", "hassa_schedule", "ssa_schedule", "n_temp_steps"]
+__all__ = ["Schedule", "hassa_schedule", "ssa_schedule", "ssqa_schedule", "n_temp_steps"]
 
 
 def n_temp_steps(i0_min: int, i0_max: int, beta_shift: int = 1) -> int:
@@ -38,12 +39,16 @@ class Schedule:
       steps: number of plateaus.
       store_mask: bool[cycles_per_iter] — True where HA-SSA asserts the
         storage write-enable (I0 == I0max).
+      jperp_per_cycle: optional int32[cycles_per_iter] Trotter-replica
+        coupling J⊥(t) of SSQA; ``None`` for classical schedules, whose
+        signature stays the v1 payload.
     """
 
     i0_per_cycle: np.ndarray
     tau: int
     steps: int
     store_mask: np.ndarray
+    jperp_per_cycle: Optional[np.ndarray] = None
 
     @property
     def cycles_per_iter(self) -> int:
@@ -51,13 +56,20 @@ class Schedule:
 
     def signature(self) -> str:
         """Stable identity of the per-cycle program: a hash of
-        (i0_per_cycle, store_mask, tau), equal to the JAX package's."""
+        (i0_per_cycle, store_mask, tau), and of the J⊥ ramp under a distinct
+        version tag when there is one; equal to the JAX package's."""
         payload = (
             "Schedule/v1",
             tuple(int(x) for x in np.asarray(self.i0_per_cycle)),
             tuple(bool(x) for x in np.asarray(self.store_mask)),
             int(self.tau),
         )
+        if self.jperp_per_cycle is not None:
+            payload = (
+                "Schedule/v2-ssqa",
+                payload,
+                tuple(int(x) for x in np.asarray(self.jperp_per_cycle)),
+            )
         return hashlib.sha256(repr(payload).encode()).hexdigest()[:16]
 
 
@@ -94,3 +106,19 @@ def ssa_schedule(i0_min: int, i0_max: int, tau: int, beta: float = 0.5) -> Sched
             break
         v = v / beta
     return _plateau_schedule(plateaus, i0_max, tau)
+
+
+def ssqa_schedule(i0_min: int, i0_max: int, tau: int, beta_shift: int = 1, *,
+                  jperp_max: int = 4) -> Schedule:
+    """SSQA (arXiv:2302.12454): HA-SSA's I0 ramp plus the integer replica
+    coupling J⊥, 0 at the hottest plateau rising linearly to ``jperp_max``
+    at the coldest.  Plateau s gets ``round(jperp_max·s/(steps−1))`` with
+    Python's round (half to even), as the JAX package computes it."""
+    base = hassa_schedule(i0_min, i0_max, tau, beta_shift)
+    steps = base.steps
+    if steps == 1:
+        per_plateau = [int(jperp_max)]
+    else:
+        per_plateau = [round(int(jperp_max) * s / (steps - 1)) for s in range(steps)]
+    return dataclasses.replace(
+        base, jperp_per_cycle=np.repeat(np.asarray(per_plateau, dtype=np.int32), tau))

@@ -13,7 +13,9 @@ of :mod:`repro_torch.core.engine`: ``m_shot`` iterations of ``steps``
 plateaus, each advanced by the configured backend — with
 ``SolverConfig(backend='cuda')`` one launch of the CUDA plateau kernel per
 plateau when no per-cycle output is asked for (K1 with streamed xorshift
-noise, K4 with pregenerated noise).
+noise, K4 with pregenerated noise).  SSQA hyper-parameters
+(:class:`repro_torch.core.ssqa.SSQAHyperParams`) run the same plateau loop with
+the Trotter-replica coupling.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from .config import SolverConfig, not_ported
+from .config import SolverConfig
 from .engine import (
     BaseResult,
     energy_from_field,
@@ -105,7 +107,7 @@ def _best_of_planes(bk, planes, maxcut, best):
 
 def anneal(
     problem: Union[MaxCutProblem, IsingModel],
-    hp: SSAHyperParams = SSAHyperParams(),
+    hp: Union[SSAHyperParams, str] = SSAHyperParams(),
     seed: int = 0,
     *,
     storage: str = "i0max",        # 'i0max' (HA-SSA) | 'all' (conventional SSA)
@@ -113,6 +115,7 @@ def anneal(
     track_energy: bool = True,
     schedule_kind: str = "hassa",  # 'hassa' Eq.(4) | 'ssa' Eq.(3)
     total_cycles: Optional[int] = None,  # cycle-count duration (Fig. 12 mode)
+    auto_base: Optional[SSAHyperParams] = None,  # budget knobs for hp='auto'
     config: Optional[SolverConfig] = None,
     device=None,
 ) -> AnnealResult:
@@ -131,17 +134,30 @@ def anneal(
     ``record='traj'`` returns the stored packed planes and picks the best
     among them.  ``total_cycles`` truncates the run to a cycle count
     (record='best' only).
+
+    ``hp='auto'`` derives n_rnd, the I0 clamp and the per-plateau τ from
+    the instance's local-field distribution
+    (:mod:`repro_torch.core.autotune`), with the budget knobs of
+    ``auto_base`` (default: Table II).  An hp with ``n_replicas`` (SSQA)
+    builds the backend with that Trotter-replica count, and its schedule
+    carries the J⊥ ramp.
     """
-    if isinstance(hp, str):
-        raise not_ported(f"hp={hp!r}", "autotune")
-    if getattr(hp, "n_replicas", 0):
-        raise not_ported("SSQA hyper-parameters (n_replicas)", "ssqa")
-    cfg = SolverConfig(noise="threefry") if config is None else config
     maxcut, model = normalize_problem(problem)
+    if isinstance(hp, str):
+        from .autotune import resolve_hyperparams  # autotune imports this module
+
+        hp, _ = resolve_hyperparams(hp, model, base=auto_base)
+    cfg = SolverConfig(noise="threefry") if config is None else config
     sched = hp.schedule(schedule_kind)
+    opts = cfg.engine_opts()
+    # SSQA hyper-parameters carry the replica count; read by attribute, as
+    # core.ssqa imports this module.
+    nr = int(getattr(hp, "n_replicas", 0) or 0)
+    if nr:
+        opts.setdefault("n_replicas", nr)
     bk = make_backend(
         cfg.backend, model, n_trials=hp.n_trials, n_rnd=hp.n_rnd,
-        noise=cfg.noise, device=device, **cfg.engine_opts(),
+        noise=cfg.noise, device=device, **opts,
     )
     plateaus = schedule_plateaus(sched, storage)
     stored_per_iter = sum(p.length for p in plateaus if p.eligible)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -20,7 +21,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "build", "library", "ptxas_report"]
+__all__ = ["SOURCES", "build", "header_int", "library", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -82,6 +83,16 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return paths
+
+
+def header_int(header: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <value>;`` in ``csrc/<header>``,
+    so that a limit the kernels hold is written down once."""
+    text = (CSRC / header).read_text()
+    found = re.search(rf"^constexpr int {name} = (\d+);", text, re.M)
+    if found is None:
+        raise RuntimeError(f"csrc/{header} defines no constexpr int {name}")
+    return int(found.group(1))
 
 
 def ptxas_report(name: str) -> str:

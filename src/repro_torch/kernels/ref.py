@@ -7,7 +7,7 @@ smoke test holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -15,8 +15,23 @@ from ..core.ising import local_fields_popcount
 from ..core.rng import xorshift_next_bits
 from .bitplane import PackedJ, pack_spins, unpack_spins
 
-__all__ = ["local_field_ref", "ssa_plateau_packed_ref", "ssa_plateau_popcount_ref",
-           "ssa_plateau_ref"]
+__all__ = ["local_field_ref", "replica_coupling", "ssa_plateau_packed_ref",
+           "ssa_plateau_popcount_ref", "ssa_plateau_ref"]
+
+
+def replica_coupling(m: torch.Tensor, n_replicas: int) -> torch.Tensor:
+    """SSQA's Trotter-ring coupling: int32 ``m[k-1] + m[k+1]`` per (trial,
+    spin), where the trial axis (axis -2 of ``(..., T, N)`` spins) holds
+    T/R rings of R consecutive replicas, closed at their ends.  With R = 2
+    the one neighbour counts from both sides (2·m_other), as ``jnp.roll``
+    gives it in the JAX package."""
+    R = int(n_replicas)
+    *lead, T, N = m.shape
+    if T % R:
+        raise ValueError(f"n_trials {T} not divisible by n_replicas {R}")
+    mr = m.to(torch.int32).reshape(*lead, T // R, R, N)
+    nb = torch.roll(mr, 1, dims=-2) + torch.roll(mr, -1, dims=-2)
+    return nb.reshape(*lead, T, N)
 
 
 def local_field_ref(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor) -> torch.Tensor:
@@ -38,6 +53,8 @@ def ssa_plateau_packed_ref(
     n_cycles: int,
     n_rnd: int = 2,
     eligible: bool = True,
+    jperp: int = 0,
+    n_replicas: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """One constant-I0 plateau of ``n_cycles`` cycles for B problems.
 
@@ -50,10 +67,14 @@ def ssa_plateau_packed_ref(
     an unimproved best word pass through; spin words come out with zero
     tail bits.
 
+    ``n_replicas > 0`` is the SSQA ring mode: the update (not the energy)
+    adds ``jperp · replica_coupling(m, n_replicas)`` of the state current
+    at the cycle.
+
     Returns (m_packed, itanh, rng, best_H, best_m_packed).
     """
     n = itanh.shape[-1]
-    i0 = int(i0)
+    i0, jperp = int(i0), int(jperp)
     Jf = J.to(torch.float32)
     hb = h.to(torch.int32)[:, None, :]
     m = unpack_spins(m_packed, n)
@@ -77,6 +98,8 @@ def ssa_plateau_packed_ref(
         if eligible and c >= 1:
             bh, bmp = fold(m, f, bh, bmp)
         lanes, r = xorshift_next_bits(lanes)
+        if n_replicas:
+            f = f + jperp * replica_coupling(m, n_replicas)
         itanh = torch.clamp(f + n_rnd * r + itanh, -i0, i0 - 1)
         m = torch.where(itanh >= 0, 1, -1).to(torch.int8)
     if eligible:
@@ -148,6 +171,8 @@ def ssa_plateau_popcount_ref(
     best_m_packed: torch.Tensor,  # (B, R, Nw) int32 words
     *,
     n_rnd: int = 2,
+    jperp_sched: Optional[torch.Tensor] = None,  # (C,) int32 per-cycle J⊥
+    n_replicas: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """A plateau chain of C = ``len(i0_sched)`` cycles for B problems, with
     the XNOR-popcount field; integer arithmetic only.
@@ -162,10 +187,15 @@ def ssa_plateau_popcount_ref(
     state with one more field.  Spin words come out with zero tail bits,
     as the JAX kernel's do for ``n_rnd >= 1``.
 
+    With ``jperp_sched`` (SSQA ring mode, ``n_replicas`` > 0) the update of
+    cycle c adds ``jperp_sched[c] · replica_coupling(m, n_replicas)`` of the
+    state current at c; the energy keeps the base field.
+
     Returns (m_packed, itanh, rng, best_H, best_m_packed).
     """
     n = itanh.shape[-1]
     i0s = [int(v) for v in i0_sched.tolist()]
+    jps = None if jperp_sched is None else [int(v) for v in jperp_sched.tolist()]
     folds = [int(v) > 0 for v in fold_sched.tolist()]
     if len(folds) != len(i0s) + 1:
         raise ValueError(f"fold_sched needs C+1 = {len(i0s) + 1} entries, got {len(folds)}")
@@ -186,6 +216,8 @@ def ssa_plateau_popcount_ref(
         if folds[c]:
             bh, bmp = fold(mw, f, bh, bmp)
         lanes, r = xorshift_next_bits(lanes)
+        if jps is not None:
+            f = f + jps[c] * replica_coupling(unpack_spins(mw, n), n_replicas)
         itanh = torch.clamp(f + n_rnd * r + itanh, -i0, i0 - 1)
         mw = pack_spins(torch.where(itanh >= 0, 1, -1))
     if folds[-1]:

@@ -10,7 +10,8 @@ Four kernels, each the port of one Pallas kernel of
   :func:`ssa_plateau_packed` — one constant-I0 plateau of C cycles in one
   launch (``csrc/plateau.cu``): spins cross the launch boundary as 32-bit
   words, the xorshift128 lanes are stepped in-kernel, the running best is
-  folded on the card.
+  folded on the card.  With ``n_replicas`` it runs SSQA's Trotter-ring
+  mode, a kernel of its own in the same source.
 * K4, :func:`ssa_plateau_batched` and its B=1 slice :func:`ssa_plateau` —
   the same plateau with pregenerated noise (``csrc/plateau_pregen.cu``):
   float32 spins, int8 best spins and a (B, C, R, N) int8 noise buffer.
@@ -19,18 +20,21 @@ Four kernels, each the port of one Pallas kernel of
   :func:`ssa_plateau_popcount` — a whole plateau chain (per-cycle I0 and
   fold write-enable) in one launch with the XNOR-popcount field on the
   bitplanes of ``PackedJ`` (``csrc/popcount.cu``), integers only, xorshift
-  noise stepped in-kernel.  The path of ``field_mode='popcount'``.
+  noise stepped in-kernel.  The path of ``field_mode='popcount'``.  With
+  ``jperp_sched`` it runs SSQA's Trotter-ring mode, a kernel of its own in
+  the same source.
 
 A wrapper takes its plain version (:mod:`.ref`) only for tensors on the
 CPU.  For CUDA tensors it checks device, dtype, shape and contiguity,
 allocates the outputs, launches on the current stream and raises if the
 launch reports an error; it never falls back.  Each wrapper counts its
-launches in a ``launches`` attribute.
+launches in a ``launches`` attribute; K1's and K2's count their ring-mode
+launches among them again in ``ring_launches``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,12 +63,18 @@ _POPCOUNT_TRIALS_PER_BLOCK = 2
 # Dynamic shared memory one H100 block may use.
 _MAX_SMEM = 232448
 
+# Replicas of one Trotter ring the ring-mode kernels take (csrc/ring.cuh
+# says why); the wrappers are where a call is checked against it.
+MAX_RING = _build.header_int("ring.cuh", "MAX_RING")
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "repro_local_field": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_ssa_plateau_packed": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
     "repro_ssa_plateau": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8 + [_P],
     "repro_ssa_plateau_popcount": [_P] * 16 + [_I] * 6 + [_P],
+    "repro_ssa_plateau_packed_ring": [_P] * 5 + [_I] * 2 + [_P] * 7 + [_I] * 8 + [_P],
+    "repro_ssa_plateau_popcount_ring": [_P] * 17 + [_I] * 7 + [_P],
 }
 
 
@@ -106,6 +116,23 @@ def _trials_per_block(N: int, smem_per_trial: int, tpb: int = None) -> int:
         raise ValueError(f"N={N} needs {tpb * smem_per_trial} B of shared memory "
                          f"per block (> {_MAX_SMEM})")
     return tpb
+
+
+def _check_ring(R: int, n_replicas: int, what: str):
+    """Validation of a ring-mode call, as the JAX wrappers make it, and the
+    kernels' own limit."""
+    if n_replicas < 1:
+        raise ValueError(f"{what}: n_replicas must be >= 1, got {n_replicas}")
+    if R % n_replicas:
+        raise ValueError(f"n_trials={R} not divisible by n_replicas={n_replicas}")
+    if n_replicas > MAX_RING:
+        raise ValueError(f"{what}: n_replicas={n_replicas} exceeds the ring-mode kernel's "
+                         f"limit of {MAX_RING} replicas per ring (one block per ring)")
+
+
+def _check_smem(what: str, smem: int):
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{what} needs {smem} B of shared memory per block (> {_MAX_SMEM})")
 
 
 def _launch(fn, lib, what: str, dev: torch.device, *args):
@@ -162,13 +189,19 @@ def ssa_plateau_packed_batched(
     n_cycles: int,
     n_rnd: int = 2,
     eligible: bool = True,
+    jperp: int = 0,
+    n_replicas: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """K1: one constant-I0 plateau for B problems × R trials, one launch.
 
     Semantics are those of :func:`~repro_torch.kernels.ref.
     ssa_plateau_packed_ref`.  Replaces
     ``repro/kernels/ssa_update.py:ssa_plateau_packed_batched``
-    (``_plateau_streamed_kernel``) in its classical mode.
+    (``_plateau_streamed_kernel``), in both its modes: ``n_replicas == 0``
+    runs the classical kernel; ``n_replicas > 0`` the SSQA ring-mode
+    kernel, which adds ``jperp · (m[k-1] + m[k+1])`` over rings of
+    ``n_replicas`` consecutive trials to the update field (R must be a
+    multiple of ``n_replicas``, at most MAX_RING of them per ring).
 
     Returns (m_packed, itanh, rng, best_H, best_m_packed).
     """
@@ -176,10 +209,14 @@ def ssa_plateau_packed_batched(
     dev = _device_of(*args)
     if itanh.dim() != 3:
         raise ValueError(f"itanh: expected (B, R, N), got shape {tuple(itanh.shape)}")
+    n_replicas = int(n_replicas)
+    if n_replicas:
+        _check_ring(itanh.shape[1], n_replicas, "ssa_plateau_packed")
     if dev.type == "cpu":
         return ssa_plateau_packed_ref(
             m_packed, itanh, J, h, rng, i0, best_H, best_m_packed,
             n_cycles=n_cycles, n_rnd=n_rnd, eligible=eligible,
+            jperp=jperp, n_replicas=n_replicas,
         )
     B, R, N = itanh.shape
     nw = packed_words(N)
@@ -193,12 +230,30 @@ def ssa_plateau_packed_batched(
     _check("best_m_packed", best_m_packed, (B, R, nw), i32)
     if int(n_cycles) < 0:
         raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
-    tpb = _trials_per_block(N, 4 * (2 * N + nw))
+    if n_replicas:
+        # The ring's spins as one word per column, double-buffered, and its
+        # best words.
+        _check_smem(f"K1's ring mode at N={N}", 4 * (2 * N + n_replicas * nw))
+    else:
+        tpb = _trials_per_block(N, 4 * (2 * N + nw))
     outs = tuple(torch.empty_like(t) for t in
                  (m_packed, itanh, rng, best_H, best_m_packed))
     if B == 0 or R == 0:
         return outs
     mp_o, it_o, rng_o, bh_o, bmp_o = outs
+    if n_replicas:
+        fn, lib = _entry("plateau", "repro_ssa_plateau_packed_ring")
+        _launch(
+            fn, lib, "ssa_plateau_packed (ring mode)", dev,
+            m_packed.data_ptr(), itanh.data_ptr(), J.data_ptr(), h.data_ptr(),
+            rng.data_ptr(), int(i0), int(jperp), best_H.data_ptr(),
+            best_m_packed.data_ptr(), mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(),
+            bh_o.data_ptr(), bmp_o.data_ptr(), B, R, N, int(n_cycles), int(n_rnd),
+            int(bool(eligible)), int(J.dtype == torch.bfloat16), n_replicas,
+        )
+        ssa_plateau_packed_batched.launches += 1
+        ssa_plateau_packed_batched.ring_launches += 1
+        return outs
     fn, lib = _entry("plateau", "repro_ssa_plateau_packed")
     _launch(
         fn, lib, "ssa_plateau_packed", dev,
@@ -213,6 +268,7 @@ def ssa_plateau_packed_batched(
 
 
 ssa_plateau_packed_batched.launches = 0
+ssa_plateau_packed_batched.ring_launches = 0
 
 
 def ssa_plateau_packed(
@@ -228,12 +284,15 @@ def ssa_plateau_packed(
     n_cycles: int,
     n_rnd: int = 2,
     eligible: bool = True,
+    jperp: int = 0,
+    n_replicas: int = 0,
 ):
-    """B=1 slice of :func:`ssa_plateau_packed_batched` (the same kernel)."""
+    """B=1 slice of :func:`ssa_plateau_packed_batched` (the same kernels)."""
     outs = ssa_plateau_packed_batched(
         m_packed[None], itanh[None], J[None], h[None], rng[None], i0,
         best_H[None], best_m_packed[None],
         n_cycles=n_cycles, n_rnd=n_rnd, eligible=eligible,
+        jperp=jperp, n_replicas=n_replicas,
     )
     return tuple(o[0] for o in outs)
 
@@ -345,7 +404,7 @@ def ssa_plateau_popcount_batched(
     best_m_packed: torch.Tensor,  # (B, R, Nw) int32 words
     *,
     n_rnd: int = 2,
-    jperp_sched=None,
+    jperp_sched: Optional[torch.Tensor] = None,  # (C,) int32 per-cycle J⊥
     n_replicas: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """K2: a plateau chain of C = ``len(i0_sched)`` cycles for B problems ×
@@ -355,8 +414,13 @@ def ssa_plateau_popcount_batched(
     ssa_plateau_popcount_ref`; the schedules come from
     :func:`repro_torch.core.engine.plateau_cycle_schedules`.  Replaces
     ``repro/kernels/ssa_update.py:ssa_plateau_popcount_batched``
-    (``_plateau_popcount_kernel``) in its classical mode: the SSQA ring
-    mode (``jperp_sched``, ``n_replicas``) is not ported and raises.
+    (``_plateau_popcount_kernel``), in both its modes: without
+    ``jperp_sched`` the classical kernel (2 trials per block), with it the
+    SSQA ring-mode kernel (one block per ring of ``n_replicas`` trials),
+    which adds ``jperp_sched[c] · (m[k-1] + m[k+1])`` to the update of
+    cycle c.  As in the JAX package, ``n_replicas`` without
+    ``jperp_sched`` runs the classical kernel, and ``jperp_sched`` without
+    ``n_replicas`` raises ValueError.
 
     ``sign`` and ``mags`` may be in any memory layout; planes not already
     stored [Nw][N] (see :func:`popcount_planes`) are copied to it for the
@@ -364,9 +428,6 @@ def ssa_plateau_popcount_batched(
 
     Returns (m_packed, itanh, rng, best_H, best_m_packed).
     """
-    if jperp_sched is not None or n_replicas:
-        raise ValueError("K2's SSQA ring mode (jperp_sched, n_replicas) is not ported; "
-                         "it waits for ROADMAP.md queue 1 step 5")
     args = (m_packed, itanh, sign, mags, base, h, rng, i0_sched, fold_sched, best_H,
             best_m_packed)
     dev = _device_of(*args)
@@ -374,8 +435,17 @@ def ssa_plateau_popcount_batched(
         raise ValueError(f"itanh: expected (B, R, N), mags (B, nb, N, Nw) and i0_sched "
                          f"(C,), got {tuple(itanh.shape)}, {tuple(mags.shape)} and "
                          f"{tuple(i0_sched.shape)}")
+    if jperp_sched is None:
+        n_replicas = 0
+    elif not n_replicas:
+        raise ValueError("jperp_sched given but n_replicas == 0")
+    else:
+        n_replicas = int(n_replicas)
+        _check_ring(itanh.shape[1], n_replicas, "ssa_plateau_popcount")
+        _device_of(jperp_sched, itanh)
     if dev.type == "cpu":
-        return ssa_plateau_popcount_ref(*args, n_rnd=n_rnd)
+        return ssa_plateau_popcount_ref(*args, n_rnd=n_rnd, jperp_sched=jperp_sched,
+                                        n_replicas=n_replicas)
     B, R, N = itanh.shape
     nb, C = mags.shape[1], i0_sched.shape[0]
     nw = packed_words(N)
@@ -393,7 +463,12 @@ def ssa_plateau_popcount_batched(
     _check("best_m_packed", best_m_packed, (B, R, nw), i32)
     if nb < 1:
         raise ValueError("mags: need at least one magnitude plane")
-    _trials_per_block(N, 4 * 3 * nw, _POPCOUNT_TRIALS_PER_BLOCK)
+    if n_replicas:
+        _check("jperp_sched", jperp_sched, (C,), i32)
+        # The ring's words [Nw][R], double-buffered, and its best words.
+        _check_smem(f"K2's ring mode at N={N}", 4 * 3 * nw * n_replicas)
+    else:
+        _trials_per_block(N, 4 * 3 * nw, _POPCOUNT_TRIALS_PER_BLOCK)
     outs = tuple(torch.empty_like(t) for t in
                  (m_packed, itanh, rng, best_H, best_m_packed))
     if B == 0 or R == 0:
@@ -404,6 +479,19 @@ def ssa_plateau_popcount_batched(
     sign_t = sign.transpose(1, 2).contiguous()
     mags_t = mags.transpose(2, 3).contiguous()
     mp_o, it_o, rng_o, bh_o, bmp_o = outs
+    if n_replicas:
+        fn, lib = _entry("popcount", "repro_ssa_plateau_popcount_ring")
+        _launch(
+            fn, lib, "ssa_plateau_popcount (ring mode)", dev,
+            m_packed.data_ptr(), itanh.data_ptr(), sign_t.data_ptr(), mags_t.data_ptr(),
+            base.data_ptr(), h.data_ptr(), rng.data_ptr(), i0_sched.data_ptr(),
+            jperp_sched.data_ptr(), fold_sched.data_ptr(), best_H.data_ptr(),
+            best_m_packed.data_ptr(), mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(),
+            bh_o.data_ptr(), bmp_o.data_ptr(), B, R, N, nb, C, int(n_rnd), n_replicas,
+        )
+        ssa_plateau_popcount_batched.launches += 1
+        ssa_plateau_popcount_batched.ring_launches += 1
+        return outs
     fn, lib = _entry("popcount", "repro_ssa_plateau_popcount")
     _launch(
         fn, lib, "ssa_plateau_popcount", dev,
@@ -418,6 +506,7 @@ def ssa_plateau_popcount_batched(
 
 
 ssa_plateau_popcount_batched.launches = 0
+ssa_plateau_popcount_batched.ring_launches = 0
 
 
 def ssa_plateau_popcount(
@@ -437,7 +526,7 @@ def ssa_plateau_popcount(
     jperp_sched=None,
     n_replicas: int = 0,
 ):
-    """B=1 slice of :func:`ssa_plateau_popcount_batched` (the same kernel)."""
+    """B=1 slice of :func:`ssa_plateau_popcount_batched` (the same kernels)."""
     outs = ssa_plateau_popcount_batched(
         m_packed[None], itanh[None], sign[None], mags[None], base[None], h[None],
         rng[None], i0_sched, fold_sched, best_H[None], best_m_packed[None],

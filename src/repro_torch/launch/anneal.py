@@ -12,8 +12,14 @@ of a CUDA plateau kernel: the streamed-noise kernel for ``--noise xorshift``
 only) each iteration's plateau chain is one launch of the XNOR-popcount
 chain kernel.  ``--track-energy`` and ``--record traj`` need per-cycle
 outputs and run the cycle loop over the CUDA field kernel (or, under
-popcount, the plain popcount field).
+popcount, the plain popcount field).  ``--algo ssqa`` runs SSQA: rings of
+``--replicas`` Trotter replicas on the trial axis, coupled by a J⊥ ramp up
+to ``--jperp-max``; on ``--backend cuda`` its coupled plateaus run the
+ring modes of the streamed and popcount kernels.
 Runs on the GPU unless ``--device cpu`` is given.
+
+    python -m repro_torch.launch.anneal --problem K2000 --backend cuda \
+        --algo ssqa --trials 96 --replicas 8 --jperp-max 4 --m-shot 10
 """
 from __future__ import annotations
 
@@ -25,12 +31,21 @@ import torch
 from repro_torch.core import gset, memory
 from repro_torch.core.config import SolverConfig
 from repro_torch.core.ssa import SSAHyperParams, anneal
+from repro_torch.core.ssqa import SSQAHyperParams
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--problem", default="G11",
                     help="instance name (G11, G12, G13, King1, K2000)")
+    ap.add_argument("--algo", choices=("ssa", "ssqa"), default="ssa",
+                    help="algorithm family: 'ssqa' runs the Trotter-replica quantum "
+                         "variant; the rings live on the trial axis, so --trials must "
+                         "be a multiple of --replicas")
+    ap.add_argument("--replicas", type=int, default=8,
+                    help="--algo ssqa: Trotter replicas per ring (>= 2)")
+    ap.add_argument("--jperp-max", type=int, default=4,
+                    help="--algo ssqa: integer replica coupling at the coldest plateau")
     ap.add_argument("--trials", type=int, default=16)
     ap.add_argument("--m-shot", type=int, default=20)
     ap.add_argument("--tau", type=int, default=100)
@@ -60,17 +75,22 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
 
-    hp = SSAHyperParams(
-        n_trials=args.trials, m_shot=args.m_shot, n_rnd=args.n_rnd,
-        i0_min=args.i0_min, i0_max=args.i0_max, tau=args.tau,
-        beta_shift=args.beta_shift,
-    )
+    knobs = dict(n_trials=args.trials, m_shot=args.m_shot, n_rnd=args.n_rnd,
+                 i0_min=args.i0_min, i0_max=args.i0_max, tau=args.tau,
+                 beta_shift=args.beta_shift)
+    if args.algo == "ssqa":
+        hp = SSQAHyperParams(**knobs, n_replicas=args.replicas, jperp_max=args.jperp_max)
+    else:
+        hp = SSAHyperParams(**knobs)
     p = gset.load(args.problem)
-    algo = "HA-SSA" if args.storage == "i0max" else "SSA"
+    algo = ("SSQA" if args.algo == "ssqa"
+            else "HA-SSA" if args.storage == "i0max" else "SSA")
+    extra = (f"; R={hp.n_replicas} jperp_max={hp.jperp_max}"
+             if args.algo == "ssqa" else "")
     print(f"{p.name}: N={p.n} |E|={len(p.edges)}; {hp.total_cycles} cycles "
           f"× {hp.n_trials} trials; backend={args.backend}; noise={args.noise}; "
           f"device={args.device}; "
-          f"storage={args.storage} ({algo})")
+          f"storage={args.storage} ({algo}){extra}")
     cfg = SolverConfig(backend=args.backend, storage_layout=args.storage_layout,
                        noise=args.noise, noise_mode=args.noise_mode,
                        field_mode=args.field_mode if args.backend != "sparse" else "auto")

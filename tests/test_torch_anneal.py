@@ -116,7 +116,6 @@ def test_solve_maxcut_and_cut_consistency():
     (dict(partition="spin"), "step 8"),
     (dict(partition="auto"), "step 8"),
     (dict(backend="auto"), "step 3"),
-    (dict(backend_opts=(("n_replicas", 4),)), "step 5"),
 ], ids=lambda v: str(v))
 def test_out_of_slice_config_raises(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
@@ -125,7 +124,6 @@ def test_out_of_slice_config_raises(kw, item):
 
 @pytest.mark.parametrize("backend,kw,item", [
     ("dense", dict(j_mode="tiled"), "step 2"),
-    ("sparse", dict(n_replicas=4), "step 5"),
     ("auto", {}, "step 3"),
 ], ids=lambda v: str(v))
 def test_out_of_slice_backend_options_raise(backend, kw, item):
@@ -212,15 +210,22 @@ def test_dense_j_above_threshold_raises():
 
 
 def test_anneal_hp_auto_and_ssqa_raise():
-    p = gset.toroidal_grid(16, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 5"):
-        tssa.anneal(p, "auto", device="cpu")
+    """``anneal(p, 'auto')`` and ``anneal(p, SSQAHyperParams(...))`` run on
+    the CPU (they raised before SSQA and autotune were ported) and equal
+    the JAX package's, with its default config (sparse, threefry)."""
+    from repro.core.ssqa import SSQAHyperParams as JSSQA
+    from repro_torch.core.ssqa import SSQAHyperParams
 
-    class SSQAish(tssa.SSAHyperParams):
-        n_replicas = 4
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 5"):
-        tssa.anneal(p, SSQAish(n_trials=4), device="cpu")
+    p, jp = gset.toroidal_grid(16, seed=0), jgset.toroidal_grid(16, seed=0)
+    base = dict(n_trials=4, m_shot=1, tau=4)
+    got = tssa.anneal(p, "auto", device="cpu", auto_base=tssa.SSAHyperParams(**base))
+    want = janneal(jp, "auto", auto_base=JHP(**base))
+    assert repr(got.hp) == repr(want.hp)
+    _assert_same(got, want, True)
+    hp = dict(base, i0_max=8, n_replicas=2, jperp_max=2)
+    got = tssa.anneal(p, SSQAHyperParams(**hp), device="cpu")
+    want = janneal(jp, JSSQA(**hp))
+    _assert_same(got, want, True)
 
 
 def test_cuda_request_without_gpu_raises(monkeypatch):

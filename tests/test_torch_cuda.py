@@ -169,7 +169,7 @@ def _popcount_args(b, r, n, w_max, c, sched, flat, seed, device):
         pjs.append(pack_couplings(J + J.T, nb))
     if sched == "hassa":  # Table II: I0 1→32, tau = 100, tiled to c cycles
         chain = engine.schedule_plateaus(SSAHyperParams(tau=100).schedule())
-        i0, fold = engine.plateau_cycle_schedules(engine.tile_plateaus(chain, c))
+        i0, fold, _ = engine.plateau_cycle_schedules(engine.tile_plateaus(chain, c))
     else:
         i0 = rs.integers(1, 33, c)
         fold = rs.integers(0, 2, c + 1) if sched == "random" else np.ones(c + 1)
@@ -224,5 +224,77 @@ def test_anneal_popcount_matches_k1_on_card(cuda_device, layout):
     assert (after[0] - before[0], after[1] - before[1]) == (hp.m_shot, 0)
     want = anneal(p, hp, seed=3, track_energy=False, device="cuda",
                   config=SolverConfig(backend="cuda", noise="xorshift", storage_layout=layout))
+    np.testing.assert_array_equal(got.best_energy, want.best_energy)
+    np.testing.assert_array_equal(got.best_m, want.best_m)
+
+
+# ---------------------------------------------------------------------------
+# SSQA: the ring modes of K1 and K2 against their plain versions
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,n,c,nr,flat", [
+    (1, 8, 36, 5, 4, False), (1, 6, 100, 7, 2, False), (2, 9, 1001, 3, 3, False),
+    (1, 10, 70, 6, 5, True), (1, 32, 257, 4, 16, False), (1, 32, 64, 3, 32, False),
+    (1, 96, 2000, 4, 8, False),
+])
+@pytest.mark.parametrize("eligible", [True, False])
+def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, eligible):
+    args = _plateau_args(b, r, n, seed=n + c + nr, flat=flat, device=cuda_device)
+    kw = dict(i0=8, n_cycles=c, eligible=eligible, jperp=3, n_replicas=nr)
+    before = (ssa_update.ssa_plateau_packed_batched.launches,
+              ssa_update.ssa_plateau_packed_batched.ring_launches)
+    got = ssa_update.ssa_plateau_packed_batched(**args, **kw)
+    assert (ssa_update.ssa_plateau_packed_batched.launches,
+            ssa_update.ssa_plateau_packed_batched.ring_launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    want = ssa_plateau_packed_ref(**args, **kw)
+    for name, g, w in zip(OUTS, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,n,w_max,c,nr", [
+    (1, 8, 37, 7, 30, 4), (1, 6, 100, 1, 40, 2), (2, 9, 1001, 3, 9, 3),
+    (1, 32, 800, 1, 20, 16), (1, 32, 64, 1, 12, 32), (1, 96, 2000, 1, 60, 8),
+])
+def test_popcount_ring_kernel_matches_plain(cuda_device, b, r, n, w_max, c, nr):
+    args = _popcount_args(b, r, n, w_max, c, "random", False, seed=n + c + nr,
+                          device=cuda_device)
+    jperp = torch.as_tensor(np.random.default_rng(c).integers(0, 6, c), dtype=torch.int32,
+                            device=cuda_device)
+    laid_out = ssa_update.popcount_planes(PackedJ(args["sign"], args["mags"], args["base"]))
+    want = ssa_plateau_popcount_ref(**args, n_rnd=2, jperp_sched=jperp, n_replicas=nr)
+    for x in (args, dict(args, sign=laid_out.sign, mags=laid_out.mags)):
+        before = ssa_update.ssa_plateau_popcount_batched.ring_launches
+        got = ssa_update.ssa_plateau_popcount_batched(**x, n_rnd=2, jperp_sched=jperp,
+                                                      n_replicas=nr)
+        assert ssa_update.ssa_plateau_popcount_batched.ring_launches == before + 1
+        for name, g, w in zip(OUTS, got, want):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+@pytest.mark.parametrize("field_mode", ["dense", "popcount"])
+def test_anneal_ssqa_matches_dense_on_card(cuda_device, layout, field_mode):
+    from repro_torch.core.ssqa import SSQAHyperParams, anneal_ssqa
+
+    p = gset.complete_graph(300, seed=7)
+    hp = SSQAHyperParams(n_trials=8, n_replicas=4, m_shot=2, tau=6, i0_max=8, jperp_max=3)
+    k1, k2 = ssa_update.ssa_plateau_packed_batched, ssa_update.ssa_plateau_popcount_batched
+    before = (k1.launches, k1.ring_launches, k2.launches, k2.ring_launches)
+    got = anneal_ssqa(p, hp, seed=3, track_energy=False, device="cuda",
+                      config=SolverConfig(backend="cuda", noise="xorshift",
+                                          field_mode=field_mode, storage_layout=layout))
+    after = (k1.launches, k1.ring_launches, k2.launches, k2.ring_launches)
+    ring_plateaus = hp.m_shot * (hp.steps - 1)  # every plateau but the J⊥ = 0 one
+    counts = tuple(a - b for a, b in zip(after, before))
+    if field_mode == "dense":
+        assert counts == (hp.m_shot * hp.steps, ring_plateaus, 0, 0)
+    else:
+        assert counts == (0, 0, hp.m_shot, hp.m_shot)
+    want = anneal_ssqa(p, hp, seed=3, track_energy=False, device="cuda",
+                       config=SolverConfig(backend="dense", noise="xorshift",
+                                           storage_layout=layout))
     np.testing.assert_array_equal(got.best_energy, want.best_energy)
     np.testing.assert_array_equal(got.best_m, want.best_m)

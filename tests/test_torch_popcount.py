@@ -225,14 +225,15 @@ def test_resolve_field_mode_rejects_unknown():
 def test_plateau_cycle_schedules_match_jax(storage):
     hp = tssa.SSAHyperParams(**HP)
     chain = engine.tile_plateaus(engine.schedule_plateaus(hp.schedule(), storage), 27)
-    i0, fold = engine.plateau_cycle_schedules(chain)
+    i0, fold, jperp = engine.plateau_cycle_schedules(chain)
     jhp = JHP(**HP)
     jchain = jengine.tile_plateaus(jengine.schedule_plateaus(jhp.schedule("hassa"), storage),
                                    27)
-    ji0, jfold, jperp = jengine.plateau_cycle_schedules(jchain)
-    assert i0.dtype == fold.dtype == np.int32
+    ji0, jfold, jjperp = jengine.plateau_cycle_schedules(jchain)
+    assert i0.dtype == fold.dtype == jperp.dtype == np.int32
     np.testing.assert_array_equal(i0, ji0)
     np.testing.assert_array_equal(fold, jfold)
+    np.testing.assert_array_equal(jperp, jjperp)
     assert len(fold) == len(i0) + 1 == 28 and fold[0] == 0 and not jperp.any()
     with pytest.raises(ValueError):
         engine.plateau_cycle_schedules(())
@@ -261,7 +262,7 @@ def _chain_case(b, r, n, c, w_max, seed, sched):
     case["best_H"][:, 0] = -10**6  # a trial whose best cannot improve keeps its words
     if sched == "hassa":
         chain = engine.schedule_plateaus(tssa.SSAHyperParams(**HP).schedule(), "i0max")
-        i0, fold = engine.plateau_cycle_schedules(engine.tile_plateaus(chain, c))
+        i0, fold, _ = engine.plateau_cycle_schedules(engine.tile_plateaus(chain, c))
     else:  # I0 and fold changing at random mid-chain
         i0 = rs.integers(0, 9, c).astype(np.int32)
         fold = rs.integers(0, 2, c + 1).astype(np.int32)
@@ -294,12 +295,19 @@ def test_popcount_chain_plain_matches_pallas(b, r, n, c, w_max, sched):
 
 
 def test_popcount_chain_rejects_ssqa():
+    """A J⊥ schedule without a ring size raises, as in the JAX package."""
     case = _chain_case(1, 2, 40, 3, 1, seed=1, sched="random")
     args = [_i32(case[k]) for k in ("m_packed", "itanh", "sign", "mags", "base", "h", "rng",
                                     "i0_sched", "fold_sched", "best_H", "best_m_packed")]
-    with pytest.raises(ValueError, match="SSQA"):
-        ssa_update.ssa_plateau_popcount_batched(*args, n_replicas=2,
-                                                jperp_sched=torch.zeros(3, dtype=torch.int32))
+    jperp = torch.ones(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="n_replicas == 0"):
+        ssa_update.ssa_plateau_popcount_batched(*args, jperp_sched=jperp)
+    with pytest.raises(ValueError, match="n_replicas == 0"):
+        jssa.ssa_plateau_popcount_batched(
+            *(jnp.asarray(case[k]) for k in ("m_packed", "itanh", "sign", "mags", "base", "h",
+                                             "rng", "i0_sched", "fold_sched", "best_H",
+                                             "best_m_packed")),
+            jperp_sched=jnp.ones(3, jnp.int32))
 
 
 # ---------------------------------------------------------------------------
