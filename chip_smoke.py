@@ -8,8 +8,10 @@ and prints what it measured.
 
 Phases (any failure raises and exits non-zero):
   1. card: name and power limit (nvidia-smi); the four kernels built;
-  2. K3 ``local_field`` == its plain version, exactly, at the K2000 shape and
-     a ragged one; kernel, plain, torch.addmm times and the bound;
+  2. K3 ``local_field`` == its plain version, exactly, at the K2000 shape,
+     ragged ones and with J tiles of one to four byte planes mixed; kernel,
+     plain, torch.addmm (TF32 off) times and the bound (bytes, beside the
+     int8 MMA time);
   3. K1 ``ssa_plateau_packed`` == its plain version, all five outputs
      exactly, at K2000 and G11 widths, eligible and not, a ragged shape and
      a tied-energy shape; kernel and plain times and the bound; K1's time
@@ -45,9 +47,10 @@ Phases (any failure raises and exits non-zero):
      held, and at K2000 the call's peak device memory below the f32 J's
      bytes;
  13. K1's SSQA ring mode == its plain version, all five outputs exactly, at
-     K2000 width with 96 trials: rings of 8 (C=100, J⊥=4), 2 and 16, and
-     B = 2; kernel and plain times at rings of 8 and the bound, kernel
-     times at rings of 2 and 16;
+     K2000 width with 96 trials: rings of 8 (C=100, J⊥=4), 2 and 16, B = 2,
+     and at cluster sizes 1 and the largest; the cluster size and block
+     count of each launch; kernel and plain times at rings of 8 and the
+     bound, kernel times at rings of 2 and 16 and at smaller clusters;
  14. K2's SSQA ring mode == its plain version at K2000 width, 96 trials,
      rings of 8, one Table II iteration (C=600) with the ssqa_schedule J⊥
      ramp, and B = 2; kernel and plain times and the bound, kernel times at
@@ -79,6 +82,8 @@ import torch
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# Dense int8 tensor-core operations (the same data sheet).
+PEAK_INT8_OPS = 1979e12
 # 32-bit population counts: 16 per SM per clock, and 32-bit integer adds: 64
 # (NVIDIA CUDA C++ documentation, arithmetic instruction throughput, compute
 # capability 9.0), 132 SMs, 1.98 GHz boost clock.
@@ -151,24 +156,43 @@ def _coupling(gen, n, dtype, device):
     return (J + J.T).to(dtype).to(device)
 
 
+def _mixed_plane_coupling(gen, n, dtype, device):
+    """A J whose 64 x 128 tiles need one, two, three and four byte planes in
+    K3 (|J| <= 127, < 2^15, < 2^23, any), inside its exactness contract: no
+    column's sum of |J| reaches 2^24."""
+    J = torch.randint(-1, 2, (n, n), generator=gen)
+    two = J[64:128, 128:256]
+    two[...] = torch.randint(-4096, 4097, two.shape, generator=gen)
+    for c in range(256, min(384, n)):
+        J[192 + c % 64, c] = int(torch.randint(-(2**20), 2**20, (1,), generator=gen))
+    if n > 500:
+        J[300, 500] = 9_000_001
+    return J.to(dtype).to(device)
+
+
 def phase_k3(dev):
     from repro_torch.kernels import ssa_update
     from repro_torch.kernels.ref import local_field_ref
 
     gen = torch.Generator().manual_seed(3)
     err = 0
-    for R, N, dtype in ((100, 2000, torch.float32), (100, 2000, torch.bfloat16),
-                        (13, 1000, torch.float32), (7, 97, torch.float32)):
+    f32, bf16 = torch.float32, torch.bfloat16
+    for R, N, dtype, mixed in ((100, 2000, f32, False), (100, 2000, bf16, False),
+                               (13, 1000, f32, False), (7, 97, f32, False),
+                               (100, 2000, f32, True), (13, 1000, f32, True),
+                               (33, 417, f32, True), (130, 600, f32, True)):
         m = _spins(gen, (R, N), dev).to(torch.float32)
         h = torch.randint(-3, 4, (N,), generator=gen, dtype=torch.int32).to(dev)
-        J = _coupling(gen, N, dtype, dev)
+        J = (_mixed_plane_coupling if mixed else _coupling)(gen, N, dtype, dev)
         got = ssa_update.local_field(m, h, J)
         want = local_field_ref(m, h, J)
         torch.cuda.synchronize()
         e = _max_abs_err(got, want)
-        print(f"[K3] R={R} N={N} J={dtype}: max_abs_err={e}")
+        print(f"[K3] R={R} N={N} J={dtype} planes={'1-4 mixed' if mixed else 1}: "
+              f"max_abs_err={e}")
         if e:
-            _fail(f"K3 local_field differs from its plain version at R={R} N={N} {dtype}")
+            _fail(f"K3 local_field differs from its plain version at R={R} N={N} {dtype} "
+                  f"mixed={mixed}")
         err = max(err, e)
     # Timing at the main path's shape: R=100 trials, K2000 width, f32 J.
     R, N = 100, 2000
@@ -176,14 +200,38 @@ def phase_k3(dev):
     h = torch.zeros(N, dtype=torch.int32, device=dev)
     J = _coupling(gen, N, torch.float32, dev)
     hf = h.to(torch.float32)
-    ms = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=50)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the library call in full float32
+    ms = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=200)
     plain_ms = _time_ms(lambda: local_field_ref(m, h, J), reps=50)
-    lib_ms = _time_ms(lambda: torch.addmm(hf, m, J), reps=50)
-    bound, by = _bound_ms(4 * (R * N + N * N + N + R * N), 2 * R * N * N)
+    lib_ms = _time_ms(lambda: torch.addmm(hf, m, J), reps=200)
+    # One s8 byte plane at K2000 (|J| <= 1): 2·R·N² int8 tensor-core operations.
+    n_bytes, n_ops = 4 * (R * N + N * N + N + R * N), 2 * R * N * N
+    bound, by = _bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
     print(f"[K3] R={R} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.addmm {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+          f"torch.addmm (TF32 off) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; bytes "
+          f"{n_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms, int8 MMA {n_ops / PEAK_INT8_OPS * 1e3:.4f} ms)")
+    print(f"[K3] no slower than torch.addmm in this run: {ms <= lib_ms}")
+    _k3_sweep(m, h, J)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms)
+
+
+def _k3_sweep(m, h, J):
+    """K3 at the main path's shape under each K split (blocks per cluster;
+    the output must not change): a split whose clusters do not all fit on
+    the card at once runs in two waves."""
+    from repro_torch.kernels import ssa_update
+
+    want = ssa_update.local_field(m, h, J)
+    try:
+        for ks in (1, 2, 4, 6, 7, 8):
+            ssa_update.K3_SPLITS = ks
+            if not torch.equal(ssa_update.local_field(m, h, J), want):
+                _fail(f"K3 output depends on the K split ({ks})")
+            t = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=200)
+            print(f"[K3 sweep] {ks} K splits: {t:.4f} ms")
+    finally:
+        ssa_update.K3_SPLITS = None
 
 
 def _plateau_inputs(gen, R, N, dev, dtype=torch.float32, flat=False):
@@ -649,54 +697,71 @@ def phase_popcount_anneal(name: str, k1_run=None, peak_below_j=False) -> int:
 
 
 def phase_k1_ring(dev):
-    """K1's SSQA ring mode against its plain version at K2000 width."""
+    """K1's SSQA ring mode against its plain version at K2000 width, at the
+    cluster size the wrapper chooses and forced to 1 and to the largest."""
     from repro_torch.kernels import ssa_update
     from repro_torch.kernels.ref import ssa_plateau_packed_ref
 
+    k1 = ssa_update.ssa_plateau_packed_batched
     gen = torch.Generator().manual_seed(5)
     names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
     err = 0
-    cases = [(1, SSQA_TRIALS, 2000, 100, SSQA_RING, True),
-             (1, SSQA_TRIALS, 2000, 100, SSQA_RING, False),
-             (1, SSQA_TRIALS, 2000, 20, 2, True), (1, SSQA_TRIALS, 2000, 20, 16, True),
-             (2, 12, 1001, 9, 4, True)]
-    for B, R, N, C, nr, elig in cases:
+    cs_max = ssa_update.RING_CLUSTER_SIZES[-1]
+    cases = [(1, SSQA_TRIALS, 2000, 100, SSQA_RING, True, None),
+             (1, SSQA_TRIALS, 2000, 100, SSQA_RING, False, None),
+             (1, SSQA_TRIALS, 2000, 20, SSQA_RING, True, 1),
+             (1, SSQA_TRIALS, 2000, 20, SSQA_RING, True, cs_max),
+             (1, SSQA_TRIALS, 2000, 20, 2, True, None), (1, SSQA_TRIALS, 2000, 20, 16, True, None),
+             (2, 32, 1001, 9, 16, True, 1), (2, 32, 1001, 9, 16, True, cs_max),
+             (2, 12, 1001, 9, 4, True, None)]
+    for B, R, N, C, nr, elig, cs in cases:
         x = _plateau_inputs(gen, R, N, dev)
         if B > 1:
             y = _plateau_inputs(gen, R, N, dev)
             x = {k: torch.cat([x[k], y[k]]) for k in x}
         kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=elig, jperp=SSQA_JPERP_MAX,
                   n_replicas=nr)
-        got = ssa_update.ssa_plateau_packed_batched(**x, **kw)
+        got = k1(**x, **kw, cluster_size=cs)
         want = ssa_plateau_packed_ref(**x, **kw)
         torch.cuda.synchronize()
         for name, g, w in zip(names, got, want):
             e = _max_abs_err(g, w)
             if e:
                 _fail(f"K1 ring mode {name} differs from its plain version at "
-                      f"B={B} R={R} N={N} C={C} ring={nr} eligible={elig}")
+                      f"B={B} R={R} N={N} C={C} ring={nr} eligible={elig} cluster={cs}")
             err = max(err, e)
+        launched_cs, ctas = k1.last_ring_cluster
         print(f"[K1 ring] B={B} R={R} N={N} C={C} ring={nr} J⊥={SSQA_JPERP_MAX} "
-              f"eligible={elig}: all five outputs equal")
+              f"eligible={elig} cluster size {launched_cs} ({'forced' if cs else 'chosen'}), "
+              f"{ctas} blocks: all five outputs equal")
     # Timing at the SSQA path's shape: K2000, 96 trials in rings of 8, tau=100.
     R, N, C = SSQA_TRIALS, 2000, 100
     x = _plateau_inputs(gen, R, N, dev)
     kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=True, jperp=SSQA_JPERP_MAX,
               n_replicas=SSQA_RING)
-    ms = _time_ms(lambda: ssa_update.ssa_plateau_packed_batched(**x, **kw), reps=3)
+    ms = _time_ms(lambda: k1(**x, **kw), reps=5)
+    launched = k1.last_ring_cluster
     plain_ms = _time_ms(lambda: ssa_plateau_packed_ref(**x, **kw), reps=3)
     nw = (N + 31) // 32
     state_bytes = 4 * (R * nw + R * N + 4 * R * N + R + R * nw)
     n_ops = 2 * R * N * N * (C + 1) + 2 * R * N * C  # the field, and the coupling's adds
     bound, by = _bound_ms(4 * N * N + 4 * N + 2 * state_bytes, n_ops)
-    print(f"[K1 ring] R={R} N={N} C={C} ring={SSQA_RING}: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
-    # Rings of 2 and 16 on the same inputs: one pass width (csrc/ring.cuh's
-    # RING_G) serves every ring size.
-    for nr in (2, 16):
+    print(f"[K1 ring] R={R} N={N} C={C} ring={SSQA_RING}: cluster size {launched[0]}, "
+          f"{launched[1]} blocks: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({by})")
+    fits = {cs: ssa_update._ring_max_clusters(dev, N, SSQA_RING, False, cs)
+            for cs in ssa_update.RING_CLUSTER_SIZES}
+    print(f"[K1 ring] N={N} ring={SSQA_RING}: clusters the card runs at once, by size: {fits}")
+    # Other ring sizes and cluster sizes on the same inputs, and a bfloat16 J
+    # (half the bytes streamed from L2).
+    for nr, cs, dtype in ((2, None, "f32"), (16, None, "f32"), (SSQA_RING, 1, "f32"),
+                          (SSQA_RING, 4, "f32"), (SSQA_RING, None, "bf16")):
+        xd = dict(x, J=x["J"].to(torch.bfloat16)) if dtype == "bf16" else x
         kw_nr = dict(kw, n_replicas=nr)
-        t = _time_ms(lambda: ssa_update.ssa_plateau_packed_batched(**x, **kw_nr), reps=3)
-        print(f"[K1 ring] R={R} N={N} C={C} ring={nr}: kernel {t:.3f} ms")
+        t = _time_ms(lambda: k1(**xd, **kw_nr, cluster_size=cs), reps=3)
+        print(f"[K1 ring] R={R} N={N} C={C} ring={nr} J={dtype}: cluster size "
+              f"{k1.last_ring_cluster[0]} ({'forced' if cs else 'chosen'}), "
+              f"{k1.last_ring_cluster[1]} blocks: kernel {t:.3f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
 

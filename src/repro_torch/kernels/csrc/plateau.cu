@@ -36,6 +36,8 @@
 #include "plateau_cycle.cuh"
 #include "ring.cuh"
 
+#include <cooperative_groups.h>
+
 #include <algorithm>
 
 namespace {
@@ -202,28 +204,54 @@ int launch_tr(int tr, const void* mp_in, const void* it_in, const void* J, const
 // energy, and so the best tracking, keeps the base field.  A kernel of its
 // own: the classical kernel above, and K4, compile as before.
 //
-// A ring's update needs every replica's spins of cycle c, so one block owns
-// one whole ring.  The classical layout ([N][TR] floats, double-buffered)
-// would need 2*N*R*4 B of shared memory, 256 KB at N = 2000, R = 16: over
-// the 227 KB a block has.  Here the ring's spins of column k are the bits
-// of one 32-bit word (bit t = replica t, 1 = +1), double-buffered: 8*N B
-// (32 KB at N = 4096) for any R <= 32, and thread j owns word j of the next
-// buffer, so it writes it without a ballot.  The field of replica t sums
-// +-J[k][j], the sign flipped from bit t of word k by an xor on the float's
-// sign bit, which is exact, as the classical kernel's fmaf by +-1 is: both
-// add integers below 2^24.  One pass over J accumulates RING_G replicas
-// (ring.cuh); a ring takes ceil(R/RING_G) passes per cycle.  The coupling
-// reads word j
-// of the current buffer, which holds cycle c's spins of every replica;
-// nothing of cycle c+1 is visible before the barrier that ends the cycle.
+// A ring's update needs every replica's spins of cycle c, so a ring is one
+// thread-block cluster of CS blocks (CS in 1, 2, 4, 8, 16; the wrapper
+// chooses it, ssa_update.ring_cluster_size), launched with
+// cudaLaunchKernelEx on a grid of (T/R * CS, B).  Block q of the cluster
+// owns a slice of whole 32-column words (Nw words split as evenly as
+// possible): for its columns it computes the field of all R replicas over
+// every k, and it alone steps their xorshift lanes, their Itanh and their
+// words of m_packed and best_m_packed.  Every block keeps the ring's spins
+// of every column k as the bits of one 32-bit word (bit t = replica t, 1 =
+// +1), double-buffered, 8*N B; after its update a block writes its new words
+// into the next buffer of every block of the cluster through distributed
+// shared memory, and cluster.sync() closes the cycle: nothing of cycle c+1
+// is visible before it.  The energy fold: each block sums its columns'
+// share of h.m + m.field per replica, writes it into every peer's
+// [parity][CS][MAX_RING] array, and after the barrier every block adds the
+// CS shares in rank order, so H, the running best and the "better" flags
+// come out identical everywhere; each block then ballots its own words into
+// its best words.  Integer sums make all of it bit-identical to the plain
+// version whatever CS is.
+//
+// Inside a block, RING_THREADS threads split the block's columns (4 per
+// thread, CT threads across a column tile) and k (RING_THREADS / CT
+// k-ranges); the k-ranges' partial fields meet in shared memory before the
+// update.  One pass over J accumulates RING_G replicas (ring.cuh): per
+// column and k one float fma per replica, the replica's sign read as +-1.0f
+// from a table built once per pass from the spin words (two 16-byte
+// shared-memory broadcasts per k), so the sign flip costs no instruction in
+// the inner loop.  Every operand is an integer below 2^24 and the sums are
+// exact in any order, as the classical kernel's fmaf by +-1 is.
 //
 // What bounds it: the same 2*R*N^2*(C+1) operations as the classical mode
-// and 2*R*N*C adds of the coupling.  With one block per ring it keeps only
-// T/R SMs busy (12 of 132 at 96 trials, R = 8; 1 at 16 trials, R = 16),
-// and each sign flip costs two integer operations beside the float add.
-// Splitting a ring over a thread-block cluster is the speed work.
+// and 2*R*N*C adds of the coupling, on the CUDA cores (1.16 ms at K2000, 96
+// trials, C = 100).  Measured on an H100 at 700 W: about 5.3 ms there, with
+// clusters of 8 (96 blocks); each ring streams J from L2 once per pass and
+// cycle (16 MB in float32 at N = 2000), 3.6 TB/s at 12 rings, yet a
+// bfloat16 J (half the bytes) is slower, not faster, so L2's byte rate
+// alone does not bind it.  256 threads a block leave each thread 255
+// registers for its 32 accumulators and 8 unrolled k steps.
+constexpr int RING_THREADS = 256;
+constexpr int RING_WARPS = RING_THREADS / 32;
+constexpr int MAX_CS = 16;                    // blocks per cluster (16 non-portable)
+constexpr int RING_KC = 2048;                 // k per sign-table chunk
+constexpr int RING_WORK = RING_KC * RING_G;   // floats: the table, or the k-range partials
+static_assert(RING_WORK >= 4 * RING_G * RING_THREADS, "k-range partials fit the table");
+static_assert(RING_G == 8, "the sign table holds two float4 per k");
+
 template <typename JT>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(RING_THREADS, 1)
 ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
             const JT* __restrict__ J, const int* __restrict__ h,
             const uint32_t* __restrict__ rng_in, int i0, int jperp,
@@ -231,43 +259,54 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
             uint32_t* __restrict__ mp_out, int* __restrict__ it_out,
             uint32_t* __restrict__ rng_out, int* __restrict__ bh_out,
             uint32_t* __restrict__ bmp_out, int T, int N, int n_cycles, int n_rnd,
-            int eligible, int R) {
+            int eligible, int R, int CT) {
   constexpr int G = RING_G;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* s_cur = reinterpret_cast<uint32_t*>(smem_raw);  // [N], bit t = replica t
-  uint32_t* s_nxt = s_cur + N;                               // [N]
-  uint32_t* best_w = s_nxt + N;                              // [R][Nw]
-  const int Nw = (N + 31) >> 5;
+  float* work = reinterpret_cast<float*>(smem_raw);              // [RING_WORK]
+  uint32_t* s_cur = reinterpret_cast<uint32_t*>(work + RING_WORK);  // [N], bit t = replica t
+  uint32_t* s_nxt = s_cur + N;                                    // [N]
+  uint32_t* best_w = s_nxt + N;                                   // [R][nwq]
   __shared__ int bh_s[MAX_RING];
-  __shared__ int red[MAX_RING][32];
   __shared__ int better_s[MAX_RING];
+  __shared__ int eps[MAX_RING][RING_WARPS];
+  __shared__ int part[2][MAX_CS][MAX_RING];
 
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * R;  // first trial of this block's ring
+  const int t0 = (blockIdx.x / CS) * R;  // first trial of this cluster's ring
   const size_t RN = (size_t)T * N;
   const size_t row0 = (size_t)b * T + t0;
   const size_t lane0 = (size_t)b * 4 * RN + (size_t)t0 * N;
+  const int Nw = (N + 31) >> 5;
+  const int w_lo = q * Nw / CS, nwq = (q + 1) * Nw / CS - w_lo;  // this block's words
+  const int c_lo = w_lo * 32, c_hi = min(N, (w_lo + nwq) * 32);   // and columns
+  const int KG = RING_THREADS / CT, TW = 4 * CT;
+  const int kg = tid / CT, ct = tid % CT;
 
-  // Prologue: column j's spins of the ring into word j; Itanh and the lanes
-  // copied to the outputs, where the cycles update them.
-  for (int j = tid; j < N; j += nthr) {
+  // Prologue: every column's spins of the ring into word j; this block's
+  // columns' Itanh and lanes copied to the outputs, where the cycles update
+  // them; its best words.
+  for (int j = tid; j < N; j += RING_THREADS) {
     uint32_t word = 0;
+    for (int t = 0; t < R; ++t) word |= ((mp_in[(row0 + t) * Nw + (j >> 5)] >> (j & 31)) & 1u) << t;
+    s_cur[j] = word;
+  }
+  for (int j = c_lo + tid; j < c_hi; j += RING_THREADS) {
     for (int t = 0; t < R; ++t) {
-      word |= ((mp_in[(row0 + t) * Nw + (j >> 5)] >> (j & 31)) & 1u) << t;
       const size_t e = (row0 + t) * N + j;
       it_out[e] = it_in[e];
       const size_t l = lane0 + (size_t)t * N + j;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) rng_out[l + q * RN] = rng_in[l + q * RN];
+      for (int r = 0; r < 4; ++r) rng_out[l + r * RN] = rng_in[l + r * RN];
     }
-    s_cur[j] = word;
-    s_nxt[j] = word;
   }
-  for (int e = tid; e < R * Nw; e += nthr) best_w[e] = bmp_in[row0 * Nw + e];
+  for (int e = tid; e < R * nwq; e += RING_THREADS)
+    best_w[e] = bmp_in[(row0 + e / nwq) * Nw + w_lo + e % nwq];
   if (tid < R) bh_s[tid] = bh_in[row0 + tid];
-  __syncthreads();
+  cluster.sync();  // every block runs before any writes into a peer
 
   const JT* Jb = J + (size_t)b * N * N;
   const int* hb = h + (size_t)b * N;
@@ -278,81 +317,152 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
     const bool last = (c == n_cycles);  // the epilogue field: no update
     const bool fold = eligible && (c > 0 || last);
     if (last && !fold) break;
+    const int par = c & 1;
     for (int g = 0; g < R; g += G) {
+      const bool last_pass = g + G >= R;
       int ep[G];
 #pragma unroll
       for (int t = 0; t < G; ++t) ep[t] = 0;
-      for (int j = tid; j < N; j += nthr) {
-        float acc[G];
+      for (int tile = c_lo; tile < c_hi; tile += TW) {
+        float acc[4][G];
 #pragma unroll
-        for (int t = 0; t < G; ++t) acc[t] = 0.f;
-        const JT* Jc = Jb + j;
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < G; ++t) acc[i][t] = 0.f;
+        const int col = tile + ct;  // this thread's columns: col + i * CT
+        bool ok[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ok[i] = col + i * CT < c_hi;
+        for (int k0 = 0; k0 < N; k0 += RING_KC) {
+          const int kn = min(RING_KC, N - k0);
+          __syncthreads();  // the previous users of `work` are done
+          for (int k = tid; k < kn; k += RING_THREADS) {
+            const uint32_t w = s_cur[k0 + k] >> g;  // bit t: replica g + t
+            float4* s = reinterpret_cast<float4*>(work + k * G);
+            s[0] = make_float4(__int_as_float(0xbf800000u ^ ((w & 1u) << 31)),
+                               __int_as_float(0xbf800000u ^ (((w >> 1) & 1u) << 31)),
+                               __int_as_float(0xbf800000u ^ (((w >> 2) & 1u) << 31)),
+                               __int_as_float(0xbf800000u ^ (((w >> 3) & 1u) << 31)));
+            s[1] = make_float4(__int_as_float(0xbf800000u ^ (((w >> 4) & 1u) << 31)),
+                               __int_as_float(0xbf800000u ^ (((w >> 5) & 1u) << 31)),
+                               __int_as_float(0xbf800000u ^ (((w >> 6) & 1u) << 31)),
+                               __int_as_float(0xbf800000u ^ (((w >> 7) & 1u) << 31)));
+          }
+          __syncthreads();
+          const int kb = kg * kn / KG, ke = (kg + 1) * kn / KG;
+          const JT* Jk = Jb + (size_t)(k0 + kb) * N + col;
 #pragma unroll 8
-        for (int k = 0; k < N; ++k) {
-          const uint32_t jv = __float_as_uint(plateau::to_f32(Jc[(size_t)k * N]));
-          const uint32_t neg = ~s_cur[k] >> g;  // bit t: replica g+t is -1
+          for (int k = kb; k < ke; ++k, Jk += N) {
+            const float4 s0 = *reinterpret_cast<const float4*>(work + k * G);
+            const float4 s1 = *reinterpret_cast<const float4*>(work + k * G + 4);
 #pragma unroll
-          for (int t = 0; t < G; ++t)
-            acc[t] += __uint_as_float(jv ^ ((neg << (31 - t)) & 0x80000000u));
-        }
-        const int hj = hb[j];
-        const uint32_t wj = s_cur[j];
-        uint32_t up = 0;
-#pragma unroll
-        for (int t = 0; t < G; ++t) {
-          const int k = g + t;  // the replica
-          if (k >= R) break;
-          const int f = __float2int_rz(acc[t]) + hj;
-          ep[t] += (((wj >> k) & 1u) ? 1 : -1) * (hj + f);
-          if (!last) {
-            const int kp = k == 0 ? R - 1 : k - 1, kn = k == R - 1 ? 0 : k + 1;
-            const int coup = (((wj >> kp) & 1u) ? 1 : -1) + (((wj >> kn) & 1u) ? 1 : -1);
-            const size_t l = (size_t)k * N + j;
-            const uint32_t x = rng[l], y = rng[l + RN];
-            const uint32_t z = rng[l + 2 * RN], w = rng[l + 3 * RN];
-            const uint32_t tt = x ^ (x << 11);
-            const uint32_t wn = (w ^ (w >> 19)) ^ (tt ^ (tt >> 8));
-            rng[l] = y;
-            rng[l + RN] = z;
-            rng[l + 2 * RN] = w;
-            rng[l + 3 * RN] = wn;
-            const int r = (wn >> 31) ? 1 : -1;
-            const int I = min(max(f + jperp * coup + n_rnd * r + it[l], -i0), i0 - 1);
-            it[l] = I;
-            up |= (uint32_t)(I >= 0) << k;
+            for (int i = 0; i < 4; ++i) {
+              const float v = ok[i] ? plateau::to_f32(Jk[i * CT]) : 0.f;
+              acc[i][0] = fmaf(s0.x, v, acc[i][0]);
+              acc[i][1] = fmaf(s0.y, v, acc[i][1]);
+              acc[i][2] = fmaf(s0.z, v, acc[i][2]);
+              acc[i][3] = fmaf(s0.w, v, acc[i][3]);
+              acc[i][4] = fmaf(s1.x, v, acc[i][4]);
+              acc[i][5] = fmaf(s1.y, v, acc[i][5]);
+              acc[i][6] = fmaf(s1.z, v, acc[i][6]);
+              acc[i][7] = fmaf(s1.w, v, acc[i][7]);
+            }
           }
         }
-        if (!last) s_nxt[j] = (g == 0 ? 0u : s_nxt[j]) | up;
+        __syncthreads();  // the table's readers are done: `work` takes the partials
+#pragma unroll
+        for (int t = 0; t < G; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) work[(kg * G + t) * TW + i * CT + ct] = acc[i][t];
+        __syncthreads();
+        for (int u = tid; u < TW && tile + u < c_hi; u += RING_THREADS) {
+          const int j = tile + u;
+          const int hj = hb[j];
+          const uint32_t wj = s_cur[j];
+          // The pass's lanes and Itanh of column j, all loaded before any
+          // store, so the loads of the RING_G replicas overlap.
+          uint32_t x[G], y[G], z[G], w[G];
+          int itj[G];
+#pragma unroll
+          for (int t = 0; t < G; ++t) {
+            if (last || g + t >= R) continue;
+            const size_t l = (size_t)(g + t) * N + j;
+            x[t] = rng[l];
+            y[t] = rng[l + RN];
+            z[t] = rng[l + 2 * RN];
+            w[t] = rng[l + 3 * RN];
+            itj[t] = it[l];
+          }
+          uint32_t up = 0;
+#pragma unroll
+          for (int t = 0; t < G; ++t) {
+            const int k = g + t;  // the replica
+            if (k >= R) continue;
+            float f = 0.f;
+            for (int p = 0; p < KG; ++p) f += work[(p * G + t) * TW + u];
+            const int fi = __float2int_rz(f) + hj;
+            ep[t] += (((wj >> k) & 1u) ? 1 : -1) * (hj + fi);
+            if (!last) {
+              const int kp = k == 0 ? R - 1 : k - 1, kn = k == R - 1 ? 0 : k + 1;
+              const int coup = (((wj >> kp) & 1u) ? 1 : -1) + (((wj >> kn) & 1u) ? 1 : -1);
+              const size_t l = (size_t)k * N + j;
+              const uint32_t tt = x[t] ^ (x[t] << 11);
+              const uint32_t wn = (w[t] ^ (w[t] >> 19)) ^ (tt ^ (tt >> 8));
+              rng[l] = y[t];
+              rng[l + RN] = z[t];
+              rng[l + 2 * RN] = w[t];
+              rng[l + 3 * RN] = wn;
+              const int r = (wn >> 31) ? 1 : -1;
+              const int I = min(max(fi + jperp * coup + n_rnd * r + itj[t], -i0), i0 - 1);
+              it[l] = I;
+              up |= (uint32_t)(I >= 0) << k;
+            }
+          }
+          if (!last) {
+            const uint32_t word = (g == 0 ? 0u : s_nxt[j]) | up;
+            if (last_pass) {
+              for (int p = 0; p < CS; ++p) *cluster.map_shared_rank(s_nxt + j, p) = word;
+            } else {
+              s_nxt[j] = word;
+            }
+          }
+        }
       }
       if (fold) {
 #pragma unroll
         for (int t = 0; t < G; ++t) {
           const int v = plateau::warp_sum(ep[t]);
-          if (lane == 0 && g + t < R) red[g + t][warp] = v;
+          if (lane == 0 && g + t < R) eps[g + t][warp] = v;
         }
       }
     }
 
     if (fold) {
       __syncthreads();
-      if (warp == 0) {
+      if (warp == 0) {  // this block's share of each replica's energy, to every peer
         for (int t = 0; t < R; ++t) {
-          const int v = plateau::warp_sum(lane < nwarps ? red[t][lane] : 0);
-          if (lane == 0) {
-            const int H = -v / 2;  // the sum is even: exact
-            const int better = H < bh_s[t];
-            if (better) bh_s[t] = H;
-            better_s[t] = better;
-          }
+          const int v = plateau::warp_sum(lane < RING_WARPS ? eps[t][lane] : 0);
+          if (lane < CS) *cluster.map_shared_rank(&part[par][q][t], lane) = v;
         }
+      }
+    }
+    cluster.sync();  // cycle c+1's words and the energy shares are everywhere
+    if (fold) {
+      if (warp == 0 && lane < R) {
+        int v = 0;
+        for (int p = 0; p < CS; ++p) v += part[par][p][lane];
+        const int H = -v / 2;  // the sum is even: exact
+        const int better = H < bh_s[lane];
+        if (better) bh_s[lane] = H;
+        better_s[lane] = better;
       }
       __syncthreads();
       for (int t = 0; t < R; ++t) {
         if (!better_s[t]) continue;
-        for (int w = warp; w < Nw; w += nwarps) {
-          const int k = (w << 5) + lane;
+        for (int w = warp; w < nwq; w += RING_WARPS) {
+          const int k = ((w_lo + w) << 5) + lane;
           const uint32_t word = __ballot_sync(0xffffffffu, k < N && ((s_cur[k] >> t) & 1u));
-          if (lane == 0) best_w[t * Nw + w] = word;
+          if (lane == 0) best_w[t * nwq + w] = word;
         }
       }
     }
@@ -361,48 +471,106 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
       s_cur = s_nxt;
       s_nxt = tmp;
     }
-    __syncthreads();
   }
 
+  __syncthreads();
   for (int t = 0; t < R; ++t) {
-    for (int w = warp; w < Nw; w += nwarps) {
-      const int k = (w << 5) + lane;
+    for (int w = warp; w < nwq; w += RING_WARPS) {
+      const int k = ((w_lo + w) << 5) + lane;
       const uint32_t word = __ballot_sync(0xffffffffu, k < N && ((s_cur[k] >> t) & 1u));
-      if (lane == 0) mp_out[(row0 + t) * Nw + w] = word;
+      if (lane == 0) mp_out[(row0 + t) * Nw + w_lo + w] = word;
     }
   }
-  for (int e = tid; e < R * Nw; e += nthr) bmp_out[row0 * Nw + e] = best_w[e];
-  if (tid < R) bh_out[row0 + tid] = bh_s[tid];
+  for (int e = tid; e < R * nwq; e += RING_THREADS)
+    bmp_out[(row0 + e / nwq) * Nw + w_lo + e % nwq] = best_w[e];
+  if (q == 0 && tid < R) bh_out[row0 + tid] = bh_s[tid];
+}
+
+// Shared memory of a ring block: the work area, the two spin buffers and
+// the best words of its slice.
+size_t ring_smem(int N, int R, int cs) {
+  const int Nw = (N + 31) / 32;
+  const int nwq = (Nw + cs - 1) / cs;
+  return sizeof(float) * RING_WORK + sizeof(uint32_t) * (2 * (size_t)N + (size_t)R * nwq);
+}
+
+template <typename JT>
+cudaError_t ring_config(int N, int R, int cs, size_t* smem) {
+  auto kernel = ring_kernel<JT>;
+  *smem = ring_smem(N, R, cs);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(*smem));
+  if (e == cudaSuccess && cs > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+void ring_launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int n_rings, int B,
+                        int cs, size_t smem, cudaStream_t stream) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(n_rings * cs, B);
+  cfg->blockDim = dim3(RING_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
 }
 
 template <typename JT>
 int launch_ring(const void* mp_in, const void* it_in, const void* J, const void* h,
                 const void* rng_in, int i0, int jperp, const void* bh_in, const void* bmp_in,
                 void* mp_out, void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B,
-                int T, int N, int n_cycles, int n_rnd, int eligible, int R,
+                int T, int N, int n_cycles, int n_rnd, int eligible, int R, int cs,
                 cudaStream_t stream) {
+  size_t smem = 0;
+  cudaError_t e = ring_config<JT>(N, R, cs, &smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // Column threads: the block's widest slice, 4 columns a thread, a power
+  // of two of at least a warp; the rest of the threads split k.
   const int Nw = (N + 31) / 32;
-  const size_t smem = sizeof(uint32_t) * (2 * (size_t)N + (size_t)R * Nw);
-  auto kernel = ring_kernel<JT>;
-  if (smem > DEFAULT_SMEM) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(T / R, B);
-  const int threads = std::min(MAX_THREADS, (N + 31) / 32 * 32);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const uint32_t*>(mp_in), static_cast<const int*>(it_in),
-      static_cast<const JT*>(J), static_cast<const int*>(h),
-      static_cast<const uint32_t*>(rng_in), i0, jperp, static_cast<const int*>(bh_in),
-      static_cast<const uint32_t*>(bmp_in), static_cast<uint32_t*>(mp_out),
-      static_cast<int*>(it_out), static_cast<uint32_t*>(rng_out),
-      static_cast<int*>(bh_out), static_cast<uint32_t*>(bmp_out), T, N, n_cycles, n_rnd,
-      eligible, R);
+  const int cols = 32 * ((Nw + cs - 1) / cs);
+  int ct = 32;
+  while (ct < RING_THREADS && 4 * ct < cols) ct *= 2;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ring_launch_config(&cfg, &attr, T / R, B, cs, smem, stream);
+  e = cudaLaunchKernelEx(&cfg, ring_kernel<JT>, static_cast<const uint32_t*>(mp_in),
+                         static_cast<const int*>(it_in), static_cast<const JT*>(J),
+                         static_cast<const int*>(h), static_cast<const uint32_t*>(rng_in), i0,
+                         jperp, static_cast<const int*>(bh_in),
+                         static_cast<const uint32_t*>(bmp_in), static_cast<uint32_t*>(mp_out),
+                         static_cast<int*>(it_out), static_cast<uint32_t*>(rng_out),
+                         static_cast<int*>(bh_out), static_cast<uint32_t*>(bmp_out), T, N,
+                         n_cycles, n_rnd, eligible, R, ct);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// How many clusters of `cs` ring blocks (N spins, rings of R) the card can
+// run at once; 0 when none fits.  Negative: a CUDA error code, negated.
+extern "C" int repro_ring_max_clusters(int N, int R, int cs, int j_bf16) {
+  size_t smem = 0;
+  cudaError_t e = j_bf16 ? ring_config<__nv_bfloat16>(N, R, cs, &smem)
+                         : ring_config<float>(N, R, cs, &smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ring_launch_config(&cfg, &attr, 1, 1, cs, smem, nullptr);
+  int n = 0;
+  e = j_bf16 ? cudaOccupancyMaxActiveClusters(&n, ring_kernel<__nv_bfloat16>, &cfg)
+             : cudaOccupancyMaxActiveClusters(&n, ring_kernel<float>, &cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: a size that does not fit is an answer, not a fault
+    return 0;
+  }
+  return n;
+}
 
 extern "C" int repro_ssa_plateau_packed_ring(const void* mp_in, const void* it_in,
                                              const void* J, const void* h,
@@ -411,12 +579,14 @@ extern "C" int repro_ssa_plateau_packed_ring(const void* mp_in, const void* it_i
                                              void* mp_out, void* it_out, void* rng_out,
                                              void* bh_out, void* bmp_out, int B, int T,
                                              int N, int n_cycles, int n_rnd, int eligible,
-                                             int j_bf16, int n_replicas, void* stream) {
+                                             int j_bf16, int n_replicas, int cluster_size,
+                                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_replicas < 1 || n_replicas > MAX_RING) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_replicas < 1 || n_replicas > MAX_RING || cluster_size < 1 || cluster_size > MAX_CS)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto run = j_bf16 ? launch_ring<__nv_bfloat16> : launch_ring<float>;
   return run(mp_in, it_in, J, h, rng_in, i0, jperp, bh_in, bmp_in, mp_out, it_out, rng_out,
-             bh_out, bmp_out, B, T, N, n_cycles, n_rnd, eligible, n_replicas, s);
+             bh_out, bmp_out, B, T, N, n_cycles, n_rnd, eligible, n_replicas, cluster_size, s);
 }
 
 extern "C" int repro_ssa_plateau_packed(const void* mp_in, const void* it_in, const void* J,

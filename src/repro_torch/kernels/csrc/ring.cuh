@@ -2,9 +2,10 @@
 // popcount_ring_kernel (K2, popcount.cu).
 #pragma once
 
-// The most replicas one ring may hold.  One block owns a whole ring, K1
-// keeps the ring's spins of one column as the bits of one 32-bit word, and
-// both kernels reduce the ring's energies in a [MAX_RING][32] array.  The
+// The most replicas one ring may hold.  K1 keeps the ring's spins of one
+// column as the bits of one 32-bit word in every block of the ring's
+// cluster; K2, one block per ring, reduces the ring's energies in a
+// [MAX_RING][32] array.  The
 // Python wrappers read this line (ssa_update.MAX_RING) and validate every
 // call against it; the C entry points keep only a guard.
 constexpr int MAX_RING = 32;

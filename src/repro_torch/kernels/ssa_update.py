@@ -3,15 +3,16 @@
 Four kernels, each the port of one Pallas kernel of
 ``repro/kernels/ssa_update.py``:
 
-* K3, :func:`local_field` — ``field = h + m @ J`` as a shared-memory-tiled
-  CUDA kernel (``csrc/field.cu``), int32 out.  The cycle loop's field when
-  per-cycle outputs are needed.
+* K3, :func:`local_field` — ``field = h + m @ J`` on the int8 tensor cores,
+  J split into byte planes (``csrc/field.cu``), int32 out.  The cycle
+  loop's field when per-cycle outputs are needed.
 * K1, :func:`ssa_plateau_packed_batched` and its B=1 slice
   :func:`ssa_plateau_packed` — one constant-I0 plateau of C cycles in one
   launch (``csrc/plateau.cu``): spins cross the launch boundary as 32-bit
   words, the xorshift128 lanes are stepped in-kernel, the running best is
   folded on the card.  With ``n_replicas`` it runs SSQA's Trotter-ring
-  mode, a kernel of its own in the same source.
+  mode, a kernel of its own in the same source: one thread-block cluster
+  per ring, its size from :func:`ring_cluster_size`.
 * K4, :func:`ssa_plateau_batched` and its B=1 slice :func:`ssa_plateau` —
   the same plateau with pregenerated noise (``csrc/plateau_pregen.cu``):
   float32 spins, int8 best spins and a (B, C, R, N) int8 noise buffer.
@@ -49,13 +50,18 @@ from .ref import (
 
 __all__ = ["local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched",
            "ssa_plateau", "ssa_plateau_batched", "ssa_plateau_popcount",
-           "ssa_plateau_popcount_batched", "popcount_planes"]
+           "ssa_plateau_popcount_batched", "popcount_planes", "ring_cluster_size"]
 
 # Trials per K1 and K4 block (1, 2 or 4).  Each block streams all of J from
 # L2 every cycle and uses every J element once per trial it owns; 2 was the
 # fastest of the three for K1 at K2000 width on an H100 (chip_smoke.py
 # measures all three each run).  See csrc/plateau.cu.
 TRIALS_PER_BLOCK = 2
+
+# K splits of K3 (blocks per thread-block cluster, 1 to 8); None lets the
+# kernel choose the most whose clusters all run at once (csrc/field.cu).
+# chip_smoke.py times K3 under each.
+K3_SPLITS: Optional[int] = None
 
 # Trials per K2 block: TR in csrc/popcount.cu, fixed there.
 _POPCOUNT_TRIALS_PER_BLOCK = 2
@@ -67,13 +73,23 @@ _MAX_SMEM = 232448
 # says why); the wrappers are where a call is checked against it.
 MAX_RING = _build.header_int("ring.cuh", "MAX_RING")
 
+# Blocks per ring in K1's ring mode (a thread-block cluster): the powers of
+# two up to the kernel's MAX_CS, 16, which Hopper allows as a non-portable
+# size where the occupancy query says such a cluster fits (8 is portable).
+RING_CLUSTER_SIZES = tuple(
+    1 << i for i in range(_build.header_int("plateau.cu", "MAX_CS").bit_length()))
+# The work area of K1's ring-mode block: RING_KC k of RING_G signs, floats.
+_RING_WORK_BYTES = (4 * _build.header_int("plateau.cu", "RING_KC")
+                    * _build.header_int("ring.cuh", "RING_G"))
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "repro_local_field": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_local_field": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_ssa_plateau_packed": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
     "repro_ssa_plateau": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8 + [_P],
     "repro_ssa_plateau_popcount": [_P] * 16 + [_I] * 6 + [_P],
-    "repro_ssa_plateau_packed_ring": [_P] * 5 + [_I] * 2 + [_P] * 7 + [_I] * 8 + [_P],
+    "repro_ssa_plateau_packed_ring": [_P] * 5 + [_I] * 2 + [_P] * 7 + [_I] * 9 + [_P],
+    "repro_ring_max_clusters": [_I] * 4,
     "repro_ssa_plateau_popcount_ring": [_P] * 17 + [_I] * 7 + [_P],
 }
 
@@ -127,7 +143,42 @@ def _check_ring(R: int, n_replicas: int, what: str):
         raise ValueError(f"n_trials={R} not divisible by n_replicas={n_replicas}")
     if n_replicas > MAX_RING:
         raise ValueError(f"{what}: n_replicas={n_replicas} exceeds the ring-mode kernel's "
-                         f"limit of {MAX_RING} replicas per ring (one block per ring)")
+                         f"limit of {MAX_RING} replicas per ring (csrc/ring.cuh)")
+
+
+def ring_cluster_size(n_rings: int, B: int, N: int, sm_count: int, max_cs: int = 8) -> int:
+    """Blocks per ring for K1's ring mode: the largest CS of 1, 2, 4, 8 (and
+    16 when ``max_cs`` admits it) with ``n_rings · B · CS <= sm_count``, so
+    every block of the launch has an SM, and ``CS <= Nw``, so every block
+    owns at least one 32-column word.  1 when the rings alone fill the card."""
+    nw = packed_words(N)
+    fits = [cs for cs in RING_CLUSTER_SIZES
+            if cs <= max_cs and n_rings * B * cs <= sm_count and cs <= nw]
+    return max(fits, default=1)
+
+
+_max_clusters_cache: dict = {}
+
+
+def _ring_max_clusters(dev: torch.device, N: int, R: int, bf16: bool, cs: int) -> int:
+    """How many clusters of ``cs`` ring blocks the card runs at once."""
+    key = (dev.index, N, R, bf16, cs)
+    if key not in _max_clusters_cache:
+        fn, lib = _entry("plateau", "repro_ring_max_clusters")
+        with torch.cuda.device(dev):
+            n = fn(N, R, cs, int(bf16))
+        if n < 0:
+            raise RuntimeError(f"ring cluster occupancy query failed with CUDA error {-n} "
+                               f"({lib.repro_cuda_error_string(-n).decode()})")
+        _max_clusters_cache[key] = n
+    return _max_clusters_cache[key]
+
+
+def _ring_smem(N: int, n_replicas: int, cs: int) -> int:
+    """Shared memory of one K1 ring-mode block: the work area, the ring's
+    spin words double-buffered, and the best words of its slice."""
+    nw = packed_words(N)
+    return _RING_WORK_BYTES + 4 * (2 * N + n_replicas * -(-nw // cs))
 
 
 def _check_smem(what: str, smem: int):
@@ -168,7 +219,7 @@ def local_field(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor) -> torch.Tens
         return out
     fn, lib = _entry("field", "repro_local_field")
     _launch(fn, lib, "local_field", dev, mf.data_ptr(), J.data_ptr(), h32.data_ptr(),
-            out.data_ptr(), R, N, int(J.dtype == torch.bfloat16))
+            out.data_ptr(), R, N, int(J.dtype == torch.bfloat16), int(K3_SPLITS or 0))
     local_field.launches += 1
     return out
 
@@ -191,6 +242,7 @@ def ssa_plateau_packed_batched(
     eligible: bool = True,
     jperp: int = 0,
     n_replicas: int = 0,
+    cluster_size: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """K1: one constant-I0 plateau for B problems × R trials, one launch.
 
@@ -201,7 +253,12 @@ def ssa_plateau_packed_batched(
     runs the classical kernel; ``n_replicas > 0`` the SSQA ring-mode
     kernel, which adds ``jperp · (m[k-1] + m[k+1])`` over rings of
     ``n_replicas`` consecutive trials to the update field (R must be a
-    multiple of ``n_replicas``, at most MAX_RING of them per ring).
+    multiple of ``n_replicas``, at most MAX_RING of them per ring).  Each
+    ring runs as one thread-block cluster of :func:`ring_cluster_size`
+    blocks; ``cluster_size`` forces that size, for tests (any of 1, 2, 4,
+    8, 16 up to the ring's word count; ignored on the CPU).  The size and
+    block count of the last ring-mode launch are kept in
+    ``ssa_plateau_packed_batched.last_ring_cluster``.
 
     Returns (m_packed, itanh, rng, best_H, best_m_packed).
     """
@@ -212,6 +269,12 @@ def ssa_plateau_packed_batched(
     n_replicas = int(n_replicas)
     if n_replicas:
         _check_ring(itanh.shape[1], n_replicas, "ssa_plateau_packed")
+    if cluster_size is not None:
+        nw = packed_words(itanh.shape[2])
+        if int(cluster_size) not in RING_CLUSTER_SIZES or int(cluster_size) > nw:
+            raise ValueError(f"cluster_size={cluster_size}: must be one of "
+                             f"{RING_CLUSTER_SIZES} and at most the {nw} words of "
+                             f"N={itanh.shape[2]}")
     if dev.type == "cpu":
         return ssa_plateau_packed_ref(
             m_packed, itanh, J, h, rng, i0, best_H, best_m_packed,
@@ -231,9 +294,17 @@ def ssa_plateau_packed_batched(
     if int(n_cycles) < 0:
         raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
     if n_replicas:
-        # The ring's spins as one word per column, double-buffered, and its
-        # best words.
-        _check_smem(f"K1's ring mode at N={N}", 4 * (2 * N + n_replicas * nw))
+        n_rings, bf16 = R // n_replicas, J.dtype == torch.bfloat16
+        if cluster_size is None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            cs = ring_cluster_size(n_rings, B, N, sms, RING_CLUSTER_SIZES[-1])
+            # Halved while the card cannot run every ring's cluster at once
+            # (the non-portable 16 always, 8 on part of a GPC's SMs).
+            while cs > 1 and _ring_max_clusters(dev, N, n_replicas, bf16, cs) < n_rings * B:
+                cs //= 2
+        else:
+            cs = int(cluster_size)
+        _check_smem(f"K1's ring mode at N={N}", _ring_smem(N, n_replicas, cs))
     else:
         tpb = _trials_per_block(N, 4 * (2 * N + nw))
     outs = tuple(torch.empty_like(t) for t in
@@ -244,15 +315,16 @@ def ssa_plateau_packed_batched(
     if n_replicas:
         fn, lib = _entry("plateau", "repro_ssa_plateau_packed_ring")
         _launch(
-            fn, lib, "ssa_plateau_packed (ring mode)", dev,
+            fn, lib, f"ssa_plateau_packed (ring mode, clusters of {cs} blocks, N={N})", dev,
             m_packed.data_ptr(), itanh.data_ptr(), J.data_ptr(), h.data_ptr(),
             rng.data_ptr(), int(i0), int(jperp), best_H.data_ptr(),
             best_m_packed.data_ptr(), mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(),
             bh_o.data_ptr(), bmp_o.data_ptr(), B, R, N, int(n_cycles), int(n_rnd),
-            int(bool(eligible)), int(J.dtype == torch.bfloat16), n_replicas,
+            int(bool(eligible)), int(bf16), n_replicas, cs,
         )
         ssa_plateau_packed_batched.launches += 1
         ssa_plateau_packed_batched.ring_launches += 1
+        ssa_plateau_packed_batched.last_ring_cluster = (cs, n_rings * B * cs)
         return outs
     fn, lib = _entry("plateau", "repro_ssa_plateau_packed")
     _launch(
@@ -269,6 +341,7 @@ def ssa_plateau_packed_batched(
 
 ssa_plateau_packed_batched.launches = 0
 ssa_plateau_packed_batched.ring_launches = 0
+ssa_plateau_packed_batched.last_ring_cluster = None
 
 
 def ssa_plateau_packed(

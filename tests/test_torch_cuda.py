@@ -42,14 +42,31 @@ def _coupling(rs, n):
     return J + J.T
 
 
+def _mixed_plane_coupling(rs, n):
+    """J whose 64 x 128 tiles need one, two, three and four byte planes in
+    K3 (|J| <= 127, < 2^15, < 2^23, any), inside the exactness contract."""
+    J = rs.integers(-1, 2, size=(n, n))
+    two = J[64:128, 128:256]
+    two[...] = rs.integers(-4096, 4097, size=two.shape)
+    for c in range(256, min(384, n)):
+        J[192 + c % 64, c] = rs.integers(-(2**20), 2**20)
+    if n > 500:
+        J[300, 500] = 9_000_001
+    return J
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,n", [(1, 16), (13, 100), (33, 257), (100, 2000)])
+@pytest.mark.parametrize("r,n", [(1, 16), (13, 100), (33, 257), (100, 2000), (130, 600)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_local_field_kernel_matches_plain(cuda_device, r, n, dtype):
+@pytest.mark.parametrize("planes", ["one", "mixed"])
+def test_local_field_kernel_matches_plain(cuda_device, r, n, dtype, planes):
+    """K3, R not a multiple of 16 and N not of 32, with J of one byte plane
+    and with tiles of one to four planes mixed in one J."""
     rs = np.random.default_rng(n)
     m = torch.as_tensor(rs.choice([-1.0, 1.0], size=(r, n)), dtype=torch.float32, device=cuda_device)
     h = torch.as_tensor(rs.integers(-4, 5, size=(n,)), dtype=torch.int32, device=cuda_device)
-    J = torch.as_tensor(_coupling(rs, n), dtype=getattr(torch, dtype), device=cuda_device)
+    J = _coupling(rs, n) if planes == "one" else _mixed_plane_coupling(rs, n)
+    J = torch.as_tensor(J, dtype=getattr(torch, dtype), device=cuda_device)
     before = ssa_update.local_field.launches
     got = ssa_update.local_field(m, h, J)
     assert ssa_update.local_field.launches == before + 1
@@ -232,21 +249,26 @@ def test_anneal_popcount_matches_k1_on_card(cuda_device, layout):
 # SSQA: the ring modes of K1 and K2 against their plain versions
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,r,n,c,nr,flat", [
-    (1, 8, 36, 5, 4, False), (1, 6, 100, 7, 2, False), (2, 9, 1001, 3, 3, False),
-    (1, 10, 70, 6, 5, True), (1, 32, 257, 4, 16, False), (1, 32, 64, 3, 32, False),
-    (1, 96, 2000, 4, 8, False),
-])
+@pytest.mark.parametrize("b,r,n,c,nr,flat,cs", [
+    (1, 8, 36, 5, 4, False, None), (1, 6, 100, 7, 2, False, None),
+    (2, 9, 1001, 3, 3, False, None), (1, 10, 70, 6, 5, True, None),
+    (1, 32, 257, 4, 16, False, None), (1, 32, 64, 3, 32, False, None),
+    (1, 96, 2000, 4, 8, False, None),
+] + [(2, 32, 1001, 5, nr, False, cs)  # every cluster size, a ragged last word
+     for nr in (2, 8, 16) for cs in (1, 2, 4, 8, 16)])
 @pytest.mark.parametrize("eligible", [True, False])
-def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, eligible):
+def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, cs, eligible):
     args = _plateau_args(b, r, n, seed=n + c + nr, flat=flat, device=cuda_device)
     kw = dict(i0=8, n_cycles=c, eligible=eligible, jperp=3, n_replicas=nr)
     before = (ssa_update.ssa_plateau_packed_batched.launches,
               ssa_update.ssa_plateau_packed_batched.ring_launches)
-    got = ssa_update.ssa_plateau_packed_batched(**args, **kw)
+    got = ssa_update.ssa_plateau_packed_batched(**args, **kw, cluster_size=cs)
     assert (ssa_update.ssa_plateau_packed_batched.launches,
             ssa_update.ssa_plateau_packed_batched.ring_launches) == (before[0] + 1,
                                                                      before[1] + 1)
+    launched_cs, blocks = ssa_update.ssa_plateau_packed_batched.last_ring_cluster
+    assert cs is None or launched_cs == cs
+    assert blocks == b * (r // nr) * launched_cs
     want = ssa_plateau_packed_ref(**args, **kw)
     for name, g, w in zip(OUTS, got, want):
         assert torch.equal(g, w), name

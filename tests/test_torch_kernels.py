@@ -49,6 +49,50 @@ def test_local_field_plain_matches_pallas(r, n, dtype):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _contract_coupling(rs, n, kind):
+    """Integer J over K3's exactness contract (every |J| and every partial
+    sum of m @ J below 2^24): the ranges the CUDA kernel's byte planes must
+    hold (one s8 plane up to 127, two up to 2^15, three up to 2^23)."""
+    if kind == "mixed":  # tiles of one, two and three planes in one J
+        J = rs.integers(-1, 2, size=(n, n))
+        J[64:128, 128:256] = rs.integers(-4096, 4097, size=(64, 128))
+        for c in range(256, n):
+            J[192 + c % 64, c] = rs.integers(-(2**20), 2**20)
+        return J
+    if kind == "bf16":  # large integers a bfloat16 holds: 8 significant bits
+        return rs.integers(-255, 256, size=(n, n)) * 2 ** rs.integers(0, 9, size=(n, n))
+    return rs.integers(-kind, kind + 1, size=(n, n))
+
+
+@pytest.mark.parametrize("r,n,kind,dtype", [
+    (5, 64, 127, "float32"),          # one s8 plane
+    (16, 128, 127, "bfloat16"),
+    (13, 1000, 2**13, "float32"),     # two planes, ragged R and N
+    (9, 200, "bf16", "bfloat16"),
+    (7, 97, 2**13, "float32"),
+    (3, 16, 2**20 - 1, "float32"),    # three planes
+    (17, 33, 2**15, "float32"),
+    (11, 300, "mixed", "float32"),    # planes mixed between tiles
+    (6, 128, "bf16", "bfloat16"),     # bfloat16 J with large integers
+])
+def test_local_field_plain_matches_pallas_over_contract(r, n, kind, dtype):
+    rs = np.random.default_rng(n + r)
+    J = _contract_coupling(rs, n, kind)
+    h = rs.integers(-4, 5, size=(n,)).astype(np.int32)
+    m = rs.choice([-1.0, 1.0], size=(r, n)).astype(np.float32)
+    assert (np.abs(J).sum(axis=0) + 4 < 2**24).all()  # inside the contract
+    want = jssa.local_field(jnp.asarray(m), jnp.asarray(h),
+                            jnp.asarray(J.astype(np.float32), getattr(jnp, dtype)),
+                            block_r=8, block_n=128, block_k=128)
+    got = ssa_update.local_field(torch.from_numpy(m), torch.from_numpy(h),
+                                 torch.as_tensor(J.astype(np.float32),
+                                                 dtype=getattr(torch, dtype)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    exact = m.astype(np.int64) @ J.astype(np.int64) + h
+    np.testing.assert_array_equal(got.numpy(), exact)
+
+
 def _plateau_case(r, n, seed, flat=False):
     """Random plateau inputs; ``flat`` zeroes J and h, so every state has
     H = 0 and only keeping the first minimum (strict <) gives JAX's best."""
