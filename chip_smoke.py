@@ -10,8 +10,8 @@ Phases (any failure raises and exits non-zero):
   1. card: name and power limit (nvidia-smi); the four kernels built;
   2. K3 ``local_field`` == its plain version, exactly, at the K2000 shape,
      ragged ones and with J tiles of one to four byte planes mixed; kernel,
-     plain, torch.addmm (TF32 off) times and the bound (bytes, beside the
-     int8 MMA time);
+     plain, torch.addmm (TF32 off) device times (CUDA graphs) and the
+     bound (bytes, beside the int8 MMA time); K3's time under each K split;
   3. K1 ``ssa_plateau_packed`` == its plain version, all five outputs
      exactly, at K2000 and G11 widths, eligible and not, a ragged shape and
      a tied-energy shape; kernel and plain times and the bound; K1's time
@@ -115,6 +115,22 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_time_ms(fn, calls: int = 100, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph and replayed, so a call of a few microseconds is timed without
+    the host's cost of issuing it from Python."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture: builds, attributes, caches
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _time_ms(graph.replay, reps) / calls
+
+
 def _bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
     t_ops = n_ops / peak_ops * 1e3
@@ -201,15 +217,20 @@ def phase_k3(dev):
     J = _coupling(gen, N, torch.float32, dev)
     hf = h.to(torch.float32)
     torch.backends.cuda.matmul.allow_tf32 = False  # the library call in full float32
-    ms = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=200)
-    plain_ms = _time_ms(lambda: local_field_ref(m, h, J), reps=50)
-    lib_ms = _time_ms(lambda: torch.addmm(hf, m, J), reps=200)
+    # Device times from CUDA graphs: a K3 call takes about as long to issue
+    # from Python as to run.
+    ms = _graph_time_ms(lambda: ssa_update.local_field(m, h, J))
+    plain_ms = _graph_time_ms(lambda: local_field_ref(m, h, J))
+    lib_ms = _graph_time_ms(lambda: torch.addmm(hf, m, J))
+    host_ms = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=200)
     # One s8 byte plane at K2000 (|J| <= 1): 2·R·N² int8 tensor-core operations.
     n_bytes, n_ops = 4 * (R * N + N * N + N + R * N), 2 * R * N * N
     bound, by = _bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
     print(f"[K3] R={R} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.addmm (TF32 off) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; bytes "
-          f"{n_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms, int8 MMA {n_ops / PEAK_INT8_OPS * 1e3:.4f} ms)")
+          f"torch.addmm (TF32 off) {lib_ms:.4f} ms (device times, CUDA graphs), bound "
+          f"{bound:.4f} ms ({by}; bytes {n_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms, int8 MMA "
+          f"{n_ops / PEAK_INT8_OPS * 1e3:.4f} ms); a call issued from Python, back to back: "
+          f"{host_ms:.4f} ms")
     print(f"[K3] no slower than torch.addmm in this run: {ms <= lib_ms}")
     _k3_sweep(m, h, J)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -228,7 +249,7 @@ def _k3_sweep(m, h, J):
             ssa_update.K3_SPLITS = ks
             if not torch.equal(ssa_update.local_field(m, h, J), want):
                 _fail(f"K3 output depends on the K split ({ks})")
-            t = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=200)
+            t = _graph_time_ms(lambda: ssa_update.local_field(m, h, J))
             print(f"[K3 sweep] {ks} K splits: {t:.4f} ms")
     finally:
         ssa_update.K3_SPLITS = None

@@ -227,7 +227,9 @@ int launch_tr(int tr, const void* mp_in, const void* it_in, const void* J, const
 // Inside a block, RING_THREADS threads split the block's columns (4 per
 // thread, CT threads across a column tile) and k (RING_THREADS / CT
 // k-ranges); the k-ranges' partial fields meet in shared memory before the
-// update.  One pass over J accumulates RING_G replicas (ring.cuh): per
+// update.  Where N % 4 == 0 a thread's 4 columns are neighbours, read with
+// one 16-byte load per k (a quarter of the L2 requests of 4 scalar loads);
+// otherwise they are CT apart.  One pass over J accumulates RING_G replicas (ring.cuh): per
 // column and k one float fma per replica, the replica's sign read as +-1.0f
 // from a table built once per pass from the spin words (two 16-byte
 // shared-memory broadcasts per k), so the sign flip costs no instruction in
@@ -236,12 +238,14 @@ int launch_tr(int tr, const void* mp_in, const void* it_in, const void* J, const
 //
 // What bounds it: the same 2*R*N^2*(C+1) operations as the classical mode
 // and 2*R*N*C adds of the coupling, on the CUDA cores (1.16 ms at K2000, 96
-// trials, C = 100).  Measured on an H100 at 700 W: about 5.3 ms there, with
+// trials, C = 100).  Measured on an H100 at 700 W: about 4.1 ms there, with
 // clusters of 8 (96 blocks); each ring streams J from L2 once per pass and
-// cycle (16 MB in float32 at N = 2000), 3.6 TB/s at 12 rings, yet a
-// bfloat16 J (half the bytes) is slower, not faster, so L2's byte rate
-// alone does not bind it.  256 threads a block leave each thread 255
-// registers for its 32 accumulators and 8 unrolled k steps.
+// cycle (16 MB in float32 at N = 2000), 4.7 TB/s at 12 rings.  The vector
+// loads (4x fewer L2 requests, the same bytes) cut the time by a fifth,
+// and a bfloat16 J (half the bytes) takes about as long, so the per-block
+// instruction stream, not L2's byte rate, is what binds it now.  256
+// threads a block leave each thread up to 255 registers for its 32
+// accumulators and 8 unrolled k steps.
 constexpr int RING_THREADS = 256;
 constexpr int RING_WARPS = RING_THREADS / 32;
 constexpr int MAX_CS = 16;                    // blocks per cluster (16 non-portable)
@@ -250,7 +254,20 @@ constexpr int RING_WORK = RING_KC * RING_G;   // floats: the table, or the k-ran
 static_assert(RING_WORK >= 4 * RING_G * RING_THREADS, "k-range partials fit the table");
 static_assert(RING_G == 8, "the sign table holds two float4 per k");
 
-template <typename JT>
+// Four neighbouring values of J as floats, one vector load (0 when !ok).
+__device__ __forceinline__ void load4(const float* p, bool ok, float (&x)[4]) {
+  const float4 v = ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, bool ok, float (&x)[4]) {
+  const uint2 v = ok ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
+  x[0] = __uint_as_float(v.x << 16);
+  x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+template <typename JT, bool VEC>
 __global__ void __launch_bounds__(RING_THREADS, 1)
 ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
             const JT* __restrict__ J, const int* __restrict__ h,
@@ -329,10 +346,12 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int t = 0; t < G; ++t) acc[i][t] = 0.f;
-        const int col = tile + ct;  // this thread's columns: col + i * CT
+        // This thread's columns: with VEC (N % 4 == 0) four neighbours,
+        // col + i, read with one vector load per k; otherwise col + i * CT.
+        const int col = tile + (VEC ? 4 * ct : ct);
         bool ok[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) ok[i] = col + i * CT < c_hi;
+        for (int i = 0; i < 4; ++i) ok[i] = col + (VEC ? i : i * CT) < c_hi;
         for (int k0 = 0; k0 < N; k0 += RING_KC) {
           const int kn = min(RING_KC, N - k0);
           __syncthreads();  // the previous users of `work` are done
@@ -355,9 +374,16 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
           for (int k = kb; k < ke; ++k, Jk += N) {
             const float4 s0 = *reinterpret_cast<const float4*>(work + k * G);
             const float4 s1 = *reinterpret_cast<const float4*>(work + k * G + 4);
+            float x[4];
+            if (VEC) {
+              load4(Jk, ok[0], x);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) x[i] = ok[i] ? plateau::to_f32(Jk[i * CT]) : 0.f;
+            }
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const float v = ok[i] ? plateau::to_f32(Jk[i * CT]) : 0.f;
+              const float v = x[i];
               acc[i][0] = fmaf(s0.x, v, acc[i][0]);
               acc[i][1] = fmaf(s0.y, v, acc[i][1]);
               acc[i][2] = fmaf(s0.z, v, acc[i][2]);
@@ -373,7 +399,8 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
 #pragma unroll
         for (int t = 0; t < G; ++t)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) work[(kg * G + t) * TW + i * CT + ct] = acc[i][t];
+          for (int i = 0; i < 4; ++i)
+            work[(kg * G + t) * TW + (VEC ? 4 * ct + i : i * CT + ct)] = acc[i][t];
         __syncthreads();
         for (int u = tid; u < TW && tile + u < c_hi; u += RING_THREADS) {
           const int j = tile + u;
@@ -494,9 +521,9 @@ size_t ring_smem(int N, int R, int cs) {
   return sizeof(float) * RING_WORK + sizeof(uint32_t) * (2 * (size_t)N + (size_t)R * nwq);
 }
 
-template <typename JT>
+template <typename JT, bool VEC>
 cudaError_t ring_config(int N, int R, int cs, size_t* smem) {
-  auto kernel = ring_kernel<JT>;
+  auto kernel = ring_kernel<JT, VEC>;
   *smem = ring_smem(N, R, cs);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(*smem));
@@ -526,8 +553,11 @@ int launch_ring(const void* mp_in, const void* it_in, const void* J, const void*
                 void* mp_out, void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B,
                 int T, int N, int n_cycles, int n_rnd, int eligible, int R, int cs,
                 cudaStream_t stream) {
+  // Vector loads of four neighbouring columns need aligned rows.
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(J) % (4 * sizeof(JT)) == 0;
   size_t smem = 0;
-  cudaError_t e = ring_config<JT>(N, R, cs, &smem);
+  cudaError_t e = vec ? ring_config<JT, true>(N, R, cs, &smem)
+                      : ring_config<JT, false>(N, R, cs, &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   // Column threads: the block's widest slice, 4 columns a thread, a power
   // of two of at least a warp; the rest of the threads split k.
@@ -538,7 +568,8 @@ int launch_ring(const void* mp_in, const void* it_in, const void* J, const void*
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   ring_launch_config(&cfg, &attr, T / R, B, cs, smem, stream);
-  e = cudaLaunchKernelEx(&cfg, ring_kernel<JT>, static_cast<const uint32_t*>(mp_in),
+  e = cudaLaunchKernelEx(&cfg, vec ? ring_kernel<JT, true> : ring_kernel<JT, false>,
+                         static_cast<const uint32_t*>(mp_in),
                          static_cast<const int*>(it_in), static_cast<const JT*>(J),
                          static_cast<const int*>(h), static_cast<const uint32_t*>(rng_in), i0,
                          jperp, static_cast<const int*>(bh_in),
@@ -556,15 +587,20 @@ int launch_ring(const void* mp_in, const void* it_in, const void* J, const void*
 // run at once; 0 when none fits.  Negative: a CUDA error code, negated.
 extern "C" int repro_ring_max_clusters(int N, int R, int cs, int j_bf16) {
   size_t smem = 0;
-  cudaError_t e = j_bf16 ? ring_config<__nv_bfloat16>(N, R, cs, &smem)
-                         : ring_config<float>(N, R, cs, &smem);
+  const bool vec = N % 4 == 0;
+  cudaError_t e = j_bf16 ? (vec ? ring_config<__nv_bfloat16, true>(N, R, cs, &smem)
+                                : ring_config<__nv_bfloat16, false>(N, R, cs, &smem))
+                         : (vec ? ring_config<float, true>(N, R, cs, &smem)
+                                : ring_config<float, false>(N, R, cs, &smem));
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   ring_launch_config(&cfg, &attr, 1, 1, cs, smem, nullptr);
   int n = 0;
-  e = j_bf16 ? cudaOccupancyMaxActiveClusters(&n, ring_kernel<__nv_bfloat16>, &cfg)
-             : cudaOccupancyMaxActiveClusters(&n, ring_kernel<float>, &cfg);
+  auto kernel = j_bf16 ? (vec ? (void*)ring_kernel<__nv_bfloat16, true>
+                              : (void*)ring_kernel<__nv_bfloat16, false>)
+                       : (vec ? (void*)ring_kernel<float, true> : (void*)ring_kernel<float, false>);
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it: a size that does not fit is an answer, not a fault
     return 0;

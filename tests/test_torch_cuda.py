@@ -249,16 +249,21 @@ def test_anneal_popcount_matches_k1_on_card(cuda_device, layout):
 # SSQA: the ring modes of K1 and K2 against their plain versions
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,r,n,c,nr,flat,cs", [
-    (1, 8, 36, 5, 4, False, None), (1, 6, 100, 7, 2, False, None),
-    (2, 9, 1001, 3, 3, False, None), (1, 10, 70, 6, 5, True, None),
-    (1, 32, 257, 4, 16, False, None), (1, 32, 64, 3, 32, False, None),
-    (1, 96, 2000, 4, 8, False, None),
-] + [(2, 32, 1001, 5, nr, False, cs)  # every cluster size, a ragged last word
+@pytest.mark.parametrize("b,r,n,c,nr,flat,cs,dtype", [
+    (1, 8, 36, 5, 4, False, None, "float32"), (1, 6, 100, 7, 2, False, None, "float32"),
+    (2, 9, 1001, 3, 3, False, None, "float32"), (1, 10, 70, 6, 5, True, None, "float32"),
+    (1, 32, 257, 4, 16, False, None, "float32"), (1, 32, 64, 3, 32, False, None, "float32"),
+    (1, 96, 2000, 4, 8, False, None, "float32"), (1, 96, 2000, 4, 8, False, None, "bfloat16"),
+    (2, 32, 1001, 5, 8, False, 8, "bfloat16"),
+] + [(2, 32, 1001, 5, nr, False, cs, "float32")  # every cluster size, a ragged last word
      for nr in (2, 8, 16) for cs in (1, 2, 4, 8, 16)])
 @pytest.mark.parametrize("eligible", [True, False])
-def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, cs, eligible):
+def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, cs, dtype,
+                                           eligible):
+    """K1's ring mode: N % 4 == 0 reads four neighbouring columns of J per
+    load, other N one; J in float32 and bfloat16."""
     args = _plateau_args(b, r, n, seed=n + c + nr, flat=flat, device=cuda_device)
+    args["J"] = args["J"].to(getattr(torch, dtype))
     kw = dict(i0=8, n_cycles=c, eligible=eligible, jperp=3, n_replicas=nr)
     before = (ssa_update.ssa_plateau_packed_batched.launches,
               ssa_update.ssa_plateau_packed_batched.ring_launches)
