@@ -255,6 +255,9 @@ def test_anneal_popcount_matches_k1_on_card(cuda_device, layout):
     (1, 32, 257, 4, 16, False, None, "float32"), (1, 32, 64, 3, 32, False, None, "float32"),
     (1, 96, 2000, 4, 8, False, None, "float32"), (1, 96, 2000, 4, 8, False, None, "bfloat16"),
     (2, 32, 1001, 5, 8, False, 8, "bfloat16"),
+    # N above the sign table's 2048 k, in several column tiles of a block
+    (1, 8, 2100, 2, 4, False, 1, "float32"), (1, 8, 2101, 2, 8, False, 2, "float32"),
+    (1, 8, 4100, 1, 8, False, None, "bfloat16"),
 ] + [(2, 32, 1001, 5, nr, False, cs, "float32")  # every cluster size, a ragged last word
      for nr in (2, 8, 16) for cs in (1, 2, 4, 8, 16)])
 @pytest.mark.parametrize("eligible", [True, False])
