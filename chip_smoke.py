@@ -10,8 +10,9 @@ Phases (any failure raises and exits non-zero):
   1. card: name and power limit (nvidia-smi); the four kernels built;
   2. K3 ``local_field`` == its plain version, exactly, at the K2000 shape,
      ragged ones and with J tiles of one to four byte planes mixed; kernel,
-     plain, torch.addmm (TF32 off) device times (CUDA graphs) and the
-     bound (bytes, beside the int8 MMA time); K3's time under each K split;
+     plain, torch.addmm (TF32 off) times, issued from Python as the trace
+     path issues K3 and, beside them, device times by CUDA graph; the bound
+     (bytes, beside the int8 MMA time); K3's time under each K split;
   3. K1 ``ssa_plateau_packed`` == its plain version, all five outputs
      exactly, at K2000 and G11 widths, eligible and not, a ragged shape and
      a tied-energy shape; kernel and plain times and the bound; K1's time
@@ -217,21 +218,27 @@ def phase_k3(dev):
     J = _coupling(gen, N, torch.float32, dev)
     hf = h.to(torch.float32)
     torch.backends.cuda.matmul.allow_tf32 = False  # the library call in full float32
-    # Device times from CUDA graphs: a K3 call takes about as long to issue
-    # from Python as to run.
-    ms = _graph_time_ms(lambda: ssa_update.local_field(m, h, J))
-    plain_ms = _graph_time_ms(lambda: local_field_ref(m, h, J))
-    lib_ms = _graph_time_ms(lambda: torch.addmm(hf, m, J))
-    host_ms = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=200)
+    # The kernels line's times: 50 calls issued from Python back to back,
+    # between CUDA events, as the trace path issues K3 once per cycle.
+    ms = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=50)
+    plain_ms = _time_ms(lambda: local_field_ref(m, h, J), reps=50)
+    lib_ms = _time_ms(lambda: torch.addmm(hf, m, J), reps=50)
+    # Beside them, device time alone: 100 calls captured in a CUDA graph and
+    # replayed, without the host's cost of issuing each call.
+    graph = [_graph_time_ms(f) for f in (lambda: ssa_update.local_field(m, h, J),
+                                         lambda: local_field_ref(m, h, J),
+                                         lambda: torch.addmm(hf, m, J))]
     # One s8 byte plane at K2000 (|J| <= 1): 2·R·N² int8 tensor-core operations.
     n_bytes, n_ops = 4 * (R * N + N * N + N + R * N), 2 * R * N * N
     bound, by = _bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
     print(f"[K3] R={R} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.addmm (TF32 off) {lib_ms:.4f} ms (device times, CUDA graphs), bound "
+          f"torch.addmm (TF32 off) {lib_ms:.4f} ms (issued from Python), bound "
           f"{bound:.4f} ms ({by}; bytes {n_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms, int8 MMA "
-          f"{n_ops / PEAK_INT8_OPS * 1e3:.4f} ms); a call issued from Python, back to back: "
-          f"{host_ms:.4f} ms")
-    print(f"[K3] no slower than torch.addmm in this run: {ms <= lib_ms}")
+          f"{n_ops / PEAK_INT8_OPS * 1e3:.4f} ms)")
+    print(f"[K3] R={R} N={N} device time (CUDA graph): kernel {graph[0]:.4f} ms, plain "
+          f"{graph[1]:.4f} ms, torch.addmm (TF32 off) {graph[2]:.4f} ms")
+    print(f"[K3] no slower than torch.addmm in this run: {ms <= lib_ms} (issued from Python), "
+          f"{graph[0] <= graph[2]} (CUDA graph)")
     _k3_sweep(m, h, J)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms)
@@ -239,20 +246,16 @@ def phase_k3(dev):
 
 def _k3_sweep(m, h, J):
     """K3 at the main path's shape under each K split (blocks per cluster;
-    the output must not change): a split whose clusters do not all fit on
-    the card at once runs in two waves."""
+    the output must not change), device time by CUDA graph: a split whose
+    clusters do not all fit on the card at once runs in two waves."""
     from repro_torch.kernels import ssa_update
 
     want = ssa_update.local_field(m, h, J)
-    try:
-        for ks in (1, 2, 4, 6, 7, 8):
-            ssa_update.K3_SPLITS = ks
-            if not torch.equal(ssa_update.local_field(m, h, J), want):
-                _fail(f"K3 output depends on the K split ({ks})")
-            t = _graph_time_ms(lambda: ssa_update.local_field(m, h, J))
-            print(f"[K3 sweep] {ks} K splits: {t:.4f} ms")
-    finally:
-        ssa_update.K3_SPLITS = None
+    for ks in (1, 2, 4, 6, 7, 8):
+        if not torch.equal(ssa_update._local_field(m, h, J, splits=ks), want):
+            _fail(f"K3 output depends on the K split ({ks})")
+        t = _graph_time_ms(lambda: ssa_update._local_field(m, h, J, splits=ks))
+        print(f"[K3 sweep] {ks} K splits: {t:.4f} ms")
 
 
 def _plateau_inputs(gen, R, N, dev, dtype=torch.float32, flat=False):
@@ -770,7 +773,8 @@ def phase_k1_ring(dev):
     print(f"[K1 ring] R={R} N={N} C={C} ring={SSQA_RING}: cluster size {launched[0]}, "
           f"{launched[1]} blocks: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound:.4f} ms ({by})")
-    fits = {cs: ssa_update._ring_max_clusters(dev, N, SSQA_RING, False, cs)
+    fits = {cs: ssa_update._max_clusters(dev, "plateau", "repro_ring_max_clusters",
+                                         N, SSQA_RING, cs, 0)
             for cs in ssa_update.RING_CLUSTER_SIZES}
     print(f"[K1 ring] N={N} ring={SSQA_RING}: clusters the card runs at once, by size: {fits}")
     # Other ring sizes and cluster sizes on the same inputs, and a bfloat16 J

@@ -40,10 +40,12 @@
 //
 // Filling the card: a block owns 128 rows (8 m16 tiles; rows >= R skipped)
 // by 128 columns, and a thread-block cluster of KS blocks (KS <= 8) splits K
-// between them.  KS is the most whose clusters all run at once (the
-// occupancy query) with no more blocks than SMs: a second wave of clusters
-// would double the time.  R = 100, N = 2000 runs 16 column tiles x 6 = 96
-// blocks on an H100, where sixteen clusters of 8 do not all fit at once.
+// between them.  The wrapper chooses KS by the rule it also applies to K1's
+// ring mode (ssa_update._cluster_size): the most, at least one stage each,
+// whose clusters all run at once (repro_local_field_max_clusters, the
+// occupancy query) with no more blocks than SMs, since a second wave of
+// clusters would double the time.  R = 100, N = 2000 runs 16 column tiles
+// x 6 = 96 blocks on an H100, where sixteen clusters of 8 do not all fit.
 // The KS partial int32 tiles meet in distributed shared memory: each block
 // sums a share of the rows over the cluster's blocks in rank order, adds h
 // and writes the result.  No atomics, no scratch in device memory, one
@@ -355,92 +357,79 @@ local_field_kernel(const float* __restrict__ m, const JT* __restrict__ J,
   cluster.sync();  // no block leaves while a peer still reads its tile
 }
 
-// The largest number of clusters of `ks` blocks the card runs at once
-// (cudaOccupancyMaxActiveClusters), cached per device and kernel.
+// Sets the kernel's shared-memory size, once per device and variant.
 template <typename JT, bool VEC>
-int max_clusters(int dev, int ks) {
-  static int cache[64][MAX_KS + 1];  // value + 1; 0 = not asked yet
-  if (dev < 64 && cache[dev][ks]) return cache[dev][ks] - 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ks);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, local_field_kernel<JT, VEC>, &cfg) != cudaSuccess) {
-    cudaGetLastError();  // a size that does not fit is an answer, not a fault
-    n = 0;
-  }
-  if (dev < 64) cache[dev][ks] = n + 1;
-  return n;
+cudaError_t k3_config() {
+  static bool done[64];  // per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
+  e = cudaFuncSetAttribute(local_field_kernel<JT, VEC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM));
+  if (dev < 64) done[dev] = e == cudaSuccess;
+  return e;
+}
+
+void k3_launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int R, int N, int ks,
+                      cudaStream_t stream) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((N + BN - 1) / BN * ks, (R + BM - 1) / BM);
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = SMEM;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
 }
 
 template <typename JT, bool VEC>
-int launch(const float* m, const JT* J, const int* h, int* out, int R, int N, int splits,
+int launch(const float* m, const JT* J, const int* h, int* out, int R, int N, int ks,
            cudaStream_t s) {
-  auto kernel = local_field_kernel<JT, VEC>;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = k3_config<JT, VEC>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  static int ready[64];  // shared-memory attribute set, SM count + 1, per device
-  if (dev >= 64 || !ready[dev]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(SMEM));
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 64) ready[dev] = sms + 1;
-  } else {
-    sms = ready[dev] - 1;
-  }
-  // K splits: the most (at most MAX_KS, at least one stage each) whose
-  // clusters all run at once and whose blocks fit on the SMs (R = 100,
-  // N = 2000 takes 6 on an H100).
-  const int tiles = (N + BN - 1) / BN * ((R + BM - 1) / BM);
-  const int n_stages = (N + BK - 1) / BK;
-  int ks = splits > 0 ? splits : sms / tiles;
-  ks = ks > MAX_KS ? MAX_KS : ks > n_stages ? n_stages : ks;
-  while (splits <= 0 && ks > 1 && max_clusters<JT, VEC>(dev, ks) < tiles) --ks;
-  ks = ks < 1 ? 1 : ks;
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + BN - 1) / BN * ks, (R + BM - 1) / BM);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, m, J, h, out, R, N);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  k3_launch_config(&cfg, &attr, R, N, ks, s);
+  e = cudaLaunchKernelEx(&cfg, local_field_kernel<JT, VEC>, m, J, h, out, R, N);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename JT>
-int launch_vec(const float* m, const JT* J, const int* h, int* out, int R, int N, int splits,
+int launch_vec(const float* m, const JT* J, const int* h, int* out, int R, int N, int ks,
                cudaStream_t s) {
   // Vector loads of 4 values need aligned rows.
   if (N % 4 == 0 && reinterpret_cast<uintptr_t>(m) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(J) % (4 * sizeof(JT)) == 0)
-    return launch<JT, true>(m, J, h, out, R, N, splits, s);
-  return launch<JT, false>(m, J, h, out, R, N, splits, s);
+    return launch<JT, true>(m, J, h, out, R, N, ks, s);
+  return launch<JT, false>(m, J, h, out, R, N, ks, s);
+}
+
+template <typename JT, bool VEC>
+int max_clusters(int ks) {
+  cudaError_t e = k3_config<JT, VEC>();
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  k3_launch_config(&cfg, &attr, 1, BN, ks, nullptr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, local_field_kernel<JT, VEC>, &cfg) != cudaSuccess) {
+    cudaGetLastError();  // a size that does not fit is an answer, not a fault
+    return 0;
+  }
+  return n;
 }
 
 }  // namespace
 
-// `splits` > 0 forces the number of K splits (blocks per cluster, at most
-// MAX_KS); 0 lets the launcher choose.
+// `splits`: the K splits, blocks per cluster (1 to MAX_KS); the wrapper
+// chooses them (ssa_update._cluster_size, through the query below).
 extern "C" int repro_local_field(const void* m, const void* J, const void* h, void* out,
                                  int R, int N, int j_bf16, int splits, void* stream) {
+  if (splits < 1 || splits > MAX_KS) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mf = static_cast<const float*>(m);
   const int* hi = static_cast<const int*>(h);
@@ -449,6 +438,17 @@ extern "C" int repro_local_field(const void* m, const void* J, const void* h, vo
     return launch_vec<__nv_bfloat16>(mf, static_cast<const __nv_bfloat16*>(J), hi, o, R, N,
                                      splits, s);
   return launch_vec<float>(mf, static_cast<const float*>(J), hi, o, R, N, splits, s);
+}
+
+// How many clusters of `splits` K3 blocks the card runs at once
+// (cudaOccupancyMaxActiveClusters); 0 when none fits.  Negative: a CUDA
+// error code, negated.
+extern "C" int repro_local_field_max_clusters(int N, int splits, int j_bf16) {
+  if (splits < 1 || splits > MAX_KS) return -static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = N % 4 == 0;
+  if (j_bf16) return vec ? max_clusters<__nv_bfloat16, true>(splits)
+                         : max_clusters<__nv_bfloat16, false>(splits);
+  return vec ? max_clusters<float, true>(splits) : max_clusters<float, false>(splits);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -58,11 +58,6 @@ __all__ = ["local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched",
 # measures all three each run).  See csrc/plateau.cu.
 TRIALS_PER_BLOCK = 2
 
-# K splits of K3 (blocks per thread-block cluster, 1 to 8); None lets the
-# kernel choose the most whose clusters all run at once (csrc/field.cu).
-# chip_smoke.py times K3 under each.
-K3_SPLITS: Optional[int] = None
-
 # Trials per K2 block: TR in csrc/popcount.cu, fixed there.
 _POPCOUNT_TRIALS_PER_BLOCK = 2
 
@@ -78,6 +73,10 @@ MAX_RING = _build.header_int("ring.cuh", "MAX_RING")
 # size where the occupancy query says such a cluster fits (8 is portable).
 RING_CLUSTER_SIZES = tuple(
     1 << i for i in range(_build.header_int("plateau.cu", "MAX_CS").bit_length()))
+# K3's block tile (rows, columns, k per stage) and its most K splits, blocks
+# per thread-block cluster (csrc/field.cu).
+_K3_BM, _K3_BN, _K3_BK = (_build.header_int("field.cu", n) for n in ("BM", "BN", "BK"))
+_K3_MAX_SPLITS = _build.header_int("field.cu", "MAX_KS")
 # The work area of K1's ring-mode block: RING_KC k of RING_G signs, floats.
 _RING_WORK_BYTES = (4 * _build.header_int("plateau.cu", "RING_KC")
                     * _build.header_int("ring.cuh", "RING_G"))
@@ -85,6 +84,7 @@ _RING_WORK_BYTES = (4 * _build.header_int("plateau.cu", "RING_KC")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "repro_local_field": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_local_field_max_clusters": [_I] * 3,
     "repro_ssa_plateau_packed": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
     "repro_ssa_plateau": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8 + [_P],
     "repro_ssa_plateau_popcount": [_P] * 16 + [_I] * 6 + [_P],
@@ -146,32 +146,64 @@ def _check_ring(R: int, n_replicas: int, what: str):
                          f"limit of {MAX_RING} replicas per ring (csrc/ring.cuh)")
 
 
-def ring_cluster_size(n_rings: int, B: int, N: int, sm_count: int, max_cs: int = 8) -> int:
-    """Blocks per ring for K1's ring mode: the largest CS of 1, 2, 4, 8 (and
-    16 when ``max_cs`` admits it) with ``n_rings · B · CS <= sm_count``, so
-    every block of the launch has an SM, and ``CS <= Nw``, so every block
-    owns at least one 32-column word.  1 when the rings alone fill the card."""
+def _cluster_size(n_clusters: int, sm_count: int, sizes, max_clusters=None) -> int:
+    """Blocks per thread-block cluster for a launch of ``n_clusters``
+    clusters: the largest of ``sizes`` with ``n_clusters · size <= sm_count``,
+    so every block has an SM, and, where ``max_clusters`` (size -> clusters
+    the card runs at once, the occupancy query) is given, with every cluster
+    running at once, since a second wave would double the time.  1 when none
+    is larger.  The rule of K3's K splits and of K1's ring mode."""
+    for cs in sorted(sizes, reverse=True):
+        if cs > 1 and n_clusters * cs <= sm_count and (
+                max_clusters is None or max_clusters(cs) >= n_clusters):
+            return cs
+    return 1
+
+
+def ring_cluster_size(n_rings: int, B: int, N: int, sm_count: int, max_clusters=None) -> int:
+    """Blocks per ring for K1's ring mode: by :func:`_cluster_size`, the
+    largest CS of 1, 2, 4, 8, 16 with ``n_rings · B · CS <= sm_count`` and
+    ``CS <= Nw``, so every block owns at least one 32-column word, and, given
+    ``max_clusters``, every ring's cluster running at once (the non-portable
+    16 needs that query).  1 when the rings alone fill the card."""
     nw = packed_words(N)
-    fits = [cs for cs in RING_CLUSTER_SIZES
-            if cs <= max_cs and n_rings * B * cs <= sm_count and cs <= nw]
-    return max(fits, default=1)
+    return _cluster_size(n_rings * B, sm_count, [cs for cs in RING_CLUSTER_SIZES if cs <= nw],
+                         max_clusters)
 
 
-_max_clusters_cache: dict = {}
+def _k3_splits(R: int, N: int, sm_count: int, max_clusters=None) -> int:
+    """K3's K splits by :func:`_cluster_size`: one cluster per block tile, at
+    most MAX_KS blocks and one k stage per block."""
+    tiles = -(-N // _K3_BN) * -(-R // _K3_BM)
+    sizes = range(1, min(_K3_MAX_SPLITS, -(-N // _K3_BK)) + 1)
+    return _cluster_size(tiles, sm_count, sizes, max_clusters)
 
 
-def _ring_max_clusters(dev: torch.device, N: int, R: int, bf16: bool, cs: int) -> int:
-    """How many clusters of ``cs`` ring blocks the card runs at once."""
-    key = (dev.index, N, R, bf16, cs)
-    if key not in _max_clusters_cache:
-        fn, lib = _entry("plateau", "repro_ring_max_clusters")
-        with torch.cuda.device(dev):
-            n = fn(N, R, cs, int(bf16))
-        if n < 0:
-            raise RuntimeError(f"ring cluster occupancy query failed with CUDA error {-n} "
-                               f"({lib.repro_cuda_error_string(-n).decode()})")
-        _max_clusters_cache[key] = n
-    return _max_clusters_cache[key]
+_launch_cache: dict = {}
+
+
+def _cached(key, choose):
+    """``choose()``, once per key: a launch's cluster size, by device and
+    shape, so the occupancy queries run on a call's first launch only."""
+    if key not in _launch_cache:
+        _launch_cache[key] = choose()
+    return _launch_cache[key]
+
+
+def _max_clusters(dev: torch.device, lib: str, entry: str, *args) -> int:
+    """The occupancy query ``entry`` of library ``lib`` on ``dev``: how many
+    clusters of the size in ``args`` the card runs at once."""
+    fn, lib_ = _entry(lib, entry)
+    with torch.cuda.device(dev):
+        n = fn(*args)
+    if n < 0:
+        raise RuntimeError(f"{entry} failed with CUDA error {-n} "
+                           f"({lib_.repro_cuda_error_string(-n).decode()})")
+    return n
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _ring_smem(N: int, n_replicas: int, cs: int) -> int:
@@ -204,6 +236,13 @@ def local_field(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor) -> torch.Tens
     or bfloat16, integer-valued.  Replaces
     ``repro/kernels/ssa_update.py:local_field`` (``_field_kernel``).
     """
+    return _local_field(m, h, J)
+
+
+def _local_field(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor,
+                 splits: Optional[int] = None) -> torch.Tensor:
+    """:func:`local_field`, with ``splits`` forcing K3's K splits (1 to
+    MAX_KS) for measurement; None takes :func:`_k3_splits`'s choice."""
     dev = _device_of(m, h, J)
     if dev.type == "cpu":
         return local_field_ref(m, h, J)
@@ -217,9 +256,16 @@ def local_field(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor) -> torch.Tens
     out = torch.empty((R, N), dtype=torch.int32, device=dev)
     if R == 0 or N == 0:
         return out
+    bf16 = int(J.dtype == torch.bfloat16)
+    if splits is None:
+        splits = _cached(("field", dev.index, R, N, bf16), lambda: _k3_splits(
+            R, N, _sm_count(dev), lambda ks: _max_clusters(
+                dev, "field", "repro_local_field_max_clusters", N, ks, bf16)))
+    elif not 1 <= int(splits) <= _K3_MAX_SPLITS:
+        raise ValueError(f"splits={splits}: must be 1 to {_K3_MAX_SPLITS}")
     fn, lib = _entry("field", "repro_local_field")
     _launch(fn, lib, "local_field", dev, mf.data_ptr(), J.data_ptr(), h32.data_ptr(),
-            out.data_ptr(), R, N, int(J.dtype == torch.bfloat16), int(K3_SPLITS or 0))
+            out.data_ptr(), R, N, bf16, int(splits))
     local_field.launches += 1
     return out
 
@@ -296,12 +342,10 @@ def ssa_plateau_packed_batched(
     if n_replicas:
         n_rings, bf16 = R // n_replicas, J.dtype == torch.bfloat16
         if cluster_size is None:
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            cs = ring_cluster_size(n_rings, B, N, sms, RING_CLUSTER_SIZES[-1])
-            # Halved while the card cannot run every ring's cluster at once
-            # (the non-portable 16 always, 8 on part of a GPC's SMs).
-            while cs > 1 and _ring_max_clusters(dev, N, n_replicas, bf16, cs) < n_rings * B:
-                cs //= 2
+            cs = _cached(("ring", dev.index, B, n_rings, N, n_replicas, bf16),
+                         lambda: ring_cluster_size(n_rings, B, N, _sm_count(dev), lambda c: (
+                             _max_clusters(dev, "plateau", "repro_ring_max_clusters",
+                                           N, n_replicas, c, int(bf16)))))
         else:
             cs = int(cluster_size)
         _check_smem(f"K1's ring mode at N={N}", _ring_smem(N, n_replicas, cs))

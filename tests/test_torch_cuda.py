@@ -73,6 +73,19 @@ def test_local_field_kernel_matches_plain(cuda_device, r, n, dtype, planes):
     assert torch.equal(got, local_field_ref(m, h, J))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(100, 2000), (130, 600)])
+def test_local_field_kernel_k_split_leaves_the_result_alone(cuda_device, r, n):
+    """K3 forced to every K split, 1 to MAX_KS blocks per cluster."""
+    rs = np.random.default_rng(n + 1)
+    m = torch.as_tensor(rs.choice([-1.0, 1.0], size=(r, n)), dtype=torch.float32, device=cuda_device)
+    h = torch.as_tensor(rs.integers(-4, 5, size=(n,)), dtype=torch.int32, device=cuda_device)
+    J = torch.as_tensor(_mixed_plane_coupling(rs, n), dtype=torch.float32, device=cuda_device)
+    want = local_field_ref(m, h, J)
+    for ks in range(1, ssa_update._K3_MAX_SPLITS + 1):
+        assert torch.equal(ssa_update._local_field(m, h, J, splits=ks), want), ks
+
+
 def _plateau_args(b, r, n, seed, flat, device):
     rs = np.random.default_rng(seed)
     J = torch.as_tensor(np.stack([_coupling(rs, n) * (not flat) for _ in range(b)]),
