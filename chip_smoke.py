@@ -14,14 +14,18 @@ Phases (any failure raises and exits non-zero):
      path issues K3 and, beside them, device times by CUDA graph; the bound
      (bytes, beside the int8 MMA time); K3's time under each K split;
   3. K1 ``ssa_plateau_packed`` == its plain version, all five outputs
-     exactly, at K2000 and G11 widths, eligible and not, a ragged shape and
-     a tied-energy shape; kernel and plain times and the bound; K1's time
-     under each trial tiling and with a bfloat16 J;
+     exactly, at K2000 and G11 widths, eligible and not, ragged shapes (a
+     ragged last group of 8 trials, N % 4 != 0, N above 2048, R below one
+     group) and a tied-energy shape; the cluster size and block count of
+     the timed launch; kernel and plain times and the bound; K1's time at
+     each cluster size (the outputs must not change) and with a bfloat16 J;
   4. threefry: a (C, T, N) = (100, 100, 2000) pregen draw on the card, its
      time, and its first cycles == the same draw on the CPU;
   5. K4 ``ssa_plateau`` == its plain version, all four outputs exactly, at
-     K2000 and G11 widths, eligible and not, a ragged shape, a bfloat16 J,
-     a tied-energy shape and B = 2; kernel and plain times and the bound;
+     K2000 and G11 widths, eligible and not, ragged shapes, a bfloat16 J,
+     a tied-energy shape and B = 2; kernel and plain times and the bound,
+     the cluster size and block count, K4's time at each cluster size and
+     with a bfloat16 J;
   6. production path: anneal(K2000, 100 trials, tau=100, I0 1→32,
      backend='cuda', record='best', track_energy=False) — K1 launched
      m_shot × steps times, K3 and K4 never; best_H == the dense backend's;
@@ -65,7 +69,10 @@ Phases (any failure raises and exits non-zero):
  16. BENCH_ssqa.json reproduced: hp='auto' on the K2000 twin resolves to its
      hyper-parameters, and seeds 0–2 give its cycles_to_target for SSA and
      SSQA (energy traces through K3 on the cuda backend);
- 17. the kernels line; 18. the contract line (last).
+ 17. torch.profiler over one production and one xorshift-pregen anneal()
+     at K2000, measured and not asserted: K1's and K4's share of the
+     device time and the device's idle share of the call (``[profile]``);
+ 18. the kernels line; 19. the contract line (last).
 """
 from __future__ import annotations
 
@@ -288,7 +295,8 @@ def phase_k1(dev):
     cases = [(100, 2000, 100, True, f32, False), (100, 2000, 100, False, f32, False),
              (100, 800, 100, True, f32, False), (100, 800, 100, False, f32, False),
              (13, 1001, 17, True, f32, False), (13, 1001, 17, False, f32, False),
-             (5, 2000, 9, True, bf16, False), (13, 1001, 17, True, f32, True)]
+             (5, 2000, 9, True, bf16, False), (13, 1001, 17, True, f32, True),
+             (3, 2101, 9, True, f32, False), (13, 4100, 3, True, bf16, False)]
     for R, N, C, elig, dtype, flat in cases:
         x = _plateau_inputs(gen, R, N, dev, dtype, flat)
         kw = dict(i0=32 if elig else 4, n_cycles=C, n_rnd=2, eligible=elig)
@@ -307,37 +315,38 @@ def phase_k1(dev):
     R, N, C = 100, 2000, 100
     x = _plateau_inputs(gen, R, N, dev)
     kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=True)
-    ms = _time_ms(lambda: ssa_update.ssa_plateau_packed_batched(**x, **kw), reps=5)
+    k1 = ssa_update.ssa_plateau_packed_batched
+    ms = _time_ms(lambda: k1(**x, **kw), reps=5)
+    launched = k1.last_cluster
     plain_ms = _time_ms(lambda: ssa_plateau_packed_ref(**x, **kw), reps=3)
-    _k1_sweep(x, kw)
     nw = (N + 31) // 32
     state_bytes = 4 * (R * nw + R * N + 4 * R * N + R + R * nw)
     bound, by = _bound_ms(4 * N * N + 4 * N + 2 * state_bytes, 2 * R * N * N * (C + 1))
-    print(f"[K1] R={R} N={N} C={C}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound:.4f} ms ({by})")
+    print(f"[K1] R={R} N={N} C={C}: cluster size {launched[0]} (chosen), {launched[1]} "
+          f"blocks: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
+    _cluster_sweep("K1", k1, x, kw)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
 
 
-def _k1_sweep(x, kw):
-    """K1 at the main path's shape under each trial tiling (the outputs must
-    not change) and with a bfloat16 J: where its time goes."""
+def _cluster_sweep(name, wrapper, x, kw):
+    """K1 or K4 (``wrapper``) at the main path's shape forced to each cluster
+    size up to the word count (the outputs must not change), and with a
+    bfloat16 J at the chosen size: where its time goes.  Timed as the
+    kernels line's time is, calls issued from Python between CUDA events."""
     from repro_torch.kernels import ssa_update
 
-    run = functools.partial(ssa_update.ssa_plateau_packed_batched, **kw)
-    want = run(**x)
-    chosen = ssa_update.TRIALS_PER_BLOCK
-    try:
-        for tpb in (1, 2, 4):
-            ssa_update.TRIALS_PER_BLOCK = tpb
-            if not all(torch.equal(a, b) for a, b in zip(run(**x), want)):
-                _fail(f"K1 output depends on the trial tiling ({tpb} per block)")
-            print(f"[K1 sweep] {tpb} trials per block: {_time_ms(lambda: run(**x), reps=5):.3f} ms")
-    finally:
-        ssa_update.TRIALS_PER_BLOCK = chosen
+    want = wrapper(**x, **kw)
+    for cs in ssa_update._word_sizes(x["itanh"].shape[-1]):
+        if not all(torch.equal(a, b) for a, b in zip(wrapper(**x, **kw, cluster_size=cs), want)):
+            _fail(f"{name} output depends on the cluster size ({cs})")
+        t = _time_ms(lambda: wrapper(**x, **kw, cluster_size=cs), reps=5)
+        print(f"[{name} sweep] cluster size {cs} (forced), {wrapper.last_cluster[1]} blocks: "
+              f"{t:.3f} ms")
     xb = dict(x, J=x["J"].to(torch.bfloat16))
-    print(f"[K1 sweep] bfloat16 J, {chosen} trials per block: "
-          f"{_time_ms(lambda: run(**xb), reps=5):.3f} ms")
+    t = _time_ms(lambda: wrapper(**xb, **kw), reps=5)
+    print(f"[{name} sweep] bfloat16 J: cluster size {wrapper.last_cluster[0]} (chosen), "
+          f"{wrapper.last_cluster[1]} blocks: {t:.3f} ms")
 
 
 def phase_threefry(dev):
@@ -387,7 +396,8 @@ def phase_k4(dev):
              (1, 100, 800, 100, True, f32, False), (1, 100, 800, 100, False, f32, False),
              (1, 13, 1001, 17, True, f32, False), (1, 13, 1001, 17, False, f32, False),
              (1, 5, 2000, 9, True, bf16, False), (1, 13, 1001, 17, True, f32, True),
-             (2, 7, 1001, 9, True, f32, False)]
+             (2, 7, 1001, 9, True, f32, False), (1, 3, 2101, 9, True, f32, False),
+             (1, 13, 4100, 3, True, bf16, False), (1, 100, 2000, 0, True, f32, False)]
     for B, R, N, C, elig, dtype, flat in cases:
         x = _pregen_inputs(gen, B, R, N, C, dev, dtype, flat)
         kw = dict(i0=32 if elig else 4, n_rnd=2, eligible=elig)
@@ -406,13 +416,16 @@ def phase_k4(dev):
     R, N, C = 100, 2000, 100
     x = _pregen_inputs(gen, 1, R, N, C, dev)
     kw = dict(i0=32, n_rnd=2, eligible=True)
-    ms = _time_ms(lambda: ssa_update.ssa_plateau_batched(**x, **kw), reps=5)
+    k4 = ssa_update.ssa_plateau_batched
+    ms = _time_ms(lambda: k4(**x, **kw), reps=5)
+    launched = k4.last_cluster
     plain_ms = _time_ms(lambda: ssa_plateau_ref(**x, **kw), reps=3)
     state_bytes = 4 * R * N + 4 * R * N + 4 * R + R * N  # m, itanh, best_H, best_m
     bound, by = _bound_ms(4 * N * N + 4 * N + 2 * state_bytes + C * R * N,
                           2 * R * N * N * (C + 1))
-    print(f"[K4] R={R} N={N} C={C}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound:.4f} ms ({by})")
+    print(f"[K4] R={R} N={N} C={C}: cluster size {launched[0]} (chosen), {launched[1]} "
+          f"blocks: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
+    _cluster_sweep("K4", k4, x, kw)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
 
@@ -730,7 +743,7 @@ def phase_k1_ring(dev):
     gen = torch.Generator().manual_seed(5)
     names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
     err = 0
-    cs_max = ssa_update.RING_CLUSTER_SIZES[-1]
+    cs_max = ssa_update.CLUSTER_SIZES[-1]
     cases = [(1, SSQA_TRIALS, 2000, 100, SSQA_RING, True, None),
              (1, SSQA_TRIALS, 2000, 100, SSQA_RING, False, None),
              (1, SSQA_TRIALS, 2000, 20, SSQA_RING, True, 1),
@@ -754,7 +767,7 @@ def phase_k1_ring(dev):
                 _fail(f"K1 ring mode {name} differs from its plain version at "
                       f"B={B} R={R} N={N} C={C} ring={nr} eligible={elig} cluster={cs}")
             err = max(err, e)
-        launched_cs, ctas = k1.last_ring_cluster
+        launched_cs, ctas = k1.last_cluster
         print(f"[K1 ring] B={B} R={R} N={N} C={C} ring={nr} J⊥={SSQA_JPERP_MAX} "
               f"eligible={elig} cluster size {launched_cs} ({'forced' if cs else 'chosen'}), "
               f"{ctas} blocks: all five outputs equal")
@@ -764,7 +777,7 @@ def phase_k1_ring(dev):
     kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=True, jperp=SSQA_JPERP_MAX,
               n_replicas=SSQA_RING)
     ms = _time_ms(lambda: k1(**x, **kw), reps=5)
-    launched = k1.last_ring_cluster
+    launched = k1.last_cluster
     plain_ms = _time_ms(lambda: ssa_plateau_packed_ref(**x, **kw), reps=3)
     nw = (N + 31) // 32
     state_bytes = 4 * (R * nw + R * N + 4 * R * N + R + R * nw)
@@ -773,9 +786,9 @@ def phase_k1_ring(dev):
     print(f"[K1 ring] R={R} N={N} C={C} ring={SSQA_RING}: cluster size {launched[0]}, "
           f"{launched[1]} blocks: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound:.4f} ms ({by})")
-    fits = {cs: ssa_update._max_clusters(dev, "plateau", "repro_ring_max_clusters",
+    fits = {cs: ssa_update._max_clusters(dev, "plateau", "repro_plateau_max_clusters",
                                          N, SSQA_RING, cs, 0)
-            for cs in ssa_update.RING_CLUSTER_SIZES}
+            for cs in ssa_update.CLUSTER_SIZES}
     print(f"[K1 ring] N={N} ring={SSQA_RING}: clusters the card runs at once, by size: {fits}")
     # Other ring sizes and cluster sizes on the same inputs, and a bfloat16 J
     # (half the bytes streamed from L2).
@@ -785,8 +798,8 @@ def phase_k1_ring(dev):
         kw_nr = dict(kw, n_replicas=nr)
         t = _time_ms(lambda: k1(**xd, **kw_nr, cluster_size=cs), reps=3)
         print(f"[K1 ring] R={R} N={N} C={C} ring={nr} J={dtype}: cluster size "
-              f"{k1.last_ring_cluster[0]} ({'forced' if cs else 'chosen'}), "
-              f"{k1.last_ring_cluster[1]} blocks: kernel {t:.3f} ms")
+              f"{k1.last_cluster[0]} ({'forced' if cs else 'chosen'}), "
+              f"{k1.last_cluster[1]} blocks: kernel {t:.3f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
 
@@ -955,6 +968,68 @@ def phase_bench_ssqa():
           f"equal BENCH_ssqa.json ({time.time() - t0:.1f}s)")
 
 
+def _device_busy_us(events) -> float:
+    """The union of the intervals of ``events`` (chrome-trace ``ts``/``dur``,
+    microseconds): the time the device was busy."""
+    busy, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
+def phase_profile():
+    """torch.profiler over one production and one xorshift-pregen anneal()
+    at K2000 (after the warm-ups of phases 6 and 9), measured and not
+    asserted: the plateau kernel's device time and share of all device
+    time, and the device's idle share of the call (1 - the union of its
+    kernels, copies and fills over the call's span on the host)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.ssa import SSAHyperParams, anneal
+
+    p = gset.load("K2000")
+    hp = SSAHyperParams(n_trials=100, m_shot=M_SHOT_PRODUCTION, tau=100, i0_min=1, i0_max=32)
+    parts = []
+    for path, cfg, label, kernel in (
+            ("production", SolverConfig(backend="cuda", noise="xorshift"), "K1",
+             "plateau_kernel"),
+            ("xorshift-pregen", SolverConfig(backend="cuda", noise="xorshift",
+                                             noise_mode="pregen"), "K4",
+             "plateau_pregen_kernel")):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("anneal()"):
+                anneal(p, hp, config=cfg, seed=0, record="best", track_energy=False,
+                       device="cuda")
+                torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            trace = Path(d) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+        span = [e["dur"] for e in events if e.get("ph") == "X" and e.get("name") == "anneal()"
+                and e.get("cat") == "user_annotation"]
+        device = [e for e in events if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if not span or not device:
+            parts.append(f"{path} anneal(): not measured (no device activity in the trace)")
+            continue
+        total = sum(e["dur"] for e in device)
+        k_us = sum(e["dur"] for e in device if e["cat"] == "kernel" and kernel in e["name"])
+        n_k = sum(1 for e in device if e["cat"] == "kernel" and kernel in e["name"])
+        busy = _device_busy_us(device)
+        parts.append(f"{path} anneal(): span {span[0] / 1e3:.3f} ms, device busy "
+                     f"{busy / 1e3:.3f} ms, idle share {1 - busy / span[0]:.4f}; {label} "
+                     f"{n_k} launches, {k_us / 1e3:.3f} ms, {k_us / total:.4f} of device time")
+    print("[profile] " + "; ".join(parts))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -982,6 +1057,7 @@ def main():
     k2_ring = phase_k2_ring(dev)
     k1_ring_launches, k2_ring_launches = phase_ssqa_anneal()
     phase_bench_ssqa()
+    phase_profile()
     kernels = [
         dict(name="ssa_plateau_packed (K1)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",

@@ -1,30 +1,64 @@
-// The cycle loop shared by the two plateau kernels: K1 (plateau.cu, noise
-// stepped in-kernel, packed spins) and K4 (plateau_pregen.cu, noise read
-// from a pregenerated buffer, dense spins).
+// The cycle loop of the two classical plateau kernels, K1 (plateau.cu:
+// noise stepped in-kernel, packed spins) and K4 (plateau_pregen.cu: noise
+// read from a pregenerated buffer, dense spins), and what K1's SSQA ring
+// mode (plateau.cu, ring_kernel) shares with it: the field of a column
+// tile, the wide loads of J and the cluster launch.
 //
-// One block owns TR trials of one problem.  Their spins live in shared
-// memory as floats, double-buffered ([N][TR], so one vector load gives
-// spin k of every trial); thread j owns column j (and j + blockDim.x, ...)
-// of Itanh, of the noise and of the best spins.  Per cycle c: field =
-// m @ J + h, with J streamed from L2 (thread j reads column j of row k:
-// neighbouring threads, neighbouring addresses; each element serves the
-// block's TR trials); at c >= 1, when `eligible`, fold H = -(h.m +
-// m.field)/2 into the running best (strict <: the first minimum is kept);
-// Itanh = clamp(field + n_rnd*r + Itanh, -I0, I0-1); m = sign(Itanh).
-// After the loop one more field folds the final state.  The energy is
-// reduced in int32, exact: the sum is even and far below 2^31 (the TPU
-// kernels' float32 energy is exact too, every partial sum being below
-// 2^24).
+// Per cycle c: field = m @ J + h; at c >= 1, when `eligible`, fold H =
+// -(h.m + m.field)/2 into the running best (strict <: the first minimum
+// is kept); Itanh = clamp(field + n_rnd*r + Itanh, -I0, I0-1); m =
+// sign(Itanh).  After the loop one more field folds the final state.
 //
-// The kernel supplies the two things that differ, as an `IO` object:
-//   int io.noise(int t, int j, int c)  the +-1 noise of trial t, column j
-//                                      at cycle c (called once per (t, j, c),
-//                                      in cycle order, by the owning thread);
-//   void io.store_best(int t, const float* m)  called by every thread of the
-//                                      block when trial t improved, with the
-//                                      improving spins.
+// Exactness: J, h and the spins are integers, and every partial sum of a
+// field is an integer below 2^24 in magnitude, so the float32 sums (and
+// those of a bfloat16 J, widened) are exact in any order; the energy is
+// reduced in int32, exact too (the sum is even and far below 2^31).
+//
+// Design.  A group of GROUP trials of one problem is one thread-block
+// cluster of CS blocks (CS in 1, 2, 4, 8, 16; ssa_update.py chooses it),
+// on a grid of (ceil(R / GROUP) * CS, B); the trials of a ragged last
+// group past R are idle: their spins read as -1, nothing of theirs is
+// written.  Block q of the cluster owns a slice of whole 32-column words
+// (Nw split as evenly as possible): it alone computes their field for the
+// group's trials over every k, steps their Itanh and their noise, and
+// writes their state and best.  Every block keeps the group's spins of
+// every column j as the bits of one word (bit t = trial t, 1 = +1),
+// double-buffered; after its update a block writes its new words into the
+// next buffer of every block of the cluster through distributed shared
+// memory, and cluster.sync() closes the cycle: nothing of cycle c+1 is
+// visible before it.  In cycle c+1 a peer writes only its own columns of
+// my old buffer, which my fold of cycle c does not read.  The energy fold:
+// each block sums its columns' share of h.m + m.field per trial and writes
+// it into every peer's [parity][CS][GROUP] array; after the barrier every
+// block adds the CS shares in rank order, so H, the running best and the
+// "better" flags are the same in every block.
+//
+// Inside a block, THREADS threads split the block's columns (4 a thread,
+// CT threads across a column tile) and k (THREADS / CT k-ranges); the
+// k-ranges' partial fields meet in shared memory before the update.  Where
+// N % 4 == 0 a thread's 4 columns are neighbours, read with one 16-byte
+// load per k; otherwise they are CT apart.  The sign of trial t at k is
+// read as +-1.0f from a table built once per chunk of KC k from the spin
+// words, so each term is one fma.
+//
+// The kernel supplies what differs as an `IO` object; `Slice` is the
+// block's columns:
+//   uint32_t io.spins(int j)      the group's spins of column j as a word,
+//                                 from the inputs (prologue, every j);
+//   void io.begin(sl, extra)      the prologue of the block's columns:
+//                                 carried state to the outputs (all
+//                                 threads; `extra` is its shared memory);
+//   void io.noise(j, c, r)        the +-1 noise r[t] of trials t < nt at
+//                                 column j, cycle c (the owning thread,
+//                                 once per (j, c), in cycle order);
+//   void io.store_best(t, s, sl)  trial t improved: its spins, bit t of
+//                                 s[j], to the best store of the block's
+//                                 columns (all threads);
+//   void io.finish(s, sl)         the final spins and best of the block's
+//                                 columns to the outputs (all threads).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -32,25 +66,23 @@
 
 namespace plateau {
 
-constexpr int MAX_THREADS = 1024;
-constexpr int DEFAULT_SMEM = 48 * 1024;
+// Trials per group in the classical kernels, and spins per sign-table row.
+constexpr int GROUP = 8;
+// Threads per block of the cluster kernels; 256 leave each thread up to
+// 255 registers for its 32 accumulators and 8 unrolled k steps.
+constexpr int THREADS = 256;
+// Blocks per cluster at most (16 is a non-portable size on Hopper).
+constexpr int MAX_CS = 16;
+// k per sign-table chunk.
+constexpr int KC = 2048;
+
+constexpr int WARPS = THREADS / 32;
+constexpr int WORK = KC * GROUP;  // floats: the sign table, or the k-range partials
+static_assert(WORK >= 4 * GROUP * THREADS, "k-range partials fit the table");
+static_assert(GROUP == 8, "a sign-table row is two float4");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// One shared-memory vector load of spin k of each of the block's trials.
-template <int TR> __device__ __forceinline__ void load_spins(const float* p, float* v);
-template <> __device__ __forceinline__ void load_spins<1>(const float* p, float* v) {
-  v[0] = p[0];
-}
-template <> __device__ __forceinline__ void load_spins<2>(const float* p, float* v) {
-  const float2 a = *reinterpret_cast<const float2*>(p);
-  v[0] = a.x; v[1] = a.y;
-}
-template <> __device__ __forceinline__ void load_spins<4>(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
 
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
@@ -58,94 +90,284 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// The C cycles and the epilogue fold of one block.  `m_cur`/`m_nxt` hold
-// the block's spins ([N][TR], both filled), `it` the Itanh of its first
-// trial (row stride N, updated in place), `bh_s` its running best energies
-// (shared).  Trials t >= nt are idle: their spins are read but nothing of
-// theirs is written.  Returns the buffer that holds the final spins.
-template <typename JT, int TR, typename IO>
-__device__ __forceinline__ float* run_cycles(IO& io, float* m_cur, float* m_nxt,
-                                             const JT* __restrict__ J,
-                                             const int* __restrict__ h, int* it, int* bh_s,
-                                             int nt, int N, int i0, int n_cycles, int n_rnd,
-                                             int eligible) {
-  __shared__ int red[TR][32];
-  __shared__ int better_s[TR];
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+// Four neighbouring values of J as floats, one vector load (0 when !ok).
+__device__ __forceinline__ void load4(const float* p, bool ok, float (&x)[4]) {
+  const float4 v = ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, bool ok, float (&x)[4]) {
+  const uint2 v = ok ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
+  x[0] = __uint_as_float(v.x << 16);
+  x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// Bit t of w as +-1.0f (1 = +1).
+__device__ __forceinline__ float sign_of(uint32_t w, int t) {
+  return __int_as_float(0xbf800000u ^ (((w >> t) & 1u) << 31));
+}
+
+// The field partials of one column tile: acc[i][t] = the sum over this
+// thread's k-range of sign(bit shift + t of s[k]) * J[k][col_i], over
+// every chunk of KC k.  Columns: with VEC four neighbours, col + i (one
+// vector load per k); otherwise col + i * CT.  Called by the whole block.
+template <typename JT, bool VEC>
+__device__ __forceinline__ void tile_field(float (&acc)[4][GROUP], float* work,
+                                           const uint32_t* s, int shift,
+                                           const JT* __restrict__ Jb, int N, int col,
+                                           const bool (&ok)[4], int CT) {
+  const int KG = THREADS / CT, kg = threadIdx.x / CT;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int t = 0; t < GROUP; ++t) acc[i][t] = 0.f;
+  for (int k0 = 0; k0 < N; k0 += KC) {
+    const int kn = min(KC, N - k0);
+    __syncthreads();  // the previous users of `work` are done
+    for (int k = threadIdx.x; k < kn; k += THREADS) {
+      const uint32_t w = s[k0 + k] >> shift;
+      float4* p = reinterpret_cast<float4*>(work + k * GROUP);
+      p[0] = make_float4(sign_of(w, 0), sign_of(w, 1), sign_of(w, 2), sign_of(w, 3));
+      p[1] = make_float4(sign_of(w, 4), sign_of(w, 5), sign_of(w, 6), sign_of(w, 7));
+    }
+    __syncthreads();
+    const int kb = kg * kn / KG, ke = (kg + 1) * kn / KG;
+    const JT* Jk = Jb + (size_t)(k0 + kb) * N + col;
+#pragma unroll 8
+    for (int k = kb; k < ke; ++k, Jk += N) {
+      const float4 s0 = *reinterpret_cast<const float4*>(work + k * GROUP);
+      const float4 s1 = *reinterpret_cast<const float4*>(work + k * GROUP + 4);
+      float x[4];
+      if (VEC) {
+        load4(Jk, ok[0], x);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = ok[i] ? to_f32(Jk[i * CT]) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = x[i];
+        acc[i][0] = fmaf(s0.x, v, acc[i][0]);
+        acc[i][1] = fmaf(s0.y, v, acc[i][1]);
+        acc[i][2] = fmaf(s0.z, v, acc[i][2]);
+        acc[i][3] = fmaf(s0.w, v, acc[i][3]);
+        acc[i][4] = fmaf(s1.x, v, acc[i][4]);
+        acc[i][5] = fmaf(s1.y, v, acc[i][5]);
+        acc[i][6] = fmaf(s1.z, v, acc[i][6]);
+        acc[i][7] = fmaf(s1.w, v, acc[i][7]);
+      }
+    }
+  }
+}
+
+// The block's columns: words [w_lo, w_lo + nwq), columns [c_lo, c_hi).
+struct Slice {
+  int w_lo, nwq, c_lo, c_hi;
+};
+
+__device__ __forceinline__ Slice block_slice(int N, int CS, int q) {
+  const int Nw = (N + 31) >> 5;
+  const int w_lo = q * Nw / CS, nwq = (q + 1) * Nw / CS - w_lo;
+  return Slice{w_lo, nwq, w_lo * 32, min(N, (w_lo + nwq) * 32)};
+}
+
+// One plateau of the group (trials t < nt of one problem) on this block's
+// cluster.  J and h are the problem's; it_in/it_out, bh_in/bh_out start at
+// the group's first trial (Itanh rows N apart).  The dynamic shared memory
+// is work[WORK] floats, two spin buffers of N words and the IO's `extra`.
+template <typename JT, bool VEC, typename IO>
+__device__ __forceinline__ void run_group(IO& io, const JT* __restrict__ J,
+                                          const int* __restrict__ h,
+                                          const int* __restrict__ it_in, int* __restrict__ it,
+                                          const int* __restrict__ bh_in, int* __restrict__ bh_out,
+                                          int nt, int N, int i0, int n_cycles, int n_rnd,
+                                          int eligible, int CT) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* work = reinterpret_cast<float*>(smem_raw);                  // [WORK]
+  uint32_t* s_cur = reinterpret_cast<uint32_t*>(work + WORK);        // [N], bit t = trial t
+  uint32_t* s_nxt = s_cur + N;                                        // [N]
+  __shared__ int bh_s[GROUP];
+  __shared__ int better_s[GROUP];
+  __shared__ int eps[GROUP][WARPS];
+  __shared__ int part[2][MAX_CS][GROUP];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Slice sl = block_slice(N, CS, q);
+  const int TW = 4 * CT, ct = tid % CT;
+
+  // Prologue: every column's spins of the group into word j; this block's
+  // columns' Itanh (and the IO's state) copied to the outputs, where the
+  // cycles update them.
+  for (int j = tid; j < N; j += THREADS) s_cur[j] = io.spins(j);
+  for (int j = sl.c_lo + tid; j < sl.c_hi; j += THREADS) {
+    for (int t = 0; t < nt; ++t) it[(size_t)t * N + j] = it_in[(size_t)t * N + j];
+  }
+  io.begin(sl, s_nxt + N);
+  if (tid < GROUP) bh_s[tid] = tid < nt ? bh_in[tid] : 0;
+  cluster.sync();  // every block runs before any writes into a peer
 
   for (int c = 0; c <= n_cycles; ++c) {
     const bool last = (c == n_cycles);  // the epilogue field: no update
     const bool fold = eligible && (c > 0 || last);
     if (last && !fold) break;
-    int ep[TR];
+    const int par = c & 1;
+    int ep[GROUP];
 #pragma unroll
-    for (int t = 0; t < TR; ++t) ep[t] = 0;
-
-    for (int j = tid; j < N; j += nthr) {
-      float acc[TR];
+    for (int t = 0; t < GROUP; ++t) ep[t] = 0;
+    for (int tile = sl.c_lo; tile < sl.c_hi; tile += TW) {
+      const int col = tile + (VEC ? 4 * ct : ct);
+      bool ok[4];
 #pragma unroll
-      for (int t = 0; t < TR; ++t) acc[t] = 0.f;
-      const JT* Jc = J + j;
-#pragma unroll 8
-      for (int k = 0; k < N; ++k) {
-        const float jv = to_f32(Jc[(size_t)k * N]);
-        float mv[TR];
-        load_spins<TR>(m_cur + k * TR, mv);
+      for (int i = 0; i < 4; ++i) ok[i] = col + (VEC ? i : i * CT) < sl.c_hi;
+      float acc[4][GROUP];
+      tile_field<JT, VEC>(acc, work, s_cur, 0, J, N, col, ok, CT);
+      __syncthreads();  // the table's readers are done: `work` takes the partials
+      const int kg = tid / CT, KG = THREADS / CT;
 #pragma unroll
-        for (int t = 0; t < TR; ++t) acc[t] = fmaf(mv[t], jv, acc[t]);
-      }
-      const int hj = h[j];
-      float mj[TR];
-      load_spins<TR>(m_cur + j * TR, mj);
+      for (int t = 0; t < GROUP; ++t)
 #pragma unroll
-      for (int t = 0; t < TR; ++t) {
-        const int f = __float2int_rz(acc[t]) + hj;
-        const int s = mj[t] > 0.f ? 1 : -1;
-        ep[t] += s * (hj + f);
-        if (!last && t < nt) {
-          const int r = io.noise(t, j, c);
-          const size_t e = (size_t)t * N + j;
-          const int I = min(max(f + n_rnd * r + it[e], -i0), i0 - 1);
-          it[e] = I;
-          m_nxt[j * TR + t] = I >= 0 ? 1.f : -1.f;
+        for (int i = 0; i < 4; ++i)
+          work[(kg * GROUP + t) * TW + (VEC ? 4 * ct + i : i * CT + ct)] = acc[i][t];
+      __syncthreads();
+      for (int u = tid; u < TW && tile + u < sl.c_hi; u += THREADS) {
+        const int j = tile + u;
+        const int hj = h[j];
+        const uint32_t wj = s_cur[j];
+        // Itanh and the noise of column j, all loaded before any store.
+        int itj[GROUP], r[GROUP];
+        if (!last) {
+#pragma unroll
+          for (int t = 0; t < GROUP; ++t)
+            if (t < nt) itj[t] = it[(size_t)t * N + j];
+          io.noise(j, c, r);
+        }
+        uint32_t up = 0;
+#pragma unroll
+        for (int t = 0; t < GROUP; ++t) {
+          float f = 0.f;
+          for (int p = 0; p < KG; ++p) f += work[(p * GROUP + t) * TW + u];
+          const int fi = __float2int_rz(f) + hj;
+          ep[t] += (((wj >> t) & 1u) ? 1 : -1) * (hj + fi);
+          if (!last && t < nt) {
+            const int I = min(max(fi + n_rnd * r[t] + itj[t], -i0), i0 - 1);
+            it[(size_t)t * N + j] = I;
+            up |= (uint32_t)(I >= 0) << t;
+          }
+        }
+        if (!last) {
+          for (int p = 0; p < CS; ++p) *cluster.map_shared_rank(s_nxt + j, p) = up;
         }
       }
     }
 
     if (fold) {
 #pragma unroll
-      for (int t = 0; t < TR; ++t) {
+      for (int t = 0; t < GROUP; ++t) {
         const int v = warp_sum(ep[t]);
-        if (lane == 0) red[t][warp] = v;
+        if (lane == 0) eps[t][warp] = v;
       }
       __syncthreads();
-      if (warp == 0) {
+      if (warp == 0) {  // this block's share of each trial's energy, to every peer
 #pragma unroll
-        for (int t = 0; t < TR; ++t) {
-          const int v = warp_sum(lane < nwarps ? red[t][lane] : 0);
-          if (lane == 0) {
-            const int H = -v / 2;
-            const int better = (t < nt) && (H < bh_s[t]);
-            if (better) bh_s[t] = H;
-            better_s[t] = better;
-          }
+        for (int t = 0; t < GROUP; ++t) {
+          const int v = warp_sum(lane < WARPS ? eps[t][lane] : 0);
+          if (lane < CS) *cluster.map_shared_rank(&part[par][q][t], lane) = v;
         }
       }
+    }
+    cluster.sync();  // cycle c+1's words and the energy shares are everywhere
+    if (fold) {
+      if (warp == 0 && lane < GROUP) {
+        int v = 0;
+        for (int p = 0; p < CS; ++p) v += part[par][p][lane];
+        const int H = -v / 2;  // the sum is even: exact
+        const int better = lane < nt && H < bh_s[lane];
+        if (better) bh_s[lane] = H;
+        better_s[lane] = better;
+      }
       __syncthreads();
-#pragma unroll
-      for (int t = 0; t < TR; ++t) {
-        if (better_s[t]) io.store_best(t, m_cur);
+      for (int t = 0; t < nt; ++t) {
+        if (better_s[t]) io.store_best(t, s_cur, sl);
       }
     }
     if (!last) {
-      float* tmp = m_cur;
-      m_cur = m_nxt;
-      m_nxt = tmp;
+      uint32_t* tmp = s_cur;
+      s_cur = s_nxt;
+      s_nxt = tmp;
     }
-    __syncthreads();
   }
-  return m_cur;
+
+  __syncthreads();
+  io.finish(s_cur, sl);
+  if (q == 0 && tid < nt) bh_out[tid] = bh_s[tid];
+}
+
+// ---------------------------------------------------------------------------
+// Host side, shared by the cluster kernels' launches.
+
+// Column threads of a block: its widest slice, 4 columns a thread, a power
+// of two of at least a warp; the rest of the threads split k.
+inline int column_threads(int N, int cs) {
+  const int Nw = (N + 31) / 32;
+  const int cols = 32 * ((Nw + cs - 1) / cs);
+  int ct = 32;
+  while (ct < THREADS && 4 * ct < cols) ct *= 2;
+  return ct;
+}
+
+// Vector loads of four neighbouring columns need N % 4 == 0 and aligned rows.
+template <typename JT>
+bool vector_loads(int N, const void* J) {
+  return N % 4 == 0 && reinterpret_cast<uintptr_t>(J) % (4 * sizeof(JT)) == 0;
+}
+
+// The attributes a cluster launch of `kernel` needs: `smem` bytes of
+// dynamic shared memory and, above 8 blocks, the non-portable size.
+template <typename K>
+cudaError_t cluster_attributes(K kernel, size_t smem, int cs) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess && cs > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+inline void cluster_launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                                  int n_clusters, int B, int cs, size_t smem,
+                                  cudaStream_t stream) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(n_clusters * cs, B);
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// How many clusters of `cs` blocks of `kernel` (`smem` bytes each) the card
+// runs at once; 0 when none fits.  Negative: a CUDA error code, negated.
+template <typename K>
+int max_active_clusters(K kernel, int cs, size_t smem) {
+  cudaError_t e = cluster_attributes(kernel, smem, cs);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch_config(&cfg, &attr, 1, 1, cs, smem, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: a size that does not fit is an answer, not a fault
+    return 0;
+  }
+  return n;
 }
 
 }  // namespace plateau

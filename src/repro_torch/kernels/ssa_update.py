@@ -10,13 +10,17 @@ Four kernels, each the port of one Pallas kernel of
   :func:`ssa_plateau_packed` — one constant-I0 plateau of C cycles in one
   launch (``csrc/plateau.cu``): spins cross the launch boundary as 32-bit
   words, the xorshift128 lanes are stepped in-kernel, the running best is
-  folded on the card.  With ``n_replicas`` it runs SSQA's Trotter-ring
-  mode, a kernel of its own in the same source: one thread-block cluster
-  per ring, its size from :func:`ring_cluster_size`.
+  folded on the card.  One thread-block cluster per group of
+  ``PLATEAU_GROUP`` trials, J's columns split over its blocks (the cycle
+  loop of ``csrc/plateau_cycle.cuh``), its size from
+  :func:`plateau_cluster_size`.  With ``n_replicas`` it runs SSQA's
+  Trotter-ring mode, a kernel of its own in the same source: one
+  thread-block cluster per ring, its size from :func:`ring_cluster_size`.
 * K4, :func:`ssa_plateau_batched` and its B=1 slice :func:`ssa_plateau` —
-  the same plateau with pregenerated noise (``csrc/plateau_pregen.cu``):
-  float32 spins, int8 best spins and a (B, C, R, N) int8 noise buffer.
-  The path of threefry noise and of ``noise_mode='pregen'``.
+  the same plateau with pregenerated noise (``csrc/plateau_pregen.cu``),
+  on the same cluster loop: float32 spins, int8 best spins and a (B, C,
+  R, N) int8 noise buffer.  The path of threefry noise and of
+  ``noise_mode='pregen'``.
 * K2, :func:`ssa_plateau_popcount_batched` and its B=1 slice
   :func:`ssa_plateau_popcount` — a whole plateau chain (per-cycle I0 and
   fold write-enable) in one launch with the XNOR-popcount field on the
@@ -30,7 +34,8 @@ CPU.  For CUDA tensors it checks device, dtype, shape and contiguity,
 allocates the outputs, launches on the current stream and raises if the
 launch reports an error; it never falls back.  Each wrapper counts its
 launches in a ``launches`` attribute; K1's and K2's count their ring-mode
-launches among them again in ``ring_launches``.
+launches among them again in ``ring_launches``.  K1 and K4 keep the
+cluster size and block count of their last launch in ``last_cluster``.
 """
 from __future__ import annotations
 
@@ -50,13 +55,13 @@ from .ref import (
 
 __all__ = ["local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched",
            "ssa_plateau", "ssa_plateau_batched", "ssa_plateau_popcount",
-           "ssa_plateau_popcount_batched", "popcount_planes", "ring_cluster_size"]
+           "ssa_plateau_popcount_batched", "popcount_planes", "plateau_cluster_size",
+           "ring_cluster_size"]
 
-# Trials per K1 and K4 block (1, 2 or 4).  Each block streams all of J from
-# L2 every cycle and uses every J element once per trial it owns; 2 was the
-# fastest of the three for K1 at K2000 width on an H100 (chip_smoke.py
-# measures all three each run).  See csrc/plateau.cu.
-TRIALS_PER_BLOCK = 2
+# Trials per thread-block cluster of K1's classical kernel and K4 (GROUP in
+# csrc/plateau_cycle.cuh): a plateau of R trials runs ceil(R / GROUP)
+# clusters per problem, the last one ragged.
+PLATEAU_GROUP = _build.header_int("plateau_cycle.cuh", "GROUP")
 
 # Trials per K2 block: TR in csrc/popcount.cu, fixed there.
 _POPCOUNT_TRIALS_PER_BLOCK = 2
@@ -68,18 +73,18 @@ _MAX_SMEM = 232448
 # says why); the wrappers are where a call is checked against it.
 MAX_RING = _build.header_int("ring.cuh", "MAX_RING")
 
-# Blocks per ring in K1's ring mode (a thread-block cluster): the powers of
-# two up to the kernel's MAX_CS, 16, which Hopper allows as a non-portable
-# size where the occupancy query says such a cluster fits (8 is portable).
-RING_CLUSTER_SIZES = tuple(
-    1 << i for i in range(_build.header_int("plateau.cu", "MAX_CS").bit_length()))
+# Blocks per thread-block cluster of K1 (classical and ring mode) and K4:
+# the powers of two up to the kernels' MAX_CS, 16, which Hopper allows as a
+# non-portable size where the occupancy query says such a cluster fits (8
+# is portable).
+CLUSTER_SIZES = tuple(
+    1 << i for i in range(_build.header_int("plateau_cycle.cuh", "MAX_CS").bit_length()))
 # K3's block tile (rows, columns, k per stage) and its most K splits, blocks
 # per thread-block cluster (csrc/field.cu).
 _K3_BM, _K3_BN, _K3_BK = (_build.header_int("field.cu", n) for n in ("BM", "BN", "BK"))
 _K3_MAX_SPLITS = _build.header_int("field.cu", "MAX_KS")
-# The work area of K1's ring-mode block: RING_KC k of RING_G signs, floats.
-_RING_WORK_BYTES = (4 * _build.header_int("plateau.cu", "RING_KC")
-                    * _build.header_int("ring.cuh", "RING_G"))
+# The work area of a K1 or K4 block: KC k of GROUP signs, floats.
+_WORK_BYTES = 4 * _build.header_int("plateau_cycle.cuh", "KC") * PLATEAU_GROUP
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -89,7 +94,8 @@ _SIGNATURES = {
     "repro_ssa_plateau": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8 + [_P],
     "repro_ssa_plateau_popcount": [_P] * 16 + [_I] * 6 + [_P],
     "repro_ssa_plateau_packed_ring": [_P] * 5 + [_I] * 2 + [_P] * 7 + [_I] * 9 + [_P],
-    "repro_ring_max_clusters": [_I] * 4,
+    "repro_plateau_max_clusters": [_I] * 4,
+    "repro_plateau_pregen_max_clusters": [_I] * 3,
     "repro_ssa_plateau_popcount_ring": [_P] * 17 + [_I] * 7 + [_P],
 }
 
@@ -124,16 +130,6 @@ def _check(name: str, t: torch.Tensor, shape, dtypes, contiguous: bool = True):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _trials_per_block(N: int, smem_per_trial: int, tpb: int = None) -> int:
-    """``tpb`` (default TRIALS_PER_BLOCK), after checking that the block's
-    shared memory (``smem_per_trial`` bytes for each trial it owns) fits."""
-    tpb = TRIALS_PER_BLOCK if tpb is None else tpb
-    if tpb * smem_per_trial > _MAX_SMEM:
-        raise ValueError(f"N={N} needs {tpb * smem_per_trial} B of shared memory "
-                         f"per block (> {_MAX_SMEM})")
-    return tpb
-
-
 def _check_ring(R: int, n_replicas: int, what: str):
     """Validation of a ring-mode call, as the JAX wrappers make it, and the
     kernels' own limit."""
@@ -152,12 +148,18 @@ def _cluster_size(n_clusters: int, sm_count: int, sizes, max_clusters=None) -> i
     so every block has an SM, and, where ``max_clusters`` (size -> clusters
     the card runs at once, the occupancy query) is given, with every cluster
     running at once, since a second wave would double the time.  1 when none
-    is larger.  The rule of K3's K splits and of K1's ring mode."""
+    is larger.  The rule of K3's K splits and of the K1 and K4 clusters."""
     for cs in sorted(sizes, reverse=True):
         if cs > 1 and n_clusters * cs <= sm_count and (
                 max_clusters is None or max_clusters(cs) >= n_clusters):
             return cs
     return 1
+
+
+def _word_sizes(N: int):
+    """The cluster sizes of a K1 or K4 launch at N spins: every block owns
+    at least one 32-column word."""
+    return [cs for cs in CLUSTER_SIZES if cs <= packed_words(N)]
 
 
 def ring_cluster_size(n_rings: int, B: int, N: int, sm_count: int, max_clusters=None) -> int:
@@ -166,9 +168,21 @@ def ring_cluster_size(n_rings: int, B: int, N: int, sm_count: int, max_clusters=
     ``CS <= Nw``, so every block owns at least one 32-column word, and, given
     ``max_clusters``, every ring's cluster running at once (the non-portable
     16 needs that query).  1 when the rings alone fill the card."""
-    nw = packed_words(N)
-    return _cluster_size(n_rings * B, sm_count, [cs for cs in RING_CLUSTER_SIZES if cs <= nw],
-                         max_clusters)
+    return _cluster_size(n_rings * B, sm_count, _word_sizes(N), max_clusters)
+
+
+def plateau_groups(R: int) -> int:
+    """Clusters per problem of K1's classical kernel and K4: one per group
+    of PLATEAU_GROUP trials, the last one ragged."""
+    return -(-R // PLATEAU_GROUP)
+
+
+def plateau_cluster_size(R: int, B: int, N: int, sm_count: int, max_clusters=None) -> int:
+    """Blocks per group of trials for K1's classical kernel and K4: by
+    :func:`_cluster_size` over the ``plateau_groups(R) · B`` groups, the
+    largest CS of 1, 2, 4, 8, 16 up to Nw with every block on an SM and,
+    given ``max_clusters``, every group's cluster running at once."""
+    return _cluster_size(plateau_groups(R) * B, sm_count, _word_sizes(N), max_clusters)
 
 
 def _k3_splits(R: int, N: int, sm_count: int, max_clusters=None) -> int:
@@ -210,7 +224,40 @@ def _ring_smem(N: int, n_replicas: int, cs: int) -> int:
     """Shared memory of one K1 ring-mode block: the work area, the ring's
     spin words double-buffered, and the best words of its slice."""
     nw = packed_words(N)
-    return _RING_WORK_BYTES + 4 * (2 * N + n_replicas * -(-nw // cs))
+    return _WORK_BYTES + 4 * (2 * N + n_replicas * -(-nw // cs))
+
+
+def _plateau_smem(N: int, cs: int, best_words: bool) -> int:
+    """Shared memory of one block of K1's classical kernel (``best_words``:
+    the best words of its slice beside) or of K4: the work area and the
+    group's spin words double-buffered."""
+    best = PLATEAU_GROUP * -(-packed_words(N) // cs) if best_words else 0
+    return _WORK_BYTES + 4 * (2 * N + best)
+
+
+def _check_cluster_size(cluster_size, N: int):
+    """A forced cluster size must be one the kernels take and at most the
+    word count of N, as on the card; checked on every device."""
+    nw = packed_words(N)
+    if int(cluster_size) not in CLUSTER_SIZES or int(cluster_size) > nw:
+        raise ValueError(f"cluster_size={cluster_size}: must be one of {CLUSTER_SIZES} and at "
+                         f"most the {nw} words of N={N}")
+
+
+def _plateau_cs(dev: torch.device, lib: str, R: int, B: int, N: int, bf16: bool,
+                cluster_size) -> int:
+    """The cluster size of a K1 classical or K4 launch: ``cluster_size`` if
+    forced, else :func:`plateau_cluster_size` with the library's occupancy
+    query, once per shape."""
+    if cluster_size is not None:
+        return int(cluster_size)
+    if lib == "plateau":
+        entry, extra = "repro_plateau_max_clusters", (0,)  # no ring
+    else:
+        entry, extra = "repro_plateau_pregen_max_clusters", ()
+    return _cached((lib, dev.index, B, R, N, bf16), lambda: plateau_cluster_size(
+        R, B, N, _sm_count(dev), lambda cs: _max_clusters(
+            dev, lib, entry, N, *extra, cs, int(bf16))))
 
 
 def _check_smem(what: str, smem: int):
@@ -299,12 +346,14 @@ def ssa_plateau_packed_batched(
     runs the classical kernel; ``n_replicas > 0`` the SSQA ring-mode
     kernel, which adds ``jperp · (m[k-1] + m[k+1])`` over rings of
     ``n_replicas`` consecutive trials to the update field (R must be a
-    multiple of ``n_replicas``, at most MAX_RING of them per ring).  Each
-    ring runs as one thread-block cluster of :func:`ring_cluster_size`
-    blocks; ``cluster_size`` forces that size, for tests (any of 1, 2, 4,
-    8, 16 up to the ring's word count; ignored on the CPU).  The size and
-    block count of the last ring-mode launch are kept in
-    ``ssa_plateau_packed_batched.last_ring_cluster``.
+    multiple of ``n_replicas``, at most MAX_RING of them per ring).  The
+    classical kernel runs each group of PLATEAU_GROUP trials as one
+    thread-block cluster of :func:`plateau_cluster_size` blocks, the ring
+    mode each ring as one of :func:`ring_cluster_size` blocks;
+    ``cluster_size`` forces that size, for tests and measurement (any of 1,
+    2, 4, 8, 16 up to the word count of N; checked, then ignored, on the
+    CPU).  The size and block count of the last launch are kept in
+    ``ssa_plateau_packed_batched.last_cluster``.
 
     Returns (m_packed, itanh, rng, best_H, best_m_packed).
     """
@@ -316,11 +365,7 @@ def ssa_plateau_packed_batched(
     if n_replicas:
         _check_ring(itanh.shape[1], n_replicas, "ssa_plateau_packed")
     if cluster_size is not None:
-        nw = packed_words(itanh.shape[2])
-        if int(cluster_size) not in RING_CLUSTER_SIZES or int(cluster_size) > nw:
-            raise ValueError(f"cluster_size={cluster_size}: must be one of "
-                             f"{RING_CLUSTER_SIZES} and at most the {nw} words of "
-                             f"N={itanh.shape[2]}")
+        _check_cluster_size(cluster_size, itanh.shape[2])
     if dev.type == "cpu":
         return ssa_plateau_packed_ref(
             m_packed, itanh, J, h, rng, i0, best_H, best_m_packed,
@@ -339,18 +384,20 @@ def ssa_plateau_packed_batched(
     _check("best_m_packed", best_m_packed, (B, R, nw), i32)
     if int(n_cycles) < 0:
         raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
+    bf16 = J.dtype == torch.bfloat16
     if n_replicas:
-        n_rings, bf16 = R // n_replicas, J.dtype == torch.bfloat16
+        n_rings = R // n_replicas
         if cluster_size is None:
             cs = _cached(("ring", dev.index, B, n_rings, N, n_replicas, bf16),
                          lambda: ring_cluster_size(n_rings, B, N, _sm_count(dev), lambda c: (
-                             _max_clusters(dev, "plateau", "repro_ring_max_clusters",
+                             _max_clusters(dev, "plateau", "repro_plateau_max_clusters",
                                            N, n_replicas, c, int(bf16)))))
         else:
             cs = int(cluster_size)
         _check_smem(f"K1's ring mode at N={N}", _ring_smem(N, n_replicas, cs))
     else:
-        tpb = _trials_per_block(N, 4 * (2 * N + nw))
+        cs = _plateau_cs(dev, "plateau", R, B, N, bf16, cluster_size)
+        _check_smem(f"K1 at N={N}", _plateau_smem(N, cs, best_words=True))
     outs = tuple(torch.empty_like(t) for t in
                  (m_packed, itanh, rng, best_H, best_m_packed))
     if B == 0 or R == 0:
@@ -368,24 +415,25 @@ def ssa_plateau_packed_batched(
         )
         ssa_plateau_packed_batched.launches += 1
         ssa_plateau_packed_batched.ring_launches += 1
-        ssa_plateau_packed_batched.last_ring_cluster = (cs, n_rings * B * cs)
+        ssa_plateau_packed_batched.last_cluster = (cs, n_rings * B * cs)
         return outs
     fn, lib = _entry("plateau", "repro_ssa_plateau_packed")
     _launch(
-        fn, lib, "ssa_plateau_packed", dev,
+        fn, lib, f"ssa_plateau_packed (clusters of {cs} blocks, N={N})", dev,
         m_packed.data_ptr(), itanh.data_ptr(), J.data_ptr(), h.data_ptr(),
         rng.data_ptr(), int(i0), best_H.data_ptr(), best_m_packed.data_ptr(),
         mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(), bh_o.data_ptr(),
         bmp_o.data_ptr(), B, R, N, int(n_cycles), int(n_rnd), int(bool(eligible)),
-        int(J.dtype == torch.bfloat16), tpb,
+        int(bf16), cs,
     )
     ssa_plateau_packed_batched.launches += 1
+    ssa_plateau_packed_batched.last_cluster = (cs, plateau_groups(R) * B * cs)
     return outs
 
 
 ssa_plateau_packed_batched.launches = 0
 ssa_plateau_packed_batched.ring_launches = 0
-ssa_plateau_packed_batched.last_ring_cluster = None
+ssa_plateau_packed_batched.last_cluster = None
 
 
 def ssa_plateau_packed(
@@ -426,18 +474,24 @@ def ssa_plateau_batched(
     *,
     n_rnd: int = 2,
     eligible: bool = True,
+    cluster_size: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """K4: one constant-I0 plateau of C = ``noise.shape[1]`` cycles with
     pregenerated noise, for B problems × R trials, one launch.
 
     Semantics are those of :func:`~repro_torch.kernels.ref.ssa_plateau_ref`.
     Replaces ``repro/kernels/ssa_update.py:ssa_plateau_batched``
-    (``_plateau_kernel``).
+    (``_plateau_kernel``).  Each group of PLATEAU_GROUP trials runs as one
+    thread-block cluster of :func:`plateau_cluster_size` blocks;
+    ``cluster_size`` forces that size, as K1's does.  The size and block
+    count of the last launch are kept in ``ssa_plateau_batched.last_cluster``.
 
     Returns (m float32, itanh, best_H, best_m int8).
     """
     args = (m, itanh, J, h, noise, best_H, best_m)
     dev = _device_of(*args)
+    if cluster_size is not None and m.dim() == 3:
+        _check_cluster_size(cluster_size, m.shape[2])
     if dev.type == "cpu":
         return ssa_plateau_ref(m, itanh, J, h, noise, i0, best_H, best_m,
                                n_rnd=n_rnd, eligible=eligible)
@@ -453,25 +507,28 @@ def ssa_plateau_batched(
     _check("noise", noise, (B, C, R, N), (torch.int8,))
     _check("best_H", best_H, (B, R), (torch.int32,))
     _check("best_m", best_m, (B, R, N), (torch.int8,))
-    tpb = _trials_per_block(N, 4 * 2 * N)
+    bf16 = J.dtype == torch.bfloat16
+    cs = _plateau_cs(dev, "plateau_pregen", R, B, N, bf16, cluster_size)
+    _check_smem(f"K4 at N={N}", _plateau_smem(N, cs, best_words=False))
     outs = tuple(torch.empty_like(t) for t in (m, itanh, best_H, best_m))
     if B == 0 or R == 0:
         return outs
     m_o, it_o, bh_o, bm_o = outs
     fn, lib = _entry("plateau_pregen", "repro_ssa_plateau")
     _launch(
-        fn, lib, "ssa_plateau", dev,
+        fn, lib, f"ssa_plateau (clusters of {cs} blocks, N={N})", dev,
         m.data_ptr(), itanh.data_ptr(), J.data_ptr(), h.data_ptr(), noise.data_ptr(),
         int(i0), best_H.data_ptr(), best_m.data_ptr(),
         m_o.data_ptr(), it_o.data_ptr(), bh_o.data_ptr(), bm_o.data_ptr(),
-        B, R, N, C, int(n_rnd), int(bool(eligible)),
-        int(J.dtype == torch.bfloat16), tpb,
+        B, R, N, C, int(n_rnd), int(bool(eligible)), int(bf16), cs,
     )
     ssa_plateau_batched.launches += 1
+    ssa_plateau_batched.last_cluster = (cs, plateau_groups(R) * B * cs)
     return outs
 
 
 ssa_plateau_batched.launches = 0
+ssa_plateau_batched.last_cluster = None
 
 
 def ssa_plateau(
@@ -585,7 +642,7 @@ def ssa_plateau_popcount_batched(
         # The ring's words [Nw][R], double-buffered, and its best words.
         _check_smem(f"K2's ring mode at N={N}", 4 * 3 * nw * n_replicas)
     else:
-        _trials_per_block(N, 4 * 3 * nw, _POPCOUNT_TRIALS_PER_BLOCK)
+        _check_smem(f"K2 at N={N}", _POPCOUNT_TRIALS_PER_BLOCK * 4 * 3 * nw)
     outs = tuple(torch.empty_like(t) for t in
                  (m_packed, itanh, rng, best_H, best_m_packed))
     if B == 0 or R == 0:

@@ -1,10 +1,11 @@
-"""K1's ring mode and K3 as thread-block clusters: the choice of the cluster
-size.
+"""K1 (classical and ring mode), K4 and K3 as thread-block clusters: the
+choice of the cluster size.
 
-``ring_cluster_size`` and ``_k3_splits`` are pure Python (the occupancy
-query comes in as a function), so their rule is held here on the CPU; the
-kernels themselves are held against their plain versions at every size the
-rule can return by ``tests/test_torch_cuda.py`` on the card.
+``plateau_cluster_size``, ``ring_cluster_size`` and ``_k3_splits`` are pure
+Python (the occupancy query comes in as a function), so their rule is held
+here on the CPU; the kernels themselves are held against their plain
+versions at every size the rule can return by ``tests/test_torch_cuda.py``
+on the card.
 """
 import itertools
 
@@ -14,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ssa_update  # noqa: E402
 from repro_torch.kernels.bitplane import packed_words  # noqa: E402
-from repro_torch.kernels.ssa_update import ring_cluster_size  # noqa: E402
+from repro_torch.kernels.ssa_update import plateau_cluster_size, ring_cluster_size  # noqa: E402
 
 H100_SMS = 132
 
@@ -31,7 +32,7 @@ def _occupancy(sms, max_cs):
 @pytest.mark.parametrize("max_cs", [8, 16])
 def test_cluster_size_respects_sm_count_words_and_sizes(max_cs):
     allowed = (1, 2, 4, 8, 16)[:4 + (max_cs == 16)]
-    assert ssa_update.RING_CLUSTER_SIZES == (1, 2, 4, 8, 16)
+    assert ssa_update.CLUSTER_SIZES == (1, 2, 4, 8, 16)
     for n_rings, b, n, sms in GRID:
         cs = ring_cluster_size(n_rings, b, n, sms, _occupancy(sms, max_cs))
         assert cs in allowed, (n_rings, b, n, sms, cs)
@@ -131,6 +132,125 @@ def test_forced_cluster_size_leaves_the_result_alone(cluster_size):
 @pytest.mark.parametrize("n,r,cs", [(2000, 8, 8), (2000, 16, 16), (2000, 32, 1), (4096, 32, 1)])
 def test_ring_block_fits_shared_memory(n, r, cs):
     """The ring-mode block at the widths the port runs fits one SM's
-    shared memory; its work area is RING_KC signs of RING_G replicas."""
-    assert ssa_update._RING_WORK_BYTES == 4 * 2048 * 8
+    shared memory; its work area is KC signs of RING_G replicas."""
+    assert ssa_update._WORK_BYTES == 4 * 2048 * 8
     assert ssa_update._ring_smem(n, r, cs) <= ssa_update._MAX_SMEM
+
+
+# ---------------------------------------------------------------------------
+# K1's classical kernel and K4: a cluster per group of PLATEAU_GROUP trials
+# ---------------------------------------------------------------------------
+PLATEAU_GRID = list(itertools.product((1, 3, 8, 13, 96, 100, 200, 1000), (1, 2, 3),
+                                      (16, 36, 70, 257, 1001, 2000, 4100), (16, 66, 132)))
+
+
+@pytest.mark.parametrize("r,groups", [(0, 0), (1, 1), (3, 1), (8, 1), (9, 2), (13, 2),
+                                      (96, 12), (100, 13)])
+def test_plateau_groups(r, groups):
+    assert ssa_update.PLATEAU_GROUP == 8
+    assert ssa_update.plateau_groups(r) == groups
+
+
+@pytest.mark.parametrize("max_cs", [8, 16])
+def test_plateau_cluster_size_respects_groups_words_and_occupancy(max_cs):
+    allowed = (1, 2, 4, 8, 16)[:4 + (max_cs == 16)]
+    for r, b, n, sms in PLATEAU_GRID:
+        groups = ssa_update.plateau_groups(r) * b
+        cs = plateau_cluster_size(r, b, n, sms, _occupancy(sms, max_cs))
+        assert cs in allowed, (r, b, n, sms, cs)
+        assert cs <= packed_words(n), (r, b, n, sms, cs)
+        assert cs == 1 or groups * cs <= sms, (r, b, n, sms, cs)
+        # ... and it is the largest size that does: the rule of the ring mode
+        # over the groups of all B problems.
+        bigger = [c for c in allowed if c > cs]
+        assert all(groups * c > sms or c > packed_words(n) for c in bigger)
+        assert cs == ring_cluster_size(ssa_update.plateau_groups(r), b, n, sms,
+                                       _occupancy(sms, max_cs))
+
+
+@pytest.mark.parametrize("r,b,n,max_cs,want", [
+    (100, 1, 2000, 16, 8),   # K2000's 100 trials: 13 groups, 104 blocks
+    (100, 1, 2000, 8, 8),
+    (96, 1, 2000, 16, 8),    # SSQA's J⊥ = 0 plateau: 12 groups, 96 blocks
+    (100, 2, 2000, 16, 4),   # 26 groups
+    (3, 1, 2000, 16, 16),    # one ragged group
+    (3, 1, 2000, 8, 8),
+    (13, 1, 1001, 16, 16),   # two groups, the last of 5 trials
+    (4, 1, 36, 16, 2),       # two words: two blocks at most
+    (5, 1, 70, 16, 2),       # three words
+    (8, 1, 16, 16, 1),       # one word
+    (1000, 1, 2000, 16, 1),  # 125 groups fill the card alone
+])
+def test_plateau_cluster_size_examples(r, b, n, max_cs, want):
+    assert plateau_cluster_size(r, b, n, H100_SMS, _occupancy(H100_SMS, max_cs)) == want
+    if max_cs == 16:  # no occupancy query: only the SM and word counts limit it
+        assert plateau_cluster_size(r, b, n, H100_SMS) == want
+
+
+def test_plateau_cluster_size_waits_for_no_second_wave():
+    """Sixteen clusters of 8 that do not all fit are passed over for 4."""
+    fits = {16: 0, 8: 12, 4: 33, 2: 66, 1: 132}.__getitem__
+    assert plateau_cluster_size(100, 1, 2000, H100_SMS, fits) == 4
+    assert plateau_cluster_size(96, 1, 2000, H100_SMS, fits) == 8
+
+
+def _plateau_args(r, n):
+    args = _ring_args(r, n)
+    args["itanh"] = torch.randint(-4, 4, (1, r, n), dtype=torch.int32,
+                                  generator=torch.Generator().manual_seed(n))
+    return args
+
+
+def _pregen_args(r, n, c=3):
+    g = torch.Generator().manual_seed(r + n)
+    spins = torch.randint(0, 2, (2, 1, r, n), generator=g) * 2 - 1
+    return dict(m=spins[0].float(), itanh=torch.zeros((1, r, n), dtype=torch.int32),
+                J=torch.zeros((1, n, n)), h=torch.zeros((1, n), dtype=torch.int32),
+                noise=(torch.randint(0, 2, (1, c, r, n), generator=g) * 2 - 1).to(torch.int8),
+                best_H=torch.zeros((1, r), dtype=torch.int32), best_m=spins[1].to(torch.int8))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+@pytest.mark.parametrize("cluster_size,n", [(3, 100), (32, 2000), (0, 100), (16, 64), (4, 64)])
+def test_forced_plateau_cluster_size_is_checked(kernel, cluster_size, n):
+    """K1's classical kernel and K4 take a forced size by the same rule as
+    the ring mode, checked on the CPU too."""
+    with pytest.raises(ValueError, match="cluster_size"):
+        if kernel == "K1":
+            ssa_update.ssa_plateau_packed_batched(**_plateau_args(8, n), i0=4, n_cycles=2,
+                                                  cluster_size=cluster_size)
+        else:
+            ssa_update.ssa_plateau_batched(**_pregen_args(8, n), i0=4, cluster_size=cluster_size)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+@pytest.mark.parametrize("cluster_size", [None, 1, 2, 8])
+def test_forced_plateau_cluster_size_leaves_the_result_alone(kernel, cluster_size):
+    if kernel == "K1":
+        run, args, kw = ssa_update.ssa_plateau_packed_batched, _plateau_args(13, 300), \
+            dict(i0=4, n_cycles=3)
+    else:
+        run, args, kw = ssa_update.ssa_plateau_batched, _pregen_args(13, 300), dict(i0=4)
+    want = run(**args, **kw)
+    got = run(**args, **kw, cluster_size=cluster_size)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_plateau_block_fits_shared_memory_where_the_old_one_did():
+    """The wrappers' limit on N does not shrink: every N whose old block (2
+    trials, each [N] spins double-buffered as floats, K1 with its best
+    words) fitted, fits a cluster block at every size, and more."""
+    old_k1 = lambda n: 2 * 4 * (2 * n + packed_words(n))  # noqa: E731
+    old_k4 = lambda n: 2 * 4 * 2 * n  # noqa: E731
+    n_k1 = max(n for n in range(1, 20000) if old_k1(n) <= ssa_update._MAX_SMEM)
+    n_k4 = max(n for n in range(1, 20000) if old_k4(n) <= ssa_update._MAX_SMEM)
+    assert (n_k1, n_k4) == (14304, 14528)
+    for cs in ssa_update.CLUSTER_SIZES:
+        assert ssa_update._plateau_smem(n_k1, cs, best_words=True) <= ssa_update._MAX_SMEM
+        assert ssa_update._plateau_smem(n_k4, cs, best_words=False) <= ssa_update._MAX_SMEM
+    assert ssa_update._plateau_smem(18000, 1, best_words=True) <= ssa_update._MAX_SMEM
+    assert ssa_update._plateau_smem(20000, 1, best_words=False) <= ssa_update._MAX_SMEM
+    # The work area, the group's words double-buffered, K1's best words.
+    assert ssa_update._plateau_smem(2000, 8, True) == 4 * 2048 * 8 + 4 * (2 * 2000 + 8 * 8)
+    assert ssa_update._plateau_smem(2000, 8, False) == 4 * 2048 * 8 + 4 * 2 * 2000

@@ -101,16 +101,43 @@ def _plateau_args(b, r, n, seed, flat, device):
     return {k: v.to(device) for k, v in args.items()}
 
 
+# Shapes at the cluster loop's edges (csrc/plateau_cycle.cuh), shared by
+# K1's classical kernel and K4: (b, r, n, c, flat, cluster size or None for
+# the wrapper's choice, J dtype).  Ragged last groups of 8 trials (R = 13,
+# 100) and R below one group (3, 4, 5); N above the sign table's 2048 rows;
+# N % 4 != 0 (one scalar load per column: 70, 1001, 2101); small N whose
+# word count caps the cluster size (36: 2 words, 70: 3); B = 2; a bfloat16
+# J; tied energies (flat); and every forced cluster size up to Nw.
+PLATEAU_EDGES = [
+    (1, 4, 36, 5, False, None, "float32"), (1, 9, 100, 7, False, None, "float32"),
+    (2, 3, 1001, 3, False, None, "float32"), (1, 5, 70, 6, True, None, "float32"),
+    (1, 100, 2000, 4, False, None, "float32"), (1, 13, 1001, 7, False, None, "float32"),
+    (1, 100, 2000, 3, False, None, "bfloat16"), (2, 13, 1001, 5, False, None, "bfloat16"),
+    (1, 3, 2100, 2, False, None, "float32"), (1, 13, 2101, 2, False, 2, "float32"),
+    (1, 9, 4100, 1, False, None, "bfloat16"), (1, 4, 36, 5, False, 2, "float32"),
+    (1, 5, 70, 6, False, 2, "float32"), (1, 13, 1001, 5, True, 4, "float32"),
+] + [(2, 13, 1001, 5, False, cs, "float32")  # every cluster size, a ragged last word
+     for cs in (1, 2, 4, 8, 16)] + [(1, 100, 2000, 2, False, cs, "float32") for cs in (1, 16)]
+
+
+def _check_last_cluster(wrapper, b, r, cs):
+    launched_cs, blocks = wrapper.last_cluster
+    assert cs is None or launched_cs == cs
+    assert blocks == b * ssa_update.plateau_groups(r) * launched_cs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,r,n,c,flat", [(1, 4, 36, 5, False), (1, 9, 100, 7, False),
-                                           (2, 3, 1001, 3, False), (1, 5, 70, 6, True),
-                                           (1, 100, 2000, 4, False)])
+@pytest.mark.parametrize("b,r,n,c,flat,cs,dtype", PLATEAU_EDGES)
 @pytest.mark.parametrize("eligible", [True, False])
-def test_plateau_kernel_matches_plain(cuda_device, b, r, n, c, flat, eligible):
+def test_plateau_kernel_matches_plain(cuda_device, b, r, n, c, flat, cs, dtype, eligible):
+    """K1's classical kernel, a cluster per group of 8 trials."""
     args = _plateau_args(b, r, n, seed=n + c, flat=flat, device=cuda_device)
-    before = ssa_update.ssa_plateau_packed_batched.launches
-    got = ssa_update.ssa_plateau_packed_batched(**args, i0=4, n_cycles=c, eligible=eligible)
-    assert ssa_update.ssa_plateau_packed_batched.launches == before + 1
+    args["J"] = args["J"].to(getattr(torch, dtype))
+    k1 = ssa_update.ssa_plateau_packed_batched
+    before = (k1.launches, k1.ring_launches)
+    got = k1(**args, i0=4, n_cycles=c, eligible=eligible, cluster_size=cs)
+    assert (k1.launches, k1.ring_launches) == (before[0] + 1, before[1])
+    _check_last_cluster(k1, b, r, cs)
     want = ssa_plateau_packed_ref(**args, i0=4, n_cycles=c, eligible=eligible)
     for name, g, w in zip(OUTS, got, want):
         assert torch.equal(g, w), name
@@ -153,18 +180,22 @@ def _pregen_args(b, r, n, c, seed, flat, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,r,n,c,flat,dtype", [
-    (1, 4, 36, 5, False, "float32"), (1, 13, 1001, 7, False, "float32"),
-    (2, 3, 1001, 3, False, "float32"), (1, 5, 70, 6, True, "float32"),
-    (1, 9, 257, 4, False, "bfloat16"), (1, 100, 2000, 4, False, "float32"),
-    (1, 3, 40, 0, False, "float32"),
-])
+@pytest.mark.parametrize("b,r,n,c,flat,cs,dtype", [
+    (1, 4, 36, 5, False, None, "float32"), (1, 13, 1001, 7, False, None, "float32"),
+    (2, 3, 1001, 3, False, None, "float32"), (1, 5, 70, 6, True, None, "float32"),
+    (1, 9, 257, 4, False, None, "bfloat16"), (1, 100, 2000, 4, False, None, "float32"),
+    (1, 3, 40, 0, False, None, "float32"),   # C = 0: the fold of the initial state only
+    (1, 100, 2000, 0, False, None, "float32"),
+] + PLATEAU_EDGES[6:])
 @pytest.mark.parametrize("eligible", [True, False])
-def test_pregen_plateau_kernel_matches_plain(cuda_device, b, r, n, c, flat, dtype, eligible):
+def test_pregen_plateau_kernel_matches_plain(cuda_device, b, r, n, c, flat, cs, dtype,
+                                             eligible):
+    """K4, on K1's cluster loop, at the same edges."""
     args = _pregen_args(b, r, n, c, seed=n + c, flat=flat, dtype=dtype, device=cuda_device)
     before = ssa_update.ssa_plateau_batched.launches
-    got = ssa_update.ssa_plateau_batched(**args, i0=4, eligible=eligible)
+    got = ssa_update.ssa_plateau_batched(**args, i0=4, eligible=eligible, cluster_size=cs)
     assert ssa_update.ssa_plateau_batched.launches == before + 1
+    _check_last_cluster(ssa_update.ssa_plateau_batched, b, r, cs)
     want = ssa_plateau_ref(**args, i0=4, eligible=eligible)
     for name, g, w in zip(("m", "itanh", "best_H", "best_m"), got, want):
         assert g.dtype == w.dtype and torch.equal(g, w), name
@@ -287,7 +318,7 @@ def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, cs
     assert (ssa_update.ssa_plateau_packed_batched.launches,
             ssa_update.ssa_plateau_packed_batched.ring_launches) == (before[0] + 1,
                                                                      before[1] + 1)
-    launched_cs, blocks = ssa_update.ssa_plateau_packed_batched.last_ring_cluster
+    launched_cs, blocks = ssa_update.ssa_plateau_packed_batched.last_cluster
     assert cs is None or launched_cs == cs
     assert blocks == b * (r // nr) * launched_cs
     want = ssa_plateau_packed_ref(**args, **kw)
