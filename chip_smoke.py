@@ -985,7 +985,9 @@ def phase_profile():
     at K2000 (after the warm-ups of phases 6 and 9), measured and not
     asserted: the plateau kernel's device time and share of all device
     time, and the device's idle share of the call (1 - the union of its
-    kernels, copies and fills over the call's span on the host)."""
+    kernels, copies and fills over the call's span on the host).  The same
+    call is timed once unprofiled just before, so the profiler's own host
+    cost shows beside its span."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1003,11 +1005,16 @@ def phase_profile():
             ("xorshift-pregen", SolverConfig(backend="cuda", noise="xorshift",
                                              noise_mode="pregen"), "K4",
              "plateau_pregen_kernel")):
+        run = functools.partial(anneal, p, hp, config=cfg, seed=0, record="best",
+                                track_energy=False, device="cuda")
         torch.cuda.synchronize()
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function("anneal()"):
-                anneal(p, hp, config=cfg, seed=0, record="best", track_energy=False,
-                       device="cuda")
+                run()
                 torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as d:
             trace = Path(d) / "trace.json"
@@ -1024,7 +1031,8 @@ def phase_profile():
         k_us = sum(e["dur"] for e in device if e["cat"] == "kernel" and kernel in e["name"])
         n_k = sum(1 for e in device if e["cat"] == "kernel" and kernel in e["name"])
         busy = _device_busy_us(device)
-        parts.append(f"{path} anneal(): span {span[0] / 1e3:.3f} ms, device busy "
+        parts.append(f"{path} anneal(): unprofiled wall {wall * 1e3:.3f} ms; profiled span "
+                     f"{span[0] / 1e3:.3f} ms, device busy "
                      f"{busy / 1e3:.3f} ms, idle share {1 - busy / span[0]:.4f}; {label} "
                      f"{n_k} launches, {k_us / 1e3:.3f} ms, {k_us / total:.4f} of device time")
     print("[profile] " + "; ".join(parts))

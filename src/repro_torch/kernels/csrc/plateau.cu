@@ -44,8 +44,11 @@ using plateau::MAX_CS;
 using plateau::THREADS;
 using plateau::WARPS;
 using plateau::WORK;
+using plateau::KC;
 using plateau::Slice;
-using plateau::tile_field;
+using plateau::load4;
+using plateau::sign_table;
+using plateau::to_f32;
 using plateau::warp_sum;
 
 // The group's spins as packed words of (B, R, Nw), its xorshift128 lanes
@@ -198,8 +201,8 @@ int launch(const void* mp_in, const void* it_in, const void* J, const void* h,
 // update field gains jperp * (m[k-1] + m[k+1]) over a ring of R consecutive
 // trials (k +- 1 mod R; with R = 2 the one neighbour counts twice); the
 // energy, and so the best tracking, keeps the base field.  A kernel of its
-// own beside the classical one; it shares plateau_cycle.cuh's column-tile
-// field (tile_field), wide loads and cluster launch.
+// own beside the classical one; it shares plateau_cycle.cuh's sign table,
+// wide loads and cluster launch.
 //
 // A ring's update needs every replica's spins of cycle c, so a ring is one
 // thread-block cluster of CS blocks (CS in 1, 2, 4, 8, 16; the wrapper
@@ -319,14 +322,49 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
 #pragma unroll
       for (int t = 0; t < G; ++t) ep[t] = 0;
       for (int tile = c_lo; tile < c_hi; tile += TW) {
+        float acc[4][G];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < G; ++t) acc[i][t] = 0.f;
         // This thread's columns: with VEC (N % 4 == 0) four neighbours,
         // col + i, read with one vector load per k; otherwise col + i * CT.
         const int col = tile + (VEC ? 4 * ct : ct);
         bool ok[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) ok[i] = col + (VEC ? i : i * CT) < c_hi;
-        float acc[4][G];
-        tile_field<JT, VEC>(acc, work, s_cur, g, Jb, N, col, ok, CT);
+        for (int k0 = 0; k0 < N; k0 += KC) {
+          const int kn = min(KC, N - k0);
+          __syncthreads();  // the previous users of `work` are done
+          sign_table(work, s_cur + k0, kn, g);  // bit t: replica g + t
+          __syncthreads();
+          const int kb = kg * kn / KG, ke = (kg + 1) * kn / KG;
+          const JT* Jk = Jb + (size_t)(k0 + kb) * N + col;
+#pragma unroll 8
+          for (int k = kb; k < ke; ++k, Jk += N) {
+            const float4 s0 = *reinterpret_cast<const float4*>(work + k * G);
+            const float4 s1 = *reinterpret_cast<const float4*>(work + k * G + 4);
+            float x[4];
+            if (VEC) {
+              load4(Jk, ok[0], x);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) x[i] = ok[i] ? to_f32(Jk[i * CT]) : 0.f;
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float v = x[i];
+              acc[i][0] = fmaf(s0.x, v, acc[i][0]);
+              acc[i][1] = fmaf(s0.y, v, acc[i][1]);
+              acc[i][2] = fmaf(s0.z, v, acc[i][2]);
+              acc[i][3] = fmaf(s0.w, v, acc[i][3]);
+              acc[i][4] = fmaf(s1.x, v, acc[i][4]);
+              acc[i][5] = fmaf(s1.y, v, acc[i][5]);
+              acc[i][6] = fmaf(s1.z, v, acc[i][6]);
+              acc[i][7] = fmaf(s1.w, v, acc[i][7]);
+            }
+          }
+        }
         __syncthreads();  // the table's readers are done: `work` takes the partials
 #pragma unroll
         for (int t = 0; t < G; ++t)

@@ -1,8 +1,8 @@
 // The cycle loop of the two classical plateau kernels, K1 (plateau.cu:
 // noise stepped in-kernel, packed spins) and K4 (plateau_pregen.cu: noise
 // read from a pregenerated buffer, dense spins), and what K1's SSQA ring
-// mode (plateau.cu, ring_kernel) shares with it: the field of a column
-// tile, the wide loads of J and the cluster launch.
+// mode (plateau.cu, ring_kernel) shares with it: the sign table, the wide
+// loads of J and the cluster launch.
 //
 // Per cycle c: field = m @ J + h; at c >= 1, when `eligible`, fold H =
 // -(h.m + m.field)/2 into the running best (strict <: the first minimum
@@ -108,15 +108,28 @@ __device__ __forceinline__ float sign_of(uint32_t w, int t) {
   return __int_as_float(0xbf800000u ^ (((w >> t) & 1u) << 31));
 }
 
-// The field partials of one column tile: acc[i][t] = the sum over this
-// thread's k-range of sign(bit shift + t of s[k]) * J[k][col_i], over
-// every chunk of KC k.  Columns: with VEC four neighbours, col + i (one
-// vector load per k); otherwise col + i * CT.  Called by the whole block.
+// The sign table of a chunk of kn k: row k holds bits shift .. shift + 7
+// of s[k] as +-1.0f (two 16-byte shared-memory broadcasts per k for its
+// readers).  Called by the whole block.
+__device__ __forceinline__ void sign_table(float* work, const uint32_t* s, int kn, int shift) {
+  for (int k = threadIdx.x; k < kn; k += THREADS) {
+    const uint32_t w = s[k] >> shift;
+    float4* p = reinterpret_cast<float4*>(work + k * GROUP);
+    p[0] = make_float4(sign_of(w, 0), sign_of(w, 1), sign_of(w, 2), sign_of(w, 3));
+    p[1] = make_float4(sign_of(w, 4), sign_of(w, 5), sign_of(w, 6), sign_of(w, 7));
+  }
+}
+
+// The field partials of one column tile of the classical loop: acc[i][t] =
+// the sum over this thread's k-range of sign(trial t at k) * J[k][col_i],
+// over every chunk of KC k.  Columns: with VEC four neighbours, col + i
+// (one vector load per k); otherwise col + i * CT.  Called by the whole
+// block.  (The ring mode keeps its own copy of this loop, with the pass's
+// shift: sharing it moved the ring's time by 1% on an H100.)
 template <typename JT, bool VEC>
 __device__ __forceinline__ void tile_field(float (&acc)[4][GROUP], float* work,
-                                           const uint32_t* s, int shift,
-                                           const JT* __restrict__ Jb, int N, int col,
-                                           const bool (&ok)[4], int CT) {
+                                           const uint32_t* s, const JT* __restrict__ Jb,
+                                           int N, int col, const bool (&ok)[4], int CT) {
   const int KG = THREADS / CT, kg = threadIdx.x / CT;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -125,12 +138,7 @@ __device__ __forceinline__ void tile_field(float (&acc)[4][GROUP], float* work,
   for (int k0 = 0; k0 < N; k0 += KC) {
     const int kn = min(KC, N - k0);
     __syncthreads();  // the previous users of `work` are done
-    for (int k = threadIdx.x; k < kn; k += THREADS) {
-      const uint32_t w = s[k0 + k] >> shift;
-      float4* p = reinterpret_cast<float4*>(work + k * GROUP);
-      p[0] = make_float4(sign_of(w, 0), sign_of(w, 1), sign_of(w, 2), sign_of(w, 3));
-      p[1] = make_float4(sign_of(w, 4), sign_of(w, 5), sign_of(w, 6), sign_of(w, 7));
-    }
+    sign_table(work, s + k0, kn, 0);
     __syncthreads();
     const int kb = kg * kn / KG, ke = (kg + 1) * kn / KG;
     const JT* Jk = Jb + (size_t)(k0 + kb) * N + col;
@@ -224,7 +232,7 @@ __device__ __forceinline__ void run_group(IO& io, const JT* __restrict__ J,
 #pragma unroll
       for (int i = 0; i < 4; ++i) ok[i] = col + (VEC ? i : i * CT) < sl.c_hi;
       float acc[4][GROUP];
-      tile_field<JT, VEC>(acc, work, s_cur, 0, J, N, col, ok, CT);
+      tile_field<JT, VEC>(acc, work, s_cur, J, N, col, ok, CT);
       __syncthreads();  // the table's readers are done: `work` takes the partials
       const int kg = tid / CT, KG = THREADS / CT;
 #pragma unroll
