@@ -19,7 +19,12 @@
 // principle.  Every cycle needs all N spins of a trial before the next, and
 // J (16 MB in float32 at N = 2000) does not fit in shared memory, so J
 // streams from L2 (50 MB) every cycle; the design makes each element read
-// serve as many trials, and the L2 requests as few, as the card allows.
+// serve a group of trials, and the L2 requests as few as 16-byte loads
+// allow.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): about
+// 4.2 ms at K2000 in clusters of 8 (13 groups, 104 blocks), 3.5x the
+// bound; a bfloat16 J takes as long, and the time follows the block count
+// (clusters of 1, 2, 4, 8: about 26.8, 13.6, 7.2, 4.2 ms), so each block's
+// instruction stream binds it, not L2's byte rate.
 //
 // Design: the classical kernel is plateau_cycle.cuh's cluster loop, shared
 // with K4: a group of GROUP = 8 trials is one thread-block cluster, J's

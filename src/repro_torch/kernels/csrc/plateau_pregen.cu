@@ -14,6 +14,9 @@
 // CUDA-core peak of 67 TFLOP/s; the bytes it must move are J once, the
 // state in and out and the noise buffer (R·N bytes a cycle, 20 MB at
 // K2000), ~47 MB, 14 us at 3.35 TB/s.  Operations bound it in principle.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): about 4.1 ms at
+// K2000 in clusters of 8 (104 blocks), as long as K1: the noise bytes are
+// not what binds it.
 //
 // Design: K1's (plateau.cu), with the noise read instead of generated: the
 // cycle loop is plateau_cycle.cuh's, a thread-block cluster per group of

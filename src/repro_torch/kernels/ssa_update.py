@@ -244,20 +244,16 @@ def _check_cluster_size(cluster_size, N: int):
                          f"most the {nw} words of N={N}")
 
 
-def _plateau_cs(dev: torch.device, lib: str, R: int, B: int, N: int, bf16: bool,
-                cluster_size) -> int:
+def _plateau_cs(dev: torch.device, lib: str, entry: str, R: int, B: int, N: int, bf16: bool,
+                cluster_size, *query_args) -> int:
     """The cluster size of a K1 classical or K4 launch: ``cluster_size`` if
-    forced, else :func:`plateau_cluster_size` with the library's occupancy
-    query, once per shape."""
+    forced, else :func:`plateau_cluster_size` with the occupancy query
+    ``entry(N, *query_args, cs, bf16)`` of library ``lib``, once per shape."""
     if cluster_size is not None:
         return int(cluster_size)
-    if lib == "plateau":
-        entry, extra = "repro_plateau_max_clusters", (0,)  # no ring
-    else:
-        entry, extra = "repro_plateau_pregen_max_clusters", ()
     return _cached((lib, dev.index, B, R, N, bf16), lambda: plateau_cluster_size(
         R, B, N, _sm_count(dev), lambda cs: _max_clusters(
-            dev, lib, entry, N, *extra, cs, int(bf16))))
+            dev, lib, entry, N, *query_args, cs, int(bf16))))
 
 
 def _check_smem(what: str, smem: int):
@@ -396,7 +392,8 @@ def ssa_plateau_packed_batched(
             cs = int(cluster_size)
         _check_smem(f"K1's ring mode at N={N}", _ring_smem(N, n_replicas, cs))
     else:
-        cs = _plateau_cs(dev, "plateau", R, B, N, bf16, cluster_size)
+        cs = _plateau_cs(dev, "plateau", "repro_plateau_max_clusters", R, B, N, bf16,
+                         cluster_size, 0)  # n_replicas = 0: the classical kernel
         _check_smem(f"K1 at N={N}", _plateau_smem(N, cs, best_words=True))
     outs = tuple(torch.empty_like(t) for t in
                  (m_packed, itanh, rng, best_H, best_m_packed))
@@ -490,8 +487,8 @@ def ssa_plateau_batched(
     """
     args = (m, itanh, J, h, noise, best_H, best_m)
     dev = _device_of(*args)
-    if cluster_size is not None and m.dim() == 3:
-        _check_cluster_size(cluster_size, m.shape[2])
+    if cluster_size is not None:
+        _check_cluster_size(cluster_size, m.shape[-1])
     if dev.type == "cpu":
         return ssa_plateau_ref(m, itanh, J, h, noise, i0, best_H, best_m,
                                n_rnd=n_rnd, eligible=eligible)
@@ -508,7 +505,8 @@ def ssa_plateau_batched(
     _check("best_H", best_H, (B, R), (torch.int32,))
     _check("best_m", best_m, (B, R, N), (torch.int8,))
     bf16 = J.dtype == torch.bfloat16
-    cs = _plateau_cs(dev, "plateau_pregen", R, B, N, bf16, cluster_size)
+    cs = _plateau_cs(dev, "plateau_pregen", "repro_plateau_pregen_max_clusters", R, B, N, bf16,
+                     cluster_size)
     _check_smem(f"K4 at N={N}", _plateau_smem(N, cs, best_words=False))
     outs = tuple(torch.empty_like(t) for t in (m, itanh, best_H, best_m))
     if B == 0 or R == 0:
