@@ -43,9 +43,13 @@ Phases (any failure raises and exits non-zero):
  11. K2 ``ssa_plateau_popcount`` == its plain version, all five outputs
      exactly, at K2000 width over one Table II iteration (R=100, C=600),
      G11 width, a ragged N with 3 magnitude planes, a tied-energy shape
-     with every state folded, I0 and fold changing mid-chain, and B = 2;
-     kernel and plain times and the bound; K2's time under each trial
-     tiling;
+     with every state folded, I0 and fold changing mid-chain, B = 2, R = 3
+     (below one group of 8), N = 4100 with 3 planes (the streamed-plane
+     variant) and forced cluster sizes 1 (streamed) and 16; each line names
+     the cluster size, block count and whether the planes were resident;
+     the shared-memory layout of the kernel == the wrapper's; kernel and
+     plain times and the bound; ``[K2 sweep]``: K2's time at each cluster
+     size up to Nw (the outputs must not change);
  12. popcount path: anneal(K2000 and G11, field_mode='popcount') — K2
      launched m_shot times (one per iteration's chain), K1, K3 and K4
      never; best_H and best_m == the K1 run with the same seed; no dense J
@@ -58,8 +62,10 @@ Phases (any failure raises and exits non-zero):
      bound, kernel times at rings of 2 and 16 and at smaller clusters;
  14. K2's SSQA ring mode == its plain version at K2000 width, 96 trials,
      rings of 8, one Table II iteration (C=600) with the ssqa_schedule J⊥
-     ramp, and B = 2; kernel and plain times and the bound, kernel times at
-     rings of 2 and 16;
+     ramp, rings of 16, B = 2, and forced cluster sizes 1 and 16; each line
+     names the cluster size, block count and residency; kernel and plain
+     times and the bound, kernel times at rings of 2 and 16; ``[K2 ring
+     sweep]``: the time at each cluster size, rings of 8 and 16;
  15. SSQA path: anneal_ssqa(K2000, 96 trials, rings of 8, J⊥max 4, tau=100,
      I0 1→32) on cuda (dense field), cuda (popcount) and the dense backend
      on the card — equal best_H and best_m; K1 launched 10 times classical
@@ -78,6 +84,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -637,52 +644,105 @@ def _popcount_inputs(rs, B, R, N, w_max, C, dev, sched="hassa", flat=False):
     )
 
 
+def _k2_launch(k2, forced=None) -> str:
+    """The cluster size, block count and plane residency of K2's last
+    launch, as the phase 11 and 14 lines print them."""
+    cs, blocks, resident = k2.last_cluster
+    return (f"cluster size {cs} ({'forced' if forced else 'chosen'}), {blocks} blocks, "
+            f"planes {'resident' if resident else 'streamed'}")
+
+
+def _k2_check(k2, ref, x, kw, what, cs=None) -> int:
+    """K2 (either mode) at cluster size ``cs`` (None: the wrapper's choice)
+    against its plain version on the same inputs; the largest error (0)."""
+    names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
+    want = ref(**x, **kw)
+    got = k2(**x, **kw, cluster_size=cs)
+    torch.cuda.synchronize()
+    err = 0
+    for name, g, w in zip(names, got, want):
+        e = _max_abs_err(g, w)
+        if e or g.dtype != w.dtype or g.shape != w.shape:
+            _fail(f"{what}: {name} differs from its plain version ({_k2_launch(k2, cs)})")
+        err = max(err, e)
+    return err
+
+
+def _k2_sweep(name, k2, x, kw):
+    """K2 (either mode) at the main path's shape forced to each cluster size
+    up to the word count: the outputs must not change.  Timed as the
+    kernels line's time is, calls issued from Python between CUDA events."""
+    from repro_torch.kernels import ssa_update
+
+    want = k2(**x, **kw)
+    for cs in ssa_update._word_sizes(x["itanh"].shape[-1]):
+        if not all(torch.equal(a, b) for a, b in zip(k2(**x, **kw, cluster_size=cs), want)):
+            _fail(f"{name} output depends on the cluster size ({cs})")
+        t = _time_ms(lambda: k2(**x, **kw, cluster_size=cs), reps=3)
+        print(f"[{name} sweep] {_k2_launch(k2, cs)}: {t:.4f} ms")
+
+
 def phase_k2(dev):
     import numpy as np
 
     from repro_torch.kernels import ssa_update
     from repro_torch.kernels.ref import ssa_plateau_popcount_ref
 
+    k2 = ssa_update.ssa_plateau_popcount_batched
     rs = np.random.default_rng(2)
-    names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
     err = 0
-    cases = [(1, 100, 2000, 1, 600, "hassa", False), (1, 100, 800, 1, 600, "hassa", False),
-             (1, 13, 37, 7, 50, "random", False), (1, 13, 1001, 1, 17, "all", True),
-             (1, 7, 800, 1, 40, "random", False), (2, 7, 1001, 3, 9, "random", False)]
-    for B, R, N, w_max, C, sched, flat in cases:
+    cs_max = ssa_update.CLUSTER_SIZES[-1]
+    cases = [(1, 100, 2000, 1, 600, "hassa", False, None),
+             (1, 100, 800, 1, 600, "hassa", False, None),
+             (1, 13, 37, 7, 50, "random", False, None), (1, 13, 1001, 1, 17, "all", True, None),
+             (1, 7, 800, 1, 40, "random", False, None), (2, 7, 1001, 3, 9, "random", False, None),
+             (1, 3, 2000, 1, 30, "random", False, None), (1, 13, 4100, 7, 5, "random", False, None),
+             (1, 100, 2000, 1, 60, "random", False, 1),
+             (1, 100, 2000, 1, 60, "random", False, cs_max)]
+    for B, R, N, w_max, C, sched, flat, cs in cases:
         x = _popcount_inputs(rs, B, R, N, w_max, C, dev, sched, flat)
-        want = ssa_plateau_popcount_ref(**x, n_rnd=2)
+        what = f"K2 at B={B} R={R} N={N} w_max={w_max} C={C} sched={sched} flat={flat}"
         # The planes in K2's layout (the backend's), then as packed (the
         # wrapper lays them out for the launch).
-        for planes in ("laid out", "packed"):
-            if planes == "packed":
-                x.update(sign=x["sign"].contiguous(), mags=x["mags"].contiguous())
-            got = ssa_update.ssa_plateau_popcount_batched(**x, n_rnd=2)
-            torch.cuda.synchronize()
-            for name, g, w in zip(names, got, want):
-                e = _max_abs_err(g, w)
-                if e or g.dtype != w.dtype or g.shape != w.shape:
-                    _fail(f"K2 {name} differs from its plain version at B={B} R={R} "
-                          f"N={N} w_max={w_max} C={C} sched={sched} flat={flat} "
-                          f"planes {planes}")
-                err = max(err, e)
+        err = max(err, _k2_check(k2, ssa_plateau_popcount_ref, x, dict(n_rnd=2),
+                                 what + " planes laid out", cs))
+        launched = _k2_launch(k2, cs)
+        x.update(sign=x["sign"].contiguous(), mags=x["mags"].contiguous())
+        err = max(err, _k2_check(k2, ssa_plateau_popcount_ref, x, dict(n_rnd=2),
+                                 what + " planes packed", cs))
         print(f"[K2] B={B} R={R} N={N} nb={x['mags'].shape[1]} C={C} sched={sched} "
-              f"flat={flat}: all five outputs equal, planes laid out and packed")
+              f"flat={flat}: {launched}: all five outputs equal, planes laid out and packed")
+    # The kernel's shared-memory layout is the wrapper's (which picks the
+    # variant and checks the size).
+    fn, _ = ssa_update._entry("popcount", "repro_popcount_smem")
+    for N, nb, unit, cs, res in itertools.product((37, 800, 2000, 4100), (1, 3), (8, 16, 32),
+                                                  ssa_update.CLUSTER_SIZES, (0, 1)):
+        if fn(N, nb, unit if unit > 8 else 0, cs, res) != ssa_update._popcount_smem(
+                N, nb, unit, cs, bool(res)):
+            _fail(f"K2's shared memory at N={N} nb={nb} unit={unit} cs={cs} resident={res} "
+                  "differs between the kernel and the wrapper")
     # Timing at the main path's shape: K2000, 100 trials, one Table II
     # iteration (6 plateaus of tau = 100) per launch, planes laid out as the
     # backend holds them.
     R, N, C = 100, 2000, 600
     x = _popcount_inputs(rs, 1, R, N, 1, C, dev)
-    run = functools.partial(ssa_update.ssa_plateau_popcount_batched, **x, n_rnd=2)
+    run = functools.partial(k2, **x, n_rnd=2)
     ms = _time_ms(run, reps=10)
+    launched = _k2_launch(k2)
     plain_ms = _time_ms(lambda: ssa_plateau_popcount_ref(**x, n_rnd=2), reps=2)
     nb, nw = x["mags"].shape[1], x["sign"].shape[-1]
     fields = C + int(x["fold_sched"][-1].item() > 0)  # the epilogue field only when folded
     state_bytes = 4 * (R * nw + R * N + 4 * R * N + R + R * nw)
     n_bytes = 4 * (1 + nb) * N * nw + 8 * N + 4 * (2 * C + 1) + 2 * state_bytes
     bound, by = _bound_ms(n_bytes, R * N * nw * nb * fields, PEAK_POPC)
-    print(f"[K2] R={R} N={N} nb={nb} C={C}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound:.4f} ms ({by}; {R * N * nw * nb * fields:.4e} popcounts)")
+    print(f"[K2] R={R} N={N} nb={nb} C={C}: {launched}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {R * N * nw * nb * fields:.4e} "
+          "popcounts)")
+    fits = {cs: ssa_update._max_clusters(dev, "popcount", "repro_popcount_max_clusters", N, 0,
+                                         nb, cs, int(ssa_update._popcount_resident(N, nb, 8, cs)))
+            for cs in ssa_update.CLUSTER_SIZES}
+    print(f"[K2] N={N}: clusters the card runs at once, by size: {fits}")
+    _k2_sweep("K2", k2, x, dict(n_rnd=2))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
 
@@ -816,40 +876,42 @@ def _ssqa_chain(C, tau=100):
 
 
 def phase_k2_ring(dev):
-    """K2's SSQA ring mode against its plain version at K2000 width."""
+    """K2's SSQA ring mode against its plain version at K2000 width, at the
+    cluster size the wrapper chooses and forced to 1 and to the largest."""
     import numpy as np
 
     from repro_torch.kernels import ssa_update
     from repro_torch.kernels.ref import ssa_plateau_popcount_ref
 
+    k2 = ssa_update.ssa_plateau_popcount_batched
     rs = np.random.default_rng(6)
-    names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
     err = 0
-    for B, R, N, w_max, C, tau in ((1, SSQA_TRIALS, 2000, 1, 600, 100),
-                                   (2, 16, 1001, 3, 60, 10)):
+    cs_max = ssa_update.CLUSTER_SIZES[-1]
+    for B, R, N, w_max, C, tau, nr, cs in (
+            (1, SSQA_TRIALS, 2000, 1, 600, 100, SSQA_RING, None), (2, 16, 1001, 3, 60, 10, 8, None),
+            (1, SSQA_TRIALS, 2000, 1, 60, 10, 16, None), (1, 32, 2000, 1, 30, 10, 32, None),
+            (1, SSQA_TRIALS, 2000, 1, 60, 10, SSQA_RING, 1),
+            (1, SSQA_TRIALS, 2000, 1, 60, 10, SSQA_RING, cs_max),
+            (1, 16, 2000, 1, 60, 10, 16, 1), (1, 16, 2000, 1, 60, 10, 16, cs_max)):
         x = _popcount_inputs(rs, B, R, N, w_max, C, dev)
         i0, fold, jperp = _ssqa_chain(C, tau)
         x.update(i0_sched=torch.tensor(i0, device=dev), fold_sched=torch.tensor(fold, device=dev))
-        kw = dict(n_rnd=2, jperp_sched=torch.tensor(jperp, device=dev), n_replicas=SSQA_RING)
-        want = ssa_plateau_popcount_ref(**x, **kw)
-        got = ssa_update.ssa_plateau_popcount_batched(**x, **kw)
-        torch.cuda.synchronize()
-        for name, g, w in zip(names, got, want):
-            e = _max_abs_err(g, w)
-            if e or g.dtype != w.dtype or g.shape != w.shape:
-                _fail(f"K2 ring mode {name} differs from its plain version at B={B} R={R} "
-                      f"N={N} w_max={w_max} C={C}")
-            err = max(err, e)
-        print(f"[K2 ring] B={B} R={R} N={N} nb={x['mags'].shape[1]} C={C} ring={SSQA_RING} "
-              f"J⊥ ramp {jperp.min()}→{jperp.max()}: all five outputs equal")
+        kw = dict(n_rnd=2, jperp_sched=torch.tensor(jperp, device=dev), n_replicas=nr)
+        err = max(err, _k2_check(k2, ssa_plateau_popcount_ref, x, kw,
+                                 f"K2 ring mode at B={B} R={R} N={N} w_max={w_max} C={C} "
+                                 f"ring={nr}", cs))
+        print(f"[K2 ring] B={B} R={R} N={N} nb={x['mags'].shape[1]} C={C} ring={nr} "
+              f"J⊥ ramp {jperp.min()}→{jperp.max()}: {_k2_launch(k2, cs)}: all five outputs "
+              "equal")
     # Timing at the SSQA path's shape: K2000, 96 trials in rings of 8, one
-    # Table II iteration per launch (the x of the first case above).
+    # Table II iteration per launch.
     R, N, C = SSQA_TRIALS, 2000, 600
     x = _popcount_inputs(rs, 1, R, N, 1, C, dev)
     i0, fold, jperp = _ssqa_chain(C)
     x.update(i0_sched=torch.tensor(i0, device=dev), fold_sched=torch.tensor(fold, device=dev))
     kw = dict(n_rnd=2, jperp_sched=torch.tensor(jperp, device=dev), n_replicas=SSQA_RING)
-    ms = _time_ms(lambda: ssa_update.ssa_plateau_popcount_batched(**x, **kw), reps=5)
+    ms = _time_ms(lambda: k2(**x, **kw), reps=5)
+    launched = _k2_launch(k2)
     plain_ms = _time_ms(lambda: ssa_plateau_popcount_ref(**x, **kw), reps=1)
     nb, nw = x["mags"].shape[1], x["sign"].shape[-1]
     fields = C + int(fold[-1] > 0)
@@ -859,13 +921,16 @@ def phase_k2_ring(dev):
     t_ops = (popc / PEAK_POPC + adds / PEAK_INT32) * 1e3
     t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    print(f"[K2 ring] R={R} N={N} nb={nb} C={C} ring={SSQA_RING}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {popc:.4e} popcounts, "
-          f"{adds:.4e} coupling adds)")
+    print(f"[K2 ring] R={R} N={N} nb={nb} C={C} ring={SSQA_RING}: {launched}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {popc:.4e} "
+          f"popcounts, {adds:.4e} coupling adds)")
     for nr in (2, 16):
         kw_nr = dict(kw, n_replicas=nr)
-        t = _time_ms(lambda: ssa_update.ssa_plateau_popcount_batched(**x, **kw_nr), reps=3)
-        print(f"[K2 ring] R={R} N={N} nb={nb} C={C} ring={nr}: kernel {t:.4f} ms")
+        t = _time_ms(lambda: k2(**x, **kw_nr), reps=3)
+        print(f"[K2 ring] R={R} N={N} nb={nb} C={C} ring={nr}: {_k2_launch(k2)}: kernel "
+              f"{t:.4f} ms")
+    for nr in (SSQA_RING, 16):
+        _k2_sweep(f"K2 ring {nr}", k2, x, dict(kw, n_replicas=nr))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
 

@@ -4,8 +4,9 @@
 //
 // Replaces: src/repro/kernels/ssa_update.py:_plateau_popcount_kernel
 // (wrappers ssa_plateau_popcount_batched / ssa_plateau_popcount), in both
-// its modes: the classical kernel first, the SSQA ring mode (jperp_sched,
-// n_replicas > 0) after it, at popcount_ring_kernel.  Per cycle c:
+// its modes: the classical kernel (popcount_chain_kernel) and the SSQA
+// ring mode (jperp_sched, n_replicas > 0; popcount_ring_kernel).  Per
+// cycle c:
 //   field = h + base + sum_b 2^(b+1) * popcount(XNOR(m, sign) & mags[b]);
 //   if fold_sched[c] > 0, fold H = -(h.m + m.field)/2 of the state current
 //   at c into the running best (strict <: the first minimum is kept; the
@@ -14,482 +15,527 @@
 //   w' = (w ^ (w >> 19)) ^ (t ^ (t >> 8))) and take the MSB of w' as +-1
 //   noise; Itanh = clamp(field + n_rnd*r + Itanh, -i0_sched[c],
 //   i0_sched[c]-1); m = sign(Itanh).
-// After the loop, fold_sched[C] folds the final state with one more field,
-// so a launch evaluates C+1 fields.  Spins enter and leave as 32-bit words,
-// bit k of word w = spin 32w+k; output words have 0 in every bit >= N (the
-// JAX kernel's are 0 there too for n_rnd >= 1).
+// The ring mode adds jperp_sched[c] * (m[k-1] + m[k+1]) over a ring of R
+// consecutive trials (k +- 1 mod R; with R = 2 the one neighbour counts
+// twice) to the update; the energy, and so the best tracking, keeps the
+// base field.  After the loop, fold_sched[C] folds the final state with
+// one more field, so a launch evaluates C+1 fields.  Spins enter and leave
+// as 32-bit words, bit k of word w = spin 32w+k; output words have 0 in
+// every bit >= N (the JAX kernel's are 0 there too for n_rnd >= 1).
 //
 // What bounds it on the H100: R*N*Nw*nb*(C+1) popcounts (7.57e9 at K2000:
 // R = 100, N = 2000, Nw = 63, nb = 1, C = 600), at 16 popc per SM per clock
-// on 132 SMs at 1.98 GHz: 1.81 ms.  The bytes are small: the planes are
-// (1+nb)*N*Nw*4 B = 1.0 MB at K2000, the state a few MB.  Operations bound
-// it.
+// on 132 SMs at 1.98 GHz: 1.81 ms; the ring mode adds 2*R*N*C integer adds
+// of the coupling.  The bytes are small: the planes are (1+nb)*N*Nw*4 B =
+// 1.0 MB at K2000, the state a few MB.  Operations bound it, and the
+// popcount pipe is the scarce unit: per word and trial a thread issues one
+// LOP3 (XNOR-AND), one POPC and one add, and POPC issues at a quarter of
+// the other two's rate.
 //
-// Design: every cycle needs all N fields of a trial before the next, so a
-// block owns whole trials — one block per (problem, TR = 2 trials) — and
-// no grid-wide sync
-// is needed.  The block's spin words live in shared memory, double-
-// buffered and laid out [Nw][TR] (one 8-byte load gives word w of both
-// trials), with its best words [TR][Nw] beside them.  The planes (1 MB at
-// K2000) do not fit in shared memory; they stream from L2 every cycle and
-// each word read serves the block's TR trials.  They arrive transposed,
-// [Nw][N] per plane (the layout repro_torch.kernels.ssa_update.
-// popcount_planes makes once per set of couplings), so thread j owns field
-// row j and a warp's 32 loads of word w fall on 128 consecutive bytes.  Itanh and the four
-// lane words of (trial, column j) stay in global memory, in the output
-// tensors, touched once per cycle by the thread of column j.  New spin
-// words are warp ballots over 32 consecutive columns, so tail bits are 0.
-#include <cuda_runtime.h>
-
+// Design.  Every cycle needs all N fields of a trial before the next, so a
+// unit of trials (a group of GROUP = 8 trials in the classical mode, the
+// last one ragged; a ring of R replicas in the ring mode) is one
+// thread-block cluster of CS blocks (CS in 1, 2, 4, 8, 16; ssa_update.py
+// chooses it), on a grid of (units * CS, B), launched with
+// cudaLaunchKernelEx through plateau_cycle.cuh's cluster helpers.  Block q
+// owns a slice of whole 32-column words (plateau::block_slice): it alone
+// computes the field rows of its columns for the unit's trials, steps
+// their Itanh and noise, and writes their state and best words.
+// - Every block keeps the unit's words [Nw][RS] (word w of every trial side
+//   by side, RS = the trials rounded up to 8: two 16-byte shared loads give
+//   word w of a pass of 8 trials), double-buffered.  Each word of the
+//   planes a thread reads serves the 8 trials of a pass.  New words are
+//   warp ballots over the warp's 32 columns (tail bits 0), pushed as 32
+//   bytes into every peer's next buffer through distributed shared memory;
+//   cluster.sync() closes the cycle, and nothing of cycle c+1 is visible
+//   before it.  In cycle c+1 a peer writes only its own words of my old
+//   buffer, which my fold of cycle c does not read.
+// - Resident variant (RES): the block's slice of the planes, [1+nb][Nw]
+//   [32*nwq] (129 KB at K2000 in clusters of 8), and the Itanh and four lane
+//   words of its columns (20 B per trial and column) are copied into shared
+//   memory once, in the prologue (cp.async), and the state is written back
+//   once, in the epilogue: the chain touches no global memory but the
+//   schedules.  Where they do not fit one block (CS <= 4 at K2000, large
+//   N*nb, rings of 32), the streamed variant runs the same loop with the
+//   planes read from global memory ([Nw][N] per plane, so a warp's loads of
+//   word w fall on 128 consecutive bytes) and the state in the output
+//   tensors, updated in place each cycle.  The wrapper picks the variant by
+//   size (ssa_update._popcount_smem), never on failure.
+// - Inside a block, THREADS threads own one column each (CT column threads,
+//   a power of two covering the widest slice) and split the words into
+//   THREADS / CT ranges when the slice is narrower than the block; the
+//   ranges' partial counts meet in shared memory before the update.
+// - The energy fold: each block sums its columns' share of h.m + m.field per
+//   trial and writes it into every peer's [parity][CS][MAX_RING] array;
+//   after the barrier every block adds the CS shares in rank order, so H,
+//   the running best and the "better" flags are the same in every block.
+// - Idle trials of a ragged last group read as -1 (their words are 0);
+//   nothing of theirs is read, written or folded, and they are never better.
+#include "plateau_cycle.cuh"
 #include "ring.cuh"
 
-#include <algorithm>
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace {
 
-constexpr int MAX_THREADS = 1024;
-constexpr int DEFAULT_SMEM = 48 * 1024;
-// Trials per block.  ssa_update.py's shared-memory check assumes the same.
-constexpr int TR = 2;
+using plateau::GROUP;
+using plateau::MAX_CS;
+using plateau::Slice;
+using plateau::THREADS;
+using plateau::WARPS;
+using plateau::warp_sum;
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+static_assert(RING_G == GROUP, "a ring pass is one group of trials");
+
+// The fixed part of a block's shared memory, in ints: the running best
+// energies and flags, the per-warp energy shares and the cluster's energy
+// shares by parity; then the word ranges' partial counts.
+constexpr int HEAD_INTS = 2 * MAX_RING + MAX_RING * WARPS + 2 * MAX_CS * MAX_RING;
+constexpr int WORK_INTS = THREADS * GROUP;
+
+// What the kernel is given.  Pointers start at the tensors' origins.
+struct ChainArgs {
+  const uint32_t* mp_in;
+  const int* it_in;
+  const uint32_t* signT;  // (B, Nw, N): each plane stored [Nw][N]
+  const uint32_t* magsT;  // (B, nb, Nw, N)
+  const int* base;
+  const int* h;
+  const uint32_t* rng_in;
+  const int* i0_sched;
+  const int* jperp_sched;  // ring mode only
+  const int* fold_sched;
+  const int* bh_in;
+  const uint32_t* bmp_in;
+  uint32_t* mp_out;
+  int* it_out;
+  uint32_t* rng_out;
+  int* bh_out;
+  uint32_t* bmp_out;
+  int T, N, nb, n_cycles, n_rnd;
+  int UT;  // trials per unit: GROUP, or the ring's R
+  int CT;  // column threads
+};
+
+// Shared-memory layout of a block, in 32-bit words from the start.
+struct Layout {
+  int Nw, NWQ, NC, UT, RS;
+  __host__ __device__ Layout(int N, int cs, int ut)
+      : Nw((N + 31) >> 5), NWQ(0), NC(0), UT(ut), RS((ut + GROUP - 1) / GROUP * GROUP) {
+    NWQ = (Nw + cs - 1) / cs;  // the most words a block owns
+    NC = 32 * NWQ;
+  }
+  __host__ __device__ size_t spins() const { return HEAD_INTS + WORK_INTS; }  // [2][Nw][RS]
+  __host__ __device__ size_t best() const { return spins() + 2 * (size_t)Nw * RS; }
+  __host__ __device__ size_t planes() const {  // after the best words [UT][NWQ], 16-B aligned
+    return best() + ((size_t)UT * NWQ + 3) / 4 * 4;
+  }
+  __host__ __device__ size_t state(int nb) const {  // Itanh [UT][NC], lanes [4][UT][NC]
+    return planes() + (size_t)(1 + nb) * Nw * NC;
+  }
+  __host__ __device__ size_t bytes(int nb, bool res) const {
+    return 4 * (res ? state(nb) + 5 * (size_t)UT * NC : planes());
+  }
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
-// NB is the number of magnitude planes when it is known at compile time
-// (1: every +-1-weight instance), 0 when it is taken from nb_rt.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// acc[t] += the popcount field's count of words [wb, we) for trial g + t
+// of column u: sign words at sg[w * pw], magnitude plane p at mg[p * pp +
+// w * pw], the unit's spin words at s[w * RS + g + t].  With NB = 1 the
+// plane loop has a constant trip count and unrolls.
 template <int NB>
-__global__ void __launch_bounds__(MAX_THREADS)
-popcount_chain_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
-                      const uint32_t* __restrict__ signT, const uint32_t* __restrict__ magsT,
-                      const int* __restrict__ base, const int* __restrict__ h,
-                      const uint32_t* __restrict__ rng_in, const int* __restrict__ i0_sched,
-                      const int* __restrict__ fold_sched, const int* __restrict__ bh_in,
-                      const uint32_t* __restrict__ bmp_in, uint32_t* __restrict__ mp_out,
-                      int* __restrict__ it_out, uint32_t* __restrict__ rng_out,
-                      int* __restrict__ bh_out, uint32_t* __restrict__ bmp_out, int R, int N,
-                      int nb_rt, int n_cycles, int n_rnd) {
-  const int nb = NB ? NB : nb_rt;
-  const int Nw = (N + 31) >> 5;
-  extern __shared__ __align__(16) uint32_t smem_words[];
-  uint32_t* w_cur = smem_words;                // [Nw][TR]
-  uint32_t* w_nxt = w_cur + (size_t)Nw * TR;   // [Nw][TR]
-  uint32_t* best_w = w_nxt + (size_t)Nw * TR;  // [TR][Nw]
-  __shared__ int bh_s[TR];
-  __shared__ int red[TR][32];
-  __shared__ int better_s[TR];
-
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TR;
-  const int nt = min(TR, R - t0);  // trials of this block; the rest are idle
-  const size_t RN = (size_t)R * N;
-  const size_t row0 = (size_t)b * R + t0;                     // first (b, trial) row
-  const size_t lane0 = (size_t)b * 4 * RN + (size_t)t0 * N;   // lane word 0 of row0
-
-  // Prologue: the block's words to shared memory (idle trials get 0);
-  // Itanh and the lanes copied to the outputs, where the cycles update them.
-  for (int e = tid; e < Nw * TR; e += nthr) {
-    const int w = e / TR, t = e % TR;
-    w_cur[e] = (t < nt) ? mp_in[(row0 + t) * Nw + w] : 0u;
-  }
-  for (int e = tid; e < TR * Nw; e += nthr) {
-    const int t = e / Nw;
-    best_w[e] = (t < nt) ? bmp_in[(row0 + t) * Nw + e % Nw] : 0u;
-  }
-  for (int t = 0; t < nt; ++t) {
-    for (int j = tid; j < N; j += nthr) {
-      const size_t e = (row0 + t) * N + j;
-      it_out[e] = it_in[e];
-      const size_t l = lane0 + (size_t)t * N + j;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) rng_out[l + q * RN] = rng_in[l + q * RN];
-    }
-  }
-  if (tid < TR) bh_s[tid] = (tid < nt) ? bh_in[row0 + tid] : 0;
-  __syncthreads();
-
-  const uint32_t* sg = signT + (size_t)b * Nw * N;
-  const uint32_t* mg = magsT + (size_t)b * nb * Nw * N;
-  const int* hb = h + (size_t)b * N;
-  const int* bs = base + (size_t)b * N;
-  int* it = it_out + row0 * N;
-  uint32_t* rng = rng_out + lane0;
-  const size_t plane = (size_t)Nw * N;
-
-  for (int c = 0; c <= n_cycles; ++c) {
-    const bool last = (c == n_cycles);  // the epilogue field: no update
-    const bool fold = fold_sched[c] > 0;
-    if (last && !fold) break;
-    const int i0 = last ? 0 : i0_sched[c];
-    int ep[TR];
-#pragma unroll
-    for (int t = 0; t < TR; ++t) ep[t] = 0;
-
-    // j0 is the same for the whole warp, so every lane reaches the ballots.
-    for (int j0 = warp << 5; j0 < N; j0 += nthr) {
-      const int j = j0 + lane;
-      const bool valid = j < N;
-      int acc[TR];
-#pragma unroll
-      for (int t = 0; t < TR; ++t) acc[t] = 0;
-      if (valid) {
-        const uint32_t* sj = sg + j;
-        const uint32_t* mj = mg + j;
+__device__ __forceinline__ void count_words(int (&acc)[GROUP], const uint32_t* sg,
+                                            const uint32_t* mg, size_t pw, size_t pp, int nb,
+                                            const uint32_t* s, int RS, int g, int wb, int we) {
 #pragma unroll 4
-        for (int w = 0; w < Nw; ++w) {
-          const uint32_t s = sj[(size_t)w * N];
-          const uint2 mv = *reinterpret_cast<const uint2*>(w_cur + w * TR);
-          const uint32_t x[TR] = {~(mv.x ^ s), ~(mv.y ^ s)};
-          // With NB = 1 the trip count is a constant and the loop unrolls.
-          for (int p = 0; p < nb; ++p) {
-            const uint32_t mk = mj[p * plane + (size_t)w * N];
+  for (int w = wb; w < we; ++w) {
+    const uint32_t sw = sg[w * pw];
+    const uint4 m0 = *reinterpret_cast<const uint4*>(s + w * RS + g);
+    const uint4 m1 = *reinterpret_cast<const uint4*>(s + w * RS + g + 4);
+    const uint32_t x[GROUP] = {~(m0.x ^ sw), ~(m0.y ^ sw), ~(m0.z ^ sw), ~(m0.w ^ sw),
+                               ~(m1.x ^ sw), ~(m1.y ^ sw), ~(m1.z ^ sw), ~(m1.w ^ sw)};
+    for (int p = 0; p < (NB ? NB : nb); ++p) {
+      const uint32_t mk = mg[p * pp + w * pw];
 #pragma unroll
-            for (int t = 0; t < TR; ++t) acc[t] += __popc(x[t] & mk) << (p + 1);
-          }
-        }
-      }
-      const int hj = valid ? hb[j] : 0;
-      const int cj = valid ? hj + bs[j] : 0;
-      const uint32_t* wj = w_cur + (j0 >> 5) * TR;  // word of columns j0 .. j0+31
-#pragma unroll
-      for (int t = 0; t < TR; ++t) {
-        const int f = cj + acc[t];
-        if (fold && valid) ep[t] += (((wj[t] >> lane) & 1u) ? 1 : -1) * (hj + f);
-        if (!last) {
-          bool up = false;
-          if (valid && t < nt) {
-            const size_t l = (size_t)t * N + j;
-            const uint32_t xs = rng[l], ys = rng[l + RN];
-            const uint32_t zs = rng[l + 2 * RN], ws = rng[l + 3 * RN];
-            const uint32_t tt = xs ^ (xs << 11);
-            const uint32_t wn = (ws ^ (ws >> 19)) ^ (tt ^ (tt >> 8));
-            rng[l] = ys;
-            rng[l + RN] = zs;
-            rng[l + 2 * RN] = ws;
-            rng[l + 3 * RN] = wn;
-            const int r = (wn >> 31) ? 1 : -1;
-            const int I = min(max(f + n_rnd * r + it[l], -i0), i0 - 1);
-            it[l] = I;
-            up = I >= 0;
-          }
-          const uint32_t word = __ballot_sync(0xffffffffu, up);
-          if (lane == 0) w_nxt[(j0 >> 5) * TR + t] = word;
-        }
-      }
+      for (int t = 0; t < GROUP; ++t) acc[t] += __popc(x[t] & mk) << p;
     }
-
-    if (fold) {
-#pragma unroll
-      for (int t = 0; t < TR; ++t) {
-        const int v = warp_sum(ep[t]);
-        if (lane == 0) red[t][warp] = v;
-      }
-      __syncthreads();
-      if (warp == 0) {
-#pragma unroll
-        for (int t = 0; t < TR; ++t) {
-          const int v = warp_sum(lane < nwarps ? red[t][lane] : 0);
-          if (lane == 0) {
-            const int H = -v / 2;  // the sum is even: exact
-            const int better = (t < nt) && (H < bh_s[t]);
-            if (better) bh_s[t] = H;
-            better_s[t] = better;
-          }
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int t = 0; t < TR; ++t) {
-        if (better_s[t]) {
-          for (int w = tid; w < Nw; w += nthr) best_w[t * Nw + w] = w_cur[w * TR + t];
-        }
-      }
-    }
-    if (!last) {
-      uint32_t* tmp = w_cur;
-      w_cur = w_nxt;
-      w_nxt = tmp;
-    }
-    __syncthreads();
   }
-
-  for (int e = tid; e < nt * Nw; e += nthr) {
-    const int t = e / Nw, w = e % Nw;
-    mp_out[row0 * Nw + e] = w_cur[w * TR + t];
-    bmp_out[row0 * Nw + e] = best_w[e];
-  }
-  if (tid < nt) bh_out[row0 + tid] = bh_s[tid];
 }
 
-template <int NB>
-int launch(const void* mp_in, const void* it_in, const void* signT, const void* magsT,
-           const void* base, const void* h, const void* rng_in, const void* i0_sched,
-           const void* fold_sched, const void* bh_in, const void* bmp_in, void* mp_out,
-           void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B, int R, int N,
-           int nb, int n_cycles, int n_rnd, cudaStream_t stream) {
-  const int Nw = (N + 31) / 32;
-  const size_t smem = sizeof(uint32_t) * 3 * (size_t)Nw * TR;
-  auto kernel = popcount_chain_kernel<NB>;
-  if (smem > DEFAULT_SMEM) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((R + TR - 1) / TR, B);
-  const int threads = std::min(MAX_THREADS, (N + 31) / 32 * 32);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const uint32_t*>(mp_in), static_cast<const int*>(it_in),
-      static_cast<const uint32_t*>(signT), static_cast<const uint32_t*>(magsT),
-      static_cast<const int*>(base), static_cast<const int*>(h),
-      static_cast<const uint32_t*>(rng_in), static_cast<const int*>(i0_sched),
-      static_cast<const int*>(fold_sched), static_cast<const int*>(bh_in),
-      static_cast<const uint32_t*>(bmp_in), static_cast<uint32_t*>(mp_out),
-      static_cast<int*>(it_out), static_cast<uint32_t*>(rng_out), static_cast<int*>(bh_out),
-      static_cast<uint32_t*>(bmp_out), R, N, nb, n_cycles, n_rnd);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// K2's SSQA ring mode (the JAX body's n_replicas > 0 mode).  The update of
-// cycle c gains jperp_sched[c] * (m[k-1] + m[k+1]) over a ring of R
-// consecutive trials (k +- 1 mod R; with R = 2 the one neighbour counts
-// twice); the energy, and so the best tracking, keeps the base field.  A
-// kernel of its own: the classical TR = 2 kernel above compiles as before.
-//
-// One block owns one whole ring, since every replica's update needs its
-// neighbours' spins of cycle c: the ring's words, [Nw][R] (word w of every
-// replica side by side), double-buffered, with its best words [R][Nw]
-// (12 KB at N = 2000, R = 16).  The JAX kernel keeps a separate two-plane
-// ring scratch, read at plane c % 2; here the current buffer of the double
-// buffer is that plane: it holds cycle c's words of every replica, and the
-// new words go to the other buffer, visible only after the barrier that
-// ends the cycle.  The coupling of column j is bit j of the neighbours'
-// words there.  One pass over the planes accumulates RING_G replicas
-// (ring.cuh); a ring takes ceil(R/RING_G) passes per cycle.
-//
-// What bounds it: the classical mode's R*N*Nw*nb*(C+1) popcounts plus
-// 2*R*N*C adds of the coupling.  With one block per ring it keeps only
-// T/R SMs busy (12 of 132 at 96 trials, R = 8).
-template <int NB>
-__global__ void __launch_bounds__(MAX_THREADS)
-popcount_ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
-                     const uint32_t* __restrict__ signT, const uint32_t* __restrict__ magsT,
-                     const int* __restrict__ base, const int* __restrict__ h,
-                     const uint32_t* __restrict__ rng_in, const int* __restrict__ i0_sched,
-                     const int* __restrict__ jperp_sched, const int* __restrict__ fold_sched,
-                     const int* __restrict__ bh_in, const uint32_t* __restrict__ bmp_in,
-                     uint32_t* __restrict__ mp_out, int* __restrict__ it_out,
-                     uint32_t* __restrict__ rng_out, int* __restrict__ bh_out,
-                     uint32_t* __restrict__ bmp_out, int T, int N, int nb_rt, int n_cycles,
-                     int n_rnd, int R) {
-  constexpr int G = RING_G;
-  const int nb = NB ? NB : nb_rt;
-  const int Nw = (N + 31) >> 5;
-  extern __shared__ __align__(16) uint32_t smem_words[];
-  uint32_t* w_cur = smem_words;               // [Nw][R]
-  uint32_t* w_nxt = w_cur + (size_t)Nw * R;   // [Nw][R]
-  uint32_t* best_w = w_nxt + (size_t)Nw * R;  // [R][Nw]
-  __shared__ int bh_s[MAX_RING];
-  __shared__ int red[MAX_RING][32];
-  __shared__ int better_s[MAX_RING];
-
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+// The chain of one unit on this block's cluster.  NB is the number of
+// magnitude planes when it is known at compile time (1: every
+// +-1-weight instance), 0 when it is taken from a.nb.
+template <int NB, bool RING, bool RES>
+__device__ __forceinline__ void run_chain(const ChainArgs& a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  const int nb = NB ? NB : a.nb;
+  const int N = a.N, UT = a.UT, CT = a.CT;
+  const Layout L(N, CS, UT);
+  const int Nw = L.Nw, RS = L.RS, NC = L.NC;
+  const Slice sl = plateau::block_slice(N, CS, q);
+  const int ncols = sl.c_hi - sl.c_lo;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * R;  // first trial of this block's ring
-  const size_t RN = (size_t)T * N;
-  const size_t row0 = (size_t)b * T + t0;
+  const int t0 = (blockIdx.x / CS) * UT;  // the unit's first trial
+  const int nt = min(UT, a.T - t0);       // its live trials; the rest are idle
+  const size_t RN = (size_t)a.T * N;
+  const size_t row0 = (size_t)b * a.T + t0;
   const size_t lane0 = (size_t)b * 4 * RN + (size_t)t0 * N;
 
-  for (int e = tid; e < Nw * R; e += nthr) {
-    const int w = e / R, t = e % R;
-    w_cur[e] = mp_in[(row0 + t) * Nw + w];
+  extern __shared__ __align__(16) uint32_t smem[];
+  int* bh_s = reinterpret_cast<int*>(smem);  // [MAX_RING]
+  int* better_s = bh_s + MAX_RING;           // [MAX_RING]
+  int* eps = better_s + MAX_RING;            // [MAX_RING][WARPS]
+  int* part = eps + MAX_RING * WARPS;        // [2][MAX_CS][MAX_RING]
+  int* work = part + 2 * MAX_CS * MAX_RING;  // [WORK_INTS]
+  uint32_t* s_cur = smem + L.spins();        // [Nw][RS], bit k = column 32w+k
+  uint32_t* s_nxt = s_cur + (size_t)Nw * RS;
+  uint32_t* best_w = smem + L.best();  // [nt][sl.nwq]: the best words of this block's slice
+
+  // Where the planes and the state of this block's columns live: shared
+  // memory (RES) or global memory.  Column u of the slice is index u.
+  const uint32_t* sgn;  // word w of the sign plane at sgn[w * pw]
+  const uint32_t* mag;  // plane p, word w at mag[p * pp + w * pw]
+  size_t pw, pp;
+  int* its;        // Itanh of trial t at its[t * ts]
+  uint32_t* lns;   // lane l of trial t at lns[l * ls + t * ts]
+  size_t ts, ls;
+  const uint32_t* sg_g = a.signT + (size_t)b * Nw * N + sl.c_lo;
+  const uint32_t* mg_g = a.magsT + (size_t)b * nb * Nw * N + sl.c_lo;
+  if (RES) {
+    uint32_t* pl = smem + L.planes();
+    its = reinterpret_cast<int*>(smem + L.state(nb));
+    lns = reinterpret_cast<uint32_t*>(its) + (size_t)UT * NC;
+    sgn = pl;
+    mag = pl + (size_t)Nw * NC;
+    pw = NC;
+    pp = (size_t)Nw * NC;
+    ts = NC;
+    ls = (size_t)UT * NC;
+  } else {
+    its = a.it_out + row0 * N + sl.c_lo;
+    lns = a.rng_out + lane0 + sl.c_lo;
+    sgn = sg_g;
+    mag = mg_g;
+    pw = N;
+    pp = (size_t)Nw * N;
+    ts = N;
+    ls = RN;
   }
-  for (int e = tid; e < R * Nw; e += nthr) best_w[e] = bmp_in[row0 * Nw + e];
-  for (int t = 0; t < R; ++t) {
-    for (int j = tid; j < N; j += nthr) {
-      const size_t e = (row0 + t) * N + j;
-      it_out[e] = it_in[e];
-      const size_t l = lane0 + (size_t)t * N + j;
+
+  // Prologue: the unit's words (idle trials 0), this block's best words,
+  // and its columns' planes and state, to shared memory (RES) or the state
+  // copied to the outputs, where the cycles update it.
+  for (int e = tid; e < Nw * RS; e += THREADS) {
+    const int w = e / RS, t = e % RS;
+    s_cur[e] = t < nt ? a.mp_in[(row0 + t) * Nw + w] : 0u;
+    s_nxt[e] = 0u;
+  }
+  for (int e = tid; e < nt * sl.nwq; e += THREADS)
+    best_w[e] = a.bmp_in[(row0 + e / sl.nwq) * Nw + sl.w_lo + e % sl.nwq];
+  if (tid < UT) bh_s[tid] = tid < nt ? a.bh_in[row0 + tid] : 0;
+  if (RES) {
+    uint32_t* pl = smem + L.planes();
+    for (int p = 0; p <= nb; ++p) {
+      const uint32_t* src = p == 0 ? sg_g : mg_g + (size_t)(p - 1) * Nw * N;
+      for (int e = tid; e < Nw * NC; e += THREADS) {
+        const int w = e / NC, u = e % NC;
+        uint32_t* dst = pl + (size_t)p * Nw * NC + e;
+        if (u < ncols)
+          cp_async4(dst, src + (size_t)w * N + u);
+        else
+          *dst = 0u;
+      }
+    }
+    for (int e = tid; e < nt * ncols; e += THREADS) {
+      const int t = e / ncols, u = e % ncols;
+      cp_async4(its + t * ts + u, a.it_in + (row0 + t) * N + sl.c_lo + u);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) rng_out[l + q * RN] = rng_in[l + q * RN];
+      for (int l = 0; l < 4; ++l)
+        cp_async4(lns + l * ls + t * ts + u, a.rng_in + lane0 + l * RN + (size_t)t * N + sl.c_lo + u);
+    }
+    cp_async_wait_all();
+  } else {
+    for (int e = tid; e < nt * ncols; e += THREADS) {
+      const size_t t = e / ncols, u = e % ncols;
+      its[t * ts + u] = a.it_in[(row0 + t) * N + sl.c_lo + u];
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        lns[l * ls + t * ts + u] = a.rng_in[lane0 + l * RN + t * N + sl.c_lo + u];
     }
   }
-  if (tid < R) bh_s[tid] = bh_in[row0 + tid];
-  __syncthreads();
+  cluster.sync();  // every block runs before any writes into a peer
 
-  const uint32_t* sg = signT + (size_t)b * Nw * N;
-  const uint32_t* mg = magsT + (size_t)b * nb * Nw * N;
-  const int* hb = h + (size_t)b * N;
-  const int* bs = base + (size_t)b * N;
-  int* it = it_out + row0 * N;
-  uint32_t* rng = rng_out + lane0;
-  const size_t plane = (size_t)Nw * N;
+  const int KG = THREADS / CT, kg = tid / CT, ct = tid % CT;
+  const int wb = kg * Nw / KG, we = (kg + 1) * Nw / KG;  // this thread's word range
+  const int* hb = a.h + (size_t)b * N;
+  const int* bs = a.base + (size_t)b * N;
+  // The schedules of the next cycle, loaded a cycle ahead.
+  int fold_n = a.fold_sched[0];
+  int i0_n = a.n_cycles > 0 ? a.i0_sched[0] : 0;
+  int jp_n = RING && a.n_cycles > 0 ? a.jperp_sched[0] : 0;
 
-  for (int c = 0; c <= n_cycles; ++c) {
-    const bool last = (c == n_cycles);  // the epilogue field: no update
-    const bool fold = fold_sched[c] > 0;
+  for (int c = 0; c <= a.n_cycles; ++c) {
+    const bool last = (c == a.n_cycles);  // the epilogue field: no update
+    const bool fold = fold_n > 0;
     if (last && !fold) break;
-    const int i0 = last ? 0 : i0_sched[c];
-    const int jperp = last ? 0 : jperp_sched[c];
-    for (int g = 0; g < R; g += G) {
-      int ep[G];
+    const int i0 = i0_n, jperp = jp_n;
+    if (!last) {
+      fold_n = a.fold_sched[c + 1];
+      if (c + 1 < a.n_cycles) {
+        i0_n = a.i0_sched[c + 1];
+        if (RING) jp_n = a.jperp_sched[c + 1];
+      }
+    }
+    const int par = c & 1;
+    for (int g = 0; g < UT; g += GROUP) {  // a pass of 8 trials (one, classical)
+      int ep[GROUP];
 #pragma unroll
-      for (int t = 0; t < G; ++t) ep[t] = 0;
-      // j0 is the same for the whole warp, so every lane reaches the ballots.
-      for (int j0 = warp << 5; j0 < N; j0 += nthr) {
-        const int j = j0 + lane;
-        const bool valid = j < N;
-        int acc[G];
+      for (int t = 0; t < GROUP; ++t) ep[t] = 0;
+      for (int tile = sl.c_lo; tile < sl.c_hi; tile += CT) {
+        const int j0 = tile + (ct & ~31);  // the warp's first column: a word of the slice
+        const bool live = j0 < sl.c_hi;    // the same for the whole warp
+        const int u = tile - sl.c_lo + ct, j = tile + ct;
+        const bool valid = j < sl.c_hi;
+        int acc[GROUP];
 #pragma unroll
-        for (int t = 0; t < G; ++t) acc[t] = 0;
+        for (int t = 0; t < GROUP; ++t) acc[t] = 0;
+        int hj = 0, cj = 0;
         if (valid) {
-          const uint32_t* sj = sg + j;
-          const uint32_t* mj = mg + j;
-#pragma unroll 4
-          for (int w = 0; w < Nw; ++w) {
-            const uint32_t s = sj[(size_t)w * N];
-            uint32_t x[G];
+          if (kg == 0) {
+            hj = hb[j];
+            cj = hj + bs[j];
+          }
+          count_words<NB>(acc, sgn + u, mag + u, pw, pp, nb, s_cur, RS, g, wb, we);
+        }
+        if (KG > 1) {  // the word ranges' partial counts meet
 #pragma unroll
-            for (int t = 0; t < G; ++t)
-              x[t] = g + t < R ? ~(w_cur[w * R + g + t] ^ s) : 0u;
-            // With NB = 1 the trip count is a constant and the loop unrolls.
-            for (int p = 0; p < nb; ++p) {
-              const uint32_t mk = mj[p * plane + (size_t)w * N];
+          for (int t = 0; t < GROUP; ++t) work[(kg * GROUP + t) * CT + ct] = acc[t];
+          __syncthreads();
+          if (kg == 0) {
+            for (int p = 1; p < KG; ++p)
 #pragma unroll
-              for (int t = 0; t < G; ++t) acc[t] += __popc(x[t] & mk) << (p + 1);
-            }
+              for (int t = 0; t < GROUP; ++t) acc[t] += work[(p * GROUP + t) * CT + ct];
           }
         }
-        const int hj = valid ? hb[j] : 0;
-        const int cj = valid ? hj + bs[j] : 0;
-        const uint32_t* wj = w_cur + (j0 >> 5) * R;  // words of columns j0 .. j0+31
+        if (kg == 0 && live) {
+          const uint32_t* wj = s_cur + (j0 >> 5) * RS;  // the words of columns j0 .. j0+31
+          // The lanes and Itanh of (trial, column j).  From global memory
+          // (streamed) those of the pass's 8 trials are all loaded before
+          // any store, so the loads overlap; from shared memory (RES) each
+          // trial's as it is updated, which measured faster on an H100.
+          uint32_t xs[GROUP], ys[GROUP], zs[GROUP], ws[GROUP];
+          int itv[GROUP];
+          auto load_state = [&](int t) {
+            const size_t l = (size_t)(g + t) * ts + u;
+            xs[t] = lns[l];
+            ys[t] = lns[l + ls];
+            zs[t] = lns[l + 2 * ls];
+            ws[t] = lns[l + 3 * ls];
+            itv[t] = its[l];
+          };
+          if (!RES) {
 #pragma unroll
-        for (int t = 0; t < G; ++t) {
-          const int k = g + t;  // the replica; k >= R is the same for the whole warp
-          if (k >= R) break;
-          const int f = cj + acc[t];
-          if (fold && valid) ep[t] += (((wj[k] >> lane) & 1u) ? 1 : -1) * (hj + f);
-          if (!last) {
+            for (int t = 0; t < GROUP; ++t)
+              if (!last && valid && g + t < nt) load_state(t);
+          }
+          uint32_t words[GROUP];
+#pragma unroll
+          for (int t = 0; t < GROUP; ++t) {
+            const int k = g + t;  // the trial of the unit
+            const int f = cj + 2 * acc[t];
+            const bool on = valid && k < nt;
+            if (fold && on) ep[t] += (((wj[k] >> lane) & 1u) ? 1 : -1) * (hj + f);
             bool up = false;
-            if (valid) {
-              const int kp = k == 0 ? R - 1 : k - 1, kn = k == R - 1 ? 0 : k + 1;
-              const int coup =
-                  (((wj[kp] >> lane) & 1u) ? 1 : -1) + (((wj[kn] >> lane) & 1u) ? 1 : -1);
-              const size_t l = (size_t)k * N + j;
-              const uint32_t xs = rng[l], ys = rng[l + RN];
-              const uint32_t zs = rng[l + 2 * RN], ws = rng[l + 3 * RN];
-              const uint32_t tt = xs ^ (xs << 11);
-              const uint32_t wn = (ws ^ (ws >> 19)) ^ (tt ^ (tt >> 8));
-              rng[l] = ys;
-              rng[l + RN] = zs;
-              rng[l + 2 * RN] = ws;
-              rng[l + 3 * RN] = wn;
+            if (!last && on) {
+              if (RES) load_state(t);
+              const size_t l = (size_t)k * ts + u;
+              const uint32_t tt = xs[t] ^ (xs[t] << 11);
+              const uint32_t wn = (ws[t] ^ (ws[t] >> 19)) ^ (tt ^ (tt >> 8));
+              lns[l] = ys[t];
+              lns[l + ls] = zs[t];
+              lns[l + 2 * ls] = ws[t];
+              lns[l + 3 * ls] = wn;
               const int r = (wn >> 31) ? 1 : -1;
-              const int I = min(max(f + jperp * coup + n_rnd * r + it[l], -i0), i0 - 1);
-              it[l] = I;
+              int coup = 0;
+              if (RING) {
+                const int kp = k == 0 ? UT - 1 : k - 1, kn = k == UT - 1 ? 0 : k + 1;
+                coup = (((wj[kp] >> lane) & 1u) ? 1 : -1) + (((wj[kn] >> lane) & 1u) ? 1 : -1);
+              }
+              const int I = min(max(f + jperp * coup + a.n_rnd * r + itv[t], -i0), i0 - 1);
+              its[l] = I;
               up = I >= 0;
             }
-            const uint32_t word = __ballot_sync(0xffffffffu, up);
-            if (lane == 0) w_nxt[(j0 >> 5) * R + k] = word;
+            words[t] = __ballot_sync(0xffffffffu, up);
+          }
+          if (!last && lane < CS) {  // the pass's 8 words of this word index, to peer `lane`
+            uint4* dst = reinterpret_cast<uint4*>(
+                cluster.map_shared_rank(s_nxt + (j0 >> 5) * RS + g, lane));
+            dst[0] = make_uint4(words[0], words[1], words[2], words[3]);
+            dst[1] = make_uint4(words[4], words[5], words[6], words[7]);
           }
         }
+        if (KG > 1) __syncthreads();  // `work` is free for the next tile
       }
       if (fold) {
 #pragma unroll
-        for (int t = 0; t < G; ++t) {
+        for (int t = 0; t < GROUP; ++t) {
           const int v = warp_sum(ep[t]);
-          if (lane == 0 && g + t < R) red[g + t][warp] = v;
+          if (lane == 0 && g + t < UT) eps[(g + t) * WARPS + warp] = v;
         }
       }
     }
 
     if (fold) {
       __syncthreads();
-      if (warp == 0) {
-        for (int t = 0; t < R; ++t) {
-          const int v = warp_sum(lane < nwarps ? red[t][lane] : 0);
-          if (lane == 0) {
-            const int H = -v / 2;  // the sum is even: exact
-            const int better = H < bh_s[t];
-            if (better) bh_s[t] = H;
-            better_s[t] = better;
-          }
+      if (warp == 0) {  // this block's share of each trial's energy, to every peer
+        for (int t = 0; t < UT; ++t) {
+          const int v = warp_sum(lane < WARPS ? eps[t * WARPS + lane] : 0);
+          if (lane < CS) *cluster.map_shared_rank(part + (par * MAX_CS + q) * MAX_RING + t, lane) = v;
         }
       }
+    }
+    cluster.sync();  // cycle c+1's words and the energy shares are everywhere
+    if (fold) {
+      if (warp == 0 && lane < UT) {
+        int v = 0;
+        for (int p = 0; p < CS; ++p) v += part[(par * MAX_CS + p) * MAX_RING + lane];
+        const int H = -v / 2;  // the sum is even: exact
+        const int better = lane < nt && H < bh_s[lane];
+        if (better) bh_s[lane] = H;
+        better_s[lane] = better;
+      }
       __syncthreads();
-      for (int t = 0; t < R; ++t) {
+      for (int t = 0; t < nt; ++t) {
         if (better_s[t]) {
-          for (int w = tid; w < Nw; w += nthr) best_w[t * Nw + w] = w_cur[w * R + t];
+          for (int w = tid; w < sl.nwq; w += THREADS)
+            best_w[t * sl.nwq + w] = s_cur[(sl.w_lo + w) * RS + t];
         }
       }
     }
     if (!last) {
-      uint32_t* tmp = w_cur;
-      w_cur = w_nxt;
-      w_nxt = tmp;
+      uint32_t* tmp = s_cur;
+      s_cur = s_nxt;
+      s_nxt = tmp;
     }
-    __syncthreads();
   }
 
-  for (int e = tid; e < R * Nw; e += nthr) {
-    const int t = e / Nw, w = e % Nw;
-    mp_out[row0 * Nw + e] = w_cur[w * R + t];
-    bmp_out[row0 * Nw + e] = best_w[e];
+  // Epilogue: this block's words and best words, and (RES) its state.
+  __syncthreads();
+  for (int e = tid; e < nt * sl.nwq; e += THREADS) {
+    const int t = e / sl.nwq, w = e % sl.nwq;
+    a.mp_out[(row0 + t) * Nw + sl.w_lo + w] = s_cur[(sl.w_lo + w) * RS + t];
+    a.bmp_out[(row0 + t) * Nw + sl.w_lo + w] = best_w[e];
   }
-  if (tid < R) bh_out[row0 + tid] = bh_s[tid];
+  if (q == 0 && tid < nt) a.bh_out[row0 + tid] = bh_s[tid];
+  if (RES) {
+    for (int e = tid; e < nt * ncols; e += THREADS) {
+      const size_t t = e / ncols, u = e % ncols;
+      a.it_out[(row0 + t) * N + sl.c_lo + u] = its[t * ts + u];
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        a.rng_out[lane0 + l * RN + t * N + sl.c_lo + u] = lns[l * ls + t * ts + u];
+    }
+  }
 }
 
-template <int NB>
-int launch_ring(const void* mp_in, const void* it_in, const void* signT, const void* magsT,
-                const void* base, const void* h, const void* rng_in, const void* i0_sched,
-                const void* jperp_sched, const void* fold_sched, const void* bh_in,
-                const void* bmp_in, void* mp_out, void* it_out, void* rng_out, void* bh_out,
-                void* bmp_out, int B, int T, int N, int nb, int n_cycles, int n_rnd, int R,
-                cudaStream_t stream) {
-  const int Nw = (N + 31) / 32;
-  const size_t smem = sizeof(uint32_t) * 3 * (size_t)Nw * R;
-  auto kernel = popcount_ring_kernel<NB>;
-  if (smem > DEFAULT_SMEM) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+template <int NB, bool RES>
+__global__ void __launch_bounds__(THREADS, 1) popcount_chain_kernel(const ChainArgs a) {
+  run_chain<NB, false, RES>(a);
+}
+
+template <int NB, bool RES>
+__global__ void __launch_bounds__(THREADS, 1) popcount_ring_kernel(const ChainArgs a) {
+  run_chain<NB, true, RES>(a);
+}
+
+using Kernel = void (*)(const ChainArgs);
+
+Kernel kernel_for(bool ring, int nb, bool res) {
+  if (ring) {
+    if (nb == 1) return res ? popcount_ring_kernel<1, true> : popcount_ring_kernel<1, false>;
+    return res ? popcount_ring_kernel<0, true> : popcount_ring_kernel<0, false>;
   }
-  const dim3 grid(T / R, B);
-  const int threads = std::min(MAX_THREADS, (N + 31) / 32 * 32);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const uint32_t*>(mp_in), static_cast<const int*>(it_in),
-      static_cast<const uint32_t*>(signT), static_cast<const uint32_t*>(magsT),
-      static_cast<const int*>(base), static_cast<const int*>(h),
-      static_cast<const uint32_t*>(rng_in), static_cast<const int*>(i0_sched),
-      static_cast<const int*>(jperp_sched), static_cast<const int*>(fold_sched),
-      static_cast<const int*>(bh_in), static_cast<const uint32_t*>(bmp_in),
-      static_cast<uint32_t*>(mp_out), static_cast<int*>(it_out),
-      static_cast<uint32_t*>(rng_out), static_cast<int*>(bh_out),
-      static_cast<uint32_t*>(bmp_out), T, N, nb, n_cycles, n_rnd, R);
+  if (nb == 1) return res ? popcount_chain_kernel<1, true> : popcount_chain_kernel<1, false>;
+  return res ? popcount_chain_kernel<0, true> : popcount_chain_kernel<0, false>;
+}
+
+// Column threads of a block: one column each, a power of two of at least a
+// warp covering the widest slice, at most THREADS; the rest split the words.
+int column_threads(int N, int cs) {
+  const int cols = Layout(N, cs, GROUP).NC;
+  int ct = 32;
+  while (ct < THREADS && ct < cols) ct *= 2;
+  return ct;
+}
+
+int launch(ChainArgs a, int B, int n_replicas, int cs, int resident, cudaStream_t stream) {
+  if (a.nb < 1 || n_replicas < 0 || n_replicas > MAX_RING || cs < 1 || cs > MAX_CS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool ring = n_replicas > 0;
+  a.UT = ring ? n_replicas : GROUP;
+  a.CT = column_threads(a.N, cs);
+  const int units = ring ? a.T / n_replicas : (a.T + GROUP - 1) / GROUP;
+  const Kernel kernel = kernel_for(ring, a.nb, resident != 0);
+  const size_t smem = Layout(a.N, cs, a.UT).bytes(a.nb, resident != 0);
+  cudaError_t e = plateau::cluster_attributes(kernel, smem, cs);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  plateau::cluster_launch_config(&cfg, &attr, units, B, cs, smem, stream);
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// Bytes of shared memory of one block (n_replicas 0: the classical kernel),
+// resident or streamed; ssa_update._popcount_smem computes the same.
+extern "C" int repro_popcount_smem(int N, int nb, int n_replicas, int cs, int resident) {
+  return static_cast<int>(Layout(N, cs, n_replicas ? n_replicas : GROUP).bytes(nb, resident));
+}
+
+// How many clusters of `cs` blocks the card runs at once, for the
+// classical kernel (n_replicas == 0) or the ring mode with rings of
+// n_replicas; 0 when none fits.  Negative: a CUDA error code, negated.
+extern "C" int repro_popcount_max_clusters(int N, int n_replicas, int nb, int cs, int resident) {
+  const int ut = n_replicas ? n_replicas : GROUP;
+  return plateau::max_active_clusters(kernel_for(n_replicas > 0, nb, resident != 0), cs,
+                                      Layout(N, cs, ut).bytes(nb, resident != 0));
+}
 
 extern "C" int repro_ssa_plateau_popcount_ring(
     const void* mp_in, const void* it_in, const void* signT, const void* magsT,
     const void* base, const void* h, const void* rng_in, const void* i0_sched,
     const void* jperp_sched, const void* fold_sched, const void* bh_in, const void* bmp_in,
     void* mp_out, void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B, int T,
-    int N, int nb, int n_cycles, int n_rnd, int n_replicas, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nb < 1 || n_replicas < 1 || n_replicas > MAX_RING)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto run = nb == 1 ? launch_ring<1> : launch_ring<0>;
-  return run(mp_in, it_in, signT, magsT, base, h, rng_in, i0_sched, jperp_sched, fold_sched,
-             bh_in, bmp_in, mp_out, it_out, rng_out, bh_out, bmp_out, B, T, N, nb, n_cycles,
-             n_rnd, n_replicas, s);
+    int N, int nb, int n_cycles, int n_rnd, int n_replicas, int cluster_size, int resident,
+    void* stream) {
+  if (n_replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const ChainArgs a{static_cast<const uint32_t*>(mp_in), static_cast<const int*>(it_in),
+                    static_cast<const uint32_t*>(signT), static_cast<const uint32_t*>(magsT),
+                    static_cast<const int*>(base), static_cast<const int*>(h),
+                    static_cast<const uint32_t*>(rng_in), static_cast<const int*>(i0_sched),
+                    static_cast<const int*>(jperp_sched), static_cast<const int*>(fold_sched),
+                    static_cast<const int*>(bh_in), static_cast<const uint32_t*>(bmp_in),
+                    static_cast<uint32_t*>(mp_out), static_cast<int*>(it_out),
+                    static_cast<uint32_t*>(rng_out), static_cast<int*>(bh_out),
+                    static_cast<uint32_t*>(bmp_out), T, N, nb, n_cycles, n_rnd, 0, 0};
+  return launch(a, B, n_replicas, cluster_size, resident, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_ssa_plateau_popcount(
@@ -497,13 +543,17 @@ extern "C" int repro_ssa_plateau_popcount(
     const void* base, const void* h, const void* rng_in, const void* i0_sched,
     const void* fold_sched, const void* bh_in, const void* bmp_in, void* mp_out,
     void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B, int R, int N, int nb,
-    int n_cycles, int n_rnd, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  // nb = 1 (every +-1-weight instance) gets a constant trip count.
-  auto run = nb == 1 ? launch<1> : launch<0>;
-  return run(mp_in, it_in, signT, magsT, base, h, rng_in, i0_sched, fold_sched, bh_in, bmp_in,
-             mp_out, it_out, rng_out, bh_out, bmp_out, B, R, N, nb, n_cycles, n_rnd, s);
+    int n_cycles, int n_rnd, int cluster_size, int resident, void* stream) {
+  const ChainArgs a{static_cast<const uint32_t*>(mp_in), static_cast<const int*>(it_in),
+                    static_cast<const uint32_t*>(signT), static_cast<const uint32_t*>(magsT),
+                    static_cast<const int*>(base), static_cast<const int*>(h),
+                    static_cast<const uint32_t*>(rng_in), static_cast<const int*>(i0_sched),
+                    nullptr, static_cast<const int*>(fold_sched),
+                    static_cast<const int*>(bh_in), static_cast<const uint32_t*>(bmp_in),
+                    static_cast<uint32_t*>(mp_out), static_cast<int*>(it_out),
+                    static_cast<uint32_t*>(rng_out), static_cast<int*>(bh_out),
+                    static_cast<uint32_t*>(bmp_out), R, N, nb, n_cycles, n_rnd, 0, 0};
+  return launch(a, B, 0, cluster_size, resident, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -25,16 +25,18 @@ Four kernels, each the port of one Pallas kernel of
   :func:`ssa_plateau_popcount` — a whole plateau chain (per-cycle I0 and
   fold write-enable) in one launch with the XNOR-popcount field on the
   bitplanes of ``PackedJ`` (``csrc/popcount.cu``), integers only, xorshift
-  noise stepped in-kernel.  The path of ``field_mode='popcount'``.  With
+  noise stepped in-kernel.  The path of ``field_mode='popcount'``.  One
+  thread-block cluster per group of ``PLATEAU_GROUP`` trials, the field rows
+  split over its blocks, its size from :func:`popcount_cluster_size`.  With
   ``jperp_sched`` it runs SSQA's Trotter-ring mode, a kernel of its own in
-  the same source.
+  the same source: one cluster per ring.
 
 A wrapper takes its plain version (:mod:`.ref`) only for tensors on the
 CPU.  For CUDA tensors it checks device, dtype, shape and contiguity,
 allocates the outputs, launches on the current stream and raises if the
 launch reports an error; it never falls back.  Each wrapper counts its
 launches in a ``launches`` attribute; K1's and K2's count their ring-mode
-launches among them again in ``ring_launches``.  K1 and K4 keep the
+launches among them again in ``ring_launches``.  K1, K2 and K4 keep the
 cluster size and block count of their last launch in ``last_cluster``.
 """
 from __future__ import annotations
@@ -56,15 +58,12 @@ from .ref import (
 __all__ = ["local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched",
            "ssa_plateau", "ssa_plateau_batched", "ssa_plateau_popcount",
            "ssa_plateau_popcount_batched", "popcount_planes", "plateau_cluster_size",
-           "ring_cluster_size"]
+           "popcount_cluster_size", "ring_cluster_size"]
 
 # Trials per thread-block cluster of K1's classical kernel and K4 (GROUP in
 # csrc/plateau_cycle.cuh): a plateau of R trials runs ceil(R / GROUP)
 # clusters per problem, the last one ragged.
 PLATEAU_GROUP = _build.header_int("plateau_cycle.cuh", "GROUP")
-
-# Trials per K2 block: TR in csrc/popcount.cu, fixed there.
-_POPCOUNT_TRIALS_PER_BLOCK = 2
 
 # Dynamic shared memory one H100 block may use.
 _MAX_SMEM = 232448
@@ -73,7 +72,7 @@ _MAX_SMEM = 232448
 # says why); the wrappers are where a call is checked against it.
 MAX_RING = _build.header_int("ring.cuh", "MAX_RING")
 
-# Blocks per thread-block cluster of K1 (classical and ring mode) and K4:
+# Blocks per thread-block cluster of K1 and K2 (classical and ring mode) and K4:
 # the powers of two up to the kernels' MAX_CS, 16, which Hopper allows as a
 # non-portable size where the occupancy query says such a cluster fits (8
 # is portable).
@@ -85,6 +84,9 @@ _K3_BM, _K3_BN, _K3_BK = (_build.header_int("field.cu", n) for n in ("BM", "BN",
 _K3_MAX_SPLITS = _build.header_int("field.cu", "MAX_KS")
 # The work area of a K1 or K4 block: KC k of GROUP signs, floats.
 _WORK_BYTES = 4 * _build.header_int("plateau_cycle.cuh", "KC") * PLATEAU_GROUP
+# Threads of a cluster kernel's block, and blocks per cluster at most.
+_THREADS = _build.header_int("plateau_cycle.cuh", "THREADS")
+_MAX_CS = CLUSTER_SIZES[-1]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -92,11 +94,13 @@ _SIGNATURES = {
     "repro_local_field_max_clusters": [_I] * 3,
     "repro_ssa_plateau_packed": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
     "repro_ssa_plateau": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8 + [_P],
-    "repro_ssa_plateau_popcount": [_P] * 16 + [_I] * 6 + [_P],
+    "repro_ssa_plateau_popcount": [_P] * 16 + [_I] * 8 + [_P],
     "repro_ssa_plateau_packed_ring": [_P] * 5 + [_I] * 2 + [_P] * 7 + [_I] * 9 + [_P],
     "repro_plateau_max_clusters": [_I] * 4,
     "repro_plateau_pregen_max_clusters": [_I] * 3,
-    "repro_ssa_plateau_popcount_ring": [_P] * 17 + [_I] * 7 + [_P],
+    "repro_ssa_plateau_popcount_ring": [_P] * 17 + [_I] * 9 + [_P],
+    "repro_popcount_max_clusters": [_I] * 5,
+    "repro_popcount_smem": [_I] * 5,
 }
 
 
@@ -148,7 +152,7 @@ def _cluster_size(n_clusters: int, sm_count: int, sizes, max_clusters=None) -> i
     so every block has an SM, and, where ``max_clusters`` (size -> clusters
     the card runs at once, the occupancy query) is given, with every cluster
     running at once, since a second wave would double the time.  1 when none
-    is larger.  The rule of K3's K splits and of the K1 and K4 clusters."""
+    is larger.  The rule of K3's K splits and of the K1, K2 and K4 clusters."""
     for cs in sorted(sizes, reverse=True):
         if cs > 1 and n_clusters * cs <= sm_count and (
                 max_clusters is None or max_clusters(cs) >= n_clusters):
@@ -183,6 +187,45 @@ def plateau_cluster_size(R: int, B: int, N: int, sm_count: int, max_clusters=Non
     largest CS of 1, 2, 4, 8, 16 up to Nw with every block on an SM and,
     given ``max_clusters``, every group's cluster running at once."""
     return _cluster_size(plateau_groups(R) * B, sm_count, _word_sizes(N), max_clusters)
+
+
+def popcount_cluster_size(R: int, B: int, N: int, sm_count: int, max_clusters=None,
+                          n_replicas: int = 0) -> int:
+    """Blocks per unit of K2: by :func:`_cluster_size` over the units of all
+    B problems (``plateau_groups(R)`` groups of trials in the classical
+    mode, ``R // n_replicas`` rings in the ring mode), the largest CS of 1,
+    2, 4, 8, 16 up to Nw with every block on an SM and, given
+    ``max_clusters``, every unit's cluster running at once."""
+    units = R // n_replicas if n_replicas else plateau_groups(R)
+    return _cluster_size(units * B, sm_count, _word_sizes(N), max_clusters)
+
+
+# The fixed part of a K2 block's shared memory, ints (HEAD_INTS and
+# WORK_INTS in csrc/popcount.cu): best energies and flags, per-warp and
+# per-block energy shares, and the word ranges' partial counts.
+_POPCOUNT_FIXED_INTS = (2 * MAX_RING + MAX_RING * (_THREADS // 32) + 2 * _MAX_CS * MAX_RING
+                        + _THREADS * PLATEAU_GROUP)
+
+
+def _popcount_smem(N: int, nb: int, unit_trials: int, cs: int, resident: bool) -> int:
+    """Shared memory of one K2 block (csrc/popcount.cu's Layout): the fixed
+    part, the unit's spin words [Nw][RS] double-buffered (RS: the trials
+    rounded up to a group), the best words of the block's slice and, when
+    ``resident``, the slice's planes [1+nb][Nw][32·nwq] and its Itanh and
+    four lane words per trial and column."""
+    nw = packed_words(N)
+    nwq = -(-nw // cs)
+    rs = -(-unit_trials // PLATEAU_GROUP) * PLATEAU_GROUP
+    ints = _POPCOUNT_FIXED_INTS + 2 * nw * rs + -(-unit_trials * nwq // 4) * 4
+    if resident:
+        ints += (1 + nb) * nw * 32 * nwq + 5 * unit_trials * 32 * nwq
+    return 4 * ints
+
+
+def _popcount_resident(N: int, nb: int, unit_trials: int, cs: int) -> bool:
+    """Whether a K2 block holds its planes and state in shared memory for
+    the whole chain: where they fit, chosen by size."""
+    return _popcount_smem(N, nb, unit_trials, cs, True) <= _MAX_SMEM
 
 
 def _k3_splits(R: int, N: int, sm_count: int, max_clusters=None) -> int:
@@ -578,6 +621,7 @@ def ssa_plateau_popcount_batched(
     n_rnd: int = 2,
     jperp_sched: Optional[torch.Tensor] = None,  # (C,) int32 per-cycle J⊥
     n_replicas: int = 0,
+    cluster_size: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """K2: a plateau chain of C = ``len(i0_sched)`` cycles for B problems ×
     R trials, one launch, with the XNOR-popcount field.
@@ -587,12 +631,23 @@ def ssa_plateau_popcount_batched(
     :func:`repro_torch.core.engine.plateau_cycle_schedules`.  Replaces
     ``repro/kernels/ssa_update.py:ssa_plateau_popcount_batched``
     (``_plateau_popcount_kernel``), in both its modes: without
-    ``jperp_sched`` the classical kernel (2 trials per block), with it the
-    SSQA ring-mode kernel (one block per ring of ``n_replicas`` trials),
-    which adds ``jperp_sched[c] · (m[k-1] + m[k+1])`` to the update of
-    cycle c.  As in the JAX package, ``n_replicas`` without
-    ``jperp_sched`` runs the classical kernel, and ``jperp_sched`` without
-    ``n_replicas`` raises ValueError.
+    ``jperp_sched`` the classical kernel, with it the SSQA ring-mode
+    kernel, which adds ``jperp_sched[c] · (m[k-1] + m[k+1])`` over rings of
+    ``n_replicas`` consecutive trials to the update of cycle c.  As in the
+    JAX package, ``n_replicas`` without ``jperp_sched`` runs the classical
+    kernel, and ``jperp_sched`` without ``n_replicas`` raises ValueError.
+
+    The classical kernel runs each group of PLATEAU_GROUP trials, the ring
+    mode each ring, as one thread-block cluster of
+    :func:`popcount_cluster_size` blocks that split the field rows;
+    ``cluster_size`` forces that size, for tests and measurement (any of 1,
+    2, 4, 8, 16 up to the word count of N; checked, then ignored, on the
+    CPU).  Where a block's slice of the planes and its state fit its shared
+    memory (:func:`_popcount_resident`) they stay there for the whole
+    chain; otherwise the same loop reads them from global memory.  The
+    size, block count and residency of the last launch are kept in
+    ``ssa_plateau_popcount_batched.last_cluster`` as (cs, blocks,
+    resident).
 
     ``sign`` and ``mags`` may be in any memory layout; planes not already
     stored [Nw][N] (see :func:`popcount_planes`) are copied to it for the
@@ -615,6 +670,8 @@ def ssa_plateau_popcount_batched(
         n_replicas = int(n_replicas)
         _check_ring(itanh.shape[1], n_replicas, "ssa_plateau_popcount")
         _device_of(jperp_sched, itanh)
+    if cluster_size is not None:
+        _check_cluster_size(cluster_size, itanh.shape[2])
     if dev.type == "cpu":
         return ssa_plateau_popcount_ref(*args, n_rnd=n_rnd, jperp_sched=jperp_sched,
                                         n_replicas=n_replicas)
@@ -637,48 +694,55 @@ def ssa_plateau_popcount_batched(
         raise ValueError("mags: need at least one magnitude plane")
     if n_replicas:
         _check("jperp_sched", jperp_sched, (C,), i32)
-        # The ring's words [Nw][R], double-buffered, and its best words.
-        _check_smem(f"K2's ring mode at N={N}", 4 * 3 * nw * n_replicas)
+    unit = n_replicas or PLATEAU_GROUP  # trials per cluster
+    if cluster_size is None:
+        def fits(c):  # clusters of c blocks the card runs at once
+            res = _popcount_resident(N, nb, unit, c)
+            if _popcount_smem(N, nb, unit, c, res) > _MAX_SMEM:
+                return 0
+            return _max_clusters(dev, "popcount", "repro_popcount_max_clusters",
+                                 N, n_replicas, nb, c, int(res))
+        cs = _cached(("popcount", dev.index, B, R, N, nb, n_replicas), lambda: (
+            popcount_cluster_size(R, B, N, _sm_count(dev), fits, n_replicas)))
     else:
-        _check_smem(f"K2 at N={N}", _POPCOUNT_TRIALS_PER_BLOCK * 4 * 3 * nw)
+        cs = int(cluster_size)
+    resident = _popcount_resident(N, nb, unit, cs)
+    mode = " ring mode" if n_replicas else ""
+    _check_smem(f"K2's{mode} block at N={N}, nb={nb}, clusters of {cs}",
+                _popcount_smem(N, nb, unit, cs, resident))
     outs = tuple(torch.empty_like(t) for t in
                  (m_packed, itanh, rng, best_H, best_m_packed))
     if B == 0 or R == 0:
         return outs
-    # The kernel reads each plane transposed, [Nw][N]: thread j owns row j,
-    # and a warp's loads of one word index fall on consecutive addresses.
-    # No copy when the planes come from popcount_planes.
+    # The kernel reads each plane transposed, [Nw][N]: a warp's loads of one
+    # word index fall on consecutive addresses.  No copy when the planes
+    # come from popcount_planes.
     sign_t = sign.transpose(1, 2).contiguous()
     mags_t = mags.transpose(2, 3).contiguous()
     mp_o, it_o, rng_o, bh_o, bmp_o = outs
+    ptrs = (m_packed.data_ptr(), itanh.data_ptr(), sign_t.data_ptr(), mags_t.data_ptr(),
+            base.data_ptr(), h.data_ptr(), rng.data_ptr(), i0_sched.data_ptr())
+    tail = (fold_sched.data_ptr(), best_H.data_ptr(), best_m_packed.data_ptr(),
+            mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(), bh_o.data_ptr(),
+            bmp_o.data_ptr(), B, R, N, nb, C, int(n_rnd))
+    what = f"ssa_plateau_popcount{mode} (clusters of {cs} blocks, N={N})"
     if n_replicas:
         fn, lib = _entry("popcount", "repro_ssa_plateau_popcount_ring")
-        _launch(
-            fn, lib, "ssa_plateau_popcount (ring mode)", dev,
-            m_packed.data_ptr(), itanh.data_ptr(), sign_t.data_ptr(), mags_t.data_ptr(),
-            base.data_ptr(), h.data_ptr(), rng.data_ptr(), i0_sched.data_ptr(),
-            jperp_sched.data_ptr(), fold_sched.data_ptr(), best_H.data_ptr(),
-            best_m_packed.data_ptr(), mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(),
-            bh_o.data_ptr(), bmp_o.data_ptr(), B, R, N, nb, C, int(n_rnd), n_replicas,
-        )
-        ssa_plateau_popcount_batched.launches += 1
+        _launch(fn, lib, what, dev, *ptrs, jperp_sched.data_ptr(), *tail, n_replicas, cs,
+                int(resident))
         ssa_plateau_popcount_batched.ring_launches += 1
-        return outs
-    fn, lib = _entry("popcount", "repro_ssa_plateau_popcount")
-    _launch(
-        fn, lib, "ssa_plateau_popcount", dev,
-        m_packed.data_ptr(), itanh.data_ptr(), sign_t.data_ptr(), mags_t.data_ptr(),
-        base.data_ptr(), h.data_ptr(), rng.data_ptr(), i0_sched.data_ptr(),
-        fold_sched.data_ptr(), best_H.data_ptr(), best_m_packed.data_ptr(),
-        mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(), bh_o.data_ptr(),
-        bmp_o.data_ptr(), B, R, N, nb, C, int(n_rnd),
-    )
+    else:
+        fn, lib = _entry("popcount", "repro_ssa_plateau_popcount")
+        _launch(fn, lib, what, dev, *ptrs, *tail, cs, int(resident))
     ssa_plateau_popcount_batched.launches += 1
+    units = R // n_replicas if n_replicas else plateau_groups(R)
+    ssa_plateau_popcount_batched.last_cluster = (cs, units * B * cs, resident)
     return outs
 
 
 ssa_plateau_popcount_batched.launches = 0
 ssa_plateau_popcount_batched.ring_launches = 0
+ssa_plateau_popcount_batched.last_cluster = None
 
 
 def ssa_plateau_popcount(

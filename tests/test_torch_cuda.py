@@ -7,6 +7,8 @@ A CUDA kernel has no CPU or interpret mode, so these tests are marked
 
 This file imports no JAX: the GPU host runs the port alone.
 """
+import itertools
+
 import numpy as np
 import pytest
 
@@ -248,26 +250,65 @@ def _popcount_args(b, r, n, w_max, c, sched, flat, seed, device):
     return {k: v.to(device) for k, v in args.items()}
 
 
+def _check_popcount_launch(b, r, n, nb, cs, nr=0):
+    """K2's last launch: the forced cluster size or the rule's, its block
+    count, and the plane variant the wrapper's size rule picks."""
+    launched_cs, blocks, resident = ssa_update.ssa_plateau_popcount_batched.last_cluster
+    units = r // nr if nr else ssa_update.plateau_groups(r)
+    if cs is None:  # the rule's, at most its choice without the occupancy query
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert launched_cs in ssa_update.CLUSTER_SIZES
+        assert launched_cs <= ssa_update.popcount_cluster_size(r, b, n, sms, None, nr)
+    else:
+        assert launched_cs == cs
+    assert blocks == b * units * launched_cs
+    assert resident is ssa_update._popcount_resident(n, nb, nr or ssa_update.PLATEAU_GROUP,
+                                                     launched_cs)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,r,n,w_max,c,sched,flat", [
-    (1, 100, 2000, 1, 600, "hassa", False),   # K2000, one Table II iteration
-    (1, 100, 800, 1, 600, "hassa", False),    # G11 width
-    (1, 13, 37, 7, 50, "random", False),      # ragged N, 3 magnitude planes
-    (1, 13, 1001, 1, 17, "all", True),        # tied energies, every state folded
-    (1, 7, 800, 1, 40, "random", False),      # I0 and fold changing mid-chain
-    (2, 7, 1001, 3, 9, "random", False),      # B = 2, 2 planes
+@pytest.mark.parametrize("b,r,n,w_max,c,sched,flat,cs", [
+    (1, 100, 2000, 1, 600, "hassa", False, None),   # K2000, one Table II iteration
+    (1, 100, 800, 1, 600, "hassa", False, None),    # G11 width
+    (1, 13, 37, 7, 50, "random", False, None),      # ragged N, 3 magnitude planes
+    (1, 13, 1001, 1, 17, "all", True, None),        # tied energies, every state folded
+    (1, 7, 800, 1, 40, "random", False, None),      # I0 and fold changing mid-chain
+    (2, 7, 1001, 3, 9, "random", False, None),      # B = 2, 2 planes
+    (1, 3, 2000, 1, 30, "random", False, None),     # below one group of 8
+    (1, 13, 4100, 7, 6, "random", False, None),     # streamed planes: 4 planes of 129 words
+    (2, 100, 2000, 1, 20, "random", False, None),   # B = 2: 26 groups
+] + [(1, 100, 2000, 1, 40, "random", False, cs)     # every cluster size, a ragged last group
+     for cs in (1, 2, 4, 8, 16)] + [
+    (1, 13, 1001, 1, 30, "all", True, 16),          # tied energies across 16 blocks
+    (1, 13, 37, 7, 20, "random", False, 2),         # two words over two blocks
 ])
-def test_popcount_chain_kernel_matches_plain(cuda_device, b, r, n, w_max, c, sched, flat):
+def test_popcount_chain_kernel_matches_plain(cuda_device, b, r, n, w_max, c, sched, flat, cs):
+    """K2's classical kernel: a cluster per group of 8 trials at the rule's
+    size and forced ones, planes resident where they fit and streamed where
+    they do not."""
     args = _popcount_args(b, r, n, w_max, c, sched, flat, seed=n + c, device=cuda_device)
     want = ssa_plateau_popcount_ref(**args, n_rnd=2)
     # The planes as packed, then in K2's layout (the cuda backend's).
     laid_out = ssa_update.popcount_planes(PackedJ(args["sign"], args["mags"], args["base"]))
     for x in (args, dict(args, sign=laid_out.sign, mags=laid_out.mags)):
         before = ssa_update.ssa_plateau_popcount_batched.launches
-        got = ssa_update.ssa_plateau_popcount_batched(**x, n_rnd=2)
+        got = ssa_update.ssa_plateau_popcount_batched(**x, n_rnd=2, cluster_size=cs)
         assert ssa_update.ssa_plateau_popcount_batched.launches == before + 1
+        _check_popcount_launch(b, r, n, args["mags"].shape[1], cs)
         for name, g, w in zip(OUTS, got, want):
             assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_popcount_smem_layout_matches_kernel(cuda_device):
+    """The kernel's shared-memory layout (repro_popcount_smem) is the one the
+    wrapper sizes and picks the plane variant by."""
+    fn, _ = ssa_update._entry("popcount", "repro_popcount_smem")
+    for n, nb, unit, cs, res in itertools.product((1, 37, 800, 2000, 4100), (1, 2, 3),
+                                                  (2, 8, 16, 32), ssa_update.CLUSTER_SIZES,
+                                                  (False, True)):
+        want = ssa_update._popcount_smem(n, nb, unit, cs, res)
+        assert fn(n, nb, unit if unit != 8 else 0, cs, int(res)) == want
 
 
 @pytest.mark.cuda
@@ -327,11 +368,18 @@ def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, cs
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,r,n,w_max,c,nr", [
-    (1, 8, 37, 7, 30, 4), (1, 6, 100, 1, 40, 2), (2, 9, 1001, 3, 9, 3),
-    (1, 32, 800, 1, 20, 16), (1, 32, 64, 1, 12, 32), (1, 96, 2000, 1, 60, 8),
-])
-def test_popcount_ring_kernel_matches_plain(cuda_device, b, r, n, w_max, c, nr):
+@pytest.mark.parametrize("b,r,n,w_max,c,nr,cs", [
+    (1, 8, 37, 7, 30, 4, None), (1, 6, 100, 1, 40, 2, None), (2, 9, 1001, 3, 9, 3, None),
+    (1, 32, 800, 1, 20, 16, None), (1, 32, 64, 1, 12, 32, None), (1, 96, 2000, 1, 60, 8, None),
+    (1, 96, 2000, 1, 30, 16, None),   # rings of 16: two passes a cycle
+    (1, 100, 2000, 1, 20, 10, None),  # rings of 10: a ragged second pass
+    (1, 100, 2000, 1, 20, 4, None),   # 25 rings of 4: streamed planes
+    (1, 3, 2000, 1, 20, 3, None),     # one ring below a group of 8
+    (1, 32, 2000, 1, 12, 32, 8),      # rings of 32 in clusters of 8: streamed
+    (2, 16, 4100, 7, 6, 8, None),     # streamed planes: 4 planes of 129 words
+] + [(1, 96, 2000, 1, 20, nr, cs)    # every cluster size at rings of 8 and 16
+     for nr in (8, 16) for cs in (1, 2, 4, 8, 16)])
+def test_popcount_ring_kernel_matches_plain(cuda_device, b, r, n, w_max, c, nr, cs):
     args = _popcount_args(b, r, n, w_max, c, "random", False, seed=n + c + nr,
                           device=cuda_device)
     jperp = torch.as_tensor(np.random.default_rng(c).integers(0, 6, c), dtype=torch.int32,
@@ -341,8 +389,9 @@ def test_popcount_ring_kernel_matches_plain(cuda_device, b, r, n, w_max, c, nr):
     for x in (args, dict(args, sign=laid_out.sign, mags=laid_out.mags)):
         before = ssa_update.ssa_plateau_popcount_batched.ring_launches
         got = ssa_update.ssa_plateau_popcount_batched(**x, n_rnd=2, jperp_sched=jperp,
-                                                      n_replicas=nr)
+                                                      n_replicas=nr, cluster_size=cs)
         assert ssa_update.ssa_plateau_popcount_batched.ring_launches == before + 1
+        _check_popcount_launch(b, r, n, args["mags"].shape[1], cs, nr)
         for name, g, w in zip(OUTS, got, want):
             assert torch.equal(g, w), name
 
