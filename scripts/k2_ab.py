@@ -12,7 +12,11 @@ and prints one JSON line: the mean device time in ms of K2 at the popcount
 path's shape (K2000: R = 100, N = 2000, nb = 1, one Table II iteration of
 C = 600) and of its ring mode at SSQA's (96 trials in rings of 8, and of
 16), by CUDA events around calls issued from Python (``chip_smoke.
-_time_ms``).  The card's name and power limit come first.
+_time_ms``), then the wall in s of three ``anneal()`` calls, set-up
+included, after a warm-up call, in the two cells that run K2 (the K2000
+twin at Table II's widths, 10 iterations, with ``field_mode='popcount'``,
+and the same with SSQA's 96 trials in rings of 8, J⊥ 0→4), as
+``chip_smoke.py`` times them.  The card's name and power limit come first.
 """
 from __future__ import annotations
 
@@ -50,6 +54,39 @@ def time_checkout(tree: Path) -> dict:
                      fold_sched=torch.tensor(fold, device=dev))
             kw.update(jperp_sched=torch.tensor(jperp, device=dev), n_replicas=ring)
         out[label] = chip_smoke._time_ms(lambda: k2(**x, **kw), reps=10)
+    out.update(cell_walls())
+    return out
+
+
+def cell_walls() -> dict:
+    import dataclasses
+    import time
+
+    import torch
+
+    import chip_smoke
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.ssa import SSAHyperParams, anneal
+    from repro_torch.core.ssqa import SSQAHyperParams
+
+    p = gset.load("K2000")
+    cfg = SolverConfig(backend="cuda", field_mode="popcount", noise="xorshift")
+    widths = dict(m_shot=chip_smoke.M_SHOT_PRODUCTION, tau=100, i0_min=1, i0_max=32)
+    out = {}
+    for label, hp in (("popcount wall s", SSAHyperParams(n_trials=100, **widths)),
+                      ("SSQA popcount wall s", SSQAHyperParams(
+                          n_trials=chip_smoke.SSQA_TRIALS, n_replicas=chip_smoke.SSQA_RING,
+                          jperp_max=chip_smoke.SSQA_JPERP_MAX, **widths))):
+        kw = dict(config=cfg, seed=0, record="best", track_energy=False, device="cuda")
+        anneal(p, dataclasses.replace(hp, m_shot=1), **kw)  # warm-up
+        walls = []
+        for _ in range(3):
+            t0 = time.time()
+            anneal(p, hp, **kw)
+            torch.cuda.synchronize()
+            walls.append(round(time.time() - t0, 3))
+        out[label] = walls
     return out
 
 
