@@ -31,12 +31,13 @@
 // popcount pipe is the scarce unit: per word and trial a thread issues one
 // LOP3 (XNOR-AND), one POPC and one add, and POPC issues at a quarter of
 // the other two's rate.  Measured on an H100 80GB HBM3 at 700 W
-// (scripts/k2_ab.py): 4.13 ms at K2000 in clusters of 8 (13 groups, 104
-// blocks; PR 16's one block per 2 trials took 9.32), 2.3x the bound; the
-// ring mode 4.25 ms at 96 trials in rings of 8 (96 blocks; one block per
-// ring took 30.57) and 5.25 ms in rings of 16 (60.3).  The popcount loop
-// runs near the POPC rate of the 104 SMs it has; the rest is the update and
-// the cluster barrier of each of the 601 cycles (scripts/k2_parts.py).
+// (src/repro_torch/scripts/k2_ab.py): 4.13 ms at K2000 in clusters of 8
+// (13 groups, 104 blocks; the earlier design, one block per 2 trials, took
+// 9.32), 2.3x the bound; the ring mode 4.25 ms at 96 trials in rings of 8
+// (96 blocks; one block per ring took 30.57) and 5.25 ms in rings of 16
+// (60.3).  The popcount loop runs near the POPC rate of the 104 SMs it
+// has; the rest is the update and the cluster barrier of each of the 601
+// cycles (src/repro_torch/scripts/k2_parts.py).
 //
 // Design.  Every cycle needs all N fields of a trial before the next, so a
 // unit of trials (a group of GROUP = 8 trials in the classical mode, the

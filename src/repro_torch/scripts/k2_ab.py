@@ -2,7 +2,7 @@
 card in turns (other, this, this, other), each turn in a fresh process
 that imports only its own checkout's port.
 
-    python3 scripts/k2_ab.py OTHER_CHECKOUT    # needs one CUDA GPU and nvcc
+    python3 src/repro_torch/scripts/k2_ab.py OTHER_CHECKOUT    # needs one CUDA GPU and nvcc
 
 OTHER_CHECKOUT is a directory holding another commit of the repository
 (``git archive <commit> | tar -x -C DIR``), for example the parent of a
@@ -25,7 +25,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+ROOT = Path(__file__).resolve().parents[3]
 # (label, trials, ring size; 0 = the classical kernel)
 SHAPES = (("K2", 100, 0), ("K2 ring 8", 96, 8), ("K2 ring 16", 96, 16))
 N, C = 2000, 600

@@ -1,7 +1,7 @@
 """Where K2's time goes: ``csrc/popcount.cu`` rebuilt with one part of its
 cycle dropped, each copy timed at the popcount path's shapes on one card.
 
-    python3 scripts/k2_parts.py    # needs one CUDA GPU and nvcc
+    python3 src/repro_torch/scripts/k2_parts.py    # needs one CUDA GPU and nvcc
 
 Copies (the outputs of all but ``full`` are wrong; only their time is read):
 
@@ -26,7 +26,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+ROOT = Path(__file__).resolve().parents[3]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 BARRIER = ("cluster.sync();  // cycle c+1's words", "__syncthreads();  // cycle c+1's words")
