@@ -45,11 +45,12 @@ Phases (any failure raises and exits non-zero):
      G11 width, a ragged N with 3 magnitude planes, a tied-energy shape
      with every state folded, I0 and fold changing mid-chain, B = 2, R = 3
      (below one group of 8), N = 4100 with 3 planes (the streamed-plane
-     variant) and forced cluster sizes 1 (streamed) and 16; each line names
-     the cluster size, block count and whether the planes were resident;
-     the shared-memory layout of the kernel == the wrapper's; kernel and
-     plain times and the bound; ``[K2 sweep]``: K2's time at each cluster
-     size up to Nw (the outputs must not change);
+     variant), forced cluster sizes 1 (streamed) and 16, N = 70001 in
+     clusters of 1 (streamed, near its limit) and N = 120000 (the spin
+     words in global memory too; random planes); each line names the
+     cluster size, block count and block variant; kernel and plain times
+     and the bound; ``[K2 sweep]``: K2's time at each cluster size up to Nw
+     (the outputs must not change), and at B = 2 and 4 (26 and 52 groups);
  12. popcount path: anneal(K2000 and G11, field_mode='popcount') — K2
      launched m_shot times (one per iteration's chain), K1, K3 and K4
      never; best_H and best_m == the K1 run with the same seed; no dense J
@@ -62,8 +63,9 @@ Phases (any failure raises and exits non-zero):
      bound, kernel times at rings of 2 and 16 and at smaller clusters;
  14. K2's SSQA ring mode == its plain version at K2000 width, 96 trials,
      rings of 8, one Table II iteration (C=600) with the ssqa_schedule J⊥
-     ramp, rings of 16, B = 2, and forced cluster sizes 1 and 16; each line
-     names the cluster size, block count and residency; kernel and plain
+     ramp, rings of 16, B = 2, forced cluster sizes 1 and 16, and N =
+     30000 in rings of 32 (spin words in global memory); each line names
+     the cluster size, block count and block variant; kernel and plain
      times and the bound, kernel times at rings of 2 and 16; ``[K2 ring
      sweep]``: the time at each cluster size, rings of 8 and 16;
  15. SSQA path: anneal_ssqa(K2000, 96 trials, rings of 8, J⊥max 4, tau=100,
@@ -84,7 +86,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import itertools
 import json
 import subprocess
 import sys
@@ -598,13 +599,40 @@ def phase_memory():
     return out
 
 
+def _random_planes(rs, B, N, dev):
+    """Bitplanes of B couplings too wide for a dense J on the host: a random
+    sign plane and one magnitude plane (about one coupling in 16), drawn on
+    the card from a seed of ``rs``, tail bits 0, and base = -Σ_j |J_ij|, so
+    the field is h + m·J of J_ij = ±mags_ij.  J is not symmetric, but its
+    couplings come in pairs of neighbouring columns, so every row's Σ_j
+    |J_ij| is even and the energy stays an integer, as a symmetric J's."""
+    from repro_torch.kernels.bitplane import PackedJ, packed_words, popcount_u32
+
+    nw = packed_words(N)
+    gen = torch.Generator(device=dev).manual_seed(int(rs.integers(2**31)))
+    mask = torch.full((nw,), -1, dtype=torch.int32, device=dev)
+    if N % 32:
+        mask[-1] = (1 << (N % 32 & ~1)) - 1  # whole pairs of columns only
+
+    def words():
+        return torch.randint(-2**31, 2**31, (B, N, nw), generator=gen, dtype=torch.int32,
+                             device=dev)
+
+    sign = words() & mask
+    pairs = words() & words() & words() & words() & 0x55555555 & mask
+    mags = (pairs | pairs << 1)[:, None]
+    base = -popcount_u32(mags[:, 0]).sum(-1, dtype=torch.int32)
+    return PackedJ(sign, mags, base)
+
+
 def _popcount_inputs(rs, B, R, N, w_max, C, dev, sched="hassa", flat=False):
     """Random K2 inputs from a numpy generator: B symmetric couplings in
-    [-w_max, w_max] packed to one plane count, their planes in K2's layout
-    as the cuda backend holds them; ``flat`` zeroes J and h (every energy
-    ties); ``sched`` 'hassa' tiles the Table II chain (I0 1→32, τ = 100) to
-    C cycles, 'random' draws I0 and fold per cycle, 'all' folds every
-    state."""
+    [-w_max, w_max] packed to one plane count (``w_max`` 0: the random
+    planes of :func:`_random_planes`, for widths no dense J fits), their
+    planes in K2's layout as the cuda backend holds them; ``flat`` zeroes J
+    and h (every energy ties); ``sched`` 'hassa' tiles the Table II chain
+    (I0 1→32, τ = 100) to C cycles, 'random' draws I0 and fold per cycle,
+    'all' folds every state."""
     import numpy as np
 
     from repro_torch.core.engine import plateau_cycle_schedules, schedule_plateaus, tile_plateaus
@@ -615,9 +643,11 @@ def _popcount_inputs(rs, B, R, N, w_max, C, dev, sched="hassa", flat=False):
 
     nb = max(1, w_max.bit_length())
     pjs = []
-    for _ in range(B):
+    for _ in range(B if w_max else 0):
         J = np.triu(rs.integers(-w_max, w_max + 1, (N, N)), 1) * (not flat)
         pjs.append(pack_couplings(J + J.T, nb, device=dev))
+    planes = PackedJ(*(torch.stack(a) for a in zip(*pjs))) if w_max else _random_planes(
+        rs, B, N, dev)
     if sched == "hassa":
         plateaus = schedule_plateaus(SSAHyperParams(tau=100, i0_min=1, i0_max=32).schedule())
         i0, fold, _ = plateau_cycle_schedules(tile_plateaus(plateaus, C))
@@ -627,7 +657,7 @@ def _popcount_inputs(rs, B, R, N, w_max, C, dev, sched="hassa", flat=False):
                 else np.ones(C + 1, np.int64)).astype(np.int32)
     spins = torch.from_numpy(rs.choice([-1, 1], (2, B, R, N)).astype(np.int8)).to(dev)
     i32 = functools.partial(torch.tensor, dtype=torch.int32, device=dev)
-    sign, mags, base = popcount_planes(PackedJ(*(torch.stack(a) for a in zip(*pjs))))
+    sign, mags, base = popcount_planes(planes)
     return dict(
         m_packed=pack_spins(spins[0]),
         itanh=i32(rs.integers(-8, 8, (B, R, N))),
@@ -645,11 +675,13 @@ def _popcount_inputs(rs, B, R, N, w_max, C, dev, sched="hassa", flat=False):
 
 
 def _k2_launch(k2, forced=None) -> str:
-    """The cluster size, block count and plane residency of K2's last
-    launch, as the phase 11 and 14 lines print them."""
-    cs, blocks, resident = k2.last_cluster
-    return (f"cluster size {cs} ({'forced' if forced else 'chosen'}), {blocks} blocks, "
-            f"planes {'resident' if resident else 'streamed'}")
+    """The cluster size, block count and block variant of K2's last launch,
+    as the phase 11 and 14 lines print them: planes resident, streamed, or
+    streamed with the spin words in global memory."""
+    cs, blocks, variant = k2.last_cluster
+    what = {"resident": "planes resident", "streamed": "planes streamed",
+            "global": "planes and spin words in global memory"}[variant]
+    return f"cluster size {cs} ({'forced' if forced else 'chosen'}), {blocks} blocks, {what}"
 
 
 def _k2_check(k2, ref, x, kw, what, cs=None) -> int:
@@ -675,6 +707,7 @@ def _k2_sweep(name, k2, x, kw):
     from repro_torch.kernels import ssa_update
 
     want = k2(**x, **kw)
+    print(f"[{name} sweep] the rule's choice: {_k2_launch(k2)}")
     for cs in ssa_update._word_sizes(x["itanh"].shape[-1]):
         if not all(torch.equal(a, b) for a, b in zip(k2(**x, **kw, cluster_size=cs), want)):
             _fail(f"{name} output depends on the cluster size ({cs})")
@@ -698,7 +731,9 @@ def phase_k2(dev):
              (1, 7, 800, 1, 40, "random", False, None), (2, 7, 1001, 3, 9, "random", False, None),
              (1, 3, 2000, 1, 30, "random", False, None), (1, 13, 4100, 7, 5, "random", False, None),
              (1, 100, 2000, 1, 60, "random", False, 1),
-             (1, 100, 2000, 1, 60, "random", False, cs_max)]
+             (1, 100, 2000, 1, 60, "random", False, cs_max),
+             (1, 2, 120000, 0, 3, "random", False, None),
+             (1, 3, 70001, 0, 2, "all", False, 1)]
     for B, R, N, w_max, C, sched, flat, cs in cases:
         x = _popcount_inputs(rs, B, R, N, w_max, C, dev, sched, flat)
         what = f"K2 at B={B} R={R} N={N} w_max={w_max} C={C} sched={sched} flat={flat}"
@@ -712,15 +747,6 @@ def phase_k2(dev):
                                  what + " planes packed", cs))
         print(f"[K2] B={B} R={R} N={N} nb={x['mags'].shape[1]} C={C} sched={sched} "
               f"flat={flat}: {launched}: all five outputs equal, planes laid out and packed")
-    # The kernel's shared-memory layout is the wrapper's (which picks the
-    # variant and checks the size).
-    fn, _ = ssa_update._entry("popcount", "repro_popcount_smem")
-    for N, nb, unit, cs, res in itertools.product((37, 800, 2000, 4100), (1, 3), (8, 16, 32),
-                                                  ssa_update.CLUSTER_SIZES, (0, 1)):
-        if fn(N, nb, unit if unit > 8 else 0, cs, res) != ssa_update._popcount_smem(
-                N, nb, unit, cs, bool(res)):
-            _fail(f"K2's shared memory at N={N} nb={nb} unit={unit} cs={cs} resident={res} "
-                  "differs between the kernel and the wrapper")
     # Timing at the main path's shape: K2000, 100 trials, one Table II
     # iteration (6 plateaus of tau = 100) per launch, planes laid out as the
     # backend holds them.
@@ -738,11 +764,17 @@ def phase_k2(dev):
     print(f"[K2] R={R} N={N} nb={nb} C={C}: {launched}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {R * N * nw * nb * fields:.4e} "
           "popcounts)")
-    fits = {cs: ssa_update._max_clusters(dev, "popcount", "repro_popcount_max_clusters", N, 0,
-                                         nb, cs, int(ssa_update._popcount_resident(N, nb, 8, cs)))
-            for cs in ssa_update.CLUSTER_SIZES}
+    fits = {}
+    for cs in ssa_update.CLUSTER_SIZES:
+        v = ssa_update.popcount_variant(lambda v: ssa_update._popcount_smem(N, nb, 0, cs, v))
+        fits[f"{cs} ({v})"] = ssa_update._max_clusters(
+            dev, "popcount", "repro_popcount_max_clusters", N, 0, nb, cs,
+            ssa_update.POPCOUNT_VARIANTS.index(v))
     print(f"[K2] N={N}: clusters the card runs at once, by size: {fits}")
     _k2_sweep("K2", k2, x, dict(n_rnd=2))
+    # B problems' groups together: the rule's choice against every size.
+    for B in (2, 4):
+        _k2_sweep(f"K2 B={B}", k2, _popcount_inputs(rs, B, R, N, 1, C, dev), dict(n_rnd=2))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
 
@@ -892,7 +924,8 @@ def phase_k2_ring(dev):
             (1, SSQA_TRIALS, 2000, 1, 60, 10, 16, None), (1, 32, 2000, 1, 30, 10, 32, None),
             (1, SSQA_TRIALS, 2000, 1, 60, 10, SSQA_RING, 1),
             (1, SSQA_TRIALS, 2000, 1, 60, 10, SSQA_RING, cs_max),
-            (1, 16, 2000, 1, 60, 10, 16, 1), (1, 16, 2000, 1, 60, 10, 16, cs_max)):
+            (1, 16, 2000, 1, 60, 10, 16, 1), (1, 16, 2000, 1, 60, 10, 16, cs_max),
+            (1, 32, 30000, 0, 3, 1, 32, None)):
         x = _popcount_inputs(rs, B, R, N, w_max, C, dev)
         i0, fold, jperp = _ssqa_chain(C, tau)
         x.update(i0_sched=torch.tensor(i0, device=dev), fold_sched=torch.tensor(fold, device=dev))

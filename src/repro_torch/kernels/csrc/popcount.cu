@@ -31,13 +31,13 @@
 // popcount pipe is the scarce unit: per word and trial a thread issues one
 // LOP3 (XNOR-AND), one POPC and one add, and POPC issues at a quarter of
 // the other two's rate.  Measured on an H100 80GB HBM3 at 700 W
-// (src/repro_torch/scripts/k2_ab.py): 4.13 ms at K2000 in clusters of 8
-// (13 groups, 104 blocks; the earlier design, one block per 2 trials, took
-// 9.32), 2.3x the bound; the ring mode 4.25 ms at 96 trials in rings of 8
-// (96 blocks; one block per ring took 30.57) and 5.25 ms in rings of 16
+// (chip_smoke.py; ab_time.py against the earlier design, one block per 2
+// trials): 4.1 ms at K2000 in clusters of 8 (13 groups, 104 blocks;
+// earlier 9.3), 2.3x the bound; the ring mode 4.3 ms at 96 trials in rings
+// of 8 (96 blocks; one block per ring took 30.6) and 5.3 ms in rings of 16
 // (60.3).  The popcount loop runs near the POPC rate of the 104 SMs it
 // has; the rest is the update and the cluster barrier of each of the 601
-// cycles (src/repro_torch/scripts/k2_parts.py).
+// cycles (PERF.md).
 //
 // Design.  Every cycle needs all N fields of a trial before the next, so a
 // unit of trials (a group of GROUP = 8 trials in the classical mode, the
@@ -56,18 +56,24 @@
 //   bytes into every peer's next buffer through distributed shared memory;
 //   cluster.sync() closes the cycle, and nothing of cycle c+1 is visible
 //   before it.  In cycle c+1 a peer writes only its own words of my old
-//   buffer, which my fold of cycle c does not read.
-// - Resident variant (RES): the block's slice of the planes, [1+nb][Nw]
-//   [32*nwq] (129 KB at K2000 in clusters of 8), and the Itanh and four lane
-//   words of its columns (20 B per trial and column) are copied into shared
-//   memory once, in the prologue (cp.async), and the state is written back
-//   once, in the epilogue: the chain touches no global memory but the
-//   schedules.  Where they do not fit one block (CS <= 4 at K2000, large
-//   N*nb, rings of 32), the streamed variant runs the same loop with the
-//   planes read from global memory ([Nw][N] per plane, so a warp's loads of
-//   word w fall on 128 consecutive bytes) and the state in the output
-//   tensors, updated in place each cycle.  The wrapper picks the variant by
-//   size (ssa_update._popcount_smem), never on failure.
+//   buffer, which my fold of cycle c does not read; my fold's copy of my
+//   own words ends in a block barrier before my warps overwrite them.
+// - Three variants of the block, by what fits its shared memory (the
+//   wrapper takes the first that fits, by repro_popcount_smem, never on
+//   failure).  RESIDENT: the block's slice of the planes, [1+nb][Nw]
+//   [32*nwq] (129 KB at K2000 in clusters of 8), and the Itanh and four
+//   lane words of its columns (20 B per trial and column) are copied into
+//   shared memory once, in the prologue (cp.async), and the state is
+//   written back once, in the epilogue: the chain touches no global memory
+//   but the schedules.  STREAMED (CS <= 4 at K2000, large N*nb, rings of
+//   32): the same loop with the planes read from global memory ([Nw][N]
+//   per plane, so a warp's loads of word w fall on 128 consecutive bytes)
+//   and the state in the output tensors, updated in place each cycle.
+//   GLOBAL (where even the unit's words do not fit: above ~70,000 spins for
+//   a group of 8): the unit's words too live in global memory, one copy
+//   per cluster, read through L2 (ld.global.cg) after the barrier, and the
+//   best words in the output; shared memory holds only the fixed part, so
+//   N is bounded by the device's memory alone.
 // - Inside a block, THREADS threads own one column each (CT column threads,
 //   a power of two covering the widest slice) and split the words into
 //   THREADS / CT ranges when the slice is narrower than the block; the
@@ -103,6 +109,14 @@ static_assert(RING_G == GROUP, "a ring pass is one group of trials");
 constexpr int HEAD_INTS = 2 * MAX_RING + MAX_RING * WARPS + 2 * MAX_CS * MAX_RING;
 constexpr int WORK_INTS = THREADS * GROUP;
 
+// What a block keeps in shared memory, most first; the wrapper takes the
+// first that fits (ssa_update.POPCOUNT_VARIANTS, in this order).
+enum Variant : int {
+  RESIDENT = 0,  // the unit's words, the slice's best words, planes and state
+  STREAMED = 1,  // the unit's words and the slice's best words
+  GLOBAL = 2,    // neither: the words in ChainArgs::words, the best words in bmp_out
+};
+
 // What the kernel is given.  Pointers start at the tensors' origins.
 struct ChainArgs {
   const uint32_t* mp_in;
@@ -122,6 +136,7 @@ struct ChainArgs {
   uint32_t* rng_out;
   int* bh_out;
   uint32_t* bmp_out;
+  uint32_t* words;  // GLOBAL: the units' words, [B][units][2][Nw][RS]
   int T, N, nb, n_cycles, n_rnd;
   int UT;  // trials per unit: GROUP, or the ring's R
   int CT;  // column threads
@@ -143,8 +158,14 @@ struct Layout {
   __host__ __device__ size_t state(int nb) const {  // Itanh [UT][NC], lanes [4][UT][NC]
     return planes() + (size_t)(1 + nb) * Nw * NC;
   }
-  __host__ __device__ size_t bytes(int nb, bool res) const {
-    return 4 * (res ? state(nb) + 5 * (size_t)UT * NC : planes());
+  __host__ __device__ size_t bytes(int nb, int v) const {
+    return 4 * (v == RESIDENT ? state(nb) + 5 * (size_t)UT * NC
+                : v == STREAMED ? planes()
+                                : spins());
+  }
+  // 32-bit words of ChainArgs::words for `units` units of B problems (GLOBAL).
+  __host__ __device__ size_t global_words(int units, int B) const {
+    return (size_t)B * units * 2 * Nw * RS;
   }
 };
 
@@ -157,19 +178,33 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// A unit's spin words: from shared memory, or (GW) from global memory
+// through L2, where a peer's stores of the last cycle are.
+template <bool GW>
+__device__ __forceinline__ uint32_t ld_word(const uint32_t* p) {
+  if constexpr (GW) return __ldcg(p);
+  return *p;
+}
+
+template <bool GW>
+__device__ __forceinline__ uint4 ld_words4(const uint32_t* p) {
+  if constexpr (GW) return __ldcg(reinterpret_cast<const uint4*>(p));
+  return *reinterpret_cast<const uint4*>(p);
+}
+
 // acc[t] += the popcount field's count of words [wb, we) for trial g + t
 // of column u: sign words at sg[w * pw], magnitude plane p at mg[p * pp +
 // w * pw], the unit's spin words at s[w * RS + g + t].  With NB = 1 the
 // plane loop has a constant trip count and unrolls.
-template <int NB>
+template <int NB, bool GW>
 __device__ __forceinline__ void count_words(int (&acc)[GROUP], const uint32_t* sg,
                                             const uint32_t* mg, size_t pw, size_t pp, int nb,
                                             const uint32_t* s, int RS, int g, int wb, int we) {
 #pragma unroll 4
   for (int w = wb; w < we; ++w) {
     const uint32_t sw = sg[w * pw];
-    const uint4 m0 = *reinterpret_cast<const uint4*>(s + w * RS + g);
-    const uint4 m1 = *reinterpret_cast<const uint4*>(s + w * RS + g + 4);
+    const uint4 m0 = ld_words4<GW>(s + w * RS + g);
+    const uint4 m1 = ld_words4<GW>(s + w * RS + g + 4);
     const uint32_t x[GROUP] = {~(m0.x ^ sw), ~(m0.y ^ sw), ~(m0.z ^ sw), ~(m0.w ^ sw),
                                ~(m1.x ^ sw), ~(m1.y ^ sw), ~(m1.z ^ sw), ~(m1.w ^ sw)};
     for (int p = 0; p < (NB ? NB : nb); ++p) {
@@ -182,9 +217,10 @@ __device__ __forceinline__ void count_words(int (&acc)[GROUP], const uint32_t* s
 
 // The chain of one unit on this block's cluster.  NB is the number of
 // magnitude planes when it is known at compile time (1: every
-// +-1-weight instance), 0 when it is taken from a.nb.
-template <int NB, bool RING, bool RES>
+// +-1-weight instance), 0 when it is taken from a.nb; V the Variant.
+template <int NB, bool RING, int V>
 __device__ __forceinline__ void run_chain(const ChainArgs& a) {
+  constexpr bool RES = V == RESIDENT, GW = V == GLOBAL;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
@@ -201,6 +237,7 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
   const size_t RN = (size_t)a.T * N;
   const size_t row0 = (size_t)b * a.T + t0;
   const size_t lane0 = (size_t)b * 4 * RN + (size_t)t0 * N;
+  const int nwb = sl.nwq;  // this block's words
 
   extern __shared__ __align__(16) uint32_t smem[];
   int* bh_s = reinterpret_cast<int*>(smem);  // [MAX_RING]
@@ -208,9 +245,22 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
   int* eps = better_s + MAX_RING;            // [MAX_RING][WARPS]
   int* part = eps + MAX_RING * WARPS;        // [2][MAX_CS][MAX_RING]
   int* work = part + 2 * MAX_CS * MAX_RING;  // [WORK_INTS]
-  uint32_t* s_cur = smem + L.spins();        // [Nw][RS], bit k = column 32w+k
+  // The unit's words [Nw][RS] (bit k = column 32w+k), double-buffered: a
+  // copy in every block, or (GW) one in global memory for the cluster.
+  // The best words of this block's slice: trial t's at best_w[t * bst].
+  uint32_t* s_cur;
+  uint32_t* best_w;
+  int bst;
+  if (GW) {
+    s_cur = a.words + ((size_t)b * (gridDim.x / CS) + blockIdx.x / CS) * 2 * Nw * RS;
+    best_w = a.bmp_out + row0 * Nw + sl.w_lo;
+    bst = Nw;
+  } else {
+    s_cur = smem + L.spins();
+    best_w = smem + L.best();
+    bst = nwb;
+  }
   uint32_t* s_nxt = s_cur + (size_t)Nw * RS;
-  uint32_t* best_w = smem + L.best();  // [nt][sl.nwq]: the best words of this block's slice
 
   // Where the planes and the state of this block's columns live: shared
   // memory (RES) or global memory.  Column u of the slice is index u.
@@ -243,16 +293,18 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
     ls = RN;
   }
 
-  // Prologue: the unit's words (idle trials 0), this block's best words,
-  // and its columns' planes and state, to shared memory (RES) or the state
-  // copied to the outputs, where the cycles update it.
-  for (int e = tid; e < Nw * RS; e += THREADS) {
-    const int w = e / RS, t = e % RS;
-    s_cur[e] = t < nt ? a.mp_in[(row0 + t) * Nw + w] : 0u;
-    s_nxt[e] = 0u;
+  // Prologue: the unit's words (idle trials 0; GW: this block's words of
+  // the cluster's copy), this block's best words, and its columns' planes
+  // and state, to shared memory (RES) or the state copied to the outputs,
+  // where the cycles update it.
+  const int w_first = GW ? sl.w_lo : 0, n_own = GW ? nwb : Nw;
+  for (int e = tid; e < n_own * RS; e += THREADS) {
+    const int w = w_first + e / RS, t = e % RS;
+    s_cur[w * RS + t] = t < nt ? a.mp_in[(row0 + t) * Nw + w] : 0u;
+    s_nxt[w * RS + t] = 0u;
   }
-  for (int e = tid; e < nt * sl.nwq; e += THREADS)
-    best_w[e] = a.bmp_in[(row0 + e / sl.nwq) * Nw + sl.w_lo + e % sl.nwq];
+  for (int e = tid; e < nt * nwb; e += THREADS)
+    best_w[(e / nwb) * bst + e % nwb] = a.bmp_in[(row0 + e / nwb) * Nw + sl.w_lo + e % nwb];
   if (tid < UT) bh_s[tid] = tid < nt ? a.bh_in[row0 + tid] : 0;
   if (RES) {
     uint32_t* pl = smem + L.planes();
@@ -326,7 +378,7 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
             hj = hb[j];
             cj = hj + bs[j];
           }
-          count_words<NB>(acc, sgn + u, mag + u, pw, pp, nb, s_cur, RS, g, wb, we);
+          count_words<NB, GW>(acc, sgn + u, mag + u, pw, pp, nb, s_cur, RS, g, wb, we);
         }
         if (KG > 1) {  // the word ranges' partial counts meet
 #pragma unroll
@@ -365,7 +417,7 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
             const int k = g + t;  // the trial of the unit
             const int f = cj + 2 * acc[t];
             const bool on = valid && k < nt;
-            if (fold && on) ep[t] += (((wj[k] >> lane) & 1u) ? 1 : -1) * (hj + f);
+            if (fold && on) ep[t] += (((ld_word<GW>(wj + k) >> lane) & 1u) ? 1 : -1) * (hj + f);
             bool up = false;
             if (!last && on) {
               if (RES) load_state(t);
@@ -380,7 +432,8 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
               int coup = 0;
               if (RING) {
                 const int kp = k == 0 ? UT - 1 : k - 1, kn = k == UT - 1 ? 0 : k + 1;
-                coup = (((wj[kp] >> lane) & 1u) ? 1 : -1) + (((wj[kn] >> lane) & 1u) ? 1 : -1);
+                coup = (((ld_word<GW>(wj + kp) >> lane) & 1u) ? 1 : -1) +
+                       (((ld_word<GW>(wj + kn) >> lane) & 1u) ? 1 : -1);
               }
               const int I = min(max(f + jperp * coup + a.n_rnd * r + itv[t], -i0), i0 - 1);
               its[l] = I;
@@ -388,11 +441,19 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
             }
             words[t] = __ballot_sync(0xffffffffu, up);
           }
-          if (!last && lane < CS) {  // the pass's 8 words of this word index, to peer `lane`
+          const uint4 w0 = make_uint4(words[0], words[1], words[2], words[3]);
+          const uint4 w1 = make_uint4(words[4], words[5], words[6], words[7]);
+          if (GW) {  // the pass's 8 words of this word index, to the cluster's copy
+            if (!last && lane == 0) {
+              uint4* dst = reinterpret_cast<uint4*>(s_nxt + (j0 >> 5) * RS + g);
+              __stcg(dst, w0);
+              __stcg(dst + 1, w1);
+            }
+          } else if (!last && lane < CS) {  // ... to peer `lane`
             uint4* dst = reinterpret_cast<uint4*>(
                 cluster.map_shared_rank(s_nxt + (j0 >> 5) * RS + g, lane));
-            dst[0] = make_uint4(words[0], words[1], words[2], words[3]);
-            dst[1] = make_uint4(words[4], words[5], words[6], words[7]);
+            dst[0] = w0;
+            dst[1] = w1;
           }
         }
         if (KG > 1) __syncthreads();  // `work` is free for the next tile
@@ -426,12 +487,17 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
         better_s[lane] = better;
       }
       __syncthreads();
+      bool copied = false;
       for (int t = 0; t < nt; ++t) {
         if (better_s[t]) {
-          for (int w = tid; w < sl.nwq; w += THREADS)
-            best_w[t * sl.nwq + w] = s_cur[(sl.w_lo + w) * RS + t];
+          for (int w = tid; w < nwb; w += THREADS)
+            best_w[t * bst + w] = ld_word<GW>(s_cur + (sl.w_lo + w) * RS + t);
+          copied = true;
         }
       }
+      // Read before cycle c+1's words overwrite this buffer (the same for
+      // every thread: better_s is shared).
+      if (copied) __syncthreads();
     }
     if (!last) {
       uint32_t* tmp = s_cur;
@@ -442,10 +508,10 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
 
   // Epilogue: this block's words and best words, and (RES) its state.
   __syncthreads();
-  for (int e = tid; e < nt * sl.nwq; e += THREADS) {
-    const int t = e / sl.nwq, w = e % sl.nwq;
-    a.mp_out[(row0 + t) * Nw + sl.w_lo + w] = s_cur[(sl.w_lo + w) * RS + t];
-    a.bmp_out[(row0 + t) * Nw + sl.w_lo + w] = best_w[e];
+  for (int e = tid; e < nt * nwb; e += THREADS) {
+    const int t = e / nwb, w = e % nwb;
+    a.mp_out[(row0 + t) * Nw + sl.w_lo + w] = ld_word<GW>(s_cur + (sl.w_lo + w) * RS + t);
+    if (!GW) a.bmp_out[(row0 + t) * Nw + sl.w_lo + w] = best_w[t * bst + w];
   }
   if (q == 0 && tid < nt) a.bh_out[row0 + tid] = bh_s[tid];
   if (RES) {
@@ -459,25 +525,35 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
   }
 }
 
-template <int NB, bool RES>
+template <int NB, int V>
 __global__ void __launch_bounds__(THREADS, 1) popcount_chain_kernel(const ChainArgs a) {
-  run_chain<NB, false, RES>(a);
+  run_chain<NB, false, V>(a);
 }
 
-template <int NB, bool RES>
+template <int NB, int V>
 __global__ void __launch_bounds__(THREADS, 1) popcount_ring_kernel(const ChainArgs a) {
-  run_chain<NB, true, RES>(a);
+  run_chain<NB, true, V>(a);
 }
 
 using Kernel = void (*)(const ChainArgs);
 
-Kernel kernel_for(bool ring, int nb, bool res) {
-  if (ring) {
-    if (nb == 1) return res ? popcount_ring_kernel<1, true> : popcount_ring_kernel<1, false>;
-    return res ? popcount_ring_kernel<0, true> : popcount_ring_kernel<0, false>;
-  }
-  if (nb == 1) return res ? popcount_chain_kernel<1, true> : popcount_chain_kernel<1, false>;
-  return res ? popcount_chain_kernel<0, true> : popcount_chain_kernel<0, false>;
+template <int V>
+Kernel kernel_of(bool ring, int nb) {
+  if (ring) return nb == 1 ? popcount_ring_kernel<1, V> : popcount_ring_kernel<0, V>;
+  return nb == 1 ? popcount_chain_kernel<1, V> : popcount_chain_kernel<0, V>;
+}
+
+// The kernel of a mode, plane count and variant; nullptr for a variant
+// that is none of Variant's.
+Kernel kernel_for(bool ring, int nb, int v) {
+  return v == RESIDENT ? kernel_of<RESIDENT>(ring, nb)
+       : v == STREAMED ? kernel_of<STREAMED>(ring, nb)
+       : v == GLOBAL   ? kernel_of<GLOBAL>(ring, nb)
+                       : nullptr;
+}
+
+int units_of(int T, int n_replicas) {
+  return n_replicas ? T / n_replicas : (T + GROUP - 1) / GROUP;
 }
 
 // Column threads of a block: one column each, a power of two of at least a
@@ -489,15 +565,16 @@ int column_threads(int N, int cs) {
   return ct;
 }
 
-int launch(ChainArgs a, int B, int n_replicas, int cs, int resident, cudaStream_t stream) {
-  if (a.nb < 1 || n_replicas < 0 || n_replicas > MAX_RING || cs < 1 || cs > MAX_CS)
-    return static_cast<int>(cudaErrorInvalidValue);
+int launch(ChainArgs a, int B, int n_replicas, int cs, int variant, cudaStream_t stream) {
   const bool ring = n_replicas > 0;
+  const Kernel kernel = kernel_for(ring, a.nb, variant);
+  if (a.nb < 1 || n_replicas < 0 || n_replicas > MAX_RING || cs < 1 || cs > MAX_CS ||
+      kernel == nullptr || (variant == GLOBAL && a.words == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.UT = ring ? n_replicas : GROUP;
   a.CT = column_threads(a.N, cs);
-  const int units = ring ? a.T / n_replicas : (a.T + GROUP - 1) / GROUP;
-  const Kernel kernel = kernel_for(ring, a.nb, resident != 0);
-  const size_t smem = Layout(a.N, cs, a.UT).bytes(a.nb, resident != 0);
+  const int units = units_of(a.T, n_replicas);
+  const size_t smem = Layout(a.N, cs, a.UT).bytes(a.nb, variant);
   cudaError_t e = plateau::cluster_attributes(kernel, smem, cs);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg;
@@ -510,28 +587,38 @@ int launch(ChainArgs a, int B, int n_replicas, int cs, int resident, cudaStream_
 
 }  // namespace
 
-// Bytes of shared memory of one block (n_replicas 0: the classical kernel),
-// resident or streamed; ssa_update._popcount_smem computes the same.
-extern "C" int repro_popcount_smem(int N, int nb, int n_replicas, int cs, int resident) {
-  return static_cast<int>(Layout(N, cs, n_replicas ? n_replicas : GROUP).bytes(nb, resident));
+// Bytes of shared memory of one block of `variant` (n_replicas 0: the
+// classical kernel), the one home of the layout: the wrapper picks the
+// variant by it.
+extern "C" long long repro_popcount_smem(int N, int nb, int n_replicas, int cs, int variant) {
+  return static_cast<long long>(
+      Layout(N, cs, n_replicas ? n_replicas : GROUP).bytes(nb, variant));
+}
+
+// 32-bit words of the `words` buffer that the GLOBAL variant needs for B
+// problems of T trials.
+extern "C" long long repro_popcount_global_words(int N, int n_replicas, int T, int B) {
+  return static_cast<long long>(Layout(N, 1, n_replicas ? n_replicas : GROUP)
+                                    .global_words(units_of(T, n_replicas), B));
 }
 
 // How many clusters of `cs` blocks the card runs at once, for the
 // classical kernel (n_replicas == 0) or the ring mode with rings of
 // n_replicas; 0 when none fits.  Negative: a CUDA error code, negated.
-extern "C" int repro_popcount_max_clusters(int N, int n_replicas, int nb, int cs, int resident) {
+extern "C" int repro_popcount_max_clusters(int N, int n_replicas, int nb, int cs, int variant) {
+  const Kernel kernel = kernel_for(n_replicas > 0, nb, variant);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   const int ut = n_replicas ? n_replicas : GROUP;
-  return plateau::max_active_clusters(kernel_for(n_replicas > 0, nb, resident != 0), cs,
-                                      Layout(N, cs, ut).bytes(nb, resident != 0));
+  return plateau::max_active_clusters(kernel, cs, Layout(N, cs, ut).bytes(nb, variant));
 }
 
 extern "C" int repro_ssa_plateau_popcount_ring(
     const void* mp_in, const void* it_in, const void* signT, const void* magsT,
     const void* base, const void* h, const void* rng_in, const void* i0_sched,
     const void* jperp_sched, const void* fold_sched, const void* bh_in, const void* bmp_in,
-    void* mp_out, void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B, int T,
-    int N, int nb, int n_cycles, int n_rnd, int n_replicas, int cluster_size, int resident,
-    void* stream) {
+    void* mp_out, void* it_out, void* rng_out, void* bh_out, void* bmp_out, void* words,
+    int B, int T, int N, int nb, int n_cycles, int n_rnd, int n_replicas, int cluster_size,
+    int variant, void* stream) {
   if (n_replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
   const ChainArgs a{static_cast<const uint32_t*>(mp_in), static_cast<const int*>(it_in),
                     static_cast<const uint32_t*>(signT), static_cast<const uint32_t*>(magsT),
@@ -541,16 +628,17 @@ extern "C" int repro_ssa_plateau_popcount_ring(
                     static_cast<const int*>(bh_in), static_cast<const uint32_t*>(bmp_in),
                     static_cast<uint32_t*>(mp_out), static_cast<int*>(it_out),
                     static_cast<uint32_t*>(rng_out), static_cast<int*>(bh_out),
-                    static_cast<uint32_t*>(bmp_out), T, N, nb, n_cycles, n_rnd, 0, 0};
-  return launch(a, B, n_replicas, cluster_size, resident, static_cast<cudaStream_t>(stream));
+                    static_cast<uint32_t*>(bmp_out), static_cast<uint32_t*>(words),
+                    T, N, nb, n_cycles, n_rnd, 0, 0};
+  return launch(a, B, n_replicas, cluster_size, variant, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_ssa_plateau_popcount(
     const void* mp_in, const void* it_in, const void* signT, const void* magsT,
     const void* base, const void* h, const void* rng_in, const void* i0_sched,
     const void* fold_sched, const void* bh_in, const void* bmp_in, void* mp_out,
-    void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B, int R, int N, int nb,
-    int n_cycles, int n_rnd, int cluster_size, int resident, void* stream) {
+    void* it_out, void* rng_out, void* bh_out, void* bmp_out, void* words, int B, int R,
+    int N, int nb, int n_cycles, int n_rnd, int cluster_size, int variant, void* stream) {
   const ChainArgs a{static_cast<const uint32_t*>(mp_in), static_cast<const int*>(it_in),
                     static_cast<const uint32_t*>(signT), static_cast<const uint32_t*>(magsT),
                     static_cast<const int*>(base), static_cast<const int*>(h),
@@ -559,8 +647,9 @@ extern "C" int repro_ssa_plateau_popcount(
                     static_cast<const int*>(bh_in), static_cast<const uint32_t*>(bmp_in),
                     static_cast<uint32_t*>(mp_out), static_cast<int*>(it_out),
                     static_cast<uint32_t*>(rng_out), static_cast<int*>(bh_out),
-                    static_cast<uint32_t*>(bmp_out), R, N, nb, n_cycles, n_rnd, 0, 0};
-  return launch(a, B, 0, cluster_size, resident, static_cast<cudaStream_t>(stream));
+                    static_cast<uint32_t*>(bmp_out), static_cast<uint32_t*>(words),
+                    R, N, nb, n_cycles, n_rnd, 0, 0};
+  return launch(a, B, 0, cluster_size, variant, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -84,9 +84,6 @@ _K3_BM, _K3_BN, _K3_BK = (_build.header_int("field.cu", n) for n in ("BM", "BN",
 _K3_MAX_SPLITS = _build.header_int("field.cu", "MAX_KS")
 # The work area of a K1 or K4 block: KC k of GROUP signs, floats.
 _WORK_BYTES = 4 * _build.header_int("plateau_cycle.cuh", "KC") * PLATEAU_GROUP
-# Threads of a cluster kernel's block, and blocks per cluster at most.
-_THREADS = _build.header_int("plateau_cycle.cuh", "THREADS")
-_MAX_CS = CLUSTER_SIZES[-1]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -94,14 +91,17 @@ _SIGNATURES = {
     "repro_local_field_max_clusters": [_I] * 3,
     "repro_ssa_plateau_packed": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
     "repro_ssa_plateau": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8 + [_P],
-    "repro_ssa_plateau_popcount": [_P] * 16 + [_I] * 8 + [_P],
+    "repro_ssa_plateau_popcount": [_P] * 17 + [_I] * 8 + [_P],
     "repro_ssa_plateau_packed_ring": [_P] * 5 + [_I] * 2 + [_P] * 7 + [_I] * 9 + [_P],
     "repro_plateau_max_clusters": [_I] * 4,
     "repro_plateau_pregen_max_clusters": [_I] * 3,
-    "repro_ssa_plateau_popcount_ring": [_P] * 17 + [_I] * 9 + [_P],
+    "repro_ssa_plateau_popcount_ring": [_P] * 18 + [_I] * 9 + [_P],
     "repro_popcount_max_clusters": [_I] * 5,
     "repro_popcount_smem": [_I] * 5,
+    "repro_popcount_global_words": [_I] * 4,
 }
+# Entries that return a size, not an error code.
+_LONG = ("repro_popcount_smem", "repro_popcount_global_words")
 
 
 def _entry(lib: str, fn: str):
@@ -109,7 +109,7 @@ def _entry(lib: str, fn: str):
     f = getattr(lib_, fn)
     if f.argtypes is None:
         f.argtypes = _SIGNATURES[fn]
-        f.restype = ctypes.c_int
+        f.restype = ctypes.c_longlong if fn in _LONG else ctypes.c_int
         lib_.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib_.repro_cuda_error_string.restype = ctypes.c_char_p
     return f, lib_
@@ -190,42 +190,56 @@ def plateau_cluster_size(R: int, B: int, N: int, sm_count: int, max_clusters=Non
 
 
 def popcount_cluster_size(R: int, B: int, N: int, sm_count: int, max_clusters=None,
-                          n_replicas: int = 0) -> int:
-    """Blocks per unit of K2: by :func:`_cluster_size` over the units of all
-    B problems (``plateau_groups(R)`` groups of trials in the classical
-    mode, ``R // n_replicas`` rings in the ring mode), the largest CS of 1,
-    2, 4, 8, 16 up to Nw with every block on an SM and, given
-    ``max_clusters``, every unit's cluster running at once."""
-    units = R // n_replicas if n_replicas else plateau_groups(R)
-    return _cluster_size(units * B, sm_count, _word_sizes(N), max_clusters)
+                          n_replicas: int = 0, resident=None) -> int:
+    """Blocks per unit of K2 (``plateau_groups(R)`` groups of trials in the
+    classical mode, ``R // n_replicas`` rings in the ring mode; B problems'
+    units together), by :func:`_cluster_size`: the largest CS of 1, 2, 4,
+    8, 16 up to Nw with every block on an SM and, given ``max_clusters``,
+    every unit's cluster running at once.
+
+    Given ``resident`` (size -> whether a block of that size holds its
+    planes and state in shared memory), the sizes that do come first: the
+    largest of them that runs in one wave, else the smallest of them (the
+    fewest waves), since a streamed block runs the same words slower than
+    a second wave of resident ones (B = 2 at K2000 on an H100, the ``[K2
+    B=2 sweep]`` of chip_smoke.py: 8.2 ms in two waves of clusters of 8,
+    11.2 ms in one of 4, streamed).  The one-wave rule over every size
+    where none is resident."""
+    units = (R // n_replicas if n_replicas else plateau_groups(R)) * B
+    sizes = _word_sizes(N)
+    if resident is not None:
+        held = [c for c in sizes if resident(c) and (max_clusters is None or max_clusters(c))]
+        one_wave = [c for c in held if units * c <= sm_count and (
+            max_clusters is None or max_clusters(c) >= units)]
+        if held:
+            return max(one_wave) if one_wave else min(held)
+    return _cluster_size(units, sm_count, sizes, max_clusters)
 
 
-# The fixed part of a K2 block's shared memory, ints (HEAD_INTS and
-# WORK_INTS in csrc/popcount.cu): best energies and flags, per-warp and
-# per-block energy shares, and the word ranges' partial counts.
-_POPCOUNT_FIXED_INTS = (2 * MAX_RING + MAX_RING * (_THREADS // 32) + 2 * _MAX_CS * MAX_RING
-                        + _THREADS * PLATEAU_GROUP)
+# K2's block variants, by what a block keeps in shared memory, most first
+# (Variant in csrc/popcount.cu, in its order): the unit's spin words, the
+# best words of its slice and the slice's planes and state ("resident");
+# the words only, the planes and state read from global memory
+# ("streamed"); nothing of size N ("global": the words too in global
+# memory).
+POPCOUNT_VARIANTS = ("resident", "streamed", "global")
 
 
-def _popcount_smem(N: int, nb: int, unit_trials: int, cs: int, resident: bool) -> int:
-    """Shared memory of one K2 block (csrc/popcount.cu's Layout): the fixed
-    part, the unit's spin words [Nw][RS] double-buffered (RS: the trials
-    rounded up to a group), the best words of the block's slice and, when
-    ``resident``, the slice's planes [1+nb][Nw][32·nwq] and its Itanh and
-    four lane words per trial and column."""
-    nw = packed_words(N)
-    nwq = -(-nw // cs)
-    rs = -(-unit_trials // PLATEAU_GROUP) * PLATEAU_GROUP
-    ints = _POPCOUNT_FIXED_INTS + 2 * nw * rs + -(-unit_trials * nwq // 4) * 4
-    if resident:
-        ints += (1 + nb) * nw * 32 * nwq + 5 * unit_trials * 32 * nwq
-    return 4 * ints
+def popcount_variant(smem_bytes) -> str:
+    """The first of :data:`POPCOUNT_VARIANTS` whose block fits an H100's
+    shared memory; ``smem_bytes(variant)`` is a block's size (on the card,
+    the kernel's own ``repro_popcount_smem``): chosen by size, never on
+    failure."""
+    for v in POPCOUNT_VARIANTS:
+        if smem_bytes(v) <= _MAX_SMEM:
+            return v
+    raise ValueError(f"no K2 block variant fits {_MAX_SMEM} B of shared memory")
 
 
-def _popcount_resident(N: int, nb: int, unit_trials: int, cs: int) -> bool:
-    """Whether a K2 block holds its planes and state in shared memory for
-    the whole chain: where they fit, chosen by size."""
-    return _popcount_smem(N, nb, unit_trials, cs, True) <= _MAX_SMEM
+def _popcount_smem(N: int, nb: int, n_replicas: int, cs: int, variant: str) -> int:
+    """Shared memory of one K2 block, from the kernel's layout."""
+    fn, _ = _entry("popcount", "repro_popcount_smem")
+    return fn(N, nb, n_replicas, cs, POPCOUNT_VARIANTS.index(variant))
 
 
 def _k3_splits(R: int, N: int, sm_count: int, max_clusters=None) -> int:
@@ -643,11 +657,12 @@ def ssa_plateau_popcount_batched(
     ``cluster_size`` forces that size, for tests and measurement (any of 1,
     2, 4, 8, 16 up to the word count of N; checked, then ignored, on the
     CPU).  Where a block's slice of the planes and its state fit its shared
-    memory (:func:`_popcount_resident`) they stay there for the whole
-    chain; otherwise the same loop reads them from global memory.  The
-    size, block count and residency of the last launch are kept in
-    ``ssa_plateau_popcount_batched.last_cluster`` as (cs, blocks,
-    resident).
+    memory they stay there for the whole chain; otherwise the same loop
+    reads them from global memory, and where not even the unit's spin words
+    fit, those too (:func:`popcount_variant`).  The size, block count and
+    variant (one of :data:`POPCOUNT_VARIANTS`) of the last launch are kept
+    in ``ssa_plateau_popcount_batched.last_cluster`` as (cs, blocks,
+    variant).
 
     ``sign`` and ``mags`` may be in any memory layout; planes not already
     stored [Nw][N] (see :func:`popcount_planes`) are copied to it for the
@@ -694,26 +709,30 @@ def ssa_plateau_popcount_batched(
         raise ValueError("mags: need at least one magnitude plane")
     if n_replicas:
         _check("jperp_sched", jperp_sched, (C,), i32)
-    unit = n_replicas or PLATEAU_GROUP  # trials per cluster
+
+    def variant_at(c):  # the block variant of clusters of c blocks
+        return _cached(("popcount variant", N, nb, n_replicas, c), lambda: popcount_variant(
+            lambda v: _popcount_smem(N, nb, n_replicas, c, v)))
+
     if cluster_size is None:
         def fits(c):  # clusters of c blocks the card runs at once
-            res = _popcount_resident(N, nb, unit, c)
-            if _popcount_smem(N, nb, unit, c, res) > _MAX_SMEM:
-                return 0
-            return _max_clusters(dev, "popcount", "repro_popcount_max_clusters",
-                                 N, n_replicas, nb, c, int(res))
+            return _max_clusters(dev, "popcount", "repro_popcount_max_clusters", N, n_replicas,
+                                 nb, c, POPCOUNT_VARIANTS.index(variant_at(c)))
         cs = _cached(("popcount", dev.index, B, R, N, nb, n_replicas), lambda: (
-            popcount_cluster_size(R, B, N, _sm_count(dev), fits, n_replicas)))
+            popcount_cluster_size(R, B, N, _sm_count(dev), fits, n_replicas,
+                                  lambda c: variant_at(c) == "resident")))
     else:
         cs = int(cluster_size)
-    resident = _popcount_resident(N, nb, unit, cs)
+    variant = variant_at(cs)
     mode = " ring mode" if n_replicas else ""
-    _check_smem(f"K2's{mode} block at N={N}, nb={nb}, clusters of {cs}",
-                _popcount_smem(N, nb, unit, cs, resident))
     outs = tuple(torch.empty_like(t) for t in
                  (m_packed, itanh, rng, best_H, best_m_packed))
     if B == 0 or R == 0:
         return outs
+    words = None  # the units' spin words, where no block holds them
+    if variant == "global":
+        fn, _ = _entry("popcount", "repro_popcount_global_words")
+        words = torch.empty(fn(N, n_replicas, R, B), dtype=torch.int32, device=dev)
     # The kernel reads each plane transposed, [Nw][N]: a warp's loads of one
     # word index fall on consecutive addresses.  No copy when the planes
     # come from popcount_planes.
@@ -724,19 +743,20 @@ def ssa_plateau_popcount_batched(
             base.data_ptr(), h.data_ptr(), rng.data_ptr(), i0_sched.data_ptr())
     tail = (fold_sched.data_ptr(), best_H.data_ptr(), best_m_packed.data_ptr(),
             mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(), bh_o.data_ptr(),
-            bmp_o.data_ptr(), B, R, N, nb, C, int(n_rnd))
+            bmp_o.data_ptr(), None if words is None else words.data_ptr(),
+            B, R, N, nb, C, int(n_rnd))
     what = f"ssa_plateau_popcount{mode} (clusters of {cs} blocks, N={N})"
     if n_replicas:
         fn, lib = _entry("popcount", "repro_ssa_plateau_popcount_ring")
         _launch(fn, lib, what, dev, *ptrs, jperp_sched.data_ptr(), *tail, n_replicas, cs,
-                int(resident))
+                POPCOUNT_VARIANTS.index(variant))
         ssa_plateau_popcount_batched.ring_launches += 1
     else:
         fn, lib = _entry("popcount", "repro_ssa_plateau_popcount")
-        _launch(fn, lib, what, dev, *ptrs, *tail, cs, int(resident))
+        _launch(fn, lib, what, dev, *ptrs, *tail, cs, POPCOUNT_VARIANTS.index(variant))
     ssa_plateau_popcount_batched.launches += 1
     units = R // n_replicas if n_replicas else plateau_groups(R)
-    ssa_plateau_popcount_batched.last_cluster = (cs, units * B * cs, resident)
+    ssa_plateau_popcount_batched.last_cluster = (cs, units * B * cs, variant)
     return outs
 
 

@@ -7,7 +7,6 @@ A CUDA kernel has no CPU or interpret mode, so these tests are marked
 
 This file imports no JAX: the GPU host runs the port alone.
 """
-import itertools
 
 import numpy as np
 import pytest
@@ -20,7 +19,13 @@ from repro_torch.core.config import SolverConfig  # noqa: E402
 from repro_torch.core.rng import xorshift_init  # noqa: E402
 from repro_torch.core.ssa import SSAHyperParams, anneal  # noqa: E402
 from repro_torch.kernels import ssa_update  # noqa: E402
-from repro_torch.kernels.bitplane import PackedJ, pack_couplings, pack_spins  # noqa: E402
+from repro_torch.kernels.bitplane import (  # noqa: E402
+    PackedJ,
+    pack_couplings,
+    pack_spins,
+    packed_words,
+    popcount_u32,
+)
 from repro_torch.kernels.ref import (  # noqa: E402
     local_field_ref,
     ssa_plateau_packed_ref,
@@ -223,13 +228,39 @@ def test_anneal_pregen_matches_dense_on_card(cuda_device, layout, noise):
     np.testing.assert_array_equal(got.best_m, want.best_m)
 
 
+def _random_planes(rs, b, n, device):
+    """Bitplanes too wide for a dense J on the host, drawn on the card: a
+    random sign plane, one magnitude plane (about one coupling in 16), tail
+    bits 0, base = -Σ_j |J_ij| (J_ij = ±mags_ij, not symmetric; couplings
+    in pairs of neighbouring columns, so every row's Σ_j |J_ij| is even and
+    the energy an integer, as a symmetric J's)."""
+    nw = packed_words(n)
+    gen = torch.Generator(device=device).manual_seed(int(rs.integers(2**31)))
+    mask = torch.full((nw,), -1, dtype=torch.int32, device=device)
+    if n % 32:
+        mask[-1] = (1 << (n % 32 & ~1)) - 1  # whole pairs of columns only
+
+    def words():
+        return torch.randint(-2**31, 2**31, (b, n, nw), generator=gen, dtype=torch.int32,
+                             device=device)
+
+    pairs = words() & words() & words() & words() & 0x55555555 & mask
+    mags = (pairs | pairs << 1)[:, None]
+    return [PackedJ(words()[k] & mask, mags[k], -popcount_u32(mags[k, 0]).sum(
+        -1, dtype=torch.int32)) for k in range(b)]
+
+
 def _popcount_args(b, r, n, w_max, c, sched, flat, seed, device):
+    """K2 inputs: couplings in [-w_max, w_max] (``w_max`` 0: the random
+    planes of :func:`_random_planes`, drawn on the card)."""
     rs = np.random.default_rng(seed)
     nb = max(1, w_max.bit_length())
     pjs = []
-    for _ in range(b):
+    for _ in range(b if w_max else 0):
         J = np.triu(rs.integers(-w_max, w_max + 1, (n, n)), 1) * (not flat)
         pjs.append(pack_couplings(J + J.T, nb))
+    if not w_max:
+        pjs = _random_planes(rs, b, n, device)
     if sched == "hassa":  # Table II: I0 1→32, tau = 100, tiled to c cycles
         chain = engine.schedule_plateaus(SSAHyperParams(tau=100).schedule())
         i0, fold, _ = engine.plateau_cycle_schedules(engine.tile_plateaus(chain, c))
@@ -250,20 +281,30 @@ def _popcount_args(b, r, n, w_max, c, sched, flat, seed, device):
     return {k: v.to(device) for k, v in args.items()}
 
 
+def _popcount_variant(n, nb, nr, cs):
+    return ssa_update.popcount_variant(lambda v: ssa_update._popcount_smem(n, nb, nr, cs, v))
+
+
 def _check_popcount_launch(b, r, n, nb, cs, nr=0):
-    """K2's last launch: the forced cluster size or the rule's, its block
-    count, and the plane variant the wrapper's size rule picks."""
-    launched_cs, blocks, resident = ssa_update.ssa_plateau_popcount_batched.last_cluster
+    """K2's last launch: the forced cluster size or the rule's (from the
+    kernel's own layout and occupancy query), its block count, and the
+    block variant that the kernel's layout fits."""
+    launched_cs, blocks, variant = ssa_update.ssa_plateau_popcount_batched.last_cluster
     units = r // nr if nr else ssa_update.plateau_groups(r)
-    if cs is None:  # the rule's, at most its choice without the occupancy query
+    if cs is None:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        assert launched_cs in ssa_update.CLUSTER_SIZES
-        assert launched_cs <= ssa_update.popcount_cluster_size(r, b, n, sms, None, nr)
+
+        def fits(c):
+            return ssa_update._max_clusters(
+                torch.device("cuda"), "popcount", "repro_popcount_max_clusters", n, nr, nb, c,
+                ssa_update.POPCOUNT_VARIANTS.index(_popcount_variant(n, nb, nr, c)))
+
+        assert launched_cs == ssa_update.popcount_cluster_size(
+            r, b, n, sms, fits, nr, lambda c: _popcount_variant(n, nb, nr, c) == "resident")
     else:
         assert launched_cs == cs
     assert blocks == b * units * launched_cs
-    assert resident is ssa_update._popcount_resident(n, nb, nr or ssa_update.PLATEAU_GROUP,
-                                                     launched_cs)
+    assert variant == _popcount_variant(n, nb, nr, launched_cs)
 
 
 @pytest.mark.cuda
@@ -281,6 +322,9 @@ def _check_popcount_launch(b, r, n, nb, cs, nr=0):
      for cs in (1, 2, 4, 8, 16)] + [
     (1, 13, 1001, 1, 30, "all", True, 16),          # tied energies across 16 blocks
     (1, 13, 37, 7, 20, "random", False, 2),         # two words over two blocks
+    (1, 3, 70001, 0, 2, "all", False, 1),           # streamed near its limit, random planes
+    (1, 2, 120000, 0, 3, "random", False, None),    # the spin words in global memory too
+    (2, 2, 75000, 0, 2, "random", False, 16),       # ... in clusters of 16, B = 2
 ])
 def test_popcount_chain_kernel_matches_plain(cuda_device, b, r, n, w_max, c, sched, flat, cs):
     """K2's classical kernel: a cluster per group of 8 trials at the rule's
@@ -300,15 +344,50 @@ def test_popcount_chain_kernel_matches_plain(cuda_device, b, r, n, w_max, c, sch
 
 
 @pytest.mark.cuda
-def test_popcount_smem_layout_matches_kernel(cuda_device):
-    """The kernel's shared-memory layout (repro_popcount_smem) is the one the
-    wrapper sizes and picks the plane variant by."""
-    fn, _ = ssa_update._entry("popcount", "repro_popcount_smem")
-    for n, nb, unit, cs, res in itertools.product((1, 37, 800, 2000, 4100), (1, 2, 3),
-                                                  (2, 8, 16, 32), ssa_update.CLUSTER_SIZES,
-                                                  (False, True)):
-        want = ssa_update._popcount_smem(n, nb, unit, cs, res)
-        assert fn(n, nb, unit if unit != 8 else 0, cs, int(res)) == want
+@pytest.mark.parametrize("n,nb,nr,cs,want", [
+    (2000, 1, 0, 8, "resident"),    # K2000 in clusters of 8: 129 KB of planes
+    (2000, 1, 0, 16, "resident"),
+    (2000, 1, 0, 4, "streamed"),    # 258 KB of planes alone
+    (2000, 1, 0, 1, "streamed"),
+    (800, 1, 0, 2, "resident"),     # G11
+    (2000, 1, 16, 16, "resident"),  # rings of 16, one per cluster of 16
+    (2000, 1, 16, 8, "streamed"),
+    (2000, 1, 32, 16, "resident"),
+    (4100, 3, 0, 16, "streamed"),   # 4 planes of 129 words
+    (37, 3, 0, 1, "resident"),
+    (20000, 3, 0, 1, "streamed"),   # G81's width, every size
+    (20000, 3, 16, 1, "streamed"),
+    (72960, 1, 0, 1, "streamed"),   # the group's words at the limit
+    (72961, 1, 0, 1, "global"),
+    (120000, 1, 0, 16, "global"),
+    (30000, 1, 32, 16, "global"),
+])
+def test_popcount_variant_by_size(cuda_device, n, nb, nr, cs, want):
+    """The block variant that the kernel's layout (repro_popcount_smem)
+    fits: planes resident at K2000 in clusters of 8 and more, streamed in
+    clusters of 4 and less and at N = 4100 with 3 planes, the spin words in
+    global memory where even they do not fit."""
+    assert _popcount_variant(n, nb, nr, cs) == want
+    assert ssa_update._popcount_smem(n, nb, nr, cs, want) <= ssa_update._MAX_SMEM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,nr,want", [
+    (1, 100, 0, 8),   # K2000's 13 groups: 104 blocks
+    (2, 100, 0, 8),   # 26 groups: two waves of resident clusters
+    (1, 96, 8, 8),    # SSQA: 12 rings of 8
+    (1, 96, 16, 16),  # 6 rings of 16
+    (1, 16, 16, 16),  # autotune's one ring of 16
+])
+def test_popcount_chosen_cluster_size_on_card(cuda_device, b, r, nr, want):
+    args = _popcount_args(b, r, 2000, 1, 2, "random", False, seed=r + nr, device=cuda_device)
+    kw = {}
+    if nr:
+        kw = dict(jperp_sched=torch.ones(2, dtype=torch.int32, device=cuda_device),
+                  n_replicas=nr)
+    ssa_update.ssa_plateau_popcount_batched(**args, n_rnd=2, **kw)
+    assert ssa_update.ssa_plateau_popcount_batched.last_cluster == (
+        want, b * (r // nr if nr else ssa_update.plateau_groups(r)) * want, "resident")
 
 
 @pytest.mark.cuda
@@ -377,6 +456,7 @@ def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, cs
     (1, 3, 2000, 1, 20, 3, None),     # one ring below a group of 8
     (1, 32, 2000, 1, 12, 32, 8),      # rings of 32 in clusters of 8: streamed
     (2, 16, 4100, 7, 6, 8, None),     # streamed planes: 4 planes of 129 words
+    (1, 32, 30000, 0, 3, 32, None),   # the spin words in global memory too
 ] + [(1, 96, 2000, 1, 20, nr, cs)    # every cluster size at rings of 8 and 16
      for nr in (8, 16) for cs in (1, 2, 4, 8, 16)])
 def test_popcount_ring_kernel_matches_plain(cuda_device, b, r, n, w_max, c, nr, cs):

@@ -1,16 +1,18 @@
 """K2 (``ssa_plateau_popcount_batched``) as thread-block clusters: the choice
-of the cluster size, the per-block shared-memory layout that decides
-whether the planes and the state stay on the chip, and the forced
-``cluster_size=``.
+of the cluster size, the choice of the block variant (what a block keeps in
+shared memory), and the forced ``cluster_size=``.
 
-``popcount_cluster_size`` and ``_popcount_smem`` are pure Python (the
-occupancy query comes in as a function), so their rules are held here on
-the CPU; a forced size is checked on every device and leaves the result
-equal to the Pallas kernel's (interpret mode).  The CUDA kernels are held
-against their plain versions at every size the rule can return, on both
-variants, by ``tests/test_torch_cuda.py`` on the card.
+``popcount_cluster_size`` and ``popcount_variant`` are pure Python: the
+occupancy query, the residency of a size and a block's bytes come in as
+functions (on the card, the kernel's own entries), so their rules are held
+here on the CPU; a forced size is checked on every device and leaves the
+result equal to the Pallas kernel's (interpret mode).  The block sizes of
+the kernel's layout and the CUDA kernels, at every size the rule can
+return and on every variant, are held by ``tests/test_torch_cuda.py`` on
+the card.
 """
 import itertools
+import re
 
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ from repro.core import rng as jrng  # noqa: E402
 from repro.kernels import bitplane as jbitplane  # noqa: E402
 from repro.kernels import ssa_update as jssa  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.kernels import ssa_update  # noqa: E402
+from repro_torch.kernels import _build, ssa_update  # noqa: E402
 from repro_torch.kernels.bitplane import packed_words  # noqa: E402
 from repro_torch.kernels.ssa_update import popcount_cluster_size  # noqa: E402
 
@@ -107,51 +109,70 @@ def test_popcount_cluster_size_waits_for_no_second_wave():
     assert popcount_cluster_size(16, 1, 2000, H100_SMS, fits, 16) == 8  # 16 does not fit
 
 
-def test_popcount_smem_layout_at_k2000():
-    """The fixed part, the group's words [63][8] twice, the best words of 8
-    words per trial and, resident, 2 planes × 63 words × 256 columns and 20
-    B of state per trial and column."""
-    fixed = 4 * (2 * 32 + 32 * 8 + 2 * 16 * 32 + 256 * 8)
-    assert ssa_update._POPCOUNT_FIXED_INTS * 4 == fixed == 13568
-    streamed = fixed + 4 * (2 * 63 * 8 + 8 * 8)
-    assert ssa_update._popcount_smem(2000, 1, 8, 8, False) == streamed
-    assert ssa_update._popcount_smem(2000, 1, 8, 8, True) == (
-        streamed + 4 * 2 * 63 * 256 + 20 * 8 * 256) == 187840
-
-
-@pytest.mark.parametrize("n,nb,unit,cs,resident", [
-    (2000, 1, 8, 8, True),     # K2000 in clusters of 8: 129 KB of planes
-    (2000, 1, 8, 16, True),
-    (2000, 1, 8, 4, False),    # 258 KB of planes alone
-    (2000, 1, 8, 2, False),
-    (2000, 1, 8, 1, False),
-    (800, 1, 8, 8, True),      # G11
-    (800, 1, 8, 2, True),
-    (2000, 1, 16, 16, True),   # rings of 16, one per cluster of 16
-    (2000, 1, 16, 8, False),   # ... in clusters of 8: 645 B over
-    (2000, 1, 32, 16, True),
-    (2000, 1, 32, 8, False),
-    (4100, 3, 8, 16, False),   # 4 planes of 129 words
-    (4100, 3, 8, 1, False),
-    (37, 3, 8, 1, True),
+# (R, B, N, n_replicas, smallest resident size, want): the sizes the
+# kernel's layout holds resident on an H100 at nb = 1 (K2000: 8 and 16 for
+# groups and rings of up to 8, 16 for rings of 16 and 32; G11: 2 and up).
+@pytest.mark.parametrize("r,b,n,nr,res_from,want", [
+    (100, 1, 2000, 0, 8, 8),     # K2000: 13 groups of 8 in one wave
+    (100, 2, 2000, 0, 8, 8),     # 26 groups: two waves of 8, not 4 streamed
+    (100, 4, 2000, 0, 8, 8),     # 52 groups: four waves of 8, not 2 streamed
+    (1000, 1, 2000, 0, 8, 8),    # 125 groups
+    (96, 1, 2000, 8, 8, 8),      # SSQA: 12 rings of 8
+    (96, 1, 2000, 16, 16, 16),   # 6 rings of 16
+    (16, 1, 2000, 16, 16, 16),   # autotune's one ring of 16
+    (32, 1, 2000, 32, 16, 16),   # one ring of 32
+    (96, 1, 2000, 2, 8, 8),      # 48 rings of 2: three waves of 8
+    (100, 1, 800, 0, 2, 8),      # G11
+    (100, 4, 800, 0, 2, 2),      # G11, 52 groups: 2 in one wave
+    (13, 1, 4100, 0, None, 16),  # nothing resident: the one-wave rule
+    (100, 2, 2000, 0, None, 4),
 ])
-def test_popcount_planes_resident_where_they_fit(n, nb, unit, cs, resident):
-    assert ssa_update._popcount_resident(n, nb, unit, cs) is resident
-    smem = ssa_update._popcount_smem(n, nb, unit, cs, resident)
-    assert smem <= ssa_update._MAX_SMEM
-    if not resident:
-        assert ssa_update._popcount_smem(n, nb, unit, cs, True) > ssa_update._MAX_SMEM
+def test_popcount_cluster_size_prefers_resident_sizes(r, b, n, nr, res_from, want):
+    """Sizes whose blocks are resident come first: the largest of them in
+    one wave, else the smallest (the fewest waves); where none is, the
+    one-wave rule."""
+    resident = (lambda cs: False) if res_from is None else (lambda cs: cs >= res_from)
+    occ = _occupancy(H100_SMS, 16)
+    assert popcount_cluster_size(r, b, n, H100_SMS, occ, nr, resident) == want
 
 
-@pytest.mark.parametrize("n,units", [(2000, (8, 16, 32)), (4100, (8, 16, 32)),
-                                     (20000, (8, 16)), (60000, (8,))])
-def test_popcount_streamed_block_fits_up_to_g_set_widths(n, units):
-    """The streamed variant holds only the unit's words and the slice's
-    best words: at G81's 20,000 spins it fits every cluster size in the
-    classical mode and for rings up to 16, and the classical group fits up
-    to 60,000 spins."""
-    for cs, unit in itertools.product(ssa_update.CLUSTER_SIZES, units):
-        assert ssa_update._popcount_smem(n, 3, unit, cs, False) <= ssa_update._MAX_SMEM
+def test_popcount_cluster_size_skips_resident_sizes_the_card_cannot_run():
+    """A resident size with no cluster on the card (the occupancy query says
+    0) is never chosen."""
+    fits = {16: 0, 8: 0, 4: 33, 2: 66, 1: 132}.__getitem__
+    assert popcount_cluster_size(100, 2, 2000, H100_SMS, fits, 0, lambda cs: cs >= 8) == 4
+    assert popcount_cluster_size(100, 2, 2000, H100_SMS, fits, 0, lambda cs: cs >= 4) == 4
+    assert popcount_cluster_size(100, 4, 2000, H100_SMS, fits, 0, lambda cs: cs >= 4) == 4
+
+
+FIXED = 13568  # the fixed part of a block at K2000, bytes (no variant is smaller)
+
+
+@pytest.mark.parametrize("resident,streamed,want", [
+    (187840, 17920, "resident"),               # K2000 in clusters of 8
+    (300000, 17920, "streamed"),               # ... of 4
+    (ssa_update._MAX_SMEM, 17920, "resident"),  # exactly full
+    (ssa_update._MAX_SMEM + 1, ssa_update._MAX_SMEM, "streamed"),
+    (10**9, ssa_update._MAX_SMEM + 1, "global"),  # the words alone do not fit
+    (10**10, 10**9, "global"),                 # far beyond any shared memory
+])
+def test_popcount_variant_takes_the_first_that_fits(resident, streamed, want):
+    sizes = dict(resident=resident, streamed=streamed, **{"global": FIXED})
+    assert ssa_update.popcount_variant(sizes.__getitem__) == want
+
+
+def test_popcount_variant_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="no K2 block variant"):
+        ssa_update.popcount_variant(lambda v: ssa_update._MAX_SMEM + 1)
+
+
+def test_popcount_variants_follow_the_kernels_order():
+    """The wrapper passes a variant to the kernel as its index: the names'
+    order is that of csrc/popcount.cu's Variant."""
+    text = (_build.CSRC / "popcount.cu").read_text()
+    enum = re.search(r"enum Variant : int \{(.*?)\};", text, re.S).group(1)
+    values = dict(re.findall(r"^\s*(\w+) = (\d+),", enum, re.M))
+    assert [values[v.upper()] for v in ssa_update.POPCOUNT_VARIANTS] == ["0", "1", "2"]
 
 
 def _chain_case(b, r, n, c, seed):
@@ -193,6 +214,22 @@ def test_forced_popcount_cluster_size_is_checked(mode, cluster_size, n):
     with pytest.raises(ValueError, match="cluster_size"):
         ssa_update.ssa_plateau_popcount_batched(*(_i32(case[k]) for k in K2_ORDER),
                                                 cluster_size=cluster_size, **kw)
+
+
+@pytest.mark.parametrize("mode", ["classical", "ring"])
+def test_popcount_on_the_cpu_needs_no_library(mode, monkeypatch):
+    """Sizes, variants and occupancy are the card's: on the CPU the wrapper
+    runs the plain version without loading (or building) a kernel."""
+    def no_library(name):
+        raise AssertionError(f"library {name} loaded on the CPU")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    case, jperp = _chain_case(1, 8, 100, 3, seed=5)
+    kw = dict(jperp_sched=torch.from_numpy(jperp), n_replicas=4) if mode == "ring" else {}
+    for cs in (None, 2):
+        out = ssa_update.ssa_plateau_popcount_batched(*(_i32(case[k]) for k in K2_ORDER),
+                                                      cluster_size=cs, **kw)
+        assert len(out) == len(OUTS)
 
 
 @pytest.mark.parametrize("mode", ["classical", "ring"])
