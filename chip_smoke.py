@@ -1136,6 +1136,241 @@ def phase_profile():
     print("[profile] " + "; ".join(parts))
 
 
+# ---------------------------------------------------------------------------
+# The one-shot service (AnnealService.solve) at B > 1
+# ---------------------------------------------------------------------------
+# Table II's widths; only m_shot is cut, to 10.
+SERVICE_TWINS = ("G11", "G12", "G13", "King1")
+
+
+def _service_hp(ssqa=False):
+    from repro_torch.core.ssa import SSAHyperParams
+    from repro_torch.core.ssqa import SSQAHyperParams
+
+    if ssqa:  # the SSQA cell's widths: 96 trials, rings of 8, J⊥ 0 → 4
+        return SSQAHyperParams(n_trials=SSQA_TRIALS, n_replicas=SSQA_RING,
+                               jperp_max=SSQA_JPERP_MAX, m_shot=M_SHOT_PRODUCTION, tau=100,
+                               i0_min=1, i0_max=32, n_rnd=2)
+    return SSAHyperParams(n_trials=100, m_shot=M_SHOT_PRODUCTION, tau=100, i0_min=1,
+                          i0_max=32, n_rnd=2)
+
+
+def _service_solve(svc, reqs, what):
+    """One timed, counted solve: (responses, wall s, launches of (K1, K3,
+    K4, K2, K1 ring, K2 ring), peak device bytes of the call)."""
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.time()
+    resp = svc.solve(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() - live
+    print(f"[{what}] {len(reqs)} requests in groups of "
+          f"{sorted({(r.bucket, r.batch) for r in resp})} (bucket, B): wall {wall:.3f}s; "
+          f"(K1, K3, K4, K2, K1 ring, K2 ring) launches {counts}; peak device memory of the "
+          f"call {peak} B; statuses {[r.status for r in resp]}")
+    return resp, wall, counts, peak
+
+
+def _check_service(what, resp, refs, problems, status="ok"):
+    """Every response has ``status``, no event unless it is a fallback, a
+    well-formed result, and the best energy and spins of its reference."""
+    import numpy as np
+
+    for r, ref, p in zip(resp, refs, problems):
+        if r.status != status:
+            _fail(f"{what}: {p.name} came back {r.status!r} (expected {status!r}); "
+                  f"events {[(e.kind, e.detail) for e in r.events]}")
+        if status == "ok" and r.events:
+            _fail(f"{what}: {p.name} carries events {[e.kind for e in r.events]}")
+        res = r.result
+        if not (res.best_m.shape == ref.best_m.shape == (r.request.hp.n_trials, p.n)
+                and set(np.unique(res.best_m)) <= {-1, 1}
+                and np.array_equal(p.cut_value(res.best_m), res.best_cut)):
+            _fail(f"{what}: {p.name}: malformed result")
+        if not (np.array_equal(res.best_energy, ref.best_energy)
+                and np.array_equal(res.best_m, ref.best_m)):
+            _fail(f"{what}: {p.name} differs from its single-problem run")
+
+
+def _expect(what, counts, want):
+    if tuple(counts) != tuple(want):
+        _fail(f"{what}: expected (K1, K3, K4, K2, K1 ring, K2 ring) launches {want}, "
+              f"got {counts}")
+
+
+def phase_service():
+    """Service phases 1 and 1b: the G11, G12, G13 and King1 twins (seeds
+    0-3, one group of B = 4 at bucket 1024) and the K2000 twin (seed 4, B =
+    1 at bucket 2048) through AnnealService(backend='cuda', packed layout,
+    chunks of 5 shots): K1 once per plateau for each group, each response
+    equal to anneal() of its unpadded instance on the card; a second solve
+    hits the program cache twice and builds nothing.  Then the same batch
+    with noise_mode='pregen': K4 once per plateau, the same results.
+    Returns (responses, launches of K1 and of K4)."""
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.ssa import anneal
+    from repro_torch.serve import AnnealRequest, AnnealService
+
+    hp = _service_hp()
+    problems = [gset.load(n) for n in SERVICE_TWINS] + [gset.load("K2000")]
+    reqs = [AnnealRequest(problem=p, hp=hp, seed=s) for s, p in enumerate(problems)]
+    refs = [anneal(p, hp, seed=s, track_energy=False, device="cuda",
+                   config=SolverConfig(backend="cuda", noise="xorshift"))
+            for s, p in enumerate(problems)]
+    k1_per = 2 * hp.m_shot * hp.steps  # two groups
+    svc = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                        chunk_shots=5)
+    resp, wall, counts, _ = _service_solve(svc, reqs, "service K1")
+    _expect("service K1", counts, (k1_per, 0, 0, 0, 0, 0))
+    _check_service("service K1", resp, refs, problems)
+    if sorted({(r.bucket, r.batch) for r in resp}) != [(1024, 4), (2048, 1)]:
+        _fail("service K1: expected one group of 4 at bucket 1024 and one of 1 at 2048")
+    rate = sum(hp.total_cycles * hp.n_trials * p.n for p in problems) / wall
+    print(f"[service K1] {rate:.4e} aggregate spin-cycles/s (live spins); chunk traces "
+          f"{[list(map(int, r.chunk_best_cut)) for r in resp]}")
+    misses, hits = svc.stats["program_cache_misses"], svc.stats["program_cache_hits"]
+    resp2, wall2, counts2, _ = _service_solve(svc, reqs, "service K1, second solve")
+    new_hits = svc.stats["program_cache_hits"] - hits
+    new_builds = svc.stats["program_cache_misses"] - misses
+    print(f"[service K1, second solve] program cache hits {new_hits}, new builds {new_builds}")
+    if (new_hits, new_builds) != (2, 0):
+        _fail(f"second solve: expected 2 cache hits and no build, got {new_hits, new_builds}")
+    _expect("service K1, second solve", counts2, (k1_per, 0, 0, 0, 0, 0))
+    _check_service("service K1, second solve", resp2, refs, problems)
+    pre = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                        chunk_shots=5, backend_opts={"noise_mode": "pregen"})
+    resp4, _, counts4, _ = _service_solve(pre, reqs, "service K4 (xorshift pregen)")
+    _expect("service K4", counts4, (0, 0, k1_per, 0, 0, 0))
+    _check_service("service K4", resp4, refs, problems)
+    return problems, reqs, resp, counts[0], counts4[2]
+
+
+def phase_service_popcount(problems, reqs, k1_resp):
+    """Service phase 2: the same batch with field_mode='auto' (±1 weights:
+    popcount): K2 once per iteration's chain for each group, the results of
+    phase 1."""
+    from repro_torch.serve import AnnealService
+
+    svc = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                        chunk_shots=5, backend_opts={"field_mode": "auto"})
+    resp, _, counts, _ = _service_solve(svc, reqs, "service K2")
+    m_shot = reqs[0].hp.m_shot
+    _expect("service K2", counts, (0, 0, 0, 2 * m_shot, 0, 0))
+    _check_service("service K2", resp, [r.result for r in k1_resp], problems)
+    return counts[3]
+
+
+def phase_service_ssqa():
+    """Service phase 3: the four N = 800 twins at the SSQA cell's widths,
+    one group of B = 4, on the dense field (K1: classical on the J⊥ = 0
+    plateau, ring mode on the others) and on popcount (K2's ring mode, one
+    chain per iteration); each response equal to anneal_ssqa of its
+    instance.  Returns the ring-mode launches of K1 and K2."""
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.engine import schedule_plateaus
+    from repro_torch.core.ssqa import anneal_ssqa
+    from repro_torch.serve import AnnealRequest, AnnealService
+
+    hp = _service_hp(ssqa=True)
+    problems = [gset.load(n) for n in SERVICE_TWINS]
+    reqs = [AnnealRequest(problem=p, hp=hp, seed=s, algo="ssqa") for s, p in enumerate(problems)]
+    refs = [anneal_ssqa(p, hp, seed=s, track_energy=False, device="cuda",
+                        config=SolverConfig(backend="cuda", noise="xorshift"))
+            for s, p in enumerate(problems)]
+    coupled = hp.m_shot * sum(1 for pl in schedule_plateaus(hp.schedule()) if pl.jperp)
+    ring = {}
+    for name, opts, want in (
+            ("dense field", {}, (hp.m_shot * hp.steps, 0, 0, 0, coupled, 0)),
+            ("popcount", {"field_mode": "popcount"}, (0, 0, 0, hp.m_shot, 0, hp.m_shot))):
+        svc = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                            chunk_shots=5, backend_opts=opts)
+        resp, _, counts, _ = _service_solve(svc, reqs, f"service SSQA {name}")
+        _expect(f"service SSQA {name}", counts, want)
+        _check_service(f"service SSQA {name}", resp, refs, problems)
+        ring[name] = counts
+    return ring["dense field"][4], ring["popcount"][5]
+
+
+def phase_service_tiled():
+    """Service phase 4: the G77 twin (14383 spins, bucket 16384) on the
+    dense backend (j_mode 'auto' → tiled J: no J on the card) and on the
+    cuda backend with popcount (K2 at N = 16384), at a short schedule (τ =
+    10, I0 1 → 4, one shot); the two equal each other and anneal() of the
+    unpadded instance (K2).  Prints the dense path's peak device bytes
+    beside the 1 GiB a dense J would take.  Returns K2's launches."""
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.ssa import SSAHyperParams, anneal
+    from repro_torch.serve import AnnealRequest, AnnealService
+
+    hp = SSAHyperParams(n_trials=100, m_shot=1, tau=10, i0_min=1, i0_max=4, n_rnd=2)
+    p = gset.load("G77")
+    reqs = [AnnealRequest(problem=p, hp=hp, seed=0)]
+    ref = anneal(p, hp, seed=0, track_energy=False, device="cuda",
+                 config=SolverConfig(backend="cuda", noise="xorshift", field_mode="popcount"))
+    dense = AnnealService(backend="dense", noise="xorshift", storage_layout="packed")
+    resp, wall, counts, peak = _service_solve(dense, reqs, "service tiled J (dense backend)")
+    (bk, _, _), = dense._programs.values()
+    if bk.j_mode != "tiled" or resp[0].bucket != 16384:
+        _fail(f"service tiled: expected j_mode 'tiled' at bucket 16384, got {bk.j_mode!r} "
+              f"at {resp[0].bucket}")
+    _expect("service tiled J", counts, (0, 0, 0, 0, 0, 0))
+    _check_service("service tiled J", resp, [ref], [p])
+    j_bytes = 4 * 16384 * 16384
+    print(f"[service tiled J] {p.name} N={p.n} → 16384: wall {wall:.3f}s; peak device memory "
+          f"of the call {peak} B, against {j_bytes} B for a dense float32 J "
+          f"({peak / j_bytes:.4f}x)")
+    if peak >= j_bytes:
+        _fail("service tiled: the dense path's peak reaches a dense J's bytes")
+    pc = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                       backend_opts={"field_mode": "popcount"})
+    resp2, _, counts2, peak2 = _service_solve(pc, reqs, "service tiled K2 (N = 16384)")
+    _expect("service tiled K2", counts2, (0, 0, 0, hp.m_shot, 0, 0))
+    _check_service("service tiled K2", resp2, [resp[0].result], [p])
+    print(f"[service tiled K2] last launch (cluster size, blocks, variant) "
+          f"{_k2_last()}; peak device memory of the call {peak2} B")
+    return counts2[3]
+
+
+def _k2_last():
+    from repro_torch.kernels import ssa_update
+
+    return ssa_update.ssa_plateau_popcount_batched.last_cluster
+
+
+def phase_service_fallback(problems, reqs, k1_resp):
+    """Service phase 5: an injected compile fault on the cuda group of
+    bucket 1024 walks the chain to the dense backend: the four twins come
+    back 'fallback' with one cuda → dense event and phase 1's results; the
+    K2000 group stays on K1, 'ok'."""
+    from repro_torch.ft.faults import FaultInjector
+    from repro_torch.serve import AnnealService
+
+    inj = FaultInjector()
+    inj.arm("compile", backend="cuda", bucket=1024)
+    svc = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                        chunk_shots=5, faults=inj)
+    resp, _, counts, _ = _service_solve(svc, reqs, "service fallback")
+    hp = reqs[0].hp
+    _expect("service fallback", counts, (hp.m_shot * hp.steps, 0, 0, 0, 0, 0))
+    refs = [r.result for r in k1_resp]
+    _check_service("service fallback", resp[:4], refs[:4], problems[:4], status="fallback")
+    _check_service("service fallback", resp[4:], refs[4:], problems[4:])
+    for r in resp[:4]:
+        hops = [(e.detail["from"], e.detail["to"]) for e in r.events if e.kind == "fallback"]
+        if hops != [("cuda", "dense")] or len(r.events) != 1:
+            _fail(f"service fallback: expected one cuda → dense event, got "
+                  f"{[(e.kind, e.detail) for e in r.events]}")
+    print(f"[service fallback] events {[e.kind for e in resp[0].events]}: "
+          f"{resp[0].events[0].detail['error']}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1164,31 +1399,40 @@ def main():
     k1_ring_launches, k2_ring_launches = phase_ssqa_anneal()
     phase_bench_ssqa()
     phase_profile()
+    problems, reqs, k1_resp, k1_service, k4_service = phase_service()
+    k2_service = phase_service_popcount(problems, reqs, k1_resp)
+    k1_ring_service, k2_ring_service = phase_service_ssqa()
+    k2_tiled_service = phase_service_tiled()
+    phase_service_fallback(problems, reqs, k1_resp)
     kernels = [
         dict(name="ssa_plateau_packed (K1)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
              replaces="src/repro/kernels/ssa_update.py:329",
-             launches=k1_launches, **k1),
+             launches=k1_launches, service_launches={"service K1": k1_service}, **k1),
         dict(name="local_field (K3)", route="cuda",
              source="src/repro_torch/kernels/csrc/field.cu",
              replaces="src/repro/kernels/ssa_update.py:90",
-             launches=k3_launches, **k3),
+             launches=k3_launches, service_launches={}, **k3),
         dict(name="ssa_plateau (K4)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau_pregen.cu",
              replaces="src/repro/kernels/ssa_update.py:150",
-             launches=k4_launches, **k4),
+             launches=k4_launches, service_launches={"service K4": k4_service}, **k4),
         dict(name="ssa_plateau_popcount (K2)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
-             launches=k2_launches, **k2),
+             launches=k2_launches,
+             service_launches={"service K2": k2_service,
+                               "service tiled K2": k2_tiled_service}, **k2),
         dict(name="ssa_plateau_packed ring mode (K1, SSQA)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
              replaces="src/repro/kernels/ssa_update.py:329",
-             launches=k1_ring_launches, **k1_ring),
+             launches=k1_ring_launches,
+             service_launches={"service SSQA dense field": k1_ring_service}, **k1_ring),
         dict(name="ssa_plateau_popcount ring mode (K2, SSQA)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
-             launches=k2_ring_launches, **k2_ring),
+             launches=k2_ring_launches,
+             service_launches={"service SSQA popcount": k2_ring_service}, **k2_ring),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ substitute path.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["SolverConfig", "not_ported"]
@@ -19,7 +20,12 @@ _LAYOUTS = ("dense", "packed")
 
 # What each option outside the ported slice waits for, by ROADMAP.md item.
 _WAITS = {
-    "tiled": "ROADMAP.md queue 1 step 2 (j_mode='tiled': streamed J slabs)",
+    "j_opts": "ROADMAP.md queue 1 step 2 (DenseBackend's j_dtype and double_buffer)",
+    "sa_pt": "ROADMAP.md queue 1 step 5 (SA and PT-SSA: core/sa.py, core/pt.py)",
+    "problems": "ROADMAP.md queue 1 step 6 (the problem frontend: ProblemEncoding "
+                "inputs)",
+    "stream": "ROADMAP.md queue 1 step 7 (the streaming service, checkpoints and "
+              "group_fingerprint)",
     "spin": "ROADMAP.md queue 1 step 8 (spin sharding across GPUs)",
     "auto_backend": "ROADMAP.md queue 1 step 3 (MIN_RESIDENT_N re-derived on "
                     "the H100 before backend='auto' can choose)",
@@ -44,7 +50,9 @@ class SolverConfig:
       'auto' is not forwarded, as in the JAX package) | 'dense' |
       'popcount' (XNOR-popcount on the coupling bitplanes; on 'cuda' the
       plateau-chain kernel K2, which needs streamed xorshift noise).
-    * ``j_mode`` — 'auto' | 'dense' (dense backend only).
+    * ``j_mode`` — 'auto' | 'dense' | 'tiled' (dense backend only): 'tiled'
+      streams (tile_n, N) J slabs and never holds (N, N); 'auto' tiles above
+      ``engine.TILED_J_THRESHOLD`` spins.
     * ``noise`` — 'xorshift' | 'threefry' (``jax.random``'s generator).
     * ``noise_mode`` — 'auto' | 'streamed' | 'pregen' (cuda only):
       'streamed' makes xorshift noise inside the plateau kernel, 'pregen'
@@ -78,7 +86,7 @@ class SolverConfig:
                 f"storage_layout {self.storage_layout!r} not in {_LAYOUTS}"
             )
         _check_choice("field_mode", self.field_mode, ("auto", "dense", "popcount"))
-        _check_choice("j_mode", self.j_mode, ("auto", "dense"), {"tiled": "tiled"})
+        _check_choice("j_mode", self.j_mode, ("auto", "dense", "tiled"))
         _check_choice("noise", self.noise, ("xorshift", "threefry"))
         _check_choice("noise_mode", self.noise_mode, ("auto", "streamed", "pregen"))
         if self.noise_mode == "streamed" and self.noise != "xorshift":
@@ -88,6 +96,10 @@ class SolverConfig:
             )
         _check_choice("partition", self.partition, ("problem",),
                       {"spin": "spin", "auto": "spin"})
+
+    def opts_dict(self) -> Dict[str, Any]:
+        """backend_opts as a live dict (values as passed at construction)."""
+        return dict(self.backend_opts)
 
     def engine_opts(self) -> Dict[str, Any]:
         """kwargs for ``make_backend(**...)`` minus backend/noise.
@@ -105,6 +117,28 @@ class SolverConfig:
             out["noise_mode"] = self.noise_mode
         out.update(self.backend_opts)
         return out
+
+    def signature(self) -> str:
+        """Stable 16-hex digest over every behaviour-affecting field: the
+        JAX package's payload, with the mesh fingerprint always empty (no
+        mesh until spin sharding is ported), so equal options give the JAX
+        package's digest.  The service's program-cache keys consume it."""
+        payload = (
+            "SolverConfig/v1",
+            self.backend,
+            self.storage_layout,
+            self.field_mode,
+            self.j_mode,
+            self.noise,
+            self.noise_mode,
+            self.partition,
+            (),
+            tuple((k, repr(v)) for k, v in self.backend_opts),
+        )
+        return hashlib.sha256(repr(payload).encode()).hexdigest()[:16]
+
+    def replace(self, **kw) -> "SolverConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def _check_choice(name: str, value, allowed, waiting: Optional[dict] = None):

@@ -56,6 +56,7 @@ import torch
 from ..kernels import ops as kops
 from ..kernels import ssa_update as kssa
 from ..kernels.bitplane import (
+    PackedJ,
     adjacency_weight_bits,
     pack_couplings_from_adjacency,
     pack_spins,
@@ -69,6 +70,7 @@ from .ising import (
     local_fields_dense,
     local_fields_popcount,
     local_fields_sparse,
+    local_fields_tiled,
 )
 from .rng import (
     threefry_key,
@@ -86,6 +88,7 @@ __all__ = [
     "TILED_J_THRESHOLD",
     "POPCOUNT_TILE_N",
     "MAX_MODEL_SPINS",
+    "MAX_UNSHARDED_SPINS",
     "POPCOUNT_AUTO_MAX_BITS",
     "BaseResult",
     "EngineState",
@@ -117,15 +120,29 @@ __all__ = [
     "energy_from_field",
     "pack_spins",
     "unpack_spins",
+    "exact_float32_matmul",
+    "next_pow2",
+    "bucket_n",
+    "pad_model",
+    "pad_degree",
+    "padded_noise_init",
+    "extract_slot",
+    "splice_slot",
+    "BatchedBackend",
+    "BatchedSparseBackend",
+    "BatchedDenseBackend",
+    "BatchedCudaBackend",
+    "BATCHED_BACKENDS",
+    "make_batched_backend",
 ]
 
 # Sentinel "no solution yet" energy (any real H is far below this).
 BIG_ENERGY = 2**30
 
-# j_mode='auto' streams J in slabs above this spin count instead of holding
-# the dense (N, N) matrix (f32 J is 64 MB at N=4096).  The slab path is not
-# ported yet, so above it 'auto' raises.  The popcount field row-tiles its
-# contraction above the same count, POPCOUNT_TILE_N rows at a time.
+# j_mode='auto' streams J in (tile_n, N) slabs above this spin count instead
+# of holding the dense (N, N) matrix (f32 J is 64 MB at N=4096).  The popcount
+# field row-tiles its contraction above the same count, POPCOUNT_TILE_N (the
+# default tile_n) rows at a time.
 TILED_J_THRESHOLD = 4096
 POPCOUNT_TILE_N = 512
 
@@ -136,6 +153,11 @@ POPCOUNT_AUTO_MAX_BITS = 4
 
 # Admission ceiling on the spin count: rejects a corrupted shape early.
 MAX_MODEL_SPINS = 1 << 22
+
+# The service admits no instance above this many spins on one device: a
+# single (N, N)-coupled instance there belongs to spin sharding (ROADMAP.md
+# queue 1 step 8), as in the JAX package.
+MAX_UNSHARDED_SPINS = 1 << 15
 
 
 def resolve_device(device=None) -> torch.device:
@@ -606,43 +628,76 @@ def resolve_noise_mode(noise_mode: str, noise: str) -> str:
     return noise_mode
 
 
+def exact_float32_matmul() -> None:
+    """Turn TF32 off for CUDA float32 matmuls, so the dense field
+    ``h + m @ J`` is exact: TF32 keeps 10 mantissa bits, and fields above
+    2^11 would round.
+
+    The setting is process-wide: ``torch.backends.cuda.matmul.allow_tf32``
+    is global state, so every float32 matmul of the process runs in full
+    float32 from the first call on, and nothing here turns TF32 back on.
+    :class:`DenseBackend`, :class:`BatchedDenseBackend` and
+    ``serve.AnnealService`` call it; it writes the flag only while it is on.
+    """
+    if torch.backends.cuda.matmul.allow_tf32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _check_j_opts(j_dtype, double_buffer):
+    """The JAX dense backends' ``j_dtype`` and ``double_buffer`` are not
+    ported: anything but their defaults raises instead of being ignored."""
+    if j_dtype is not None and j_dtype not in (torch.float32, "float32"):
+        raise not_ported(f"j_dtype={j_dtype!r}", "j_opts")
+    if double_buffer:
+        raise not_ported("double_buffer=True", "j_opts")
+
+
 class DenseBackend(PlateauBackend):
     """(T, N)·(N, N) float32 matmul field (K2000-class dense instances).
 
     The product is ``torch.matmul``, as the JAX package leaves it to XLA;
-    it is exact with TF32 off, which the constructor sets.
+    it is exact with TF32 off (:func:`exact_float32_matmul`).
+
+    ``j_mode`` sets where J lives: 'dense' holds the (N, N) float32 J;
+    'tiled' holds none and streams (tile_n, N) slabs scattered from the
+    padded adjacency (:func:`~repro_torch.core.ising.local_fields_tiled`),
+    bit-identical, which is what admits G77/G81-class N; 'auto' tiles above
+    TILED_J_THRESHOLD spins.
 
     ``field_mode='popcount'`` (or 'auto' within POPCOUNT_AUTO_MAX_BITS
     planes) packs the couplings as bitplanes and takes the field from
     :func:`~repro_torch.core.ising.local_fields_popcount`, row-tiled at
-    POPCOUNT_TILE_N above TILED_J_THRESHOLD spins; no J exists then, dense or
+    ``tile_n`` above TILED_J_THRESHOLD spins; no J exists then, dense or
     tiled, and any noise is accepted.
     """
 
     name = "dense"
 
-    def __init__(self, model: IsingModel, *, j_mode: str = "auto",
-                 field_mode: str = "dense", **kw):
+    def __init__(self, model: IsingModel, *, j_mode: str = "auto", tile_n: int = POPCOUNT_TILE_N,
+                 field_mode: str = "dense", j_dtype=None, double_buffer: bool = False, **kw):
+        _check_j_opts(j_dtype, double_buffer)
         super().__init__(model, **kw)
         self.j_mode = resolve_j_mode(j_mode, model.n)
+        self.tile_n = int(tile_n)
         self.field_mode = _resolve_field_mode(field_mode, model)
         if self.field_mode == "popcount":
             self.packed_j = pack_couplings_from_adjacency(
                 model.n, model.nbr_idx, model.nbr_w, device=self.device)
-            self._pc_tile = None if model.n <= TILED_J_THRESHOLD else POPCOUNT_TILE_N
+            self._pc_tile = None if model.n <= TILED_J_THRESHOLD else self.tile_n
             return
+        exact_float32_matmul()
         if self.j_mode == "tiled":
-            raise not_ported(f"j_mode='tiled' (needed above {TILED_J_THRESHOLD} spins)",
-                             "tiled")
-        # TF32 keeps 10 mantissa bits: fields above 2^11 would stop being exact.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
-                                 device=self.device)
+            _, self.nbr_idx, self.nbr_w = model.device_arrays(self.device)
+        else:
+            self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
+                                     device=self.device)
 
     def _field(self, m):
         if self.field_mode == "popcount":
             return local_fields_popcount(pack_spins(m), self.h, self.packed_j,
                                          tile_n=self._pc_tile)
+        if self.j_mode == "tiled":
+            return local_fields_tiled(m, self.h, self.nbr_idx, self.nbr_w, tile_n=self.tile_n)
         return local_fields_dense(m, self.h, self.J)
 
 
@@ -880,3 +935,499 @@ def run_schedule(
     trace = (torch.cat(tr_mean), torch.cat(tr_min)) if tr_mean else None
     planes_out = torch.cat(planes, dim=0) if planes else None
     return state, trace, planes_out
+
+
+# ---------------------------------------------------------------------------
+# Shape buckets and padded problems (the serving substrate)
+# ---------------------------------------------------------------------------
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (>= 1)."""
+    n = int(n)
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def bucket_n(n: int, min_bucket: int = 64) -> int:
+    """The serving shape bucket of an N-spin problem: a power-of-two width,
+    so a heterogeneous request stream shares a few programs."""
+    if n <= 0:
+        raise ValueError(f"need n > 0, got {n}")
+    return max(next_pow2(int(min_bucket)), next_pow2(n))
+
+
+def pad_model(model: IsingModel, n_bucket: int) -> IsingModel:
+    """Zero-pad an Ising model to ``n_bucket`` spins.
+
+    Pad rows carry h = 0 and self-index, zero-weight adjacency, so their
+    field is 0 in every field mode and they add nothing to H: the live
+    lanes of a padded run evolve as in the unpadded run, given the
+    padding-invariant noise of :func:`padded_noise_init`.
+    """
+    if model.n == n_bucket:
+        return model
+    if model.n > n_bucket:
+        raise ValueError(f"model has {model.n} spins > bucket {n_bucket}")
+    pad = n_bucket - model.n
+    d = model.max_degree
+    h = np.concatenate([np.asarray(model.h, np.int32), np.zeros(pad, np.int32)])
+    idx = np.concatenate([
+        np.asarray(model.nbr_idx, np.int32),
+        np.tile(np.arange(model.n, n_bucket, dtype=np.int32)[:, None], (1, d)),
+    ], axis=0)
+    w = np.concatenate([np.asarray(model.nbr_w, np.int32), np.zeros((pad, d), np.int32)],
+                       axis=0)
+    return IsingModel(n=n_bucket, h=h, nbr_idx=idx, nbr_w=w,
+                      name=f"{model.name}@pad{n_bucket}")
+
+
+def padded_noise_init(noise: str, seed: int, n_trials: int, n_live: int, n_bucket: int,
+                      device=None):
+    """A noise state over (n_trials, n_bucket) lanes whose live lanes are
+    padding-invariant.
+
+    For xorshift the live lanes [0, n_live) are seeded exactly as the
+    unpadded ``xorshift_init(seed, (n_trials, n_live))`` seeds them, and the
+    pad lanes from the stream seeded ``seed ^ 0x9E3779B9``: lanes never
+    interact, so a bucket-padded run equals the unpadded run on its live
+    lanes.  Threefry draws depend on the shape, so threefry stays a key
+    (``threefry_key(seed)``) and its padded runs are valid but not
+    bit-comparable to unpadded ones, as in the JAX package.
+    """
+    if noise == "xorshift":
+        live = xorshift_init(seed, (n_trials, n_live), device)
+        if n_bucket == n_live:
+            return live
+        pad = xorshift_init(seed ^ 0x9E3779B9, (n_trials, n_bucket - n_live), device)
+        return torch.cat([live, pad], dim=-1)
+    if noise == "threefry":
+        return threefry_key(seed)
+    raise ValueError(f"unknown noise {noise!r}")
+
+
+def pad_degree(model: IsingModel, d: int) -> IsingModel:
+    """Pad a model's adjacency to ``d`` neighbour columns with self-index,
+    zero-weight entries: the field is unchanged, as under bucket padding.
+    Stacked adjacency needs one width for the whole batch."""
+    d = int(d)
+    if model.max_degree == d:
+        return model
+    if model.max_degree > d:
+        raise ValueError(f"model degree {model.max_degree} exceeds target degree {d}")
+    extra = d - model.max_degree
+    self_idx = np.tile(np.arange(model.n, dtype=np.int32)[:, None], (1, extra))
+    return IsingModel(
+        n=model.n, h=np.asarray(model.h, np.int32),
+        nbr_idx=np.concatenate([np.asarray(model.nbr_idx), self_idx], axis=1),
+        nbr_w=np.concatenate([np.asarray(model.nbr_w), np.zeros((model.n, extra), np.int32)],
+                             axis=1),
+        name=model.name,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Batched backends: B stacked, bucket-padded problems per launch
+# ---------------------------------------------------------------------------
+def _map_tree(fn, tree, *rest):
+    """``fn`` over the tensor and array leaves of nested dicts, named
+    tuples, tuples and lists (a batched state, a stacked problem)."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_tree(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tree(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def extract_slot(tree, slot: int):
+    """One problem lane of a batched state or stacked problem, keeping a
+    size-1 problem axis, so it compares with (and splices into) a B = 1
+    batch of the same request."""
+    return _map_tree(lambda a: a[slot:slot + 1], tree)
+
+
+def splice_slot(tree, slot: int, sub):
+    """A copy of ``tree`` with lane ``slot`` replaced by the size-1 lane
+    ``sub``.  Lanes never interact, so every other lane's trajectory is
+    unchanged."""
+    def put(a, s):
+        out = a.clone() if isinstance(a, torch.Tensor) else np.array(a, copy=True)
+        out[slot] = s[0]
+        return out
+
+    return _map_tree(put, tree, sub)
+
+
+def _stack_sparse_models(models, n_bucket: int, device) -> dict:
+    """Stacked, bucket- and degree-padded adjacency {h, nbr_idx, nbr_w}."""
+    padded = [pad_model(m, n_bucket) for m in models]
+    d = max(m.max_degree for m in padded)
+    padded = [pad_degree(m, d) for m in padded]
+    return {k: torch.as_tensor(np.stack([np.asarray(getattr(m, k)) for m in padded]),
+                               dtype=torch.int32, device=device)
+            for k in ("h", "nbr_idx", "nbr_w")}
+
+
+def _stack_dense_models(models, n_bucket: int, device) -> dict:
+    """Stacked, bucket-padded dense views {h (B, N), J (B, N, N) float32}."""
+    J = torch.zeros((len(models), n_bucket, n_bucket), dtype=torch.float32, device=device)
+    h = torch.zeros((len(models), n_bucket), dtype=torch.int32, device=device)
+    for b, m in enumerate(models):
+        J[b, :m.n, :m.n] = torch.from_numpy(m.dense_J()).to(device=device, dtype=torch.float32)
+        h[b, :m.n] = torch.as_tensor(np.asarray(m.h), dtype=torch.int32, device=device)
+    return {"h": h, "J": J}
+
+
+def _stack_packed_models(models, n_bucket: int, j_bits: int, device) -> dict:
+    """Stacked, bucket-padded coupling bitplanes {h, sign, mags, base}.
+
+    Every model packs to ``j_bits`` magnitude planes, the group's maximum,
+    so the stacked ``mags`` has one shape; pad rows have no couplings, so
+    their planes and base are 0.
+    """
+    hs, pjs = [], []
+    for m in models:
+        p = pad_model(m, n_bucket)
+        pjs.append(pack_couplings_from_adjacency(p.n, p.nbr_idx, p.nbr_w, n_bits=j_bits,
+                                                 device=device))
+        hs.append(torch.as_tensor(p.h, dtype=torch.int32, device=device))
+    return {"h": torch.stack(hs), **{k: torch.stack([getattr(pj, k) for pj in pjs])
+                                     for k in ("sign", "mags", "base")}}
+
+
+def _local_fields_sparse_batched(m, h, nbr_idx, nbr_w):
+    """:func:`local_fields_sparse` per problem: spins (B, T, N) against
+    stacked adjacency (B, N, D), h (B, 1, N)."""
+    B, T, N = m.shape
+    flat = nbr_idx.to(torch.int64).reshape(B, 1, -1).expand(B, T, -1)
+    neigh = torch.gather(m.to(torch.int32), 2, flat).reshape(B, T, N, -1)
+    return h + (nbr_w[:, None] * neigh).sum(dim=-1, dtype=torch.int32)
+
+
+class BatchedBackend:
+    """B stacked, bucket-padded problems advanced together.
+
+    The serving counterpart of :class:`PlateauBackend`: the problem arrays
+    are call-time arguments (the dict :meth:`stack` returns), not
+    constructor state, so one backend per (backend, options, N_bucket, B,
+    n_trials, schedule) serves every request group of that shape — the
+    service's program cache keys on exactly those.
+
+    The state is :class:`EngineState` (or :class:`PackedEngineState`) with a
+    leading problem axis: spins (B, T, N), best_H (B, T), xorshift lanes
+    (B, 4, T, N); threefry keys are a (B, 2) int64 host array, one key per
+    problem, each stepped on its own.  The sparse and dense backends run
+    the cycle loop of :func:`run_plateau_scan` once for all B problems, the
+    problem axis leading every tensor; :class:`BatchedCudaBackend` makes one
+    kernel launch per plateau (or chain) for all B.  Every backend is
+    bit-identical per problem to the single-problem one.
+    """
+
+    name = "abstract"
+
+    def __init__(self, *, n_bucket: int, n_trials: int, n_rnd: int = 2,
+                 noise: str = "xorshift", storage_layout: str = "dense",
+                 n_replicas: int = 0, device=None):
+        if storage_layout not in ("dense", "packed"):
+            raise ValueError(f"unknown storage_layout {storage_layout!r}")
+        if noise not in ("xorshift", "threefry"):
+            raise ValueError(f"unknown noise {noise!r}")
+        self.n_bucket = int(n_bucket)
+        self.n_trials = int(n_trials)
+        self.n_rnd = int(n_rnd)
+        self.noise = noise
+        self.storage_layout = storage_layout
+        self.n_replicas = int(n_replicas)
+        if self.n_replicas:
+            if self.n_replicas < 2:
+                raise ValueError(f"n_replicas must be >= 2, got {self.n_replicas}")
+            if self.n_trials % self.n_replicas:
+                raise ValueError(f"n_trials={self.n_trials} not divisible by "
+                                 f"n_replicas={self.n_replicas}")
+        self.device = resolve_device(device)
+
+    # -- noise ------------------------------------------------------------
+    def _noise_step(self, ns):
+        """One draw for every problem: (state', (B, T, N) int32 ±1)."""
+        if self.noise == "xorshift":
+            st, r = xorshift_next_bits(ns.transpose(0, 1))
+            return st.transpose(0, 1), r
+        keys, draws = [], []
+        for key in ns.tolist():
+            key, sub = threefry_split(tuple(key))
+            keys.append(key)
+            draws.append(threefry_noise(sub, (self.n_trials, self.n_bucket), self.device))
+        return np.asarray(keys, np.int64), torch.stack(draws)
+
+    def _noise_cycles(self, ns, length: int):
+        """``length`` draws for every problem at once: (state', (B, C, T, N)
+        int8 ±1), the same draws as ``length`` steps."""
+        if self.noise == "xorshift":
+            st, noise = xorshift_noise_cycles(ns.transpose(0, 1), length)
+            return st.transpose(0, 1).contiguous(), noise.transpose(0, 1).contiguous()
+        keys, draws = [], []
+        for key in ns.tolist():
+            key, noise = threefry_noise_cycles(tuple(key), length,
+                                               (self.n_trials, self.n_bucket), self.device)
+            keys.append(key)
+            draws.append(noise)
+        return np.asarray(keys, np.int64), torch.stack(draws)
+
+    # -- host side --------------------------------------------------------
+    def stack(self, models: Sequence[IsingModel]) -> dict:
+        """Pad each model to the bucket and stack its arrays on axis 0."""
+        raise NotImplementedError
+
+    def init_noise(self, seeds: Sequence[int], n_lives: Sequence[int]):
+        """Stacked per-problem noise states (padding-invariant live lanes)."""
+        if self.noise == "threefry":
+            return np.asarray([threefry_key(int(s)) for s in seeds], np.int64).reshape(-1, 2)
+        return torch.stack([
+            padded_noise_init("xorshift", int(s), self.n_trials, int(nl), self.n_bucket,
+                              self.device)
+            for s, nl in zip(seeds, n_lives)
+        ])
+
+    # -- device side ------------------------------------------------------
+    def init_state(self, problem: dict, noise0):
+        """Random ±1 start from the first noise draw (as PlateauBackend)."""
+        ns, r0 = self._noise_step(noise0)
+        if isinstance(ns, torch.Tensor):
+            ns = ns.contiguous()
+        m0 = r0.to(torch.int8)
+        itanh0 = torch.where(m0 > 0, 0, -1).to(torch.int32)
+        best_H = torch.full(m0.shape[:-1], BIG_ENERGY, dtype=torch.int32, device=self.device)
+        st = EngineState(ns, m0, itanh0, best_H, m0)
+        return pack_state(st) if self.storage_layout == "packed" else st
+
+    def run_plateau(self, problem: dict, state, i0, *, length: int, eligible: bool,
+                    jperp: int = 0):
+        """Advance one plateau, in this backend's storage layout."""
+        plateau = Plateau(int(i0), int(length), bool(eligible), int(jperp))
+        return self.run_shots(problem, state, (plateau,), 1)
+
+    def run_shots(self, problem: dict, state, plateaus: Sequence[Plateau], n_shots: int):
+        """Advance ``n_shots`` whole iterations (plateau chains): one
+        service chunk.  Under 'packed' the state entering and leaving —
+        what is kept between chunks — carries its spins as 32-bit words."""
+        packed = self.storage_layout == "packed"
+        st = unpack_state(state, self.n_bucket) if packed else state
+        for _ in range(int(n_shots)):
+            for p in plateaus:
+                st = self._plateau(problem, st, p)
+        return pack_state(st) if packed else st
+
+    def _plateau(self, problem: dict, st: EngineState, p: Plateau) -> EngineState:
+        st, _, _ = run_plateau_scan(
+            functools.partial(self._field, problem), self._noise_step, problem["h"][:, None],
+            self.n_rnd, st, p.i0, length=p.length, eligible=p.eligible, jperp=p.jperp,
+            n_replicas=self.n_replicas,
+        )
+        return st
+
+    def _field(self, problem: dict, m: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def finalize(self, state) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(best_H (B, T), best_m (B, T, N) int8) of a batched state."""
+        if self.storage_layout == "packed":
+            return state.best_H, unpack_spins(state.best_m_packed, self.n_bucket)
+        return state.best_H, state.best_m
+
+
+class BatchedSparseBackend(BatchedBackend):
+    """Padded-adjacency gather field, for all problems at once."""
+
+    name = "sparse"
+
+    def stack(self, models):
+        return _stack_sparse_models(models, self.n_bucket, self.device)
+
+    def _field(self, problem, m):
+        return _local_fields_sparse_batched(m, problem["h"][:, None], problem["nbr_idx"],
+                                            problem["nbr_w"])
+
+
+class BatchedDenseBackend(BatchedBackend):
+    """(T, N)·(N, N) float32 matmul field per problem, one batched matmul
+    for all B (exact with TF32 off, :func:`exact_float32_matmul`).
+
+    ``j_mode='tiled'`` ('auto' above TILED_J_THRESHOLD spins) stacks the
+    adjacency instead of J and streams (tile_n, N) slabs per problem: no
+    (B, N, N) buffer exists, which admits G77/G81-class buckets.
+    ``field_mode='popcount'`` stacks coupling bitplanes instead (``j_bits``
+    planes each, the group's maximum) and takes the XNOR-popcount field,
+    row-tiled at ``tile_n`` above TILED_J_THRESHOLD spins.
+    """
+
+    name = "dense"
+
+    def __init__(self, *, j_mode: str = "auto", tile_n: int = POPCOUNT_TILE_N,
+                 field_mode: str = "dense", j_bits: int = 1, j_dtype=None,
+                 double_buffer: bool = False, **kw):
+        _check_j_opts(j_dtype, double_buffer)
+        super().__init__(**kw)
+        self.j_mode = resolve_j_mode(j_mode, self.n_bucket)
+        self.tile_n = int(tile_n)
+        self.j_bits = int(j_bits)
+        self.field_mode = resolve_field_mode(field_mode, self.j_bits)
+        self._pc_tile = None if self.n_bucket <= TILED_J_THRESHOLD else self.tile_n
+        if self.field_mode != "popcount":
+            exact_float32_matmul()
+
+    def stack(self, models):
+        if self.field_mode == "popcount":
+            return _stack_packed_models(models, self.n_bucket, self.j_bits, self.device)
+        if self.j_mode == "tiled":
+            return _stack_sparse_models(models, self.n_bucket, self.device)
+        return _stack_dense_models(models, self.n_bucket, self.device)
+
+    def _field(self, problem, m):
+        h = problem["h"][:, None]
+        if self.field_mode == "popcount":
+            pj = PackedJ(*(problem[k][:, None] for k in ("sign", "mags", "base")))
+            return local_fields_popcount(pack_spins(m), h, pj, tile_n=self._pc_tile)
+        if self.j_mode == "tiled":
+            return local_fields_tiled(m, h, problem["nbr_idx"], problem["nbr_w"],
+                                      tile_n=self.tile_n)
+        return local_fields_dense(m, h, problem["J"])
+
+
+class BatchedCudaBackend(BatchedBackend):
+    """The resident CUDA plateau kernels, one launch for all B problems.
+
+    The counterpart of the JAX package's ``BatchedPallasBackend``: the
+    FPGA's "one pipeline, many instances" operating mode.
+
+    * streamed noise (xorshift's default): K1
+      (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_packed_batched`)
+      per plateau, spins crossing the launch as 32-bit words, the lanes
+      stepped in-kernel; an SSQA plateau with J⊥ ≠ 0 runs its ring mode;
+    * pregenerated noise (threefry, or ``noise_mode='pregen'``): the
+      (B, C, T, N) int8 noise is drawn, then K4
+      (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_batched`) per
+      plateau;
+    * ``field_mode='popcount'`` (streamed noise only): the stacked coupling
+      bitplanes in K2's layout and no J, and :meth:`run_shots` makes one K2
+      launch (:func:`~repro_torch.kernels.ssa_update.
+      ssa_plateau_popcount_batched`) per iteration's chain, in ring mode
+      where the chain's J⊥ is not all 0.  The chain's schedules go to the
+      device once per backend.
+
+    K2 and the ring modes need streamed noise, as the JAX package's batched
+    pallas backend does.  The kernels size their launch (thread-block
+    clusters) themselves, so there is no ``block_r``.  On CPU tensors the
+    wrappers run their plain versions.
+    """
+
+    name = "cuda"
+
+    def __init__(self, *, noise_mode: str = "auto", field_mode: str = "dense",
+                 j_bits: int = 1, **kw):
+        super().__init__(**kw)
+        self.noise_mode = resolve_noise_mode(noise_mode, self.noise)
+        self.j_bits = int(j_bits)
+        self.field_mode = resolve_field_mode(field_mode, self.j_bits)
+        if self.field_mode == "popcount" and self.noise_mode != "streamed":
+            raise ValueError("field_mode='popcount' on the batched cuda backend requires "
+                             "noise_mode='streamed' (noise='xorshift')")
+        if self.n_replicas and self.noise_mode != "streamed":
+            raise ValueError("SSQA (n_replicas > 0) on the batched cuda backend requires "
+                             "noise_mode='streamed' (noise='xorshift'); the pregen kernel "
+                             "K4 has no replica-coupling path")
+        self._schedules = {}
+
+    def stack(self, models):
+        if self.field_mode == "popcount":
+            prob = _stack_packed_models(models, self.n_bucket, self.j_bits, self.device)
+            pj = kssa.popcount_planes(PackedJ(prob["sign"], prob["mags"], prob["base"]))
+            return {**prob, "sign": pj.sign, "mags": pj.mags}
+        return _stack_dense_models(models, self.n_bucket, self.device)
+
+    _device_schedules = CudaBackend._device_schedules
+
+    def _k1(self, problem, st: PackedEngineState, p: Plateau) -> PackedEngineState:
+        mp, it, rng, bh, bmp = kssa.ssa_plateau_packed_batched(
+            st.m_packed, st.itanh, problem["J"], problem["h"], st.noise_state, p.i0,
+            st.best_H, st.best_m_packed, n_cycles=p.length, n_rnd=self.n_rnd,
+            eligible=p.eligible, jperp=p.jperp,
+            n_replicas=self.n_replicas if p.jperp else 0,
+        )
+        return PackedEngineState(rng, mp, it, bh, bmp)
+
+    def _k2(self, problem, st: PackedEngineState, plateaus) -> PackedEngineState:
+        i0_sched, fold_sched, jperp_sched = self._device_schedules(plateaus)
+        mp, it, rng, bh, bmp = kssa.ssa_plateau_popcount_batched(
+            st.m_packed, st.itanh, problem["sign"], problem["mags"], problem["base"],
+            problem["h"], st.noise_state, i0_sched, fold_sched, st.best_H, st.best_m_packed,
+            n_rnd=self.n_rnd, jperp_sched=jperp_sched, n_replicas=self.n_replicas,
+        )
+        return PackedEngineState(rng, mp, it, bh, bmp)
+
+    def _plateau(self, problem, st: EngineState, p: Plateau) -> EngineState:
+        """K4 over the plateau's pregenerated (B, C, T, N) noise."""
+        if p.jperp:
+            raise ValueError("SSQA requires noise_mode='streamed' on the batched cuda "
+                             "backend (the pregen kernel K4 has no replica-coupling path)")
+        ns, noise = self._noise_cycles(st.noise_state, p.length)
+        m, it, bh, bm = kssa.ssa_plateau_batched(
+            st.m.to(torch.float32), st.itanh, problem["J"], problem["h"], noise, p.i0,
+            st.best_H, st.best_m, n_rnd=self.n_rnd, eligible=p.eligible,
+        )
+        return EngineState(ns, m.to(torch.int8), it, bh, bm)
+
+    def run_shots(self, problem, state, plateaus, n_shots):
+        plateaus = tuple(plateaus)
+        if self.noise_mode != "streamed":
+            return super().run_shots(problem, state, plateaus, n_shots)
+        packed = self.storage_layout == "packed"
+        st = state if packed else pack_state(state)
+        for _ in range(int(n_shots)):
+            if self.field_mode == "popcount":
+                st = self._k2(problem, st, plateaus)
+            else:
+                for p in plateaus:
+                    st = self._k1(problem, st, p)
+        return st if packed else unpack_state(st, self.n_bucket)
+
+
+BATCHED_BACKENDS = {
+    "sparse": BatchedSparseBackend,
+    "dense": BatchedDenseBackend,
+    "cuda": BatchedCudaBackend,
+}
+
+
+def make_batched_backend(
+    backend: Optional[str] = None,
+    *,
+    n_bucket: int,
+    n_trials: int,
+    n_rnd: int = 2,
+    noise: Optional[str] = None,
+    partition: Optional[str] = None,
+    device=None,
+    config: Optional[SolverConfig] = None,
+    **opts,
+) -> BatchedBackend:
+    """Build the named batched backend, optionally from
+    ``config=SolverConfig(...)``, whose engine options are merged under
+    ``opts``.  ``backend='auto'`` and ``partition='spin'``/``'auto'`` raise
+    NotImplementedError naming the ROADMAP.md step they wait for."""
+    if config is not None:
+        backend = config.backend if backend is None else backend
+        noise = config.noise if noise is None else noise
+        partition = config.partition if partition is None else partition
+        opts = {**config.engine_opts(), **opts}
+    backend = "sparse" if backend is None else backend
+    if partition not in (None, "problem"):
+        if partition in ("spin", "auto"):
+            raise not_ported(f"partition={partition!r}", "spin")
+        raise ValueError(f"unknown partition {partition!r}")
+    if backend == "auto":
+        raise not_ported("backend='auto'", "auto_backend")
+    if backend not in BATCHED_BACKENDS:
+        raise ValueError(f"unknown batched backend {backend!r}; known: "
+                         f"{sorted(BATCHED_BACKENDS)}")
+    return BATCHED_BACKENDS[backend](
+        n_bucket=n_bucket, n_trials=n_trials, n_rnd=n_rnd,
+        noise="xorshift" if noise is None else noise, device=device, **opts)

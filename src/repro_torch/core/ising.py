@@ -32,6 +32,7 @@ __all__ = [
     "local_fields_dense",
     "local_fields_popcount",
     "local_fields_sparse",
+    "local_fields_tiled",
 ]
 
 # Exactness bound for the float32 matmul path: fields must stay below 2^24.
@@ -151,6 +152,40 @@ def local_fields_sparse(m, h, nbr_idx, nbr_w):
 def local_fields_dense(m, h, J_f32):
     """h + m @ J in float32: exact for |field| < 2^24 (checked at build)."""
     return h + torch.matmul(m.to(torch.float32), J_f32).to(torch.int32)
+
+
+def local_fields_tiled(m, h, nbr_idx, nbr_w, *, tile_n: int = 512):
+    """``h + m @ J`` without ever holding the (N, N) coupling matrix.
+
+    Streams J one (tile_n, N) float32 row slab at a time: each slab is
+    scattered from the padded adjacency (integer-valued, exact) and
+    contracted against the whole spin state, so the only J-shaped buffer
+    alive is one slab — 32 MB at N = 16384 and tile_n = 512, against 1 GiB
+    for the dense J.  Bit-identical to :func:`local_fields_dense`: both are
+    integer-valued float32 contractions below the 2^24 exactness bound.
+
+    The contraction is rectangular: the row count R comes from the
+    adjacency (``nbr_idx``/``nbr_w`` (..., R, D), ``h`` (..., R)) and the
+    column count from the spins ``m`` (..., T, N); the last slab may be
+    ragged (``tile_n`` need not divide R).  Leading axes of the adjacency
+    are problem axes, matched against those of ``m`` ahead of its trial
+    axis (the batched backends pass (B, R, D) against (B, T, N)).
+    """
+    n_rows, n_cols = nbr_idx.shape[-2], m.shape[-1]
+    tile_n = int(tile_n)
+    if tile_n < 1:
+        raise ValueError(f"tile_n must be >= 1, got {tile_n}")
+    mf = m.to(torch.float32)
+    w = nbr_w.to(torch.float32)
+    idx = nbr_idx.to(torch.int64)
+    lead = idx.shape[:-2]
+    cols = []
+    for t in range(0, n_rows, tile_n):
+        it, wt = idx[..., t:t + tile_n, :], w[..., t:t + tile_n, :]
+        slab = torch.zeros(lead + (it.shape[-2], n_cols), dtype=torch.float32,
+                           device=m.device).scatter_add_(-1, it, wt)
+        cols.append(torch.matmul(mf, slab.transpose(-1, -2)).to(torch.int32))
+    return h + torch.cat(cols, dim=-1)
 
 
 def _popcount_fields_block(m_words, sign, mags):

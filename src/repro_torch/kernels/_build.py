@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "build", "header_int", "library", "ptxas_report"]
+__all__ = ["SOURCES", "KernelBuildError", "build", "header_int", "library", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -30,6 +30,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+
+class KernelBuildError(RuntimeError):
+    """A CUDA source could not be built: no nvcc, or nvcc failed."""
+
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -42,7 +48,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
 def _lib_path(name: str) -> Path:
@@ -81,7 +87,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
         else:
             os.replace(tmp, paths[name])
     if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("CUDA build failed:\n" + "\n".join(failed))
     return paths
 
 

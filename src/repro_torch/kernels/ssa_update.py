@@ -55,7 +55,7 @@ from .ref import (
     ssa_plateau_ref,
 )
 
-__all__ = ["local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched",
+__all__ = ["KernelLaunchError", "local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched",
            "ssa_plateau", "ssa_plateau_batched", "ssa_plateau_popcount",
            "ssa_plateau_popcount_batched", "popcount_planes", "plateau_cluster_size",
            "popcount_cluster_size", "ring_cluster_size"]
@@ -318,12 +318,16 @@ def _check_smem(what: str, smem: int):
         raise ValueError(f"{what} needs {smem} B of shared memory per block (> {_MAX_SMEM})")
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel launch reported a CUDA error."""
+
+
 def _launch(fn, lib, what: str, dev: torch.device, *args):
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err} ({msg})")
+        raise KernelLaunchError(f"{what}: CUDA launch failed with error {err} ({msg})")
 
 
 _J_TYPES = (torch.float32, torch.bfloat16)

@@ -1,4 +1,4 @@
-"""Annealing launcher of the PyTorch port (single problem).
+"""Annealing launcher of the PyTorch port.
 
     python -m repro_torch.launch.anneal --problem K2000 --backend cuda \
         --trials 100 --m-shot 20
@@ -20,6 +20,21 @@ Runs on the GPU unless ``--device cpu`` is given.
 
     python -m repro_torch.launch.anneal --problem K2000 --backend cuda \
         --algo ssqa --trials 96 --replicas 8 --jperp-max 4 --m-shot 10
+
+Service mode: a comma-separated ``--problem`` (or ``--service``) routes the
+batch through :class:`repro_torch.serve.AnnealService` — bucketed, stacked
+on a problem axis, one cached program per shape bucket (on ``--backend
+cuda`` one kernel launch per plateau or chain for the whole bucket), with
+per-chunk progress lines, ``--target-cut`` early stop, ``--deadline-s`` and
+the fallback chain cuda → dense → sparse (``--no-fallback`` turns it off).
+``--auto-tune`` replaces the Table II hyper-parameters with the
+local-field determination in both modes.
+
+    python -m repro_torch.launch.anneal --problem G11,G12,G13,King1 \
+        --backend cuda --trials 100 --m-shot 10 --chunk-shots 5
+
+``--stream``, ``--checkpoint-dir`` and ``--problem-kind`` raise
+NotImplementedError naming the ROADMAP.md step they wait for.
 """
 from __future__ import annotations
 
@@ -29,15 +44,100 @@ import time
 import torch
 
 from repro_torch.core import gset, memory
-from repro_torch.core.config import SolverConfig
+from repro_torch.core.autotune import autotune_hyperparams
+from repro_torch.core.config import SolverConfig, not_ported
 from repro_torch.core.ssa import SSAHyperParams, anneal
 from repro_torch.core.ssqa import SSQAHyperParams
+
+
+def _backend_opts(args):
+    """--field-mode reaches the field-capable backends; sparse ignores it."""
+    if args.field_mode != "dense" and args.backend != "sparse":
+        return {"field_mode": args.field_mode}
+    return {}
+
+
+def _run_service(problem_names, hp, args):
+    from repro_torch.serve import AnnealRequest, AnnealService, ResiliencePolicy
+
+    problems = [gset.load(name) for name in problem_names]
+    requests = [
+        AnnealRequest(problem=p, hp="auto" if args.auto_tune else hp, seed=args.seed + i,
+                      storage=args.storage, target_cut=args.target_cut, auto_base=hp,
+                      deadline_s=args.deadline_s, algo=args.algo)
+        for i, p in enumerate(problems)
+    ]
+    opts = _backend_opts(args)
+    if args.noise_mode != "auto" and args.backend == "cuda":
+        opts["noise_mode"] = args.noise_mode
+    svc = AnnealService(backend=args.backend, noise=args.noise,
+                        storage_layout=args.storage_layout, chunk_shots=args.chunk_shots,
+                        backend_opts=opts,
+                        resilience=ResiliencePolicy(fallback=not args.no_fallback),
+                        device=args.device)
+
+    def progress(ev):
+        bests = ", ".join(f"{problems[i].name}={b}"
+                          for i, b in zip(ev.request_indices, ev.best_cut))
+        print(f"[chunk {ev.chunk + 1}/{ev.chunks_total} bucket={ev.bucket}] "
+              f"best cut: {bests}")
+
+    t0 = time.time()
+    responses = svc.solve(requests, progress=progress)
+    if svc.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    total_spin_cycles = 0
+    for p, r in zip(problems, responses):
+        if r.result is None:
+            print(f"{p.name}: {r.status.upper()} — no result "
+                  f"({'; '.join(e.kind for e in r.events) or 'no events'})")
+            continue
+        rhp = r.request.hp  # resolved (an autotuned hp differs from the base)
+        shots = r.chunks_run * (rhp.m_shot // r.chunks_total)
+        total_spin_cycles += shots * rhp.cycles_per_iter * rhp.n_trials * p.n
+        tuned = (f" auto[n_rnd={rhp.n_rnd} i0_max={rhp.i0_max} tau={rhp.tau}]"
+                 if r.autotune else "")
+        degraded = "" if r.status == "ok" else f" status={r.status}"
+        print(f"{p.name}: best cut {r.result.overall_best_cut} "
+              f"avg {r.result.mean_best_cut:.1f} "
+              f"[bucket={r.bucket} batch={r.batch} "
+              f"chunks={r.chunks_run}/{r.chunks_total}]{tuned}{degraded}")
+        for ev in r.events:
+            print(f"  event[{ev.t:.2f}s] {ev.kind}: {ev.detail}")
+    info = svc.cache_info()
+    print(f"batch of {len(problems)} in {dt:.1f}s "
+          f"({total_spin_cycles/dt:.2e} aggregate spin-cycles/s; "
+          f"{info['programs']} compiled program(s), "
+          f"{info.get('traces_chunk', 0)} plateau-program trace(s))")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--problem", default="G11",
-                    help="instance name (G11, G12, G13, King1, K2000)")
+                    help="instance name (G11, G12, G13, King1, K2000, G77, G81), or a "
+                         "comma list for service mode")
+    ap.add_argument("--service", action="store_true",
+                    help="route through the AnnealService even for one problem")
+    ap.add_argument("--chunk-shots", type=int, default=1,
+                    help="service mode: iterations per progress chunk")
+    ap.add_argument("--target-cut", type=int, default=None,
+                    help="service mode: early-stop once every request reaches it")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="service mode: per-request wall-clock budget; expiry returns "
+                         "best-so-far with status='deadline'")
+    ap.add_argument("--no-fallback", action="store_true",
+                    help="service mode: no backend fallback chain (cuda → dense → "
+                         "sparse); faults propagate instead")
+    ap.add_argument("--auto-tune", action="store_true",
+                    help="derive n_rnd, I0 and tau from the local-field distribution "
+                         "instead of the Table II flags")
+    ap.add_argument("--stream", action="store_true",
+                    help="streaming client mode (not ported yet)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="service mode: chunk-level checkpoints (not ported yet)")
+    ap.add_argument("--problem-kind", default="gset",
+                    help="problem family; only 'gset' is ported")
     ap.add_argument("--algo", choices=("ssa", "ssqa"), default="ssa",
                     help="algorithm family: 'ssqa' runs the Trotter-replica quantum "
                          "variant; the rings live on the trial axis, so --trials must "
@@ -82,7 +182,21 @@ def main(argv=None):
         hp = SSQAHyperParams(**knobs, n_replicas=args.replicas, jperp_max=args.jperp_max)
     else:
         hp = SSAHyperParams(**knobs)
+    if args.problem_kind != "gset":
+        raise not_ported(f"--problem-kind {args.problem_kind}", "problems")
+    if args.stream:
+        raise not_ported("--stream", "stream")
+    if args.checkpoint_dir is not None:
+        raise not_ported("--checkpoint-dir", "stream")
+    names = args.problem.split(",")
+    if args.service or len(names) > 1:
+        return _run_service(names, hp, args)
+
     p = gset.load(args.problem)
+    if args.auto_tune:
+        hp, rep = autotune_hyperparams(p.to_ising(), hp)
+        print(f"auto-tune: sigma={rep.sigma:.2f} |z|max={rep.z_max} → "
+              f"n_rnd={hp.n_rnd} I0:{hp.i0_min}→{hp.i0_max} tau={hp.tau}")
     algo = ("SSQA" if args.algo == "ssqa"
             else "HA-SSA" if args.storage == "i0max" else "SSA")
     extra = (f"; R={hp.n_replicas} jperp_max={hp.jperp_max}"

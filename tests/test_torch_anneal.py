@@ -112,7 +112,6 @@ def test_solve_maxcut_and_cut_consistency():
 # ROADMAP item they wait for — on the CPU as on the card.
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
-    (dict(j_mode="tiled"), "step 2"),
     (dict(partition="spin"), "step 8"),
     (dict(partition="auto"), "step 8"),
     (dict(backend="auto"), "step 3"),
@@ -123,7 +122,7 @@ def test_out_of_slice_config_raises(kw, item):
 
 
 @pytest.mark.parametrize("backend,kw,item", [
-    ("dense", dict(j_mode="tiled"), "step 2"),
+    ("dense", dict(double_buffer=True), "step 2"),
     ("auto", {}, "step 3"),
 ], ids=lambda v: str(v))
 def test_out_of_slice_backend_options_raise(backend, kw, item):
@@ -204,9 +203,13 @@ def test_threefry_streamed_raises():
 
 
 def test_dense_j_above_threshold_raises():
+    """Above TILED_J_THRESHOLD spins j_mode='auto' streams J slabs and holds
+    no (N, N) J; a J of another dtype, not ported, still raises."""
     model = gset.toroidal_grid(4100, seed=0).to_ising()
+    bk = make_backend("dense", model, n_trials=1, device="cpu")
+    assert bk.j_mode == "tiled" and not hasattr(bk, "J")
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 2"):
-        make_backend("dense", model, n_trials=1, device="cpu")
+        make_backend("dense", model, n_trials=1, device="cpu", j_dtype=torch.bfloat16)
 
 
 def test_anneal_hp_auto_and_ssqa_raise():

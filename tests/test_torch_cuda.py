@@ -501,3 +501,70 @@ def test_anneal_ssqa_matches_dense_on_card(cuda_device, layout, field_mode):
                                            storage_layout=layout))
     np.testing.assert_array_equal(got.best_energy, want.best_energy)
     np.testing.assert_array_equal(got.best_m, want.best_m)
+
+
+# ---------------------------------------------------------------------------
+# The batched cuda backend and the service at B > 1
+# ---------------------------------------------------------------------------
+_BATCHED = {"k1": {}, "k4": {"noise_mode": "pregen"}, "k2": {"field_mode": "popcount"},
+            "k1-ring": {"n_replicas": 4}, "k2-ring": {"field_mode": "popcount", "n_replicas": 4}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(_BATCHED))
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+def test_batched_cuda_backend_matches_its_plain_version(cuda_device, path, layout):
+    """BatchedCudaBackend at B = 4 (mixed sizes in one bucket) on the card
+    equals the same backend on the CPU, where the wrappers run the plain
+    versions, and launches each kernel once per plateau (K1, K4) or per
+    iteration's chain (K2) for all four problems."""
+    from repro_torch.core.ssqa import SSQAHyperParams
+
+    opts = dict(_BATCHED[path])
+    nr = opts.get("n_replicas", 0)
+    hp = (SSQAHyperParams(n_trials=8, n_replicas=nr, m_shot=2, tau=5, i0_max=8, jperp_max=2)
+          if nr else SSAHyperParams(n_trials=7, m_shot=2, tau=5, i0_max=8))
+    probs = [gset.toroidal_grid(200, seed=1), gset.king_graph(196, seed=2),
+             gset.complete_graph(150, seed=3), gset.toroidal_grid(256, seed=4)]
+    plateaus = engine.schedule_plateaus(hp.schedule(), "i0max")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bk = engine.make_batched_backend("cuda", n_bucket=256, n_trials=hp.n_trials,
+                                         noise="xorshift", storage_layout=layout, device=dev,
+                                         **opts)
+        prob = bk.stack([p.to_ising() for p in probs])
+        st = bk.init_state(prob, bk.init_noise([0, 1, 2, 3], [p.n for p in probs]))
+        before = (ssa_update.ssa_plateau_packed_batched.launches,
+                  ssa_update.ssa_plateau_batched.launches,
+                  ssa_update.ssa_plateau_popcount_batched.launches)
+        st = bk.run_shots(prob, st, plateaus, hp.m_shot)
+        out[dev] = [t.cpu() for t in bk.finalize(st)]
+        launched = (ssa_update.ssa_plateau_packed_batched.launches - before[0],
+                    ssa_update.ssa_plateau_batched.launches - before[1],
+                    ssa_update.ssa_plateau_popcount_batched.launches - before[2])
+    k = hp.m_shot * len(plateaus)
+    assert launched == {"k1": (k, 0, 0), "k1-ring": (k, 0, 0), "k4": (0, k, 0),
+                        "k2": (0, 0, hp.m_shot), "k2-ring": (0, 0, hp.m_shot)}[path]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [{}, {"field_mode": "auto"}, {"noise_mode": "pregen"}],
+                         ids=["k1", "k2", "k4"])
+def test_service_matches_per_request_anneal_on_card(cuda_device, opts):
+    from repro_torch.serve import AnnealRequest, AnnealService
+
+    probs = [gset.toroidal_grid(200, seed=1), gset.king_graph(196, seed=2),
+             gset.toroidal_grid(250, seed=3)]
+    hp = SSAHyperParams(n_trials=9, m_shot=4, tau=5, i0_max=8)
+    svc = AnnealService(backend="cuda", min_bucket=16, chunk_shots=2, backend_opts=opts)
+    resp = svc.solve([AnnealRequest(problem=p, hp=hp, seed=s) for s, p in enumerate(probs)])
+    cfg = SolverConfig(backend="cuda", noise="xorshift",
+                       noise_mode=opts.get("noise_mode", "auto"),
+                       field_mode=opts.get("field_mode", "auto"))
+    for s, (p, r) in enumerate(zip(probs, resp)):
+        assert r.status == "ok" and not r.events and r.batch == 3 and r.bucket == 256
+        ref = anneal(p, hp, seed=s, track_energy=False, config=cfg, device="cuda")
+        np.testing.assert_array_equal(r.result.best_energy, ref.best_energy)
+        np.testing.assert_array_equal(r.result.best_m, ref.best_m)
