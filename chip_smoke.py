@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the CUDA kernels from the
 sources in this checkout, holds each against its plain PyTorch version on
 the card, drives ``repro_torch.core.ssa.anneal`` and
-``repro_torch.core.ssqa.anneal_ssqa`` at K2000 width through the kernels,
+``repro_torch.core.ssqa.anneal_ssqa`` at K2000 width and
+``repro_torch.serve.AnnealService.solve`` at B > 1 through the kernels,
 and prints what it measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
@@ -80,7 +81,30 @@ Phases (any failure raises and exits non-zero):
  17. torch.profiler over one production and one xorshift-pregen anneal()
      at K2000, measured and not asserted: K1's and K4's share of the
      device time and the device's idle share of the call (``[profile]``);
- 18. the kernels line; 19. the contract line (last).
+ 18. service (K1, B = 4): AnnealService(backend='cuda', packed layout,
+     chunks of 5 shots) solves the G11, G12, G13 and King1 twins (seeds
+     0-3: one group of B = 4 at bucket 1024) and the K2000 twin (seed 4:
+     B = 1 at bucket 2048) at Table II's widths, m_shot 10 — K1 launched
+     2 × 10 × 6 = 120 times, nothing else; every response 'ok', no event,
+     equal to anneal() of its unpadded instance; a second solve hits the
+     program cache twice and builds nothing; torch.profiler over a third
+     (``[profile] service K1 solve()``: the device's idle share, K1's share
+     of device time); with noise_mode='pregen' K4 120 times and the same
+     results;
+ 19. service popcount (K2, B = 4): the same batch with field_mode='auto' —
+     K2 launched 10 times per group, phase 18's results;
+ 20. service SSQA (B = 4): the four N = 800 twins at the SSQA cell's widths
+     on the dense field (K1: 60, 50 of them in ring mode) and popcount (K2's
+     ring mode: 10), each equal to anneal_ssqa of its instance;
+ 21. service tiled: the G77 twin (14383 → 16384) on the dense backend
+     (tiled J, no launch; peak device bytes beside a dense J's 1 GiB) and
+     on K2 at N = 16384 (one launch), τ = 10, I0 1→4, one shot — equal to
+     each other and to anneal() of the unpadded instance;
+ 22. service fallback: an injected compile fault on the cuda group of
+     bucket 1024 — its four responses 'fallback' with one cuda → dense
+     event and phase 18's results, K2000 'ok' on K1 (60 launches);
+ 23. the card line again, the kernels line (each kernel's service launches
+     in ``service_launches``); 24. the contract line (last).
 """
 from __future__ import annotations
 
@@ -1078,18 +1102,50 @@ def _device_busy_us(events) -> float:
     return busy
 
 
-def phase_profile():
-    """torch.profiler over one production and one xorshift-pregen anneal()
-    at K2000 (after the warm-ups of phases 6 and 9), measured and not
-    asserted: the plateau kernel's device time and share of all device
-    time, and the device's idle share of the call (1 - the union of its
-    kernels, copies and fills over the call's span on the host).  The same
-    call is timed once unprofiled just before, so the profiler's own host
-    cost shows beside its span."""
+def _profile_call(run, what: str, label: str, kernel: str) -> str:
+    """One call of ``run`` timed unprofiled, then once under torch.profiler:
+    its span on the host, the device's busy time (the union of its kernels,
+    copies and fills) and idle share, and ``kernel``'s launches and share
+    of the device time.  Measured, not asserted."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    torch.cuda.synchronize()
+    t0 = time.time()
+    run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(what):
+            run()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        trace = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    span = [e["dur"] for e in events if e.get("ph") == "X" and e.get("name") == what
+            and e.get("cat") == "user_annotation"]
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not span or not device:
+        return f"{what}: not measured (no device activity in the trace)"
+    total = sum(e["dur"] for e in device)
+    k_us = sum(e["dur"] for e in device if e["cat"] == "kernel" and kernel in e["name"])
+    n_k = sum(1 for e in device if e["cat"] == "kernel" and kernel in e["name"])
+    busy = _device_busy_us(device)
+    return (f"{what}: unprofiled wall {wall * 1e3:.3f} ms; profiled span "
+            f"{span[0] / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
+            f"{1 - busy / span[0]:.4f}; {label} {n_k} launches, {k_us / 1e3:.3f} ms, "
+            f"{k_us / total:.4f} of device time")
+
+
+def phase_profile():
+    """torch.profiler over one production and one xorshift-pregen anneal()
+    at K2000 (after the warm-ups of phases 6 and 9), measured and not
+    asserted (:func:`_profile_call`); the same call is timed once
+    unprofiled just before, so the profiler's own host cost shows beside
+    its span."""
     from repro_torch.core import gset
     from repro_torch.core.config import SolverConfig
     from repro_torch.core.ssa import SSAHyperParams, anneal
@@ -1105,34 +1161,7 @@ def phase_profile():
              "plateau_pregen_kernel")):
         run = functools.partial(anneal, p, hp, config=cfg, seed=0, record="best",
                                 track_energy=False, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.time()
-        run()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with record_function("anneal()"):
-                run()
-                torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as d:
-            trace = Path(d) / "trace.json"
-            prof.export_chrome_trace(str(trace))
-            events = json.loads(trace.read_text())["traceEvents"]
-        span = [e["dur"] for e in events if e.get("ph") == "X" and e.get("name") == "anneal()"
-                and e.get("cat") == "user_annotation"]
-        device = [e for e in events if e.get("ph") == "X"
-                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        if not span or not device:
-            parts.append(f"{path} anneal(): not measured (no device activity in the trace)")
-            continue
-        total = sum(e["dur"] for e in device)
-        k_us = sum(e["dur"] for e in device if e["cat"] == "kernel" and kernel in e["name"])
-        n_k = sum(1 for e in device if e["cat"] == "kernel" and kernel in e["name"])
-        busy = _device_busy_us(device)
-        parts.append(f"{path} anneal(): unprofiled wall {wall * 1e3:.3f} ms; profiled span "
-                     f"{span[0] / 1e3:.3f} ms, device busy "
-                     f"{busy / 1e3:.3f} ms, idle share {1 - busy / span[0]:.4f}; {label} "
-                     f"{n_k} launches, {k_us / 1e3:.3f} ms, {k_us / total:.4f} of device time")
+        parts.append(_profile_call(run, f"{path} anneal()", label, kernel))
     print("[profile] " + "; ".join(parts))
 
 
@@ -1242,6 +1271,8 @@ def phase_service():
         _fail(f"second solve: expected 2 cache hits and no build, got {new_hits, new_builds}")
     _expect("service K1, second solve", counts2, (k1_per, 0, 0, 0, 0, 0))
     _check_service("service K1, second solve", resp2, refs, problems)
+    print("[profile] " + _profile_call(functools.partial(svc.solve, reqs), "service K1 solve()",
+                                       "K1", "plateau_kernel"))
     pre = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
                         chunk_shots=5, backend_opts={"noise_mode": "pregen"})
     resp4, _, counts4, _ = _service_solve(pre, reqs, "service K4 (xorshift pregen)")
@@ -1378,7 +1409,7 @@ def main():
     import repro_torch.kernels.ssa_update  # noqa: F401 — fails alone, before any output
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: exact f32
     dev = torch.device("cuda")
-    phase_card()
+    card = phase_card()
     phase_build()
     k3 = phase_k3(dev)
     k1 = phase_k1(dev)
@@ -1434,6 +1465,7 @@ def main():
              launches=k2_ring_launches,
              service_launches={"service SSQA popcount": k2_ring_service}, **k2_ring),
     ]
+    print(card)  # again, so that it stands in the last lines of the output
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

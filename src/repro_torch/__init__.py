@@ -10,6 +10,9 @@ module's counterpart is found at the same path:
   kernels.bitplane, kernels.ref,
   kernels.ssa_update, kernels.ops       — the spin codec, the plain
                                           versions and the CUDA kernels
+  serve, ft.faults                      — the one-shot annealing service
+                                          (bucketed, batched) and its
+                                          fault injection
   launch.anneal                         — the command-line launcher
   convert                               — numpy hand-over of states/models
 

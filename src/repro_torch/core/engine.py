@@ -41,6 +41,13 @@ Storage layouts: 'dense' keeps :class:`EngineState` (int8 spins), 'packed'
 keeps :class:`PackedEngineState` (32-bit words, see ``kernels.bitplane``).
 Results are bit-identical.
 
+Serving (``repro_torch.serve``): :func:`bucket_n` and :func:`pad_model` pad
+a problem to a power-of-two bucket, :func:`padded_noise_init` keeps the
+live xorshift lanes padding-invariant, and the batched backends
+(:func:`make_batched_backend`) advance B stacked problems together —
+:class:`BatchedCudaBackend` with one kernel launch per plateau or chain
+for all B.
+
 Tensors live on the backend's ``device``: ``cuda`` unless the caller passes
 ``device="cpu"``.
 """
@@ -646,7 +653,7 @@ def exact_float32_matmul() -> None:
 def _check_j_opts(j_dtype, double_buffer):
     """The JAX dense backends' ``j_dtype`` and ``double_buffer`` are not
     ported: anything but their defaults raises instead of being ignored."""
-    if j_dtype is not None and j_dtype not in (torch.float32, "float32"):
+    if j_dtype not in (None, torch.float32):
         raise not_ported(f"j_dtype={j_dtype!r}", "j_opts")
     if double_buffer:
         raise not_ported("double_buffer=True", "j_opts")

@@ -13,7 +13,7 @@ package builds them (same half-edge slot order):
 All coupling arithmetic is integer-valued; the dense contraction runs in
 float32, which is exact while every field stays below 2^24 (checked at
 construction).  On the GPU that needs TF32 off, which the dense backends
-set (``core.engine.DenseBackend``).
+set (``core.engine.exact_float32_matmul``).
 """
 from __future__ import annotations
 

@@ -32,7 +32,6 @@ NVCC_FLAGS = (
 )
 
 
-
 class KernelBuildError(RuntimeError):
     """A CUDA source could not be built: no nvcc, or nvcc failed."""
 

@@ -55,8 +55,8 @@ from .ref import (
     ssa_plateau_ref,
 )
 
-__all__ = ["KernelLaunchError", "local_field", "ssa_plateau_packed", "ssa_plateau_packed_batched",
-           "ssa_plateau", "ssa_plateau_batched", "ssa_plateau_popcount",
+__all__ = ["KernelLaunchError", "local_field", "ssa_plateau_packed",
+           "ssa_plateau_packed_batched", "ssa_plateau", "ssa_plateau_batched", "ssa_plateau_popcount",
            "ssa_plateau_popcount_batched", "popcount_planes", "plateau_cluster_size",
            "popcount_cluster_size", "ring_cluster_size"]
 

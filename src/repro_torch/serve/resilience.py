@@ -91,7 +91,7 @@ class ResiliencePolicy:
 
     checkpoint_dir:      chunk-level checkpoints; not ported (anything but
                          None raises NotImplementedError naming ROADMAP.md
-                         queue 1 step 7), nor are the three knobs after it.
+                         queue 1 step 7).
     fallback:            enable the backend fallback chain
                          (cuda → dense → sparse, dense-J → tiled-J on OOM).
     max_retries:         solo retries of a quarantined request.
@@ -101,9 +101,6 @@ class ResiliencePolicy:
     """
 
     checkpoint_dir: Optional[str] = None
-    checkpoint_interval: int = 1
-    keep_checkpoints: int = 2
-    cleanup_on_success: bool = True
     fallback: bool = True
     max_retries: int = 3
     backoff_base_s: float = 0.05

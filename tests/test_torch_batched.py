@@ -12,7 +12,6 @@ pallas one in interpret mode), and must equal it bit for bit after
 ``init_state`` and after ``run_shots``.  With xorshift noise each problem's
 live lanes must also equal the port's unpadded single-problem ``anneal()``.
 """
-import dataclasses
 import functools
 
 import numpy as np
@@ -301,7 +300,7 @@ def test_make_batched_backend_config_and_errors():
 def test_batched_dense_tiles_above_threshold():
     bk = engine.make_batched_backend("dense", n_bucket=8192, n_trials=2, device="cpu")
     assert bk.j_mode == "tiled"
-    big = dataclasses.replace(gset.toroidal_grid(4200, seed=0)).to_ising()
+    big = gset.toroidal_grid(4200, seed=0).to_ising()
     prob = bk.stack([big])
     assert "J" not in prob and prob["nbr_idx"].shape == (1, 8192, 4)
 

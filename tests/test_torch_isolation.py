@@ -46,6 +46,7 @@ def test_port_imports_without_jax():
         "import repro_torch.core.rng, repro_torch.core.memory\n"
         "import repro_torch.core.ssqa, repro_torch.core.autotune\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ssa_update, repro_torch.kernels.ref\n"
+        "import repro_torch.serve, repro_torch.serve.anneal_service, repro_torch.ft.faults\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

@@ -106,15 +106,14 @@ def _assert_bit_identical(got, want):
     np.testing.assert_array_equal(got.chunk_best_cut, np.asarray(want.chunk_best_cut))
 
 
-def _assert_same(got, want, *, events=True):
+def _assert_same(got, want):
     np.testing.assert_array_equal(got.result.best_energy, np.asarray(want.result.best_energy))
     np.testing.assert_array_equal(got.result.best_m, np.asarray(want.result.best_m))
     np.testing.assert_array_equal(got.result.best_cut, np.asarray(want.result.best_cut))
     np.testing.assert_array_equal(got.chunk_best_cut, np.asarray(want.chunk_best_cut))
     assert (got.status, got.chunks_run, got.chunks_total, got.bucket, got.batch) == (
         want.status, want.chunks_run, want.chunks_total, want.bucket, want.batch)
-    if events:
-        assert [e.kind for e in got.events] == [e.kind for e in want.events]
+    assert [e.kind for e in got.events] == [e.kind for e in want.events]
 
 
 # ---------------------------------------------------------------------------
@@ -255,11 +254,44 @@ def test_program_cache_lru_eviction_releases_the_backend():
         _svc("sparse", max_cached_executables=0)
 
 
+def test_concurrent_solves_share_the_cache_safely():
+    """Four threads solving same-bucket requests on one service: each
+    result equals its sequential run and the cache holds one program."""
+    import threading
+
+    reqs = [AnnealRequest(problem=gset.toroidal_grid(36, seed=s), hp=SSAHyperParams(**HP),
+                          seed=s) for s in range(4)]
+    base = [_svc("cuda").solve([r])[0] for r in reqs]
+    svc = _svc("cuda")
+    svc.solve([reqs[0]])  # build the program, so the threads race on reusing it
+    results, errors = [None] * 4, []
+    gate = threading.Barrier(4)
+
+    def worker(i):
+        try:
+            gate.wait(timeout=30)
+            results[i] = svc.solve([reqs[i]])[0]
+        except Exception as e:  # pragma: no cover - surfaced by the assert below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for r, b in zip(results, base):
+        assert r is not None and r.status == "ok"
+        _assert_bit_identical(r, b)
+    info = svc.cache_info()
+    assert info["programs"] == 1 and info["evictions"] == 0
+
+
 # ---------------------------------------------------------------------------
 # tests/test_ssqa_service.py
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("backend", [b for b, _ in BACKENDS])
-def test_ssqa_service_matches_jax_and_driver(backend):
+def test_ssqa_service_matches_jax_and_anneal_ssqa(backend):
     responses = _svc(backend).solve(_requests("ssqa"))
     for i, (p, resp, want) in enumerate(zip(_ssqa_problems(gset), responses,
                                             _jax_solve("ssqa", backend))):
@@ -361,8 +393,6 @@ def _faulted(backend, arm, jax=False, **kw):
             match = dict(match, backend="pallas")
         inj.arm(point, **match)
     if jax:
-        kw = {k: (v if k != "resilience" else dataclasses.replace(v))
-              for k, v in kw.items()}
         from repro.serve import ResiliencePolicy as JPolicy
 
         if "resilience" in kw:
