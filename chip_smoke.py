@@ -1300,8 +1300,12 @@ def phase_service_ssqa():
     """Service phase 3: the four N = 800 twins at the SSQA cell's widths,
     one group of B = 4, on the dense field (K1: classical on the J⊥ = 0
     plateau, ring mode on the others) and on popcount (K2's ring mode, one
-    chain per iteration); each response equal to anneal_ssqa of its
-    instance.  Returns the ring-mode launches of K1 and K2."""
+    chain per iteration).  The plain witness is the same batch on
+    AnnealService(backend='dense'), plain PyTorch on the card at the same B
+    = 4 and bucket: it launches no kernel, and each of the two kernel
+    solves must equal it bit for bit, as each response must equal
+    anneal_ssqa of its instance.  Returns the ring-mode launches of K1 and
+    K2."""
     from repro_torch.core import gset
     from repro_torch.core.config import SolverConfig
     from repro_torch.core.engine import schedule_plateaus
@@ -1314,6 +1318,11 @@ def phase_service_ssqa():
     refs = [anneal_ssqa(p, hp, seed=s, track_energy=False, device="cuda",
                         config=SolverConfig(backend="cuda", noise="xorshift"))
             for s, p in enumerate(problems)]
+    plain = AnnealService(backend="dense", noise="xorshift", storage_layout="packed",
+                          chunk_shots=5)
+    witness, _, counts, _ = _service_solve(plain, reqs, "service SSQA plain witness (dense)")
+    _expect("service SSQA plain witness", counts, (0, 0, 0, 0, 0, 0))
+    _check_service("service SSQA plain witness", witness, refs, problems)
     coupled = hp.m_shot * sum(1 for pl in schedule_plateaus(hp.schedule()) if pl.jperp)
     ring = {}
     for name, opts, want in (
@@ -1324,7 +1333,13 @@ def phase_service_ssqa():
         resp, _, counts, _ = _service_solve(svc, reqs, f"service SSQA {name}")
         _expect(f"service SSQA {name}", counts, want)
         _check_service(f"service SSQA {name}", resp, refs, problems)
+        _check_service(f"service SSQA {name} against the plain witness", resp,
+                       [w.result for w in witness], problems)
+        if [list(r.chunk_best_cut) for r in resp] != [list(w.chunk_best_cut) for w in witness]:
+            _fail(f"service SSQA {name}: chunk traces differ from the plain witness")
         ring[name] = counts
+    print("[service SSQA] K1's and K2's ring modes at B = 4, bucket 1024 equal the plain "
+          "dense backend bit for bit (best energies, spins, chunk traces)")
     return ring["dense field"][4], ring["popcount"][5]
 
 

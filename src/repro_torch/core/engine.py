@@ -12,13 +12,16 @@ a pluggable :class:`PlateauBackend`:
   plateau (with ``field_mode='popcount'``, one launch of K2 per plateau
   chain; SSQA plateaus with J⊥ ≠ 0 run the kernels' ring modes): with
   streamed noise K1
-  (:func:`repro_torch.kernels.ssa_update.ssa_plateau_packed`: spins packed
-  at the launch boundary, the xorshift noise stepped inside the kernel),
-  with pregenerated noise K4 (:func:`repro_torch.kernels.ssa_update.
-  ssa_plateau`: a (C, T, N) noise buffer drawn before the launch — always
-  for threefry, on request for xorshift).  Plateaus that must emit
-  per-cycle outputs (energy traces, trajectory planes) run the cycle loop
-  over the CUDA field kernel K3 instead.
+  (:func:`repro_torch.kernels.ssa_update.ssa_plateau_packed_batched` at B
+  = 1: spins packed at the launch boundary, the xorshift noise stepped
+  inside the kernel), with pregenerated noise K4
+  (:func:`repro_torch.kernels.ssa_update.ssa_plateau_batched` at B = 1: a
+  (C, T, N) noise buffer drawn before the launch — always for threefry, on
+  request for xorshift).  The dispatch of K1, K4 and K2 is one
+  (:class:`_CudaDispatch`), shared with :class:`BatchedCudaBackend`, which
+  makes the same launches at B > 1.  Plateaus that must emit per-cycle
+  outputs (energy traces, trajectory planes) run the cycle loop over the
+  CUDA field kernel K3 instead.
 
 Tracking semantics, shared by every backend and by the kernels: within a
 plateau that starts at m(t0), the states it produces, m(t0+1) … m(t0+C),
@@ -708,25 +711,92 @@ class DenseBackend(PlateauBackend):
         return local_fields_dense(m, self.h, self.J)
 
 
-class CudaBackend(PlateauBackend):
+def _lead(st):
+    """A single problem's state as a B = 1 batch (None leaves stay None)."""
+    return _map_tree(lambda a: None if a is None else a[None], st)
+
+
+def _first(st):
+    """The one problem of a B = 1 batched state."""
+    return _map_tree(lambda a: None if a is None else a[0], st)
+
+
+class _CudaDispatch:
+    """The kernels' dispatch, over a leading problem axis: one launch of
+    K1, K4 or K2 per call, for every problem of the batch.
+    :class:`BatchedCudaBackend` calls it at B, :class:`CudaBackend` at B =
+    1 (its arrays viewed with a size-1 axis in front).  Needs ``n_rnd``,
+    ``n_replicas``, ``device`` and a ``_schedules`` dict."""
+
+    def _k1(self, problem: dict, st: PackedEngineState, p: Plateau) -> PackedEngineState:
+        """K1 over one plateau.  Ring mode only where the plateau couples:
+        J⊥ = 0 runs the classical kernel, as the JAX package's pallas
+        backends do."""
+        mp, it, rng, bh, bmp = kssa.ssa_plateau_packed_batched(
+            st.m_packed, st.itanh, problem["J"], problem["h"], st.noise_state, p.i0,
+            st.best_H, st.best_m_packed, n_cycles=p.length, n_rnd=self.n_rnd,
+            eligible=p.eligible, jperp=p.jperp,
+            n_replicas=self.n_replicas if p.jperp else 0,
+        )
+        return PackedEngineState(rng, mp, it, bh, bmp)
+
+    def _k4(self, problem: dict, st: EngineState, noise: torch.Tensor,
+            p: Plateau) -> EngineState:
+        """K4 over one plateau's pregenerated (B, C, T, N) noise; the noise
+        state, which drew it, passes through."""
+        m, it, bh, bm = kssa.ssa_plateau_batched(
+            st.m.to(torch.float32), st.itanh, problem["J"], problem["h"], noise, p.i0,
+            st.best_H, st.best_m, n_rnd=self.n_rnd, eligible=p.eligible,
+        )
+        return st._replace(m=m.to(torch.int8), itanh=it, best_H=bh, best_m=bm)
+
+    def _k2(self, problem: dict, st: PackedEngineState, plateaus) -> PackedEngineState:
+        """K2 over a whole plateau chain, in ring mode where the chain's J⊥
+        is not all 0."""
+        i0_sched, fold_sched, jperp_sched = self._device_schedules(plateaus)
+        mp, it, rng, bh, bmp = kssa.ssa_plateau_popcount_batched(
+            st.m_packed, st.itanh, problem["sign"], problem["mags"], problem["base"],
+            problem["h"], st.noise_state, i0_sched, fold_sched, st.best_H, st.best_m_packed,
+            n_rnd=self.n_rnd, jperp_sched=jperp_sched, n_replicas=self.n_replicas,
+        )
+        return PackedEngineState(rng, mp, it, bh, bmp)
+
+    def _device_schedules(self, plateaus: Tuple[Plateau, ...]):
+        """(i0_sched, fold_sched, jperp_sched or None) of a chain on the
+        device: built on the host and copied in one transfer, once per
+        distinct chain; ``jperp_sched`` is None for a chain without
+        coupling."""
+        sched = self._schedules.get(plateaus)
+        if sched is None:
+            i0_sched, fold_sched, jperp_sched = plateau_cycle_schedules(plateaus)
+            flat = torch.from_numpy(np.concatenate([i0_sched, fold_sched, jperp_sched]))
+            flat = flat.to(self.device)
+            C = len(i0_sched)
+            sched = self._schedules[plateaus] = (
+                flat[:C], flat[C:2 * C + 1], flat[2 * C + 1:] if jperp_sched.any() else None)
+        return sched
+
+
+class CudaBackend(_CudaDispatch, PlateauBackend):
     """The resident CUDA plateau kernels: one launch per plateau.
 
     Counterpart of the JAX package's ``PallasBackend``.  With the dense
     field, a plateau without per-cycle outputs runs one kernel:
 
     * ``noise_mode='streamed'`` (xorshift's default): K1
-      (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_packed`) — spins
-      cross the launch boundary as 32-bit words and the noise lanes are
-      stepped inside the kernel, so no (C, T, N) noise buffer exists.  An
-      SSQA plateau (a backend with ``n_replicas``, the plateau's J⊥ ≠ 0)
-      runs K1's ring mode; a plateau with J⊥ = 0, such as the first of
-      every SSQA schedule, runs the classical K1;
+      (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_packed_batched`
+      at B = 1, through :class:`_CudaDispatch`) — spins cross the launch
+      boundary as 32-bit words and the noise lanes are stepped inside the
+      kernel, so no (C, T, N) noise buffer exists.  An SSQA plateau (a
+      backend with ``n_replicas``, the plateau's J⊥ ≠ 0) runs K1's ring
+      mode; a plateau with J⊥ = 0, such as the first of every SSQA
+      schedule, runs the classical K1;
     * ``noise_mode='pregen'`` (threefry's only datapath; opt-in for
       xorshift, bit-identical to streamed): K4
-      (:func:`~repro_torch.kernels.ssa_update.ssa_plateau`) over the
-      plateau's (C, T, N) int8 noise, drawn before the launch.  K4 has no
-      ring mode, in the JAX package either: an SSQA plateau with J⊥ ≠ 0
-      runs the cycle loop over K3.
+      (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_batched` at B =
+      1) over the plateau's (C, T, N) int8 noise, drawn before the
+      launch.  K4 has no ring mode, in the JAX package either: an SSQA
+      plateau with J⊥ ≠ 0 runs the cycle loop over K3.
 
     Plateaus that need per-cycle outputs (``track_energy``, trajectory
     planes) run the cycle loop with the field from K3
@@ -734,8 +804,8 @@ class CudaBackend(PlateauBackend):
 
     ``field_mode='popcount'`` (or 'auto' within POPCOUNT_AUTO_MAX_BITS
     planes) holds the couplings as ``PackedJ`` bitplanes and no J, and runs
-    K2 (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_popcount`):
-    :meth:`run_plateaus` makes one launch per plateau chain, with the
+    K2 (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_popcount_batched`
+    at B = 1): :meth:`run_plateaus` makes one launch per plateau chain, with the
     per-cycle I0, fold and J⊥ schedules built on the host and copied to the
     device once per distinct chain; a chain whose J⊥ schedule is not all 0
     runs K2's ring mode.  K2 steps xorshift lanes in-kernel, so popcount
@@ -754,6 +824,7 @@ class CudaBackend(PlateauBackend):
         super().__init__(model, **kw)
         self.noise_mode = resolve_noise_mode(noise_mode, self.noise)
         self.field_mode = _resolve_field_mode(field_mode, model)
+        self._schedules = {}
         if self.field_mode == "popcount":
             if self.noise_mode != "streamed":
                 raise ValueError(
@@ -764,54 +835,32 @@ class CudaBackend(PlateauBackend):
             # In K2's plane layout once, so no launch copies the planes.
             self.packed_j = kssa.popcount_planes(pack_couplings_from_adjacency(
                 model.n, model.nbr_idx, model.nbr_w, device=self.device))
-            self._schedules = {}
+            pj = self.packed_j
+            self._problem = {"sign": pj.sign[None], "mags": pj.mags[None],
+                             "base": pj.base[None], "h": self.h[None]}
         else:
             self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
                                      device=self.device)
+            self._problem = {"J": self.J[None], "h": self.h[None]}
 
     def _field(self, m):
         if self.field_mode == "popcount":
             return local_fields_popcount(pack_spins(m), self.h, self.packed_j)
         return kops.local_field(m, self.h, self.J)
 
-    def _device_schedules(self, plateaus: Tuple[Plateau, ...]):
-        """(i0_sched, fold_sched, jperp_sched or None) of a chain on the
-        device: built on the host and copied in one transfer, once per
-        distinct chain; ``jperp_sched`` is None for a chain without
-        coupling."""
-        sched = self._schedules.get(plateaus)
-        if sched is None:
-            i0_sched, fold_sched, jperp_sched = plateau_cycle_schedules(plateaus)
-            flat = torch.from_numpy(np.concatenate([i0_sched, fold_sched, jperp_sched]))
-            flat = flat.to(self.device)
-            C = len(i0_sched)
-            sched = self._schedules[plateaus] = (
-                flat[:C], flat[C:2 * C + 1], flat[2 * C + 1:] if jperp_sched.any() else None)
-        return sched
-
-    def _popcount_chain(self, state, plateaus: Tuple[Plateau, ...]):
-        """One K2 launch over a plateau chain, in either storage layout."""
+    def _packed_launch(self, state, launch):
+        """``launch`` of the packed B = 1 state, in either storage layout."""
         packed = self.storage_layout == "packed"
-        mp = state.m_packed if packed else pack_spins(state.m)
-        bmp = state.best_m_packed if packed else pack_spins(state.best_m)
-        i0_sched, fold_sched, jperp_sched = self._device_schedules(plateaus)
-        pj = self.packed_j
-        mp_o, it_o, rng_o, bh_o, bmp_o = kssa.ssa_plateau_popcount(
-            mp, state.itanh, pj.sign, pj.mags, pj.base, self.h, state.noise_state,
-            i0_sched, fold_sched, state.best_H, bmp, n_rnd=self.n_rnd,
-            jperp_sched=jperp_sched, n_replicas=self.n_replicas,
-        )
-        if packed:
-            return PackedEngineState(rng_o, mp_o, it_o, bh_o, bmp_o)
-        n = self.model.n
-        return EngineState(rng_o, unpack_spins(mp_o, n), it_o, bh_o, unpack_spins(bmp_o, n))
+        out = _first(launch(_lead(state if packed else pack_state(state))))
+        return out if packed else unpack_state(out, self.model.n)
 
     def run_plateaus(self, state, plateaus: Sequence[Plateau]):
         """Under popcount, the whole chain is one K2 launch; otherwise one
         launch per plateau."""
         if self.field_mode != "popcount" or not plateaus:
             return super().run_plateaus(state, plateaus)
-        return self._popcount_chain(state, tuple(plateaus))
+        return self._packed_launch(
+            state, lambda st: self._k2(self._problem, st, tuple(plateaus)))
 
     def _pregen_noise(self, ns, length: int):
         """The plateau's (C, T, N) int8 noise and the noise state after it:
@@ -831,35 +880,19 @@ class CudaBackend(PlateauBackend):
                 state, i0, length=length, eligible=eligible,
                 track_energy=track_energy, emit=emit, jperp=jperp,
             )
+        p = Plateau(int(i0), int(length), bool(eligible), jperp)
         if self.field_mode == "popcount":
             # One plateau is a chain of constant I0: fold [0] + [eligible]*C.
-            chain = (Plateau(int(i0), int(length), bool(eligible), jperp),)
-            return self._popcount_chain(state, chain), None, None
-        packed = self.storage_layout == "packed"
-        if self.noise_mode == "pregen":
+            st = self._packed_launch(state, lambda st: self._k2(self._problem, st, (p,)))
+        elif self.noise_mode == "pregen":
+            packed = self.storage_layout == "packed"
             st = unpack_state(state, self.model.n) if packed else state
             ns, noise = self._pregen_noise(st.noise_state, length)
-            m_o, it_o, bh_o, bm_o = kssa.ssa_plateau(
-                st.m.to(torch.float32), st.itanh, self.J, self.h, noise, int(i0),
-                st.best_H, st.best_m, n_rnd=self.n_rnd, eligible=bool(eligible),
-            )
-            out = EngineState(ns, m_o.to(torch.int8), it_o, bh_o, bm_o)
-            return (pack_state(out) if packed else out), None, None
-        mp = state.m_packed if packed else pack_spins(state.m)
-        bmp = state.best_m_packed if packed else pack_spins(state.best_m)
-        # Ring mode only where the plateau couples: J⊥ = 0 runs the
-        # classical kernel, as the JAX package's pallas backend does.
-        mp_o, it_o, rng_o, bh_o, bmp_o = kssa.ssa_plateau_packed(
-            mp, state.itanh, self.J, self.h, state.noise_state, int(i0),
-            state.best_H, bmp, n_cycles=int(length), n_rnd=self.n_rnd,
-            eligible=bool(eligible), jperp=jperp,
-            n_replicas=self.n_replicas if jperp else 0,
-        )
-        if packed:
-            return PackedEngineState(rng_o, mp_o, it_o, bh_o, bmp_o), None, None
-        n = self.model.n
-        st = EngineState(rng_o, unpack_spins(mp_o, n), it_o, bh_o,
-                         unpack_spins(bmp_o, n))
+            st = _first(self._k4(self._problem, _lead(st._replace(noise_state=None)),
+                                 noise[None], p))._replace(noise_state=ns)
+            st = pack_state(st) if packed else st
+        else:
+            st = self._packed_launch(state, lambda st: self._k1(self._problem, st, p))
         return st, None, None
 
 
@@ -1299,7 +1332,7 @@ class BatchedDenseBackend(BatchedBackend):
         return local_fields_dense(m, h, problem["J"])
 
 
-class BatchedCudaBackend(BatchedBackend):
+class BatchedCudaBackend(_CudaDispatch, BatchedBackend):
     """The resident CUDA plateau kernels, one launch for all B problems.
 
     The counterpart of the JAX package's ``BatchedPallasBackend``: the
@@ -1350,37 +1383,13 @@ class BatchedCudaBackend(BatchedBackend):
             return {**prob, "sign": pj.sign, "mags": pj.mags}
         return _stack_dense_models(models, self.n_bucket, self.device)
 
-    _device_schedules = CudaBackend._device_schedules
-
-    def _k1(self, problem, st: PackedEngineState, p: Plateau) -> PackedEngineState:
-        mp, it, rng, bh, bmp = kssa.ssa_plateau_packed_batched(
-            st.m_packed, st.itanh, problem["J"], problem["h"], st.noise_state, p.i0,
-            st.best_H, st.best_m_packed, n_cycles=p.length, n_rnd=self.n_rnd,
-            eligible=p.eligible, jperp=p.jperp,
-            n_replicas=self.n_replicas if p.jperp else 0,
-        )
-        return PackedEngineState(rng, mp, it, bh, bmp)
-
-    def _k2(self, problem, st: PackedEngineState, plateaus) -> PackedEngineState:
-        i0_sched, fold_sched, jperp_sched = self._device_schedules(plateaus)
-        mp, it, rng, bh, bmp = kssa.ssa_plateau_popcount_batched(
-            st.m_packed, st.itanh, problem["sign"], problem["mags"], problem["base"],
-            problem["h"], st.noise_state, i0_sched, fold_sched, st.best_H, st.best_m_packed,
-            n_rnd=self.n_rnd, jperp_sched=jperp_sched, n_replicas=self.n_replicas,
-        )
-        return PackedEngineState(rng, mp, it, bh, bmp)
-
     def _plateau(self, problem, st: EngineState, p: Plateau) -> EngineState:
         """K4 over the plateau's pregenerated (B, C, T, N) noise."""
         if p.jperp:
             raise ValueError("SSQA requires noise_mode='streamed' on the batched cuda "
                              "backend (the pregen kernel K4 has no replica-coupling path)")
         ns, noise = self._noise_cycles(st.noise_state, p.length)
-        m, it, bh, bm = kssa.ssa_plateau_batched(
-            st.m.to(torch.float32), st.itanh, problem["J"], problem["h"], noise, p.i0,
-            st.best_H, st.best_m, n_rnd=self.n_rnd, eligible=p.eligible,
-        )
-        return EngineState(ns, m.to(torch.int8), it, bh, bm)
+        return self._k4(problem, st._replace(noise_state=ns), noise, p)
 
     def run_shots(self, problem, state, plateaus, n_shots):
         plateaus = tuple(plateaus)

@@ -26,7 +26,9 @@ batch through :class:`repro_torch.serve.AnnealService` — bucketed, stacked
 on a problem axis, one cached program per shape bucket (on ``--backend
 cuda`` one kernel launch per plateau or chain for the whole bucket), with
 per-chunk progress lines, ``--target-cut`` early stop, ``--deadline-s`` and
-the fallback chain cuda → dense → sparse (``--no-fallback`` turns it off).
+the fallback chain cuda → dense → sparse on injected faults and dense-J →
+tiled-J on the dense backend's out-of-memory faults (``--no-fallback``
+turns it off); a real kernel fault of ``--backend cuda`` raises.
 ``--auto-tune`` replaces the Table II hyper-parameters with the
 local-field determination in both modes.
 

@@ -30,9 +30,11 @@ FPGA streams Max-Cut problems through one annealing datapath.  On the GPU:
   ``engine.TILED_J_THRESHOLD`` spins, so G77/G81-class buckets serve
   without a (B, N, N) J.
 
-Resilience: a kernel build or launch failure walks the fallback chain
-cuda → dense → sparse, and a dense-J out-of-memory fault downgrades to
-tiled J first; the downgrade is recorded on ``AnnealResponse.status`` and
+Resilience: an injected compile fault walks the fallback chain cuda →
+dense → sparse, and an out-of-memory fault of the dense backend downgrades
+to tiled J first (a real kernel build, launch or memory failure of the
+cuda backend raises instead: no plain backend serves in place of a
+failing kernel); the downgrade is recorded on ``AnnealResponse.status`` and
 ``events``.  A per-request ``deadline_s`` returns best-so-far with
 ``status='deadline'``; a non-finite energy quarantines its request (solo
 retry with backoff and a re-autotuned I0max) without touching its
@@ -458,7 +460,7 @@ class AnnealService:
                                requeue_quarantine: bool = True):
         """Run one group under the resilience wrapper.
 
-        A classified build/launch or out-of-memory fault walks the fallback
+        A fault that :func:`classify_fault` classes walks the fallback
         chain and re-runs the group from scratch on the downgraded backend
         (bit-identical: the trajectory depends on the noise, not the
         backend).  A quarantine signal splits the group: healthy requests

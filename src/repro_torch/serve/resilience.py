@@ -18,8 +18,6 @@ import torch
 from ..core.config import not_ported
 from ..core.engine import resolve_j_mode
 from ..ft.faults import InjectedCompileFailure, InjectedKill, InjectedOOM
-from ..kernels._build import KernelBuildError
-from ..kernels.ssa_update import KernelLaunchError
 
 __all__ = [
     "STATUS_OK",
@@ -93,7 +91,9 @@ class ResiliencePolicy:
                          None raises NotImplementedError naming ROADMAP.md
                          queue 1 step 7).
     fallback:            enable the backend fallback chain
-                         (cuda → dense → sparse, dense-J → tiled-J on OOM).
+                         (cuda → dense → sparse, dense-J → tiled-J on OOM);
+                         the cuda backend enters it on injected faults only
+                         (:func:`classify_fault`).
     max_retries:         solo retries of a quarantined request.
     backoff_base_s:      exponential-backoff base of those retries.
     validate_admission:  reject non-finite weights, absurd shapes and bad
@@ -134,24 +134,27 @@ def classify_fault(exc: BaseException, backend: str) -> Optional[str]:
     'compile', or None (not recoverable by fallback: it propagates).
 
     Injected kills, quarantine signals and admission errors are never
-    classified.  Device allocation failures (``torch.cuda.OutOfMemoryError``,
-    ``MemoryError``, an "out of memory" message) are 'oom'.  On the 'cuda'
-    backend a kernel that does not build (:class:`~repro_torch.kernels.
-    _build.KernelBuildError`) or does not launch (:class:`~repro_torch.
-    kernels.ssa_update.KernelLaunchError`) is 'compile': that backend
-    failing while dense and sparse can still serve the batch is the fault
-    the chain exists for.  Any other error propagates.
+    classified; an injected OOM or compile failure always is.  On the
+    'cuda' backend nothing else is: a kernel that does not build
+    (:class:`~repro_torch.kernels._build.KernelBuildError`), does not launch
+    (:class:`~repro_torch.kernels.ssa_update.KernelLaunchError`) or runs
+    out of device memory raises to the caller, so no plain-PyTorch backend
+    ever serves in place of a failing kernel.  On the plain backends a
+    device allocation failure (``torch.cuda.OutOfMemoryError``,
+    ``MemoryError``, an "out of memory" message) is 'oom': dense-J →
+    tiled-J → sparse.
     """
     if isinstance(exc, (InjectedKill, QuarantineFault, AdmissionError, KeyboardInterrupt)):
         return None
-    if isinstance(exc, (InjectedOOM, MemoryError, torch.cuda.OutOfMemoryError)):
+    if isinstance(exc, InjectedOOM):
         return "oom"
     if isinstance(exc, InjectedCompileFailure):
         return "compile"
-    if "out of memory" in str(exc).lower():
+    if backend == "cuda":
+        return None
+    if (isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError))
+            or "out of memory" in str(exc).lower()):
         return "oom"
-    if backend == "cuda" and isinstance(exc, (KernelBuildError, KernelLaunchError)):
-        return "compile"
     return None
 
 

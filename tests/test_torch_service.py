@@ -34,6 +34,7 @@ from repro_torch.ft.faults import (  # noqa: E402
     FaultInjector,
     InjectedCompileFailure,
     InjectedKill,
+    InjectedOOM,
     chaos_schedule,
 )
 from repro_torch.kernels._build import KernelBuildError  # noqa: E402
@@ -443,6 +444,24 @@ def test_fallback_disabled_propagates():
         svc.solve(reqs)
 
 
+@pytest.mark.parametrize("exc", [KernelBuildError("nvcc failed"),
+                                 KernelLaunchError("launch failed"),
+                                 torch.cuda.OutOfMemoryError("CUDA out of memory")],
+                         ids=["build", "launch", "oom"])
+def test_real_cuda_kernel_fault_propagates(monkeypatch, exc):
+    """Only injected faults walk the chain from the cuda backend: a kernel
+    that does not build, launch or fit raises, and no plain backend serves
+    the group in its place."""
+    def fail(*_a, **_k):
+        raise exc
+
+    monkeypatch.setattr(engine.BatchedCudaBackend, "run_shots", fail)
+    svc = _svc("cuda")
+    with pytest.raises(type(exc)):
+        svc.solve(_requests("chaos"))
+    assert svc.stats["fallback_compile"] == svc.stats["fallback_oom"] == 0
+
+
 def test_dense_oom_downgrades_to_tiled():
     arm = [("oom", dict(backend="dense", j_mode="dense"))]
     svc, reqs = _faulted("dense", arm)
@@ -576,8 +595,14 @@ def test_chaos_schedule_survival(seed):
 def test_classify_fault():
     assert classify_fault(torch.cuda.OutOfMemoryError("CUDA out of memory"), "dense") == "oom"
     assert classify_fault(MemoryError(), "sparse") == "oom"
-    assert classify_fault(KernelBuildError("nvcc failed"), "cuda") == "compile"
-    assert classify_fault(KernelLaunchError("launch failed"), "cuda") == "compile"
+    assert classify_fault(InjectedOOM("injected"), "cuda") == "oom"
+    assert classify_fault(InjectedCompileFailure("injected"), "cuda") == "compile"
+    # A real fault of the kernels' backend raises: no plain backend serves
+    # in place of a kernel that does not build, launch or fit.
+    assert classify_fault(KernelBuildError("nvcc failed"), "cuda") is None
+    assert classify_fault(KernelLaunchError("launch failed"), "cuda") is None
+    assert classify_fault(torch.cuda.OutOfMemoryError("CUDA out of memory"), "cuda") is None
+    assert classify_fault(RuntimeError("CUDA error: out of memory"), "cuda") is None
     assert classify_fault(KernelLaunchError("launch failed"), "dense") is None
     assert classify_fault(RuntimeError("a bug"), "cuda") is None
     assert classify_fault(InjectedKill("kill"), "cuda") is None

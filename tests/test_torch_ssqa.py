@@ -320,7 +320,7 @@ def test_jperp_zero_plateau_equals_classical(backend):
 def test_cuda_k1_ring_mode_only_where_jperp(monkeypatch):
     """K1 gets n_replicas only for plateaus with J⊥ ≠ 0: the first plateau
     of every SSQA schedule runs the classical kernel."""
-    calls = _record(monkeypatch, "ssa_plateau_packed")
+    calls = _record(monkeypatch, "ssa_plateau_packed_batched")
     hp = _hp("torus256", SSQAHyperParams)
     anneal_ssqa(PROBLEMS["torus256"][0](gset), hp, seed=1, track_energy=False, device="cpu",
                 config=SolverConfig(backend="cuda", noise="xorshift"))
@@ -332,7 +332,7 @@ def test_cuda_k1_ring_mode_only_where_jperp(monkeypatch):
 
 def test_cuda_k2_ring_mode_per_chain(monkeypatch):
     """Popcount: one chain per iteration, in ring mode with the J⊥ ramp."""
-    calls = _record(monkeypatch, "ssa_plateau_popcount")
+    calls = _record(monkeypatch, "ssa_plateau_popcount_batched")
     hp = _hp("torus256", SSQAHyperParams)
     anneal_ssqa(PROBLEMS["torus256"][0](gset), hp, seed=1, track_energy=False, device="cpu",
                 config=SolverConfig(backend="cuda", noise="xorshift", field_mode="popcount"))
@@ -349,8 +349,8 @@ def test_pregen_ssqa_takes_the_cycle_loop(monkeypatch, noise, noise_mode):
     runs K4; the others run the cycle loop over K3.  The answers equal the
     JAX package's (threefry: its pallas pregen path; xorshift pregen: its
     streamed one, which gives the same answers)."""
-    k4 = _record(monkeypatch, "ssa_plateau")
-    k1 = _record(monkeypatch, "ssa_plateau_packed")
+    k4 = _record(monkeypatch, "ssa_plateau_batched")
+    k1 = _record(monkeypatch, "ssa_plateau_packed_batched")
     fields = []
     real = ops.local_field
     monkeypatch.setattr(ops, "local_field", lambda *a: fields.append(1) or real(*a))
