@@ -1,9 +1,10 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the CUDA kernels from the
 sources in this checkout, holds each against its plain PyTorch version on
 the card, drives ``repro_torch.core.ssa.anneal`` and
-``repro_torch.core.ssqa.anneal_ssqa`` at K2000 width and
-``repro_torch.serve.AnnealService.solve`` at B > 1 through the kernels,
-and prints what it measured.
+``repro_torch.core.ssqa.anneal_ssqa`` at K2000 width,
+``repro_torch.serve.AnnealService.solve`` at B > 1 and
+``repro_torch.serve.StreamingAnnealService`` (with chunk checkpoints)
+through the kernels, and prints what it measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
@@ -103,8 +104,35 @@ Phases (any failure raises and exits non-zero):
  22. service fallback: an injected compile fault on the cuda group of
      bucket 1024 — its four responses 'fallback' with one cuda → dense
      event and phase 18's results, K2000 'ok' on K1 (60 launches);
- 23. the card line again, the kernels line (each kernel's service launches
-     in ``service_launches``); 24. the contract line (last).
+ 23. stream K1: StreamingAnnealService(tables of 4 slots; cuda, packed
+     layout, one shot a quantum, driven on this thread with
+     run_until_idle()) serves the four twins at seeds 0 and 1 and K2000 at
+     seeds 4 and 5, every other one with a target_cut from its own
+     one-shot trace at chunk 3 (they retire early, their slots backfill):
+     every response 'ok' and equal to AnnealService.solve of the same
+     request (best_cut, best_m, best energies, chunk trace); K1 launched
+     stream_quanta × 6 times, nothing else; wall s, quanta, backfills,
+     occupancy, ms per seat and per splice, peak device bytes; the same
+     stream under torch.profiler (``[profile] stream K1``);
+ 24. the same requests with field_mode='auto' (K2: stream_quanta
+     launches), and the four N = 800 twins at the SSQA cell's widths on the
+     dense field (K1: quanta × 6, quanta × 5 in ring mode) and popcount
+     (K2's ring mode: quanta), each equal to its one-shot solve;
+ 25. checkpoints: phase 18's batch killed at chunk 1 and resumed by a fresh
+     service (its responses, a 'resume' at chunk 2 on the bucket-1024
+     group, K1 60 for the K2000 group alone, the directory purged); phase
+     23's stream killed after a table's third quantum and resumed lane by
+     lane (phase 23's responses); a one-shot solo checkpoint of K2000
+     resumed into a stream at chunk 2; save ms and a K2000 lane's bytes;
+ 26. open-loop traffic (``repro_torch.benchmarks.serve_stream``): 24
+     requests over the five twins in bursts of 4 at twice the probed
+     capacity, on the stream's background thread with finite result
+     timeouts — every streamed trace a bit-exact prefix of its calibration
+     trace, K1 = quanta × 6; p50/p99, goodput, occupancy, shed and late
+     counts measured;
+ 27. the card line again, the kernels line (each kernel's service launches
+     in ``service_launches``, its stream launches of phases 23–24 in
+     ``stream_launches``); 28. the contract line (last).
 """
 from __future__ import annotations
 
@@ -1417,6 +1445,420 @@ def phase_service_fallback(problems, reqs, k1_resp):
           f"{resp[0].events[0].detail['error']}")
 
 
+# ---------------------------------------------------------------------------
+# The streaming service (StreamingAnnealService) and chunk checkpoints
+# ---------------------------------------------------------------------------
+STREAM_SLOTS = 4
+# Phase 23's requests: the four twins at seeds 0 and 1 (bucket 1024) and the
+# K2000 twin at seeds 4 and 5 (bucket 2048); every other one carries a
+# target_cut from its own one-shot chunk trace, at this chunk.
+STREAM_TARGET_CHUNK = 3
+
+
+def _stream_problems():
+    from repro_torch.core import gset
+
+    names = [(n, s) for s in (0, 1) for n in SERVICE_TWINS] + [("K2000", 4), ("K2000", 5)]
+    loaded = {n: gset.load(n) for n in dict(names)}
+    return [loaded[n] for n, _ in names], [s for _, s in names]
+
+
+def _stream_service(**kw):
+    """Table II widths on the cuda backend, packed layout, chunks of one
+    shot (the stream's scheduling quantum is one iteration)."""
+    from repro_torch.serve import AnnealService
+
+    return AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                         chunk_shots=1, **kw)
+
+
+def _same_lane(got, want) -> bool:
+    import numpy as np
+
+    return (got.result is not None and want.result is not None
+            and np.array_equal(got.result.best_cut, want.result.best_cut)
+            and np.array_equal(got.result.best_m, want.result.best_m)
+            and np.array_equal(got.result.best_energy, want.result.best_energy)
+            and np.array_equal(got.chunk_best_cut, want.chunk_best_cut))
+
+
+def _check_stream(what, resp, refs, problems, status="ok"):
+    """Every streamed response has ``status`` and a well-formed result equal
+    to its one-shot solve bit for bit: best_cut, best_m, best energies and
+    the chunk trace."""
+    import numpy as np
+
+    for r, ref, p in zip(resp, refs, problems):
+        if r.status != status:
+            _fail(f"{what}: {p.name} (seed {r.request.seed}) came back {r.status!r}; "
+                  f"events {[(e.kind, e.detail) for e in r.events]}")
+        res = r.result
+        if not (res.best_m.shape == (r.request.hp.n_trials, p.n)
+                and set(np.unique(res.best_m)) <= {-1, 1}
+                and np.array_equal(p.cut_value(res.best_m), res.best_cut)):
+            _fail(f"{what}: {p.name}: malformed result")
+        if not _same_lane(r, ref):
+            _fail(f"{what}: {p.name} (seed {r.request.seed}) differs from its one-shot solve "
+                  f"(traces {list(r.chunk_best_cut)} / {list(ref.chunk_best_cut)})")
+
+
+class _SeatTimer:
+    """Times each seat (host stack, lane init, splice) and each splice of a
+    stream, the device synchronised around both: measurement only."""
+
+    def __init__(self, ss):
+        from repro_torch.serve import stream
+
+        self.seat_s, self.splice_s, self._mod = [], [], stream
+        self._splice, seat = stream.splice_slot, ss._seat
+
+        def timed(fn, out):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+                return r
+            return run
+
+        ss._seat = timed(seat, self.seat_s)
+        stream.splice_slot = timed(self._splice, self.splice_s)
+
+    def close(self):
+        self._mod.splice_slot = self._splice
+
+    def line(self) -> str:
+        if not self.seat_s:
+            return "no seat"
+        per = [s * 1e3 for s in self.seat_s]
+        spl = [s * 1e3 for s in self.splice_s]
+        return (f"{len(per)} seats, ms per seat mean {sum(per) / len(per):.3f} (min "
+                f"{min(per):.3f}, max {max(per):.3f}); {len(spl)} splices, ms per splice mean "
+                f"{sum(spl) / max(1, len(spl)):.3f}")
+
+
+def _stream_run(ss, reqs, what):
+    """Submit ``reqs`` and drive the stream on this thread until idle (a
+    fault raises here instead of hanging a waiting ticket): (responses,
+    wall s, launches, peak device bytes, the seat timer)."""
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timer = _SeatTimer(ss)
+    q0 = dict(ss.stream_stats())
+    _reset_counts()
+    t0 = time.time()
+    try:
+        tickets = [ss.submit(r) for r in reqs]
+        ss.run_until_idle()
+        torch.cuda.synchronize()
+    finally:
+        timer.close()
+    wall = time.time() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() - live
+    resp = [t.result(timeout=0) for t in tickets]
+    st = ss.stream_stats()
+    d = {k: st.get(k, 0) - q0.get(k, 0) for k in st if k.startswith("stream_")}
+    d = {k: d.get(k, 0) for k in ("stream_quanta", "stream_backfills", "stream_live_lane_chunks",
+                                  "stream_slot_chunks", "stream_tables_created",
+                                  "stream_retired_target", "stream_retired_budget",
+                                  "stream_resumes")}
+    occ = d["stream_live_lane_chunks"] / max(1, d["stream_slot_chunks"])
+    print(f"[{what}] {len(reqs)} requests, tables of {ss.policy.slots_per_table} slots: wall "
+          f"{wall:.3f}s; quanta {d['stream_quanta']}, backfills {d['stream_backfills']}, "
+          f"tables {d['stream_tables_created']}, retired target/budget "
+          f"{d['stream_retired_target']}/{d['stream_retired_budget']}, occupancy "
+          f"{occ:.4f} ({d['stream_live_lane_chunks']}/{d['stream_slot_chunks']} lane chunks); "
+          f"(K1, K3, K4, K2, K1 ring, K2 ring) launches {counts}; peak device memory of the "
+          f"call {peak} B; {timer.line()}; statuses {sorted({r.status for r in resp})}")
+    return resp, wall, counts, peak, d
+
+
+def _stream_reqs(problems, seeds, hp, traces=None):
+    """Phase 23's requests; with ``traces``, every other one targets its own
+    one-shot best cut at STREAM_TARGET_CHUNK."""
+    from repro_torch.serve import AnnealRequest
+
+    return [AnnealRequest(problem=p, hp=hp, seed=s,
+                          target_cut=(int(traces[i][STREAM_TARGET_CHUNK - 1])
+                                      if traces is not None and i % 2 == 0 else None))
+            for i, (p, s) in enumerate(zip(problems, seeds))]
+
+
+def phase_stream():
+    """Stream phase 1 (K1): phase 23's ten requests through
+    StreamingAnnealService(tables of 4 slots) on the cuda backend, packed
+    layout, one shot a quantum, driven on this thread.  The half with a
+    target retire early and their slots backfill.  Every response 'ok' and
+    equal to AnnealService.solve of the same request, bit for bit; K1
+    launched stream_quanta × plateaus per chunk, nothing else.  Then the
+    same stream again under torch.profiler (measured, not asserted).
+    Returns (problems, requests, stream responses, K1 launches)."""
+    from repro_torch.serve import StreamingAnnealService, StreamPolicy
+
+    hp = _service_hp()
+    problems, seeds = _stream_problems()
+    cal = _stream_service().solve(_stream_reqs(problems, seeds, hp))
+    traces = [list(map(int, r.chunk_best_cut)) for r in cal]
+    reqs = _stream_reqs(problems, seeds, hp, traces)
+    refs = _stream_service().solve(reqs)
+    if not any(r.chunks_run < r.chunks_total for r in refs):
+        _fail("stream K1: no targeted request stopped early in its one-shot solve")
+    ss = StreamingAnnealService(service=_stream_service(),
+                                policy=StreamPolicy(slots_per_table=STREAM_SLOTS))
+    resp, wall, counts, peak, d = _stream_run(ss, reqs, "stream K1")
+    _check_stream("stream K1", resp, refs, problems)
+    per_chunk = hp.steps  # one shot a quantum: one K1 launch per plateau
+    _expect("stream K1", counts, (d["stream_quanta"] * per_chunk, 0, 0, 0, 0, 0))
+    if d["stream_retired_target"] == 0 or d["stream_backfills"] <= STREAM_SLOTS:
+        _fail(f"stream K1: expected early retirements and backfills, got {d}")
+    print(f"[stream K1] chunks run {[r.chunks_run for r in resp]}; targets "
+          f"{[r.request.target_cut for r in resp]}; one-shot traces {traces}")
+    again = StreamingAnnealService(service=_stream_service(),
+                                   policy=StreamPolicy(slots_per_table=STREAM_SLOTS))
+
+    def run():
+        tickets = [again.submit(r) for r in reqs]
+        again.run_until_idle()
+        return tickets
+
+    print("[profile] " + _profile_call(run, "stream K1 run_until_idle()", "K1", "plateau_kernel"))
+    return problems, reqs, resp, counts[0]
+
+
+def phase_stream_k2_and_rings(problems, reqs):
+    """Stream phase 2: phase 23's requests with field_mode='auto' (K2, one
+    launch a quantum), and the four N = 800 twins at the SSQA cell's widths
+    on the dense field (K1 and its ring mode) and on popcount (K2's ring
+    mode); each response equal to its one-shot solve with the same options.
+    Returns the stream launches of K2, K1's ring mode and K2's ring mode."""
+    from repro_torch.core import gset
+    from repro_torch.core.engine import schedule_plateaus
+    from repro_torch.serve import AnnealRequest, StreamingAnnealService, StreamPolicy
+
+    pol = StreamPolicy(slots_per_table=STREAM_SLOTS)
+    opts = {"field_mode": "auto"}
+    refs = _stream_service(backend_opts=opts).solve(reqs)
+    ss = StreamingAnnealService(service=_stream_service(backend_opts=opts), policy=pol)
+    resp, _, counts, _, d = _stream_run(ss, reqs, "stream K2")
+    _check_stream("stream K2", resp, refs, problems)
+    _expect("stream K2", counts, (0, 0, 0, d["stream_quanta"], 0, 0))
+    k2 = counts[3]
+
+    hp = _service_hp(ssqa=True)
+    twins = [gset.load(n) for n in SERVICE_TWINS]
+    sreqs = [AnnealRequest(problem=p, hp=hp, seed=s, algo="ssqa") for s, p in enumerate(twins)]
+    coupled = sum(1 for pl in schedule_plateaus(hp.schedule()) if pl.jperp)
+    ring = {}
+    for name, o in (("dense field", {}), ("popcount", {"field_mode": "popcount"})):
+        srefs = _stream_service(backend_opts=o).solve(sreqs)
+        ss = StreamingAnnealService(service=_stream_service(backend_opts=o), policy=pol)
+        resp, _, counts, _, d = _stream_run(ss, sreqs, f"stream SSQA {name}")
+        _check_stream(f"stream SSQA {name}", resp, srefs, twins)
+        q = d["stream_quanta"]
+        want = ((q * hp.steps, 0, 0, 0, q * coupled, 0) if not o else (0, 0, 0, q, 0, q))
+        _expect(f"stream SSQA {name}", counts, want)
+        ring[name] = counts
+    return k2, ring["dense field"][4], ring["popcount"][5]
+
+
+class _SaveTimer:
+    """Times every checkpoint write (host copy, npz, sidecar): measurement
+    only."""
+
+    def __init__(self):
+        from repro_torch.checkpoint import ckpt
+
+        self.s, self._mod, self._save = [], ckpt, ckpt.save
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            r = self._save(*a, **k)
+            self.s.append(time.perf_counter() - t0)
+            return r
+
+        ckpt.save = timed
+
+    def close(self):
+        self._mod.save = self._save
+
+    def line(self) -> str:
+        ms = [x * 1e3 for x in self.s]
+        return (f"{len(ms)} saves, ms per save mean {sum(ms) / max(1, len(ms)):.3f}"
+                + (f" (min {min(ms):.3f}, max {max(ms):.3f})" if ms else ""))
+
+
+def _lane_bytes(directory, n_bucket) -> int:
+    """Bytes of the newest checkpoint under ``directory`` whose lanes span
+    ``n_bucket`` spins, or 0."""
+    import numpy as np
+
+    size = 0
+    for path in sorted(Path(directory).rglob("ckpt_*.npz")):
+        with np.load(path) as z:
+            key = [k for k in z.files if k.startswith("noise_state")][0]
+            if z[key].shape[0] == 1 and z[key].shape[-1] == n_bucket:
+                size = path.stat().st_size
+    return size
+
+
+def _killed(fn, what):
+    from repro_torch.ft.faults import InjectedKill
+
+    try:
+        fn()
+    except InjectedKill as e:
+        print(f"[{what}] killed as armed: {e}")
+        return
+    _fail(f"{what}: the armed kill did not fire")
+
+
+def phase_checkpoints(svc_problems, svc_reqs, svc_resp, problems, reqs, stream_resp):
+    """Checkpoint phase: (1) phase 18's one-shot batch with checkpoints on,
+    killed at its chunk 1, resumed by a fresh service: phase 18's
+    responses, a 'resume' event at chunk 2 on the killed group, the
+    directory purged; (2) phase 23's stream, killed after a table's third
+    quantum, resumed by a fresh stream: each lane from its own checkpoint,
+    phase 23's responses; (3) a one-shot solo checkpoint of phase 23's last
+    request (K2000, seed 5) resumed into a stream.  Prints a K2000 lane
+    checkpoint's bytes and the time of a save."""
+    import os
+    import tempfile
+
+    from repro_torch.ft.faults import FaultInjector
+    from repro_torch.serve import (
+        AnnealService,
+        ResiliencePolicy,
+        StreamingAnnealService,
+        StreamPolicy,
+    )
+
+    pol_s = StreamPolicy(slots_per_table=STREAM_SLOTS)
+    with tempfile.TemporaryDirectory() as root:
+        d1 = os.path.join(root, "oneshot")
+        pol = ResiliencePolicy(checkpoint_dir=d1)
+        inj = FaultInjector()
+        inj.arm("kill", chunk=1)
+        mk = functools.partial(AnnealService, backend="cuda", noise="xorshift",
+                               storage_layout="packed", chunk_shots=5, resilience=pol)
+        timer = _SaveTimer()
+        try:
+            _killed(lambda: mk(faults=inj).solve(svc_reqs), "checkpoint one-shot")
+        finally:
+            timer.close()
+        print(f"[checkpoint one-shot] {timer.line()} (a group of B = 4 at bucket 1024)")
+        resp, _, counts, _ = _service_solve(mk(), svc_reqs, "checkpoint one-shot resumed")
+        hp = svc_reqs[0].hp
+        _expect("checkpoint one-shot resumed", counts, (hp.m_shot * hp.steps, 0, 0, 0, 0, 0))
+        for r, ref, p in zip(resp, svc_resp, svc_problems):
+            if not _same_lane(r, ref):
+                _fail(f"checkpoint one-shot: {p.name} differs from phase 18's response")
+        resumes = [(r.bucket, e.detail["chunk"]) for r in resp for e in r.events
+                   if e.kind == "resume"]
+        if sorted(set(resumes)) != [(1024, 2)] or len(resumes) != 4:
+            _fail(f"checkpoint one-shot: expected the bucket-1024 group's resume at chunk 2, "
+                  f"got {resumes}")
+        if os.listdir(d1):
+            _fail("checkpoint one-shot: the checkpoints were not purged")
+
+        d2 = os.path.join(root, "stream")
+        pol = ResiliencePolicy(checkpoint_dir=d2)
+        inj = FaultInjector()
+        inj.arm("kill", chunk=2)
+        killed = StreamingAnnealService(service=_stream_service(resilience=pol, faults=inj),
+                                        policy=pol_s)
+        timer = _SaveTimer()
+        try:
+            for r in reqs:
+                killed.submit(r)
+            _killed(killed.run_until_idle, "checkpoint stream")
+        finally:
+            timer.close()
+        in_flight = sorted((t.slots[i].ticket.seq, t.slots[i].chunks_done)
+                           for t in killed._tables.values() for i in range(len(t.slots))
+                           if t.slots[i] is not None and t.slots[i].chunks_done)
+        lane_bytes = _lane_bytes(d2, 2048)
+        print(f"[checkpoint stream] {timer.line()} (one lane each); lanes in flight at the "
+              f"kill (request, chunks done) {in_flight}; a K2000 lane checkpoint {lane_bytes} B")
+        ss = StreamingAnnealService(service=_stream_service(resilience=pol), policy=pol_s)
+        resp, _, _, _, d = _stream_run(ss, reqs, "checkpoint stream resumed")
+        _check_stream("checkpoint stream resumed", resp, stream_resp, problems)
+        resumed = sorted((t.request.seed, e.detail["chunk"]) for t in resp for e in t.events
+                         if e.kind == "resume")
+        print(f"[checkpoint stream resumed] resumes {d['stream_resumes']} (seed, chunk) "
+              f"{resumed}")
+        if not resumed or d["stream_resumes"] != len(resumed):
+            _fail("checkpoint stream: no lane resumed from its checkpoint")
+        if os.listdir(d2):
+            _fail("checkpoint stream: the checkpoints were not purged")
+
+        d3 = os.path.join(root, "solo")
+        pol = ResiliencePolicy(checkpoint_dir=d3)
+        inj = FaultInjector()
+        inj.arm("kill", chunk=1)
+        req, ref, p = reqs[-1], stream_resp[-1], problems[-1]
+        timer = _SaveTimer()
+        try:
+            _killed(lambda: _stream_service(resilience=pol, faults=inj).solve([req]),
+                    "checkpoint solo")
+        finally:
+            timer.close()
+        solo_bytes = _lane_bytes(d3, 2048)
+        print(f"[checkpoint solo] {p.name} seed {req.seed}: {timer.line()}; its checkpoint "
+              f"{solo_bytes} B")
+        ss = StreamingAnnealService(service=_stream_service(resilience=pol), policy=pol_s)
+        resp, _, _, _, _ = _stream_run(ss, [req], "checkpoint solo into the stream")
+        _check_stream("checkpoint solo into the stream", resp, [ref], [p])
+        got = [(e.kind, e.detail["chunk"]) for e in resp[0].events if e.kind == "resume"]
+        if got != [("resume", 2)] or os.listdir(d3):
+            _fail(f"checkpoint solo: expected one resume at chunk 2 and a purge, got {got}")
+
+
+def phase_stream_traffic():
+    """Open-loop traffic (repro_torch.benchmarks.serve_stream): the five
+    twins' calibration traces, a compound-Poisson trace of 24 requests in
+    bursts of 4 at twice the capacity probe_stream_capacity measures,
+    replayed on the stream's background thread with finite result timeouts.
+    Asserted: every non-shed streamed trace is a bit-exact prefix of its
+    calibration trace, and K1 launched quanta × plateaus per chunk.
+    Measured: latency, goodput, occupancy, shed and late counts."""
+    from repro_torch.benchmarks import serve_stream as bench
+    from repro_torch.core import gset
+
+    hp = _service_hp()
+    problems = [gset.load(n) for n in SERVICE_TWINS + ("K2000",)]
+    kw = dict(device="cuda", storage_layout="packed", chunk_shots=1)
+    t0 = time.time()
+    entries = bench.calibrate(problems, hp, "cuda", **kw)
+    trace = bench.make_trace(entries, hp, 24, seed=0)
+    s_stream, lane_p50, lane_max = bench.probe_stream_capacity(trace, "cuda", STREAM_SLOTS, **kw)
+    deadline_s = max(2.0 * lane_max, 0.25)
+    rate = 2.0 / max(s_stream, 1e-6)
+    arrivals = bench.poisson_arrivals(24, rate, 0, burst=STREAM_SLOTS)
+    print(f"[stream traffic] capacity probe {s_stream:.4f} s a request (lane p50 "
+          f"{lane_p50:.4f} s, max {lane_max:.4f} s); offered 2x = {rate:.4f} requests/s; "
+          f"deadline {deadline_s:.4f} s; set-up {time.time() - t0:.1f}s")
+    _reset_counts()
+    records, stats = bench.run_stream(trace, arrivals, deadline_s, "cuda", STREAM_SLOTS,
+                                      result_timeout_s=300.0, **kw)
+    torch.cuda.synchronize()
+    counts = _counts()
+    bad = bench.check_prefix_determinism(records)
+    sc = bench.score(records, deadline_s)
+    shed = sum(1 for r in records if r.get("resp") is not None and r["resp"].status == "shed")
+    print(f"[stream traffic] {len(records)} requests: p50 {sc['p50_s']} s, p99 {sc['p99_s']} s, "
+          f"goodput {sc['goodput_cycles_per_s']:.4e} spin-cycles/s over {sc['makespan_s']:.3f} s, "
+          f"on time {sc['on_time']}, late {sc['late']}, shed {shed}, dropped {sc['dropped']}; "
+          f"occupancy {stats['occupancy']:.4f}; quanta {stats['stream_quanta']}; "
+          f"(K1, K3, K4, K2, K1 ring, K2 ring) launches {counts}; prefix mismatches {bad}")
+    if bad:
+        _fail(f"stream traffic: {bad} streamed traces are not prefixes of their calibration "
+              "traces")
+    _expect("stream traffic", counts, (stats["stream_quanta"] * hp.steps, 0, 0, 0, 0, 0))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1450,35 +1892,44 @@ def main():
     k1_ring_service, k2_ring_service = phase_service_ssqa()
     k2_tiled_service = phase_service_tiled()
     phase_service_fallback(problems, reqs, k1_resp)
+    s_problems, s_reqs, s_resp, k1_stream = phase_stream()
+    k2_stream, k1_ring_stream, k2_ring_stream = phase_stream_k2_and_rings(s_problems, s_reqs)
+    phase_checkpoints(problems, reqs, k1_resp, s_problems, s_reqs, s_resp)
+    phase_stream_traffic()
     kernels = [
         dict(name="ssa_plateau_packed (K1)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
              replaces="src/repro/kernels/ssa_update.py:329",
-             launches=k1_launches, service_launches={"service K1": k1_service}, **k1),
+             launches=k1_launches, service_launches={"service K1": k1_service},
+             stream_launches={"stream K1": k1_stream}, **k1),
         dict(name="local_field (K3)", route="cuda",
              source="src/repro_torch/kernels/csrc/field.cu",
              replaces="src/repro/kernels/ssa_update.py:90",
-             launches=k3_launches, service_launches={}, **k3),
+             launches=k3_launches, service_launches={}, stream_launches={}, **k3),
         dict(name="ssa_plateau (K4)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau_pregen.cu",
              replaces="src/repro/kernels/ssa_update.py:150",
-             launches=k4_launches, service_launches={"service K4": k4_service}, **k4),
+             launches=k4_launches, service_launches={"service K4": k4_service},
+             stream_launches={}, **k4),
         dict(name="ssa_plateau_popcount (K2)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
              launches=k2_launches,
              service_launches={"service K2": k2_service,
-                               "service tiled K2": k2_tiled_service}, **k2),
+                               "service tiled K2": k2_tiled_service},
+             stream_launches={"stream K2": k2_stream}, **k2),
         dict(name="ssa_plateau_packed ring mode (K1, SSQA)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
              replaces="src/repro/kernels/ssa_update.py:329",
              launches=k1_ring_launches,
-             service_launches={"service SSQA dense field": k1_ring_service}, **k1_ring),
+             service_launches={"service SSQA dense field": k1_ring_service},
+             stream_launches={"stream SSQA dense field": k1_ring_stream}, **k1_ring),
         dict(name="ssa_plateau_popcount ring mode (K2, SSQA)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
              launches=k2_ring_launches,
-             service_launches={"service SSQA popcount": k2_ring_service}, **k2_ring),
+             service_launches={"service SSQA popcount": k2_ring_service},
+             stream_launches={"stream SSQA popcount": k2_ring_stream}, **k2_ring),
     ]
     print(card)  # again, so that it stands in the last lines of the output
     print(json.dumps({"kernels": kernels}))

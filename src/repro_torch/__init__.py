@@ -10,10 +10,16 @@ module's counterpart is found at the same path:
   kernels.bitplane, kernels.ref,
   kernels.ssa_update, kernels.ops       — the spin codec, the plain
                                           versions and the CUDA kernels
-  serve, ft.faults                      — the one-shot annealing service
-                                          (bucketed, batched) and its
+  serve, ft.faults                      — the annealing service: one-shot
+                                          (bucketed, batched) and streamed
+                                          (continuous batching), and its
                                           fault injection
+  checkpoint.ckpt                       — atomic, keep-last-k checkpoints
+                                          (the service's kill/resume)
   launch.anneal                         — the command-line launcher
+  benchmarks.serve_stream,
+  benchmarks.chaos                      — the open-loop traffic and fault
+                                          benchmarks
   convert                               — numpy hand-over of states/models
 
 The package imports torch and numpy only.  Entry points run on ``cuda``

@@ -24,8 +24,6 @@ _WAITS = {
     "sa_pt": "ROADMAP.md queue 1 step 5 (SA and PT-SSA: core/sa.py, core/pt.py)",
     "problems": "ROADMAP.md queue 1 step 6 (the problem frontend: ProblemEncoding "
                 "inputs)",
-    "stream": "ROADMAP.md queue 1 step 7 (the streaming service, checkpoints and "
-              "group_fingerprint)",
     "spin": "ROADMAP.md queue 1 step 8 (spin sharding across GPUs)",
     "auto_backend": "ROADMAP.md queue 1 step 3 (MIN_RESIDENT_N re-derived on "
                     "the H100 before backend='auto' can choose)",

@@ -35,8 +35,22 @@ local-field determination in both modes.
     python -m repro_torch.launch.anneal --problem G11,G12,G13,King1 \
         --backend cuda --trials 100 --m-shot 10 --chunk-shots 5
 
-``--stream``, ``--checkpoint-dir`` and ``--problem-kind`` raise
-NotImplementedError naming the ROADMAP.md step they wait for.
+``--checkpoint-dir DIR`` (service mode, or stream mode) saves every group's
+state at each chunk boundary under DIR: a killed run, started again with
+the same flags, resumes from its last boundary, bit-identically.
+
+Streaming mode: ``--stream`` submits the problem list to the
+continuously batched front door (:class:`repro_torch.serve.
+StreamingAnnealService`) instead of one ``solve()`` batch: slot tables of
+``--stream-slots`` lanes, one chunk per scheduling quantum, retired slots
+backfilled at chunk boundaries; ``--arrival-rate`` paces the submissions
+as an open-loop client, ``--priority`` picks the admission class.
+
+    python -m repro_torch.launch.anneal --problem G11,G12,G13,King1,K2000 \
+        --stream --backend cuda --trials 100 --m-shot 10 --stream-slots 4
+
+``--problem-kind`` raises NotImplementedError naming the ROADMAP.md step it
+waits for.
 """
 from __future__ import annotations
 
@@ -52,6 +66,12 @@ from repro_torch.core.ssa import SSAHyperParams, anneal
 from repro_torch.core.ssqa import SSQAHyperParams
 
 
+def _resilience_policy(args):
+    from repro_torch.serve import ResiliencePolicy
+
+    return ResiliencePolicy(checkpoint_dir=args.checkpoint_dir, fallback=not args.no_fallback)
+
+
 def _backend_opts(args):
     """--field-mode reaches the field-capable backends; sparse ignores it."""
     if args.field_mode != "dense" and args.backend != "sparse":
@@ -59,24 +79,31 @@ def _backend_opts(args):
     return {}
 
 
-def _run_service(problem_names, hp, args):
-    from repro_torch.serve import AnnealRequest, AnnealService, ResiliencePolicy
+def _service(args):
+    """The AnnealService the service and stream modes share."""
+    from repro_torch.serve import AnnealService
 
-    problems = [gset.load(name) for name in problem_names]
-    requests = [
-        AnnealRequest(problem=p, hp="auto" if args.auto_tune else hp, seed=args.seed + i,
-                      storage=args.storage, target_cut=args.target_cut, auto_base=hp,
-                      deadline_s=args.deadline_s, algo=args.algo)
-        for i, p in enumerate(problems)
-    ]
     opts = _backend_opts(args)
     if args.noise_mode != "auto" and args.backend == "cuda":
         opts["noise_mode"] = args.noise_mode
-    svc = AnnealService(backend=args.backend, noise=args.noise,
-                        storage_layout=args.storage_layout, chunk_shots=args.chunk_shots,
-                        backend_opts=opts,
-                        resilience=ResiliencePolicy(fallback=not args.no_fallback),
-                        device=args.device)
+    return AnnealService(backend=args.backend, noise=args.noise,
+                         storage_layout=args.storage_layout, chunk_shots=args.chunk_shots,
+                         backend_opts=opts, resilience=_resilience_policy(args),
+                         device=args.device)
+
+
+def _request(p, i, hp, args):
+    from repro_torch.serve import AnnealRequest
+
+    return AnnealRequest(problem=p, hp="auto" if args.auto_tune else hp, seed=args.seed + i,
+                         storage=args.storage, target_cut=args.target_cut, auto_base=hp,
+                         deadline_s=args.deadline_s, algo=args.algo)
+
+
+def _run_service(problem_names, hp, args):
+    problems = [gset.load(name) for name in problem_names]
+    requests = [_request(p, i, hp, args) for i, p in enumerate(problems)]
+    svc = _service(args)
 
     def progress(ev):
         bests = ", ".join(f"{problems[i].name}={b}"
@@ -114,6 +141,57 @@ def _run_service(problem_names, hp, args):
           f"{info.get('traces_chunk', 0)} plateau-program trace(s))")
 
 
+def _run_stream(problem_names, hp, args):
+    """Streaming client mode: submit the problem list to an always-on
+    StreamingAnnealService, paced as an open-loop arrival process if asked,
+    and wait for the tickets."""
+    from repro_torch.serve import StreamingAnnealService, StreamPolicy
+
+    problems = [gset.load(name) for name in problem_names]
+    svc = _service(args)
+    ss = StreamingAnnealService(service=svc,
+                                policy=StreamPolicy(slots_per_table=args.stream_slots))
+    ss.start()
+    t0 = time.time()
+    tickets = []
+    try:
+        for i, p in enumerate(problems):
+            if args.arrival_rate > 0 and i:
+                time.sleep(1.0 / args.arrival_rate)
+            tickets.append(ss.submit(_request(p, i, hp, args), priority=args.priority))
+        shed = deadline = 0
+        for p, t in zip(problems, tickets):
+            r = t.result(timeout=None)
+            if r.status == "shed":
+                # Dropped unstarted (its deadline was already unmeetable):
+                # not a solver failure, counted apart in the summary.
+                shed += 1
+                print(f"{p.name}: SHED — dropped from the queue unstarted "
+                      f"(deadline_s={r.request.deadline_s})")
+                continue
+            if r.result is None:
+                print(f"{p.name}: {r.status.upper()} — no result "
+                      f"({'; '.join(e.kind for e in r.events) or 'no events'})")
+                continue
+            if r.status == "deadline":
+                deadline += 1
+            print(f"{p.name}: best cut {r.result.overall_best_cut} "
+                  f"[chunks={r.chunks_run}/{r.chunks_total} "
+                  f"queued {r.queued_s:.2f}s lane {r.lane_wall_s:.2f}s] "
+                  f"status={r.status}"
+                  + (" (best-so-far at deadline)" if r.status == "deadline" else ""))
+    finally:
+        ss.stop()
+    dt = time.time() - t0
+    st = ss.stream_stats()
+    print(f"stream of {len(problems)} in {dt:.1f}s: "
+          f"occupancy={st['occupancy']:.2f} "
+          f"backfills={st['stream_backfills']} "
+          f"tables={st['stream_tables_created']} "
+          f"quanta={st['stream_quanta']} "
+          f"shed={shed} deadline={deadline}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--problem", default="G11",
@@ -135,9 +213,19 @@ def main(argv=None):
                     help="derive n_rnd, I0 and tau from the local-field distribution "
                          "instead of the Table II flags")
     ap.add_argument("--stream", action="store_true",
-                    help="streaming client mode (not ported yet)")
+                    help="streaming client mode: submit the problem list to the "
+                         "continuously batched StreamingAnnealService instead of one "
+                         "solve() batch")
+    ap.add_argument("--stream-slots", type=int, default=4,
+                    help="--stream: slot-table width (a power of two)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="--stream: pace submissions at this rate in requests/s "
+                         "(0 = submit everything at once)")
+    ap.add_argument("--priority", choices=("interactive", "batch"), default="batch",
+                    help="--stream: admission priority class")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="service mode: chunk-level checkpoints (not ported yet)")
+                    help="chunk-level checkpoint root (implies service mode unless "
+                         "--stream): a killed run resumes bit-identically")
     ap.add_argument("--problem-kind", default="gset",
                     help="problem family; only 'gset' is ported")
     ap.add_argument("--algo", choices=("ssa", "ssqa"), default="ssa",
@@ -186,12 +274,10 @@ def main(argv=None):
         hp = SSAHyperParams(**knobs)
     if args.problem_kind != "gset":
         raise not_ported(f"--problem-kind {args.problem_kind}", "problems")
-    if args.stream:
-        raise not_ported("--stream", "stream")
-    if args.checkpoint_dir is not None:
-        raise not_ported("--checkpoint-dir", "stream")
     names = args.problem.split(",")
-    if args.service or len(names) > 1:
+    if args.stream:
+        return _run_stream(names, hp, args)
+    if args.service or len(names) > 1 or args.checkpoint_dir is not None:
         return _run_service(names, hp, args)
 
     p = gset.load(args.problem)

@@ -1,8 +1,9 @@
 """repro_torch.serve — the annealing service (port of ``repro.serve``'s
-one-shot service): shape-bucketed, batched, program-cached Max-Cut solving
-over the plateau engine, the paper's own workload.  The streaming front
-door (``repro.serve.stream``) waits for ROADMAP.md queue 1 step 7; the LM
-serving stack for step 10."""
+annealing half): shape-bucketed, batched, program-cached Max-Cut solving
+over the plateau engine, the paper's own workload, as one-shot batches
+(``AnnealService``) or a continuously batched stream
+(``StreamingAnnealService``).  The LM serving stack waits for ROADMAP.md
+queue 1 step 10."""
 from .anneal_service import (  # noqa: F401
     AnnealProgress,
     AnnealRequest,
@@ -27,4 +28,6 @@ from .resilience import (  # noqa: F401
     QueueFullError,
     ResiliencePolicy,
     ServiceEvent,
+    group_fingerprint,
 )
+from .stream import StreamingAnnealService, StreamPolicy, StreamTicket  # noqa: F401

@@ -39,25 +39,29 @@ failing kernel); the downgrade is recorded on ``AnnealResponse.status`` and
 ``status='deadline'``; a non-finite energy quarantines its request (solo
 retry with backoff and a re-autotuned I0max) without touching its
 batchmates; admission validation rejects bad requests with
-:class:`AdmissionError` before any device work.  Every path is exercised
-through the hook points of an attached :class:`repro_torch.ft.faults.
-FaultInjector`.
+:class:`AdmissionError` before any device work.  With
+``ResiliencePolicy(checkpoint_dir=...)`` every chunk boundary saves the
+group's state under its :func:`~repro_torch.serve.resilience.
+group_fingerprint`, so a killed solve resumes, in a fresh process, from
+its last boundary, bit-identically.  Every path is exercised through the
+hook points of an attached :class:`repro_torch.ft.faults.FaultInjector`.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP.md
 step, with no substitute path: SA and PT-SSA requests (queue 1 step 5),
-``ProblemEncoding`` inputs (step 6), checkpoints (step 7) and
-``partition='spin'`` (step 8).
+``ProblemEncoding`` inputs (step 6) and ``partition='spin'`` (step 8).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import threading
 import time
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
+from ..checkpoint.ckpt import CheckpointManager, latest_step
 from ..core.autotune import AutotuneReport, autotune_hyperparams, resolve_hyperparams
 from ..core.config import SolverConfig, not_ported
 from ..core.engine import (
@@ -75,6 +79,7 @@ from ..core.engine import (
     validate_model,
 )
 from ..core.ising import IsingModel, MaxCutProblem
+from ..core.rng import xorshift_lanes_ok
 from ..core.ssa import AnnealResult, SSAHyperParams
 from ..core.ssqa import SSQAHyperParams
 from ..ft.faults import FaultInjector
@@ -91,6 +96,7 @@ from .resilience import (
     ServiceEvent,
     classify_fault,
     fallback_step,
+    group_fingerprint,
 )
 
 __all__ = ["AnnealRequest", "AnnealResponse", "AnnealProgress", "AnnealService"]
@@ -139,9 +145,10 @@ class AnnealResponse:
     chunks_total: int
     chunk_best_cut: np.ndarray     # (chunks_run,) best-objective trace
     autotune: Optional[AutotuneReport] = None  # set when hp='auto' resolved
-    status: str = STATUS_OK        # 'ok'|'fallback'|'deadline'|'quarantined'|'failed'
+    status: str = STATUS_OK        # 'ok'|'fallback'|'deadline'|'quarantined'|'failed'|'shed'
     events: List[ServiceEvent] = dataclasses.field(default_factory=list)
     lane_wall_s: Optional[float] = None  # group start → this lane's stop boundary
+    queued_s: Optional[float] = None     # streaming: submission → seat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,17 +228,31 @@ class _LRUCache:
 class _GroupCtx:
     """Per-attempt execution context of one request group: the effective
     backend (the fallback chain may have downgraded it), the fault hooks,
-    and the statuses and events the chunk loop gathers."""
+    the group's checkpoint namespace, and the statuses and events the chunk
+    loop gathers."""
 
-    def __init__(self, service: "AnnealService", kind: str, backend: str, backend_opts: dict,
-                 solve_t0: float, events: Optional[List[ServiceEvent]] = None):
+    def __init__(self, service: "AnnealService", kind: str, nb: int, items, backend: str,
+                 backend_opts: dict, solve_t0: float, chunk: int,
+                 events: Optional[List[ServiceEvent]] = None):
         self.kind = kind
         self.backend = backend
         self.backend_opts = dict(backend_opts)
         self.solve_t0 = solve_t0
         self.faults: Optional[FaultInjector] = service.faults
+        self.policy: ResiliencePolicy = service.policy
+        self.noise = service.noise
         self.events: List[ServiceEvent] = list(events or [])
         self.statuses: dict = {}
+        self.ckpt: Optional[CheckpointManager] = None
+        self._dir: Optional[str] = None
+        if self.policy.checkpoint_dir:
+            tag = group_fingerprint(kind, nb, backend, service.storage_layout, service.noise,
+                                    chunk, items, partition=service.partition_for(kind, nb))
+            self._dir = os.path.join(self.policy.checkpoint_dir, tag)
+            self.ckpt = CheckpointManager(
+                self._dir, save_interval=max(1, int(self.policy.checkpoint_interval)),
+                keep=self.policy.keep_checkpoints,
+                async_save=False)  # a deterministic crash window
 
     def fire(self, point: str, **ctx):
         if self.faults is None:
@@ -240,6 +261,34 @@ class _GroupCtx:
 
     def _event(self, kind: str, **detail):
         self.events.append(ServiceEvent(kind, detail, time.perf_counter() - self.solve_t0))
+
+    def maybe_resume(self, template, n_items: int):
+        """(start chunk, state, traces): from the latest checkpoint if a
+        valid one exists, restored onto the template's devices; else (0,
+        template, None).  Zeroed xorshift lanes (the generator's fixed
+        point) reject the checkpoint, and the group runs from scratch."""
+        if self.ckpt is None or latest_step(self._dir) is None:
+            return 0, template, None
+        state, meta = self.ckpt.restore_latest(template)
+        traces = meta.get("traces")
+        ok = isinstance(traces, list) and len(traces) == n_items
+        if ok and self.noise == "xorshift":
+            # Batched lanes are (B, 4, T, N): the 4-word axis is axis 1.
+            ok = xorshift_lanes_ok(state.noise_state, axis=1)
+        if not ok:
+            self._event("checkpoint_rejected", dir=self._dir)
+            return 0, template, None
+        start = int(meta["step"])
+        self._event("resume", chunk=start, dir=self._dir)
+        return start, state, [list(map(int, t)) for t in traces]
+
+    def save(self, step: int, state, traces):
+        if self.ckpt is not None:
+            self.ckpt.maybe_save(step, state, meta={"traces": traces})
+
+    def finish_success(self):
+        if self.ckpt is not None and self.policy.cleanup_on_success:
+            self.ckpt.purge()
 
 
 class AnnealService:
@@ -478,7 +527,8 @@ class AnnealService:
             backend, opts = self.backend, dict(self.backend_opts)
         carried_events: List[ServiceEvent] = []
         while True:
-            ctx = _GroupCtx(self, kind, backend, opts, solve_t0, events=carried_events)
+            ctx = _GroupCtx(self, kind, nb, items, backend, opts, solve_t0,
+                            self._chunk_of(kind, items), events=carried_events)
             try:
                 solver(nb, items, responses, progress, ctx)
             except QuarantineFault as qf:
@@ -510,10 +560,12 @@ class AnnealService:
                 resp = responses[idx]
                 resp.status = ctx.statuses.get(idx, default)
                 resp.events = list(ctx.events)
+            ctx.finish_success()
             return
 
     def _chunk_of(self, kind, items) -> int:
-        """The group's chunk width: iterations per chunk."""
+        """The group's chunk width: iterations per chunk (part of its
+        checkpoint fingerprint)."""
         return _largest_divisor_leq(items[0][1].hp.m_shot, self.chunk_shots)
 
     def _handle_quarantine(self, kind, nb, items, qf, responses, progress, solve_t0):
@@ -662,9 +714,12 @@ class AnnealService:
     # ------------------------------------------------------------------
     def _chunk_loop(self, kind, nb, items, n_chunks, progress, step, state, best_of, ctx, *,
                     width=None, snap=None):
-        """Run up to ``n_chunks`` ``step(state, c)`` calls; report per-chunk
-        bests; stop early when every request is done (target reached or
-        deadline expired).
+        """Run up to ``n_chunks`` ``step(state, c)`` calls from the last
+        checkpoint; report per-chunk bests; stop early when every request
+        is done (target reached or deadline expired).
+
+        Each chunk boundary saves the state (when checkpoints are on), then
+        fires the 'kill' hook: a kill escapes with the boundary saved.
 
         A request that stops early has its trace and its result frozen at
         its own chunk boundary (``snap`` reads best_H/best_m there), even
@@ -673,10 +728,13 @@ class AnnealService:
         'best_m']}``, or None for a lane that ran to the group's end.
         """
         traces = [[] for _ in items]
+        start, state, restored = ctx.maybe_resume(state, len(items))
+        if restored is not None:
+            traces = restored
         done = [False] * len(items)
         frozen = [False] * len(items)
         stops: List[Optional[dict]] = [None] * len(items)
-        for c in range(n_chunks):
+        for c in range(start, n_chunks):
             self.stats["slot_chunks"] += width if width is not None else len(items)
             self.stats["live_lane_chunks"] += sum(1 for s in range(len(items)) if not done[s])
             state = step(state, c)
@@ -706,6 +764,7 @@ class AnnealService:
                     request_indices=tuple(idx for idx, *_ in items), best_cut=tuple(bests)))
             now = time.perf_counter()
             newly: List[int] = []
+            ctx.save(c + 1, state, traces)
             ctx.fire("kill", kind=kind, chunk=c)
             for slot, (idx, req, _, _) in enumerate(items):
                 if done[slot]:

@@ -4,18 +4,23 @@
 What the service needs to degrade gracefully instead of failing a batch:
 the policy knobs (:class:`ResiliencePolicy`), the typed admission errors,
 the fault taxonomy (:func:`classify_fault`), the backend fallback chain
-(:func:`fallback_step`) and the structured event records
-(:class:`ServiceEvent`).  Chunk-level checkpoints and ``group_fingerprint``,
-which keys them, wait for ROADMAP.md queue 1 step 7.
+(:func:`fallback_step`), the structured event records
+(:class:`ServiceEvent`) and the stable group fingerprint that keys
+chunk-level checkpoints (:func:`group_fingerprint`).
+
+All live state between plateau chunks is a small explicit buffer (spin
+words, the carried xorshift lanes, ``best_H`` and the chunk index), so
+checkpoint/resume and group re-execution are bit-identical.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..core.config import not_ported
 from ..core.engine import resolve_j_mode
 from ..ft.faults import InjectedCompileFailure, InjectedKill, InjectedOOM
 
@@ -34,6 +39,7 @@ __all__ = [
     "classify_fault",
     "fallback_step",
     "filter_backend_opts",
+    "group_fingerprint",
 ]
 
 # AnnealResponse.status values.
@@ -43,6 +49,7 @@ STATUS_DEADLINE = "deadline"        # deadline expired; best-so-far returned
 STATUS_QUARANTINED = "quarantined"  # non-finite detection; solved solo on retry
 STATUS_FAILED = "failed"            # retries exhausted; no result
 STATUS_SHED = "shed"                # streaming: dropped from the queue unstarted
+#                                     (deadline already unmeetable); no result
 
 
 class AdmissionError(ValueError):
@@ -52,7 +59,12 @@ class AdmissionError(ValueError):
 
 
 class QueueFullError(AdmissionError):
-    """Streaming admission control: the request queue is at capacity."""
+    """Streaming admission control: the request queue is at capacity.
+
+    Raised by :meth:`repro_torch.serve.stream.StreamingAnnealService.submit`
+    when the queue's depth or aggregate cost bound is hit; subclasses
+    :class:`AdmissionError`, so clients treat both as "not accepted".
+    """
 
 
 class QuarantineFault(RuntimeError):
@@ -72,10 +84,12 @@ class QuarantineFault(RuntimeError):
 class ServiceEvent:
     """One structured resilience event, attached to the responses it touched.
 
-    ``kind``: 'fallback' | 'deadline' | 'quarantine' | 'retry'.  ``t`` is
-    seconds since the ``solve()`` call began.  Events are group-scoped
-    (every response of the group carries the group's events) except
-    quarantine and retry, which are per request.
+    ``kind``: 'fallback' | 'resume' | 'deadline' | 'quarantine' | 'retry'
+    | 'checkpoint_rejected', and the streaming lifecycle kinds 'seat' |
+    'retire' | 'shed' | 'retries_exhausted'.  ``t`` is seconds since the
+    ``solve()`` call began (streaming: since submission).  Events are
+    group-scoped (every response of the group carries the group's events)
+    except quarantine and retry, which are per request.
     """
 
     kind: str
@@ -87,9 +101,12 @@ class ServiceEvent:
 class ResiliencePolicy:
     """Service-level failure-handling knobs.
 
-    checkpoint_dir:      chunk-level checkpoints; not ported (anything but
-                         None raises NotImplementedError naming ROADMAP.md
-                         queue 1 step 7).
+    checkpoint_dir:      root of chunk-level group checkpoints (None = off);
+                         each request group writes under
+                         ``<dir>/<group_fingerprint>/``.
+    checkpoint_interval: save every k-th chunk boundary.
+    keep_checkpoints:    keep the last n per group (crash window = interval).
+    cleanup_on_success:  purge a group's checkpoints when it completes.
     fallback:            enable the backend fallback chain
                          (cuda → dense → sparse, dense-J → tiled-J on OOM);
                          the cuda backend enters it on injected faults only
@@ -101,14 +118,13 @@ class ResiliencePolicy:
     """
 
     checkpoint_dir: Optional[str] = None
+    checkpoint_interval: int = 1
+    keep_checkpoints: int = 2
+    cleanup_on_success: bool = True
     fallback: bool = True
     max_retries: int = 3
     backoff_base_s: float = 0.05
     validate_admission: bool = True
-
-    def __post_init__(self):
-        if self.checkpoint_dir is not None:
-            raise not_ported("ResiliencePolicy(checkpoint_dir=...)", "stream")
 
 
 # Constructor keywords each batched backend takes beyond the common set: the
@@ -175,3 +191,32 @@ def fallback_step(backend: str, opts: dict, fault: str,
     if backend == "dense":
         return "sparse", filter_backend_opts("sparse", opts)
     return None
+
+
+def group_fingerprint(kind: str, n_bucket: int, backend: str, storage_layout: str,
+                      noise: str, chunk: int, items, *, partition: str = "problem",
+                      mesh_fp: tuple = ()) -> str:
+    """Stable identity of a request group, the key of its checkpoints.
+
+    Hashes the execution configuration and, per request, the seed, the
+    request's knobs and the problem arrays themselves, so a ``solve()`` in
+    a fresh process maps onto an interrupted run's checkpoints iff it would
+    replay the same computation.  The hashed ``repr`` tuples and array
+    bytes are the JAX package's: equal requests on the sparse and dense
+    backends give its digest (the backend name is hashed, so 'cuda' and
+    'pallas' differ).  ``partition``/``mesh_fp`` stay 'problem'/() until
+    spin sharding is ported.
+    """
+    hsh = hashlib.sha256()
+    hsh.update(repr((kind, n_bucket, backend, storage_layout, noise, chunk, partition,
+                     mesh_fp)).encode())
+    for _idx, req, _maxcut, model in items:
+        cfg = getattr(req, "config", None)
+        hsh.update(repr((req.seed, req.storage, req.schedule_kind, req.target_cut, req.hp,
+                         cfg.signature() if cfg is not None else None,
+                         getattr(req, "algo", None))).encode())
+        for arr in (model.h, model.nbr_idx, model.nbr_w):
+            a = np.ascontiguousarray(np.asarray(arr))
+            hsh.update(str(a.dtype).encode())
+            hsh.update(a.tobytes())
+    return hsh.hexdigest()[:20]

@@ -643,20 +643,17 @@ class _Encoded:
     (lambda: _svc("sparse").solve([AnnealRequest(
         problem=_Encoded(gset.toroidal_grid(16, seed=0).to_ising()), hp=SSAHyperParams())]),
      "step 6"),
-    (lambda: ResiliencePolicy(checkpoint_dir="ckpt"), "step 7"),
     (lambda: _svc("sparse", partition="spin"), "step 8"),
     (lambda: _svc("sparse", partition="auto"), "step 8"),
     (lambda: _svc("auto"), "step 3"),
-], ids=["algo-sa", "algo-ptssa", "problem-encoding", "checkpoints", "partition-spin",
-        "partition-auto", "backend-auto"])
+], ids=["algo-sa", "algo-ptssa", "problem-encoding", "partition-spin", "partition-auto",
+        "backend-auto"])
 def test_not_ported_inputs_raise(make, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         make()
 
 
-@pytest.mark.parametrize("flag,item", [(["--stream"], "step 7"),
-                                       (["--checkpoint-dir", "ckpt"], "step 7"),
-                                       (["--problem-kind", "qubo"], "step 6")])
+@pytest.mark.parametrize("flag,item", [(["--problem-kind", "qubo"], "step 6")])
 def test_launcher_not_ported_flags_raise(flag, item):
     from repro_torch.launch import anneal as launch
 
