@@ -99,6 +99,53 @@ def _assert_as_jax(resp, want):
     assert [e.kind for e in resp.events] == [e.kind for e in want.events]
 
 
+class _Pkg:
+    """One package's stream API — the port (on the CPU) or the JAX package —
+    so a scenario runs the same submissions through both."""
+
+    def __init__(self, jax):
+        self.jax = jax
+        if jax:
+            from repro.ft.faults import FaultInjector as Inj
+            from repro.ft.faults import InjectedKill as Kill
+            from repro.serve import AnnealService as Svc
+            from repro.serve import ResiliencePolicy as Res
+            from repro.serve import QueueFullError as Full
+
+            self.Stream, self.Policy, self.Req, self.Hp, self.g = (
+                JStream, JPolicy, JRequest, JHP, jgset)
+        else:
+            Inj, Kill, Svc, Res, Full = (FaultInjector, InjectedKill, AnnealService,
+                                         ResiliencePolicy, QueueFullError)
+            self.Stream, self.Policy, self.Req, self.Hp, self.g = (
+                StreamingAnnealService, StreamPolicy, AnnealRequest, SSAHyperParams, gset)
+        self.Injector, self.Kill, self.Svc, self.Res, self.Full = Inj, Kill, Svc, Res, Full
+
+    def svc(self, backend, **kw):
+        if self.jax:
+            return self.Svc(backend=JAX_NAME[backend], min_bucket=16, **kw)
+        return self.Svc(backend=backend, min_bucket=16, device="cpu", **kw)
+
+    def stream(self, backend, slots=2, service=None, **pol):
+        return self.Stream(service=service or self.svc(backend),
+                           policy=self.Policy(slots_per_table=slots, **pol))
+
+    def requests(self, k=6, **kw):
+        return [self.Req(problem=self.g.toroidal_grid(36, seed=s, name=f"t{s}"),
+                         hp=self.Hp(**HP), seed=s, **kw) for s in range(k)]
+
+    def request(self, seed, **kw):
+        return self.Req(problem=self.g.toroidal_grid(36, seed=seed), hp=self.Hp(**HP),
+                        seed=seed, **kw)
+
+
+PKGS = (_Pkg(False), _Pkg(True))
+
+
+def _stream_counters(ss):
+    return {k: v for k, v in ss.stream_stats().items() if k.startswith("stream_")}
+
+
 # ---------------------------------------------------------------------------
 # Live-lane bit-identity across slot backfill (the acceptance property)
 # ---------------------------------------------------------------------------
@@ -174,17 +221,28 @@ def test_target_cut_retires_early_and_backfills():
 # ---------------------------------------------------------------------------
 def test_interactive_preempts_batch_in_queue():
     """With a 1-wide table, the interactive request submitted last is
-    seated first: the priority class outranks FIFO order."""
-    reqs = _requests(4)
-    ss = _stream("sparse", slots=1, max_tables=1)
-    batch = [ss.submit(r) for r in reqs[:3]]
-    inter = ss.submit(reqs[3], priority="interactive")
-    ss.run_until_idle()
-    assert inter.t_seated < min(t.t_seated for t in batch)
-    assert all(t.result(timeout=0).status == "ok" for t in batch + [inter])
-    assert inter.result(timeout=0).queued_s is not None
+    seated first: the priority class outranks FIFO order.  The seat order
+    and every response are the JAX stream's."""
+    out = []
+    for pkg in PKGS:
+        reqs = pkg.requests(4)
+        ss = pkg.stream("sparse", slots=1, max_tables=1)
+        tickets = [ss.submit(r) for r in reqs[:3]]
+        tickets.append(ss.submit(reqs[3], priority="interactive"))
+        ss.run_until_idle()
+        batch, inter = tickets[:3], tickets[3]
+        assert inter.t_seated < min(t.t_seated for t in batch)
+        assert all(t.result(timeout=0).status == "ok" for t in tickets)
+        assert inter.result(timeout=0).queued_s is not None
+        out.append(([t.seq for t in sorted(tickets, key=lambda t: t.t_seated)],
+                    [t.result(timeout=0) for t in tickets]))
+    (order, resp), (jorder, jresp) = out
+    assert order == jorder == [3, 0, 1, 2]
+    for a, b, base in zip(resp, jresp, _baselines("sparse")):
+        _assert_as_jax(a, b)
+        _assert_lane_identical(a, base)
     with pytest.raises(ValueError, match="priority"):
-        ss.submit(reqs[0], priority="urgent")
+        _stream("sparse").submit(_requests(1)[0], priority="urgent")
 
 
 def test_aging_and_deadline_order():
@@ -201,46 +259,55 @@ def test_aging_and_deadline_order():
 
 def test_expired_queued_request_is_shed():
     """A queued request whose deadline already passed is dropped before any
-    device work: status='shed', no result, counted."""
-    ss = _stream("sparse", slots=1)
-    ok_t = ss.submit(_requests(1)[0])
-    doomed = ss.submit(AnnealRequest(problem=gset.toroidal_grid(36, seed=9),
-                                     hp=SSAHyperParams(**HP), seed=9, deadline_s=1e-6))
-    ss.run_until_idle()
-    resp = doomed.result(timeout=0)
-    assert resp.status == "shed" and resp.result is None
+    device work: status='shed', no result, counted — as in the JAX stream."""
+    out = []
+    for pkg in PKGS:
+        ss = pkg.stream("sparse", slots=1)
+        ok_t = ss.submit(pkg.request(0))
+        doomed = ss.submit(pkg.request(9, deadline_s=1e-6))
+        ss.run_until_idle()
+        out.append((ok_t.result(timeout=0), doomed.result(timeout=0), _stream_counters(ss)))
+    (ok, resp, st), (jok, jresp, jst) = out
+    assert resp.status == jresp.status == "shed" and resp.result is None
     assert resp.chunks_run == 0
-    assert any(e.kind == "shed" for e in resp.events)
-    assert ok_t.result(timeout=0).status == "ok"
-    assert ss.stream_stats()["stream_shed"] == 1
+    assert [e.kind for e in resp.events] == [e.kind for e in jresp.events] == ["shed"]
+    _assert_as_jax(ok, jok)
+    _assert_lane_identical(ok, _baselines("sparse")[0])
+    assert st == jst and st["stream_shed"] == 1
 
 
 def test_seated_deadline_freezes_at_chunk_boundary():
     """With shedding off, an expired deadline still seats and is frozen at
-    its first chunk boundary: best-so-far, status='deadline', and the
-    one-shot run's first chunk."""
-    ss = _stream("cuda", slots=1, shed_expired=False)
-    t = ss.submit(dataclasses.replace(_requests(1)[0], deadline_s=1e-6))
-    ss.run_until_idle()
-    resp = t.result(timeout=0)
+    its first chunk boundary: best-so-far, status='deadline', the one-shot
+    run's first chunk and the JAX stream's response (its pallas backend)."""
+    out = []
+    for pkg in PKGS:
+        ss = pkg.stream("cuda", slots=1, shed_expired=False)
+        t = ss.submit(pkg.request(0, deadline_s=1e-6))
+        ss.run_until_idle()
+        out.append((t.result(timeout=0), ss.stats["deadline_expirations"]))
+    (resp, n), (jresp, jn) = out
     assert resp.status == "deadline"
     assert resp.chunks_run == 1 < resp.chunks_total
     assert resp.result is not None  # best-so-far, not dropped
+    _assert_as_jax(resp, jresp)
     np.testing.assert_array_equal(resp.chunk_best_cut, _baselines("cuda")[0].chunk_best_cut[:1])
-    assert ss.stats["deadline_expirations"] == 1
+    assert n == jn == 1
 
 
 @pytest.mark.parametrize("bound", ["depth", "cost"])
 def test_queue_full_backpressure(bound):
     cost = float(SSAHyperParams(**HP).total_cycles) * HP["n_trials"] * 36  # spin-cycles
     pol = dict(max_queue=1) if bound == "depth" else dict(max_queue_cost=1.5 * cost)
-    ss = _stream("sparse", slots=1, **pol)
-    first = ss.submit(_requests(1)[0])
-    assert first.cost == cost
-    with pytest.raises(QueueFullError):
-        ss.submit(AnnealRequest(problem=gset.toroidal_grid(36, seed=5),
-                                hp=SSAHyperParams(**HP), seed=5))
-    assert ss.stream_stats()["stream_rejected_queue_full"] == 1
+    counters = []
+    for pkg in PKGS:
+        ss = pkg.stream("sparse", slots=1, **pol)
+        first = ss.submit(pkg.request(0))
+        assert first.cost == cost
+        with pytest.raises(pkg.Full):
+            ss.submit(pkg.request(5))
+        counters.append(_stream_counters(ss))
+    assert counters[0] == counters[1] and counters[0]["stream_rejected_queue_full"] == 1
     assert issubclass(QueueFullError, AdmissionError)
 
 
@@ -279,49 +346,59 @@ def test_mixed_buckets_open_tables_and_drop_idle_ones():
 @pytest.mark.parametrize("backend", PORT)
 def test_stream_kill_resumes_per_slot_bit_identical(backend, tmp_path):
     """Kill the stream after its second quantum; a fresh stream resumes
-    each surviving lane from its own checkpoint, bit-identically."""
-    pol = ResiliencePolicy(checkpoint_dir=str(tmp_path))
-    inj = FaultInjector()
-    inj.arm("kill", chunk=1)
-    ss = _stream(backend, service=_svc(backend, resilience=pol, faults=inj))
-    reqs = _requests(2)
-    for r in reqs:
-        ss.submit(r)
-    with pytest.raises(InjectedKill):
-        ss.run_until_idle()
-    assert len(os.listdir(tmp_path)) == 2  # one directory per lane survived
-
-    ss2 = _stream(backend, service=_svc(backend, resilience=pol))
-    tickets = [ss2.submit(r) for r in reqs]
-    ss2.run_until_idle()
-    for t, base in zip(tickets, _baselines(backend)[:2]):
-        resp = t.result(timeout=0)
-        _assert_lane_identical(resp, base)
-        resumes = [e for e in resp.events if e.kind == "resume"]
+    each surviving lane from its own checkpoint, bit-identically — the
+    responses, events and counters of the JAX stream killed the same way."""
+    out = []
+    for pkg in PKGS:
+        d = tmp_path / ("jax" if pkg.jax else "port")
+        pol = pkg.Res(checkpoint_dir=str(d))
+        inj = pkg.Injector()
+        inj.arm("kill", chunk=1)
+        ss = pkg.stream(backend, service=pkg.svc(backend, resilience=pol, faults=inj))
+        reqs = pkg.requests(2)
+        for r in reqs:
+            ss.submit(r)
+        with pytest.raises(pkg.Kill):
+            ss.run_until_idle()
+        assert len(os.listdir(d)) == 2  # one directory per lane survived
+        ss2 = pkg.stream(backend, service=pkg.svc(backend, resilience=pol))
+        tickets = [ss2.submit(r) for r in reqs]
+        ss2.run_until_idle()
+        out.append(([t.result(timeout=0) for t in tickets], _stream_counters(ss2)))
+        assert os.listdir(d) == []  # purged on success
+    (resp, st), (jresp, jst) = out
+    for r, w, base in zip(resp, jresp, _baselines(backend)[:2]):
+        _assert_lane_identical(r, base)
+        _assert_as_jax(r, w)
+        resumes = [e for e in r.events if e.kind == "resume"]
         assert resumes and resumes[0].detail["chunk"] == 2  # killed after 2
-    assert ss2.stream_stats()["stream_resumes"] == 2
-    assert os.listdir(tmp_path) == []  # purged on success
+    assert st == jst and st["stream_resumes"] == 2
 
 
 @pytest.mark.parametrize("backend", PORT)
 def test_oneshot_checkpoint_resumes_into_stream(backend, tmp_path):
     """Slot checkpoints share the solo-group fingerprint: an interrupted
     one-shot solve's checkpoint resumes inside a stream slot, and the answer
-    still equals the uninterrupted one-shot run."""
-    pol = ResiliencePolicy(checkpoint_dir=str(tmp_path))
-    inj = FaultInjector()
-    inj.arm("kill", chunk=1)
-    req = _requests(1)[0]
-    with pytest.raises(InjectedKill):
-        _svc(backend, resilience=pol, faults=inj).solve([req])
-    ss = _stream(backend, service=_svc(backend, resilience=pol))
-    t = ss.submit(req)
-    ss.run_until_idle()
-    resp = t.result(timeout=0)
+    still equals the uninterrupted one-shot run and the JAX stream's."""
+    out = []
+    for pkg in PKGS:
+        d = tmp_path / ("jax" if pkg.jax else "port")
+        pol = pkg.Res(checkpoint_dir=str(d))
+        inj = pkg.Injector()
+        inj.arm("kill", chunk=1)
+        req = pkg.requests(1)[0]
+        with pytest.raises(pkg.Kill):
+            pkg.svc(backend, resilience=pol, faults=inj).solve([req])
+        ss = pkg.stream(backend, service=pkg.svc(backend, resilience=pol))
+        t = ss.submit(req)
+        ss.run_until_idle()
+        out.append(t.result(timeout=0))
+        assert os.listdir(d) == []
+    resp, jresp = out
     assert [(e.kind, e.detail["chunk"]) for e in resp.events if e.kind == "resume"] == [
         ("resume", 2)]
     _assert_lane_identical(resp, _baselines(backend)[0])
-    assert os.listdir(tmp_path) == []
+    _assert_as_jax(resp, jresp)
 
 
 def test_checkpoint_at_budget_finishes_without_device_work(tmp_path):
@@ -474,41 +551,61 @@ def test_real_cuda_kernel_fault_propagates(monkeypatch, exc, where):
 
 def test_nan_quarantine_requeues_the_lane_only():
     """A NaN burst on one slot retires only that lane (requeued with a
-    re-autotuned I0 clamp); its tablemate stays bit-exact."""
-    inj = FaultInjector()
-    inj.arm("nan", chunk=1, slots=(1,))
-    ss = _stream("sparse", service=_svc("sparse", faults=inj))
-    tickets = [ss.submit(r) for r in _requests(2)]
-    ss.run_until_idle()
-    a, b = (t.result(timeout=0) for t in tickets)
+    re-autotuned I0 clamp); its tablemate stays bit-exact, and both equal
+    the JAX stream's responses (the retry's I0 clamp too)."""
+    out = []
+    for pkg in PKGS:
+        inj = pkg.Injector()
+        inj.arm("nan", chunk=1, slots=(1,))
+        ss = pkg.stream("sparse", service=pkg.svc("sparse", faults=inj))
+        tickets = [ss.submit(r) for r in pkg.requests(2)]
+        ss.run_until_idle()
+        out.append(([t.result(timeout=0) for t in tickets], _stream_counters(ss),
+                    tickets[1].retries))
+    ((a, b), st, retries), (jresp, jst, jretries) = out
     assert a.status == "ok"
     _assert_lane_identical(a, _baselines("sparse")[0])
     assert b.result is not None and ["quarantine", "retry"] == [
         e.kind for e in b.events if e.kind in ("quarantine", "retry")]
-    assert ss.stats["stream_quarantines"] == 1 and tickets[1].retries == 1
+    for r, w in zip((a, b), jresp):
+        _assert_as_jax(r, w)
+    retry = [e.detail["i0_max"] for e in b.events if e.kind == "retry"]
+    assert retry == [e.detail["i0_max"] for e in jresp[1].events if e.kind == "retry"]
+    assert st == jst and st["stream_quarantines"] == 1 and retries == jretries == 1
 
 
 def test_quarantine_retries_exhausted():
-    inj = FaultInjector()
-    inj.arm("nan", count=100)
-    ss = _stream("sparse", slots=1, service=_svc(
-        "sparse", faults=inj, resilience=ResiliencePolicy(max_retries=1)))
-    t = ss.submit(_requests(1)[0])
-    ss.run_until_idle()
-    resp = t.result(timeout=0)
-    assert resp.status == "failed" and resp.result is None
-    assert ss.stats["stream_retries_exhausted"] == 1 and ss.stats["quarantine_failures"] == 1
+    out = []
+    for pkg in PKGS:
+        inj = pkg.Injector()
+        inj.arm("nan", count=100)
+        ss = pkg.stream("sparse", slots=1, service=pkg.svc(
+            "sparse", faults=inj, resilience=pkg.Res(max_retries=1)))
+        t = ss.submit(pkg.request(0))
+        ss.run_until_idle()
+        out.append((t.result(timeout=0), _stream_counters(ss), ss.stats["quarantine_failures"]))
+    (resp, st, n), (jresp, jst, jn) = out
+    assert resp.status == jresp.status == "failed" and resp.result is None
+    assert [e.kind for e in resp.events] == [e.kind for e in jresp.events]
+    assert st == jst and st["stream_retries_exhausted"] == 1 and n == jn == 1
 
 
 # ---------------------------------------------------------------------------
 # Observability and driving
 # ---------------------------------------------------------------------------
 def test_stream_stats_counters_consistent():
-    ss = _stream("sparse")
-    tickets = [ss.submit(r) for r in _requests(3)]
-    progress = []
-    ss.run_until_idle(progress.append)
+    out = []
+    for pkg in PKGS:
+        ss = pkg.stream("sparse")
+        tickets = [ss.submit(r) for r in pkg.requests(3)]
+        progress = []
+        ss.run_until_idle(progress.append)
+        out.append((ss, tickets, progress))
+    (ss, tickets, progress), (jss, _, jprogress) = out
     st = ss.stream_stats()
+    assert st == jss.stream_stats()
+    assert [(p.bucket, p.chunk, p.request_indices, p.best_cut) for p in progress] == \
+           [(p.bucket, p.chunk, p.request_indices, p.best_cut) for p in jprogress]
     assert st["queued"] == 0 and st["live_slots"] == 0
     assert st["stream_submitted"] == 3 == st["stream_completed"]
     assert st["stream_seated"] == 3
@@ -528,10 +625,11 @@ def test_background_thread_drives_stream():
     ss.start(poll_s=0.001)
     try:
         tickets = [ss.submit(r) for r in _requests(2)]
-        for t, base in zip(tickets, _baselines("cuda")):
+        for t, base, want in zip(tickets, _baselines("cuda"), _jax_stream("cuda")[0]):
             resp = t.result(timeout=120.0)
             assert resp.status == "ok"
             _assert_lane_identical(resp, base)
+            _assert_lane_identical(resp, want)
     finally:
         ss.stop()
     assert not ss._thread or not ss._thread.is_alive()
