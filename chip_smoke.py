@@ -1541,7 +1541,7 @@ class _SeatTimer:
 def _stream_run(ss, reqs, what):
     """Submit ``reqs`` and drive the stream on this thread until idle (a
     fault raises here instead of hanging a waiting ticket): (responses,
-    wall s, launches, peak device bytes, the seat timer)."""
+    wall s, launches, peak device bytes, the stream counters' increase)."""
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1560,11 +1560,10 @@ def _stream_run(ss, reqs, what):
     peak = torch.cuda.max_memory_allocated() - live
     resp = [t.result(timeout=0) for t in tickets]
     st = ss.stream_stats()
-    d = {k: st.get(k, 0) - q0.get(k, 0) for k in st if k.startswith("stream_")}
-    d = {k: d.get(k, 0) for k in ("stream_quanta", "stream_backfills", "stream_live_lane_chunks",
-                                  "stream_slot_chunks", "stream_tables_created",
-                                  "stream_retired_target", "stream_retired_budget",
-                                  "stream_resumes")}
+    d = {k: st.get(k, 0) - q0.get(k, 0)
+         for k in ("stream_quanta", "stream_backfills", "stream_live_lane_chunks",
+                   "stream_slot_chunks", "stream_tables_created", "stream_retired_target",
+                   "stream_retired_budget", "stream_resumes")}
     occ = d["stream_live_lane_chunks"] / max(1, d["stream_slot_chunks"])
     print(f"[{what}] {len(reqs)} requests, tables of {ss.policy.slots_per_table} slots: wall "
           f"{wall:.3f}s; quanta {d['stream_quanta']}, backfills {d['stream_backfills']}, "
