@@ -4,7 +4,9 @@ the card, drives ``repro_torch.core.ssa.anneal`` and
 ``repro_torch.core.ssqa.anneal_ssqa`` at K2000 width,
 ``repro_torch.serve.AnnealService.solve`` at B > 1 and
 ``repro_torch.serve.StreamingAnnealService`` (with chunk checkpoints)
-through the kernels, and prints what it measured.
+through the kernels, the problem families (QUBO, MIS, coloring, partition)
+through K1 and K2, and the SA, PT and PT-SSA baselines, and prints what it
+measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
@@ -130,9 +132,32 @@ Phases (any failure raises and exits non-zero):
      timeouts — every streamed trace a bit-exact prefix of its calibration
      trace, K1 = quanta × 6; p50/p99, goodput, occupancy, shed and late
      counts measured;
- 27. the card line again, the kernels line (each kernel's service launches
-     in ``service_launches``, its stream launches of phases 23–24 in
-     ``stream_launches``); 28. the contract line (last).
+ 27. problem families through anneal() (Table II widths, m_shot 10):
+     make_demo's QUBO (2000 spins, 5-bit weights, |h| ~10^3) and partition
+     (2000 spins, 13-bit weights) on K1 — 60 launches each —, MIS (2000
+     spins, 2 magnitude planes) and coloring (2100 spins, 4 planes) with
+     field_mode='popcount' on K2 — 10 launches each; each equal (spins,
+     energies, decoded solution) to the dense backend on the card; nb, the
+     K2 variant, wall, set-up and peak device bytes printed;
+ 28. the four encodings through one AnnealService.solve (field_mode='auto':
+     QUBO, MIS and partition share bucket 2048 and resolve to K1, coloring
+     runs K2 at bucket 4096) and one stream of them — every response's
+     solution, objective and feasibility equal to phase 27's run;
+ 29. SA: anneal_sa on the K2000 twin, 100 trials — the card equal to the
+     CPU at 2,000 cycles; Table II's 90,000 cycles on the card (no kernel;
+     wall and the host key chain timed); ``[convergence]``: cycles and wall
+     for HA-SSA to reach SA's final cut and for SA to reach HA-SSA's
+     6000-cycle cut (measured, not gated);
+ 30. PT (cut 90,000 → 20,000 cycles) and PT-SSA on the dense backend (cut
+     60 → 5 rounds) on the K2000 twin, the card equal to the CPU; one
+     AnnealService.solve of an SA and a PT-SSA group on the dense backend
+     and an SA group on the cuda backend — no kernel launched (K1–K4
+     counters unchanged), equal to the CPU solve — and a PT-SSA request
+     rejected at admission by the cuda service;
+ 31. the card line again, the kernels line (each kernel's service launches
+     in ``service_launches``, its stream launches in ``stream_launches``,
+     its launches per family of phase 27 in ``family_launches``); 32. the
+     contract line (last).
 """
 from __future__ import annotations
 
@@ -518,7 +543,7 @@ def _anneal_run(problem, hp, cfg, track_energy, dense_ref=True):
     """The cuda run (timed, counted, its peak device memory measured) and,
     with ``dense_ref``, the dense-backend run with the same noise on the
     card, which it must equal.  Returns (result, wall s, launches, peak
-    device bytes, the backend the timed call built)."""
+    device bytes, the backend the timed call built, host set-up s)."""
     import numpy as np
 
     from repro_torch.core import ssa
@@ -533,7 +558,8 @@ def _anneal_run(problem, hp, cfg, track_energy, dense_ref=True):
     make_backend(config=cfg, model=model, n_trials=hp.n_trials, device="cuda",
                  n_replicas=getattr(hp, "n_replicas", 0)).init_state(0)
     torch.cuda.synchronize()
-    print(f"[set-up] model, couplings and noise state of anneal(): {time.time() - t0:.3f}s")
+    setup = time.time() - t0
+    print(f"[set-up] model, couplings and noise state of anneal(): {setup:.3f}s")
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -563,12 +589,12 @@ def _anneal_run(problem, hp, cfg, track_energy, dense_ref=True):
         if track_energy and not (np.array_equal(r.energy_min, ref.energy_min)
                                  and np.array_equal(r.energy_mean, ref.energy_mean)):
             _fail("anneal energy traces differ between the cuda and dense backends")
-    return r, wall, counts, peak, built[0]
+    return r, wall, counts, peak, built[0], setup
 
 
 def phase_anneal(path: str, streamed=None):
     """One main path of anneal() at K2000 width; returns (result, launches
-    of (K1, K3, K4, K2), peak device bytes of the call)."""
+    of (K1, K3, K4, K2), peak device bytes of the call, wall s)."""
     import numpy as np
 
     from repro_torch.core import gset
@@ -586,7 +612,7 @@ def phase_anneal(path: str, streamed=None):
         "xorshift-pregen": SolverConfig(backend="cuda", noise="xorshift",
                                         noise_mode="pregen"),
     }[path]
-    r, wall, (k1, k3, k4, k2, k1_ring, k2_ring), peak, _ = _anneal_run(
+    r, wall, (k1, k3, k4, k2, k1_ring, k2_ring), peak, _, _ = _anneal_run(
         p, hp, cfg, track_energy, dense_ref=streamed is None)
     rate = hp.total_cycles * hp.n_trials * p.n / wall
     print(f"[{path}] {p.name} N={p.n} trials={hp.n_trials} m_shot={m_shot} "
@@ -617,7 +643,7 @@ def phase_anneal(path: str, streamed=None):
     if streamed is not None and not (np.array_equal(r.best_energy, streamed.best_energy)
                                      and np.array_equal(r.best_m, streamed.best_m)):
         _fail("xorshift pregen (K4) differs from the streamed K1 run")
-    return r, (k1, k3, k4, k2), peak
+    return r, (k1, k3, k4, k2), peak, wall
 
 
 def phase_memory():
@@ -850,7 +876,8 @@ def phase_popcount_anneal(name: str, k1_run=None, peak_below_j=False) -> int:
     p = gset.load(name)
     hp = SSAHyperParams(n_trials=100, m_shot=M_SHOT_PRODUCTION, tau=100, i0_min=1, i0_max=32)
     cfg = SolverConfig(backend="cuda", field_mode="popcount", noise="xorshift")
-    r, wall, counts, peak, bk = _anneal_run(p, hp, cfg, track_energy=False, dense_ref=False)
+    r, wall, counts, peak, bk, _ = _anneal_run(p, hp, cfg, track_energy=False,
+                                               dense_ref=False)
     rate = hp.total_cycles * hp.n_trials * p.n / wall
     pj_bytes = tree_device_bytes(bk.packed_j)
     j_bytes = 4 * p.n * p.n
@@ -1043,8 +1070,8 @@ def phase_ssqa_anneal():
             ("dense field", SolverConfig(backend="cuda", noise="xorshift"), True),
             ("popcount", SolverConfig(backend="cuda", noise="xorshift", field_mode="popcount"),
              False)):
-        r, wall, counts, peak, _ = _anneal_run(p, hp, cfg, track_energy=False,
-                                               dense_ref=dense_ref)
+        r, wall, counts, peak, _, _ = _anneal_run(p, hp, cfg, track_energy=False,
+                                                  dense_ref=dense_ref)
         results[name] = (r, counts)
         rate = hp.total_cycles * hp.n_trials * p.n / wall
         print(f"[ssqa {name}] {p.name} N={p.n} trials={hp.n_trials} ring={hp.n_replicas} "
@@ -1066,8 +1093,9 @@ def phase_ssqa_anneal():
             and np.array_equal(rd.best_m, rp.best_m)):
         _fail("ssqa: popcount (K2 ring) differs from the dense field (K1 ring)")
     hp2 = dataclasses.replace(hp, m_shot=M_SHOT_TRACE)
-    r, wall, counts, _, _ = _anneal_run(p, hp2, SolverConfig(backend="cuda", noise="threefry"),
-                                        track_energy=False)
+    r, wall, counts, _, _, _ = _anneal_run(p, hp2,
+                                           SolverConfig(backend="cuda", noise="threefry"),
+                                           track_energy=False)
     print(f"[ssqa threefry] m_shot={hp2.m_shot}: best cut {r.overall_best_cut}, "
           f"wall {wall:.3f}s; (K1, K3, K4, K2, K1 ring, K2 ring) launches {counts}")
     k1, k3, k4, k2, _, _ = counts
@@ -1857,6 +1885,262 @@ def phase_stream_traffic():
               "traces")
     _expect("stream traffic", counts, (stats["stream_quanta"] * hp.steps, 0, 0, 0, 0, 0))
 
+# ---------------------------------------------------------------------------
+# Phases 27-30: the problem families, SA, PT and PT-SSA
+# ---------------------------------------------------------------------------
+# (kind, spins, field mode of anneal()): make_demo at K2000 scale, seed 0.
+# QUBO (5-bit weights, |h| ~10^3) and partition (13-bit weights) take the
+# dense field (K1), MIS (2 magnitude planes) and coloring (2100 spins, 4
+# planes) the popcount chain (K2).
+FAMILIES = (("qubo", 2000, "dense"), ("partition", 2000, "dense"),
+            ("mis", 2000, "popcount"), ("coloring", 2100, "popcount"))
+# SA at Table II's 90,000 cycles on the card; its CPU bit-identity check and
+# the service groups run a cut of it.  PT and PT-SSA are cut to fit the
+# run's time: PT 90,000 → 20,000 cycles, PT-SSA 60 → 5 rounds of 100.
+SA_CYCLES, SA_CHECK_CYCLES = 90_000, 2_000
+PT_CYCLES, PTSSA_ROUNDS = 20_000, 5
+
+
+def _counters_zero(what, counts):
+    if any(counts):
+        _fail(f"{what}: launched a kernel: (K1, K3, K4, K2, K1 ring, K2 ring) = {counts}")
+
+
+def phase_families():
+    """Phase 27: each family's make_demo instance at K2000 scale through
+    anneal() on the card at Table II's widths — QUBO and partition on K1
+    (m_shot × steps launches), MIS and coloring with field_mode='popcount'
+    on K2 (m_shot launches) — each equal (spins, energies, hence the
+    decoded solution) to the port's dense backend on the card.  Returns
+    {kind: (encoding, result, launches)}."""
+    import numpy as np
+
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.engine import model_weight_bits
+    from repro_torch.kernels import ssa_update
+    from repro_torch.problems import make_demo
+
+    hp = _service_hp()
+    out = {}
+    for kind, n, field in FAMILIES:
+        t0 = time.time()
+        enc = make_demo(kind, n=n, seed=0)
+        encode = time.time() - t0
+        model = enc.model
+        cfg = SolverConfig(backend="cuda", noise="xorshift",
+                           field_mode="popcount" if field == "popcount" else "auto")
+        r, wall, counts, peak, _, setup = _anneal_run(enc, hp, cfg, track_energy=False)
+        sol, obj, feas = enc.best_feasible(r.best_m)
+        k2 = (_k2_launch(ssa_update.ssa_plateau_popcount_batched) if field == "popcount"
+              else "no K2 launch")
+        print(f"[family {kind}] N={model.n} max degree {model.max_degree} "
+              f"|h|max={int(np.abs(model.h).max())} |J|max={int(np.abs(model.nbr_w).max())} "
+              f"nb={model_weight_bits(model)} field={field}: objective {obj}, feasible {feas}, "
+              f"best energy {int(r.best_energy.min())}; wall {wall:.3f}s, set-up {setup:.3f}s "
+              f"(encode {encode:.3f}s), peak device memory of the call {peak} B; "
+              f"(K1, K3, K4, K2, K1 ring, K2 ring) launches {counts}; K2: {k2}")
+        want = ((hp.m_shot * hp.steps, 0, 0, 0, 0, 0) if field == "dense"
+                else (0, 0, 0, hp.m_shot, 0, 0))
+        _expect(f"family {kind}", counts, want)
+        if r.best_m.shape != (hp.n_trials, model.n) or not set(np.unique(r.best_m)) <= {-1, 1}:
+            _fail(f"family {kind}: malformed result")
+        out[kind] = (enc, r, counts[0] if field == "dense" else counts[3])
+    return out
+
+
+def _same_decoded(what, resp, enc, ref):
+    """A response of an encoded problem: the reference run's spins and
+    energies, and the solution, objective and feasibility decoded from
+    them."""
+    import numpy as np
+
+    sol, obj, feas = enc.best_feasible(ref.best_m)
+    if resp.status != "ok" or resp.result is None:
+        _fail(f"{what}: {enc.kind} came back {resp.status!r}")
+    if not (np.array_equal(resp.result.best_energy, ref.best_energy)
+            and np.array_equal(resp.result.best_m, ref.best_m)):
+        _fail(f"{what}: {enc.kind} differs from its single-problem run")
+    if (resp.objective, resp.feasible) != (obj, feas) or not np.array_equal(
+            np.asarray(resp.solution), np.asarray(sol)):
+        _fail(f"{what}: {enc.kind}'s solution, objective or feasibility differs")
+
+
+def phase_families_service(fam):
+    """Phase 28: one AnnealService.solve of the four encodings
+    (field_mode='auto', packed layout, chunks of 5 shots) — QUBO, MIS and
+    partition share bucket 2048, whose 13-bit partition weights resolve the
+    group to the dense field (K1), and coloring runs alone at bucket 4096
+    on K2 — then one stream of them (one table per stream key); every
+    response equals phase 27's run of its instance, decoded solution
+    included.  Returns the launches of K1 and K2 in the solve and the
+    stream."""
+    from repro_torch.serve import AnnealRequest, AnnealService, StreamingAnnealService, StreamPolicy
+
+    hp = _service_hp()
+    kinds = [k for k, _, _ in FAMILIES]
+    reqs = [AnnealRequest(problem=fam[k][0], hp=hp, seed=0) for k in kinds]
+
+    def service():
+        return AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                             chunk_shots=5, backend_opts={"field_mode": "auto"})
+
+    resp, wall, counts, peak = _service_solve(service(), reqs, "family service")
+    _expect("family service", counts, (hp.m_shot * hp.steps, 0, 0, hp.m_shot, 0, 0))
+    for k, r in zip(kinds, resp):
+        _same_decoded("family service", r, fam[k][0], fam[k][1])
+        print(f"[family service] {k}: bucket {r.bucket}, batch {r.batch}, objective "
+              f"{r.objective}, feasible {r.feasible}")
+    ss = StreamingAnnealService(service=service(),
+                                policy=StreamPolicy(slots_per_table=STREAM_SLOTS))
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    tickets = [ss.submit(r) for r in reqs]
+    ss.run_until_idle()
+    torch.cuda.synchronize()
+    swall = time.time() - t0
+    scounts = _counts()
+    st = ss.stream_stats()
+    print(f"[family stream] {len(reqs)} requests: wall {swall:.3f}s, quanta "
+          f"{st['stream_quanta']}, tables {st['stream_tables_created']}; (K1, K3, K4, K2, "
+          f"K1 ring, K2 ring) launches {scounts}")
+    if scounts[1] or scounts[2] or scounts[4] or scounts[5] or not (scounts[0] and scounts[3]):
+        _fail(f"family stream: expected K1 and K2 launches only, got {scounts}")
+    for k, t in zip(kinds, tickets):
+        _same_decoded("family stream", t.result(timeout=0), fam[k][0], fam[k][1])
+    return counts[0], counts[3], scounts[0], scounts[3]
+
+
+def phase_sa(production_wall):
+    """Phase 29: anneal_sa on the K2000 twin with 100 trials — on the card
+    equal to the port's CPU run at SA_CHECK_CYCLES; at Table II's 90,000
+    cycles on the card (no kernel launched; the host key chain timed); and
+    the paper's convergence comparison against HA-SSA, measured, not
+    gated."""
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.sa import SAHyperParams, _key_chain, anneal_sa
+    from repro_torch.serve import AnnealRequest, AnnealService
+
+    p = gset.load("K2000")
+    small = SAHyperParams(n_trials=100, n_cycles=SA_CHECK_CYCLES)
+    t0 = time.time()
+    got = anneal_sa(p, small, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_small = time.time() - t0
+    t0 = time.time()
+    want = anneal_sa(p, small, seed=0, device="cpu")
+    t_cpu = time.time() - t0
+    if not (np.array_equal(got.best_energy, want.best_energy)
+            and np.array_equal(got.best_m, want.best_m)
+            and np.array_equal(got.energy_min, want.energy_min)
+            and np.array_equal(got.energy_mean.view(np.int32), want.energy_mean.view(np.int32))):
+        _fail("sa: the card's run differs from the CPU run")
+    print(f"[sa check] K2000, 100 trials, {SA_CHECK_CYCLES} cycles: card == CPU (best energy, "
+          f"spins, traces); card {t_small:.3f}s, CPU {t_cpu:.3f}s")
+    t0 = time.time()
+    _key_chain(np.zeros((1, 2), np.int64), SA_CYCLES)
+    t_chain = time.time() - t0
+    hp = SAHyperParams(n_trials=100, n_cycles=SA_CYCLES)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    r = anneal_sa(p, hp, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    _counters_zero("sa", _counts())
+    if not np.array_equal(p.cut_value(r.best_m), r.best_cut):
+        _fail("sa: best_cut does not match the cut of best_m")
+    best = (p.w_total - np.minimum.accumulate(r.energy_min)) // 2   # best-so-far cut per cycle
+    print(f"[sa] K2000, 100 trials, {SA_CYCLES} cycles (T 10 → 1e-7): best cut "
+          f"{r.overall_best_cut}, mean {r.mean_best_cut:.1f}; wall {wall:.3f}s "
+          f"({hp.n_cycles * hp.n_trials * p.n / wall:.4e} spin-cycles/s), host key chain "
+          f"{t_chain:.3f}s; no kernel launched")
+    # HA-SSA's best after each iteration: the service's per-chunk trace with
+    # one shot a chunk (the production path's hyper-parameters and seed).
+    ha_hp = _service_hp()
+    (ha,) = AnnealService(backend="cuda", noise="xorshift", chunk_shots=1).solve(
+        [AnnealRequest(problem=p, hp=ha_hp, seed=0)])
+    ha_trace = np.asarray(ha.chunk_best_cut)
+    sa_final, ha_final = int(best[-1]), int(ha_trace[-1])
+    it = np.nonzero(ha_trace >= sa_final)[0]
+    c_sa = np.nonzero(best >= ha_final)[0]
+    per_it = ha_hp.cycles_per_iter
+    ha_txt = (f"HA-SSA reaches SA's final cut {sa_final} after {(it[0] + 1) * per_it} cycles "
+              f"(iteration {it[0] + 1}; ~{production_wall * (it[0] + 1) / ha_hp.m_shot:.3f}s "
+              f"at the production path's wall)" if len(it)
+              else f"HA-SSA does not reach SA's final cut {sa_final} in "
+                   f"{ha_hp.total_cycles} cycles")
+    sa_txt = (f"SA reaches HA-SSA's {ha_hp.total_cycles}-cycle cut {ha_final} after "
+              f"{c_sa[0] + 1} cycles (~{wall * (c_sa[0] + 1) / SA_CYCLES:.3f}s)" if len(c_sa)
+              else f"SA does not reach HA-SSA's {ha_hp.total_cycles}-cycle cut {ha_final} "
+                   f"in {SA_CYCLES} cycles ({wall:.3f}s)")
+    print(f"[convergence] K2000, 100 trials: {ha_txt}; {sa_txt}")
+    return wall
+
+
+def phase_pt():
+    """Phase 30: anneal_pt and anneal_pt_ssa (dense backend) on the K2000
+    twin, on the card equal to the port's CPU run; then one
+    AnnealService.solve of an SA group and a PT-SSA group on the dense
+    backend and an SA group on the cuda backend — no kernel launched, equal
+    to the same solve on the CPU — and a PT-SSA request rejected at
+    admission by the cuda service."""
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.pt import PTHyperParams, PTSSAHyperParams, anneal_pt, anneal_pt_ssa
+    from repro_torch.core.sa import SAHyperParams
+    from repro_torch.serve import AdmissionError, AnnealRequest, AnnealService
+
+    p = gset.load("K2000")
+    hp = PTHyperParams(n_replicas=8, n_cycles=PT_CYCLES, swap_interval=100)
+    ps = PTSSAHyperParams(n_replicas=8, n_rounds=PTSSA_ROUNDS, tau=100)
+    runs = (("pt", lambda d: anneal_pt(p, hp, seed=0, device=d)),
+            ("pt-ssa dense", lambda d: anneal_pt_ssa(p, ps, seed=0, backend="dense", device=d)))
+    for name, run in runs:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.time()
+        got = run("cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        _counters_zero(name, _counts())
+        t0 = time.time()
+        want = run("cpu")
+        t_cpu = time.time() - t0
+        if not (np.array_equal(got.best_energy, want.best_energy)
+                and np.array_equal(got.best_m, want.best_m)
+                and (got.energy_min is None
+                     or np.array_equal(got.energy_min, want.energy_min))):
+            _fail(f"{name}: the card's run differs from the CPU run")
+        cycles = hp.n_cycles if name == "pt" else ps.total_cycles
+        print(f"[{name}] K2000, 8 replicas, {cycles} cycles: best cut "
+              f"{int(np.max(got.best_cut))}; card {wall:.3f}s == CPU ({t_cpu:.3f}s); "
+              f"no kernel launched")
+    reqs = [AnnealRequest(problem=p, hp=SAHyperParams(n_trials=100, n_cycles=SA_CHECK_CYCLES),
+                          seed=0),
+            AnnealRequest(problem=p, hp=ps, seed=0)]
+    resp, wall, counts, _ = _service_solve(AnnealService(backend="dense", noise="xorshift"),
+                                           reqs, "service SA + PT-SSA, dense")
+    _counters_zero("service SA + PT-SSA", counts)
+    cpu = AnnealService(backend="dense", noise="xorshift", device="cpu").solve(reqs)
+    (sa_cuda,), _, counts_cuda, _ = _service_solve(
+        AnnealService(backend="cuda", noise="xorshift"), reqs[:1], "service SA, cuda")
+    _counters_zero("service SA on the cuda backend", counts_cuda)
+    for what, r, w in (("SA", resp[0], cpu[0]), ("PT-SSA", resp[1], cpu[1]),
+                       ("SA on cuda", sa_cuda, cpu[0])):
+        if r.status != "ok" or not (np.array_equal(r.result.best_energy, w.result.best_energy)
+                                    and np.array_equal(r.result.best_m, w.result.best_m)):
+            _fail(f"service {what}: differs from the CPU solve (status {r.status!r})")
+    try:
+        AnnealService(backend="cuda", noise="xorshift").solve(reqs[1:])
+    except AdmissionError as e:
+        print(f"[service PT-SSA, cuda] rejected at admission: {e}")
+    else:
+        _fail("service: a PT-SSA request on backend='cuda' was not rejected")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1871,10 +2155,10 @@ def main():
     k1 = phase_k1(dev)
     phase_threefry(dev)
     k4 = phase_k4(dev)
-    streamed, (k1_launches, _, _, _), streamed_peak = phase_anneal("production")
-    _, (_, k3_launches, _, _), _ = phase_anneal("trace")
-    _, (_, _, k4_launches, _), _ = phase_anneal("threefry-pregen")
-    _, _, pregen_peak = phase_anneal("xorshift-pregen", streamed=streamed)
+    streamed, (k1_launches, _, _, _), streamed_peak, streamed_wall = phase_anneal("production")
+    _, (_, k3_launches, _, _), _, _ = phase_anneal("trace")
+    _, (_, _, k4_launches, _), _, _ = phase_anneal("threefry-pregen")
+    _, _, pregen_peak, _ = phase_anneal("xorshift-pregen", streamed=streamed)
     print(f"[memory] peak device memory of one anneal() call, xorshift: pregen "
           f"{pregen_peak} B, streamed {streamed_peak} B")
     phase_memory()
@@ -1895,40 +2179,53 @@ def main():
     k2_stream, k1_ring_stream, k2_ring_stream = phase_stream_k2_and_rings(s_problems, s_reqs)
     phase_checkpoints(problems, reqs, k1_resp, s_problems, s_reqs, s_resp)
     phase_stream_traffic()
+    fam = phase_families()
+    k1_fam_service, k2_fam_service, k1_fam_stream, k2_fam_stream = phase_families_service(fam)
+    phase_sa(streamed_wall)
+    phase_pt()
+    k1_fam = {k: fam[k][2] for k, _, field in FAMILIES if field == "dense"}
+    k2_fam = {k: fam[k][2] for k, _, field in FAMILIES if field == "popcount"}
     kernels = [
         dict(name="ssa_plateau_packed (K1)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
              replaces="src/repro/kernels/ssa_update.py:329",
-             launches=k1_launches, service_launches={"service K1": k1_service},
-             stream_launches={"stream K1": k1_stream}, **k1),
+             launches=k1_launches,
+             service_launches={"service K1": k1_service, "service families": k1_fam_service},
+             stream_launches={"stream K1": k1_stream, "stream families": k1_fam_stream},
+             family_launches=k1_fam, **k1),
         dict(name="local_field (K3)", route="cuda",
              source="src/repro_torch/kernels/csrc/field.cu",
              replaces="src/repro/kernels/ssa_update.py:90",
-             launches=k3_launches, service_launches={}, stream_launches={}, **k3),
+             launches=k3_launches, service_launches={}, stream_launches={},
+             family_launches={}, **k3),
         dict(name="ssa_plateau (K4)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau_pregen.cu",
              replaces="src/repro/kernels/ssa_update.py:150",
              launches=k4_launches, service_launches={"service K4": k4_service},
-             stream_launches={}, **k4),
+             stream_launches={}, family_launches={}, **k4),
         dict(name="ssa_plateau_popcount (K2)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
              launches=k2_launches,
              service_launches={"service K2": k2_service,
-                               "service tiled K2": k2_tiled_service},
-             stream_launches={"stream K2": k2_stream}, **k2),
+                               "service tiled K2": k2_tiled_service,
+                               "service families": k2_fam_service},
+             stream_launches={"stream K2": k2_stream, "stream families": k2_fam_stream},
+             family_launches=k2_fam, **k2),
         dict(name="ssa_plateau_packed ring mode (K1, SSQA)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
              replaces="src/repro/kernels/ssa_update.py:329",
              launches=k1_ring_launches,
              service_launches={"service SSQA dense field": k1_ring_service},
-             stream_launches={"stream SSQA dense field": k1_ring_stream}, **k1_ring),
+             stream_launches={"stream SSQA dense field": k1_ring_stream},
+             family_launches={}, **k1_ring),
         dict(name="ssa_plateau_popcount ring mode (K2, SSQA)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
              launches=k2_ring_launches,
              service_launches={"service SSQA popcount": k2_ring_service},
-             stream_launches={"stream SSQA popcount": k2_ring_stream}, **k2_ring),
+             stream_launches={"stream SSQA popcount": k2_ring_stream},
+             family_launches={}, **k2_ring),
     ]
     print(card)  # again, so that it stands in the last lines of the output
     print(json.dumps({"kernels": kernels}))

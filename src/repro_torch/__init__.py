@@ -7,6 +7,12 @@ module's counterpart is found at the same path:
   core.engine, core.ssa, core.memory    — the single-problem annealer
   core.ssqa, core.autotune              — SSQA (Trotter-replica rings) and
                                           the hyper-parameter determination
+  core.sa, core.pt, core.xla_math       — the SA, PT and PT-SSA baselines
+                                          (jax.random's draws, XLA's log)
+  problems, core.problems,
+  core.placement                        — the problem frontend: QUBO, MIS,
+                                          coloring, partition, TSP, GI and
+                                          MoE expert placement
   kernels.bitplane, kernels.ref,
   kernels.ssa_update, kernels.ops       — the spin codec, the plain
                                           versions and the CUDA kernels
@@ -20,6 +26,9 @@ module's counterpart is found at the same path:
   benchmarks.serve_stream,
   benchmarks.chaos                      — the open-loop traffic and fault
                                           benchmarks
+  benchmarks.other_problems,
+  benchmarks.pt_compare, examples       — the family sweep, Table VII and
+                                          the runnable drivers
   convert                               — numpy hand-over of states/models
 
 The package imports torch and numpy only.  Entry points run on ``cuda``

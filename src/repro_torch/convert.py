@@ -1,4 +1,5 @@
-"""Carry models and engine states across packages as numpy arrays.
+"""Carry models, engine states, SA carries and problem encodings across
+packages as numpy arrays.
 
 The JAX package and this port agree on every layout, but not on dtypes:
 this port carries uint32 words (xorshift lanes, packed spins) as int32
@@ -14,10 +15,16 @@ import torch
 
 from .core.engine import EngineState, PackedEngineState
 from .core.ising import IsingModel
+from .core.sa import SACarry
 from .kernels.bitplane import PackedJ
+from .problems import ColoringProblem, MISProblem, PartitionProblem, QUBOProblem
 
 __all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arrays",
-           "packed_j_from_arrays"]
+           "packed_j_from_arrays", "sa_carry_from_arrays", "sa_carry_to_arrays",
+           "encoding_from_fields"]
+
+_ENCODINGS = {"qubo": QUBOProblem, "mis": MISProblem, "coloring": ColoringProblem,
+              "partition": PartitionProblem}
 
 
 def ising_from_arrays(
@@ -107,3 +114,35 @@ def engine_state_to_arrays(
     if isinstance(state, PackedEngineState):
         m, bm = m.view(np.uint32), bm.view(np.uint32)
     return ns.view(np.uint32), m, it, bh, bm
+
+
+def sa_carry_from_arrays(key: np.ndarray, m: np.ndarray, H: np.ndarray, best_H: np.ndarray,
+                         best_m: np.ndarray, *, device=None):
+    """An SA carry from numpy arrays: one problem's ``(key, m, H, best_H,
+    best_m)`` tuple (key (2,) uint32, spins (T, N)), or a batched
+    :class:`~repro_torch.core.sa.SACarry` when the key is (B, 2)."""
+    key = np.asarray(key).astype(np.uint32).astype(np.int64)
+    leaves = [torch.from_numpy(np.asarray(a, np.int32).copy()).to(device)
+              for a in (m, H, best_H, best_m)]
+    if key.shape == (2,):
+        return (tuple(int(k) for k in key), *leaves)
+    return SACarry(key.reshape(-1, 2), *leaves)
+
+
+def sa_carry_to_arrays(carry) -> Tuple[np.ndarray, ...]:
+    """(key uint32, m, H, best_H, best_m int32) of an SA carry, either form."""
+    key, *leaves = carry
+    return (np.asarray(key, np.int64).astype(np.uint32),
+            *(t.cpu().numpy() for t in leaves))
+
+
+def encoding_from_fields(model: dict, **fields):
+    """The port's encoding from another package's fields: ``model`` holds
+    the Ising arrays (``n``, ``h``, ``nbr_idx``, ``nbr_w``, ``name``),
+    ``fields`` the encoding's other dataclass fields (``kind``, which picks
+    the family, ``offset``, ``minimize`` and the instance data: ``Q``,
+    ``edges``, ``values``, …) as numpy arrays or scalars."""
+    cls = _ENCODINGS[fields["kind"]]
+    fields = {k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
+              for k, v in fields.items()}
+    return cls(model=ising_from_arrays(**model), **fields)

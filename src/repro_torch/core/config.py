@@ -21,9 +21,6 @@ _LAYOUTS = ("dense", "packed")
 # What each option outside the ported slice waits for, by ROADMAP.md item.
 _WAITS = {
     "j_opts": "ROADMAP.md queue 1 step 2 (DenseBackend's j_dtype and double_buffer)",
-    "sa_pt": "ROADMAP.md queue 1 step 5 (SA and PT-SSA: core/sa.py, core/pt.py)",
-    "problems": "ROADMAP.md queue 1 step 6 (the problem frontend: ProblemEncoding "
-                "inputs)",
     "spin": "ROADMAP.md queue 1 step 8 (spin sharding across GPUs)",
     "auto_backend": "ROADMAP.md queue 1 step 3 (MIN_RESIDENT_N re-derived on "
                     "the H100 before backend='auto' can choose)",

@@ -193,7 +193,9 @@ def ssa_cycle_update(field, itanh, r, i0, n_rnd):
       field: int32[..., N]  h_i + Σ_j J_ij m_j(t)
       itanh: int32[..., N]  Itanh_i(t)
       r:     int32[..., N]  noise in {-1,+1}
-      i0:    int            pseudo-inverse temperature I0(t)
+      i0:    int            pseudo-inverse temperature I0(t), or an int32
+                            tensor broadcasting against ``field`` (PT-SSA's
+                            per-replica I0 column)
       n_rnd: int            noise magnitude
     Returns:
       (m_new int8[..., N], itanh_new int32[..., N])
@@ -445,7 +447,10 @@ def run_plateau_scan(
     ``track_energy``; planes is the (C, T, ceil(N/32)) packed trajectory
     when ``emit``.
     """
-    i0, jperp = int(i0), int(jperp)
+    # i0 is the plateau's scalar I0, or a (T, 1) tensor of per-trial I0s
+    # (PT-SSA's replica ladder), broadcast by the Eq. 2b clamp.
+    i0 = i0 if isinstance(i0, torch.Tensor) else int(i0)
+    jperp = int(jperp)
     need_H = bool(eligible) or bool(track_energy)
     couple = bool(jperp) and int(n_replicas) > 0
     ns, m, itanh, best_H, best_m = state
@@ -458,7 +463,9 @@ def run_plateau_scan(
             best_H = torch.where(better, H, best_H)
             best_m = torch.where(better[..., None], m, best_m)
         if track_energy:
-            means.append(H.to(torch.float32).mean())
+            # jnp.mean as XLA computes it: the (exact) sum times float32 1/T.
+            means.append(H.to(torch.float32).sum() * torch.tensor(1.0 / H.numel(),
+                                                                   dtype=torch.float32))
             mins.append(H.min())
         return best_H, best_m
 

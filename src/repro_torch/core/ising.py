@@ -18,7 +18,7 @@ set (``core.engine.exact_float32_matmul``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ from ..kernels.bitplane import PackedJ, popcount_u32
 __all__ = [
     "IsingModel",
     "MaxCutProblem",
+    "fig4_example",
     "ising_energy",
     "local_fields_dense",
     "local_fields_popcount",
@@ -124,12 +125,35 @@ class IsingModel:
             )
         return model
 
+    @staticmethod
+    def from_dense(J: np.ndarray, h: Optional[np.ndarray] = None,
+                   name: str = "ising") -> "IsingModel":
+        """Build from a symmetric, zero-diagonal coupling matrix: its upper
+        triangle's nonzeros, row-major, become the edge list."""
+        J = np.asarray(J)
+        if np.issubdtype(J.dtype, np.floating) and not np.all(np.isfinite(J)):
+            raise ValueError("J must be finite (got NaN/inf)")
+        if not np.allclose(J, J.T):
+            raise ValueError("J must be symmetric")
+        if np.any(np.diag(J) != 0):
+            raise ValueError("J must have zero diagonal")
+        n = J.shape[0]
+        ii, jj = np.nonzero(np.triu(J, k=1))
+        edges = np.stack([ii, jj], axis=1)
+        return IsingModel.from_edges(n, edges, J[ii, jj], h=h, name=name)
+
     def dense_J(self) -> np.ndarray:
         """Materialize the symmetric dense coupling matrix (int32)."""
         J = np.zeros((self.n, self.n), dtype=np.int64)
         rows = np.repeat(np.arange(self.n), self.max_degree)
         np.add.at(J, (rows, self.nbr_idx.reshape(-1)), self.nbr_w.reshape(-1))
         return J.astype(np.int32)  # padded entries are (i, i, 0): harmless
+
+    def edge_list(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The unique undirected edges (E, 2), row-major, and weights (E,)."""
+        J = self.dense_J()
+        ii, jj = np.nonzero(np.triu(J, k=1))
+        return np.stack([ii, jj], axis=1), J[ii, jj]
 
     def device_arrays(self, device=None):
         """int32 tensors (h, nbr_idx, nbr_w) on ``device``."""
@@ -269,3 +293,11 @@ class MaxCutProblem:
         """cut = (w_total - H) // 2 (J = -w, h = 0)."""
         return (self.w_total - H) // 2
 
+
+
+def fig4_example() -> MaxCutProblem:
+    """The 4-vertex example of the paper's Fig. 4 (optimal cut = 3): edges
+    A-B (w=-1), A-C, A-D, B-C (+1) and C-D (-1)."""
+    edges = np.array([[0, 1], [0, 2], [0, 3], [1, 2], [2, 3]])
+    weights = np.array([-1, 1, 1, 1, -1])
+    return MaxCutProblem(n=4, edges=edges, weights=weights, name="fig4", best_known=3)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "Xorshift128",
     "xorshift_init",
     "xorshift_next_bits",
     "xorshift_lanes_ok",
@@ -52,6 +53,13 @@ __all__ = [
     "threefry_split",
     "threefry_noise",
     "threefry_noise_cycles",
+    "PRNGKey",
+    "split",
+    "split_keys",
+    "random_bits",
+    "uniform",
+    "randint",
+    "bernoulli",
 ]
 
 
@@ -107,6 +115,18 @@ def xorshift_noise_cycles(state: torch.Tensor, n_cycles: int) -> Tuple[torch.Ten
         state, r = xorshift_next_bits(state)
         draws.append(r.to(torch.int8))
     return state, torch.stack(draws)
+
+
+class Xorshift128:
+    """Object wrapper over the functional lanes: ``next_bits()`` steps every
+    lane once and returns its ±1 int32 noise."""
+
+    def __init__(self, seed: int, lanes: Tuple[int, ...], device=None):
+        self.state = xorshift_init(seed, lanes, device)
+
+    def next_bits(self) -> torch.Tensor:
+        self.state, bits = xorshift_next_bits(self.state)
+        return bits
 
 
 def xorshift_lanes_ok(state, axis: int = 0) -> bool:
@@ -209,3 +229,98 @@ def threefry_noise_cycles(key: Key, n_cycles: int, shape: Tuple[int, ...],
         plus = _draw_sign(ks[:, 0:1], ks[:, 1:2], n, device)
         out[c0:c0 + per] = torch.where(plus, 1, -1).to(torch.int8)
     return key, out.reshape((len(subs),) + tuple(shape))
+
+
+# ---------------------------------------------------------------------------
+# The rest of jax.random that SA and PT draw, with partitionable threefry.
+#
+# A batch of keys is an int64 array or tensor of shape (..., 2) holding the
+# two 32-bit words; a single key is a pair of Python ints.  ``split`` and the
+# draws hash the flat index i of their output under the key, with counters
+# (i >> 32, i & 0xFFFFFFFF); a draw's 32-bit word is b1 ^ b2.
+# ---------------------------------------------------------------------------
+def PRNGKey(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)`` (64-bit types off)."""
+    return threefry_key(seed)
+
+
+def split(key: Key, num: int = 2) -> list:
+    """``jax.random.split(key, num)`` on the host: ``num`` keys (pairs of
+    Python ints); key i is ``threefry2x32(key, (0, i))``."""
+    k0, k1 = key
+    return [threefry2x32(k0, k1, i >> 32, i & _M32) for i in range(int(num))]
+
+
+def split_keys(keys, num: int):
+    """``jax.random.split`` of every key of a (..., 2) int64 batch at once:
+    a (..., num, 2) batch of the same type (numpy array or tensor)."""
+    is_t = isinstance(keys, torch.Tensor)
+    k0, k1 = keys[..., 0:1], keys[..., 1:2]
+    if is_t:
+        i = torch.arange(int(num), dtype=torch.int64, device=keys.device)
+    else:
+        keys = np.asarray(keys, np.int64)
+        k0, k1 = keys[..., 0:1], keys[..., 1:2]
+        i = np.arange(int(num), dtype=np.int64)
+    a, b = threefry2x32(k0, k1, i >> 32, i & _M32)
+    return torch.stack([a, b], dim=-1) if is_t else np.stack([a, b], axis=-1)
+
+
+def _key_words(key, device):
+    """(k0, k1) of a key or a (..., 2) key batch, as int64 tensors shaped
+    (..., 1) to broadcast over a draw's flat index (Python ints for a key)."""
+    if isinstance(key, tuple):
+        return key
+    keys = torch.as_tensor(np.asarray(key, np.int64) if not isinstance(key, torch.Tensor)
+                           else key, dtype=torch.int64, device=device)
+    return keys[..., 0:1], keys[..., 1:2]
+
+
+def random_bits(key, shape: Tuple[int, ...], device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32) as int64 tensors holding the
+    words; a key batch of shape (..., 2) gives (...) + shape."""
+    n = int(np.prod(shape)) if shape else 1
+    k0, k1 = _key_words(key, device)
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(k0, k1, lo >> 32, lo & _M32)
+    bits = b0 ^ b1
+    return bits.reshape(tuple(bits.shape[:-1]) + tuple(shape))
+
+
+def uniform(key, shape: Tuple[int, ...], minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: the top 23 bits as the mantissa of
+    a float in [1, 2), minus 1, scaled to [minval, maxval), then
+    ``max(minval, ·)``."""
+    bits = random_bits(key, shape, device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32)
+    hi = torch.tensor(maxval, dtype=torch.float32)
+    lo_d = lo.to(f.device)
+    return torch.maximum(lo_d, f * (hi - lo).to(f.device) + lo_d)
+
+
+def randint(key, shape: Tuple[int, ...], minval, maxval, device=None) -> torch.Tensor:
+    """``jax.random.randint`` (int32): two draws of 32 bits under the key's
+    two-way split, combined as ``(hi % span) * (2^32 % span) + lo % span``
+    in wrapping uint32, mod span.  ``maxval`` (and ``minval``) may be a
+    tensor broadcasting against the draw: the service's per-problem live
+    spin counts."""
+    if isinstance(key, tuple):
+        k1, k2 = split(key)
+    else:
+        ks = split_keys(key, 2)
+        k1, k2 = ks[..., 0, :], ks[..., 1, :]
+    hi_bits = random_bits(k1, shape, device)
+    lo_bits = random_bits(k2, shape, device)
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=hi_bits.device)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=hi_bits.device)
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _M32)
+    mult = ((65536 % span) * (65536 % span) & _M32) % span
+    off = (((hi_bits % span) * mult & _M32) + lo_bits % span) & _M32
+    return (lo + off % span).to(torch.int32)
+
+
+def bernoulli(key, p: float, shape: Tuple[int, ...], device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` in float32."""
+    return uniform(key, shape, device=device) < torch.tensor(p, dtype=torch.float32)

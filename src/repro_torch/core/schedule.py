@@ -14,7 +14,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["Schedule", "hassa_schedule", "ssa_schedule", "ssqa_schedule", "n_temp_steps"]
+__all__ = ["Schedule", "hassa_schedule", "ssa_schedule", "ssqa_schedule", "n_temp_steps",
+           "sa_temperature_ladder"]
 
 
 def n_temp_steps(i0_min: int, i0_max: int, beta_shift: int = 1) -> int:
@@ -122,3 +123,12 @@ def ssqa_schedule(i0_min: int, i0_max: int, tau: int, beta_shift: int = 1, *,
         per_plateau = [round(int(jperp_max) * s / (steps - 1)) for s in range(steps)]
     return dataclasses.replace(
         base, jperp_per_cycle=np.repeat(np.asarray(per_plateau, dtype=np.int32), tau))
+
+
+def sa_temperature_ladder(t_start: float, t_end: float, n_cycles: int) -> np.ndarray:
+    """Geometric SA cooling from t_start to t_end over n_cycles (float32;
+    the paper's CPU baseline: 10 → 1e-7 over 90,000 cycles)."""
+    if n_cycles == 1:
+        return np.asarray([t_start], dtype=np.float32)
+    ratio = (t_end / t_start) ** (1.0 / (n_cycles - 1))
+    return (t_start * ratio ** np.arange(n_cycles)).astype(np.float32)

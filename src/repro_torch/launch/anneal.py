@@ -49,8 +49,13 @@ as an open-loop client, ``--priority`` picks the admission class.
     python -m repro_torch.launch.anneal --problem G11,G12,G13,King1,K2000 \
         --stream --backend cuda --trials 100 --m-shot 10 --stream-slots 4
 
-``--problem-kind`` raises NotImplementedError naming the ROADMAP.md step it
-waits for.
+Problem families: ``--problem-kind qubo|mis|coloring|partition`` builds
+``--count`` demo instances of that family (``--problem-n`` spins, seeds
+``--seed``, ``--seed``+1, …) and solves them through the service, printing
+each one's decoded objective and feasibility.
+
+    python -m repro_torch.launch.anneal --problem-kind mis --problem-n 2000 \
+        --count 2 --backend cuda --field-mode auto --trials 100 --m-shot 10
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ import torch
 
 from repro_torch.core import gset, memory
 from repro_torch.core.autotune import autotune_hyperparams
-from repro_torch.core.config import SolverConfig, not_ported
+from repro_torch.core.config import SolverConfig
 from repro_torch.core.ssa import SSAHyperParams, anneal
 from repro_torch.core.ssqa import SSQAHyperParams
 
@@ -192,6 +197,36 @@ def _run_stream(problem_names, hp, args):
           f"shed={shed} deadline={deadline}")
 
 
+def _run_problem_kind(hp, args):
+    """Demo instances of a problem family through the service."""
+    from repro_torch.problems import make_demo
+    from repro_torch.serve import AnnealRequest
+
+    encs = [make_demo(args.problem_kind, n=args.problem_n, seed=args.seed + i)
+            for i in range(args.count)]
+    requests = [AnnealRequest(problem=enc, hp="auto" if args.auto_tune else hp,
+                              seed=args.seed + i, storage=args.storage, auto_base=hp)
+                for i, enc in enumerate(encs)]
+    svc = _service(args)
+    t0 = time.time()
+    responses = svc.solve(requests)
+    dt = time.time() - t0
+    for enc, r in zip(encs, responses):
+        if r.result is None:
+            print(f"{enc.model.name}: {r.status.upper()} — no result "
+                  f"({'; '.join(e.kind for e in r.events) or 'no events'})")
+            continue
+        rhp = r.request.hp
+        tuned = (f" auto[n_rnd={rhp.n_rnd} i0_max={rhp.i0_max} tau={rhp.tau}]"
+                 if r.autotune else "")
+        degraded = "" if r.status == "ok" else f" status={r.status}"
+        print(f"{enc.model.name}: objective={r.objective} feasible={r.feasible} "
+              f"energy={int(r.result.best_energy.min())} "
+              f"[bucket={r.bucket} batch={r.batch}]{tuned}{degraded}")
+    print(f"{len(encs)} × {args.problem_kind} in {dt:.1f}s "
+          f"({svc.cache_info()['programs']} compiled program(s))")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--problem", default="G11",
@@ -227,7 +262,13 @@ def main(argv=None):
                     help="chunk-level checkpoint root (implies service mode unless "
                          "--stream): a killed run resumes bit-identically")
     ap.add_argument("--problem-kind", default="gset",
-                    help="problem family; only 'gset' is ported")
+                    choices=("gset", "qubo", "mis", "coloring", "partition"),
+                    help="problem family: 'gset' uses --problem names; the others solve "
+                         "demo instances through the service")
+    ap.add_argument("--problem-n", type=int, default=0,
+                    help="demo instance size for non-gset kinds (0 = family default)")
+    ap.add_argument("--count", type=int, default=1,
+                    help="number of demo instances for non-gset kinds")
     ap.add_argument("--algo", choices=("ssa", "ssqa"), default="ssa",
                     help="algorithm family: 'ssqa' runs the Trotter-replica quantum "
                          "variant; the rings live on the trial axis, so --trials must "
@@ -273,7 +314,7 @@ def main(argv=None):
     else:
         hp = SSAHyperParams(**knobs)
     if args.problem_kind != "gset":
-        raise not_ported(f"--problem-kind {args.problem_kind}", "problems")
+        return _run_problem_kind(hp, args)
     names = args.problem.split(",")
     if args.stream:
         return _run_stream(names, hp, args)

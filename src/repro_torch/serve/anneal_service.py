@@ -46,14 +46,26 @@ group_fingerprint`, so a killed solve resumes, in a fresh process, from
 its last boundary, bit-identically.  Every path is exercised through the
 hook points of an attached :class:`repro_torch.ft.faults.FaultInjector`.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP.md
-step, with no substitute path: SA and PT-SSA requests (queue 1 step 5),
-``ProblemEncoding`` inputs (step 6) and ``partition='spin'`` (step 8).
+Beyond Max-Cut, any :class:`~repro_torch.problems.ProblemEncoding` (QUBO,
+MIS, coloring, partition) is served as its Ising model; after the solve
+the response carries the decoded best feasible ``solution``, its
+``objective`` and the verifier's ``feasible`` verdict.  SA
+(:class:`~repro_torch.core.sa.SAHyperParams`) and PT-SSA
+(:class:`~repro_torch.core.pt.PTSSAHyperParams`) requests ride the same
+entry: SA groups run the batched Metropolis core (no kernel; its chunks
+are slices of the cooling ladder, and the fallback chain does not apply),
+PT-SSA groups run the plateau scan of the batched sparse or dense backend
+(``backend='cuda'`` is rejected at admission: the kernels take a scalar
+I0).
+
+Not ported yet, raising NotImplementedError naming its ROADMAP.md step,
+with no substitute path: ``partition='spin'`` (queue 1 step 8).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import os
 import threading
 import time
@@ -79,9 +91,13 @@ from ..core.engine import (
     validate_model,
 )
 from ..core.ising import IsingModel, MaxCutProblem
-from ..core.rng import xorshift_lanes_ok
+from ..core.pt import PTSSAHyperParams, PTSSAResult, pt_ssa_rounds, pt_ssa_swap_keys
+from ..core.rng import PRNGKey, xorshift_lanes_ok
+from ..core.sa import SAHyperParams, SAResult, sa_cycles_batched, sa_init_batched
+from ..core.schedule import sa_temperature_ladder
 from ..core.ssa import AnnealResult, SSAHyperParams
 from ..core.ssqa import SSQAHyperParams
+from ..problems import ProblemEncoding
 from ..ft.faults import FaultInjector
 from .registry import family_for, registered_algos
 from .resilience import (
@@ -101,16 +117,18 @@ from .resilience import (
 
 __all__ = ["AnnealRequest", "AnnealResponse", "AnnealProgress", "AnnealService"]
 
-HyperParams = Union[SSAHyperParams, SSQAHyperParams]
+HyperParams = Union[SSAHyperParams, SAHyperParams, PTSSAHyperParams, SSQAHyperParams]
 
 
 @dataclasses.dataclass(frozen=True)
 class AnnealRequest:
     """One problem and its hyper-parameters, as the service accepts it.
 
-    ``problem`` is a Max-Cut instance or an Ising model.  ``hp`` selects the
-    algorithm family through the registry (:mod:`repro_torch.serve.
-    registry`): SSAHyperParams → SSA/HA-SSA, SSQAHyperParams → SSQA;
+    ``problem`` is a Max-Cut instance, an Ising model or a problem
+    encoding.  ``hp`` selects the algorithm family through the registry
+    (:mod:`repro_torch.serve.registry`): SSAHyperParams → SSA/HA-SSA,
+    SSQAHyperParams → SSQA, SAHyperParams → Metropolis SA,
+    PTSSAHyperParams → PT on the plateau engine;
     ``algo`` names the family explicitly and is checked against the hp
     type; ``hp='auto'`` autotunes from the instance
     (:mod:`repro_torch.core.autotune`, ``algo='ssqa'`` tunes the ring too).
@@ -122,7 +140,7 @@ class AnnealRequest:
     best-so-far and ``status='deadline'``; it never raises.
     """
 
-    problem: Union[MaxCutProblem, IsingModel]
+    problem: Union[MaxCutProblem, IsingModel, ProblemEncoding]
     hp: Union[HyperParams, str] = SSAHyperParams()
     seed: int = 0
     storage: str = "i0max"         # 'i0max' (HA-SSA) | 'all' (SSA)
@@ -137,13 +155,16 @@ class AnnealRequest:
 @dataclasses.dataclass
 class AnnealResponse:
     request: AnnealRequest
-    result: Optional[AnnealResult]
+    result: object                 # AnnealResult | SAResult | PTSSAResult | None
     wall_s: float                  # group wall time (the batch solves together)
     bucket: int                    # padded N the request ran at
     batch: int                     # live requests stacked in its group
     chunks_run: int                # chunks executed (early stop may cut short)
     chunks_total: int
     chunk_best_cut: np.ndarray     # (chunks_run,) best-objective trace
+    solution: object = None        # decoded domain solution (encoded problems)
+    objective: Optional[int] = None  # domain objective of `solution` if feasible
+    feasible: Optional[bool] = None  # verifier verdict (None: raw Ising/maxcut)
     autotune: Optional[AutotuneReport] = None  # set when hp='auto' resolved
     status: str = STATUS_OK        # 'ok'|'fallback'|'deadline'|'quarantined'|'failed'|'shed'
     events: List[ServiceEvent] = dataclasses.field(default_factory=list)
@@ -155,7 +176,7 @@ class AnnealResponse:
 class AnnealProgress:
     """One progress report (per group, per chunk)."""
 
-    kind: str                      # 'ssa' | 'ssqa'
+    kind: str                      # 'ssa' | 'sa' | 'ptssa' | 'ssqa'
     bucket: int
     chunk: int
     chunks_total: int
@@ -273,8 +294,12 @@ class _GroupCtx:
         traces = meta.get("traces")
         ok = isinstance(traces, list) and len(traces) == n_items
         if ok and self.noise == "xorshift":
-            # Batched lanes are (B, 4, T, N): the 4-word axis is axis 1.
-            ok = xorshift_lanes_ok(state.noise_state, axis=1)
+            # Batched lanes are (B, 4, T, N): the 4-word axis is axis 1.  An
+            # SA carry has no lanes, so under xorshift its checkpoint is
+            # rejected and the group runs from scratch, as in the JAX
+            # package.
+            lanes = getattr(state, "noise_state", None)
+            ok = lanes is not None and xorshift_lanes_ok(lanes, axis=1)
         if not ok:
             self._event("checkpoint_rejected", dir=self._dir)
             return 0, template, None
@@ -314,6 +339,7 @@ class AnnealService:
         noise: str = "xorshift",
         storage_layout: str = "dense",
         chunk_shots: int = 1,
+        sa_chunks: int = 8,
         min_bucket: int = 64,
         backend_opts: Optional[dict] = None,
         autotune_seed: int = 0,
@@ -324,7 +350,10 @@ class AnnealService:
         config: Optional[SolverConfig] = None,
         device=None,
     ):
-        """``storage_layout='packed'`` keeps the engine state between chunks
+        """``chunk_shots`` is the chunk width of SSA, SSQA (iterations) and
+        PT-SSA (rounds) groups; an SA group runs its cycles in ``sa_chunks``
+        chunks (the largest divisor of ``n_cycles`` up to it).
+        ``storage_layout='packed'`` keeps the engine state between chunks
         as 32-bit spin words.  ``backend_opts={'field_mode': 'auto'}``
         resolves the XNOR-popcount field per group: a group whose couplings
         fit ``engine.POPCOUNT_AUTO_MAX_BITS`` magnitude planes runs
@@ -359,6 +388,7 @@ class AnnealService:
         self.noise = noise
         self.storage_layout = storage_layout
         self.chunk_shots = int(chunk_shots)
+        self.sa_chunks = int(sa_chunks)       # SA: report and early-stop points per run
         self.min_bucket = int(min_bucket)
         self.autotune_seed = int(autotune_seed)
         self.backend_opts = dict(backend_opts or {})
@@ -398,9 +428,6 @@ class AnnealService:
         reports: dict = {}
         groups = collections.defaultdict(list)
         for idx, req in enumerate(requests):
-            if (not isinstance(req.problem, (MaxCutProblem, IsingModel))
-                    and hasattr(req.problem, "model")):
-                raise not_ported(f"request {idx}: a ProblemEncoding input", "problems")
             try:
                 maxcut, model = normalize_problem(req.problem)
             except TypeError as e:
@@ -424,6 +451,9 @@ class AnnealService:
             self._solve_group_resilient(key[0], key[1], items, responses, progress, t_solve0)
         for idx, resp in enumerate(responses):
             resp.autotune = reports.get(idx)
+            if resp.result is not None and isinstance(resp.request.problem, ProblemEncoding):
+                sol, obj, feas = resp.request.problem.best_feasible(resp.result.best_m)
+                resp.solution, resp.objective, resp.feasible = sol, obj, feas
         return responses  # type: ignore[return-value]
 
     def cache_info(self) -> dict:
@@ -538,7 +568,8 @@ class AnnealService:
                 self._handle_quarantine(kind, nb, items, qf, responses, progress, solve_t0)
                 return
             except Exception as exc:  # noqa: BLE001 — classified below
-                fault = classify_fault(exc, backend)
+                # SA's Metropolis core does not depend on the backend.
+                fault = classify_fault(exc, backend) if kind != "sa" else None
                 nxt = (fallback_step(backend, opts, fault, nb)
                        if fault is not None and self.policy.fallback else None)
                 if nxt is None:
@@ -564,9 +595,14 @@ class AnnealService:
             return
 
     def _chunk_of(self, kind, items) -> int:
-        """The group's chunk width: iterations per chunk (part of its
-        checkpoint fingerprint)."""
-        return _largest_divisor_leq(items[0][1].hp.m_shot, self.chunk_shots)
+        """The group's chunk width (part of its checkpoint fingerprint):
+        iterations (SSA, SSQA), rounds (PT-SSA) or cycles (SA) per chunk."""
+        hp = items[0][1].hp
+        if kind in ("ssa", "ssqa"):
+            return _largest_divisor_leq(hp.m_shot, self.chunk_shots)
+        if kind == "ptssa":
+            return _largest_divisor_leq(hp.n_rounds, self.chunk_shots)
+        return hp.n_cycles // _largest_divisor_leq(hp.n_cycles, self.sa_chunks)
 
     def _handle_quarantine(self, kind, nb, items, qf, responses, progress, solve_t0):
         """Split a poisoned group: healthy slots re-run, offenders go solo."""
@@ -588,12 +624,13 @@ class AnnealService:
         hp = req.hp
         for attempt in range(self.policy.max_retries):
             time.sleep(self.policy.backoff_base_s * (2 ** attempt))
-            tuned, rep = autotune_hyperparams(model, hp, seed=self.autotune_seed + attempt + 1)
-            hp = dataclasses.replace(hp, i0_max=tuned.i0_max)
-            events.append(ServiceEvent(
-                "retry", {"request": idx, "attempt": attempt, "i0_max": tuned.i0_max,
-                          "z_max": rep.z_max},
-                time.perf_counter() - solve_t0))
+            detail = {"request": idx, "attempt": attempt}
+            if isinstance(hp, SSAHyperParams):
+                tuned, rep = autotune_hyperparams(model, hp,
+                                                  seed=self.autotune_seed + attempt + 1)
+                hp = dataclasses.replace(hp, i0_max=tuned.i0_max)
+                detail.update(i0_max=tuned.i0_max, z_max=rep.z_max)
+            events.append(ServiceEvent("retry", detail, time.perf_counter() - solve_t0))
             try:
                 self._solve_group_resilient(
                     kind, nb, [(idx, dataclasses.replace(req, hp=hp), maxcut, model)],
@@ -707,6 +744,124 @@ class AnnealService:
                 chunks_run=len(chunk_traces[slot]), chunks_total=n_chunks,
                 chunk_best_cut=np.asarray(chunk_traces[slot]),
                 lane_wall_s=(stop["t_abs"] - t0 if stop is not None else wall))
+
+    # ------------------------------------------------------------------
+    # SA and PT-SSA groups
+    # ------------------------------------------------------------------
+    def _respond(self, items, responses, result_cls, best_H, best_m, chunk_traces, stops,
+                 n_chunks, nb, b_live, t0, **extra):
+        """One response per live slot: its result from the final state, or
+        from its own stop boundary when it stopped early."""
+        wall = time.perf_counter() - t0
+        for slot, (idx, req, maxcut, model) in enumerate(items):
+            stop = stops[slot]
+            if stop is not None and stop.get("best_H") is not None:
+                bh, bm_full = stop["best_H"], stop["best_m"]
+            else:
+                bh, bm_full = best_H[slot], best_m[slot]
+            result = result_cls(
+                best_cut=np.asarray(finalize_cut(bh, maxcut)), best_energy=bh,
+                best_m=bm_full[:, :model.n], energy_mean=None, energy_min=None,
+                hp=req.hp, **extra)
+            responses[idx] = AnnealResponse(
+                request=req, result=result, wall_s=wall, bucket=nb, batch=b_live,
+                chunks_run=len(chunk_traces[slot]), chunks_total=n_chunks,
+                chunk_best_cut=np.asarray(chunk_traces[slot]),
+                lane_wall_s=(stop["t_abs"] - t0 if stop is not None else wall))
+
+    def _solve_sa_group(self, nb, items, responses, progress, ctx):
+        """Metropolis SA of a group on the sparse stacking: each chunk is a
+        slice of the cooling ladder, the keys ride in the carry, and each
+        problem proposes only its live spins."""
+        t0 = time.perf_counter()
+        hp: SAHyperParams = items[0][1].hp
+        n_chunks = _largest_divisor_leq(hp.n_cycles, self.sa_chunks)
+        chunk_cycles = hp.n_cycles // n_chunks
+
+        padded, b_live, b_bucket = self._pad_group(items)
+        cache_key = ("sa", nb, b_bucket, hp.n_trials, chunk_cycles)
+        stacker = self._programs.get(cache_key)
+        if stacker is None:
+            ctx.fire("compile", backend="sa-core", kind="sa", bucket=nb)
+            self.stats["program_cache_misses"] += 1
+            self.stats["traces_init"] += 1
+            self.stats["traces_chunk"] += 1
+            # SA reuses the sparse stacking (gather-based ΔH).
+            stacker = make_batched_backend("sparse", n_bucket=nb, n_trials=hp.n_trials,
+                                           noise="xorshift", device=self.device)
+            self._programs[cache_key] = stacker
+        else:
+            self.stats["program_cache_hits"] += 1
+        pr = stacker.stack([model for _, _, _, model in padded])
+        keys = np.asarray([PRNGKey(req.seed) for _, req, _, _ in padded], np.int64)
+        n_lives = [model.n for _, _, _, model in padded]
+        temps = sa_temperature_ladder(hp.t_start, hp.t_end, hp.n_cycles)
+        carry = sa_init_batched(pr["h"], pr["nbr_idx"], pr["nbr_w"], keys,
+                                n_trials=hp.n_trials)
+
+        def step(ca, c):
+            ca, _ = sa_cycles_batched(pr["h"], pr["nbr_idx"], pr["nbr_w"], ca,
+                                      temps[c * chunk_cycles:(c + 1) * chunk_cycles],
+                                      n_live=n_lives)
+            return ca
+
+        carry, chunk_traces, stops = self._chunk_loop(
+            "sa", nb, items, n_chunks, progress, step, carry, lambda ca: ca.best_H, ctx,
+            width=b_bucket, snap=lambda ca: (ca.best_H, ca.best_m))
+        self._respond(items, responses, SAResult, carry.best_H.cpu().numpy(),
+                      carry.best_m.cpu().numpy(), chunk_traces, stops, n_chunks, nb, b_live, t0)
+
+    def _solve_ptssa_group(self, nb, items, responses, progress, ctx):
+        """PT-SSA of a group on the batched sparse or dense backend: each
+        chunk runs ``chunk`` plateau+swap rounds, every problem swapping
+        under its own keys (those of ``anneal_pt_ssa`` of its seed)."""
+        t0 = time.perf_counter()
+        hp: PTSSAHyperParams = items[0][1].hp
+        backend = ctx.backend
+        if backend == "cuda":
+            raise ValueError(
+                "pt-ssa needs per-replica I0 columns; run the service with "
+                "backend='sparse' or 'dense' for PTSSAHyperParams requests")
+        chunk = _largest_divisor_leq(hp.n_rounds, self.chunk_shots)
+        n_chunks = hp.n_rounds // chunk
+
+        padded, b_live, b_bucket = self._pad_group(items)
+        opts = self._resolve_field_opts(backend, ctx.backend_opts, items)
+        cache_key = ("ptssa", backend, _opts_key(opts), nb, b_bucket, hp, self.noise, chunk)
+        bk = self._programs.get(cache_key)
+        if bk is None:
+            ctx.fire("compile", backend=backend, kind="ptssa", bucket=nb)
+            self.stats["program_cache_misses"] += 1
+            self.stats["traces_init"] += 1
+            self.stats["traces_chunk"] += 1
+            bk = make_batched_backend(backend, n_bucket=nb, n_trials=hp.n_replicas,
+                                      n_rnd=hp.n_rnd, noise=self.noise, device=self.device,
+                                      **opts)
+            self._programs[cache_key] = bk
+        else:
+            self.stats["program_cache_hits"] += 1
+        pr = bk.stack([model for _, _, _, model in padded])
+        ctx.fire("oom", backend=backend, kind="ptssa", bucket=nb, batch=b_bucket,
+                 j_mode=getattr(bk, "j_mode", None))
+        state = bk.init_state(pr, bk.init_noise([req.seed for _, req, _, _ in padded],
+                                                [model.n for _, _, _, model in padded]))
+        # The swap keys of anneal_pt_ssa, sliced per chunk: chunked runs
+        # equal unchunked ones.
+        all_keys = np.stack([pt_ssa_swap_keys(req.seed, hp.n_rounds)
+                             for _, req, _, _ in padded])    # (B, n_rounds, 2)
+        parities = np.arange(hp.n_rounds, dtype=np.int32) % 2
+        field_fn = functools.partial(bk._field, pr)
+
+        def step(st, c):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            return pt_ssa_rounds(field_fn, bk._noise_step, pr["h"][:, None], hp, st,
+                                 all_keys[:, sl], parities[sl])
+
+        state, chunk_traces, stops = self._chunk_loop(
+            "ptssa", nb, items, n_chunks, progress, step, state, lambda st: st.best_H, ctx,
+            width=b_bucket, snap=lambda st: (st.best_H, st.best_m))
+        self._respond(items, responses, PTSSAResult, state.best_H.cpu().numpy(),
+                      state.best_m.cpu().numpy(), chunk_traces, stops, n_chunks, nb, b_live, t0)
 
     # ------------------------------------------------------------------
     # The chunk loop: best_H reports, early stop, deadline watchdog,

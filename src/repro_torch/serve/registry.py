@@ -13,26 +13,24 @@ Each family registers:
 * ``solver`` — the name of the ``AnnealService`` group-solver method;
 * ``group_key`` — the family's part of the batching key (what must match
   for two requests to share one program);
-* ``validate`` — admission rules that live next to the family (SSQA on the
-  cuda backend needs streamed xorshift noise).
+* ``validate`` — admission rules that live next to the family (PT-SSA
+  rejects the cuda backend; SSQA on it needs streamed xorshift noise).
 
-The port registers ``ssa`` and ``ssqa``.  ``algo='sa'`` and
-``algo='ptssa'`` raise NotImplementedError naming ROADMAP.md queue 1 step 5.
+The four families of the JAX package register at import: ssa, sa, ptssa
+and ssqa.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional
 
-from ..core.config import not_ported
+from ..core.pt import PTSSAHyperParams
+from ..core.sa import SAHyperParams
 from ..core.ssa import SSAHyperParams
 from ..core.ssqa import SSQAHyperParams
 from .resilience import AdmissionError
 
 __all__ = ["AlgoFamily", "register_algo", "registered_algos", "family_for"]
-
-# Families of the JAX package that wait for their cores to be ported.
-_NOT_PORTED = ("sa", "ptssa")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +77,6 @@ def _family_for_type(hp) -> AlgoFamily:
 def family_for(hp, algo: Optional[str] = None) -> AlgoFamily:
     """The family of a request: its explicit ``algo``, which must agree with
     what the hp type implies, or the hp type's."""
-    if algo in _NOT_PORTED:
-        raise not_ported(f"algo={algo!r}", "sa_pt")
     tfam = _family_for_type(hp)
     if algo is None:
         return tfam
@@ -103,6 +99,13 @@ def _plateau_group_key(name):
     return key
 
 
+def _validate_ptssa(service, idx, req, hp):
+    if service.backend == "cuda":
+        raise AdmissionError(
+            "pt-ssa needs per-replica I0 columns; run the service with "
+            "backend='sparse' or 'dense' for PTSSAHyperParams requests")
+
+
 def _validate_ssqa(service, idx, req, hp):
     # The batched cuda SSQA path is the streamed-noise ring modes (K4 has
     # none): reject at admission instead of faulting mid-batch.
@@ -119,5 +122,10 @@ def _validate_ssqa(service, idx, req, hp):
 
 register_algo("ssa", SSAHyperParams, solver="_solve_ssa_group",
               group_key=_plateau_group_key("ssa"))
+register_algo("sa", SAHyperParams, solver="_solve_sa_group",
+              group_key=lambda req, hp, nb: ("sa", nb, hp), chunk_unit="n_cycles")
+register_algo("ptssa", PTSSAHyperParams, solver="_solve_ptssa_group",
+              group_key=lambda req, hp, nb: ("ptssa", nb, hp), validate=_validate_ptssa,
+              chunk_unit="n_rounds")
 register_algo("ssqa", SSQAHyperParams, solver="_solve_ssa_group",  # the SSA plateau path
               group_key=_plateau_group_key("ssqa"), validate=_validate_ssqa)

@@ -45,9 +45,11 @@ arguments of cached programs — is what continuous batching needs.
   real kernel build, launch or memory fault of the cuda backend raises out
   of ``pump()`` (:func:`~repro_torch.serve.resilience.classify_fault`).
 
+Problem encodings (:class:`~repro_torch.problems.ProblemEncoding`) are
+served as their Ising models, and a finished response carries the decoded
+``solution``, ``objective`` and ``feasible``, as the one-shot service's.
 ``partition='spin'`` raises NotImplementedError naming ROADMAP.md queue 1
-step 8, as the one-shot service does; ``ProblemEncoding`` inputs raise
-naming step 6.
+step 8, as the one-shot service does.
 """
 from __future__ import annotations
 
@@ -61,7 +63,6 @@ import numpy as np
 
 from ..checkpoint.ckpt import CheckpointManager, latest_step
 from ..core.autotune import autotune_hyperparams, resolve_hyperparams
-from ..core.config import not_ported
 from ..core.engine import (
     bucket_n,
     extract_slot,
@@ -71,9 +72,9 @@ from ..core.engine import (
     pad_degree,
     splice_slot,
 )
-from ..core.ising import IsingModel, MaxCutProblem
 from ..core.rng import xorshift_lanes_ok
 from ..core.ssa import AnnealResult, SSAHyperParams
+from ..problems import ProblemEncoding
 from .anneal_service import (
     AnnealProgress,
     AnnealRequest,
@@ -275,9 +276,6 @@ class StreamingAnnealService:
         if priority not in PRIORITIES:
             raise ValueError(f"unknown priority {priority!r}; use {PRIORITIES}")
         svc = self.service
-        if (not isinstance(request.problem, (MaxCutProblem, IsingModel))
-                and hasattr(request.problem, "model")):
-            raise not_ported("a ProblemEncoding input", "problems")
         try:
             maxcut, model = normalize_problem(request.problem)
         except TypeError as e:
@@ -457,17 +455,10 @@ class StreamingAnnealService:
 
     def _seat_queued(self):
         """Fill free slots (opening new tables) from the queue in rank
-        order.  Runs under the lock.
-
-        Idle tables whose key matches nothing queued are dropped before
-        seating as well as after: with ``max_tables`` reached, a queued
-        request of another key takes the freed table budget in the same
-        pump.  (The JAX package drops them only after seating, so there
-        ``run_until_idle()`` can return with that request still queued.)
-        """
+        order, then drop the idle tables that match nothing still queued.
+        Runs under the lock."""
         if not self._queue:
             return
-        self._drop_idle_tables()
         now = time.monotonic()
         self._queue.sort(key=lambda t: self._rank(t, now))
         leftover = []
@@ -799,6 +790,10 @@ class StreamingAnnealService:
             lane_wall_s=(now - ticket.t_seated if ticket.t_seated is not None else None),
             queued_s=(ticket.t_seated - ticket.submit_t
                       if ticket.t_seated is not None else None))
+        enc = ticket.request.problem
+        if isinstance(enc, ProblemEncoding):
+            sol, obj, feas = enc.best_feasible(result.best_m)
+            resp.solution, resp.objective, resp.feasible = sol, obj, feas
         if s.ckpt is not None and self.service.policy.cleanup_on_success:
             s.ckpt.purge()
         ticket.response = resp

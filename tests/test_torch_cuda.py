@@ -410,6 +410,100 @@ def test_anneal_popcount_matches_k1_on_card(cuda_device, layout):
 
 
 # ---------------------------------------------------------------------------
+# The problem families' inputs: h != 0 and multi-bit weights
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w_max,h_max", [
+    (600, 16, 1037),      # QUBO-like: 5-bit weights, |h| up to ~10^3
+    (2000, 16, 1037),     # ... at K2000 width
+    (2000, 5000, 0),      # partition-like: 13-bit weights on a dense J
+    (1001, 4095, 60000),  # 12-bit weights and a large h, ragged N
+])
+@pytest.mark.parametrize("eligible", [True, False])
+def test_plateau_kernel_large_h_and_multibit_weights(cuda_device, n, w_max, h_max, eligible):
+    """K1 where the families take it: the f32 J stays exact below 2^24."""
+    args = _plateau_args(1, 100 if n == 2000 else 13, n, seed=n + w_max, flat=False,
+                         device=cuda_device)
+    rs = np.random.default_rng(w_max)
+    J = np.triu(rs.integers(-w_max, w_max + 1, size=(n, n)), 1)
+    args["J"] = torch.as_tensor((J + J.T)[None], dtype=torch.float32, device=cuda_device)
+    args["h"] = torch.as_tensor(rs.integers(-h_max, h_max + 1, size=(1, n)),
+                                dtype=torch.int32, device=cuda_device)
+    assert int(args["h"].abs().max()) + int(args["J"].abs().sum(-1).max()) < 2**24
+    k1 = ssa_update.ssa_plateau_packed_batched
+    got = k1(**args, i0=32, n_cycles=7, eligible=eligible)
+    want = ssa_plateau_packed_ref(**args, i0=32, n_cycles=7, eligible=eligible)
+    for name, g, w in zip(OUTS, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,n,w_max,h_max,c", [
+    (1, 100, 2000, 3, 560, 600),   # MIS-like: nb = 2, one Table II iteration
+    (1, 13, 2100, 15, 17, 200),    # coloring-like: nb = 4, 2100 spins
+    (2, 13, 1001, 3, 300, 50),     # nb = 2, B = 2, ragged N
+    (1, 7, 4096, 15, 40, 20),      # nb = 4 at the coloring bucket's width
+])
+def test_popcount_kernel_multibit_with_bias(cuda_device, b, r, n, w_max, h_max, c):
+    """K2 where the families take it: 2 and 4 magnitude planes, h != 0."""
+    args = _popcount_args(b, r, n, w_max, c, "hassa", False, seed=n + c, device=cuda_device)
+    rs = np.random.default_rng(n)
+    args["h"] = torch.as_tensor(rs.integers(-h_max, h_max + 1, size=(b, n)),
+                                dtype=torch.int32, device=cuda_device)
+    assert args["mags"].shape[1] == w_max.bit_length()
+    want = ssa_plateau_popcount_ref(**args, n_rnd=2)
+    laid_out = ssa_update.popcount_planes(PackedJ(args["sign"], args["mags"], args["base"]))
+    got = ssa_update.ssa_plateau_popcount_batched(**dict(args, sign=laid_out.sign,
+                                                         mags=laid_out.mags), n_rnd=2)
+    _check_popcount_launch(b, r, n, args["mags"].shape[1], None)
+    for name, g, w in zip(OUTS, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,field_mode,kernel", [
+    ("qubo", "dense", "K1"), ("partition", "dense", "K1"),
+    ("mis", "popcount", "K2"), ("coloring", "popcount", "K2"),
+])
+def test_anneal_families_on_card_match_dense(cuda_device, kind, field_mode, kernel):
+    """Encoded problems through anneal() on K1 and K2 equal the dense
+    backend on the card, with one launch per plateau (K1) or chain (K2)."""
+    from repro_torch.problems import make_demo
+
+    enc = make_demo(kind, n=300, seed=1)
+    hp = SSAHyperParams(n_trials=9, m_shot=2, tau=10, i0_max=8)
+    k1, k2 = ssa_update.ssa_plateau_packed_batched, ssa_update.ssa_plateau_popcount_batched
+    before = (k1.launches, k2.launches)
+    got = anneal(enc, hp, seed=2, track_energy=False, device="cuda",
+                 config=SolverConfig(backend="cuda", noise="xorshift", field_mode=field_mode))
+    grown = (k1.launches - before[0], k2.launches - before[1])
+    assert grown == ((hp.m_shot * hp.steps, 0) if kernel == "K1" else (0, hp.m_shot))
+    want = anneal(enc, hp, seed=2, track_energy=False, device="cuda",
+                  config=SolverConfig(backend="dense", noise="xorshift"))
+    np.testing.assert_array_equal(got.best_energy, want.best_energy)
+    np.testing.assert_array_equal(got.best_m, want.best_m)
+
+
+@pytest.mark.cuda
+def test_sa_and_ptssa_on_card_launch_no_kernel_and_match_cpu(cuda_device):
+    from repro_torch.core.pt import PTSSAHyperParams, anneal_pt_ssa
+    from repro_torch.core.sa import SAHyperParams, anneal_sa
+
+    p = gset.complete_graph(300, seed=3)
+    counters = (ssa_update.ssa_plateau_packed_batched, ssa_update.ssa_plateau_batched,
+                ssa_update.ssa_plateau_popcount_batched, ssa_update.local_field)
+    before = [k.launches for k in counters]
+    for run in (lambda d: anneal_sa(p, SAHyperParams(n_trials=10, n_cycles=500), seed=1,
+                                    device=d),
+                lambda d: anneal_pt_ssa(p, PTSSAHyperParams(n_rounds=3, tau=20), seed=1,
+                                        backend="dense", device=d)):
+        got, want = run("cuda"), run("cpu")
+        np.testing.assert_array_equal(got.best_energy, want.best_energy)
+        np.testing.assert_array_equal(got.best_m, want.best_m)
+    assert [k.launches for k in counters] == before
+
+
+# ---------------------------------------------------------------------------
 # SSQA: the ring modes of K1 and K2 against their plain versions
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ not ported raise NotImplementedError naming their ROADMAP.md step.
 import dataclasses
 import functools
 import gc
+import sys
 import weakref
 
 import numpy as np
@@ -342,7 +343,10 @@ def test_per_request_config_noise_and_layout_must_match_service():
 
 
 def test_registry_families():
-    assert set(registered_algos()) == {"ssa", "ssqa"}
+    """The JAX package's four families (SA and PT-SSA since their port)."""
+    from repro.serve.registry import registered_algos as jax_algos
+
+    assert set(registered_algos()) == {"ssa", "sa", "ptssa", "ssqa"} == set(jax_algos())
     assert family_for(SSQAHyperParams(**SSQA)).name == "ssqa"
     assert family_for(SSAHyperParams(n_trials=4)).name == "ssa"
     assert family_for(SSQAHyperParams(**SSQA), algo="ssqa").name == "ssqa"
@@ -622,43 +626,57 @@ def test_fallback_step_chain():
 
 
 # ---------------------------------------------------------------------------
-# Inputs that are not ported
+# Inputs that are not ported, and inputs of the families that now are
 # ---------------------------------------------------------------------------
-class _Encoded:
-    """An encoded problem: a model with a decoder, as the problem frontend
-    hands them to the service."""
+class _NoModel:
+    """Neither a problem nor an encoding: nothing to anneal."""
 
-    def __init__(self, model):
-        self.model = model
-
-    def best_feasible(self, best_m):
-        return None, None, None
+    model = None
 
 
-@pytest.mark.parametrize("make,item", [
+# The SA and PT-SSA families and problem encodings are served since their
+# port (tests/test_torch_sa_pt.py, tests/test_torch_problems.py); what still
+# raises for them is what the JAX package rejects: an ``algo`` that
+# contradicts the hp type, and an input without an Ising model.
+@pytest.mark.parametrize("make,err,match", [
     (lambda: _svc("sparse").solve([AnnealRequest(
         problem=gset.toroidal_grid(16, seed=0), hp=SSAHyperParams(n_trials=2), algo="sa")]),
-     "step 5"),
-    (lambda: family_for(SSAHyperParams(), algo="ptssa"), "step 5"),
-    (lambda: _svc("sparse").solve([AnnealRequest(
-        problem=_Encoded(gset.toroidal_grid(16, seed=0).to_ising()), hp=SSAHyperParams())]),
-     "step 6"),
-    (lambda: _svc("sparse", partition="spin"), "step 8"),
-    (lambda: _svc("sparse", partition="auto"), "step 8"),
-    (lambda: _svc("auto"), "step 3"),
+     AdmissionError, "algo='sa' does not match"),
+    (lambda: family_for(SSAHyperParams(), algo="ptssa"), AdmissionError,
+     "algo='ptssa' does not match"),
+    (lambda: _svc("sparse").solve([AnnealRequest(problem=_NoModel(), hp=SSAHyperParams())]),
+     AdmissionError, "cannot interpret"),
+    (lambda: _svc("sparse", partition="spin"), NotImplementedError, "ROADMAP.md queue 1 step 8"),
+    (lambda: _svc("sparse", partition="auto"), NotImplementedError, "ROADMAP.md queue 1 step 8"),
+    (lambda: _svc("auto"), NotImplementedError, "ROADMAP.md queue 1 step 3"),
 ], ids=["algo-sa", "algo-ptssa", "problem-encoding", "partition-spin", "partition-auto",
         "backend-auto"])
-def test_not_ported_inputs_raise(make, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
+def test_not_ported_inputs_raise(make, err, match):
+    with pytest.raises(err, match=match):
         make()
 
 
-@pytest.mark.parametrize("flag,item", [(["--problem-kind", "qubo"], "step 6")])
-def test_launcher_not_ported_flags_raise(flag, item):
+@pytest.mark.parametrize("flag,item", [(["--problem-kind", "qubo"], "qubo")])
+def test_launcher_not_ported_flags_raise(flag, item, capsys):
+    """--problem-kind runs since the problem frontend's port: it prints one
+    line per demo instance with its decoded objective, and the same lines
+    as the JAX launcher (wall times aside)."""
+    from repro.launch import anneal as jlaunch
     from repro_torch.launch import anneal as launch
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        launch.main(["--device", "cpu", *flag])
+    args = [*flag, "--count", "2", "--trials", "4", "--m-shot", "2", "--tau", "10"]
+    launch.main(["--device", "cpu", *args])
+    got = capsys.readouterr().out.splitlines()
+    sys_argv = sys.argv
+    sys.argv = ["anneal", *args]
+    try:
+        jlaunch.main()
+    finally:
+        sys.argv = sys_argv
+    want = capsys.readouterr().out.splitlines()
+    assert len(got) == 3 and got[:2] == want[-3:-1]
+    assert all("objective=" in line and "feasible=True" in line for line in got[:2])
+    assert got[2].startswith(f"2 × {item} in ")
 
 
 def test_launcher_service_mode(capsys):

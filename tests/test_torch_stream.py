@@ -321,23 +321,33 @@ def test_stream_policy_validation():
 
 
 def test_mixed_buckets_open_tables_and_drop_idle_ones():
-    """Two buckets open two tables; max_tables=1 makes the second bucket
-    wait until the first table idles and is dropped, and run_until_idle()
-    still serves it (the JAX package's stream returns with it queued)."""
-    reqs = [AnnealRequest(problem=gset.toroidal_grid(36, seed=1), hp=SSAHyperParams(**HP),
-                          seed=1),
-            AnnealRequest(problem=gset.toroidal_grid(100, seed=2), hp=SSAHyperParams(**HP),
-                          seed=2)]
-    svc = _svc("cuda")
-    base = [svc.solve([r])[0] for r in reqs]
-    for max_tables, created in ((4, 2), (1, 2)):
-        ss = _stream("cuda", max_tables=max_tables)
-        tickets = [ss.submit(r) for r in reqs]
-        ss.run_until_idle()
-        for t, b in zip(tickets, base):
-            _assert_lane_identical(t.result(timeout=0), b)
-        st = ss.stream_stats()
-        assert st["stream_tables_created"] == created and st["tables"] <= max_tables
+    """Two buckets open two tables.  With max_tables=1 the second bucket's
+    request waits: idle tables are dropped only after seating, so the
+    first run_until_idle() returns with it still queued, and a second one
+    serves it.  Both packages give the same responses, events and
+    counters, and each response equals its one-shot solve."""
+    base = [_svc("cuda").solve([r])[0] for r in (
+        AnnealRequest(problem=gset.toroidal_grid(36, seed=1), hp=SSAHyperParams(**HP), seed=1),
+        AnnealRequest(problem=gset.toroidal_grid(100, seed=2), hp=SSAHyperParams(**HP),
+                      seed=2))]
+    for max_tables, created, queued in ((4, 2, 0), (1, 2, 1)):
+        out = []
+        for pkg in PKGS:
+            reqs = [pkg.Req(problem=pkg.g.toroidal_grid(n, seed=s), hp=pkg.Hp(**HP), seed=s)
+                    for n, s in ((36, 1), (100, 2))]
+            ss = pkg.stream("cuda", max_tables=max_tables)
+            tickets = [ss.submit(r) for r in reqs]
+            ss.run_until_idle()
+            first = ss.stream_stats()
+            assert first["queued"] == queued and first["tables"] <= max_tables
+            ss.run_until_idle()
+            out.append(([t.result(timeout=0) for t in tickets], first, ss.stream_stats()))
+        (got, first, st), (want, jfirst, jst) = out
+        for r, w, b in zip(got, want, base):
+            _assert_as_jax(r, w)
+            _assert_lane_identical(r, b)
+        assert first == jfirst and st == jst
+        assert st["stream_tables_created"] == created and st["queued"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -679,13 +689,16 @@ def test_concurrent_submitters_with_background_loop():
 
 
 def test_non_ssa_requests_rejected(monkeypatch):
-    """SA and PT-SSA requests raise naming their ROADMAP.md step, as on the
-    one-shot path; a registered family that does not run the plateau
-    program is rejected at the front door."""
+    """SA and PT-SSA requests, and any registered family that does not run
+    the plateau program, are rejected at the front door, as in the JAX
+    package: they are served by AnnealService.solve."""
+    from repro_torch.core.pt import PTSSAHyperParams
+    from repro_torch.core.sa import SAHyperParams
+
     ss = _stream("sparse")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 step 5"):
-        ss.submit(AnnealRequest(problem=gset.toroidal_grid(36, seed=0),
-                                hp=SSAHyperParams(n_trials=2), algo="sa"))
+    for hp in (SAHyperParams(n_trials=2, n_cycles=8), PTSSAHyperParams(n_replicas=2)):
+        with pytest.raises(AdmissionError, match="plateau-family"):
+            ss.submit(AnnealRequest(problem=gset.toroidal_grid(36, seed=0), hp=hp))
 
     @dataclasses.dataclass(frozen=True)
     class OtherHP(SSAHyperParams):
@@ -699,14 +712,17 @@ def test_non_ssa_requests_rejected(monkeypatch):
 
 
 def test_not_ported_stream_inputs_raise():
+    """partition='spin' waits for spin sharding; an object that is neither a
+    problem nor carries a model is rejected at admission (problem
+    encodings are served: tests/test_torch_problems.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 step 8"):
         StreamingAnnealService(backend="sparse", partition="spin", device="cpu")
 
-    class Encoded:
-        model = gset.toroidal_grid(16, seed=0).to_ising()
+    class NoModel:
+        model = None
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 step 6"):
-        _stream("sparse").submit(AnnealRequest(problem=Encoded(), hp=SSAHyperParams()))
+    with pytest.raises(AdmissionError):
+        _stream("sparse").submit(AnnealRequest(problem=NoModel(), hp=SSAHyperParams()))
     with pytest.raises(AdmissionError):
         _stream("sparse").submit(AnnealRequest(problem="G11", hp=SSAHyperParams()))
 
