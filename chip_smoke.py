@@ -5,8 +5,9 @@ the card, drives ``repro_torch.core.ssa.anneal`` and
 ``repro_torch.serve.AnnealService.solve`` at B > 1 and
 ``repro_torch.serve.StreamingAnnealService`` (with chunk checkpoints)
 through the kernels, the problem families (QUBO, MIS, coloring, partition)
-through K1 and K2, and the SA, PT and PT-SSA baselines, and prints what it
-measured.
+through K1 and K2, the SA, PT and PT-SSA baselines, and spin sharding over
+``torch.distributed`` ranks (the plain loops: no kernel on that path), and
+prints what it measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
@@ -144,8 +145,9 @@ Phases (any failure raises and exits non-zero):
      runs K2 at bucket 4096) and one stream of them — every response's
      solution, objective and feasibility equal to phase 27's run;
  29. SA: anneal_sa on the K2000 twin, 100 trials — the card equal to the
-     CPU at 2,000 cycles; Table II's 90,000 cycles on the card (no kernel;
-     wall and the host key chain timed); ``[convergence]``: cycles and wall
+     CPU at 2,000 cycles; 20,000 cycles on the card (cut from Table II's
+     90,000; no kernel; wall and the host key chain timed);
+     ``[convergence]``: cycles and wall
      for HA-SSA to reach SA's final cut and for SA to reach HA-SSA's
      6000-cycle cut (measured, not gated);
  30. PT (cut 90,000 → 20,000 cycles) and PT-SSA on the dense backend (cut
@@ -154,9 +156,26 @@ Phases (any failure raises and exits non-zero):
      and an SA group on the cuda backend — no kernel launched (K1–K4
      counters unchanged), equal to the CPU solve — and a PT-SSA request
      rejected at admission by the cuda service;
- 31. the card line again, the kernels line (each kernel's service launches
+ 31. spin sharding (``partition='spin'``) on a one-rank NCCL mesh:
+     anneal(K2000, 100 trials, tau=100, I0 1→32, m_shot 1) with the
+     popcount field in the packed layout equal to the K2 run, and with the
+     tiled float32 field in the dense layout equal to the production K1
+     run, neither launching K1–K4; wall, ms per cycle, collectives per
+     cycle and peak device bytes printed;
+ 32. the spin service: a 40,000-spin toroidal instance (bucket 65,536)
+     rejected by the problem-partitioned service and answered 'ok' by the
+     spin service, equal to the batched dense backend (tiled J) at the same
+     bucket; killed at chunk 2 and resumed, bit-identical; one K2000
+     request through the stream under spin equal to its one-shot spin
+     solve (and to phase 31's K2 run); wall, J's row-shard bytes and peak
+     device bytes printed;
+ 33. two gloo ranks sharing the card (subprocesses) rerun phase 31's
+     popcount run, shards of 1000 spins (not whole words), equal to it;
+     the busiest rank's resident bytes at bucket 4096 for P = 1 and 2,
+     measured, not asserted (the ranks share the SMs: no speed is read);
+ 34. the card line again, the kernels line (each kernel's service launches
      in ``service_launches``, its stream launches in ``stream_launches``,
-     its launches per family of phase 27 in ``family_launches``); 32. the
+     its launches per family of phase 27 in ``family_launches``); 35. the
      contract line (last).
 """
 from __future__ import annotations
@@ -1894,10 +1913,10 @@ def phase_stream_traffic():
 # planes) the popcount chain (K2).
 FAMILIES = (("qubo", 2000, "dense"), ("partition", 2000, "dense"),
             ("mis", 2000, "popcount"), ("coloring", 2100, "popcount"))
-# SA at Table II's 90,000 cycles on the card; its CPU bit-identity check and
-# the service groups run a cut of it.  PT and PT-SSA are cut to fit the
-# run's time: PT 90,000 → 20,000 cycles, PT-SSA 60 → 5 rounds of 100.
-SA_CYCLES, SA_CHECK_CYCLES = 90_000, 2_000
+# SA, PT and PT-SSA are cut to fit the run's time: SA and PT from Table II's
+# 90,000 to 20,000 cycles, PT-SSA 60 → 5 rounds of 100.  The CPU bit-identity
+# check of SA and the service groups run 2,000 cycles.
+SA_CYCLES, SA_CHECK_CYCLES = 20_000, 2_000
 PT_CYCLES, PTSSA_ROUNDS = 20_000, 5
 
 
@@ -2013,10 +2032,10 @@ def phase_families_service(fam):
 
 def phase_sa(production_wall):
     """Phase 29: anneal_sa on the K2000 twin with 100 trials — on the card
-    equal to the port's CPU run at SA_CHECK_CYCLES; at Table II's 90,000
-    cycles on the card (no kernel launched; the host key chain timed); and
-    the paper's convergence comparison against HA-SSA, measured, not
-    gated."""
+    equal to the port's CPU run at SA_CHECK_CYCLES; at SA_CYCLES cycles
+    (cut from Table II's 90,000) on the card (no kernel launched; the host
+    key chain timed); and the paper's convergence comparison against
+    HA-SSA, measured, not gated."""
     import numpy as np
 
     from repro_torch.core import gset
@@ -2142,7 +2161,266 @@ def phase_pt():
         _fail("service: a PT-SSA request on backend='cuda' was not rejected")
 
 
+# ---------------------------------------------------------------------------
+# Phases 31-33: spin sharding (partition='spin'), no kernel on its path
+# ---------------------------------------------------------------------------
+# Table II's widths at K2000 with m_shot cut to 1 (600 cycles); the 40,000-spin
+# row of the JAX repo's benchmarks/scale.py.
+SPIN_HP = dict(n_trials=100, m_shot=1, tau=100, i0_min=1, i0_max=32)
+BIG_N, BIG_HP = 40_000, dict(n_trials=2, m_shot=4, tau=4, i0_min=1, i0_max=4)
+
+
+def _spin_cfg(mesh, field, layout, spin=True):
+    from repro_torch.core.config import SolverConfig
+
+    kw = dict(partition="spin", mesh=mesh) if spin else {}
+    return SolverConfig(backend="cuda", noise="xorshift", field_mode=field,
+                        storage_layout=layout, **kw)
+
+
+def _spin_anneal(p, hp, cfg, what):
+    """One spin-sharded anneal() on the card: (result, wall s, collectives,
+    peak device bytes), K1–K4 never launched."""
+    from repro_torch import sharding
+    from repro_torch.core.ssa import anneal
+
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    sharding.reset_collective_counts()
+    t0 = time.time()
+    r = anneal(p, hp, seed=0, track_energy=False, config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    _counters_zero(what, _counts())
+    return r, wall, dict(sharding.collective_counts), torch.cuda.max_memory_allocated() - live
+
+
+def _same_result(what, got, want):
+    import numpy as np
+
+    if not (np.array_equal(got.best_energy, want.best_energy)
+            and np.array_equal(got.best_m, want.best_m)):
+        _fail(f"{what}: differs from its reference run")
+
+
+def phase_spin_anneal(mesh):
+    """Phase 31: K2000 at Table II's widths (m_shot 1) spin-sharded over a
+    one-rank NCCL mesh, popcount (packed) against K2 and tiled (dense)
+    against K1; returns the popcount run's result."""
+    from repro_torch.core import gset
+    from repro_torch.core.ssa import SSAHyperParams, anneal
+
+    p = gset.load("K2000")
+    hp = SSAHyperParams(**SPIN_HP)
+    cycles = hp.total_cycles
+    anneal(p, dataclasses.replace(hp, tau=2), seed=0, track_energy=False, device="cuda",
+           config=_spin_cfg(mesh, "popcount", "packed"))  # warm-up: the communicator
+    out = {}
+    for field, layout, kernel, want in (("popcount", "packed", "K2", (0, 0, 0, 1, 0, 0)),
+                                        ("dense", "dense", "K1", (hp.steps, 0, 0, 0, 0, 0))):
+        _reset_counts()
+        ref = anneal(p, hp, seed=0, track_energy=False, device="cuda",
+                     config=_spin_cfg(mesh, field if field == "popcount" else "auto",
+                                      "packed", spin=False))
+        _expect(f"spin reference {kernel}", _counts(), want)
+        r, wall, coll, peak = _spin_anneal(p, hp, _spin_cfg(mesh, field, layout),
+                                           f"spin anneal {field}")
+        _same_result(f"spin anneal {field} vs {kernel}", r, ref)
+        style = "popcount" if field == "popcount" else "tiled"
+        print(f"[spin anneal] K2000 {style} field, {layout} layout, P=1 ({mesh.backend}): "
+              f"== the {kernel} run (best_H, best_m); best cut {r.overall_best_cut}; wall "
+              f"{wall:.3f}s, {wall / cycles * 1e3:.3f} ms per cycle, collectives per cycle "
+              f"{sum(coll.values()) / cycles:.3f} ({coll}), peak device memory {peak} B; "
+              f"no K1-K4 launch")
+        out[field] = r
+    return out["popcount"]
+
+
+def phase_spin_service(mesh, k2_run):
+    """Phase 32: the 40,000-spin instance through the problem-partitioned
+    service (rejected) and the spin service (tiled J, equal to the batched
+    dense backend driven directly); a kill at chunk 2 and a resume; one
+    K2000 request through the stream under spin."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.engine import make_batched_backend, schedule_plateaus
+    from repro_torch.core.memory import tree_device_bytes
+    from repro_torch.core.ssa import SSAHyperParams
+    from repro_torch.ft.faults import FaultInjector, InjectedKill
+    from repro_torch.serve import (AdmissionError, AnnealRequest, AnnealService,
+                                   ResiliencePolicy, StreamingAnnealService)
+
+    big = gset.toroidal_grid(BIG_N, seed=5, name="bigN")
+    hp = SSAHyperParams(**BIG_HP)
+    req = AnnealRequest(problem=big, hp=hp, seed=1)
+    try:
+        AnnealService(backend="dense", noise="xorshift").solve([req])
+    except AdmissionError as e:
+        print(f"[spin service] problem-partitioned service rejects N={big.n}: {e}")
+    else:
+        _fail("spin service: the problem-partitioned service admitted a 40,000-spin instance")
+
+    def spin_service(**kw):
+        return AnnealService(backend="dense", noise="xorshift", partition="spin", mesh=mesh,
+                             backend_opts={"field_mode": "dense"}, **kw)
+
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.time()
+    (resp,) = spin_service().solve([req])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - live
+    _counters_zero("spin service", _counts())
+    if resp.status != "ok" or resp.events:
+        _fail(f"spin service: {resp.status!r}, events {resp.events}")
+    model = big.to_ising()
+    nb = resp.bucket
+    ref_bk = make_batched_backend("dense", n_bucket=nb, n_trials=hp.n_trials, noise="xorshift",
+                                  j_mode="tiled", device="cuda")
+    prob = ref_bk.stack([model])
+    st = ref_bk.init_state(prob, ref_bk.init_noise([1], [model.n]))
+    st = ref_bk.run_shots(prob, st, schedule_plateaus(hp.schedule("hassa"), "i0max"), hp.m_shot)
+    bh, bm = (t.cpu().numpy() for t in ref_bk.finalize(st))
+    if not (np.array_equal(resp.result.best_energy, bh[0])
+            and np.array_equal(resp.result.best_m, bm[0, :, :model.n])):
+        _fail("spin service: differs from the batched dense backend (tiled J)")
+    shard = make_batched_backend("dense", n_bucket=nb, n_trials=hp.n_trials, noise="xorshift",
+                                 partition="spin", mesh=mesh, field_mode="dense")
+    shard_bytes = tree_device_bytes(shard.stack([model]))
+    print(f"[spin service] N={big.n} bucket {nb}, {hp.n_trials} trials, m_shot {hp.m_shot}, "
+          f"tau {hp.tau}: 'ok', == the batched dense backend (tiled J); best cut "
+          f"{resp.result.overall_best_cut}; wall {wall:.3f}s, J's row shard (adjacency rows "
+          f"and h) {shard_bytes} B, peak device memory {peak} B")
+    with tempfile.TemporaryDirectory() as tmp:
+        pol = ResiliencePolicy(checkpoint_dir=tmp)
+        inj = FaultInjector()
+        inj.arm("kill", chunk=2)
+        try:
+            spin_service(resilience=pol, faults=inj).solve([req])
+        except InjectedKill:
+            pass
+        else:
+            _fail("spin service: the kill at chunk 2 did not fire")
+        t0 = time.time()
+        (res,) = spin_service(resilience=pol).solve([req])
+        torch.cuda.synchronize()
+        t_res = time.time() - t0
+    if [e.kind for e in res.events] != ["resume"]:
+        _fail(f"spin service: resume events {res.events}")
+    _same_result("spin service kill/resume", res.result, resp.result)
+    print(f"[spin service] killed at chunk 2 and resumed: bit-identical ({t_res:.3f}s)")
+
+    p = gset.load("K2000")
+    k_req = AnnealRequest(problem=p, hp=SSAHyperParams(**SPIN_HP), seed=0)
+    svc = AnnealService(backend="cuda", noise="xorshift", partition="spin", mesh=mesh,
+                        storage_layout="packed", backend_opts={"field_mode": "auto"})
+    _reset_counts()
+    (one,) = svc.solve([k_req])
+    ss = StreamingAnnealService(service=svc)
+    t = ss.submit(k_req)
+    t0 = time.time()
+    ss.run_until_idle()
+    torch.cuda.synchronize()
+    s_wall = time.time() - t0
+    _counters_zero("spin stream", _counts())
+    got = t.result(timeout=0)
+    _same_result("spin stream vs one-shot spin solve", got.result, one.result)
+    _same_result("spin one-shot solve vs the K2 run", one.result, k2_run)
+    print(f"[spin stream] K2000 under spin (popcount, packed): == its one-shot spin solve "
+          f"== phase 31's K2 run; stream wall {s_wall:.3f}s, quanta "
+          f"{ss.stats['stream_quanta']}; no K1-K4 launch")
+
+
+def _spin_worker(rank: int, world: int, store: str, ref_path: str):
+    """Phase 33's ranks: gloo over a file rendezvous, sharing the card."""
+    import numpy as np
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import gset
+    from repro_torch.core.engine import make_batched_backend
+    from repro_torch.core.memory import max_device_bytes
+    from repro_torch.core.ssa import SSAHyperParams, anneal
+    from repro_torch.sharding import spin_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    mesh = spin_mesh(device="cuda")
+    p = gset.load("K2000")
+    hp = SSAHyperParams(**SPIN_HP)
+    ref = np.load(ref_path)
+    t0 = time.time()
+    r = anneal(p, hp, seed=0, track_energy=False, device="cuda",
+               config=_spin_cfg(mesh, "popcount", "packed"))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if not (np.array_equal(r.best_energy, ref["bh"]) and np.array_equal(r.best_m, ref["bm"])):
+        raise SystemExit(f"rank {rank}: the P={world} run differs from phase 31's")
+    bk = make_batched_backend("dense", n_bucket=4096, n_trials=hp.n_trials, noise="xorshift",
+                              partition="spin", mesh=mesh)
+    prob = bk.stack([p.to_ising()])
+    st = bk.init_state(prob, bk.init_noise([0], [p.n]))
+    busiest = max_device_bytes((prob, st), mesh)
+    if rank == 0:
+        print(f"SPIN_P{world} shard {-(-p.n // world)} spins, wall {wall:.3f}s, "
+              f"busiest {busiest}", flush=True)
+    dist.destroy_process_group()
+
+
+def phase_spin_p2(mesh, k2_run):
+    """Phase 33: two gloo ranks sharing the card rerun phase 31's popcount
+    run; the busiest rank's bytes at bucket 4096 for P = 1 (this process)
+    and P = 2, measured, not asserted."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.engine import make_batched_backend
+    from repro_torch.core.memory import max_device_bytes
+
+    p = gset.load("K2000")
+    bk = make_batched_backend("dense", n_bucket=4096, n_trials=SPIN_HP["n_trials"],
+                              noise="xorshift", partition="spin", mesh=mesh)
+    prob = bk.stack([p.to_ising()])
+    st = bk.init_state(prob, bk.init_noise([0], [p.n]))
+    busiest1 = max_device_bytes((prob, st), mesh)
+    del bk, prob, st
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = str(Path(tmp) / "ref.npz")
+        np.savez(ref, bh=k2_run.best_energy, bm=k2_run.best_m)
+        store = str(Path(tmp) / "store")
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--spin-rank",
+                                   str(r), "2", store, ref], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            outs = [pr.communicate(timeout=300) for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        wall = time.time() - t0
+    for r, (pr, (_, err)) in enumerate(zip(procs, outs)):
+        if pr.returncode:
+            _fail(f"spin P=2: rank {r} exited {pr.returncode}: {err[-1500:]}")
+    line = next(ln for ln in outs[0][0].splitlines() if ln.startswith("SPIN_P2"))
+    print(f"[spin P=2] two gloo ranks sharing the card (shards not whole words): == phase "
+          f"31's popcount run; {line[len('SPIN_P2 '):]} B at bucket 4096 (P=1: {busiest1} B); "
+          f"processes {wall:.3f}s; the ranks share the SMs, so no speed is read")
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--spin-rank":
+        return _spin_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -2183,6 +2461,13 @@ def main():
     k1_fam_service, k2_fam_service, k1_fam_stream, k2_fam_stream = phase_families_service(fam)
     phase_sa(streamed_wall)
     phase_pt()
+    from repro_torch.sharding import spin_mesh
+
+    mesh = spin_mesh(1)  # one-rank NCCL group
+    k2_run = phase_spin_anneal(mesh)
+    phase_spin_service(mesh, k2_run)
+    phase_spin_p2(mesh, k2_run)
+    torch.distributed.destroy_process_group()
     k1_fam = {k: fam[k][2] for k, _, field in FAMILIES if field == "dense"}
     k2_fam = {k: fam[k][2] for k, _, field in FAMILIES if field == "popcount"}
     kernels = [

@@ -1,10 +1,9 @@
 """Typed solver configuration (port of ``repro.core.config``).
 
 :class:`SolverConfig` holds the execution options of the plateau engine in
-one frozen, validated object.  This port honours the options of the
-single-problem annealer on one GPU; every option that the JAX package has
-but this port does not yet run raises :class:`NotImplementedError` naming
-the ROADMAP.md item it waits for — on the CPU as on the card, with no
+one frozen, validated object.  Every option that the JAX package has but
+this port does not yet run raises :class:`NotImplementedError` naming the
+ROADMAP.md item it waits for — on the CPU as on the card, with no
 substitute path.
 """
 from __future__ import annotations
@@ -20,8 +19,7 @@ _LAYOUTS = ("dense", "packed")
 
 # What each option outside the ported slice waits for, by ROADMAP.md item.
 _WAITS = {
-    "j_opts": "ROADMAP.md queue 1 step 2 (DenseBackend's j_dtype and double_buffer)",
-    "spin": "ROADMAP.md queue 1 step 8 (spin sharding across GPUs)",
+    "j_opts": "ROADMAP.md queue 1 step 2 (DenseBackend's j_dtype)",
     "auto_backend": "ROADMAP.md queue 1 step 3 (MIN_RESIDENT_N re-derived on "
                     "the H100 before backend='auto' can choose)",
 }
@@ -53,9 +51,16 @@ class SolverConfig:
       'streamed' makes xorshift noise inside the plateau kernel, 'pregen'
       draws a (C, T, N) noise buffer per plateau for the pregenerated-noise
       kernel; 'auto' streams xorshift and pregenerates threefry.
-    * ``partition`` — 'problem'.
+    * ``partition`` — 'problem' | 'spin' | 'auto': 'spin' shards the spin
+      axis of each problem over the ranks of ``mesh``
+      (:mod:`repro_torch.core.distributed`); 'auto' does so on a mesh of
+      several ranks from ``engine.SPIN_SHARD_MIN_N`` spins.
+    * ``mesh`` — a :class:`repro_torch.sharding.SpinMesh` or None (left out
+      of equality; its :func:`~repro_torch.sharding.mesh_fingerprint` enters
+      the signature).
     * ``backend_opts`` — residual per-backend options as a key-sorted
-      tuple of (key, value) pairs.
+      tuple of (key, value) pairs; a 'partition' or 'mesh' entry there is
+      moved into the typed field, as in the JAX package.
     """
 
     backend: str = "sparse"
@@ -65,10 +70,18 @@ class SolverConfig:
     noise: str = "xorshift"
     noise_mode: str = "auto"
     partition: str = "problem"
+    mesh: Optional[Any] = dataclasses.field(default=None, compare=False)
     backend_opts: Tuple[Tuple[str, Any], ...] = ()
 
     def __post_init__(self):
         opts = dict(self.backend_opts) if self.backend_opts else {}
+        for key, default in (("partition", "problem"), ("mesh", None)):
+            if key in opts:
+                val = opts.pop(key)
+                cur = getattr(self, key)
+                if cur != default and cur != val:
+                    raise ValueError(f"backend_opts[{key!r}] conflicts with {key}={cur!r}")
+                object.__setattr__(self, key, val)
         object.__setattr__(
             self, "backend_opts", tuple(sorted(opts.items(), key=lambda kv: kv[0]))
         )
@@ -89,8 +102,7 @@ class SolverConfig:
                 "noise_mode='streamed' requires the xorshift noise family "
                 "(threefry cannot be generated in-kernel)"
             )
-        _check_choice("partition", self.partition, ("problem",),
-                      {"spin": "spin", "auto": "spin"})
+        _check_choice("partition", self.partition, ("problem", "spin", "auto"))
 
     def opts_dict(self) -> Dict[str, Any]:
         """backend_opts as a live dict (values as passed at construction)."""
@@ -115,9 +127,9 @@ class SolverConfig:
 
     def signature(self) -> str:
         """Stable 16-hex digest over every behaviour-affecting field: the
-        JAX package's payload, with the mesh fingerprint always empty (no
-        mesh until spin sharding is ported), so equal options give the JAX
-        package's digest.  The service's program-cache keys consume it."""
+        JAX package's payload, the mesh by its fingerprint, so equal options
+        on a mesh of equal size give the JAX package's digest.  The
+        service's program-cache keys consume it."""
         payload = (
             "SolverConfig/v1",
             self.backend,
@@ -127,7 +139,7 @@ class SolverConfig:
             self.noise,
             self.noise_mode,
             self.partition,
-            (),
+            _mesh_fp(self.mesh),
             tuple((k, repr(v)) for k, v in self.backend_opts),
         )
         return hashlib.sha256(repr(payload).encode()).hexdigest()[:16]
@@ -136,8 +148,14 @@ class SolverConfig:
         return dataclasses.replace(self, **kw)
 
 
-def _check_choice(name: str, value, allowed, waiting: Optional[dict] = None):
-    if waiting and value in waiting:
-        raise not_ported(f"{name}={value!r}", waiting[value])
+def _mesh_fp(mesh) -> tuple:
+    if mesh is None:
+        return ()
+    from ..sharding import mesh_fingerprint  # torch.distributed, only with a mesh
+
+    return mesh_fingerprint(mesh)
+
+
+def _check_choice(name: str, value, allowed):
     if value not in allowed:
         raise ValueError(f"{name} {value!r} not in {allowed}")

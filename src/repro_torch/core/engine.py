@@ -51,6 +51,11 @@ live xorshift lanes padding-invariant, and the batched backends
 :class:`BatchedCudaBackend` with one kernel launch per plateau or chain
 for all B.
 
+Spin sharding: ``partition='spin'`` (or 'auto' on a mesh of several ranks,
+:func:`resolve_partition`) routes :func:`make_backend` and
+:func:`make_batched_backend` to :mod:`repro_torch.core.distributed`, which
+splits one problem's spins over the ranks of a ``torch.distributed`` group.
+
 Tensors live on the backend's ``device``: ``cuda`` unless the caller passes
 ``device="cpu"``.
 """
@@ -73,6 +78,7 @@ from ..kernels.bitplane import (
     unpack_spins,
 )
 from ..kernels.ref import replica_coupling
+from ..sharding import mesh_axis_size as spin_axis_size  # the JAX package's name here
 from .config import SolverConfig, not_ported
 from .ising import (
     IsingModel,
@@ -88,6 +94,7 @@ from .rng import (
     threefry_noise_cycles,
     threefry_split,
     xorshift_init,
+    xorshift_init_slice,
     xorshift_next_bits,
     xorshift_noise_cycles,
 )
@@ -99,6 +106,7 @@ __all__ = [
     "POPCOUNT_TILE_N",
     "MAX_MODEL_SPINS",
     "MAX_UNSHARDED_SPINS",
+    "SPIN_SHARD_MIN_N",
     "POPCOUNT_AUTO_MAX_BITS",
     "BaseResult",
     "EngineState",
@@ -116,6 +124,8 @@ __all__ = [
     "resolve_field_mode",
     "resolve_j_mode",
     "resolve_noise_mode",
+    "resolve_partition",
+    "spin_axis_size",
     "model_weight_bits",
     "plateau_cycle_schedules",
     "replica_coupling",
@@ -136,6 +146,7 @@ __all__ = [
     "pad_model",
     "pad_degree",
     "padded_noise_init",
+    "padded_noise_init_slice",
     "extract_slot",
     "splice_slot",
     "BatchedBackend",
@@ -165,9 +176,14 @@ POPCOUNT_AUTO_MAX_BITS = 4
 MAX_MODEL_SPINS = 1 << 22
 
 # The service admits no instance above this many spins on one device: a
-# single (N, N)-coupled instance there belongs to spin sharding (ROADMAP.md
-# queue 1 step 8), as in the JAX package.
+# single (N, N)-coupled instance there belongs to spin sharding
+# (partition='spin'), as in the JAX package.
 MAX_UNSHARDED_SPINS = 1 << 15
+
+# partition='auto' shards the spin axis over a mesh of several ranks only
+# at or above this many spins: below it the per-cycle all-gather outweighs
+# the O(N·Ns) shard contraction it buys.
+SPIN_SHARD_MIN_N = 2048
 
 
 def resolve_device(device=None) -> torch.device:
@@ -430,6 +446,7 @@ def run_plateau_scan(
     emit: bool = False,
     jperp: int = 0,
     n_replicas: int = 0,
+    energy_fn: Optional[Callable] = None,
 ):
     """One constant-I0 plateau as a loop over cycles — one contraction each.
 
@@ -442,6 +459,10 @@ def run_plateau_scan(
     ``jperp · replica_coupling(m, n_replicas)``; the best fold and the
     traces keep the base field.
 
+    ``energy_fn(m, field, h)`` replaces :func:`energy_from_field`: the
+    spin-sharded backends sum the per-shard partial energies over the ranks
+    before the floor division.
+
     Returns (state', trace, planes): trace is (mean_H (C,) f32, min_H (C,)
     int32) aligned to the produced states m(t0+1..t0+C) when
     ``track_energy``; planes is the (C, T, ceil(N/32)) packed trajectory
@@ -453,11 +474,12 @@ def run_plateau_scan(
     jperp = int(jperp)
     need_H = bool(eligible) or bool(track_energy)
     couple = bool(jperp) and int(n_replicas) > 0
+    energy_fn = energy_from_field if energy_fn is None else energy_fn
     ns, m, itanh, best_H, best_m = state
     means, mins, planes = [], [], []
 
     def fold(m, field, best_H, best_m):
-        H = energy_from_field(m, field, h)
+        H = energy_fn(m, field, h)
         if eligible:
             better = H < best_H
             best_H = torch.where(better, H, best_H)
@@ -645,6 +667,25 @@ def resolve_noise_mode(noise_mode: str, noise: str) -> str:
     return noise_mode
 
 
+def resolve_partition(partition: str, n: int, mesh=None) -> str:
+    """The work-partitioning axis of an N-spin plateau program.
+
+    'problem' stacks whole problems on each device; 'spin' shards the spin
+    axis of each problem over the ranks of ``mesh``
+    (:mod:`repro_torch.core.distributed`).  'auto' picks 'spin' only on a
+    mesh of several ranks, at or above SPIN_SHARD_MIN_N spins, and when the
+    ranks divide N — otherwise the problem-partitioned path is both simpler
+    and faster."""
+    if partition not in ("problem", "spin", "auto"):
+        raise ValueError(f"unknown partition {partition!r}")
+    if partition != "auto":
+        return partition
+    p = spin_axis_size(mesh)
+    if p > 1 and int(n) >= SPIN_SHARD_MIN_N and int(n) % p == 0:
+        return "spin"
+    return "problem"
+
+
 def exact_float32_matmul() -> None:
     """Turn TF32 off for CUDA float32 matmuls, so the dense field
     ``h + m @ J`` is exact: TF32 keeps 10 mantissa bits, and fields above
@@ -660,13 +701,11 @@ def exact_float32_matmul() -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _check_j_opts(j_dtype, double_buffer):
-    """The JAX dense backends' ``j_dtype`` and ``double_buffer`` are not
-    ported: anything but their defaults raises instead of being ignored."""
+def _check_j_opts(j_dtype):
+    """The JAX dense backends' ``j_dtype`` is not ported: anything but its
+    default raises instead of being ignored."""
     if j_dtype not in (None, torch.float32):
         raise not_ported(f"j_dtype={j_dtype!r}", "j_opts")
-    if double_buffer:
-        raise not_ported("double_buffer=True", "j_opts")
 
 
 class DenseBackend(PlateauBackend):
@@ -685,17 +724,19 @@ class DenseBackend(PlateauBackend):
     planes) packs the couplings as bitplanes and takes the field from
     :func:`~repro_torch.core.ising.local_fields_popcount`, row-tiled at
     ``tile_n`` above TILED_J_THRESHOLD spins; no J exists then, dense or
-    tiled, and any noise is accepted.
+    tiled, and any noise is accepted.  ``double_buffer`` builds each tiled
+    slab before contracting the one before it (the same numbers).
     """
 
     name = "dense"
 
     def __init__(self, model: IsingModel, *, j_mode: str = "auto", tile_n: int = POPCOUNT_TILE_N,
                  field_mode: str = "dense", j_dtype=None, double_buffer: bool = False, **kw):
-        _check_j_opts(j_dtype, double_buffer)
+        _check_j_opts(j_dtype)
         super().__init__(model, **kw)
         self.j_mode = resolve_j_mode(j_mode, model.n)
         self.tile_n = int(tile_n)
+        self.double_buffer = bool(double_buffer)
         self.field_mode = _resolve_field_mode(field_mode, model)
         if self.field_mode == "popcount":
             self.packed_j = pack_couplings_from_adjacency(
@@ -714,7 +755,8 @@ class DenseBackend(PlateauBackend):
             return local_fields_popcount(pack_spins(m), self.h, self.packed_j,
                                          tile_n=self._pc_tile)
         if self.j_mode == "tiled":
-            return local_fields_tiled(m, self.h, self.nbr_idx, self.nbr_w, tile_n=self.tile_n)
+            return local_fields_tiled(m, self.h, self.nbr_idx, self.nbr_w, tile_n=self.tile_n,
+                                      double_buffer=self.double_buffer)
         return local_fields_dense(m, self.h, self.J)
 
 
@@ -917,24 +959,36 @@ def make_backend(
     n_trials: int,
     n_rnd: int = 2,
     noise: Optional[str] = None,
+    partition: Optional[str] = None,
+    mesh=None,
     device=None,
     config: Optional[SolverConfig] = None,
     **opts,
 ) -> PlateauBackend:
     """Build the named backend, optionally from ``config=SolverConfig(...)``,
-    whose engine options are merged under ``opts``."""
+    whose engine options are merged under ``opts``.  ``partition='spin'``
+    (or 'auto' on a mesh of several ranks) builds the spin-sharded backend
+    over ``mesh`` (:class:`~repro_torch.core.distributed.SpinShardedBackend`),
+    with ``backend`` as the field arithmetic each shard runs."""
     if config is not None:
         backend = config.backend if backend is None else backend
         noise = config.noise if noise is None else noise
+        partition = config.partition if partition is None else partition
+        mesh = config.mesh if mesh is None else mesh
         opts = {**config.engine_opts(), **opts}
     backend = "sparse" if backend is None else backend
+    noise = "threefry" if noise is None else noise
+    if resolve_partition(partition or "problem", model.n, mesh) == "spin":
+        from .distributed import SpinShardedBackend  # distributed imports this module
+
+        return SpinShardedBackend(model, n_trials=n_trials, n_rnd=n_rnd, noise=noise,
+                                  mesh=mesh, base_backend=backend, device=device, **opts)
     if backend == "auto":
         raise not_ported("backend='auto'", "auto_backend")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {sorted(BACKENDS)}")
-    return BACKENDS[backend](model, n_trials=n_trials, n_rnd=n_rnd,
-               noise="threefry" if noise is None else noise, device=device,
-               **opts)
+    return BACKENDS[backend](model, n_trials=n_trials, n_rnd=n_rnd, noise=noise,
+                             device=device, **opts)
 
 
 # ---------------------------------------------------------------------------
@@ -1048,6 +1102,30 @@ def padded_noise_init(noise: str, seed: int, n_trials: int, n_live: int, n_bucke
     if noise == "threefry":
         return threefry_key(seed)
     raise ValueError(f"unknown noise {noise!r}")
+
+
+def padded_noise_init_slice(seed: int, n_trials: int, n_live: int, n_bucket: int,
+                            lo: int, hi: int) -> np.ndarray:
+    """Columns [lo, hi) of ``padded_noise_init('xorshift', ...)``, seeded
+    alone, as a numpy (4, n_trials, hi - lo) uint32 block: the live columns
+    from the unpadded (n_trials, n_live) lane grid, the pad columns from the
+    stream seeded ``seed ^ 0x9E3779B9``, each through
+    :func:`~repro_torch.core.rng.xorshift_init_slice`.  Each rank of a
+    spin-sharded run seeds only its own columns, and the result equals the
+    single-device stream."""
+    lo, hi = int(lo), int(hi)
+    n_live, n_bucket = int(n_live), int(n_bucket)
+    if not 0 <= lo <= hi <= n_bucket:
+        raise ValueError(f"slice [{lo}, {hi}) outside [0, {n_bucket})")
+    parts = []
+    if lo < n_live:
+        parts.append(xorshift_init_slice(seed, (n_trials, n_live), lo, min(hi, n_live)))
+    if hi > n_live:
+        parts.append(xorshift_init_slice(seed ^ 0x9E3779B9, (n_trials, n_bucket - n_live),
+                                         max(lo, n_live) - n_live, hi - n_live))
+    if not parts:
+        return np.zeros((4, int(n_trials), 0), np.uint32)
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=-1)
 
 
 def pad_degree(model: IsingModel, d: int) -> IsingModel:
@@ -1280,6 +1358,22 @@ class BatchedBackend:
             return state.best_H, unpack_spins(state.best_m_packed, self.n_bucket)
         return state.best_H, state.best_m
 
+    # -- checkpoints ------------------------------------------------------
+    # A checkpoint holds whole arrays.  The spin-sharded backend gathers its
+    # shards here, lets one rank write and synchronises the ranks after it.
+    writes_checkpoints = True
+
+    def checkpoint_state(self, state):
+        """The tree a checkpoint of ``state`` holds."""
+        return state
+
+    def restore_state(self, tree):
+        """This backend's state from a restored checkpoint tree."""
+        return tree
+
+    def sync(self) -> None:
+        """Wait for every rank (a no-op on one device)."""
+
 
 class BatchedSparseBackend(BatchedBackend):
     """Padded-adjacency gather field, for all problems at once."""
@@ -1304,6 +1398,8 @@ class BatchedDenseBackend(BatchedBackend):
     ``field_mode='popcount'`` stacks coupling bitplanes instead (``j_bits``
     planes each, the group's maximum) and takes the XNOR-popcount field,
     row-tiled at ``tile_n`` above TILED_J_THRESHOLD spins.
+    ``double_buffer`` builds each tiled slab before contracting the one
+    before it (the same numbers).
     """
 
     name = "dense"
@@ -1311,10 +1407,11 @@ class BatchedDenseBackend(BatchedBackend):
     def __init__(self, *, j_mode: str = "auto", tile_n: int = POPCOUNT_TILE_N,
                  field_mode: str = "dense", j_bits: int = 1, j_dtype=None,
                  double_buffer: bool = False, **kw):
-        _check_j_opts(j_dtype, double_buffer)
+        _check_j_opts(j_dtype)
         super().__init__(**kw)
         self.j_mode = resolve_j_mode(j_mode, self.n_bucket)
         self.tile_n = int(tile_n)
+        self.double_buffer = bool(double_buffer)
         self.j_bits = int(j_bits)
         self.field_mode = resolve_field_mode(field_mode, self.j_bits)
         self._pc_tile = None if self.n_bucket <= TILED_J_THRESHOLD else self.tile_n
@@ -1335,7 +1432,7 @@ class BatchedDenseBackend(BatchedBackend):
             return local_fields_popcount(pack_spins(m), h, pj, tile_n=self._pc_tile)
         if self.j_mode == "tiled":
             return local_fields_tiled(m, h, problem["nbr_idx"], problem["nbr_w"],
-                                      tile_n=self.tile_n)
+                                      tile_n=self.tile_n, double_buffer=self.double_buffer)
         return local_fields_dense(m, h, problem["J"])
 
 
@@ -1428,24 +1525,31 @@ def make_batched_backend(
     n_rnd: int = 2,
     noise: Optional[str] = None,
     partition: Optional[str] = None,
+    mesh=None,
     device=None,
     config: Optional[SolverConfig] = None,
     **opts,
 ) -> BatchedBackend:
     """Build the named batched backend, optionally from
     ``config=SolverConfig(...)``, whose engine options are merged under
-    ``opts``.  ``backend='auto'`` and ``partition='spin'``/``'auto'`` raise
-    NotImplementedError naming the ROADMAP.md step they wait for."""
+    ``opts``.  ``partition='spin'`` (or 'auto' on a mesh of several ranks)
+    builds :class:`~repro_torch.core.distributed.BatchedSpinShardedBackend`
+    over ``mesh``, with ``backend`` as the field arithmetic of its shards.
+    ``backend='auto'`` raises NotImplementedError naming the ROADMAP.md step
+    it waits for."""
     if config is not None:
         backend = config.backend if backend is None else backend
         noise = config.noise if noise is None else noise
         partition = config.partition if partition is None else partition
+        mesh = config.mesh if mesh is None else mesh
         opts = {**config.engine_opts(), **opts}
     backend = "sparse" if backend is None else backend
-    if partition not in (None, "problem"):
-        if partition in ("spin", "auto"):
-            raise not_ported(f"partition={partition!r}", "spin")
-        raise ValueError(f"unknown partition {partition!r}")
+    if resolve_partition(partition or "problem", n_bucket, mesh) == "spin":
+        from .distributed import BatchedSpinShardedBackend  # distributed imports this module
+
+        return BatchedSpinShardedBackend(
+            base_backend=backend, mesh=mesh, n_bucket=n_bucket, n_trials=n_trials,
+            n_rnd=n_rnd, noise="xorshift" if noise is None else noise, device=device, **opts)
     if backend == "auto":
         raise not_ported("backend='auto'", "auto_backend")
     if backend not in BATCHED_BACKENDS:

@@ -178,7 +178,8 @@ def local_fields_dense(m, h, J_f32):
     return h + torch.matmul(m.to(torch.float32), J_f32).to(torch.int32)
 
 
-def local_fields_tiled(m, h, nbr_idx, nbr_w, *, tile_n: int = 512):
+def local_fields_tiled(m, h, nbr_idx, nbr_w, *, tile_n: int = 512,
+                       double_buffer: bool = False):
     """``h + m @ J`` without ever holding the (N, N) coupling matrix.
 
     Streams J one (tile_n, N) float32 row slab at a time: each slab is
@@ -193,7 +194,13 @@ def local_fields_tiled(m, h, nbr_idx, nbr_w, *, tile_n: int = 512):
     column count from the spins ``m`` (..., T, N); the last slab may be
     ragged (``tile_n`` need not divide R).  Leading axes of the adjacency
     are problem axes, matched against those of ``m`` ahead of its trial
-    axis (the batched backends pass (B, R, D) against (B, T, N)).
+    axis (the batched backends pass (B, R, D) against (B, T, N)); a
+    spin-sharded rank passes its own row shard against the gathered spins.
+
+    ``double_buffer=True`` builds slab k+1 before it contracts slab k, the
+    order of a pipelined coupling read: the slab build carries no data
+    dependence on the product, so the device may overlap them.  The slabs
+    and the products are the same, and so are the numbers.
     """
     n_rows, n_cols = nbr_idx.shape[-2], m.shape[-1]
     tile_n = int(tile_n)
@@ -203,12 +210,21 @@ def local_fields_tiled(m, h, nbr_idx, nbr_w, *, tile_n: int = 512):
     w = nbr_w.to(torch.float32)
     idx = nbr_idx.to(torch.int64)
     lead = idx.shape[:-2]
-    cols = []
-    for t in range(0, n_rows, tile_n):
+
+    def slab(t):
         it, wt = idx[..., t:t + tile_n, :], w[..., t:t + tile_n, :]
-        slab = torch.zeros(lead + (it.shape[-2], n_cols), dtype=torch.float32,
+        return torch.zeros(lead + (it.shape[-2], n_cols), dtype=torch.float32,
                            device=m.device).scatter_add_(-1, it, wt)
-        cols.append(torch.matmul(mf, slab.transpose(-1, -2)).to(torch.int32))
+
+    cols = []
+    nxt = slab(0) if double_buffer and n_rows else None
+    for t in range(0, n_rows, tile_n):
+        if double_buffer:
+            cur = nxt
+            nxt = slab(t + tile_n) if t + tile_n < n_rows else None
+        else:
+            cur = slab(t)
+        cols.append(torch.matmul(mf, cur.transpose(-1, -2)).to(torch.int32))
     return h + torch.cat(cols, dim=-1)
 
 

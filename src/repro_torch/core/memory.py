@@ -7,15 +7,18 @@ the number of plateaus (6 for Table II's I0: 1→32, β=1).
 
 The measured half sizes real tensors: :func:`tree_device_bytes` sums the
 ``nbytes`` of the tensors in a nested structure (an engine state, a noise
-buffer), and :func:`live_device_bytes` / :func:`measure_live_bytes` read
-the CUDA caching allocator.  They measure the card only: on a host without
-one they raise rather than report a CPU number.
+buffer), :func:`per_device_bytes` / :func:`max_device_bytes` split it by
+rank under spin sharding, and :func:`live_device_bytes` /
+:func:`measure_live_bytes` read the CUDA caching allocator.  The last two
+measure the card only: on a host without one they raise rather than report
+a CPU number.
 """
 from __future__ import annotations
 
 import gc
 from typing import Any, Callable, Tuple
 
+import numpy as np
 import torch
 
 from .schedule import n_temp_steps
@@ -25,6 +28,8 @@ __all__ = [
     "hassa_bits_per_iteration",
     "memory_ratio",
     "tree_device_bytes",
+    "per_device_bytes",
+    "max_device_bytes",
     "live_device_bytes",
     "measure_live_bytes",
 ]
@@ -45,17 +50,60 @@ def memory_ratio(hp) -> int:
     return n_temp_steps(hp.i0_min, hp.i0_max, hp.beta_shift)
 
 
+def _leaves(tree):
+    """The tensor and numpy leaves of a nested tuple/list/dict."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        for leaf in tree:
+            yield from _leaves(leaf)
+    elif isinstance(tree, (torch.Tensor, np.ndarray)):
+        yield tree
+
+
 def tree_device_bytes(tree: Any) -> int:
     """Bytes of the tensors in a nested tuple/list/dict (an engine state, a
     noise buffer); leaves that are not tensors, such as a threefry key
     held on the host, count 0."""
-    if isinstance(tree, torch.Tensor):
-        return tree.nbytes
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (tuple, list)):
-        return sum(tree_device_bytes(leaf) for leaf in tree)
-    return 0
+    return sum(leaf.nbytes for leaf in _leaves(tree) if isinstance(leaf, torch.Tensor))
+
+
+def per_device_bytes(tree: Any, mesh=None) -> dict:
+    """Resident bytes by device: what decides whether a spin-sharded
+    instance fits is what each rank holds, not the global footprint.
+
+    The tensors of ``tree`` count on their device; numpy leaves count under
+    ``'host'``.  With a
+    :class:`~repro_torch.sharding.SpinMesh` the tree is this rank's
+    shards: the keys are ``'<device type>:<rank>'``, each rank's bytes are
+    all-gathered (every rank returns the same dict), and ``'host'`` sums the
+    ranks' host bytes.
+    """
+    host = 0
+    dev: dict = {}
+    for leaf in _leaves(tree):
+        if isinstance(leaf, np.ndarray):
+            host += int(leaf.nbytes)
+        else:
+            key = f"{leaf.device.type}:{leaf.device.index or 0}"
+            dev[key] = dev.get(key, 0) + int(leaf.nbytes)
+    if mesh is not None:
+        from ..sharding import all_gather_last
+
+        mine = torch.tensor([sum(dev.values()), host], dtype=torch.int64, device=mesh.device)
+        every = all_gather_last(mesh, mine).reshape(mesh.size, 2).tolist()
+        dev = {f"{mesh.device.type}:{r}": b for r, (b, _) in enumerate(every)}
+        host = sum(h for _, h in every)
+    if host:
+        dev["host"] = host
+    return dev
+
+
+def max_device_bytes(tree: Any, mesh=None) -> int:
+    """The busiest device's resident bytes (0 when nothing is held): under
+    spin sharding, what falls about linearly with the rank count."""
+    per = per_device_bytes(tree, mesh)
+    return max(per.values()) if per else 0
 
 
 def live_device_bytes(device=None) -> int:

@@ -45,6 +45,7 @@ import torch
 __all__ = [
     "Xorshift128",
     "xorshift_init",
+    "xorshift_init_slice",
     "xorshift_next_bits",
     "xorshift_lanes_ok",
     "xorshift_noise_cycles",
@@ -86,6 +87,25 @@ def xorshift_init(seed: int, lanes: Tuple[int, ...], device=None) -> torch.Tenso
     st = _seed_lane_states(seed, np.arange(n, dtype=np.uint64), n)
     st = st.reshape((4,) + tuple(lanes)).view(np.int32)
     return torch.from_numpy(np.ascontiguousarray(st)).to(device)
+
+
+def xorshift_init_slice(seed: int, lanes: Tuple[int, ...], lo: int, hi: int) -> np.ndarray:
+    """Columns [lo, hi) of the last lane axis of :func:`xorshift_init`, seeded
+    alone: a numpy ``(4,) + lanes[:-1] + (hi - lo,)`` uint32 block equal to
+    ``xorshift_init(seed, lanes)[..., lo:hi]``.  The lane's global flat
+    index and the global lane count enter the seeding unchanged, so each
+    rank of a spin-sharded run seeds exactly its own columns."""
+    lanes = tuple(int(x) for x in lanes)
+    lo, hi = int(lo), int(hi)
+    n_col = lanes[-1]
+    if not 0 <= lo <= hi <= n_col:
+        raise ValueError(f"slice [{lo}, {hi}) outside [0, {n_col})")
+    n_total = int(np.prod(lanes)) if lanes else 1
+    lead = lanes[:-1]
+    n_lead = int(np.prod(lead)) if lead else 1
+    base = np.arange(n_lead, dtype=np.uint64).reshape(lead + (1,)) * np.uint64(n_col)
+    idx = base + np.arange(lo, hi, dtype=np.uint64)
+    return _seed_lane_states(seed, idx, n_total)
 
 
 def _srl(x: torch.Tensor, s: int) -> torch.Tensor:

@@ -123,7 +123,10 @@ def anneal(
 
     ``storage='i0max'`` + ``schedule_kind='hassa'`` is the paper's HA-SSA;
     ``storage='all'`` + ``schedule_kind='ssa'`` is conventional SSA.
-    ``config`` holds the execution options.  Without one, ``anneal()``
+    ``config`` holds the execution options; ``SolverConfig(partition=
+    'spin', mesh=spin_mesh(...))`` shards the spin axis over the mesh's
+    ranks, every rank calling ``anneal()`` and getting the same result.
+    Without one, ``anneal()``
     runs ``SolverConfig(noise='threefry')`` (sparse backend, threefry
     noise, dense layout), as the JAX package's ``anneal()`` does: its
     historical default noise is threefry, not ``SolverConfig``'s xorshift.  ``device`` defaults to
@@ -157,7 +160,7 @@ def anneal(
         opts.setdefault("n_replicas", nr)
     bk = make_backend(
         cfg.backend, model, n_trials=hp.n_trials, n_rnd=hp.n_rnd,
-        noise=cfg.noise, device=device, **opts,
+        noise=cfg.noise, partition=cfg.partition, mesh=cfg.mesh, device=device, **opts,
     )
     plateaus = schedule_plateaus(sched, storage)
     stored_per_iter = sum(p.length for p in plateaus if p.eligible)

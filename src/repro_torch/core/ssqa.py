@@ -19,6 +19,9 @@ field anneals.  Everything else is SSA's, so the plateau engine runs it:
   traces keep the classical per-replica energy.
 
 On ``backend='cuda'`` SSQA plateaus run the ring modes of K1 and K2.
+Under ``partition='spin'`` the rings stay whole on every rank (they live
+on the trial axis; the spin axis is what is sharded), so the coupling
+needs no collective of its own.
 """
 from __future__ import annotations
 

@@ -203,23 +203,28 @@ def adjacency_weight_bits(n: int, nbr_idx, nbr_w) -> int:
 
 
 def pack_couplings_from_adjacency(n: int, nbr_idx: np.ndarray, nbr_w: np.ndarray,
-                                  n_bits=None, *, device=None) -> PackedJ:
+                                  n_bits=None, *, device=None, rows=None) -> PackedJ:
     """Pack couplings from the padded adjacency without materialising J.
 
     ``nbr_idx``/``nbr_w`` are the ``IsingModel`` padded neighbour lists
     (weight 0 = padding slot); duplicate (i, j) entries are weight-summed
     first, matching ``IsingModel.dense_J``.  O(N·max_deg) host work.
+    ``rows=(lo, hi)`` packs only rows [lo, hi) — a spin-sharded rank's row
+    shard, every column kept — equal to those rows of the whole packing.
     """
     n = int(n)
+    lo, hi = (0, n) if rows is None else (int(rows[0]), int(rows[1]))
     r, c, wsum = _coalesced_adjacency(n, nbr_idx, nbr_w)
-    word, bit = c // 32, (c % 32).astype(np.uint32)
     mag = np.abs(wsum)
     n_bits = _resolve_n_bits(mag.max(initial=0), n_bits)
-    sign = np.zeros((n, packed_words(n)), np.uint32)
+    keep = (r >= lo) & (r < hi)
+    r, c, wsum, mag = r[keep] - lo, c[keep], wsum[keep], mag[keep]
+    word, bit = c // 32, (c % 32).astype(np.uint32)
+    sign = np.zeros((hi - lo, packed_words(n)), np.uint32)
     pos = wsum > 0
     np.bitwise_or.at(sign, (r[pos], word[pos]), np.uint32(1) << bit[pos])
     mags = np.zeros((n_bits,) + sign.shape, np.uint32)
-    base = np.zeros(n, np.int64)
+    base = np.zeros(hi - lo, np.int64)
     for b in range(n_bits):
         sel = ((mag >> b) & 1) == 1
         np.bitwise_or.at(mags[b], (r[sel], word[sel]), np.uint32(1) << bit[sel])

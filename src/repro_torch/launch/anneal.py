@@ -56,10 +56,22 @@ each one's decoded objective and feasibility.
 
     python -m repro_torch.launch.anneal --problem-kind mis --problem-n 2000 \
         --count 2 --backend cuda --field-mode auto --trials 100 --m-shot 10
+
+Spin sharding: ``--partition spin`` shards the spin axis of each problem
+over the ranks of a process group (``--partition auto`` per instance or
+bucket); ``--mesh-shape P`` asks for P ranks, which ``torchrun`` starts,
+one process each (NCCL on the GPU, one GPU per rank; gloo with ``--device
+cpu``).  Every rank runs the same solve and rank 0 prints.  Needs
+``--noise xorshift`` (the default).
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.anneal --problem K2000 \
+        --partition spin --backend dense --field-mode popcount
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import torch
@@ -84,6 +96,16 @@ def _backend_opts(args):
     return {}
 
 
+def _partition_mesh(args):
+    """(partition, mesh) from --partition and --mesh-shape; no mesh is made
+    for partition='problem'."""
+    if args.partition == "problem":
+        return "problem", None
+    from repro_torch.launch.mesh import make_spin_mesh
+
+    return args.partition, make_spin_mesh(args.mesh_shape, device=args.device)
+
+
 def _service(args):
     """The AnnealService the service and stream modes share."""
     from repro_torch.serve import AnnealService
@@ -94,7 +116,7 @@ def _service(args):
     return AnnealService(backend=args.backend, noise=args.noise,
                          storage_layout=args.storage_layout, chunk_shots=args.chunk_shots,
                          backend_opts=opts, resilience=_resilience_policy(args),
-                         device=args.device)
+                         partition=args.partition, mesh=args.mesh, device=args.device)
 
 
 def _request(p, i, hp, args):
@@ -298,6 +320,13 @@ def main(argv=None):
                     help="field arithmetic of the dense and cuda backends: 'popcount' "
                          "= XNOR-popcount on the coupling bitplanes (bit-identical "
                          "results); the sparse backend ignores it")
+    ap.add_argument("--partition", choices=("problem", "spin", "auto"), default="problem",
+                    help="work partitioning: 'spin' shards the spin axis of each problem "
+                         "over the ranks of a process group (bit-identical results), "
+                         "'auto' picks per instance or bucket")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="rank count for --partition spin|auto, e.g. '2' (default: every "
+                         "rank); more than one needs torchrun --nproc-per-node")
     ap.add_argument("--record", choices=("best", "traj"), default="best")
     ap.add_argument("--track-energy", action="store_true",
                     help="record per-cycle energy traces (the cycle loop)")
@@ -305,7 +334,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
+    args.partition, args.mesh = _partition_mesh(args)
+    if args.mesh is not None and args.mesh.rank:
+        # Every rank solves alike; rank 0 alone prints.
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _main(args)
+    return _main(args)
 
+
+def _main(args):
     knobs = dict(n_trials=args.trials, m_shot=args.m_shot, n_rnd=args.n_rnd,
                  i0_min=args.i0_min, i0_max=args.i0_max, tau=args.tau,
                  beta_shift=args.beta_shift)
@@ -336,7 +373,8 @@ def main(argv=None):
           f"storage={args.storage} ({algo}){extra}")
     cfg = SolverConfig(backend=args.backend, storage_layout=args.storage_layout,
                        noise=args.noise, noise_mode=args.noise_mode,
-                       field_mode=args.field_mode if args.backend != "sparse" else "auto")
+                       field_mode=args.field_mode if args.backend != "sparse" else "auto",
+                       partition=args.partition, mesh=args.mesh)
     t0 = time.time()
     r = anneal(p, hp, seed=args.seed, storage=args.storage, record=args.record,
                config=cfg, track_energy=args.track_energy, device=args.device)

@@ -58,8 +58,15 @@ PT-SSA groups run the plateau scan of the batched sparse or dense backend
 (``backend='cuda'`` is rejected at admission: the kernels take a scalar
 I0).
 
-Not ported yet, raising NotImplementedError naming its ROADMAP.md step,
-with no substitute path: ``partition='spin'`` (queue 1 step 8).
+Spin sharding: ``partition='spin'`` (or 'auto', per shape bucket) runs SSA
+and SSQA groups on :class:`~repro_torch.core.distributed.
+BatchedSpinShardedBackend` over ``mesh``, every rank calling ``solve()``
+with the same requests and getting the same responses; it is the only way
+an instance above ``engine.MAX_UNSHARDED_SPINS`` spins is admitted.  A
+spin group's checkpoint holds whole arrays, gathered from the ranks and
+written by rank 0; on resume each rank takes its own columns back.  Under
+a mesh of several ranks the deadline watchdog reads the slowest rank's
+clock, so every rank stops a request at the same chunk.
 """
 from __future__ import annotations
 
@@ -78,6 +85,7 @@ from ..core.autotune import AutotuneReport, autotune_hyperparams, resolve_hyperp
 from ..core.config import SolverConfig, not_ported
 from ..core.engine import (
     MAX_UNSHARDED_SPINS,
+    resolve_partition,
     bucket_n,
     exact_float32_matmul,
     finalize_cut,
@@ -114,6 +122,7 @@ from .resilience import (
     fallback_step,
     group_fingerprint,
 )
+from ..sharding import max_over_ranks, mesh_fingerprint
 
 __all__ = ["AnnealRequest", "AnnealResponse", "AnnealProgress", "AnnealService"]
 
@@ -266,9 +275,13 @@ class _GroupCtx:
         self.statuses: dict = {}
         self.ckpt: Optional[CheckpointManager] = None
         self._dir: Optional[str] = None
+        self.bk = None  # the group's batched backend: the checkpoints' codec
         if self.policy.checkpoint_dir:
+            part = service.partition_for(kind, nb)
             tag = group_fingerprint(kind, nb, backend, service.storage_layout, service.noise,
-                                    chunk, items, partition=service.partition_for(kind, nb))
+                                    chunk, items, partition=part,
+                                    mesh_fp=mesh_fingerprint(service.mesh) if part == "spin"
+                                    else ())
             self._dir = os.path.join(self.policy.checkpoint_dir, tag)
             self.ckpt = CheckpointManager(
                 self._dir, save_interval=max(1, int(self.policy.checkpoint_interval)),
@@ -287,10 +300,13 @@ class _GroupCtx:
         """(start chunk, state, traces): from the latest checkpoint if a
         valid one exists, restored onto the template's devices; else (0,
         template, None).  Zeroed xorshift lanes (the generator's fixed
-        point) reject the checkpoint, and the group runs from scratch."""
+        point) reject the checkpoint, and the group runs from scratch.  A
+        spin group checks the whole restored state, then keeps its columns."""
         if self.ckpt is None or latest_step(self._dir) is None:
             return 0, template, None
-        state, meta = self.ckpt.restore_latest(template)
+        codec = self.bk
+        state, meta = self.ckpt.restore_latest(
+            codec.checkpoint_state(template) if codec is not None else template)
         traces = meta.get("traces")
         ok = isinstance(traces, list) and len(traces) == n_items
         if ok and self.noise == "xorshift":
@@ -305,15 +321,37 @@ class _GroupCtx:
             return 0, template, None
         start = int(meta["step"])
         self._event("resume", chunk=start, dir=self._dir)
+        if codec is not None:
+            state = codec.restore_state(state)
         return start, state, [list(map(int, t)) for t in traces]
 
     def save(self, step: int, state, traces):
         if self.ckpt is not None:
-            self.ckpt.maybe_save(step, state, meta={"traces": traces})
+            save_checkpoint(self.ckpt, self.bk, step, state, {"traces": traces})
 
     def finish_success(self):
         if self.ckpt is not None and self.policy.cleanup_on_success:
-            self.ckpt.purge()
+            purge_checkpoints(self.ckpt, self.bk)
+
+
+def save_checkpoint(ckpt: CheckpointManager, bk, step: int, state, meta: dict):
+    """Save ``state`` through its backend: a spin-sharded one gathers the
+    whole arrays, rank 0 alone writes, and the ranks wait for it."""
+    if bk is None:
+        ckpt.maybe_save(step, state, meta=meta)
+        return
+    tree = bk.checkpoint_state(state)
+    if bk.writes_checkpoints:
+        ckpt.maybe_save(step, tree, meta=meta)
+    bk.sync()
+
+
+def purge_checkpoints(ckpt: CheckpointManager, bk):
+    """Purge a finished group's checkpoints (rank 0 of a spin group)."""
+    if bk is None or bk.writes_checkpoints:
+        ckpt.purge()
+    if bk is not None:
+        bk.sync()
 
 
 class AnnealService:
@@ -346,6 +384,7 @@ class AnnealService:
         resilience: Optional[ResiliencePolicy] = None,
         faults: Optional[FaultInjector] = None,
         partition: str = "problem",
+        mesh=None,
         max_cached_executables: int = 64,
         config: Optional[SolverConfig] = None,
         device=None,
@@ -360,12 +399,18 @@ class AnnealService:
         popcount (K2 on 'cuda'), with the group's plane count in the
         program key.  ``resilience`` sets fallback and retries (defaults:
         fallback and admission validation on); ``faults`` attaches a fault
-        injector (tests and chaos runs only).  ``config`` supplies backend,
-        noise, storage layout, options and partition from one
+        injector (tests and chaos runs only).  ``partition`` picks the
+        work-partitioning axis of SSA and SSQA groups: 'problem' stacks
+        whole problems on the device; 'spin' shards the spin axis of every
+        problem over ``mesh`` (a :class:`repro_torch.sharding.SpinMesh`;
+        None: one rank on ``device``), which requires ``noise='xorshift'``;
+        'auto' decides per shape bucket.  SA and PT-SSA groups always run
+        problem-partitioned.  ``config`` supplies backend, noise, storage
+        layout, options, partition and mesh from one
         :class:`~repro_torch.core.config.SolverConfig`, replacing the
-        individual arguments.  ``backend='auto'`` and ``partition`` other
-        than 'problem' raise NotImplementedError naming their ROADMAP.md
-        step.  The service turns TF32 off for the process
+        individual arguments.  ``backend='auto'`` raises
+        NotImplementedError naming its ROADMAP.md step.  The service turns
+        TF32 off for the process
         (:func:`~repro_torch.core.engine.exact_float32_matmul`): its dense
         fields are exact float32 matmuls.
         """
@@ -376,11 +421,10 @@ class AnnealService:
             backend_opts = config.engine_opts()
             backend_opts.pop("storage_layout", None)  # passed apart below
             partition = config.partition
+            mesh = config.mesh if config.mesh is not None else mesh
         if storage_layout not in ("dense", "packed"):
             raise ValueError(f"unknown storage_layout {storage_layout!r}")
-        if partition in ("spin", "auto"):
-            raise not_ported(f"partition={partition!r}", "spin")
-        if partition != "problem":
+        if partition not in ("problem", "spin", "auto"):
             raise ValueError(f"unknown partition {partition!r}")
         if backend == "auto":
             raise not_ported("backend='auto'", "auto_backend")
@@ -395,15 +439,21 @@ class AnnealService:
         self.policy = resilience or ResiliencePolicy()
         self.faults = faults
         self.partition = partition
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         exact_float32_matmul()
         self.stats = collections.Counter()
         self._programs = _LRUCache(max_cached_executables, self.stats)
 
     def partition_for(self, kind: str, nb: int) -> str:
-        """The partition of one group: 'problem' (spin sharding waits for
-        ROADMAP.md queue 1 step 8)."""
-        return "problem"
+        """The partition of one group, 'problem' or 'spin'.  Spin sharding
+        applies to the plateau families (SSA and SSQA: the replica rings
+        live on the trial axis, whole on every rank); SA and PT-SSA run
+        through per-problem loops the sharded backend does not expose, so
+        they stay problem-partitioned whatever the option."""
+        if kind not in ("ssa", "ssqa"):
+            return "problem"
+        return resolve_partition(self.partition, nb, self.mesh)
 
     # ------------------------------------------------------------------
     # Public API
@@ -492,10 +542,16 @@ class AnnealService:
                              f"{req.config.storage_layout!r} differs from the service's "
                              f"storage_layout={self.storage_layout!r}")
         if model.n > MAX_UNSHARDED_SPINS:
-            self._reject(f"request {idx}: n={model.n} exceeds the single-device ceiling "
-                         f"MAX_UNSHARDED_SPINS={MAX_UNSHARDED_SPINS}; instances above it "
-                         "need spin sharding (partition='spin'), which waits for "
-                         "ROADMAP.md queue 1 step 8")
+            # Admissible only when the group will run spin-sharded: on the
+            # problem-partitioned path one (N, N)-coupled instance of this
+            # size is an out-of-memory hazard, not a request.
+            plateau_family = isinstance(req.hp, (SSAHyperParams, str))
+            nb = bucket_n(model.n, self.min_bucket)
+            if not (plateau_family and self.partition_for("ssa", nb) == "spin"):
+                self._reject(f"request {idx}: n={model.n} exceeds the single-device ceiling "
+                             f"MAX_UNSHARDED_SPINS={MAX_UNSHARDED_SPINS}; construct the "
+                             "service with partition='spin' (or 'auto' on a mesh of several "
+                             "ranks, repro_torch.sharding.spin_mesh) to shard the spin axis")
 
     # ------------------------------------------------------------------
     # Grouping
@@ -663,9 +719,10 @@ class AnnealService:
         classical groups."""
         sched = hp.schedule(schedule_kind)
         plateaus = schedule_plateaus(sched, storage)
+        part = self.partition_for(kind, nb)
         cache_key = (kind, backend, _opts_key(opts), self.storage_layout, nb, b_bucket,
                      hp.n_trials, hp.n_rnd, self.noise, storage, sched.signature(), chunk,
-                     self.partition_for(kind, nb), ())
+                     part, mesh_fingerprint(self.mesh) if part == "spin" else ())
         ent = self._programs.get(cache_key)
         if ent is None:
             if fire is not None:
@@ -673,7 +730,8 @@ class AnnealService:
             self.stats["program_cache_misses"] += 1
             bk = make_batched_backend(
                 backend, n_bucket=nb, n_trials=hp.n_trials, n_rnd=hp.n_rnd, noise=self.noise,
-                storage_layout=self.storage_layout, device=self.device, **opts)
+                storage_layout=self.storage_layout, partition=part, mesh=self.mesh,
+                device=self.device, **opts)
             self.stats["traces_init"] += 1
             self.stats["traces_chunk"] += 1
 
@@ -713,6 +771,7 @@ class AnnealService:
             schedule_kind=req0.schedule_kind, backend=backend, opts=opts, chunk=chunk,
             fire=ctx.fire, kind=ctx.kind)
         stored_per_iter = sum(p.length for p in plateaus if p.eligible)
+        ctx.bk = bk
 
         stacked = bk.stack([model for _, _, _, model in padded])
         ctx.fire("oom", backend=backend, kind="ssa", bucket=nb, batch=b_bucket,
@@ -889,6 +948,7 @@ class AnnealService:
         done = [False] * len(items)
         frozen = [False] * len(items)
         stops: List[Optional[dict]] = [None] * len(items)
+        watch = any(req.deadline_s is not None for _, req, _, _ in items)
         for c in range(start, n_chunks):
             self.stats["slot_chunks"] += width if width is not None else len(items)
             self.stats["live_lane_chunks"] += sum(1 for s in range(len(items)) if not done[s])
@@ -918,6 +978,8 @@ class AnnealService:
                     kind=kind, bucket=nb, chunk=c, chunks_total=n_chunks,
                     request_indices=tuple(idx for idx, *_ in items), best_cut=tuple(bests)))
             now = time.perf_counter()
+            elapsed = (max_over_ranks(self.mesh, [now - ctx.solve_t0])[0] if watch
+                       else 0.0)
             newly: List[int] = []
             ctx.save(c + 1, state, traces)
             ctx.fire("kill", kind=kind, chunk=c)
@@ -928,7 +990,7 @@ class AnnealService:
                     done[slot] = frozen[slot] = True
                     stops[slot] = {"chunk": c + 1, "t_abs": now}
                     newly.append(slot)
-                elif req.deadline_s is not None and now - ctx.solve_t0 >= req.deadline_s:
+                elif req.deadline_s is not None and elapsed >= req.deadline_s:
                     done[slot] = frozen[slot] = True
                     stops[slot] = {"chunk": c + 1, "t_abs": now}
                     newly.append(slot)

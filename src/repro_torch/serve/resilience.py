@@ -136,11 +136,22 @@ _BACKEND_OPT_KEYS = {
     "dense": frozenset({"j_dtype", "j_mode", "tile_n", "field_mode", "j_bits",
                         "double_buffer", "n_replicas"}),
     "cuda": frozenset({"noise_mode", "field_mode", "j_bits", "n_replicas"}),
+    # partition='spin': the spin-sharded backend wraps any base field style
+    # and accepts (and ignores) the single-device knobs, so the fallback
+    # chain walks cuda → dense → sparse under spin sharding too.  The JAX
+    # package's keyset, its 'pallas' knobs included.
+    "spinshard": frozenset({"j_dtype", "j_mode", "tile_n", "field_mode", "j_bits",
+                            "double_buffer", "block_r", "interpret", "noise_mode",
+                            "n_replicas"}),
 }
 
 
-def filter_backend_opts(backend: str, opts: dict) -> dict:
-    """Project backend options onto what ``backend`` accepts."""
+def filter_backend_opts(backend: str, opts: dict, *, partition: str = "problem") -> dict:
+    """Project backend options onto what ``backend`` accepts.  Under
+    ``partition='spin'`` the group runs on the spin-sharded backend whatever
+    the base backend's name, so its wider keyset applies."""
+    if partition == "spin":
+        backend = "spinshard"
     keys = _BACKEND_OPT_KEYS.get(backend, frozenset())
     return {k: v for k, v in opts.items() if k in keys}
 
@@ -204,8 +215,10 @@ def group_fingerprint(kind: str, n_bucket: int, backend: str, storage_layout: st
     replay the same computation.  The hashed ``repr`` tuples and array
     bytes are the JAX package's: equal requests on the sparse and dense
     backends give its digest (the backend name is hashed, so 'cuda' and
-    'pallas' differ).  ``partition``/``mesh_fp`` stay 'problem'/() until
-    spin sharding is ported.
+    'pallas' differ).  ``partition``/``mesh_fp`` fold the spin-sharding
+    layout in: a checkpoint written by a spin-sharded group on one mesh must
+    not be resumed under another (the state's values do not depend on the
+    layout, but mixing layouts silently would hide a rank-count mistake).
     """
     hsh = hashlib.sha256()
     hsh.update(repr((kind, n_bucket, backend, storage_layout, noise, chunk, partition,

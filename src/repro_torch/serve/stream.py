@@ -48,8 +48,13 @@ arguments of cached programs — is what continuous batching needs.
 Problem encodings (:class:`~repro_torch.problems.ProblemEncoding`) are
 served as their Ising models, and a finished response carries the decoded
 ``solution``, ``objective`` and ``feasible``, as the one-shot service's.
-``partition='spin'`` raises NotImplementedError naming ROADMAP.md queue 1
-step 8, as the one-shot service does.
+
+Under ``partition='spin'`` a table's lanes are spin-sharded over the
+service's mesh (every rank submitting the same requests in the same order
+and pumping alike), its per-slot checkpoints hold whole arrays written by
+rank 0, and under a mesh of several ranks every time-based decision —
+shedding, aging, deadlines — reads the slowest rank's clock, so the ranks
+seat and retire alike.
 """
 from __future__ import annotations
 
@@ -75,6 +80,7 @@ from ..core.engine import (
 from ..core.rng import xorshift_lanes_ok
 from ..core.ssa import AnnealResult, SSAHyperParams
 from ..problems import ProblemEncoding
+from ..sharding import max_over_ranks, mesh_fingerprint
 from .anneal_service import (
     AnnealProgress,
     AnnealRequest,
@@ -82,6 +88,8 @@ from .anneal_service import (
     AnnealService,
     _largest_divisor_leq,
     _opts_key,
+    purge_checkpoints,
+    save_checkpoint,
 )
 from .registry import family_for
 from .resilience import (
@@ -380,22 +388,28 @@ class StreamingAnnealService:
     # ------------------------------------------------------------------
     # Queue order: priority class (with aging), then EDF, then FIFO
     # ------------------------------------------------------------------
-    def _rank(self, ticket: StreamTicket, now: float):
+    def _ages(self, tickets) -> List[float]:
+        """Seconds since each ticket's submission — under a mesh of several
+        ranks the largest over the ranks (one all-reduce), so that every
+        rank takes the same time-based decision."""
+        now = time.monotonic()
+        return max_over_ranks(self.service.mesh, [now - t.submit_t for t in tickets])
+
+    def _rank(self, ticket: StreamTicket, age: float):
         rank = PRIORITIES.index(ticket.priority)
-        if rank and now - ticket.submit_t >= self.policy.aging_s:
+        if rank and age >= self.policy.aging_s:
             rank = 0  # aged into the top class: the starvation bound
         dl = ticket.request.deadline_s
-        abs_deadline = ticket.submit_t + dl if dl is not None else np.inf
-        return (rank, abs_deadline, ticket.seq)
+        time_left = dl - age if dl is not None else np.inf  # earliest deadline first
+        return (rank, time_left, ticket.seq)
 
     def _shed_expired(self):
         if not self.policy.shed_expired:
             return
-        now = time.monotonic()
         keep = []
-        for t in self._queue:
+        for t, age in zip(self._queue, self._ages(self._queue)):
             dl = t.request.deadline_s
-            if dl is not None and now - t.submit_t >= dl:
+            if dl is not None and age >= dl:
                 self._complete_unrun(t, STATUS_SHED, "shed")
             else:
                 keep.append(t)
@@ -449,7 +463,8 @@ class StreamingAnnealService:
                 opts.setdefault("noise_mode", "streamed")
         sig = hp.schedule(req.schedule_kind).signature()
         return ("stream-" + kind, nb, d_bucket, hp.n_trials, hp.n_rnd, req.storage, sig, chunk,
-                backend, _opts_key(opts), part, (),
+                backend, _opts_key(opts), part,
+                mesh_fingerprint(svc.mesh) if part == "spin" else (),
                 cfg.signature() if cfg is not None else None), \
             (nb, d_bucket, chunk, backend, opts, part, kind)
 
@@ -459,8 +474,8 @@ class StreamingAnnealService:
         Runs under the lock."""
         if not self._queue:
             return
-        now = time.monotonic()
-        self._queue.sort(key=lambda t: self._rank(t, now))
+        ages = dict(zip((t.seq for t in self._queue), self._ages(self._queue)))
+        self._queue.sort(key=lambda t: self._rank(t, ages[t.seq]))
         leftover = []
         for ticket in self._queue:
             key, params = self._stream_key(ticket)
@@ -555,7 +570,8 @@ class StreamingAnnealService:
         svc = self.service
         return group_fingerprint(
             table.kind, table.nb, table.backend, svc.storage_layout, svc.noise, table.chunk,
-            [(0, ticket.request, ticket._maxcut, ticket._model)], partition=table.part)
+            [(0, ticket.request, ticket._maxcut, ticket._model)], partition=table.part,
+            mesh_fp=mesh_fingerprint(svc.mesh) if table.part == "spin" else ())
 
     def _seat(self, table: _SlotTable, slot: int, ticket: StreamTicket):
         """Splice one request into a table slot: a fresh lane (the
@@ -581,13 +597,13 @@ class StreamingAnnealService:
                 s.ckpt_dir, save_interval=max(1, int(svc.policy.checkpoint_interval)),
                 keep=svc.policy.keep_checkpoints, async_save=False)
             if latest_step(s.ckpt_dir) is not None:
-                restored, meta = s.ckpt.restore_latest(lane)
+                restored, meta = s.ckpt.restore_latest(table.bk1.checkpoint_state(lane))
                 traces = meta.get("traces")
                 ok = isinstance(traces, list) and len(traces) == 1
                 if ok and svc.noise == "xorshift":
                     ok = xorshift_lanes_ok(restored.noise_state, axis=1)
                 if ok:
-                    lane = restored
+                    lane = table.bk1.restore_state(restored)
                     s.chunks_done = int(meta["step"])
                     s.trace = [int(v) for v in traces[0]]
                     ticket.events.append(ServiceEvent(
@@ -640,7 +656,6 @@ class StreamingAnnealService:
             return
         table.state = new_state
         table.quanta += 1
-        now = time.monotonic()
         self.stats["stream_quanta"] += 1
         self.stats["stream_slot_chunks"] += len(table.slots)
         self.stats["stream_live_lane_chunks"] += table.n_live
@@ -657,6 +672,9 @@ class StreamingAnnealService:
 
         retired = []  # (slot, status, reason)
         bests = {}
+        seated = [s.ticket for s in table.slots if s is not None]
+        ages = (dict(zip((t.seq for t in seated), self._ages(seated)))
+                if any(t.request.deadline_s is not None for t in seated) else {})
         for i, s in enumerate(table.slots):
             if s is None:
                 continue
@@ -673,7 +691,7 @@ class StreamingAnnealService:
                 retired.append((i, STATUS_OK, "target"))
             elif s.chunks_done >= s.budget:
                 retired.append((i, STATUS_OK, "budget"))
-            elif req.deadline_s is not None and now - s.ticket.submit_t >= req.deadline_s:
+            elif req.deadline_s is not None and ages[s.ticket.seq] >= req.deadline_s:
                 retired.append((i, STATUS_DEADLINE, "deadline"))
 
         if progress is not None:
@@ -690,8 +708,8 @@ class StreamingAnnealService:
             for i, s in enumerate(table.slots):
                 if s is None or i in retiring or s.ckpt is None:
                     continue
-                s.ckpt.maybe_save(s.chunks_done, extract_slot(table.state, i),
-                                  meta={"traces": [s.trace]})
+                save_checkpoint(s.ckpt, table.bk1, s.chunks_done, extract_slot(table.state, i),
+                                {"traces": [s.trace]})
         if svc.faults is not None:
             svc.faults.fire("kill", kind=table.kind, chunk=table.quanta - 1)
 
@@ -795,7 +813,7 @@ class StreamingAnnealService:
             sol, obj, feas = enc.best_feasible(result.best_m)
             resp.solution, resp.objective, resp.feasible = sol, obj, feas
         if s.ckpt is not None and self.service.policy.cleanup_on_success:
-            s.ckpt.purge()
+            purge_checkpoints(s.ckpt, table.bk1)
         ticket.response = resp
         ticket.status = "done"
         self.stats["stream_completed"] += 1

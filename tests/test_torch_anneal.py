@@ -109,24 +109,34 @@ def test_solve_maxcut_and_cut_consistency():
 
 # ---------------------------------------------------------------------------
 # Options outside the ported slice raise NotImplementedError naming the
-# ROADMAP item they wait for — on the CPU as on the card.
+# ROADMAP item they wait for — on the CPU as on the card.  Spin sharding
+# (partition='spin'/'auto') and double_buffer are ported since: their
+# cases (ids kept) now check that the option is taken.
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
-    (dict(partition="spin"), "step 8"),
-    (dict(partition="auto"), "step 8"),
+    (dict(partition="spin"), None),
+    (dict(partition="auto"), None),
     (dict(backend="auto"), "step 3"),
-], ids=lambda v: str(v))
+], ids=["{'partition': 'spin'}-step 8", "{'partition': 'auto'}-step 8",
+        "{'backend': 'auto'}-step 3"])
 def test_out_of_slice_config_raises(kw, item):
+    if item is None:
+        assert SolverConfig(**kw).partition == kw["partition"]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         SolverConfig(**kw)
 
 
 @pytest.mark.parametrize("backend,kw,item", [
-    ("dense", dict(double_buffer=True), "step 2"),
+    ("dense", dict(double_buffer=True), None),
     ("auto", {}, "step 3"),
-], ids=lambda v: str(v))
+], ids=["dense-{'double_buffer': True}-step 2", "auto-{}-step 3"])
 def test_out_of_slice_backend_options_raise(backend, kw, item):
     model = gset.toroidal_grid(16, seed=0).to_ising()
+    if item is None:
+        bk = make_backend(backend, model, n_trials=2, device="cpu", **kw)
+        assert bk.double_buffer
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         make_backend(backend, model, n_trials=2, device="cpu", **kw)
 

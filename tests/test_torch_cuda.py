@@ -8,6 +8,11 @@ A CUDA kernel has no CPU or interpret mode, so these tests are marked
 This file imports no JAX: the GPU host runs the port alone.
 """
 
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 
@@ -662,3 +667,42 @@ def test_service_matches_per_request_anneal_on_card(cuda_device, opts):
         ref = anneal(p, hp, seed=s, track_energy=False, config=cfg, device="cuda")
         np.testing.assert_array_equal(r.result.best_energy, ref.best_energy)
         np.testing.assert_array_equal(r.result.best_m, ref.best_m)
+
+
+# ---------------------------------------------------------------------------
+# On the card: a one-rank NCCL spin run equals the K2 run (no kernel launch)
+# ---------------------------------------------------------------------------
+CUDA_SCRIPT = textwrap.dedent("""
+    import numpy as np, torch
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.ssa import SSAHyperParams, anneal
+    from repro_torch.kernels import ssa_update
+    from repro_torch.sharding import spin_mesh
+    mesh = spin_mesh(1)
+    assert mesh.backend == "nccl"
+    p = gset.load("K2000")
+    hp = SSAHyperParams(n_trials=16, m_shot=1, tau=20, i0_min=1, i0_max=32)
+    ref = anneal(p, hp, seed=0, track_energy=False, config=SolverConfig(
+        backend="cuda", noise="xorshift", field_mode="popcount"))
+    k2 = ssa_update.ssa_plateau_popcount_batched.launches
+    got = anneal(p, hp, seed=0, track_energy=False, config=SolverConfig(
+        backend="cuda", noise="xorshift", field_mode="popcount", partition="spin", mesh=mesh))
+    assert ssa_update.ssa_plateau_popcount_batched.launches == k2
+    assert np.array_equal(ref.best_energy, got.best_energy)
+    assert np.array_equal(ref.best_m, got.best_m)
+    torch.distributed.destroy_process_group()
+    print("NCCL_OK")
+""")
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_spin_equals_k2():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (an NCCL group runs on the card)")
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", CUDA_SCRIPT], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0 and "NCCL_OK" in proc.stdout, proc.stderr[-3000:]

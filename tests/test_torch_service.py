@@ -557,7 +557,7 @@ def test_admission_rejects_bad_requests():
     with pytest.raises(AdmissionError, match="cannot interpret"):
         svc.solve([AnnealRequest(problem="G11", hp=good.hp)])
     huge = gset.toroidal_grid(engine.MAX_UNSHARDED_SPINS + 100, seed=0).to_ising()
-    with pytest.raises(AdmissionError, match="step 8"):
+    with pytest.raises(AdmissionError, match="partition='spin'"):
         svc.solve([AnnealRequest(problem=huge, hp=good.hp)])
     assert len(svc._programs) == 0 and svc.stats["admission_rejects"] == 4
 
@@ -646,8 +646,16 @@ class _NoModel:
      "algo='ptssa' does not match"),
     (lambda: _svc("sparse").solve([AnnealRequest(problem=_NoModel(), hp=SSAHyperParams())]),
      AdmissionError, "cannot interpret"),
-    (lambda: _svc("sparse", partition="spin"), NotImplementedError, "ROADMAP.md queue 1 step 8"),
-    (lambda: _svc("sparse", partition="auto"), NotImplementedError, "ROADMAP.md queue 1 step 8"),
+    # Spin sharding is ported: what still raises is a spin group without
+    # xorshift noise, and an instance above MAX_UNSHARDED_SPINS that
+    # partition='auto' leaves problem-partitioned (no mesh of several ranks).
+    (lambda: _svc("sparse", partition="spin", noise="threefry").solve([AnnealRequest(
+        problem=gset.toroidal_grid(16, seed=0), hp=SSAHyperParams(n_trials=2, m_shot=1))]),
+     ValueError, "requires noise='xorshift'"),
+    (lambda: _svc("sparse", partition="auto").solve([AnnealRequest(
+        problem=gset.toroidal_grid(engine.MAX_UNSHARDED_SPINS + 100, seed=0),
+        hp=SSAHyperParams(n_trials=2, m_shot=1))]),
+     AdmissionError, "partition='spin'"),
     (lambda: _svc("auto"), NotImplementedError, "ROADMAP.md queue 1 step 3"),
 ], ids=["algo-sa", "algo-ptssa", "problem-encoding", "partition-spin", "partition-auto",
         "backend-auto"])

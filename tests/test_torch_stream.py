@@ -712,11 +712,12 @@ def test_non_ssa_requests_rejected(monkeypatch):
 
 
 def test_not_ported_stream_inputs_raise():
-    """partition='spin' waits for spin sharding; an object that is neither a
-    problem nor carries a model is rejected at admission (problem
-    encodings are served: tests/test_torch_problems.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 step 8"):
-        StreamingAnnealService(backend="sparse", partition="spin", device="cpu")
+    """An unknown partition raises (spin sharding is served since its port:
+    tests/test_torch_spinshard.py); an object that is neither a problem nor
+    carries a model is rejected at admission (problem encodings are served:
+    tests/test_torch_problems.py)."""
+    with pytest.raises(ValueError, match="unknown partition"):
+        StreamingAnnealService(backend="sparse", partition="bogus", device="cpu")
 
     class NoModel:
         model = None
