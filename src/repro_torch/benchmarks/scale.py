@@ -12,9 +12,7 @@ XNOR-popcount field: the numbers count only because the answers are equal.
 
 The parent spawns the P ranks of each row, joined through a ``file://``
 rendezvous: gloo ranks on the CPU (``--device cpu``), one NCCL rank per GPU
-on the card, or with ``--dist-backend gloo`` P gloo ranks that share the
-card (their speed is not a scaling figure: they share its SMs).  Rank 0
-prints the row; the parent writes ``BENCH_scale.json``.
+on the card.  Rank 0 prints the row; the parent writes ``BENCH_scale.json``.
 
     python -m repro_torch.benchmarks.scale --smoke --device cpu --ranks 1,2,4
     python -m repro_torch.benchmarks.scale --ranks 1          # one H100: P = 1
@@ -43,6 +41,11 @@ def _sync(mesh):
     mesh.barrier()
 
 
+def _dist_backend(device: str) -> str:
+    """NCCL, one rank per GPU, on the card; gloo on the CPU."""
+    return "nccl" if device.startswith("cuda") else "gloo"
+
+
 def _worker(args) -> None:
     import numpy as np
     import torch
@@ -61,9 +64,10 @@ def _worker(args) -> None:
     from repro_torch.sharding import spin_mesh
 
     cfg = json.loads(args.cfg)
-    if args.dist_backend == "nccl":
+    backend = _dist_backend(args.device)
+    if backend == "nccl":
         torch.cuda.set_device(args.rank)
-    dist.init_process_group(args.dist_backend, init_method=f"file://{args.store}",
+    dist.init_process_group(backend, init_method=f"file://{args.store}",
                             rank=args.rank, world_size=args.world)
     mesh = spin_mesh(args.world, device=args.device)
     P = mesh.size
@@ -139,7 +143,7 @@ def _worker(args) -> None:
     dist.destroy_process_group()
 
 
-def spawn_ranks(world: int, argv, *, dist_backend: str, device: str, timeout: float):
+def spawn_ranks(world: int, argv, *, device: str, timeout: float):
     """Run ``python -m repro_torch.benchmarks.scale --worker`` as ``world``
     ranks joined through a ``file://`` rendezvous; returns rank 0's stdout.
     Every rank is waited for (or killed at the time limit)."""
@@ -152,7 +156,7 @@ def spawn_ranks(world: int, argv, *, dist_backend: str, device: str, timeout: fl
         procs = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.benchmarks.scale", "--worker",
              "--rank", str(r), "--world", str(world), "--store", store,
-             "--dist-backend", dist_backend, "--device", device, *argv],
+             "--device", device, *argv],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for r in range(world)]
         outs = []
@@ -171,8 +175,7 @@ def spawn_ranks(world: int, argv, *, dist_backend: str, device: str, timeout: fl
     return outs[0][0]
 
 
-def run(ranks, *, smoke: bool, device: str, dist_backend: str, json_path: str,
-        timeout: float = 1800):
+def run(ranks, *, smoke: bool, device: str, json_path: str, timeout: float = 1800):
     from .common import emit
 
     cfg = SMOKE if smoke else FULL
@@ -180,7 +183,7 @@ def run(ranks, *, smoke: bool, device: str, dist_backend: str, json_path: str,
     for P in ranks:
         big_n = cfg["big_n"] if P == max(ranks) else 0
         out = spawn_ranks(P, ["--cfg", json.dumps(cfg), "--big-n", str(big_n)],
-                          dist_backend=dist_backend, device=device, timeout=timeout)
+                          device=device, timeout=timeout)
         row = next(json.loads(line[len("RESULT_JSON:"):]) for line in out.splitlines()
                    if line.startswith("RESULT_JSON:"))
         rows.append(row)
@@ -193,7 +196,7 @@ def run(ranks, *, smoke: bool, device: str, dist_backend: str, json_path: str,
         row["weak_scaling_speedup"] = row["spin_cycles_per_s"] / base["spin_cycles_per_s"]
         row["residency_drop"] = base["max_device_bytes_fixed_n"] / row["max_device_bytes_fixed_n"]
     big = next((r["largest_n"] for r in rows if "largest_n" in r), None)
-    report = {"smoke": smoke, "device": device, "dist_backend": dist_backend,
+    report = {"smoke": smoke, "device": device, "dist_backend": _dist_backend(device),
               "weak_scaling": rows, "largest_n": big}
     with open(json_path, "w") as f:
         json.dump(report, f, indent=2)
@@ -211,8 +214,6 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true", help="small sizes")
     ap.add_argument("--ranks", default="1", help="comma list of rank counts, e.g. 1,2,4")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--dist-backend", default=None,
-                    help="nccl (default on cuda: one GPU per rank) or gloo")
     ap.add_argument("--json", default="BENCH_scale.json")
     for flag in ("--worker",):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -221,12 +222,10 @@ def main(argv=None):
         ap.add_argument(flag, type=typ, default=0 if typ is int else "",
                         help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.dist_backend is None:
-        args.dist_backend = "nccl" if args.device.startswith("cuda") else "gloo"
     if args.worker:
         return _worker(args)
     run([int(p) for p in args.ranks.split(",")], smoke=args.smoke, device=args.device,
-        dist_backend=args.dist_backend, json_path=args.json)
+        json_path=args.json)
 
 
 if __name__ == "__main__":

@@ -194,8 +194,12 @@ class CheckpointManager:
     async_save: bool = True
     _pending: Optional[threading.Thread] = None
 
+    def due(self, step: int) -> bool:
+        """Whether :meth:`maybe_save` writes at ``step``."""
+        return step % self.save_interval == 0
+
     def maybe_save(self, step: int, tree, meta=None) -> bool:
-        if step % self.save_interval:
+        if not self.due(step):
             return False
         self.wait()
         if self.async_save:

@@ -33,7 +33,7 @@ under spin sharding: no kernel is launched on this path.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -302,6 +302,14 @@ class BatchedSpinShardedBackend(BatchedBackend):
 
     def sync(self) -> None:
         self.mesh.barrier()
+
+    def rank_span(self, value: int) -> Tuple[int, int]:
+        """(min, max) of ``value`` over the ranks: one all-reduce of (-v, v)
+        under max.  A spin group resumes only from a checkpoint that every
+        rank sees and accepts, so that all ranks issue the same collectives."""
+        neg_lo, hi = all_reduce(self.mesh, torch.tensor([-value, value], dtype=torch.int64,
+                                                        device=self.mesh.device), "max").tolist()
+        return -neg_lo, hi
 
 
 class SpinShardedBackend(PlateauBackend):

@@ -1374,6 +1374,10 @@ class BatchedBackend:
     def sync(self) -> None:
         """Wait for every rank (a no-op on one device)."""
 
+    def rank_span(self, value: int) -> Tuple[int, int]:
+        """(min, max) of ``value`` over the ranks (one device: (value, value))."""
+        return value, value
+
 
 class BatchedSparseBackend(BatchedBackend):
     """Padded-adjacency gather field, for all problems at once."""

@@ -301,10 +301,17 @@ class _GroupCtx:
         valid one exists, restored onto the template's devices; else (0,
         template, None).  Zeroed xorshift lanes (the generator's fixed
         point) reject the checkpoint, and the group runs from scratch.  A
-        spin group checks the whole restored state, then keeps its columns."""
-        if self.ckpt is None or latest_step(self._dir) is None:
+        spin group checks the whole restored state, then keeps its columns;
+        its ranks resume only where all of them see the same checkpoint and
+        accept it (:func:`agreed_latest_step`)."""
+        if self.ckpt is None:
             return 0, template, None
         codec = self.bk
+        step, split = agreed_latest_step(self._dir, codec)
+        if step is None:
+            if split:
+                self._event("checkpoint_rejected", dir=self._dir, reason=SPLIT_CHECKPOINTS)
+            return 0, template, None
         state, meta = self.ckpt.restore_latest(
             codec.checkpoint_state(template) if codec is not None else template)
         traces = meta.get("traces")
@@ -316,6 +323,8 @@ class _GroupCtx:
             # package.
             lanes = getattr(state, "noise_state", None)
             ok = lanes is not None and xorshift_lanes_ok(lanes, axis=1)
+        if codec is not None:
+            ok = codec.rank_span(int(ok))[0] == 1
         if not ok:
             self._event("checkpoint_rejected", dir=self._dir)
             return 0, template, None
@@ -334,11 +343,31 @@ class _GroupCtx:
             purge_checkpoints(self.ckpt, self.bk)
 
 
+SPLIT_CHECKPOINTS = "the ranks see different checkpoints"
+
+
+def agreed_latest_step(directory: str, bk):
+    """(step, split): the latest checkpoint step of ``directory`` if every
+    rank of ``bk``'s group sees the same one (else None), and whether the
+    ranks saw different ones.
+
+    Rank 0 of a spin group writes its checkpoints, so its ranks must share
+    the checkpoint directory to resume; ranks that do not share it start from
+    scratch together instead of resuming at different chunks."""
+    seen = latest_step(directory)
+    v = -1 if seen is None else seen
+    lo, hi = (v, v) if bk is None else bk.rank_span(v)
+    return (seen if lo == hi else None), lo != hi
+
+
 def save_checkpoint(ckpt: CheckpointManager, bk, step: int, state, meta: dict):
-    """Save ``state`` through its backend: a spin-sharded one gathers the
-    whole arrays, rank 0 alone writes, and the ranks wait for it."""
+    """Save ``state`` through its backend at the checkpoint interval: a
+    spin-sharded one gathers the whole arrays, rank 0 alone writes, and the
+    ranks wait for it."""
     if bk is None:
         ckpt.maybe_save(step, state, meta=meta)
+        return
+    if not ckpt.due(step):
         return
     tree = bk.checkpoint_state(state)
     if bk.writes_checkpoints:

@@ -103,7 +103,10 @@ class ResiliencePolicy:
 
     checkpoint_dir:      root of chunk-level group checkpoints (None = off);
                          each request group writes under
-                         ``<dir>/<group_fingerprint>/``.
+                         ``<dir>/<group_fingerprint>/``.  Rank 0 of a spin
+                         group writes for all its ranks, so they must share
+                         this directory to resume; ranks that see different
+                         checkpoints start from scratch together.
     checkpoint_interval: save every k-th chunk boundary.
     keep_checkpoints:    keep the last n per group (crash window = interval).
     cleanup_on_success:  purge a group's checkpoints when it completes.

@@ -66,7 +66,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from ..checkpoint.ckpt import CheckpointManager, latest_step
+from ..checkpoint.ckpt import CheckpointManager
 from ..core.autotune import autotune_hyperparams, resolve_hyperparams
 from ..core.engine import (
     bucket_n,
@@ -87,7 +87,9 @@ from .anneal_service import (
     AnnealResponse,
     AnnealService,
     _largest_divisor_leq,
+    SPLIT_CHECKPOINTS,
     _opts_key,
+    agreed_latest_step,
     purge_checkpoints,
     save_checkpoint,
 )
@@ -596,13 +598,19 @@ class StreamingAnnealService:
             s.ckpt = CheckpointManager(
                 s.ckpt_dir, save_interval=max(1, int(svc.policy.checkpoint_interval)),
                 keep=svc.policy.keep_checkpoints, async_save=False)
-            if latest_step(s.ckpt_dir) is not None:
+            step, split = agreed_latest_step(s.ckpt_dir, table.bk1)
+            if split:
+                ticket.events.append(ServiceEvent(
+                    "checkpoint_rejected", {"request": ticket.seq, "dir": s.ckpt_dir,
+                                            "reason": SPLIT_CHECKPOINTS},
+                    time.monotonic() - ticket.submit_t))
+            elif step is not None:
                 restored, meta = s.ckpt.restore_latest(table.bk1.checkpoint_state(lane))
                 traces = meta.get("traces")
                 ok = isinstance(traces, list) and len(traces) == 1
                 if ok and svc.noise == "xorshift":
                     ok = xorshift_lanes_ok(restored.noise_state, axis=1)
-                if ok:
+                if table.bk1.rank_span(int(ok))[0] == 1:
                     lane = table.bk1.restore_state(restored)
                     s.chunks_done = int(meta["step"])
                     s.trace = [int(v) for v in traces[0]]

@@ -92,7 +92,8 @@ def spin_mesh(n: Optional[int] = None, *, axis: str = "model", device=None) -> S
     spin mesh spans the whole group, each rank running the same program;
     more ranks than exist raises ValueError naming both counts.  Without
     one, ``n in (None, 1)`` makes a one-rank group on an in-process store.
-    An NCCL group with more ranks than GPUs raises ValueError naming both.
+    An NCCL group with more ranks than GPUs raises ValueError naming both,
+    and so does a running one-rank gloo group asked for on the card.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -128,6 +129,11 @@ def spin_mesh(n: Optional[int] = None, *, axis: str = "model", device=None) -> S
                              f"{world} GPUs, {have} exist; use gloo ranks to share one")
         dev = torch.device("cuda", _local_rank(rank))
     elif dev.type == "cuda":
+        if world == 1:
+            raise ValueError(
+                "spin_mesh: a one-rank spin mesh on the card is an NCCL group, but a "
+                f"{backend} group is running; call torch.distributed.destroy_process_group() "
+                "first, or pass device='cpu'")
         dev = torch.device("cuda", _local_rank(rank) % torch.cuda.device_count())
     return SpinMesh(axis=axis, size=world, rank=rank, device=dev, backend=backend)
 
@@ -153,7 +159,9 @@ def _to_wire(mesh: SpinMesh, x: torch.Tensor) -> torch.Tensor:
     return x.cpu() if mesh.backend == "gloo" and x.device.type != "cpu" else x
 
 
-_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+# torch 2.13 names the dim-0 gather ``all_gather_single`` and deprecates
+# ``all_gather_into_tensor``, the only name of earlier releases.
+_gather_dim0 = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
 def all_gather_last(mesh: SpinMesh, x: torch.Tensor) -> torch.Tensor:
@@ -165,7 +173,7 @@ def all_gather_last(mesh: SpinMesh, x: torch.Tensor) -> torch.Tensor:
     src = _to_wire(mesh, x)
     shape = tuple(src.shape)
     out = torch.empty((mesh.size * shape[0],) + shape[1:], dtype=src.dtype, device=src.device)
-    _gather_single(out, src)
+    _gather_dim0(out, src)
     out = out.view((mesh.size,) + shape).movedim(0, -2).reshape(
         shape[:-1] + (mesh.size * shape[-1],))
     return out.to(x.device)

@@ -113,6 +113,15 @@ def test_spin_mesh_and_fingerprint():
         spin_mesh(2, device="cpu")
 
 
+def test_spin_mesh_refuses_gloo_group_on_card(monkeypatch):
+    """A running one-rank gloo group is no spin mesh on the card, which is a
+    one-rank NCCL group there: the error names the remedy."""
+    _mesh()  # the one-rank gloo group runs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="destroy_process_group"):
+        spin_mesh(1, device="cuda")
+
+
 @pytest.mark.parametrize("partition,n,mesh", [
     ("problem", 1 << 20, True), ("spin", 64, True), ("auto", 1 << 20, True),
     ("auto", 1 << 20, False), ("auto", 64, False)])
@@ -263,6 +272,27 @@ def test_sharded_kill_resume_bit_identical(layout, tmp_path):
     np.testing.assert_array_equal(base.result.best_energy, resumed.result.best_energy)
     np.testing.assert_array_equal(base.result.best_m, resumed.result.best_m)
     assert not any(tmp_path.iterdir())  # purged on success
+
+
+def test_checkpoint_gathers_only_when_due(tmp_path):
+    """A spin group gathers its shards (and waits for its ranks) only at the
+    chunks the checkpoint interval saves; its ranks agree on the step."""
+    from repro_torch import sharding
+    from repro_torch.checkpoint.ckpt import CheckpointManager, latest_step
+    from repro_torch.serve.anneal_service import agreed_latest_step, save_checkpoint
+
+    bk = engine.make_batched_backend("dense", n_bucket=64, n_trials=3, noise="xorshift",
+                                     partition="spin", mesh=_mesh(), device="cpu")
+    problem = bk.stack([_twin().to_ising()])
+    st = bk.init_state(problem, bk.init_noise([4], [64]))
+    ckpt = CheckpointManager(str(tmp_path / "g"), save_interval=2, async_save=False)
+    sharding.reset_collective_counts()
+    save_checkpoint(ckpt, bk, 1, st, {"traces": [[]]})
+    assert not sharding.collective_counts and latest_step(ckpt.directory) is None
+    assert agreed_latest_step(ckpt.directory, bk) == (None, False)
+    save_checkpoint(ckpt, bk, 2, st, {"traces": [[]]})
+    assert sharding.collective_counts["all_gather"] > 0
+    assert agreed_latest_step(ckpt.directory, bk) == (2, False)
 
 
 def test_stream_under_spin_matches_one_shot():
@@ -418,6 +448,25 @@ RANK_SCRIPT = textwrap.dedent("""
         assert np.array_equal(t.result(timeout=0).result.best_m, ref["kill_bm"])
         out["kill_resume"] = True
 
+    if world == 2:  # ranks that do not share the checkpoint directory
+        hp_k = SSAHyperParams(**json.loads(str(ref["hp_kill"])))
+        reqs = [AnnealRequest(problem=gset.toroidal_grid(64, seed=17), hp=hp_k, seed=4)]
+        svc = lambda **kw: AnnealService(backend="dense", min_bucket=64, partition="spin",
+                                         mesh=mesh, **kw)
+        pol = ResiliencePolicy(checkpoint_dir=os.path.join(out_dir, f"split{rank}"))
+        inj = FaultInjector(); inj.arm("kill", chunk=2)
+        try:
+            svc(resilience=pol, faults=inj).solve(reqs)
+            raise SystemExit("kill did not fire")
+        except InjectedKill:
+            pass
+        fresh = svc(resilience=pol).solve(reqs)[0]
+        assert [(e.kind, e.detail.get("reason")) for e in fresh.events] == [
+            ("checkpoint_rejected", "the ranks see different checkpoints")], fresh.events
+        assert np.array_equal(fresh.result.best_energy, ref["kill_bh"])
+        assert np.array_equal(fresh.result.best_m, ref["kill_bm"])
+        out["split_dirs"] = True
+
     if world == 8:  # residency at bucket 4096
         bk = make_batched_backend("dense", n_bucket=4096, n_trials=2, noise="xorshift",
                                   partition="spin", mesh=mesh)
@@ -466,9 +515,24 @@ def test_multirank_subprocess():
             _spawn(world, ref_path, out_dir, timeout=120)
         res = {w: json.load(open(os.path.join(out_dir, f"P{w}.json"))) for w in (2, 4, 8)}
     assert all(r["bit_identity"] for r in res.values()) and res[4]["kill_resume"]
+    assert res[2]["split_dirs"]
     bk = engine.make_batched_backend("dense", n_bucket=4096, n_trials=2, noise="xorshift",
                                      partition="spin", mesh=_mesh(), device="cpu")
     prob = bk.stack([_twin().to_ising()])
     st = bk.init_state(prob, bk.init_noise([0], [64]))
     ratio = memory.max_device_bytes((prob, st), _mesh()) / res[8]["busiest"]
     assert ratio >= 4.0, (ratio, res[8])
+
+
+def test_scale_benchmark_smoke(tmp_path):
+    """The weak-scaling benchmark at P = 1 and 2 gloo ranks: its rows hold
+    bit-identity, the residency drop and the 40,000-spin row."""
+    from repro_torch.benchmarks import scale
+
+    report = scale.run([1, 2], smoke=True, device="cpu", json_path=str(tmp_path / "s.json"),
+                       timeout=120)
+    assert report["dist_backend"] == "gloo"
+    assert all(all(r["bit_identity"].values()) for r in report["weak_scaling"])
+    assert report["weak_scaling"][1]["residency_drop"] > 1.5
+    big = report["largest_n"]
+    assert big["n"] == 40000 and big["single_device_rejected"] and big["status"] == "ok"
