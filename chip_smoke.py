@@ -173,9 +173,29 @@ Phases (any failure raises and exits non-zero):
      popcount run, shards of 1000 spins (not whole words), equal to it;
      the busiest rank's resident bytes at bucket 4096 for P = 1 and 2,
      measured, not asserted (the ranks share the SMs: no speed is read);
- 34. the card line again, the kernels line (each kernel's service launches
+ 34. backend='auto': the crossover sweep behind ``engine.MIN_RESIDENT_N``
+     (``benchmarks/crossover.py``: dense against cuda through anneal() and
+     a B = 4 service solve, n = 16 … 2048, measured, the derived threshold
+     printed beside the constant); 'auto' at K2000 launches K1 m_shot ×
+     steps times and equals phase 6, below the threshold it launches
+     nothing and equals the dense backend;
+ 35. j_dtype: K1, K1's ring mode, K3 and K4 with a bfloat16 J that
+     bfloat16 rounds, each equal to its plain version, timed with their
+     bounds; production, trace and xorshift pregen anneal(K2000) with a
+     bfloat16 J (K1, K3, K4 only), equal to phases 6/7 and to the dense
+     backend's bfloat16 run, the production peak device bytes below phase
+     6's; partition's 13-bit J on K1, equal to the dense backend's
+     bfloat16 run; the service K1 group, equal to phase 18 — peak device
+     bytes beside the float32 runs';
+ 36. the paper: Table IV (``benchmarks/memory_table.py``, its 15% gate
+     enforced), Fig. 7/9 and 8/10 on G11–G13 and Fig. 12 on G11
+     (``convergence``, ``histograms``, ``equal_temp``) at 100 trials on
+     backend='auto', cut to 3,000 cycles (Fig. 7–10) and 6,000 (Fig. 12);
+ 37. the card line again, the kernels line (each kernel's service launches
      in ``service_launches``, its stream launches in ``stream_launches``,
-     its launches per family of phase 27 in ``family_launches``); 35. the
+     its launches per family of phase 27 in ``family_launches``, those of
+     phases 34–36 in ``auto_launches``, ``j_dtype_launches`` and
+     ``paper_launches``, and its bfloat16-J row in ``bf16``); 38. the
      contract line (last).
 """
 from __future__ import annotations
@@ -1314,7 +1334,8 @@ def phase_service():
     equal to anneal() of its unpadded instance on the card; a second solve
     hits the program cache twice and builds nothing.  Then the same batch
     with noise_mode='pregen': K4 once per plateau, the same results.
-    Returns (responses, launches of K1 and of K4)."""
+    Returns (problems, requests, responses, launches of K1 and of K4, the
+    first solve's peak device bytes)."""
     from repro_torch.core import gset
     from repro_torch.core.config import SolverConfig
     from repro_torch.core.ssa import anneal
@@ -1329,7 +1350,7 @@ def phase_service():
     k1_per = 2 * hp.m_shot * hp.steps  # two groups
     svc = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
                         chunk_shots=5)
-    resp, wall, counts, _ = _service_solve(svc, reqs, "service K1")
+    resp, wall, counts, peak = _service_solve(svc, reqs, "service K1")
     _expect("service K1", counts, (k1_per, 0, 0, 0, 0, 0))
     _check_service("service K1", resp, refs, problems)
     if sorted({(r.bucket, r.batch) for r in resp}) != [(1024, 4), (2048, 1)]:
@@ -1353,7 +1374,7 @@ def phase_service():
     resp4, _, counts4, _ = _service_solve(pre, reqs, "service K4 (xorshift pregen)")
     _expect("service K4", counts4, (0, 0, k1_per, 0, 0, 0))
     _check_service("service K4", resp4, refs, problems)
-    return problems, reqs, resp, counts[0], counts4[2]
+    return problems, reqs, resp, counts[0], counts4[2], peak
 
 
 def phase_service_popcount(problems, reqs, k1_resp):
@@ -2418,6 +2439,315 @@ def phase_spin_p2(mesh, k2_run):
           f"processes {wall:.3f}s; the ranks share the SMs, so no speed is read")
 
 
+# ---------------------------------------------------------------------------
+# backend='auto', j_dtype and the paper's figures
+# ---------------------------------------------------------------------------
+# The figures run at Table II's widths (100 trials) and are cut in cycles
+# only: Fig. 7/9 and 8/10 from m_shot 150 to 5 (3,000 cycles), Fig. 12's
+# 15,000-cycle window to 6,000.
+PAPER_M_SHOT, PAPER_WINDOW = 5, 6_000
+
+
+def _counted(fn):
+    """(fn(), launches of (K1, K3, K4, K2, K1 ring, K2 ring) it made): the
+    counters set to 0 just before the call and read just after."""
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _counts()
+
+
+def _same(what, got, want, traces=False):
+    import numpy as np
+
+    keys = ("best_energy", "best_m") + (("energy_mean", "energy_min") if traces else ())
+    for k in keys:
+        if not np.array_equal(getattr(got, k), getattr(want, k)):
+            _fail(f"{what}: {k} differs")
+
+
+def phase_auto(streamed):
+    """Phase 34: the crossover sweep behind MIN_RESIDENT_N
+    (``benchmarks/crossover.py``: the dense backend against the cuda one,
+    anneal() and a B = 4 service solve at Table II widths, m_shot 1, n = 16
+    … 2048; measured, the derived threshold printed beside the constant,
+    not gated), then backend='auto' on K2000 — K1 m_shot × steps times,
+    equal to phase 6's 'cuda' run — and below the threshold — no launch,
+    equal to the dense backend.  Returns the K2000 run's K1 launches."""
+    from repro_torch.benchmarks import crossover
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.engine import MIN_RESIDENT_N
+    from repro_torch.core.ssa import anneal
+
+    t0 = time.time()
+    sweep = crossover.run(repeats=2)
+    for row in sweep["rows"]:
+        print(f"[auto] crossover n={row['n']} (service bucket {row['bucket']}): anneal() dense "
+              f"{row['anneal_dense_s']:.4f}s, cuda {row['anneal_cuda_s']:.4f}s; service B=4 "
+              f"dense {row['service_dense_s']:.4f}s, cuda {row['service_cuda_s']:.4f}s")
+    print(f"[auto] derived threshold {sweep['threshold']}, MIN_RESIDENT_N {MIN_RESIDENT_N} "
+          f"(the sweep took {time.time() - t0:.1f}s)")
+    hp = _service_hp()
+    auto = SolverConfig(backend="auto", noise="xorshift")
+    t0 = time.time()
+    r, counts = _counted(lambda: anneal(gset.load("K2000"), hp, seed=0, track_energy=False,
+                                        config=auto, device="cuda"))
+    print(f"[auto] K2000: wall {time.time() - t0:.3f}s, (K1, K3, K4, K2, K1 ring, K2 ring) "
+          f"launches {counts}")
+    _expect("auto K2000", counts, (hp.m_shot * hp.steps, 0, 0, 0, 0, 0))
+    _same("auto K2000 against phase 6's cuda run", r, streamed)
+    k1_auto = counts[0]
+    small = gset.toroidal_grid(max(4, MIN_RESIDENT_N // 2), seed=3)
+    r, counts = _counted(lambda: anneal(small, hp, seed=0, config=auto, device="cuda"))
+    ref = anneal(small, hp, seed=0, config=SolverConfig(backend="dense", noise="xorshift"),
+                 device="cuda")
+    print(f"[auto] N={small.n} (below {MIN_RESIDENT_N}): launches {counts}, best cut "
+          f"{r.overall_best_cut} == the dense backend's")
+    _counters_zero(f"auto N={small.n}", counts)
+    _same(f"auto N={small.n} against the dense backend", r, ref, traces=True)
+    return k1_auto
+
+
+def _wide_coupling(gen, n, dtype, device):
+    """A symmetric J with weights up to ±5000, most of which bfloat16
+    rounds (to multiples of 16 or 32): the kernels must read the rounded
+    J as it is."""
+    J = torch.triu(torch.randint(-5000, 5001, (n, n), generator=gen), 1)
+    return (J + J.T).to(dtype).to(device)
+
+
+def _bf16_kernels(dev):
+    """K1, K1's ring mode, K3 and K4 with a bfloat16 J at the main path's
+    shapes, on weights bfloat16 rounds (and K3 on J tiles of one to four
+    byte planes): each equal to its plain version; kernel and plain times
+    and the bound, where J's bytes are half a float32 J's."""
+    from repro_torch.kernels import ssa_update
+    from repro_torch.kernels.ref import local_field_ref, ssa_plateau_packed_ref, ssa_plateau_ref
+
+    gen = torch.Generator().manual_seed(27)
+    bf16 = torch.bfloat16
+    R, N, C = 100, 2000, 100
+    nw = (N + 31) // 32
+    out = {}
+
+    def check(name, got, want):
+        err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+        if err:
+            _fail(f"{name} with a bfloat16 J differs from its plain version")
+        return err
+
+    # K3: wide weights, then tiles of one to four byte planes.
+    m = _spins(gen, (R, N), dev).to(torch.float32)
+    h = torch.randint(-3, 4, (N,), generator=gen, dtype=torch.int32).to(dev)
+    err = 0
+    for J in (_wide_coupling(gen, N, bf16, dev), _mixed_plane_coupling(gen, N, bf16, dev)):
+        err = max(err, check("K3", [ssa_update.local_field(m, h, J)], [local_field_ref(m, h, J)]))
+    J = _coupling(gen, N, bf16, dev)
+    ms = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=50)
+    plain = _time_ms(lambda: local_field_ref(m, h, J), reps=50)
+    graph = _graph_time_ms(lambda: ssa_update.local_field(m, h, J))
+    bound, by = _bound_ms(4 * R * N + 2 * N * N + 4 * N + 4 * R * N, 2 * R * N * N,
+                          PEAK_INT8_OPS)
+    out["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                     graph_ms=graph)
+    # K1, classical and ring mode.
+    k1 = ssa_update.ssa_plateau_packed_batched
+    for name, R_, kw in (("K1", R, {}),
+                         ("K1 ring", SSQA_TRIALS, dict(jperp=SSQA_JPERP_MAX,
+                                                       n_replicas=SSQA_RING))):
+        x = _plateau_inputs(gen, R_, N, dev, bf16)
+        xw = dict(x, J=_wide_coupling(gen, N, bf16, dev)[None])
+        kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=True, **kw)
+        err = check(name, k1(**xw, **kw), ssa_plateau_packed_ref(**xw, **kw))
+        ms = _time_ms(lambda: k1(**x, **kw), reps=5)
+        plain = _time_ms(lambda: ssa_plateau_packed_ref(**x, **kw), reps=3)
+        sb = 4 * (R_ * nw + R_ * N + 4 * R_ * N + R_ + R_ * nw)
+        n_ops = 2 * R_ * N * N * (C + 1) + (2 * R_ * N * C if kw.get("n_replicas") else 0)
+        bound, by = _bound_ms(2 * N * N + 4 * N + 2 * sb, n_ops)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+    # K4.
+    k4 = ssa_update.ssa_plateau_batched
+    x = _pregen_inputs(gen, 1, R, N, C, dev, bf16)
+    xw = dict(x, J=_wide_coupling(gen, N, bf16, dev)[None])
+    kw = dict(i0=32, n_rnd=2, eligible=True)
+    err = check("K4", k4(**xw, **kw), ssa_plateau_ref(**xw, **kw))
+    ms = _time_ms(lambda: k4(**x, **kw), reps=5)
+    plain = _time_ms(lambda: ssa_plateau_ref(**x, **kw), reps=3)
+    sb = 4 * R * N + 4 * R * N + 4 * R + R * N
+    bound, by = _bound_ms(2 * N * N + 4 * N + 2 * sb + C * R * N, 2 * R * N * N * (C + 1))
+    out["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+    for name, row in out.items():
+        extra = f", device time by CUDA graph {row['graph_ms']:.4f} ms" if "graph_ms" in row else ""
+        print(f"[j_dtype] {name}, bfloat16 J, main path's shape: kernel {row['ms']:.4f} ms"
+              f"{extra}, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); equal to its plain version (max_abs_err 0)")
+    return out
+
+
+def _peak_run(fn):
+    """(fn(), wall s, launches, peak device bytes of the call)."""
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out, counts = _counted(fn)
+    return out, time.time() - t0, counts, torch.cuda.max_memory_allocated() - live
+
+
+def phase_j_dtype(dev, streamed, streamed_peak, trace_peak, problems, reqs, k1_resp,
+                  service_peak):
+    """Phase 35: a bfloat16 J (``j_dtype=torch.bfloat16``).  K1, K1's ring
+    mode, K3 and K4 against their plain versions on weights bfloat16 rounds,
+    timed at the main path's shapes with their bounds; the production
+    anneal(K2000) — K1 m_shot × steps times, equal to phase 6's float32
+    run and to the dense backend's bfloat16 run, its peak device bytes
+    below phase 6's; the trace path (K3 only, traces equal to the dense
+    backend's bfloat16 run) and xorshift pregen (K4 only, equal to phase
+    6); partition's 13-bit weights, which bfloat16 rounds, on K1 — equal to
+    the dense backend's bfloat16 run; and the service K1 group (phase 18's
+    requests) — equal to phase 18's responses.  Peak device bytes are
+    printed beside the float32 runs'.  Returns (kernel rows, launches)."""
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.ssa import anneal
+    from repro_torch.problems import make_demo
+    from repro_torch.serve import AnnealService
+
+    rows = _bf16_kernels(dev)
+    bf = {"j_dtype": torch.bfloat16}
+    hp = _service_hp()
+    plateaus = hp.m_shot * hp.steps
+    p = gset.load("K2000")
+
+    def cfg(backend, **kw):
+        return SolverConfig(backend=backend, noise="xorshift", backend_opts=bf, **kw)
+
+    def run(problem, c, h=hp, track=False):
+        return _peak_run(lambda: anneal(problem, h, seed=0, track_energy=track, config=c,
+                                        device="cuda"))
+
+    anneal(p, dataclasses.replace(hp, m_shot=1), seed=0, track_energy=False,
+           config=cfg("cuda"), device="cuda")  # warm-up: the bfloat16 shapes' queries
+    r, wall, counts, peak = run(p, cfg("cuda"))
+    print(f"[j_dtype] production K2000, bfloat16 J: wall {wall:.3f}s, launches {counts}, peak "
+          f"device memory of the call {peak} B (float32 J, phase 6: {streamed_peak} B)")
+    _expect("j_dtype production", counts, (plateaus, 0, 0, 0, 0, 0))
+    _same("j_dtype production against phase 6's float32 run", r, streamed)
+    _same("j_dtype production against the dense backend", r,
+          anneal(p, hp, seed=0, track_energy=False, config=cfg("dense"), device="cuda"))
+    if not peak < streamed_peak:
+        _fail(f"j_dtype: peak device bytes {peak} not below the float32 run's {streamed_peak}")
+    launches = {"K1": {"j_dtype production": counts[0]}}
+
+    h2 = dataclasses.replace(hp, m_shot=M_SHOT_TRACE)
+    r, wall, counts, peak = run(p, cfg("cuda"), h2, track=True)
+    print(f"[j_dtype] trace path K2000, bfloat16 J: wall {wall:.3f}s, launches {counts}, peak "
+          f"{peak} B (float32 J, phase 7: {trace_peak} B)")
+    if counts[1] == 0 or counts[0] or counts[2]:
+        _fail(f"j_dtype trace path: expected K3 only, got {counts}")
+    _same("j_dtype trace path against the dense backend", r,
+          anneal(p, h2, seed=0, config=cfg("dense"), device="cuda"), traces=True)
+    launches["K3"] = {"j_dtype trace": counts[1]}
+
+    r, wall, counts, peak = run(p, cfg("cuda", noise_mode="pregen"))
+    print(f"[j_dtype] xorshift pregen K2000, bfloat16 J: wall {wall:.3f}s, launches {counts}, "
+          f"peak {peak} B")
+    _expect("j_dtype pregen", counts, (0, 0, plateaus, 0, 0, 0))
+    _same("j_dtype pregen against phase 6's run", r, streamed)
+    launches["K4"] = {"j_dtype xorshift pregen": counts[2]}
+
+    enc = make_demo("partition", n=2000, seed=0)
+    f32, _, _, peak32 = run(enc, SolverConfig(backend="cuda", noise="xorshift"))
+    r, wall, counts, peak = run(enc, cfg("cuda"))
+    ref = anneal(enc, hp, seed=0, track_energy=False, config=cfg("dense"), device="cuda")
+    rounded = not (f32.best_energy == r.best_energy).all()
+    print(f"[j_dtype] partition (13-bit J, {enc.model.n} spins), bfloat16 J on K1: wall "
+          f"{wall:.3f}s, launches {counts}, peak {peak} B (float32 J: {peak32} B); best energy "
+          f"{int(r.best_energy.min())} (float32 J: {int(f32.best_energy.min())}; the rounding "
+          f"changed the run: {rounded}) == the dense backend's bfloat16 run")
+    _expect("j_dtype partition", counts, (plateaus, 0, 0, 0, 0, 0))
+    _same("j_dtype partition against the dense backend", r, ref)
+    launches["K1"]["j_dtype partition"] = counts[0]
+
+    svc = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                        chunk_shots=5, backend_opts=bf)
+    resp, wall, counts, peak = _service_solve(svc, reqs, "j_dtype service K1 (bfloat16 J)")
+    print(f"[j_dtype] service K1, bfloat16 J: peak {peak} B (float32 J, phase 18: "
+          f"{service_peak} B)")
+    _expect("j_dtype service K1", counts, (2 * plateaus, 0, 0, 0, 0, 0))
+    _check_service("j_dtype service K1", resp, [x.result for x in k1_resp], problems)
+    launches["K1"]["j_dtype service K1"] = counts[0]
+    return rows, launches
+
+
+def phase_paper():
+    """Phase 36: the paper's Table IV, Fig. 7/9, Fig. 8/10 and Fig. 12
+    through the port's benchmark modules on the card, ``backend='auto'``
+    (the CUDA kernels at N = 800: K1, or K3 where traces are kept), 100
+    trials, cut in cycles only (PAPER_M_SHOT, PAPER_WINDOW).  Table IV's
+    gate is enforced (the measured HA-SSA/SSA ratio at most 15% below the
+    analytic 6×); the figures' rows are printed, their traces checked for
+    shape and finiteness, the cycles to target measured, not gated.
+    Returns the launches of each module, by kernel."""
+    import numpy as np
+
+    from repro_torch.benchmarks import convergence, equal_temp, histograms, memory_table
+
+    t0 = time.time()
+    mt, c_mt = _counted(lambda: memory_table.run(backend="auto", device="cuda"))
+    print(f"[paper] Table IV: measured HA-SSA/SSA ratio {mt['measured_ratio']:.2f}x (analytic "
+          f"{mt['ratio']}x); device bytes the reduced runs left: SSA {mt['live_bytes'][0]} B, "
+          f"HA-SSA {mt['live_bytes'][1]} B, their peaks: SSA {mt['peak_bytes'][0]} B, HA-SSA "
+          f"{mt['peak_bytes'][1]} B; J at N=800 {mt['j_bytes']['f32']} B float32, "
+          f"{mt['j_bytes']['bf16']} B bfloat16; launches {c_mt}; {time.time() - t0:.1f}s")
+    if not mt["measured_ok"]:
+        _fail(f"memory_table: measured ratio {mt['measured_ratio']:.2f} fell more than 15% "
+              f"below the analytic {mt['ratio']}")
+    twins = SERVICE_TWINS[:3]
+    t0 = time.time()
+    conv, c_conv = _counted(lambda: convergence.run(problems=twins, trials=100,
+                                                    m_shot=PAPER_M_SHOT, backend="auto",
+                                                    device="cuda"))
+    for name, row in conv.items():
+        cycles = row["ha"].hp.total_cycles
+        for r in (row["ha"], row["ssa"], row["sa"]):
+            if r.energy_mean.shape != (cycles,) or not np.all(np.isfinite(r.energy_mean)):
+                _fail(f"convergence {name}: malformed energy trace")
+        print(f"[paper] Fig. 7/9 {name}: cycles to 96% of HA-SSA's best mean energy: HA-SSA "
+              f"{row['c_ha']}, SA {row['c_sa']} (of {cycles}; {row['speedup']:.1f}x); best cut "
+              f"HA-SSA {row['ha'].overall_best_cut}, SSA {row['ssa'].overall_best_cut}, SA "
+              f"{row['sa'].overall_best_cut}; wall HA-SSA {row['t_ha'] / 1e6:.3f}s, SSA "
+              f"{row['t_ssa'] / 1e6:.3f}s, SA {row['t_sa'] / 1e6:.3f}s")
+    print(f"[paper] Fig. 7/9: launches {c_conv}; {time.time() - t0:.1f}s")
+    t0 = time.time()
+    hist, c_hist = _counted(lambda: histograms.run(problems=twins, trials=100,
+                                                   m_shot=PAPER_M_SHOT, backend="auto",
+                                                   device="cuda"))
+    for name, (ha, ssa, sa) in hist.items():
+        print(f"[paper] Fig. 8/10 {name}: histogram {np.histogram(ha.best_cut, bins=8)[0]}, "
+              f"best/mean cut HA-SSA {ha.overall_best_cut}/{ha.mean_best_cut:.1f}, SSA "
+              f"{ssa.overall_best_cut}/{ssa.mean_best_cut:.1f}, SA "
+              f"{sa.overall_best_cut}/{sa.mean_best_cut:.1f}")
+    print(f"[paper] Fig. 8/10: launches {c_hist}; {time.time() - t0:.1f}s")
+    t0 = time.time()
+    eq, c_eq = _counted(lambda: equal_temp.run(trials=100, window=PAPER_WINDOW, backend="auto",
+                                               device="cuda"))
+    if eq["ha"].energy_mean.shape != (PAPER_WINDOW,):
+        _fail("equal_temp: malformed energy trace")
+    print(f"[paper] Fig. 12 G11, {PAPER_WINDOW} cycles: HA-SSA within 2% of its best mean "
+          f"energy at cycle {eq['cycles_to_98pct']}; mean cut HA-SSA "
+          f"{eq['ha'].mean_best_cut:.1f}, SA at equal temperature {eq['sa'].mean_best_cut:.1f}; "
+          f"launches {c_eq}; {time.time() - t0:.1f}s")
+    if c_conv[1] == 0 or c_hist[0] == 0 or c_eq[1] == 0:
+        _fail(f"paper: expected K3 on the traced figures and K1 on Fig. 8/10, got "
+              f"{c_conv}, {c_hist}, {c_eq}")
+    names = ("Table IV", "Fig. 7/9", "Fig. 8/10", "Fig. 12")
+    counts = (c_mt, c_conv, c_hist, c_eq)
+    return {k: {n: c[i] for n, c in zip(names, counts) if c[i]}
+            for k, i in (("K1", 0), ("K3", 1), ("K4", 2))}
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--spin-rank":
         return _spin_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -2434,7 +2764,7 @@ def main():
     phase_threefry(dev)
     k4 = phase_k4(dev)
     streamed, (k1_launches, _, _, _), streamed_peak, streamed_wall = phase_anneal("production")
-    _, (_, k3_launches, _, _), _, _ = phase_anneal("trace")
+    _, (_, k3_launches, _, _), trace_peak, _ = phase_anneal("trace")
     _, (_, _, k4_launches, _), _, _ = phase_anneal("threefry-pregen")
     _, _, pregen_peak, _ = phase_anneal("xorshift-pregen", streamed=streamed)
     print(f"[memory] peak device memory of one anneal() call, xorshift: pregen "
@@ -2448,7 +2778,7 @@ def main():
     k1_ring_launches, k2_ring_launches = phase_ssqa_anneal()
     phase_bench_ssqa()
     phase_profile()
-    problems, reqs, k1_resp, k1_service, k4_service = phase_service()
+    problems, reqs, k1_resp, k1_service, k4_service, service_peak = phase_service()
     k2_service = phase_service_popcount(problems, reqs, k1_resp)
     k1_ring_service, k2_ring_service = phase_service_ssqa()
     k2_tiled_service = phase_service_tiled()
@@ -2468,6 +2798,10 @@ def main():
     phase_spin_service(mesh, k2_run)
     phase_spin_p2(mesh, k2_run)
     torch.distributed.destroy_process_group()
+    k1_auto = phase_auto(streamed)
+    bf16_rows, jd_launches = phase_j_dtype(dev, streamed, streamed_peak, trace_peak, problems,
+                                           reqs, k1_resp, service_peak)
+    paper = phase_paper()
     k1_fam = {k: fam[k][2] for k, _, field in FAMILIES if field == "dense"}
     k2_fam = {k: fam[k][2] for k, _, field in FAMILIES if field == "popcount"}
     kernels = [
@@ -2477,17 +2811,22 @@ def main():
              launches=k1_launches,
              service_launches={"service K1": k1_service, "service families": k1_fam_service},
              stream_launches={"stream K1": k1_stream, "stream families": k1_fam_stream},
-             family_launches=k1_fam, **k1),
+             family_launches=k1_fam, auto_launches={"auto K2000": k1_auto},
+             j_dtype_launches=jd_launches["K1"], paper_launches=paper["K1"],
+             bf16=bf16_rows["K1"], **k1),
         dict(name="local_field (K3)", route="cuda",
              source="src/repro_torch/kernels/csrc/field.cu",
              replaces="src/repro/kernels/ssa_update.py:90",
              launches=k3_launches, service_launches={}, stream_launches={},
-             family_launches={}, **k3),
+             family_launches={}, auto_launches={}, j_dtype_launches=jd_launches["K3"],
+             paper_launches=paper["K3"], bf16=bf16_rows["K3"], **k3),
         dict(name="ssa_plateau (K4)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau_pregen.cu",
              replaces="src/repro/kernels/ssa_update.py:150",
              launches=k4_launches, service_launches={"service K4": k4_service},
-             stream_launches={}, family_launches={}, **k4),
+             stream_launches={}, family_launches={}, auto_launches={},
+             j_dtype_launches=jd_launches["K4"], paper_launches=paper["K4"],
+             bf16=bf16_rows["K4"], **k4),
         dict(name="ssa_plateau_popcount (K2)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
@@ -2496,21 +2835,24 @@ def main():
                                "service tiled K2": k2_tiled_service,
                                "service families": k2_fam_service},
              stream_launches={"stream K2": k2_stream, "stream families": k2_fam_stream},
-             family_launches=k2_fam, **k2),
+             family_launches=k2_fam, auto_launches={}, j_dtype_launches={},
+             paper_launches={}, **k2),
         dict(name="ssa_plateau_packed ring mode (K1, SSQA)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau.cu",
              replaces="src/repro/kernels/ssa_update.py:329",
              launches=k1_ring_launches,
              service_launches={"service SSQA dense field": k1_ring_service},
              stream_launches={"stream SSQA dense field": k1_ring_stream},
-             family_launches={}, **k1_ring),
+             family_launches={}, auto_launches={}, j_dtype_launches={}, paper_launches={},
+             bf16=bf16_rows["K1 ring"], **k1_ring),
         dict(name="ssa_plateau_popcount ring mode (K2, SSQA)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
              launches=k2_ring_launches,
              service_launches={"service SSQA popcount": k2_ring_service},
              stream_launches={"stream SSQA popcount": k2_ring_stream},
-             family_launches={}, **k2_ring),
+             family_launches={}, auto_launches={}, j_dtype_launches={}, paper_launches={},
+             **k2_ring),
     ]
     print(card)  # again, so that it stands in the last lines of the output
     print(json.dumps({"kernels": kernels}))

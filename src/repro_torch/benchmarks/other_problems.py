@@ -12,9 +12,9 @@ Exits 1 if a check fails.
 
     python -m repro_torch.benchmarks.other_problems --smoke --device cpu --json /tmp/p.json
 
-The JAX package's smoke cell also checks that ``backend='auto'`` routes a
-32-spin QUBO to the dense backend; the port has no ``backend='auto'`` yet
-(ROADMAP.md queue 1 step 3), so that check is not run.
+The smoke cell also checks ``backend='auto'``'s rule against the port's own
+``engine.MIN_RESIDENT_N`` (measured on the H100): a size just below it
+resolves to the dense backend, the size itself to the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -97,6 +97,19 @@ def run(smoke: bool = False, json_path=None, csv_prefix: str = "problems", devic
         failures.append(f"qubo: auto objective {autoq.objective} > hand objective "
                         f"{handq.objective}")
     report["acceptance"]["qubo"] = q_row
+
+    if smoke:
+        # The resolver itself, gated: cheaper and steadier than re-timing it.
+        from repro_torch.core.engine import MIN_RESIDENT_N, resolve_backend
+
+        picked = {n: resolve_backend("auto", n) for n in (MIN_RESIDENT_N - 1, MIN_RESIDENT_N)}
+        emit(f"{csv_prefix}/auto_backend", 0.0,
+             f"n{MIN_RESIDENT_N - 1}={picked[MIN_RESIDENT_N - 1]};"
+             f"n{MIN_RESIDENT_N}={picked[MIN_RESIDENT_N]};min_resident_n={MIN_RESIDENT_N}")
+        if list(picked.values()) != ["dense", "cuda"]:
+            failures.append(f"auto backend below / at MIN_RESIDENT_N={MIN_RESIDENT_N} resolved "
+                            f"to {picked}, not dense / cuda")
+        report["acceptance"]["auto_backend"] = picked
     report["failures"] = failures
     report["ok"] = not failures
     if json_path:

@@ -1,10 +1,8 @@
 """Typed solver configuration (port of ``repro.core.config``).
 
 :class:`SolverConfig` holds the execution options of the plateau engine in
-one frozen, validated object.  Every option that the JAX package has but
-this port does not yet run raises :class:`NotImplementedError` naming the
-ROADMAP.md item it waits for — on the CPU as on the card, with no
-substitute path.
+one frozen, validated object, with the JAX package's options and
+signature.
 """
 from __future__ import annotations
 
@@ -12,24 +10,10 @@ import dataclasses
 import hashlib
 from typing import Any, Dict, Optional, Tuple
 
-__all__ = ["SolverConfig", "not_ported"]
+__all__ = ["SolverConfig"]
 
-_BACKENDS = ("sparse", "dense", "cuda")
+_BACKENDS = ("auto", "sparse", "dense", "cuda")
 _LAYOUTS = ("dense", "packed")
-
-# What each option outside the ported slice waits for, by ROADMAP.md item.
-_WAITS = {
-    "j_opts": "ROADMAP.md queue 1 step 2 (DenseBackend's j_dtype)",
-    "auto_backend": "ROADMAP.md queue 1 step 3 (MIN_RESIDENT_N re-derived on "
-                    "the H100 before backend='auto' can choose)",
-}
-
-
-def not_ported(option: str, item: str) -> NotImplementedError:
-    """The error raised for an option outside the ported slice."""
-    return NotImplementedError(
-        f"{option} is not ported to repro_torch yet; it waits for {_WAITS[item]}"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +21,9 @@ class SolverConfig:
     """Execution options of the plateau engine, in one object.
 
     * ``backend`` — 'sparse' | 'dense' | 'cuda' (the resident CUDA kernels;
-      the counterpart of the JAX package's 'pallas').
+      the counterpart of the JAX package's 'pallas') | 'auto' ('cuda' from
+      ``engine.MIN_RESIDENT_N`` spins, 'dense' below, resolved per instance
+      or shape bucket).
     * ``storage_layout`` — 'dense' | 'packed' inter-plateau spin state.
     * ``field_mode`` — 'auto' (the backend's default, a dense contraction:
       'auto' is not forwarded, as in the JAX package) | 'dense' |
@@ -85,8 +71,6 @@ class SolverConfig:
         object.__setattr__(
             self, "backend_opts", tuple(sorted(opts.items(), key=lambda kv: kv[0]))
         )
-        if self.backend == "auto":
-            raise not_ported("backend='auto'", "auto_backend")
         if self.backend not in _BACKENDS:
             raise ValueError(f"backend {self.backend!r} not in {_BACKENDS}")
         if self.storage_layout not in _LAYOUTS:
@@ -112,15 +96,16 @@ class SolverConfig:
         """kwargs for ``make_backend(**...)`` minus backend/noise.
 
         Per-backend knobs are emitted only where the configured backend's
-        constructor takes them (sparse takes no field or J option).
+        constructor takes them (sparse takes no field or J option); 'auto'
+        gets the union, as in the JAX package.
         """
         out: Dict[str, Any] = {"storage_layout": self.storage_layout}
         bk = self.backend
         if self.field_mode != "auto" and bk != "sparse":
             out["field_mode"] = self.field_mode
-        if self.j_mode != "auto" and bk == "dense":
+        if self.j_mode != "auto" and bk in ("dense", "auto"):
             out["j_mode"] = self.j_mode
-        if self.noise_mode != "auto" and bk == "cuda":
+        if self.noise_mode != "auto" and bk in ("cuda", "auto"):
             out["noise_mode"] = self.noise_mode
         out.update(self.backend_opts)
         return out

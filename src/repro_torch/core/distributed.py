@@ -40,7 +40,6 @@ import torch
 
 from ..kernels.bitplane import PackedJ, pack_couplings_from_adjacency, pack_spins, unpack_spins
 from ..sharding import SpinMesh, all_gather_last, all_reduce, spin_mesh
-from .config import not_ported
 from .engine import (
     BIG_ENERGY,
     BatchedBackend,
@@ -54,6 +53,7 @@ from .engine import (
     pad_degree,
     pad_model,
     padded_noise_init_slice,
+    resolve_backend,
     resolve_device,
     resolve_field_mode,
     run_plateau_scan,
@@ -120,8 +120,7 @@ class BatchedSpinShardedBackend(BatchedBackend):
         self.tile_n = int(tile_n)
         self.j_bits = int(j_bits)
         self.double_buffer = bool(double_buffer)
-        if base_backend == "auto":
-            raise not_ported("backend='auto'", "auto_backend")
+        base_backend = resolve_backend(base_backend, self.n_bucket)
         if base_backend not in ("sparse", "dense", "cuda"):
             raise ValueError(f"unknown base backend {base_backend!r}")
         if base_backend == "sparse":

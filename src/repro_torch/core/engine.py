@@ -79,8 +79,9 @@ from ..kernels.bitplane import (
 )
 from ..kernels.ref import replica_coupling
 from ..sharding import mesh_axis_size as spin_axis_size  # the JAX package's name here
-from .config import SolverConfig, not_ported
+from .config import SolverConfig
 from .ising import (
+    _F32_EXACT_BOUND,
     IsingModel,
     MaxCutProblem,
     local_fields_dense,
@@ -104,6 +105,9 @@ __all__ = [
     "BIG_ENERGY",
     "TILED_J_THRESHOLD",
     "POPCOUNT_TILE_N",
+    "MIN_RESIDENT_N",
+    "DENSE_J_DTYPES",
+    "CUDA_J_DTYPES",
     "MAX_MODEL_SPINS",
     "MAX_UNSHARDED_SPINS",
     "SPIN_SHARD_MIN_N",
@@ -121,6 +125,8 @@ __all__ = [
     "BACKENDS",
     "make_backend",
     "resolve_device",
+    "resolve_backend",
+    "resolve_j_dtype",
     "resolve_field_mode",
     "resolve_j_mode",
     "resolve_noise_mode",
@@ -171,6 +177,26 @@ POPCOUNT_TILE_N = 512
 # magnitude bitplanes (the paper's hardware is 4-bit); wider integer weights
 # take the dense contraction, whose cost does not grow with the bit depth.
 POPCOUNT_AUTO_MAX_BITS = 4
+
+# backend='auto' runs the resident CUDA kernels from this many spins on and
+# the dense backend below.  Re-derived on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §5, the crossover table; benchmarks/crossover.py): at Table II
+# widths the cuda backend was faster than the dense one at every size
+# measured, 16 to 2048 spins, through anneal() and the service (the dense
+# backend's cycle loop is host-bound, ~0.2-0.3 s a 600-cycle call), so the
+# threshold is the smallest size measured.  The TPU's 256 does not carry over.
+MIN_RESIDENT_N = 16
+
+# The dtypes J may be held in (``j_dtype``).  The dense backends take every
+# dtype the JAX package's dense backend runs — the product is float32 m @
+# float32(J), J rounded or wrapped into its dtype first, as ``jnp.asarray(J,
+# j_dtype)`` does; a 64-bit dtype is held in 32 bits, as jax does with its
+# 64-bit types off.  The cuda backends take the dtypes K1, K3 and K4 have
+# instantiations for.
+DENSE_J_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.uint8,
+                  torch.int16, torch.int32)
+CUDA_J_DTYPES = (torch.float32, torch.bfloat16)
+_J_32BIT = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 # Admission ceiling on the spin count: rejects a corrupted shape early.
 MAX_MODEL_SPINS = 1 << 22
@@ -686,6 +712,43 @@ def resolve_partition(partition: str, n: int, mesh=None) -> str:
     return "problem"
 
 
+def resolve_backend(backend: str, n: int) -> str:
+    """'auto' runs the resident CUDA kernels at or above MIN_RESIDENT_N spins
+    and the dense backend below it; any other name passes through.  Every
+    backend gives the same numbers, so the choice moves time only."""
+    if backend == "auto":
+        return "cuda" if int(n) >= MIN_RESIDENT_N else "dense"
+    return backend
+
+
+def resolve_j_dtype(j_dtype, backend: str) -> torch.dtype:
+    """The dtype a ``backend`` ('dense' or 'cuda') holds J in: float32 for
+    None; a dtype the backend does not take raises ValueError naming those
+    it takes."""
+    dt = torch.float32 if j_dtype is None else _J_32BIT.get(j_dtype, j_dtype)
+    allowed = CUDA_J_DTYPES if backend == "cuda" else DENSE_J_DTYPES
+    if dt not in allowed:
+        raise ValueError(f"j_dtype={j_dtype} on the {backend!r} backend: it takes "
+                         f"{', '.join(str(d) for d in allowed)}")
+    return dt
+
+
+def _host_j(model: IsingModel, j_dtype: torch.dtype) -> torch.Tensor:
+    """The model's (N, N) J on the host in ``j_dtype``: rounded to nearest
+    even, or wrapped for a narrow integer dtype.  Outside float32 the
+    rounded J is held to the exactness contract the model's own J was
+    checked against at construction (every |h_i| + Σ_j |J_ij| below 2^24),
+    so the float32 fields stay exact."""
+    J = torch.from_numpy(model.dense_J()).to(j_dtype)
+    if j_dtype != torch.float32 and J.numel():
+        bound = (J.to(torch.float64).abs().sum(-1)
+                 + torch.from_numpy(np.abs(np.asarray(model.h, np.float64)))).max()
+        if not bound < _F32_EXACT_BOUND:
+            raise ValueError(f"model {model.name!r}: the field bound of J in {j_dtype} is "
+                             f"{float(bound)}, outside the float32-exact range (< 2^24)")
+    return J
+
+
 def exact_float32_matmul() -> None:
     """Turn TF32 off for CUDA float32 matmuls, so the dense field
     ``h + m @ J`` is exact: TF32 keeps 10 mantissa bits, and fields above
@@ -701,20 +764,17 @@ def exact_float32_matmul() -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _check_j_opts(j_dtype):
-    """The JAX dense backends' ``j_dtype`` is not ported: anything but its
-    default raises instead of being ignored."""
-    if j_dtype not in (None, torch.float32):
-        raise not_ported(f"j_dtype={j_dtype!r}", "j_opts")
-
-
 class DenseBackend(PlateauBackend):
     """(T, N)·(N, N) float32 matmul field (K2000-class dense instances).
 
     The product is ``torch.matmul``, as the JAX package leaves it to XLA;
     it is exact with TF32 off (:func:`exact_float32_matmul`).
 
-    ``j_mode`` sets where J lives: 'dense' holds the (N, N) float32 J;
+    ``j_dtype`` (float32 by default; any of DENSE_J_DTYPES) is the dtype
+    the held J is rounded into and kept in; the product is float32 m @
+    float32(J), as the JAX package's promotion makes it.
+
+    ``j_mode`` sets where J lives: 'dense' holds the (N, N) J;
     'tiled' holds none and streams (tile_n, N) slabs scattered from the
     padded adjacency (:func:`~repro_torch.core.ising.local_fields_tiled`),
     bit-identical, which is what admits G77/G81-class N; 'auto' tiles above
@@ -724,15 +784,15 @@ class DenseBackend(PlateauBackend):
     planes) packs the couplings as bitplanes and takes the field from
     :func:`~repro_torch.core.ising.local_fields_popcount`, row-tiled at
     ``tile_n`` above TILED_J_THRESHOLD spins; no J exists then, dense or
-    tiled, and any noise is accepted.  ``double_buffer`` builds each tiled
-    slab before contracting the one before it (the same numbers).
+    tiled, and any noise is accepted.  Tiled and popcount fields ignore
+    ``j_dtype``, as in the JAX package.  ``double_buffer`` builds each
+    tiled slab before contracting the one before it (the same numbers).
     """
 
     name = "dense"
 
     def __init__(self, model: IsingModel, *, j_mode: str = "auto", tile_n: int = POPCOUNT_TILE_N,
                  field_mode: str = "dense", j_dtype=None, double_buffer: bool = False, **kw):
-        _check_j_opts(j_dtype)
         super().__init__(model, **kw)
         self.j_mode = resolve_j_mode(j_mode, model.n)
         self.tile_n = int(tile_n)
@@ -747,8 +807,7 @@ class DenseBackend(PlateauBackend):
         if self.j_mode == "tiled":
             _, self.nbr_idx, self.nbr_w = model.device_arrays(self.device)
         else:
-            self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
-                                     device=self.device)
+            self.J = _host_j(model, resolve_j_dtype(j_dtype, "dense")).to(self.device)
 
     def _field(self, m):
         if self.field_mode == "popcount":
@@ -851,6 +910,10 @@ class CudaBackend(_CudaDispatch, PlateauBackend):
     planes) run the cycle loop with the field from K3
     (:func:`~repro_torch.kernels.ops.local_field`).
 
+    ``j_dtype`` (float32 or bfloat16, CUDA_J_DTYPES) is the dtype J is
+    rounded into and held in; K1, K1's ring mode, K3 and K4 read it as it
+    is.
+
     ``field_mode='popcount'`` (or 'auto' within POPCOUNT_AUTO_MAX_BITS
     planes) holds the couplings as ``PackedJ`` bitplanes and no J, and runs
     K2 (:func:`~repro_torch.kernels.ssa_update.ssa_plateau_popcount_batched`
@@ -869,7 +932,7 @@ class CudaBackend(_CudaDispatch, PlateauBackend):
     name = "cuda"
 
     def __init__(self, model: IsingModel, *, noise_mode: str = "auto",
-                 field_mode: str = "dense", **kw):
+                 field_mode: str = "dense", j_dtype=None, **kw):
         super().__init__(model, **kw)
         self.noise_mode = resolve_noise_mode(noise_mode, self.noise)
         self.field_mode = _resolve_field_mode(field_mode, model)
@@ -888,8 +951,7 @@ class CudaBackend(_CudaDispatch, PlateauBackend):
             self._problem = {"sign": pj.sign[None], "mags": pj.mags[None],
                              "base": pj.base[None], "h": self.h[None]}
         else:
-            self.J = torch.as_tensor(model.dense_J(), dtype=torch.float32,
-                                     device=self.device)
+            self.J = _host_j(model, resolve_j_dtype(j_dtype, "cuda")).to(self.device)
             self._problem = {"J": self.J[None], "h": self.h[None]}
 
     def _field(self, m):
@@ -969,7 +1031,9 @@ def make_backend(
     whose engine options are merged under ``opts``.  ``partition='spin'``
     (or 'auto' on a mesh of several ranks) builds the spin-sharded backend
     over ``mesh`` (:class:`~repro_torch.core.distributed.SpinShardedBackend`),
-    with ``backend`` as the field arithmetic each shard runs."""
+    with ``backend`` as the field arithmetic each shard runs.
+    ``backend='auto'`` resolves over the model's spins
+    (:func:`resolve_backend`)."""
     if config is not None:
         backend = config.backend if backend is None else backend
         noise = config.noise if noise is None else noise
@@ -983,8 +1047,7 @@ def make_backend(
 
         return SpinShardedBackend(model, n_trials=n_trials, n_rnd=n_rnd, noise=noise,
                                   mesh=mesh, base_backend=backend, device=device, **opts)
-    if backend == "auto":
-        raise not_ported("backend='auto'", "auto_backend")
+    backend = resolve_backend(backend, model.n)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {sorted(BACKENDS)}")
     return BACKENDS[backend](model, n_trials=n_trials, n_rnd=n_rnd, noise=noise,
@@ -1192,12 +1255,12 @@ def _stack_sparse_models(models, n_bucket: int, device) -> dict:
             for k in ("h", "nbr_idx", "nbr_w")}
 
 
-def _stack_dense_models(models, n_bucket: int, device) -> dict:
-    """Stacked, bucket-padded dense views {h (B, N), J (B, N, N) float32}."""
-    J = torch.zeros((len(models), n_bucket, n_bucket), dtype=torch.float32, device=device)
+def _stack_dense_models(models, n_bucket: int, device, j_dtype=torch.float32) -> dict:
+    """Stacked, bucket-padded dense views {h (B, N), J (B, N, N) j_dtype}."""
+    J = torch.zeros((len(models), n_bucket, n_bucket), dtype=j_dtype, device=device)
     h = torch.zeros((len(models), n_bucket), dtype=torch.int32, device=device)
     for b, m in enumerate(models):
-        J[b, :m.n, :m.n] = torch.from_numpy(m.dense_J()).to(device=device, dtype=torch.float32)
+        J[b, :m.n, :m.n] = _host_j(m, j_dtype).to(device)
         h[b, :m.n] = torch.as_tensor(np.asarray(m.h), dtype=torch.int32, device=device)
     return {"h": h, "J": J}
 
@@ -1401,9 +1464,10 @@ class BatchedDenseBackend(BatchedBackend):
     (B, N, N) buffer exists, which admits G77/G81-class buckets.
     ``field_mode='popcount'`` stacks coupling bitplanes instead (``j_bits``
     planes each, the group's maximum) and takes the XNOR-popcount field,
-    row-tiled at ``tile_n`` above TILED_J_THRESHOLD spins.
-    ``double_buffer`` builds each tiled slab before contracting the one
-    before it (the same numbers).
+    row-tiled at ``tile_n`` above TILED_J_THRESHOLD spins.  ``j_dtype``
+    is the stacked J's dtype, as :class:`DenseBackend`'s (ignored when
+    tiled or popcount).  ``double_buffer`` builds each tiled slab before
+    contracting the one before it (the same numbers).
     """
 
     name = "dense"
@@ -1411,7 +1475,6 @@ class BatchedDenseBackend(BatchedBackend):
     def __init__(self, *, j_mode: str = "auto", tile_n: int = POPCOUNT_TILE_N,
                  field_mode: str = "dense", j_bits: int = 1, j_dtype=None,
                  double_buffer: bool = False, **kw):
-        _check_j_opts(j_dtype)
         super().__init__(**kw)
         self.j_mode = resolve_j_mode(j_mode, self.n_bucket)
         self.tile_n = int(tile_n)
@@ -1419,6 +1482,8 @@ class BatchedDenseBackend(BatchedBackend):
         self.j_bits = int(j_bits)
         self.field_mode = resolve_field_mode(field_mode, self.j_bits)
         self._pc_tile = None if self.n_bucket <= TILED_J_THRESHOLD else self.tile_n
+        held = self.field_mode != "popcount" and self.j_mode != "tiled"
+        self.j_dtype = resolve_j_dtype(j_dtype if held else None, "dense")
         if self.field_mode != "popcount":
             exact_float32_matmul()
 
@@ -1427,7 +1492,7 @@ class BatchedDenseBackend(BatchedBackend):
             return _stack_packed_models(models, self.n_bucket, self.j_bits, self.device)
         if self.j_mode == "tiled":
             return _stack_sparse_models(models, self.n_bucket, self.device)
-        return _stack_dense_models(models, self.n_bucket, self.device)
+        return _stack_dense_models(models, self.n_bucket, self.device, self.j_dtype)
 
     def _field(self, problem, m):
         h = problem["h"][:, None]
@@ -1461,20 +1526,24 @@ class BatchedCudaBackend(_CudaDispatch, BatchedBackend):
       where the chain's J⊥ is not all 0.  The chain's schedules go to the
       device once per backend.
 
-    K2 and the ring modes need streamed noise, as the JAX package's batched
-    pallas backend does.  The kernels size their launch (thread-block
-    clusters) themselves, so there is no ``block_r``.  On CPU tensors the
+    ``j_dtype`` (CUDA_J_DTYPES) is the stacked J's dtype, which K1, K1's
+    ring mode and K4 read as it is.  K2 and the ring modes need streamed
+    noise, as the JAX package's batched pallas backend does.  The kernels
+    size their launch (thread-block clusters) themselves, so there is no
+    ``block_r``.  On CPU tensors the
     wrappers run their plain versions.
     """
 
     name = "cuda"
 
     def __init__(self, *, noise_mode: str = "auto", field_mode: str = "dense",
-                 j_bits: int = 1, **kw):
+                 j_bits: int = 1, j_dtype=None, **kw):
         super().__init__(**kw)
         self.noise_mode = resolve_noise_mode(noise_mode, self.noise)
         self.j_bits = int(j_bits)
         self.field_mode = resolve_field_mode(field_mode, self.j_bits)
+        self.j_dtype = resolve_j_dtype(j_dtype if self.field_mode != "popcount" else None,
+                                       "cuda")
         if self.field_mode == "popcount" and self.noise_mode != "streamed":
             raise ValueError("field_mode='popcount' on the batched cuda backend requires "
                              "noise_mode='streamed' (noise='xorshift')")
@@ -1489,7 +1558,7 @@ class BatchedCudaBackend(_CudaDispatch, BatchedBackend):
             prob = _stack_packed_models(models, self.n_bucket, self.j_bits, self.device)
             pj = kssa.popcount_planes(PackedJ(prob["sign"], prob["mags"], prob["base"]))
             return {**prob, "sign": pj.sign, "mags": pj.mags}
-        return _stack_dense_models(models, self.n_bucket, self.device)
+        return _stack_dense_models(models, self.n_bucket, self.device, self.j_dtype)
 
     def _plateau(self, problem, st: EngineState, p: Plateau) -> EngineState:
         """K4 over the plateau's pregenerated (B, C, T, N) noise."""
@@ -1539,8 +1608,7 @@ def make_batched_backend(
     ``opts``.  ``partition='spin'`` (or 'auto' on a mesh of several ranks)
     builds :class:`~repro_torch.core.distributed.BatchedSpinShardedBackend`
     over ``mesh``, with ``backend`` as the field arithmetic of its shards.
-    ``backend='auto'`` raises NotImplementedError naming the ROADMAP.md step
-    it waits for."""
+    ``backend='auto'`` resolves over ``n_bucket`` (:func:`resolve_backend`)."""
     if config is not None:
         backend = config.backend if backend is None else backend
         noise = config.noise if noise is None else noise
@@ -1554,8 +1622,7 @@ def make_batched_backend(
         return BatchedSpinShardedBackend(
             base_backend=backend, mesh=mesh, n_bucket=n_bucket, n_trials=n_trials,
             n_rnd=n_rnd, noise="xorshift" if noise is None else noise, device=device, **opts)
-    if backend == "auto":
-        raise not_ported("backend='auto'", "auto_backend")
+    backend = resolve_backend(backend, n_bucket)
     if backend not in BATCHED_BACKENDS:
         raise ValueError(f"unknown batched backend {backend!r}; known: "
                          f"{sorted(BATCHED_BACKENDS)}")

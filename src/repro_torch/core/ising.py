@@ -173,9 +173,10 @@ def local_fields_sparse(m, h, nbr_idx, nbr_w):
     return h + (nbr_w * neigh).sum(dim=-1, dtype=torch.int32)
 
 
-def local_fields_dense(m, h, J_f32):
-    """h + m @ J in float32: exact for |field| < 2^24 (checked at build)."""
-    return h + torch.matmul(m.to(torch.float32), J_f32).to(torch.int32)
+def local_fields_dense(m, h, J):
+    """h + m @ J in float32, J of any dtype taken as float32 (the JAX
+    package's promotion): exact for |field| < 2^24 (checked at build)."""
+    return h + torch.matmul(m.to(torch.float32), J.to(torch.float32)).to(torch.int32)
 
 
 def local_fields_tiled(m, h, nbr_idx, nbr_w, *, tile_n: int = 512,

@@ -3,7 +3,10 @@ device bytes they are held against (port of ``repro.core.memory``).
 
 SSA stores every spin bitplane of an iteration, M = N · steps · τ bits;
 HA-SSA stores only the I0 == I0max plateau, M' = N · τ bits; the ratio is
-the number of plateaus (6 for Table II's I0: 1→32, β=1).
+the number of plateaus (6 for Table II's I0: 1→32, β=1).  The service pads
+an instance to its power-of-two shape bucket, so each stored bitplane
+carries ``bucket(N) - N`` dead bits a cycle: the ``padding_overhead_*``
+models count them.
 
 The measured half sizes real tensors: :func:`tree_device_bytes` sums the
 ``nbytes`` of the tensors in a nested structure (an engine state, a noise
@@ -21,12 +24,16 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from .engine import bucket_n
 from .schedule import n_temp_steps
 
 __all__ = [
     "ssa_bits_per_iteration",
     "hassa_bits_per_iteration",
     "memory_ratio",
+    "bits_per_trial",
+    "padding_overhead_bits_per_iteration",
+    "padding_overhead_fraction",
     "tree_device_bytes",
     "per_device_bytes",
     "max_device_bytes",
@@ -48,6 +55,28 @@ def hassa_bits_per_iteration(n_spins: int, hp) -> int:
 def memory_ratio(hp) -> int:
     """M / M' = number of temperature plateaus (6 for Table II)."""
     return n_temp_steps(hp.i0_min, hp.i0_max, hp.beta_shift)
+
+
+def bits_per_trial(n_spins: int, hp, hardware_aware: bool = True) -> int:
+    """Eq. (6) (``hardware_aware``) or Eq. (5) bits over a trial's m_shot
+    iterations."""
+    per_iter = (hassa_bits_per_iteration(n_spins, hp) if hardware_aware
+                else ssa_bits_per_iteration(n_spins, hp))
+    return per_iter * hp.m_shot
+
+
+def padding_overhead_bits_per_iteration(n_spins: int, hp, min_bucket: int = 64,
+                                        hardware_aware: bool = True) -> int:
+    """Dead bits stored per iteration when N is padded to its shape bucket:
+    ``(bucket(N) - N) × stored cycles``."""
+    pad = bucket_n(n_spins, min_bucket) - n_spins
+    stored = hp.tau if hardware_aware else memory_ratio(hp) * hp.tau
+    return pad * stored
+
+
+def padding_overhead_fraction(n_spins: int, min_bucket: int = 64) -> float:
+    """Fraction of each stored bitplane spent on pad lanes: 1 - N/bucket(N)."""
+    return 1.0 - n_spins / bucket_n(n_spins, min_bucket)
 
 
 def _leaves(tree):

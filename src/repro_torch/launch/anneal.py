@@ -16,7 +16,9 @@ popcount, the plain popcount field).  ``--algo ssqa`` runs SSQA: rings of
 ``--replicas`` Trotter replicas on the trial axis, coupled by a J⊥ ramp up
 to ``--jperp-max``; on ``--backend cuda`` its coupled plateaus run the
 ring modes of the streamed and popcount kernels.
-Runs on the GPU unless ``--device cpu`` is given.
+Runs on the GPU unless ``--device cpu`` is given.  ``--backend auto`` runs
+cuda from ``engine.MIN_RESIDENT_N`` spins on and dense below (per shape
+bucket in service and stream modes).
 
     python -m repro_torch.launch.anneal --problem K2000 --backend cuda \
         --algo ssqa --trials 96 --replicas 8 --jperp-max 4 --m-shot 10
@@ -111,7 +113,7 @@ def _service(args):
     from repro_torch.serve import AnnealService
 
     opts = _backend_opts(args)
-    if args.noise_mode != "auto" and args.backend == "cuda":
+    if args.noise_mode != "auto" and args.backend in ("cuda", "auto"):
         opts["noise_mode"] = args.noise_mode
     return AnnealService(backend=args.backend, noise=args.noise,
                          storage_layout=args.storage_layout, chunk_shots=args.chunk_shots,
@@ -310,7 +312,9 @@ def main(argv=None):
     ap.add_argument("--storage-layout", choices=("dense", "packed"), default="dense",
                     help="inter-plateau spin state: int8 spins or 32-bit words "
                          "(bit-identical results)")
-    ap.add_argument("--backend", choices=("sparse", "dense", "cuda"), default="sparse")
+    ap.add_argument("--backend", choices=("sparse", "dense", "cuda", "auto"), default="sparse",
+                    help="'auto' picks cuda at/above MIN_RESIDENT_N spins, dense below "
+                         "(the small-N launch-overhead rule)")
     ap.add_argument("--noise", choices=("xorshift", "threefry"), default="xorshift")
     ap.add_argument("--noise-mode", choices=("auto", "streamed", "pregen"), default="auto",
                     help="cuda backend: in-kernel xorshift noise (streamed) or a "

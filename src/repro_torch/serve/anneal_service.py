@@ -82,7 +82,7 @@ import numpy as np
 
 from ..checkpoint.ckpt import CheckpointManager, latest_step
 from ..core.autotune import AutotuneReport, autotune_hyperparams, resolve_hyperparams
-from ..core.config import SolverConfig, not_ported
+from ..core.config import SolverConfig
 from ..core.engine import (
     MAX_UNSHARDED_SPINS,
     resolve_partition,
@@ -93,6 +93,7 @@ from ..core.engine import (
     model_weight_bits,
     next_pow2,
     normalize_problem,
+    resolve_backend,
     resolve_device,
     resolve_field_mode,
     schedule_plateaus,
@@ -120,6 +121,7 @@ from .resilience import (
     ServiceEvent,
     classify_fault,
     fallback_step,
+    filter_backend_opts,
     group_fingerprint,
 )
 from ..sharding import max_over_ranks, mesh_fingerprint
@@ -437,8 +439,10 @@ class AnnealService:
         problem-partitioned.  ``config`` supplies backend, noise, storage
         layout, options, partition and mesh from one
         :class:`~repro_torch.core.config.SolverConfig`, replacing the
-        individual arguments.  ``backend='auto'`` raises
-        NotImplementedError naming its ROADMAP.md step.  The service turns
+        individual arguments.  ``backend='auto'`` resolves per shape
+        bucket (``engine.resolve_backend``: 'cuda' from
+        ``engine.MIN_RESIDENT_N`` spins, 'dense' below) and keeps the
+        options of the backend chosen.  The service turns
         TF32 off for the process
         (:func:`~repro_torch.core.engine.exact_float32_matmul`): its dense
         fields are exact float32 matmuls.
@@ -455,8 +459,6 @@ class AnnealService:
             raise ValueError(f"unknown storage_layout {storage_layout!r}")
         if partition not in ("problem", "spin", "auto"):
             raise ValueError(f"unknown partition {partition!r}")
-        if backend == "auto":
-            raise not_ported("backend='auto'", "auto_backend")
         self.backend = backend
         self.noise = noise
         self.storage_layout = storage_layout
@@ -640,6 +642,11 @@ class AnnealService:
             opts.pop("storage_layout", None)
         else:
             backend, opts = self.backend, dict(self.backend_opts)
+        if backend == "auto":
+            # Per bucket (MIN_RESIDENT_N), keeping only the options of the
+            # backend chosen: an 'auto' caller passes their union.
+            backend = resolve_backend(backend, nb)
+            opts = filter_backend_opts(backend, opts, partition=self.partition_for(kind, nb))
         carried_events: List[ServiceEvent] = []
         while True:
             ctx = _GroupCtx(self, kind, nb, items, backend, opts, solve_t0,

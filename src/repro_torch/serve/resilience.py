@@ -133,12 +133,13 @@ class ResiliencePolicy:
 # Constructor keywords each batched backend takes beyond the common set: the
 # fallback drops the others when it downgrades.  Both field-capable backends
 # take field_mode/j_bits, so a cuda → dense downgrade keeps the popcount
-# arithmetic; every backend takes n_replicas, so no step turns SSQA into SSA.
+# arithmetic, and j_dtype, so it keeps J's dtype (dense J → tiled J ignores
+# it); every backend takes n_replicas, so no step turns SSQA into SSA.
 _BACKEND_OPT_KEYS = {
     "sparse": frozenset({"n_replicas"}),
     "dense": frozenset({"j_dtype", "j_mode", "tile_n", "field_mode", "j_bits",
                         "double_buffer", "n_replicas"}),
-    "cuda": frozenset({"noise_mode", "field_mode", "j_bits", "n_replicas"}),
+    "cuda": frozenset({"j_dtype", "noise_mode", "field_mode", "j_bits", "n_replicas"}),
     # partition='spin': the spin-sharded backend wraps any base field style
     # and accepts (and ignores) the single-device knobs, so the fallback
     # chain walks cuda → dense → sparse under spin sharding too.  The JAX

@@ -75,6 +75,7 @@ from ..core.engine import (
     next_pow2,
     normalize_problem,
     pad_degree,
+    resolve_backend,
     splice_slot,
 )
 from ..core.rng import xorshift_lanes_ok
@@ -106,6 +107,7 @@ from .resilience import (
     ServiceEvent,
     classify_fault,
     fallback_step,
+    filter_backend_opts,
     group_fingerprint,
 )
 
@@ -457,6 +459,9 @@ class StreamingAnnealService:
             backend = svc.backend
             opts = dict(svc.backend_opts)
         part = svc.partition_for(kind, nb)
+        if backend == "auto":
+            backend = resolve_backend(backend, nb)
+            opts = filter_backend_opts(backend, opts, partition=part)
         opts = svc._resolve_field_opts(backend, opts, [(ticket.seq, req, None, model)])
         nr = int(getattr(hp, "n_replicas", 0) or 0)
         if nr:

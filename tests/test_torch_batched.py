@@ -272,22 +272,19 @@ def test_batched_cuda_needs_streamed_noise_for_k2_and_rings():
         bk._plateau({}, None, engine.Plateau(4, 2, True, 1))
 
 
-# Spin sharding is ported since: partition='spin' builds the spin-sharded
-# backend (a one-rank mesh), 'auto' without a mesh of several ranks stays
-# problem-partitioned (ids kept).
+# Spin sharding and backend='auto' are ported since: partition='spin' builds
+# the spin-sharded backend (a one-rank mesh), 'auto' without a mesh of
+# several ranks stays problem-partitioned, and backend='auto' resolves over
+# the bucket by the port's MIN_RESIDENT_N (ids kept).
 @pytest.mark.parametrize("kw,item", [
-    (dict(backend="auto"), "step 3"),
+    (dict(backend="auto"), "cuda" if NB >= engine.MIN_RESIDENT_N else "dense"),
     (dict(partition="spin"), "spinshard"),
     (dict(partition="auto"), "sparse"),
 ], ids=["{'backend': 'auto'}-step 3", "{'partition': 'spin'}-step 8",
         "{'partition': 'auto'}-step 8"])
 def test_make_batched_backend_not_ported(kw, item):
-    if not item.startswith("step"):
-        bk = engine.make_batched_backend(n_bucket=NB, n_trials=2, device="cpu", **kw)
-        assert bk.name == item
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        engine.make_batched_backend(n_bucket=NB, n_trials=2, device="cpu", **kw)
+    bk = engine.make_batched_backend(n_bucket=NB, n_trials=2, device="cpu", **kw)
+    assert bk.name == item
 
 
 def test_make_batched_backend_config_and_errors():

@@ -6,9 +6,8 @@ equal the JAX package's ``local_fields_tiled`` and the port's dense field,
 bit for bit (integer-valued float32, below 2^24): square and rectangular
 (R rows ≠ N columns), with a ``tile_n`` that does not divide R, and with a
 leading problem axis.  ``DenseBackend(j_mode='tiled')`` through ``anneal()``
-must equal the JAX package's tiled dense backend.  ``j_dtype``, the JAX
-dense backend's option that is not ported, raises NotImplementedError
-naming ROADMAP.md queue 1 step 2; ``double_buffer`` is taken.
+must equal the JAX package's tiled dense backend.  ``j_dtype`` and
+``double_buffer``, the JAX dense backend's other options, are taken.
 """
 import numpy as np
 import pytest
@@ -128,9 +127,9 @@ def test_tiled_backend_holds_no_j_and_equals_dense():
                          ids=["j_dtype", "double_buffer"])
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
 def test_unported_dense_options_raise(kw, batched):
-    """j_dtype waits for step 2; double_buffer is ported since spin sharding
-    (it builds each tiled slab ahead of the product): its cases check that
-    the backend takes it."""
+    """Both options are ported (they once raised): double_buffer builds each
+    tiled slab ahead of the product, j_dtype is the held J's dtype; each
+    case checks that the backend takes its option."""
     if batched:
         build = lambda: engine.make_batched_backend(  # noqa: E731
             "dense", n_bucket=64, n_trials=2, device="cpu", **kw)
@@ -138,11 +137,11 @@ def test_unported_dense_options_raise(kw, batched):
         model = gset.toroidal_grid(16, seed=0).to_ising()
         build = lambda: engine.make_backend("dense", model, n_trials=2,  # noqa: E731
                                             device="cpu", **kw)
+    bk = build()
     if "double_buffer" in kw:
-        assert build().double_buffer
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 step 2"):
-        build()
+        assert bk.double_buffer
+    else:
+        assert bk.j_dtype == torch.bfloat16 if batched else bk.J.dtype == torch.bfloat16
 
 
 def test_j_mode_tiled_config_and_signature():
