@@ -11,7 +11,9 @@ parent of a change.  CASEs (all of them when none is named):
 * kernels, the mean device time in ms of 10 calls issued from Python
   between CUDA events after a warm-up (``chip_smoke._time_ms``): ``k1`` and
   ``k4`` at the production shape (K2000 width: R = 100, N = 2000, one
-  τ = 100 plateau), ``k2`` at the popcount path's (R = 100, nb = 1, one
+  τ = 100 plateau), ``k1-ring-8`` at SSQA's (96 trials in rings of 8, J⊥
+  4, one τ = 100 plateau), each of the three also with a bfloat16 J
+  (``k1-bf16``, ``k4-bf16``, ``k1-ring-8-bf16``), ``k2`` at the popcount path's (R = 100, nb = 1, one
   Table II iteration, C = 600), ``k2-ring-8`` and ``k2-ring-16`` at SSQA's
   (96 trials in rings of 8 or 16, the J⊥ 0→4 ramp);
 * cells, the walls in s of three ``anneal()`` calls, set-up included, after
@@ -38,18 +40,25 @@ ROOT = Path(__file__).resolve().parent
 N, PLATEAU_C, CHAIN_C = 2000, 100, 600
 
 
-def _k1(cs, torch, dev):
-    from repro_torch.kernels.ssa_update import ssa_plateau_packed_batched
+def _k1(ring=0, dtype="float32"):
+    def case(cs, torch, dev):
+        from repro_torch.kernels.ssa_update import ssa_plateau_packed_batched
 
-    x = cs._plateau_inputs(torch.Generator().manual_seed(1), 100, N, dev)
-    return lambda: ssa_plateau_packed_batched(**x, i0=32, n_cycles=PLATEAU_C, n_rnd=2)
+        x = cs._plateau_inputs(torch.Generator().manual_seed(5 if ring else 1),
+                               96 if ring else 100, N, dev, getattr(torch, dtype))
+        kw = dict(jperp=4, n_replicas=ring) if ring else {}
+        return lambda: ssa_plateau_packed_batched(**x, i0=32, n_cycles=PLATEAU_C, n_rnd=2, **kw)
+    return case
 
 
-def _k4(cs, torch, dev):
-    from repro_torch.kernels.ssa_update import ssa_plateau_batched
+def _k4(dtype="float32"):
+    def case(cs, torch, dev):
+        from repro_torch.kernels.ssa_update import ssa_plateau_batched
 
-    x = cs._pregen_inputs(torch.Generator().manual_seed(4), 1, 100, N, PLATEAU_C, dev)
-    return lambda: ssa_plateau_batched(**x, i0=32, n_rnd=2)
+        x = cs._pregen_inputs(torch.Generator().manual_seed(4), 1, 100, N, PLATEAU_C, dev,
+                              getattr(torch, dtype))
+        return lambda: ssa_plateau_batched(**x, i0=32, n_rnd=2)
+    return case
 
 
 def _k2(ring):
@@ -95,7 +104,9 @@ def _cell(field_mode, ssqa=False):
     return case
 
 
-KERNELS = {"k1": _k1, "k4": _k4, "k2": _k2(0), "k2-ring-8": _k2(8), "k2-ring-16": _k2(16)}
+KERNELS = {"k1": _k1(), "k1-bf16": _k1(dtype="bfloat16"), "k1-ring-8": _k1(8),
+           "k1-ring-8-bf16": _k1(8, "bfloat16"), "k4": _k4(), "k4-bf16": _k4("bfloat16"),
+           "k2": _k2(0), "k2-ring-8": _k2(8), "k2-ring-16": _k2(16)}
 CELLS = {"production-cell": _cell("dense"), "popcount-cell": _cell("popcount"),
          "ssqa-popcount-cell": _cell("popcount", ssqa=True)}
 

@@ -5,9 +5,10 @@ the card, drives ``repro_torch.core.ssa.anneal`` and
 ``repro_torch.serve.AnnealService.solve`` at B > 1 and
 ``repro_torch.serve.StreamingAnnealService`` (with chunk checkpoints)
 through the kernels, the problem families (QUBO, MIS, coloring, partition)
-through K1 and K2, the SA, PT and PT-SSA baselines, and spin sharding over
-``torch.distributed`` ranks (the plain loops: no kernel on that path), and
-prints what it measured.
+through K1 and K2, the SA, PT and PT-SSA baselines, spin sharding over
+``torch.distributed`` ranks (the plain loops: no kernel on that path), J in
+each of seven dtypes and SSQA rings above 32 replicas, and prints what it
+measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
@@ -50,7 +51,7 @@ Phases (any failure raises and exits non-zero):
      G11 width, a ragged N with 3 magnitude planes, a tied-energy shape
      with every state folded, I0 and fold changing mid-chain, B = 2, R = 3
      (below one group of 8), N = 4100 with 3 planes (the streamed-plane
-     variant), forced cluster sizes 1 (streamed) and 16, N = 70001 in
+     variant), forced cluster sizes 1 (streamed) and 16, N = 74601 in
      clusters of 1 (streamed, near its limit) and N = 120000 (the spin
      words in global memory too; random planes); each line names the
      cluster size, block count and block variant; kernel and plain times
@@ -179,24 +180,46 @@ Phases (any failure raises and exits non-zero):
      printed beside the constant); 'auto' at K2000 launches K1 m_shot ×
      steps times and equals phase 6, below the threshold it launches
      nothing and equals the dense backend;
- 35. j_dtype: K1, K1's ring mode, K3 and K4 with a bfloat16 J that
-     bfloat16 rounds, each equal to its plain version, timed with their
-     bounds; production, trace and xorshift pregen anneal(K2000) with a
-     bfloat16 J (K1, K3, K4 only), equal to phases 6/7 and to the dense
-     backend's bfloat16 run, the production peak device bytes below phase
-     6's; partition's 13-bit J on K1, equal to the dense backend's
-     bfloat16 run; the service K1 group, equal to phase 18 — peak device
-     bytes beside the float32 runs';
+ 35. j_dtype: K1, K1's ring mode, K3 and K4 with J in each of bfloat16,
+     float16, int8, uint8, int16 and int32 (``J_DTYPES``: weights the
+     dtype rounds, or 13-bit weights int8 and uint8 wrap), each equal to
+     its plain version, timed with their bounds; production, trace and
+     xorshift pregen anneal(K2000) with a bfloat16 J (K1, K3, K4 only),
+     equal to phases 6/7 and to the dense backend's bfloat16 run, the
+     production peak device bytes below phase 6's; partition's 13-bit J on
+     K1, equal to the dense backend's bfloat16 run; the service K1 group,
+     equal to phase 18 — peak device bytes beside the float32 runs'; then
+     an int8 J: production (peak below the bfloat16 run's), trace (K3),
+     xorshift pregen (K4) and anneal_ssqa (K1 ring), each equal to the
+     dense backend's int8 run; partition with int16 (equal to float32) and
+     int8 (wrapped, equal to the dense int8 run); the service K1 group;
  36. the paper: Table IV (``benchmarks/memory_table.py``, its 15% gate
      enforced), Fig. 7/9 and 8/10 on G11–G13 and Fig. 12 on G11
      (``convergence``, ``histograms``, ``equal_temp``) at 100 trials on
      backend='auto', cut to 3,000 cycles (Fig. 7–10) and 6,000 (Fig. 12);
- 37. the card line again, the kernels line (each kernel's service launches
+ 37. rings above 32 replicas (``[ring > 32]``): K1's and K2's ring modes
+     equal to their plain versions, all five outputs, at K2000 width
+     (K1: C = 100; K2: one Table II chain, C = 600) for 128 trials in rings
+     of 64 and in one of 128, 100 in one ring of 100 and 66 in rings of 33,
+     K1 at N = 16384 in rings of 64 (C = 4: the ring's words in global
+     memory) and K2 at N = 30000 in one ring of 64 (planes and words in
+     global memory) — each line with its cluster size, blocks, where the
+     words live, kernel and plain times and the bound; anneal_ssqa(K2000,
+     128 trials in rings of 64, m_shot 2) on the cuda backend with the
+     dense field (K1's ring mode) and popcount (K2's), each equal to the
+     dense backend; the same request to AnnealService(backend='auto'),
+     equal to it;
+ 38. PT-SSA under 'auto' (``[pt-ssa auto]``): a request at bucket 64 on
+     the card, no launch, equal to the dense service's run;
+ 39. the card line again, the kernels line (each kernel's service launches
      in ``service_launches``, its stream launches in ``stream_launches``,
      its launches per family of phase 27 in ``family_launches``, those of
      phases 34–36 in ``auto_launches``, ``j_dtype_launches`` and
-     ``paper_launches``, and its bfloat16-J row in ``bf16``); 38. the
-     contract line (last).
+     ``paper_launches``, its bfloat16-J row in ``bf16``, its rows by J
+     dtype in ``j_dtypes`` and, for the ring modes, its rows by ring in
+     ``rings``: ring size, cluster size, blocks, where the words live,
+     times, bound and the launches of phase 37's run); 40. the contract
+     line (last).
 """
 from __future__ import annotations
 
@@ -287,7 +310,8 @@ def phase_build():
 
     t0 = time.time()
     _build.build()
-    print(f"[build] {_build.SOURCES} built for sm_90a in {time.time() - t0:.1f}s")
+    each = ", ".join(f"{k} {v:.1f}s" for k, v in _build.build_seconds.items())
+    print(f"[build] {_build.SOURCES} built for sm_90a in {time.time() - t0:.1f}s ({each})")
     for name in _build.SOURCES:
         for line in _build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -389,9 +413,10 @@ def _k3_sweep(m, h, J):
         print(f"[K3 sweep] {ks} K splits: {t:.4f} ms")
 
 
-def _plateau_inputs(gen, R, N, dev, dtype=torch.float32, flat=False):
+def _plateau_inputs(gen, R, N, dev, dtype=torch.float32, flat=False, J=None):
     """Random plateau inputs; ``flat`` zeroes J and h so every energy ties
-    and only keeping the first minimum matches."""
+    and only keeping the first minimum matches; ``J`` (N, N) replaces the
+    random ±1 coupling."""
     from repro_torch.core.rng import xorshift_init
     from repro_torch.kernels.bitplane import pack_spins
 
@@ -400,7 +425,7 @@ def _plateau_inputs(gen, R, N, dev, dtype=torch.float32, flat=False):
     return dict(
         m_packed=pack_spins(m),
         itanh=torch.randint(-8, 8, (1, R, N), generator=gen, dtype=torch.int32).to(dev),
-        J=_coupling(gen, N, dtype, dev)[None] * (not flat),
+        J=(_coupling(gen, N, dtype, dev) if J is None else J)[None] * (not flat),
         h=torch.randint(-2, 3, (1, N), generator=gen, dtype=torch.int32).to(dev) * (not flat),
         rng=xorshift_init(int(torch.randint(0, 2**31, (1,), generator=gen)), (R, N), dev)[None],
         best_H=torch.full((1, R), 2**30, dtype=torch.int32, device=dev),
@@ -850,7 +875,7 @@ def phase_k2(dev):
              (1, 100, 2000, 1, 60, "random", False, 1),
              (1, 100, 2000, 1, 60, "random", False, cs_max),
              (1, 2, 120000, 0, 3, "random", False, None),
-             (1, 3, 70001, 0, 2, "all", False, 1)]
+             (1, 3, 74601, 0, 2, "all", False, 1)]
     for B, R, N, w_max, C, sched, flat, cs in cases:
         x = _popcount_inputs(rs, B, R, N, w_max, C, dev, sched, flat)
         what = f"K2 at B={B} R={R} N={N} w_max={w_max} C={C} sched={sched} flat={flat}"
@@ -997,7 +1022,7 @@ def phase_k1_ring(dev):
           f"{launched[1]} blocks: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound:.4f} ms ({by})")
     fits = {cs: ssa_update._max_clusters(dev, "plateau", "repro_plateau_max_clusters",
-                                         N, SSQA_RING, cs, 0)
+                                         N, SSQA_RING, cs, 0, 0)  # float32 J, words shared
             for cs in ssa_update.CLUSTER_SIZES}
     print(f"[K1 ring] N={N} ring={SSQA_RING}: clusters the card runs at once, by size: {fits}")
     # Other ring sizes and cluster sizes on the same inputs, and a bfloat16 J
@@ -2517,38 +2542,60 @@ def _wide_coupling(gen, n, dtype, device):
     return (J + J.T).to(dtype).to(device)
 
 
-def _bf16_kernels(dev):
-    """K1, K1's ring mode, K3 and K4 with a bfloat16 J at the main path's
-    shapes, on weights bfloat16 rounds (and K3 on J tiles of one to four
-    byte planes): each equal to its plain version; kernel and plain times
-    and the bound, where J's bytes are half a float32 J's."""
+# The J dtypes beside float32 (j_dtype), each with K1, K1's ring mode, K3
+# and K4 instantiations; the integer ones take the partition family's
+# 13-bit weights, which int8 and uint8 wrap.
+J_DTYPES = ("bfloat16", "float16", "int8", "uint8", "int16", "int32")
+
+
+def _dtype_coupling(gen, n, dtype, device):
+    """A symmetric J in ``dtype`` the way the host holds it: weights up to
+    ±5000 for the float types (bfloat16 rounds most of them, float16 those
+    above 2048), 13-bit weights (±4095) for the integer types, wrapped by
+    int8 and uint8 as the host's conversion wraps them."""
+    if dtype.is_floating_point:
+        return _wide_coupling(gen, n, dtype, device)
+    J = torch.triu(torch.randint(-4095, 4096, (n, n), generator=gen), 1)
+    return (J + J.T).to(dtype).to(device)
+
+
+def _jdtype_kernels(dev, dtype):
+    """K1, K1's ring mode, K3 and K4 with J in ``dtype`` at the main path's
+    shapes, on weights the dtype rounds or wraps (_dtype_coupling; K3 also
+    on J tiles of one to four byte planes where the dtype holds them): each
+    equal to its plain version; kernel and plain times and the bound, with
+    J's bytes at the dtype's width."""
     from repro_torch.kernels import ssa_update
     from repro_torch.kernels.ref import local_field_ref, ssa_plateau_packed_ref, ssa_plateau_ref
 
+    name_of = str(dtype).replace("torch.", "")
     gen = torch.Generator().manual_seed(27)
-    bf16 = torch.bfloat16
     R, N, C = 100, 2000, 100
     nw = (N + 31) // 32
+    jb = torch.empty((), dtype=dtype).element_size() * N * N  # J's bytes
     out = {}
 
     def check(name, got, want):
         err = max(_max_abs_err(g, w) for g, w in zip(got, want))
         if err:
-            _fail(f"{name} with a bfloat16 J differs from its plain version")
+            _fail(f"{name} with a {name_of} J differs from its plain version")
         return err
 
-    # K3: wide weights, then tiles of one to four byte planes.
+    # K3: the dtype's weights, then (where it holds them) tiles of one to
+    # four byte planes.
     m = _spins(gen, (R, N), dev).to(torch.float32)
     h = torch.randint(-3, 4, (N,), generator=gen, dtype=torch.int32).to(dev)
+    Js = [_dtype_coupling(gen, N, dtype, dev)]
+    if dtype in (torch.bfloat16, torch.int32):
+        Js.append(_mixed_plane_coupling(gen, N, dtype, dev))
     err = 0
-    for J in (_wide_coupling(gen, N, bf16, dev), _mixed_plane_coupling(gen, N, bf16, dev)):
+    for J in Js:
         err = max(err, check("K3", [ssa_update.local_field(m, h, J)], [local_field_ref(m, h, J)]))
-    J = _coupling(gen, N, bf16, dev)
+    J = _coupling(gen, N, dtype, dev)
     ms = _time_ms(lambda: ssa_update.local_field(m, h, J), reps=50)
     plain = _time_ms(lambda: local_field_ref(m, h, J), reps=50)
     graph = _graph_time_ms(lambda: ssa_update.local_field(m, h, J))
-    bound, by = _bound_ms(4 * R * N + 2 * N * N + 4 * N + 4 * R * N, 2 * R * N * N,
-                          PEAK_INT8_OPS)
+    bound, by = _bound_ms(4 * R * N + jb + 4 * N + 4 * R * N, 2 * R * N * N, PEAK_INT8_OPS)
     out["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                      graph_ms=graph)
     # K1, classical and ring mode.
@@ -2556,30 +2603,30 @@ def _bf16_kernels(dev):
     for name, R_, kw in (("K1", R, {}),
                          ("K1 ring", SSQA_TRIALS, dict(jperp=SSQA_JPERP_MAX,
                                                        n_replicas=SSQA_RING))):
-        x = _plateau_inputs(gen, R_, N, dev, bf16)
-        xw = dict(x, J=_wide_coupling(gen, N, bf16, dev)[None])
+        x = _plateau_inputs(gen, R_, N, dev, dtype)
+        xw = dict(x, J=_dtype_coupling(gen, N, dtype, dev)[None])
         kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=True, **kw)
         err = check(name, k1(**xw, **kw), ssa_plateau_packed_ref(**xw, **kw))
         ms = _time_ms(lambda: k1(**x, **kw), reps=5)
         plain = _time_ms(lambda: ssa_plateau_packed_ref(**x, **kw), reps=3)
         sb = 4 * (R_ * nw + R_ * N + 4 * R_ * N + R_ + R_ * nw)
         n_ops = 2 * R_ * N * N * (C + 1) + (2 * R_ * N * C if kw.get("n_replicas") else 0)
-        bound, by = _bound_ms(2 * N * N + 4 * N + 2 * sb, n_ops)
+        bound, by = _bound_ms(jb + 4 * N + 2 * sb, n_ops)
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
     # K4.
     k4 = ssa_update.ssa_plateau_batched
-    x = _pregen_inputs(gen, 1, R, N, C, dev, bf16)
-    xw = dict(x, J=_wide_coupling(gen, N, bf16, dev)[None])
+    x = _pregen_inputs(gen, 1, R, N, C, dev, dtype)
+    xw = dict(x, J=_dtype_coupling(gen, N, dtype, dev)[None])
     kw = dict(i0=32, n_rnd=2, eligible=True)
     err = check("K4", k4(**xw, **kw), ssa_plateau_ref(**xw, **kw))
     ms = _time_ms(lambda: k4(**x, **kw), reps=5)
     plain = _time_ms(lambda: ssa_plateau_ref(**x, **kw), reps=3)
     sb = 4 * R * N + 4 * R * N + 4 * R + R * N
-    bound, by = _bound_ms(2 * N * N + 4 * N + 2 * sb + C * R * N, 2 * R * N * N * (C + 1))
+    bound, by = _bound_ms(jb + 4 * N + 2 * sb + C * R * N, 2 * R * N * N * (C + 1))
     out["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
     for name, row in out.items():
         extra = f", device time by CUDA graph {row['graph_ms']:.4f} ms" if "graph_ms" in row else ""
-        print(f"[j_dtype] {name}, bfloat16 J, main path's shape: kernel {row['ms']:.4f} ms"
+        print(f"[j_dtype] {name}, {name_of} J, main path's shape: kernel {row['ms']:.4f} ms"
               f"{extra}, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}); equal to its plain version (max_abs_err 0)")
     return out
@@ -2597,31 +2644,40 @@ def _peak_run(fn):
 
 def phase_j_dtype(dev, streamed, streamed_peak, trace_peak, problems, reqs, k1_resp,
                   service_peak):
-    """Phase 35: a bfloat16 J (``j_dtype=torch.bfloat16``).  K1, K1's ring
-    mode, K3 and K4 against their plain versions on weights bfloat16 rounds,
-    timed at the main path's shapes with their bounds; the production
-    anneal(K2000) — K1 m_shot × steps times, equal to phase 6's float32
-    run and to the dense backend's bfloat16 run, its peak device bytes
-    below phase 6's; the trace path (K3 only, traces equal to the dense
-    backend's bfloat16 run) and xorshift pregen (K4 only, equal to phase
-    6); partition's 13-bit weights, which bfloat16 rounds, on K1 — equal to
-    the dense backend's bfloat16 run; and the service K1 group (phase 18's
-    requests) — equal to phase 18's responses.  Peak device bytes are
-    printed beside the float32 runs'.  Returns (kernel rows, launches)."""
+    """Phase 35: J held in a narrower dtype (``j_dtype``).  K1, K1's ring
+    mode, K3 and K4 against their plain versions with J in each of
+    J_DTYPES, on weights the dtype rounds or wraps, timed at the main
+    path's shapes with their bounds.  A bfloat16 J: the production
+    anneal(K2000) — K1 m_shot × steps times, equal to phase 6's float32 run
+    and to the dense backend's bfloat16 run, its peak device bytes below
+    phase 6's; the trace path (K3 only, traces equal to the dense backend's
+    bfloat16 run) and xorshift pregen (K4 only, equal to phase 6);
+    partition's 13-bit weights, which bfloat16 rounds, on K1 — equal to the
+    dense backend's bfloat16 run; and the service K1 group (phase 18's
+    requests) — equal to phase 18's responses.  An int8 J: the production
+    anneal(K2000), equal to phase 6 and to the dense backend's int8 run, its
+    peak below the bfloat16 run's; the trace path (K3), xorshift pregen
+    (K4) and anneal_ssqa (K1's ring mode) at m_shot 2, each equal to the
+    dense backend's int8 run; partition's weights on K1 with int16 (equal
+    to the float32 run: int16 holds them) and int8 (wrapped: equal to the
+    dense backend's int8 run); the service K1 group, equal to phase 18.
+    Peak device bytes are printed beside the float32 runs'.  Returns
+    (kernel rows by dtype, launches by kernel)."""
     from repro_torch.core import gset
     from repro_torch.core.config import SolverConfig
     from repro_torch.core.ssa import anneal
+    from repro_torch.core.ssqa import anneal_ssqa
     from repro_torch.problems import make_demo
     from repro_torch.serve import AnnealService
 
-    rows = _bf16_kernels(dev)
-    bf = {"j_dtype": torch.bfloat16}
+    rows = {name: _jdtype_kernels(dev, getattr(torch, name)) for name in J_DTYPES}
     hp = _service_hp()
     plateaus = hp.m_shot * hp.steps
     p = gset.load("K2000")
 
-    def cfg(backend, **kw):
-        return SolverConfig(backend=backend, noise="xorshift", backend_opts=bf, **kw)
+    def cfg(backend, dtype=torch.bfloat16, **kw):
+        return SolverConfig(backend=backend, noise="xorshift", backend_opts={"j_dtype": dtype},
+                            **kw)
 
     def run(problem, c, h=hp, track=False):
         return _peak_run(lambda: anneal(problem, h, seed=0, track_energy=track, config=c,
@@ -2638,6 +2694,7 @@ def phase_j_dtype(dev, streamed, streamed_peak, trace_peak, problems, reqs, k1_r
           anneal(p, hp, seed=0, track_energy=False, config=cfg("dense"), device="cuda"))
     if not peak < streamed_peak:
         _fail(f"j_dtype: peak device bytes {peak} not below the float32 run's {streamed_peak}")
+    bf16_peak = peak
     launches = {"K1": {"j_dtype production": counts[0]}}
 
     h2 = dataclasses.replace(hp, m_shot=M_SHOT_TRACE)
@@ -2671,14 +2728,264 @@ def phase_j_dtype(dev, streamed, streamed_peak, trace_peak, problems, reqs, k1_r
     launches["K1"]["j_dtype partition"] = counts[0]
 
     svc = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
-                        chunk_shots=5, backend_opts=bf)
+                        chunk_shots=5, backend_opts={"j_dtype": torch.bfloat16})
     resp, wall, counts, peak = _service_solve(svc, reqs, "j_dtype service K1 (bfloat16 J)")
     print(f"[j_dtype] service K1, bfloat16 J: peak {peak} B (float32 J, phase 18: "
           f"{service_peak} B)")
     _expect("j_dtype service K1", counts, (2 * plateaus, 0, 0, 0, 0, 0))
     _check_service("j_dtype service K1", resp, [x.result for x in k1_resp], problems)
     launches["K1"]["j_dtype service K1"] = counts[0]
+
+    # An int8 J: K2000's ±1 weights are exact in it.
+    i8 = torch.int8
+    anneal(p, dataclasses.replace(hp, m_shot=1), seed=0, track_energy=False,
+           config=cfg("cuda", i8), device="cuda")  # warm-up: the int8 shapes' queries
+    r, wall, counts, peak = run(p, cfg("cuda", i8))
+    print(f"[j_dtype] production K2000, int8 J: wall {wall:.3f}s, launches {counts}, peak "
+          f"device memory of the call {peak} B (float32 J, phase 6: {streamed_peak} B; "
+          f"bfloat16 J: {bf16_peak} B)")
+    _expect("int8 production", counts, (plateaus, 0, 0, 0, 0, 0))
+    _same("int8 production against phase 6's float32 run", r, streamed)
+    _same("int8 production against the dense backend", r,
+          anneal(p, hp, seed=0, track_energy=False, config=cfg("dense", i8), device="cuda"))
+    if not peak < bf16_peak:
+        _fail(f"j_dtype: the int8 run's peak {peak} B is not below the bfloat16 run's "
+              f"{bf16_peak} B")
+    launches["K1"]["int8 production"] = counts[0]
+    r, wall, counts, _ = run(p, cfg("cuda", i8), h2, track=True)
+    print(f"[j_dtype] trace path K2000, int8 J: wall {wall:.3f}s, launches {counts}")
+    if counts[1] == 0 or counts[0] or counts[2]:
+        _fail(f"int8 trace path: expected K3 only, got {counts}")
+    _same("int8 trace path against the dense backend", r,
+          anneal(p, h2, seed=0, config=cfg("dense", i8), device="cuda"), traces=True)
+    launches["K3"]["int8 trace"] = counts[1]
+    r, wall, counts, _ = run(p, cfg("cuda", i8, noise_mode="pregen"), h2)
+    print(f"[j_dtype] xorshift pregen K2000, int8 J: wall {wall:.3f}s, launches {counts}")
+    _expect("int8 pregen", counts, (0, 0, h2.m_shot * h2.steps, 0, 0, 0))
+    _same("int8 pregen against the dense backend", r,
+          anneal(p, h2, seed=0, track_energy=False, config=cfg("dense", i8), device="cuda"))
+    launches["K4"]["int8 xorshift pregen"] = counts[2]
+    sq = dataclasses.replace(_service_hp(ssqa=True), m_shot=M_SHOT_TRACE)
+    r, wall, counts, _ = _peak_run(lambda: anneal_ssqa(p, sq, seed=0, track_energy=False,
+                                                       config=cfg("cuda", i8), device="cuda"))
+    print(f"[j_dtype] anneal_ssqa K2000 (rings of {sq.n_replicas}), int8 J: wall {wall:.3f}s, "
+          f"launches {counts}")
+    if counts[4] == 0 or counts[1] or counts[2] or counts[3]:
+        _fail(f"int8 ssqa: expected K1 and K1's ring mode only, got {counts}")
+    _same("int8 ssqa against the dense backend", r,
+          anneal_ssqa(p, sq, seed=0, track_energy=False, config=cfg("dense", i8),
+                      device="cuda"))
+    launches["K1 ring"] = {"int8 ssqa": counts[4]}
+
+    r16, wall, counts, _ = run(enc, cfg("cuda", torch.int16))
+    print(f"[j_dtype] partition, int16 J on K1: wall {wall:.3f}s, launches {counts}; best "
+          f"energy {int(r16.best_energy.min())} == the float32 run's")
+    _expect("int16 partition", counts, (plateaus, 0, 0, 0, 0, 0))
+    _same("int16 partition against the float32 run", r16, f32)
+    launches["K1"]["int16 partition"] = counts[0]
+    r, wall, counts, peak = run(enc, cfg("cuda", i8))
+    ref = anneal(enc, hp, seed=0, track_energy=False, config=cfg("dense", i8), device="cuda")
+    print(f"[j_dtype] partition, int8 J (13-bit weights wrapped) on K1: wall {wall:.3f}s, "
+          f"launches {counts}, peak {peak} B; best energy {int(r.best_energy.min())} (float32 "
+          f"J: {int(f32.best_energy.min())}) == the dense backend's int8 run")
+    _expect("int8 partition", counts, (plateaus, 0, 0, 0, 0, 0))
+    _same("int8 partition against the dense backend", r, ref)
+    launches["K1"]["int8 partition"] = counts[0]
+
+    svc = AnnealService(backend="cuda", noise="xorshift", storage_layout="packed",
+                        chunk_shots=5, backend_opts={"j_dtype": i8})
+    resp, wall, counts, peak = _service_solve(svc, reqs, "j_dtype service K1 (int8 J)")
+    print(f"[j_dtype] service K1, int8 J: peak {peak} B (float32 J, phase 18: "
+          f"{service_peak} B)")
+    _expect("int8 service K1", counts, (2 * plateaus, 0, 0, 0, 0, 0))
+    _check_service("int8 service K1", resp, [x.result for x in k1_resp], problems)
+    launches["K1"]["int8 service K1"] = counts[0]
     return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# Rings above 32 replicas, and PT-SSA under backend='auto'
+# ---------------------------------------------------------------------------
+# (trials, replicas per ring) at K2000 width through K1's and K2's ring modes.
+BIG_RINGS = ((128, 64), (128, 128), (100, 100), (66, 33))
+BIG_RING_TRIALS, BIG_RING = 128, 64  # the main path's rings
+
+
+def _timed_once(fn):
+    """(fn(), its device time in ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _same_outputs(what, got, want) -> int:
+    names = ("m_packed", "itanh", "rng", "best_H", "best_m_packed")
+    for name, g, w in zip(names, got, want):
+        if _max_abs_err(g, w) or g.dtype != w.dtype or g.shape != w.shape:
+            _fail(f"{what}: {name} differs from its plain version")
+    return 0
+
+
+def _device_coupling(seed, n, dev):
+    """A symmetric ±1 float32 J drawn on the card (too large to draw on the
+    host quickly)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    J = torch.triu(torch.randint(-1, 2, (n, n), generator=gen, device=dev, dtype=torch.int8), 1)
+    return (J + J.T).to(torch.float32)
+
+
+def _big_ring_kernels(dev):
+    """K1's and K2's ring modes above 32 replicas against their plain
+    versions, all five outputs exactly: at K2000 width for each of
+    BIG_RINGS (K1: C = 100, J⊥ 4; K2: one Table II chain, C = 600, with the
+    SSQA J⊥ ramp), K1 at N = 16384 in rings of 64 (C = 4: the ring's words
+    in global memory) and K2 at N = 30000 in one ring of 64 (C = 3: planes
+    and words in global memory).  Each line gives the cluster size, block
+    count, where the words live, kernel and plain times and the bound.
+    Returns {"K1 ring": {label: row}, "K2 ring": {label: row}}."""
+    import numpy as np
+
+    from repro_torch.kernels import ssa_update
+    from repro_torch.kernels.ref import ssa_plateau_packed_ref, ssa_plateau_popcount_ref
+
+    k1 = ssa_update.ssa_plateau_packed_batched
+    k2 = ssa_update.ssa_plateau_popcount_batched
+    gen = torch.Generator().manual_seed(28)
+    rs = np.random.default_rng(28)
+    rows = {"K1 ring": {}, "K2 ring": {}}
+    for T, nr, N, C in [(T, nr, 2000, 100) for T, nr in BIG_RINGS] + [(128, 64, 16384, 4)]:
+        J = _device_coupling(int(rs.integers(2**31)), N, dev) if N > 4096 else None
+        x = _plateau_inputs(gen, T, N, dev, J=J)
+        kw = dict(i0=32, n_cycles=C, n_rnd=2, eligible=True, jperp=SSQA_JPERP_MAX,
+                  n_replicas=nr)
+        what = f"K1 ring mode, {T} trials in rings of {nr}, N={N}, C={C}"
+        want, plain = _timed_once(lambda: ssa_plateau_packed_ref(**x, **kw))
+        err = _same_outputs(what, k1(**x, **kw), want)
+        cs, blocks = k1.last_cluster
+        variant = k1.last_ring_variant
+        ms = _time_ms(lambda: k1(**x, **kw), reps=3)
+        nw = (N + 31) // 32
+        sb = 4 * (T * nw + T * N + 4 * T * N + T + T * nw)
+        bound, by = _bound_ms(4 * N * N + 4 * N + 2 * sb,
+                              2 * T * N * N * (C + 1) + 2 * T * N * C)
+        label = f"{T} trials, rings of {nr}, N={N}, C={C}"
+        rows["K1 ring"][label] = dict(ring=nr, trials=T, N=N, cluster_size=cs, blocks=blocks,
+                                      words=variant, max_abs_err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=bound, bound_by=by)
+        print(f"[ring > 32] K1 ring, {label}: cluster size {cs}, {blocks} blocks, words in "
+              f"{variant} memory: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+              f"{bound:.4f} ms ({by}); all five outputs equal")
+        del x, J, want
+        torch.cuda.empty_cache()
+    for T, nr, N, w_max, C in [(T, nr, 2000, 1, 600) for T, nr in BIG_RINGS] + [
+            (64, 64, 30000, 0, 3)]:  # one ring: the plain version's popcounts take ~15 GB
+        x = _popcount_inputs(rs, 1, T, N, w_max, C, dev)
+        i0, fold, jperp = _ssqa_chain(C, 100 if C >= 100 else 1)
+        x.update(i0_sched=torch.tensor(i0, device=dev), fold_sched=torch.tensor(fold, device=dev))
+        kw = dict(n_rnd=2, jperp_sched=torch.tensor(jperp, device=dev), n_replicas=nr)
+        what = f"K2 ring mode, {T} trials in rings of {nr}, N={N}, C={C}"
+        want, plain = _timed_once(lambda: ssa_plateau_popcount_ref(**x, **kw))
+        err = _same_outputs(what, k2(**x, **kw), want)
+        launched = _k2_launch(k2)
+        cs, blocks, variant = k2.last_cluster
+        ms = _time_ms(lambda: k2(**x, **kw), reps=3)
+        nb, nw = x["mags"].shape[1], x["sign"].shape[-1]
+        fields = C + int(fold[-1] > 0)
+        sb = 4 * (T * nw + T * N + 4 * T * N + T + T * nw)
+        n_bytes = 4 * (1 + nb) * N * nw + 8 * N + 4 * (3 * C + 1) + 2 * sb
+        popc, adds = T * N * nw * nb * fields, 2 * T * N * C
+        t_ops = (popc / PEAK_POPC + adds / PEAK_INT32) * 1e3
+        t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
+        bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        label = f"{T} trials, rings of {nr}, N={N}, C={C}"
+        rows["K2 ring"][label] = dict(ring=nr, trials=T, N=N, cluster_size=cs, blocks=blocks,
+                                      variant=variant, max_abs_err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=bound, bound_by=by)
+        print(f"[ring > 32] K2 ring, {label}: {launched}: kernel {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, bound {bound:.4f} ms ({by}); all five outputs equal")
+        del x, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_big_rings(dev):
+    """Phase 37: rings above 32 replicas.  The kernels (_big_ring_kernels);
+    then anneal_ssqa(K2000, BIG_RING_TRIALS trials in rings of BIG_RING, J⊥max
+    4, τ 100, I0 1→32, m_shot 2) on the cuda backend with the dense field —
+    K1's ring mode — and with popcount — K2's ring mode —, each equal to
+    the dense backend's run on the card; and one such request to
+    AnnealService(backend='auto') (bucket 2048: cuda), equal to its one-shot
+    run.  Returns (kernel rows, launches of the K1 and K2 ring-mode runs,
+    the service's ring launches)."""
+    from repro_torch.core import gset
+    from repro_torch.core.config import SolverConfig
+    from repro_torch.core.ssqa import anneal_ssqa
+    from repro_torch.serve import AnnealRequest, AnnealService
+
+    rows = _big_ring_kernels(dev)
+    p = gset.load("K2000")
+    hp = dataclasses.replace(_service_hp(ssqa=True), n_trials=BIG_RING_TRIALS,
+                             n_replicas=BIG_RING, m_shot=M_SHOT_TRACE)
+    ref = anneal_ssqa(p, hp, seed=0, track_energy=False,
+                      config=SolverConfig(backend="dense", noise="xorshift"), device="cuda")
+    launched = {}
+    for name, cfg in (("dense field", SolverConfig(backend="cuda", noise="xorshift")),
+                      ("popcount", SolverConfig(backend="cuda", noise="xorshift",
+                                                field_mode="popcount"))):
+        anneal_ssqa(p, dataclasses.replace(hp, m_shot=1), seed=0, track_energy=False,
+                    config=cfg, device="cuda")  # warm-up: the shapes' queries
+        t0 = time.time()
+        r, counts = _counted(lambda: anneal_ssqa(p, hp, seed=0, track_energy=False, config=cfg,
+                                                 device="cuda"))
+        print(f"[ring > 32] anneal_ssqa {p.name}, {hp.n_trials} trials in rings of "
+              f"{hp.n_replicas}, m_shot {hp.m_shot}, {name}: best cut {r.overall_best_cut}, "
+              f"wall {time.time() - t0:.3f}s, (K1, K3, K4, K2, K1 ring, K2 ring) launches "
+              f"{counts} == the dense backend's run")
+        ring = counts[4] if name == "dense field" else counts[5]
+        if ring == 0 or counts[1] or counts[2]:
+            _fail(f"ring > 32 anneal_ssqa {name}: expected ring-mode launches, got {counts}")
+        _same(f"ring > 32 anneal_ssqa {name} against the dense backend", r, ref)
+        launched[name] = ring
+    svc = AnnealService(backend="auto", noise="xorshift", chunk_shots=1)
+    resp, wall, counts, _ = _service_solve(svc, [AnnealRequest(problem=p, hp=hp, seed=0)],
+                                           f"ring > 32 service auto, rings of {BIG_RING}")
+    if counts[4] == 0:
+        _fail(f"ring > 32 service: expected K1's ring mode, got {counts}")
+    _check_service("ring > 32 service auto", resp, [ref], [p])
+    return rows, launched, counts[4]
+
+
+def phase_ptssa_auto():
+    """Phase 38: a PT-SSA request to AnnealService(backend='auto') at
+    bucket 64 on the card, which no kernel runs (its group takes the dense
+    backend, as the reference's 'auto' does below 256 spins): status 'ok',
+    no launch, equal to the dense service's run."""
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.pt import PTSSAHyperParams
+    from repro_torch.serve import AnnealRequest, AnnealService
+
+    p = gset.toroidal_grid(36, seed=0)
+    req = [AnnealRequest(problem=p, hp=PTSSAHyperParams(n_replicas=4, n_rounds=4, tau=10),
+                         seed=0)]
+    want = AnnealService(backend="dense", min_bucket=16).solve(req)
+    resp, counts = _counted(lambda: AnnealService(backend="auto", min_bucket=16).solve(req))
+    print(f"[pt-ssa auto] {p.name} (bucket {resp[0].bucket}): status {resp[0].status}, best "
+          f"energies {resp[0].result.best_energy.tolist()}, launches {counts} == the dense "
+          "service's run")
+    _counters_zero("pt-ssa auto", counts)
+    got, ref = resp[0], want[0]
+    if got.status != "ok" or got.bucket != 64 or not (
+            np.array_equal(got.result.best_energy, ref.result.best_energy)
+            and np.array_equal(got.result.best_m, ref.result.best_m)):
+        _fail(f"pt-ssa auto: differs from the dense service's run (status {got.status!r}, "
+              f"bucket {got.bucket})")
 
 
 def phase_paper():
@@ -2799,9 +3106,19 @@ def main():
     phase_spin_p2(mesh, k2_run)
     torch.distributed.destroy_process_group()
     k1_auto = phase_auto(streamed)
-    bf16_rows, jd_launches = phase_j_dtype(dev, streamed, streamed_peak, trace_peak, problems,
-                                           reqs, k1_resp, service_peak)
+    jd_rows, jd_launches = phase_j_dtype(dev, streamed, streamed_peak, trace_peak, problems,
+                                         reqs, k1_resp, service_peak)
     paper = phase_paper()
+    ring_rows, ring_launches, ring_service = phase_big_rings(dev)
+    phase_ptssa_auto()
+
+    def dtypes(kernel):  # a kernel's rows by J dtype
+        return {name: jd_rows[name][kernel] for name in J_DTYPES}
+
+    def rings(kernel, launches):  # a ring mode's rows by ring, those of the main path counted
+        return {label: dict(row, launches=launches if (row["trials"], row["ring"], row["N"]) == (
+            BIG_RING_TRIALS, BIG_RING, 2000) else 0) for label, row in ring_rows[kernel].items()}
+
     k1_fam = {k: fam[k][2] for k, _, field in FAMILIES if field == "dense"}
     k2_fam = {k: fam[k][2] for k, _, field in FAMILIES if field == "popcount"}
     kernels = [
@@ -2813,20 +3130,21 @@ def main():
              stream_launches={"stream K1": k1_stream, "stream families": k1_fam_stream},
              family_launches=k1_fam, auto_launches={"auto K2000": k1_auto},
              j_dtype_launches=jd_launches["K1"], paper_launches=paper["K1"],
-             bf16=bf16_rows["K1"], **k1),
+             bf16=jd_rows["bfloat16"]["K1"], j_dtypes=dtypes("K1"), **k1),
         dict(name="local_field (K3)", route="cuda",
              source="src/repro_torch/kernels/csrc/field.cu",
              replaces="src/repro/kernels/ssa_update.py:90",
              launches=k3_launches, service_launches={}, stream_launches={},
              family_launches={}, auto_launches={}, j_dtype_launches=jd_launches["K3"],
-             paper_launches=paper["K3"], bf16=bf16_rows["K3"], **k3),
+             paper_launches=paper["K3"], bf16=jd_rows["bfloat16"]["K3"],
+             j_dtypes=dtypes("K3"), **k3),
         dict(name="ssa_plateau (K4)", route="cuda",
              source="src/repro_torch/kernels/csrc/plateau_pregen.cu",
              replaces="src/repro/kernels/ssa_update.py:150",
              launches=k4_launches, service_launches={"service K4": k4_service},
              stream_launches={}, family_launches={}, auto_launches={},
              j_dtype_launches=jd_launches["K4"], paper_launches=paper["K4"],
-             bf16=bf16_rows["K4"], **k4),
+             bf16=jd_rows["bfloat16"]["K4"], j_dtypes=dtypes("K4"), **k4),
         dict(name="ssa_plateau_popcount (K2)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
@@ -2841,10 +3159,13 @@ def main():
              source="src/repro_torch/kernels/csrc/plateau.cu",
              replaces="src/repro/kernels/ssa_update.py:329",
              launches=k1_ring_launches,
-             service_launches={"service SSQA dense field": k1_ring_service},
+             service_launches={"service SSQA dense field": k1_ring_service,
+                               f"service auto, rings of {BIG_RING}": ring_service},
              stream_launches={"stream SSQA dense field": k1_ring_stream},
-             family_launches={}, auto_launches={}, j_dtype_launches={}, paper_launches={},
-             bf16=bf16_rows["K1 ring"], **k1_ring),
+             family_launches={}, auto_launches={}, j_dtype_launches=jd_launches["K1 ring"],
+             paper_launches={}, bf16=jd_rows["bfloat16"]["K1 ring"],
+             j_dtypes=dtypes("K1 ring"), rings=rings("K1 ring", ring_launches["dense field"]),
+             **k1_ring),
         dict(name="ssa_plateau_popcount ring mode (K2, SSQA)", route="cuda",
              source="src/repro_torch/kernels/csrc/popcount.cu",
              replaces="src/repro/kernels/ssa_update.py:668",
@@ -2852,7 +3173,7 @@ def main():
              service_launches={"service SSQA popcount": k2_ring_service},
              stream_launches={"stream SSQA popcount": k2_ring_stream},
              family_launches={}, auto_launches={}, j_dtype_launches={}, paper_launches={},
-             **k2_ring),
+             rings=rings("K2 ring", ring_launches["popcount"]), **k2_ring),
     ]
     print(card)  # again, so that it stands in the last lines of the output
     print(json.dumps({"kernels": kernels}))

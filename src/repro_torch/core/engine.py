@@ -106,8 +106,7 @@ __all__ = [
     "TILED_J_THRESHOLD",
     "POPCOUNT_TILE_N",
     "MIN_RESIDENT_N",
-    "DENSE_J_DTYPES",
-    "CUDA_J_DTYPES",
+    "J_DTYPES",
     "MAX_MODEL_SPINS",
     "MAX_UNSHARDED_SPINS",
     "SPIN_SHARD_MIN_N",
@@ -187,15 +186,14 @@ POPCOUNT_AUTO_MAX_BITS = 4
 # threshold is the smallest size measured.  The TPU's 256 does not carry over.
 MIN_RESIDENT_N = 16
 
-# The dtypes J may be held in (``j_dtype``).  The dense backends take every
-# dtype the JAX package's dense backend runs — the product is float32 m @
-# float32(J), J rounded or wrapped into its dtype first, as ``jnp.asarray(J,
-# j_dtype)`` does; a 64-bit dtype is held in 32 bits, as jax does with its
-# 64-bit types off.  The cuda backends take the dtypes K1, K3 and K4 have
-# instantiations for.
-DENSE_J_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.uint8,
-                  torch.int16, torch.int32)
-CUDA_J_DTYPES = (torch.float32, torch.bfloat16)
+# The dtypes J may be held in (``j_dtype``), on the dense and the cuda
+# backends alike: every dtype the JAX package's dense and pallas backends
+# run.  The field is float32 m @ float32(J), J rounded or wrapped into its
+# dtype first, as ``jnp.asarray(J, j_dtype)`` does (K1, K1's ring mode and
+# K4 widen it to float32 on load, K3 to int32: csrc/jtype.cuh); a 64-bit
+# dtype is held in 32 bits, as jax does with its 64-bit types off.
+J_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.uint8,
+            torch.int16, torch.int32)
 _J_32BIT = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 # Admission ceiling on the spin count: rejects a corrupted shape early.
@@ -721,15 +719,14 @@ def resolve_backend(backend: str, n: int) -> str:
     return backend
 
 
-def resolve_j_dtype(j_dtype, backend: str) -> torch.dtype:
-    """The dtype a ``backend`` ('dense' or 'cuda') holds J in: float32 for
-    None; a dtype the backend does not take raises ValueError naming those
-    it takes."""
+def resolve_j_dtype(j_dtype) -> torch.dtype:
+    """The dtype the dense and cuda backends hold J in: float32 for None, a
+    64-bit dtype's 32-bit counterpart; a dtype outside J_DTYPES raises
+    ValueError naming those they take."""
     dt = torch.float32 if j_dtype is None else _J_32BIT.get(j_dtype, j_dtype)
-    allowed = CUDA_J_DTYPES if backend == "cuda" else DENSE_J_DTYPES
-    if dt not in allowed:
-        raise ValueError(f"j_dtype={j_dtype} on the {backend!r} backend: it takes "
-                         f"{', '.join(str(d) for d in allowed)}")
+    if dt not in J_DTYPES:
+        raise ValueError(f"j_dtype={j_dtype}: J may be held in "
+                         f"{', '.join(str(d) for d in J_DTYPES)}")
     return dt
 
 
@@ -770,7 +767,7 @@ class DenseBackend(PlateauBackend):
     The product is ``torch.matmul``, as the JAX package leaves it to XLA;
     it is exact with TF32 off (:func:`exact_float32_matmul`).
 
-    ``j_dtype`` (float32 by default; any of DENSE_J_DTYPES) is the dtype
+    ``j_dtype`` (float32 by default; any of J_DTYPES) is the dtype
     the held J is rounded into and kept in; the product is float32 m @
     float32(J), as the JAX package's promotion makes it.
 
@@ -807,7 +804,7 @@ class DenseBackend(PlateauBackend):
         if self.j_mode == "tiled":
             _, self.nbr_idx, self.nbr_w = model.device_arrays(self.device)
         else:
-            self.J = _host_j(model, resolve_j_dtype(j_dtype, "dense")).to(self.device)
+            self.J = _host_j(model, resolve_j_dtype(j_dtype)).to(self.device)
 
     def _field(self, m):
         if self.field_mode == "popcount":
@@ -910,9 +907,9 @@ class CudaBackend(_CudaDispatch, PlateauBackend):
     planes) run the cycle loop with the field from K3
     (:func:`~repro_torch.kernels.ops.local_field`).
 
-    ``j_dtype`` (float32 or bfloat16, CUDA_J_DTYPES) is the dtype J is
-    rounded into and held in; K1, K1's ring mode, K3 and K4 read it as it
-    is.
+    ``j_dtype`` (float32 by default; any of J_DTYPES) is the dtype J is
+    rounded or wrapped into and held in; K1, K1's ring mode, K3 and K4 read
+    it as it is.
 
     ``field_mode='popcount'`` (or 'auto' within POPCOUNT_AUTO_MAX_BITS
     planes) holds the couplings as ``PackedJ`` bitplanes and no J, and runs
@@ -951,7 +948,7 @@ class CudaBackend(_CudaDispatch, PlateauBackend):
             self._problem = {"sign": pj.sign[None], "mags": pj.mags[None],
                              "base": pj.base[None], "h": self.h[None]}
         else:
-            self.J = _host_j(model, resolve_j_dtype(j_dtype, "cuda")).to(self.device)
+            self.J = _host_j(model, resolve_j_dtype(j_dtype)).to(self.device)
             self._problem = {"J": self.J[None], "h": self.h[None]}
 
     def _field(self, m):
@@ -1483,7 +1480,7 @@ class BatchedDenseBackend(BatchedBackend):
         self.field_mode = resolve_field_mode(field_mode, self.j_bits)
         self._pc_tile = None if self.n_bucket <= TILED_J_THRESHOLD else self.tile_n
         held = self.field_mode != "popcount" and self.j_mode != "tiled"
-        self.j_dtype = resolve_j_dtype(j_dtype if held else None, "dense")
+        self.j_dtype = resolve_j_dtype(j_dtype if held else None)
         if self.field_mode != "popcount":
             exact_float32_matmul()
 
@@ -1526,7 +1523,7 @@ class BatchedCudaBackend(_CudaDispatch, BatchedBackend):
       where the chain's J⊥ is not all 0.  The chain's schedules go to the
       device once per backend.
 
-    ``j_dtype`` (CUDA_J_DTYPES) is the stacked J's dtype, which K1, K1's
+    ``j_dtype`` (any of J_DTYPES) is the stacked J's dtype, which K1, K1's
     ring mode and K4 read as it is.  K2 and the ring modes need streamed
     noise, as the JAX package's batched pallas backend does.  The kernels
     size their launch (thread-block clusters) themselves, so there is no
@@ -1542,8 +1539,7 @@ class BatchedCudaBackend(_CudaDispatch, BatchedBackend):
         self.noise_mode = resolve_noise_mode(noise_mode, self.noise)
         self.j_bits = int(j_bits)
         self.field_mode = resolve_field_mode(field_mode, self.j_bits)
-        self.j_dtype = resolve_j_dtype(j_dtype if self.field_mode != "popcount" else None,
-                                       "cuda")
+        self.j_dtype = resolve_j_dtype(j_dtype if self.field_mode != "popcount" else None)
         if self.field_mode == "popcount" and self.noise_mode != "streamed":
             raise ValueError("field_mode='popcount' on the batched cuda backend requires "
                              "noise_mode='streamed' (noise='xorshift')")

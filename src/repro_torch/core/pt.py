@@ -275,9 +275,12 @@ def anneal_pt_ssa(
     """PT on the plateau engine (replicas = trials, per-replica I0 clamp) on
     ``device`` (``cuda`` unless the caller passes ``device='cpu'``).
 
-    ``backend`` must be 'sparse' or 'dense': the CUDA plateau kernels take a
-    scalar plateau I0, so PT-SSA runs the scan path.
+    ``backend`` must be 'sparse', 'dense' or 'auto', which takes 'dense':
+    the CUDA plateau kernels take a scalar plateau I0, so PT-SSA runs the
+    scan path.
     """
+    if backend == "auto":
+        backend = "dense"
     if backend == "cuda":
         raise ValueError(
             "pt-ssa needs a per-replica I0 column; the resident cuda "

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` beside this
 file (listed in .gitignore), compiled for Hopper (``sm_90a``) with a plain C
 interface.  The hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  :func:`build` starts one nvcc
-per missing library, all at once; :func:`library` builds on first use.
-Nothing is built or loaded when this module is imported.
+unchanged one is reused.  :func:`build` starts one nvcc per missing
+library, all at once (each one's time in ``build_seconds``); :func:`library`
+builds on first use.  Nothing is built or loaded when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -26,8 +28,10 @@ __all__ = ["SOURCES", "KernelBuildError", "build", "header_int", "library", "ptx
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("field", "plateau", "plateau_pregen", "popcount")
+# --split-compile=0 optimizes a source's kernels in parallel on every core:
+# each source holds one kernel per J type, vector-load choice and mode.
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--split-compile=0",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -38,6 +42,9 @@ class KernelBuildError(RuntimeError):
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Seconds from the start of the last build() that compiled a source to the
+# end of that source's nvcc, by source.
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -68,23 +75,30 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _lib_path(name) for name in names}
     procs = {}
+    t0 = time.monotonic()
     for name, path in paths.items():
         if path.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        log = open(path.with_suffix(".log"), "w")
+        procs[name] = (tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
     failed = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        paths[name].with_suffix(".log").write_text(out)
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
-            os.unlink(tmp)
-        else:
-            os.replace(tmp, paths[name])
+    while procs:
+        for name, (tmp, log, proc) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            build_seconds[name] = time.monotonic() - t0
+            log.close()
+            del procs[name]
+            if proc.returncode != 0:
+                out = paths[name].with_suffix(".log").read_text()
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+                os.unlink(tmp)
+            else:
+                os.replace(tmp, paths[name])
+        time.sleep(0.05)
     if failed:
         raise KernelBuildError("CUDA build failed:\n" + "\n".join(failed))
     return paths

@@ -20,10 +20,14 @@
 // time, so their latency, not the bytes or the MMAs, most likely sets it.
 //
 // Design.  m is converted to s8 on load.  J is loaded tile by tile (64 k x
-// 128 columns, the values as int32) and split into byte planes: plane p
+// 128 columns) in its own type (any of jtype.cuh's: 16-, 8- or 4-byte
+// vector loads of four values), each value read as an int32 (an int8
+// sign-extended, a uint8 zero-extended, a float type truncated, exact: it
+// holds an integer), and split into byte planes: plane p
 // holds byte p of each value, J = sum_p plane_p · 2^(8p), every plane read
 // as u8 except the top one, read as s8.  A tile whose |J| <= 127 everywhere
-// needs one s8 plane (every G-set instance, K2000, G11); |J| < 2^15 two,
+// needs one s8 plane (every G-set instance, K2000, G11, any int8 J); |J| <
+// 2^15 two (a uint8 J of 128-255: a u8 plane under a zero s8 plane; int16),
 // |J| < 2^23 three, and any int32 four.  The block decides a tile's count
 // with __syncthreads_or over the staged values, so the choice is
 // block-uniform, and plane p's int32 partial product is scaled by 2^(8p)
@@ -51,10 +55,11 @@
 // and writes the result.  No atomics, no scratch in device memory, one
 // launch; integer sums make the result independent of the split.
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "jtype.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -83,10 +88,8 @@ __device__ __forceinline__ int sw(int row, int w) {
   return row * KW + (w ^ x);
 }
 
-__device__ __forceinline__ int to_int(float x) { return __float2int_rz(x); }
-__device__ __forceinline__ int to_int(__nv_bfloat16 x) {
-  return __float2int_rz(__bfloat162float(x));
-}
+using jtype::load4;
+using jtype::to_int;
 
 __device__ __forceinline__ void mma_ss(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
@@ -137,18 +140,6 @@ __device__ __forceinline__ int jrow(int tid, int e) {
 template <bool VEC>
 __device__ __forceinline__ int jword(int tid, int e) {
   return VEC ? tid / 32 + 8 * (e / 4) : tid / BN + 2 * e;
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, __nv_bfloat16 (&v)[4]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  v[0] = __ushort_as_bfloat16(static_cast<unsigned short>(x.x & 0xffffu));
-  v[1] = __ushort_as_bfloat16(static_cast<unsigned short>(x.x >> 16));
-  v[2] = __ushort_as_bfloat16(static_cast<unsigned short>(x.y & 0xffffu));
-  v[3] = __ushort_as_bfloat16(static_cast<unsigned short>(x.y >> 16));
 }
 
 template <typename JT, bool VEC>
@@ -426,29 +417,31 @@ int max_clusters(int ks) {
 }  // namespace
 
 // `splits`: the K splits, blocks per cluster (1 to MAX_KS); the wrapper
-// chooses them (ssa_update._cluster_size, through the query below).
+// chooses them (ssa_update._cluster_size, through the query below).  J of
+// type `j_type` (jtype.cuh).
 extern "C" int repro_local_field(const void* m, const void* J, const void* h, void* out,
-                                 int R, int N, int j_bf16, int splits, void* stream) {
-  if (splits < 1 || splits > MAX_KS) return static_cast<int>(cudaErrorInvalidValue);
+                                 int R, int N, int j_type, int splits, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || splits > MAX_KS) return invalid;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* mf = static_cast<const float*>(m);
-  const int* hi = static_cast<const int*>(h);
-  int* o = static_cast<int*>(out);
-  if (j_bf16)
-    return launch_vec<__nv_bfloat16>(mf, static_cast<const __nv_bfloat16*>(J), hi, o, R, N,
-                                     splits, s);
-  return launch_vec<float>(mf, static_cast<const float*>(J), hi, o, R, N, splits, s);
+  return jtype::dispatch(j_type, invalid, [&](auto tag) {
+    using JT = typename decltype(tag)::type;
+    return launch_vec<JT>(static_cast<const float*>(m), static_cast<const JT*>(J),
+                          static_cast<const int*>(h), static_cast<int*>(out), R, N, splits, s);
+  });
 }
 
 // How many clusters of `splits` K3 blocks the card runs at once
-// (cudaOccupancyMaxActiveClusters); 0 when none fits.  Negative: a CUDA
-// error code, negated.
-extern "C" int repro_local_field_max_clusters(int N, int splits, int j_bf16) {
-  if (splits < 1 || splits > MAX_KS) return -static_cast<int>(cudaErrorInvalidValue);
+// (cudaOccupancyMaxActiveClusters), J of type `j_type`; 0 when none fits.
+// Negative: a CUDA error code, negated.
+extern "C" int repro_local_field_max_clusters(int N, int splits, int j_type) {
+  const int invalid = -static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || splits > MAX_KS) return invalid;
   const bool vec = N % 4 == 0;
-  if (j_bf16) return vec ? max_clusters<__nv_bfloat16, true>(splits)
-                         : max_clusters<__nv_bfloat16, false>(splits);
-  return vec ? max_clusters<float, true>(splits) : max_clusters<float, false>(splits);
+  return jtype::dispatch(j_type, invalid, [&](auto tag) {
+    using JT = typename decltype(tag)::type;
+    return vec ? max_clusters<JT, true>(splits) : max_clusters<JT, false>(splits);
+  });
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

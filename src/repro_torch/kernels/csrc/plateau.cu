@@ -204,10 +204,11 @@ int launch(const void* mp_in, const void* it_in, const void* J, const void* h,
 // ---------------------------------------------------------------------------
 // K1's SSQA ring mode (the JAX body's n_replicas > 0 mode).  Per cycle the
 // update field gains jperp * (m[k-1] + m[k+1]) over a ring of R consecutive
-// trials (k +- 1 mod R; with R = 2 the one neighbour counts twice); the
-// energy, and so the best tracking, keeps the base field.  A kernel of its
-// own beside the classical one; it shares plateau_cycle.cuh's sign table,
-// wide loads and cluster launch.
+// trials (k +- 1 mod R; with R = 2 the one neighbour counts twice, with R =
+// 1 the replica itself), R any divisor of the trials; the energy, and so the
+// best tracking, keeps the base field.  A kernel of its own beside the
+// classical one; it shares plateau_cycle.cuh's sign table, wide loads and
+// cluster launch.
 //
 // A ring's update needs every replica's spins of cycle c, so a ring is one
 // thread-block cluster of CS blocks (CS in 1, 2, 4, 8, 16; the wrapper
@@ -216,30 +217,45 @@ int launch(const void* mp_in, const void* it_in, const void* J, const void* h,
 // owns a slice of whole 32-column words (Nw words split as evenly as
 // possible): for its columns it computes the field of all R replicas over
 // every k, and it alone steps their xorshift lanes, their Itanh and their
-// words of m_packed and best_m_packed.  Every block keeps the ring's spins
-// of every column k as the bits of one 32-bit word (bit t = replica t, 1 =
-// +1), double-buffered, 8*N B; after its update a block writes its new words
-// into the next buffer of every block of the cluster through distributed
-// shared memory, and cluster.sync() closes the cycle: nothing of cycle c+1
-// is visible before it.  The energy fold: each block sums its columns'
-// share of h.m + m.field per replica, writes it into every peer's
-// [parity][CS][MAX_RING] array, and after the barrier every block adds the
-// CS shares in rank order, so H, the running best and the "better" flags
-// come out identical everywhere; each block then ballots its own words into
-// its best words.  Integer sums make all of it bit-identical to the plain
+// words of m_packed and best_m_packed.  The ring's spins of column k are RW
+// = ceil(R / 32) words, [RW][N] (bit t of word w = replica 32w + t, 1 =
+// +1), double-buffered, 8 * RW * N B.  Where that fits a block's shared
+// memory with the rest, every block keeps a copy: after the pass that
+// completes a word a block writes it into the next buffer of every block of
+// the cluster through distributed shared memory.  Where it does not (8 * RW
+// * N B above ~150 KB: N = 16384 at R = 64), the cluster keeps one copy in
+// global memory (`words`), each block stores its own columns there and
+// reads every column through L2 (ld/st.global.cg), and the best words live
+// in best_m_packed itself (that variant reads J with scalar loads: it is the
+// large-N path, and one variant fewer is built); the wrapper chooses by
+// size, never on failure.
+// Either way cluster.sync() closes the cycle: nothing of cycle c+1 is
+// visible before it, and in cycle c+1 a block writes only its own columns of
+// the old buffer, which only that block's fold of cycle c reads.  The energy
+// fold: each block sums its columns' share of h.m + m.field per replica,
+// writes it into every peer's [parity][CS][R] array, and after the barrier
+// every block adds the CS shares in rank order, so H, the running best and
+// the "better" flags come out identical everywhere; each block then ballots
+// its own columns into its best words.  The per-replica arrays (best
+// energies, flags, per-warp and per-block shares) are sized by R in dynamic
+// shared memory.  Integer sums make all of it bit-identical to the plain
 // version whatever CS is.
 //
 // Inside a block, THREADS threads split the block's columns (4 per
 // thread, CT threads across a column tile) and k (THREADS / CT
 // k-ranges); the k-ranges' partial fields meet in shared memory before the
 // update.  Where N % 4 == 0 a thread's 4 columns are neighbours, read with
-// one 16-byte load per k (a quarter of the L2 requests of 4 scalar loads);
-// otherwise they are CT apart.  One pass over J accumulates RING_G replicas (ring.cuh): per
-// column and k one float fma per replica, the replica's sign read as +-1.0f
-// from a table built once per pass from the spin words (two 16-byte
-// shared-memory broadcasts per k), so the sign flip costs no instruction in
-// the inner loop.  Every operand is an integer below 2^24 and the sums are
-// exact in any order, as in the classical kernel.
+// one vector load per k (a quarter of the L2 requests of 4 scalar loads);
+// otherwise they are CT apart.  One pass over J accumulates RING_G
+// replicas, which lie in one word (ring.cuh): per column and k one float
+// fma per replica, the replica's sign read as +-1.0f from a table built
+// once per pass from the pass's word (two 16-byte shared-memory broadcasts
+// per k), so the sign flip costs no instruction in the inner loop.  The
+// Trotter neighbours of a pass's replicas lie in its word, except the one
+// before its first and the one after its last (across a word boundary, or
+// around the ring from R-1 to 0): those two are read once per column.
+// Every operand is an integer below 2^24 and the sums are exact in any
+// order, as in the classical kernel.
 //
 // What bounds it: the same 2*R*N^2*(C+1) operations as the classical mode
 // and 2*R*N*C adds of the coupling, on the CUDA cores (1.16 ms at K2000, 96
@@ -253,7 +269,20 @@ int launch(const void* mp_in, const void* it_in, const void* J, const void* h,
 // accumulators and 8 unrolled k steps.
 static_assert(RING_G == GROUP, "a ring pass fills one sign-table row");
 
-template <typename JT, bool VEC>
+// A word of the ring's spins: from shared memory, or (gw) from the
+// cluster's copy in global memory through L2.
+__device__ __forceinline__ uint32_t ld_word(const uint32_t* p, bool gw) {
+  return gw ? __ldcg(p) : *p;
+}
+
+// The ints of a ring block's per-replica arrays: best energies, flags,
+// per-warp shares [R][WARPS] and the cluster's shares [2][CS][R].
+__host__ __device__ __forceinline__ size_t ring_head_ints(int R, int cs) {
+  return (size_t)R * (2 + WARPS + 2 * cs);
+}
+
+// GW: the ring's words in global memory (`words`), else in shared memory.
+template <typename JT, bool VEC, bool GW>
 __global__ void __launch_bounds__(THREADS, 1)
 ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
             const JT* __restrict__ J, const int* __restrict__ h,
@@ -261,41 +290,64 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
             const int* __restrict__ bh_in, const uint32_t* __restrict__ bmp_in,
             uint32_t* __restrict__ mp_out, int* __restrict__ it_out,
             uint32_t* __restrict__ rng_out, int* __restrict__ bh_out,
-            uint32_t* __restrict__ bmp_out, int T, int N, int n_cycles, int n_rnd,
-            int eligible, int R, int CT) {
+            uint32_t* __restrict__ bmp_out, uint32_t* __restrict__ words, int T, int N,
+            int n_cycles, int n_rnd, int eligible, int R, int CT) {
   constexpr int G = RING_G;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* work = reinterpret_cast<float*>(smem_raw);              // [WORK]
-  uint32_t* s_cur = reinterpret_cast<uint32_t*>(work + WORK);  // [N], bit t = replica t
-  uint32_t* s_nxt = s_cur + N;                                    // [N]
-  uint32_t* best_w = s_nxt + N;                                   // [R][nwq]
-  __shared__ int bh_s[MAX_RING];
-  __shared__ int better_s[MAX_RING];
-  __shared__ int eps[MAX_RING][WARPS];
-  __shared__ int part[2][MAX_CS][MAX_RING];
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y;
-  const int t0 = (blockIdx.x / CS) * R;  // first trial of this cluster's ring
+  const int b = blockIdx.y, ring = blockIdx.x / CS;
+  const int t0 = ring * R;  // first trial of this cluster's ring
   const size_t RN = (size_t)T * N;
   const size_t row0 = (size_t)b * T + t0;
   const size_t lane0 = (size_t)b * 4 * RN + (size_t)t0 * N;
-  const int Nw = (N + 31) >> 5;
+  const int Nw = (N + 31) >> 5, RW = (R + 31) >> 5;
   const int w_lo = q * Nw / CS, nwq = (q + 1) * Nw / CS - w_lo;  // this block's words
   const int c_lo = w_lo * 32, c_hi = min(N, (w_lo + nwq) * 32);   // and columns
   const int KG = THREADS / CT, TW = 4 * CT;
   const int kg = tid / CT, ct = tid % CT;
+  constexpr bool gw = GW;
 
-  // Prologue: every column's spins of the ring into word j; this block's
-  // columns' Itanh and lanes copied to the outputs, where the cycles update
-  // them; its best words.
-  for (int j = tid; j < N; j += THREADS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* work = reinterpret_cast<float*>(smem_raw);  // [WORK]
+  int* bh_s = reinterpret_cast<int*>(work + WORK);   // [R]
+  int* better_s = bh_s + R;                          // [R]
+  int* eps = better_s + R;                           // [R][WARPS]
+  int* part = eps + R * WARPS;                       // [2][CS][R]
+  // The ring's spin words [RW][N], double-buffered, and the best words of
+  // this block's slice, trial t's at best_w[t * bst]: in shared memory, the
+  // words at the same offset in every block of the cluster (the peers' pushes
+  // land there), or (gw) the cluster's copy in `words` and the best words in
+  // best_m_packed.
+  uint32_t* s_cur;
+  uint32_t* best_w;
+  int bst;
+  if (gw) {
+    s_cur = words + ((size_t)b * (T / R) + ring) * 2 * RW * N;
+    best_w = bmp_out + row0 * Nw + w_lo;
+    bst = Nw;
+  } else {
+    s_cur = reinterpret_cast<uint32_t*>(part + 2 * CS * R);
+    best_w = s_cur + 2 * (size_t)RW * N;  // [R][nwq]
+    bst = nwq;
+  }
+  uint32_t* s_nxt = s_cur + (size_t)RW * N;
+
+  // Prologue: the ring's words of every column (gw: this block's columns of
+  // the cluster's copy); this block's columns' Itanh and lanes copied to the
+  // outputs, where the cycles update them; its best words.
+  const int j_lo = gw ? c_lo : 0, nj = (gw ? c_hi : N) - j_lo;
+  for (int e = tid; e < RW * nj; e += THREADS) {
+    const int wi = e / nj, j = j_lo + e % nj;
+    const int tb = 32 * wi, te = min(R, tb + 32);
     uint32_t word = 0;
-    for (int t = 0; t < R; ++t) word |= ((mp_in[(row0 + t) * Nw + (j >> 5)] >> (j & 31)) & 1u) << t;
-    s_cur[j] = word;
+    for (int t = tb; t < te; ++t)
+      word |= ((mp_in[(row0 + t) * Nw + (j >> 5)] >> (j & 31)) & 1u) << (t - tb);
+    if (gw)
+      __stcg(s_cur + (size_t)wi * N + j, word);
+    else
+      s_cur[(size_t)wi * N + j] = word;
   }
   for (int j = c_lo + tid; j < c_hi; j += THREADS) {
     for (int t = 0; t < R; ++t) {
@@ -307,8 +359,8 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
     }
   }
   for (int e = tid; e < R * nwq; e += THREADS)
-    best_w[e] = bmp_in[(row0 + e / nwq) * Nw + w_lo + e % nwq];
-  if (tid < R) bh_s[tid] = bh_in[row0 + tid];
+    best_w[(e / nwq) * bst + e % nwq] = bmp_in[(row0 + e / nwq) * Nw + w_lo + e % nwq];
+  for (int t = tid; t < R; t += THREADS) bh_s[t] = bh_in[row0 + t];
   cluster.sync();  // every block runs before any writes into a peer
 
   const JT* Jb = J + (size_t)b * N * N;
@@ -322,7 +374,13 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
     if (last && !fold) break;
     const int par = c & 1;
     for (int g = 0; g < R; g += G) {
-      const bool last_pass = g + G >= R;
+      const int sh = g & 31;                        // the pass's first bit of its word
+      const uint32_t* sc = s_cur + (size_t)(g >> 5) * N;  // the pass's word of each column
+      uint32_t* sn = s_nxt + (size_t)(g >> 5) * N;
+      const bool word_done = sh + G == 32 || g + G >= R;  // the pass completes its word
+      // The neighbours outside the pass: before its first replica and after
+      // its last (around the ring at 0 and R-1).
+      const int k_prev = g == 0 ? R - 1 : g - 1, k_next = g + G >= R ? 0 : g + G;
       int ep[G];
 #pragma unroll
       for (int t = 0; t < G; ++t) ep[t] = 0;
@@ -341,7 +399,7 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
         for (int k0 = 0; k0 < N; k0 += KC) {
           const int kn = min(KC, N - k0);
           __syncthreads();  // the previous users of `work` are done
-          sign_table(work, s_cur + k0, kn, g);  // bit t: replica g + t
+          sign_table(work, sc + k0, kn, sh, gw);  // bit t: replica g + t
           __syncthreads();
           const int kb = kg * kn / KG, ke = (kg + 1) * kn / KG;
           const JT* Jk = Jb + (size_t)(k0 + kb) * N + col;
@@ -380,11 +438,19 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
         for (int u = tid; u < TW && tile + u < c_hi; u += THREADS) {
           const int j = tile + u;
           const int hj = hb[j];
-          const uint32_t wj = s_cur[j];
+          const uint32_t word_j = ld_word(sc + j, gw);
+          const uint32_t wj = word_j >> sh;  // bit t: replica g + t
           // The pass's lanes and Itanh of column j, all loaded before any
           // store, so the loads of the RING_G replicas overlap.
           uint32_t x[G], y[G], z[G], w[G];
           int itj[G];
+          uint32_t prev = 0, next = 0;
+          if (!last) {  // from the pass's word where they lie in it (every ring <= 32)
+            prev = (k_prev >> 5 == g >> 5 ? word_j
+                    : ld_word(s_cur + (size_t)(k_prev >> 5) * N + j, gw)) >> (k_prev & 31);
+            next = (k_next >> 5 == g >> 5 ? word_j
+                    : ld_word(s_cur + (size_t)(k_next >> 5) * N + j, gw)) >> (k_next & 31);
+          }
 #pragma unroll
           for (int t = 0; t < G; ++t) {
             if (last || g + t >= R) continue;
@@ -403,10 +469,11 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
             float f = 0.f;
             for (int p = 0; p < KG; ++p) f += work[(p * G + t) * TW + u];
             const int fi = __float2int_rz(f) + hj;
-            ep[t] += (((wj >> k) & 1u) ? 1 : -1) * (hj + fi);
+            ep[t] += (((wj >> t) & 1u) ? 1 : -1) * (hj + fi);
             if (!last) {
-              const int kp = k == 0 ? R - 1 : k - 1, kn = k == R - 1 ? 0 : k + 1;
-              const int coup = (((wj >> kp) & 1u) ? 1 : -1) + (((wj >> kn) & 1u) ? 1 : -1);
+              const uint32_t bp = t == 0 ? prev : wj >> (t - 1);
+              const uint32_t bn = (t == G - 1 || k == R - 1) ? next : wj >> (t + 1);
+              const int coup = ((bp & 1u) ? 1 : -1) + ((bn & 1u) ? 1 : -1);
               const size_t l = (size_t)k * N + j;
               const uint32_t tt = x[t] ^ (x[t] << 11);
               const uint32_t wn = (w[t] ^ (w[t] >> 19)) ^ (tt ^ (tt >> 8));
@@ -417,16 +484,17 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
               const int r = (wn >> 31) ? 1 : -1;
               const int I = min(max(fi + jperp * coup + n_rnd * r + itj[t], -i0), i0 - 1);
               it[l] = I;
-              up |= (uint32_t)(I >= 0) << k;
+              up |= (uint32_t)(I >= 0) << (sh + t);
             }
           }
           if (!last) {
-            const uint32_t word = (g == 0 ? 0u : s_nxt[j]) | up;
-            if (last_pass) {
-              for (int p = 0; p < CS; ++p) *cluster.map_shared_rank(s_nxt + j, p) = word;
-            } else {
-              s_nxt[j] = word;
-            }
+            const uint32_t word = (sh == 0 ? 0u : ld_word(sn + j, gw)) | up;
+            if (gw)
+              __stcg(sn + j, word);
+            else if (!word_done)
+              sn[j] = word;
+            else
+              for (int p = 0; p < CS; ++p) *cluster.map_shared_rank(sn + j, p) = word;
           }
         }
       }
@@ -434,37 +502,37 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
 #pragma unroll
         for (int t = 0; t < G; ++t) {
           const int v = warp_sum(ep[t]);
-          if (lane == 0 && g + t < R) eps[g + t][warp] = v;
+          if (lane == 0 && g + t < R) eps[(g + t) * WARPS + warp] = v;
         }
       }
     }
 
     if (fold) {
       __syncthreads();
-      if (warp == 0) {  // this block's share of each replica's energy, to every peer
-        for (int t = 0; t < R; ++t) {
-          const int v = warp_sum(lane < WARPS ? eps[t][lane] : 0);
-          if (lane < CS) *cluster.map_shared_rank(&part[par][q][t], lane) = v;
-        }
+      for (int t = warp; t < R; t += WARPS) {  // this block's share of replica t, to every peer
+        const int v = warp_sum(lane < WARPS ? eps[t * WARPS + lane] : 0);
+        if (lane < CS) *cluster.map_shared_rank(part + (par * CS + q) * R + t, lane) = v;
       }
     }
     cluster.sync();  // cycle c+1's words and the energy shares are everywhere
     if (fold) {
-      if (warp == 0 && lane < R) {
+      for (int t = tid; t < R; t += THREADS) {
         int v = 0;
-        for (int p = 0; p < CS; ++p) v += part[par][p][lane];
+        for (int p = 0; p < CS; ++p) v += part[(par * CS + p) * R + t];
         const int H = -v / 2;  // the sum is even: exact
-        const int better = H < bh_s[lane];
-        if (better) bh_s[lane] = H;
-        better_s[lane] = better;
+        const int better = H < bh_s[t];
+        if (better) bh_s[t] = H;
+        better_s[t] = better;
       }
       __syncthreads();
       for (int t = 0; t < R; ++t) {
         if (!better_s[t]) continue;
+        const uint32_t* st = s_cur + (size_t)(t >> 5) * N;
         for (int w = warp; w < nwq; w += WARPS) {
           const int k = ((w_lo + w) << 5) + lane;
-          const uint32_t word = __ballot_sync(0xffffffffu, k < N && ((s_cur[k] >> t) & 1u));
-          if (lane == 0) best_w[t * nwq + w] = word;
+          const uint32_t word =
+              __ballot_sync(0xffffffffu, k < N && ((ld_word(st + k, gw) >> (t & 31)) & 1u));
+          if (lane == 0) best_w[t * bst + w] = word;
         }
       }
     }
@@ -477,33 +545,49 @@ ring_kernel(const uint32_t* __restrict__ mp_in, const int* __restrict__ it_in,
 
   __syncthreads();
   for (int t = 0; t < R; ++t) {
+    const uint32_t* st = s_cur + (size_t)(t >> 5) * N;
     for (int w = warp; w < nwq; w += WARPS) {
       const int k = ((w_lo + w) << 5) + lane;
-      const uint32_t word = __ballot_sync(0xffffffffu, k < N && ((s_cur[k] >> t) & 1u));
+      const uint32_t word =
+          __ballot_sync(0xffffffffu, k < N && ((ld_word(st + k, gw) >> (t & 31)) & 1u));
       if (lane == 0) mp_out[(row0 + t) * Nw + w_lo + w] = word;
     }
   }
-  for (int e = tid; e < R * nwq; e += THREADS)
-    bmp_out[(row0 + e / nwq) * Nw + w_lo + e % nwq] = best_w[e];
-  if (q == 0 && tid < R) bh_out[row0 + tid] = bh_s[tid];
+  if (!gw) {
+    for (int e = tid; e < R * nwq; e += THREADS)
+      bmp_out[(row0 + e / nwq) * Nw + w_lo + e % nwq] = best_w[e];
+  }
+  if (q == 0) {
+    for (int t = tid; t < R; t += THREADS) bh_out[row0 + t] = bh_s[t];
+  }
 }
 
-// Shared memory of a ring block: the work area, the two spin buffers and
-// the best words of its slice.
-size_t ring_smem(int N, int R, int cs) {
-  const int Nw = (N + 31) / 32;
-  const int nwq = (Nw + cs - 1) / cs;
-  return sizeof(float) * WORK + sizeof(uint32_t) * (2 * (size_t)N + (size_t)R * nwq);
+// Shared memory of a ring block: the work area and the per-replica arrays;
+// unless the words are in global memory, the best words of its slice and
+// the ring's two word buffers too (ssa_update._ring_smem mirrors it).
+size_t ring_smem(int N, int R, int cs, bool gw) {
+  const int Nw = (N + 31) / 32, nwq = (Nw + cs - 1) / cs, RW = (R + 31) / 32;
+  const size_t head = sizeof(float) * WORK + sizeof(int) * ring_head_ints(R, cs);
+  return gw ? head : head + sizeof(uint32_t) * ((size_t)R * nwq + 2 * (size_t)RW * N);
+}
+
+// The ring kernel of J type JT: with the words in shared memory, vector
+// loads of J where `vec`; with the words in global memory (the large-N
+// path) scalar loads, which take any N, so that no fourth variant is built.
+template <typename JT>
+auto ring_kernel_for(bool vec, bool gw) {
+  return gw ? ring_kernel<JT, false, true> : vec ? ring_kernel<JT, true, false>
+                                                  : ring_kernel<JT, false, false>;
 }
 
 template <typename JT>
 int launch_ring(const void* mp_in, const void* it_in, const void* J, const void* h,
                 const void* rng_in, int i0, int jperp, const void* bh_in, const void* bmp_in,
-                void* mp_out, void* it_out, void* rng_out, void* bh_out, void* bmp_out, int B,
-                int T, int N, int n_cycles, int n_rnd, int eligible, int R, int cs,
-                cudaStream_t stream) {
-  auto kernel = plateau::vector_loads<JT>(N, J) ? ring_kernel<JT, true> : ring_kernel<JT, false>;
-  const size_t smem = ring_smem(N, R, cs);
+                void* mp_out, void* it_out, void* rng_out, void* bh_out, void* bmp_out,
+                void* words, int B, int T, int N, int n_cycles, int n_rnd, int eligible, int R,
+                int cs, cudaStream_t stream) {
+  auto kernel = ring_kernel_for<JT>(plateau::vector_loads<JT>(N, J), words != nullptr);
+  const size_t smem = ring_smem(N, R, cs, words != nullptr);
   cudaError_t e = plateau::cluster_attributes(kernel, smem, cs);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg;
@@ -515,8 +599,9 @@ int launch_ring(const void* mp_in, const void* it_in, const void* J, const void*
                          jperp, static_cast<const int*>(bh_in),
                          static_cast<const uint32_t*>(bmp_in), static_cast<uint32_t*>(mp_out),
                          static_cast<int*>(it_out), static_cast<uint32_t*>(rng_out),
-                         static_cast<int*>(bh_out), static_cast<uint32_t*>(bmp_out), T, N,
-                         n_cycles, n_rnd, eligible, R, plateau::column_threads(N, cs));
+                         static_cast<int*>(bh_out), static_cast<uint32_t*>(bmp_out),
+                         static_cast<uint32_t*>(words), T, N, n_cycles, n_rnd, eligible, R,
+                         plateau::column_threads(N, cs));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -525,41 +610,43 @@ int launch_ring(const void* mp_in, const void* it_in, const void* J, const void*
 
 // How many clusters of `cs` blocks the card runs at once, for K1's
 // classical kernel (n_replicas == 0) or its ring mode with rings of
-// n_replicas; 0 when none fits.  Negative: a CUDA error code, negated.
-extern "C" int repro_plateau_max_clusters(int N, int n_replicas, int cs, int j_bf16) {
+// n_replicas (`global`: the words in global memory), J of type `j_type`
+// (jtype.cuh); 0 when none fits.  Negative: a CUDA error code, negated.
+extern "C" int repro_plateau_max_clusters(int N, int n_replicas, int cs, int j_type,
+                                          int global) {
   const bool vec = N % 4 == 0;
-  if (n_replicas) {
-    const size_t smem = ring_smem(N, n_replicas, cs);
-    if (j_bf16)
-      return plateau::max_active_clusters(
-          vec ? ring_kernel<__nv_bfloat16, true> : ring_kernel<__nv_bfloat16, false>, cs, smem);
-    return plateau::max_active_clusters(vec ? ring_kernel<float, true> : ring_kernel<float, false>,
-                                        cs, smem);
-  }
-  const size_t smem = plateau_smem(N, cs);
-  if (j_bf16)
+  return jtype::dispatch(j_type, -static_cast<int>(cudaErrorInvalidValue), [&](auto tag) {
+    using JT = typename decltype(tag)::type;
+    if (n_replicas)
+      return plateau::max_active_clusters(ring_kernel_for<JT>(vec, global != 0), cs,
+                                          ring_smem(N, n_replicas, cs, global != 0));
     return plateau::max_active_clusters(
-        vec ? plateau_kernel<__nv_bfloat16, true> : plateau_kernel<__nv_bfloat16, false>, cs,
-        smem);
-  return plateau::max_active_clusters(
-      vec ? plateau_kernel<float, true> : plateau_kernel<float, false>, cs, smem);
+        vec ? plateau_kernel<JT, true> : plateau_kernel<JT, false>, cs, plateau_smem(N, cs));
+  });
 }
 
+// `words`: nullptr for the ring's words in shared memory, else a buffer of
+// B * (T / n_replicas) * 2 * ceil(n_replicas / 32) * N words, [B][ring][2][RW][N]
+// (ssa_update._ring_global_words).
 extern "C" int repro_ssa_plateau_packed_ring(const void* mp_in, const void* it_in,
                                              const void* J, const void* h,
                                              const void* rng_in, int i0, int jperp,
                                              const void* bh_in, const void* bmp_in,
                                              void* mp_out, void* it_out, void* rng_out,
-                                             void* bh_out, void* bmp_out, int B, int T,
-                                             int N, int n_cycles, int n_rnd, int eligible,
-                                             int j_bf16, int n_replicas, int cluster_size,
-                                             void* stream) {
+                                             void* bh_out, void* bmp_out, void* words, int B,
+                                             int T, int N, int n_cycles, int n_rnd,
+                                             int eligible, int j_type, int n_replicas,
+                                             int cluster_size, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_replicas < 1 || n_replicas > MAX_RING || cluster_size < 1 || cluster_size > MAX_CS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto run = j_bf16 ? launch_ring<__nv_bfloat16> : launch_ring<float>;
-  return run(mp_in, it_in, J, h, rng_in, i0, jperp, bh_in, bmp_in, mp_out, it_out, rng_out,
-             bh_out, bmp_out, B, T, N, n_cycles, n_rnd, eligible, n_replicas, cluster_size, s);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (n_replicas < 1 || T % n_replicas || cluster_size < 1 || cluster_size > MAX_CS)
+    return invalid;
+  return jtype::dispatch(j_type, invalid, [&](auto tag) {
+    using JT = typename decltype(tag)::type;
+    return launch_ring<JT>(mp_in, it_in, J, h, rng_in, i0, jperp, bh_in, bmp_in, mp_out, it_out,
+                           rng_out, bh_out, bmp_out, words, B, T, N, n_cycles, n_rnd, eligible,
+                           n_replicas, cluster_size, s);
+  });
 }
 
 extern "C" int repro_ssa_plateau_packed(const void* mp_in, const void* it_in, const void* J,
@@ -567,16 +654,17 @@ extern "C" int repro_ssa_plateau_packed(const void* mp_in, const void* it_in, co
                                         const void* bh_in, const void* bmp_in, void* mp_out,
                                         void* it_out, void* rng_out, void* bh_out,
                                         void* bmp_out, int B, int R, int N, int n_cycles,
-                                        int n_rnd, int eligible, int j_bf16, int cluster_size,
+                                        int n_rnd, int eligible, int j_type, int cluster_size,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cluster_size < 1 || cluster_size > MAX_CS) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = j_bf16 ? plateau::vector_loads<__nv_bfloat16>(N, J)
-                          : plateau::vector_loads<float>(N, J);
-  auto run = j_bf16 ? (vec ? launch<__nv_bfloat16, true> : launch<__nv_bfloat16, false>)
-                    : (vec ? launch<float, true> : launch<float, false>);
-  return run(mp_in, it_in, J, h, rng_in, i0, bh_in, bmp_in, mp_out, it_out, rng_out, bh_out,
-             bmp_out, B, R, N, n_cycles, n_rnd, eligible, cluster_size, s);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (cluster_size < 1 || cluster_size > MAX_CS) return invalid;
+  return jtype::dispatch(j_type, invalid, [&](auto tag) {
+    using JT = typename decltype(tag)::type;
+    auto run = plateau::vector_loads<JT>(N, J) ? launch<JT, true> : launch<JT, false>;
+    return run(mp_in, it_in, J, h, rng_in, i0, bh_in, bmp_in, mp_out, it_out, rng_out, bh_out,
+               bmp_out, B, R, N, n_cycles, n_rnd, eligible, cluster_size, s);
+  });
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

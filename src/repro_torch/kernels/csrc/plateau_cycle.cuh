@@ -10,8 +10,8 @@
 // sign(Itanh).  After the loop one more field folds the final state.
 //
 // Exactness: J, h and the spins are integers, and every partial sum of a
-// field is an integer below 2^24 in magnitude, so the float32 sums (and
-// those of a bfloat16 J, widened) are exact in any order; the energy is
+// field is an integer below 2^24 in magnitude, so the float32 sums (J of
+// any of jtype.cuh's types, widened on load) are exact in any order; the energy is
 // reduced in int32, exact too (the sum is even and far below 2^31).
 //
 // Design.  A group of GROUP trials of one problem is one thread-block
@@ -59,10 +59,11 @@
 #pragma once
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "jtype.cuh"
 
 namespace plateau {
 
@@ -81,26 +82,14 @@ constexpr int WORK = KC * GROUP;  // floats: the sign table, or the k-range part
 static_assert(WORK >= 4 * GROUP * THREADS, "k-range partials fit the table");
 static_assert(GROUP == 8, "a sign-table row is two float4");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+using jtype::load4;
+using jtype::to_f32;
+using jtype::vector_loads;
 
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Four neighbouring values of J as floats, one vector load (0 when !ok).
-__device__ __forceinline__ void load4(const float* p, bool ok, float (&x)[4]) {
-  const float4 v = ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, bool ok, float (&x)[4]) {
-  const uint2 v = ok ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
-  x[0] = __uint_as_float(v.x << 16);
-  x[1] = __uint_as_float(v.x & 0xffff0000u);
-  x[2] = __uint_as_float(v.y << 16);
-  x[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
 // Bit t of w as +-1.0f (1 = +1).
@@ -110,10 +99,13 @@ __device__ __forceinline__ float sign_of(uint32_t w, int t) {
 
 // The sign table of a chunk of kn k: row k holds bits shift .. shift + 7
 // of s[k] as +-1.0f (two 16-byte shared-memory broadcasts per k for its
-// readers).  Called by the whole block.
-__device__ __forceinline__ void sign_table(float* work, const uint32_t* s, int kn, int shift) {
+// readers).  `gw`: s lies in global memory, written by the cluster's other
+// blocks before its barrier, and is read through L2.  Called by the whole
+// block.
+__device__ __forceinline__ void sign_table(float* work, const uint32_t* s, int kn, int shift,
+                                           bool gw = false) {
   for (int k = threadIdx.x; k < kn; k += THREADS) {
-    const uint32_t w = s[k] >> shift;
+    const uint32_t w = (gw ? __ldcg(s + k) : s[k]) >> shift;
     float4* p = reinterpret_cast<float4*>(work + k * GROUP);
     p[0] = make_float4(sign_of(w, 0), sign_of(w, 1), sign_of(w, 2), sign_of(w, 3));
     p[1] = make_float4(sign_of(w, 4), sign_of(w, 5), sign_of(w, 6), sign_of(w, 7));
@@ -325,12 +317,6 @@ inline int column_threads(int N, int cs) {
   int ct = 32;
   while (ct < THREADS && 4 * ct < cols) ct *= 2;
   return ct;
-}
-
-// Vector loads of four neighbouring columns need N % 4 == 0 and aligned rows.
-template <typename JT>
-bool vector_loads(int N, const void* J) {
-  return N % 4 == 0 && reinterpret_cast<uintptr_t>(J) % (4 * sizeof(JT)) == 0;
 }
 
 // The attributes a cluster launch of `kernel` needs: `smem` bytes of

@@ -132,33 +132,32 @@ int launch(const void* m_in, const void* it_in, const void* J, const void* h,
 
 }  // namespace
 
-// How many clusters of `cs` blocks the card runs at once; 0 when none
-// fits.  Negative: a CUDA error code, negated.
-extern "C" int repro_plateau_pregen_max_clusters(int N, int cs, int j_bf16) {
+// How many clusters of `cs` blocks the card runs at once, J of type `j_type`
+// (jtype.cuh); 0 when none fits.  Negative: a CUDA error code, negated.
+extern "C" int repro_plateau_pregen_max_clusters(int N, int cs, int j_type) {
   const bool vec = N % 4 == 0;
-  const size_t smem = pregen_smem(N);
-  if (j_bf16)
-    return plateau::max_active_clusters(vec ? plateau_pregen_kernel<__nv_bfloat16, true>
-                                            : plateau_pregen_kernel<__nv_bfloat16, false>,
-                                        cs, smem);
-  return plateau::max_active_clusters(
-      vec ? plateau_pregen_kernel<float, true> : plateau_pregen_kernel<float, false>, cs, smem);
+  return jtype::dispatch(j_type, -static_cast<int>(cudaErrorInvalidValue), [&](auto tag) {
+    using JT = typename decltype(tag)::type;
+    return plateau::max_active_clusters(
+        vec ? plateau_pregen_kernel<JT, true> : plateau_pregen_kernel<JT, false>, cs,
+        pregen_smem(N));
+  });
 }
 
 extern "C" int repro_ssa_plateau(const void* m_in, const void* it_in, const void* J,
                                  const void* h, const void* noise, int i0, const void* bh_in,
                                  const void* bm_in, void* m_out, void* it_out, void* bh_out,
                                  void* bm_out, int B, int R, int N, int n_cycles, int n_rnd,
-                                 int eligible, int j_bf16, int cluster_size, void* stream) {
+                                 int eligible, int j_type, int cluster_size, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cluster_size < 1 || cluster_size > plateau::MAX_CS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = j_bf16 ? plateau::vector_loads<__nv_bfloat16>(N, J)
-                          : plateau::vector_loads<float>(N, J);
-  auto run = j_bf16 ? (vec ? launch<__nv_bfloat16, true> : launch<__nv_bfloat16, false>)
-                    : (vec ? launch<float, true> : launch<float, false>);
-  return run(m_in, it_in, J, h, noise, i0, bh_in, bm_in, m_out, it_out, bh_out, bm_out, B, R, N,
-             n_cycles, n_rnd, eligible, cluster_size, s);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (cluster_size < 1 || cluster_size > plateau::MAX_CS) return invalid;
+  return jtype::dispatch(j_type, invalid, [&](auto tag) {
+    using JT = typename decltype(tag)::type;
+    auto run = plateau::vector_loads<JT>(N, J) ? launch<JT, true> : launch<JT, false>;
+    return run(m_in, it_in, J, h, noise, i0, bh_in, bm_in, m_out, it_out, bh_out, bm_out, B, R,
+               N, n_cycles, n_rnd, eligible, cluster_size, s);
+  });
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

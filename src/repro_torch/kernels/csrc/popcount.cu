@@ -69,7 +69,7 @@
 //   32): the same loop with the planes read from global memory ([Nw][N]
 //   per plane, so a warp's loads of word w fall on 128 consecutive bytes)
 //   and the state in the output tensors, updated in place each cycle.
-//   GLOBAL (where even the unit's words do not fit: above ~70,000 spins for
+//   GLOBAL (where even the unit's words do not fit: above ~74,600 spins for
 //   a group of 8): the unit's words too live in global memory, one copy
 //   per cluster, read through L2 (ld.global.cg) after the barrier, and the
 //   best words in the output; shared memory holds only the fixed part, so
@@ -79,7 +79,9 @@
 //   THREADS / CT ranges when the slice is narrower than the block; the
 //   ranges' partial counts meet in shared memory before the update.
 // - The energy fold: each block sums its columns' share of h.m + m.field per
-//   trial and writes it into every peer's [parity][CS][MAX_RING] array;
+//   trial and writes it into every peer's [parity][CS][UT] array (UT: the
+//   unit's trials, 8 or the ring's R, any size; its warps take a trial
+//   each in turn);
 //   after the barrier every block adds the CS shares in rank order, so H,
 //   the running best and the "better" flags are the same in every block.
 // - Idle trials of a ragged last group read as -1 (their words are 0);
@@ -103,10 +105,8 @@ using plateau::warp_sum;
 
 static_assert(RING_G == GROUP, "a ring pass is one group of trials");
 
-// The fixed part of a block's shared memory, in ints: the running best
-// energies and flags, the per-warp energy shares and the cluster's energy
-// shares by parity; then the word ranges' partial counts.
-constexpr int HEAD_INTS = 2 * MAX_RING + MAX_RING * WARPS + 2 * MAX_CS * MAX_RING;
+// The word ranges' partial counts, in ints; a block's shared memory starts
+// with its per-trial arrays (Layout::HEAD) and these.
 constexpr int WORK_INTS = THREADS * GROUP;
 
 // What a block keeps in shared memory, most first; the wrapper takes the
@@ -142,15 +142,20 @@ struct ChainArgs {
   int CT;  // column threads
 };
 
-// Shared-memory layout of a block, in 32-bit words from the start.
+// Shared-memory layout of a block, in 32-bit words from the start.  HEAD:
+// the unit's per-trial arrays, sized by its UT trials (any ring size) and
+// rounded up to 16 bytes: the running best energies and flags [UT], the
+// per-warp energy shares [UT][WARPS] and the cluster's shares by parity
+// [2][cs][UT].
 struct Layout {
-  int Nw, NWQ, NC, UT, RS;
+  int Nw, NWQ, NC, UT, RS, HEAD;
   __host__ __device__ Layout(int N, int cs, int ut)
-      : Nw((N + 31) >> 5), NWQ(0), NC(0), UT(ut), RS((ut + GROUP - 1) / GROUP * GROUP) {
+      : Nw((N + 31) >> 5), NWQ(0), NC(0), UT(ut), RS((ut + GROUP - 1) / GROUP * GROUP),
+        HEAD((ut * (2 + WARPS + 2 * cs) + 3) / 4 * 4) {
     NWQ = (Nw + cs - 1) / cs;  // the most words a block owns
     NC = 32 * NWQ;
   }
-  __host__ __device__ size_t spins() const { return HEAD_INTS + WORK_INTS; }  // [2][Nw][RS]
+  __host__ __device__ size_t spins() const { return HEAD + WORK_INTS; }  // [2][Nw][RS]
   __host__ __device__ size_t best() const { return spins() + 2 * (size_t)Nw * RS; }
   __host__ __device__ size_t planes() const {  // after the best words [UT][NWQ], 16-B aligned
     return best() + ((size_t)UT * NWQ + 3) / 4 * 4;
@@ -240,11 +245,11 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
   const int nwb = sl.nwq;  // this block's words
 
   extern __shared__ __align__(16) uint32_t smem[];
-  int* bh_s = reinterpret_cast<int*>(smem);  // [MAX_RING]
-  int* better_s = bh_s + MAX_RING;           // [MAX_RING]
-  int* eps = better_s + MAX_RING;            // [MAX_RING][WARPS]
-  int* part = eps + MAX_RING * WARPS;        // [2][MAX_CS][MAX_RING]
-  int* work = part + 2 * MAX_CS * MAX_RING;  // [WORK_INTS]
+  int* bh_s = reinterpret_cast<int*>(smem);  // [UT]
+  int* better_s = bh_s + UT;                 // [UT]
+  int* eps = better_s + UT;                  // [UT][WARPS]
+  int* part = eps + UT * WARPS;              // [2][CS][UT]
+  int* work = reinterpret_cast<int*>(smem) + L.HEAD;  // [WORK_INTS]
   // The unit's words [Nw][RS] (bit k = column 32w+k), double-buffered: a
   // copy in every block, or (GW) one in global memory for the cluster.
   // The best words of this block's slice: trial t's at best_w[t * bst].
@@ -305,7 +310,7 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
   }
   for (int e = tid; e < nt * nwb; e += THREADS)
     best_w[(e / nwb) * bst + e % nwb] = a.bmp_in[(row0 + e / nwb) * Nw + sl.w_lo + e % nwb];
-  if (tid < UT) bh_s[tid] = tid < nt ? a.bh_in[row0 + tid] : 0;
+  for (int t = tid; t < UT; t += THREADS) bh_s[t] = t < nt ? a.bh_in[row0 + t] : 0;
   if (RES) {
     uint32_t* pl = smem + L.planes();
     for (int p = 0; p <= nb; ++p) {
@@ -469,22 +474,20 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
 
     if (fold) {
       __syncthreads();
-      if (warp == 0) {  // this block's share of each trial's energy, to every peer
-        for (int t = 0; t < UT; ++t) {
-          const int v = warp_sum(lane < WARPS ? eps[t * WARPS + lane] : 0);
-          if (lane < CS) *cluster.map_shared_rank(part + (par * MAX_CS + q) * MAX_RING + t, lane) = v;
-        }
+      for (int t = warp; t < UT; t += WARPS) {  // this block's share of trial t, to every peer
+        const int v = warp_sum(lane < WARPS ? eps[t * WARPS + lane] : 0);
+        if (lane < CS) *cluster.map_shared_rank(part + (par * CS + q) * UT + t, lane) = v;
       }
     }
     cluster.sync();  // cycle c+1's words and the energy shares are everywhere
     if (fold) {
-      if (warp == 0 && lane < UT) {
+      for (int t = tid; t < UT; t += THREADS) {
         int v = 0;
-        for (int p = 0; p < CS; ++p) v += part[(par * MAX_CS + p) * MAX_RING + lane];
+        for (int p = 0; p < CS; ++p) v += part[(par * CS + p) * UT + t];
         const int H = -v / 2;  // the sum is even: exact
-        const int better = lane < nt && H < bh_s[lane];
-        if (better) bh_s[lane] = H;
-        better_s[lane] = better;
+        const int better = t < nt && H < bh_s[t];
+        if (better) bh_s[t] = H;
+        better_s[t] = better;
       }
       __syncthreads();
       bool copied = false;
@@ -513,7 +516,9 @@ __device__ __forceinline__ void run_chain(const ChainArgs& a) {
     a.mp_out[(row0 + t) * Nw + sl.w_lo + w] = ld_word<GW>(s_cur + (sl.w_lo + w) * RS + t);
     if (!GW) a.bmp_out[(row0 + t) * Nw + sl.w_lo + w] = best_w[t * bst + w];
   }
-  if (q == 0 && tid < nt) a.bh_out[row0 + tid] = bh_s[tid];
+  if (q == 0) {
+    for (int t = tid; t < nt; t += THREADS) a.bh_out[row0 + t] = bh_s[t];
+  }
   if (RES) {
     for (int e = tid; e < nt * ncols; e += THREADS) {
       const size_t t = e / ncols, u = e % ncols;
@@ -568,7 +573,7 @@ int column_threads(int N, int cs) {
 int launch(ChainArgs a, int B, int n_replicas, int cs, int variant, cudaStream_t stream) {
   const bool ring = n_replicas > 0;
   const Kernel kernel = kernel_for(ring, a.nb, variant);
-  if (a.nb < 1 || n_replicas < 0 || n_replicas > MAX_RING || cs < 1 || cs > MAX_CS ||
+  if (a.nb < 1 || n_replicas < 0 || (ring && a.T % n_replicas) || cs < 1 || cs > MAX_CS ||
       kernel == nullptr || (variant == GLOBAL && a.words == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   a.UT = ring ? n_replicas : GROUP;

@@ -25,7 +25,7 @@ def local_field(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor) -> torch.Tens
 
 
 def anneal_resident(
-    J: torch.Tensor,       # (N, N) couplings (float32/bfloat16, integer-valued)
+    J: torch.Tensor,       # (N, N) couplings (any dtype of engine.J_DTYPES, integer-valued)
     h: torch.Tensor,       # (N,) int32
     schedule: Schedule,    # per-iteration plateau schedule
     m_shot: int,

@@ -68,10 +68,6 @@ PLATEAU_GROUP = _build.header_int("plateau_cycle.cuh", "GROUP")
 # Dynamic shared memory one H100 block may use.
 _MAX_SMEM = 232448
 
-# Replicas of one Trotter ring the ring-mode kernels take (csrc/ring.cuh
-# says why); the wrappers are where a call is checked against it.
-MAX_RING = _build.header_int("ring.cuh", "MAX_RING")
-
 # Blocks per thread-block cluster of K1 and K2 (classical and ring mode) and K4:
 # the powers of two up to the kernels' MAX_CS, 16, which Hopper allows as a
 # non-portable size where the occupancy query says such a cluster fits (8
@@ -84,6 +80,8 @@ _K3_BM, _K3_BN, _K3_BK = (_build.header_int("field.cu", n) for n in ("BM", "BN",
 _K3_MAX_SPLITS = _build.header_int("field.cu", "MAX_KS")
 # The work area of a K1 or K4 block: KC k of GROUP signs, floats.
 _WORK_BYTES = 4 * _build.header_int("plateau_cycle.cuh", "KC") * PLATEAU_GROUP
+# Warps of a K1 or K4 block (K1's ring mode keeps an energy share per warp).
+_WARPS = _build.header_int("plateau_cycle.cuh", "THREADS") // 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -92,8 +90,8 @@ _SIGNATURES = {
     "repro_ssa_plateau_packed": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
     "repro_ssa_plateau": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8 + [_P],
     "repro_ssa_plateau_popcount": [_P] * 17 + [_I] * 8 + [_P],
-    "repro_ssa_plateau_packed_ring": [_P] * 5 + [_I] * 2 + [_P] * 7 + [_I] * 9 + [_P],
-    "repro_plateau_max_clusters": [_I] * 4,
+    "repro_ssa_plateau_packed_ring": [_P] * 5 + [_I] * 2 + [_P] * 8 + [_I] * 9 + [_P],
+    "repro_plateau_max_clusters": [_I] * 5,
     "repro_plateau_pregen_max_clusters": [_I] * 3,
     "repro_ssa_plateau_popcount_ring": [_P] * 18 + [_I] * 9 + [_P],
     "repro_popcount_max_clusters": [_I] * 5,
@@ -135,15 +133,12 @@ def _check(name: str, t: torch.Tensor, shape, dtypes, contiguous: bool = True):
 
 
 def _check_ring(R: int, n_replicas: int, what: str):
-    """Validation of a ring-mode call, as the JAX wrappers make it, and the
-    kernels' own limit."""
+    """Validation of a ring-mode call, as the JAX wrappers make it: a ring
+    of any size that divides the trials."""
     if n_replicas < 1:
         raise ValueError(f"{what}: n_replicas must be >= 1, got {n_replicas}")
     if R % n_replicas:
         raise ValueError(f"n_trials={R} not divisible by n_replicas={n_replicas}")
-    if n_replicas > MAX_RING:
-        raise ValueError(f"{what}: n_replicas={n_replicas} exceeds the ring-mode kernel's "
-                         f"limit of {MAX_RING} replicas per ring (csrc/ring.cuh)")
 
 
 def _cluster_size(n_clusters: int, sm_count: int, sizes, max_clusters=None) -> int:
@@ -277,11 +272,41 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _ring_smem(N: int, n_replicas: int, cs: int) -> int:
-    """Shared memory of one K1 ring-mode block: the work area, the ring's
-    spin words double-buffered, and the best words of its slice."""
-    nw = packed_words(N)
-    return _WORK_BYTES + 4 * (2 * N + n_replicas * -(-nw // cs))
+# Where a block of K1's ring mode keeps the ring's spin words (csrc/plateau.cu,
+# ring_kernel), most first: in its shared memory, a copy in every block of
+# the cluster ("shared"), or one copy per cluster in global memory, the best
+# words in the output ("global").
+RING_VARIANTS = ("shared", "global")
+
+
+def ring_variant(N: int, n_replicas: int, cs: int) -> str:
+    """The first of :data:`RING_VARIANTS` whose K1 ring-mode block, in
+    clusters of ``cs`` blocks, fits an H100's shared memory: chosen by size,
+    never on failure.  ValueError where not even the per-replica arrays fit."""
+    for v in RING_VARIANTS:
+        if _ring_smem(N, n_replicas, cs, v) <= _MAX_SMEM:
+            return v
+    raise ValueError(f"K1's ring mode at N={N}, rings of {n_replicas}, clusters of {cs}: no "
+                     f"block variant fits {_MAX_SMEM} B of shared memory")
+
+
+def _ring_smem(N: int, n_replicas: int, cs: int, variant: str = "shared") -> int:
+    """Shared memory of one K1 ring-mode block (``ring_smem`` in
+    csrc/plateau.cu): the work area and the per-replica arrays (best
+    energies and flags, per-warp and per-block energy shares); with the
+    words in shared memory also the best words of its slice and the ring's
+    ceil(R/32) words per column, double-buffered."""
+    head = _WORK_BYTES + 4 * n_replicas * (2 + _WARPS + 2 * cs)
+    if variant == "global":
+        return head
+    return head + 4 * (n_replicas * -(-packed_words(N) // cs) + 2 * -(-n_replicas // 32) * N)
+
+
+def _ring_global_words(N: int, n_replicas: int, R: int, B: int) -> int:
+    """32-bit words of the global word buffer of the ``R // n_replicas``
+    rings of B problems: [B][ring][2][ceil(n_replicas/32)][N] (the layout
+    of ring_kernel's ``words`` in csrc/plateau.cu)."""
+    return B * (R // n_replicas) * 2 * -(-n_replicas // 32) * N
 
 
 def _plateau_smem(N: int, cs: int, best_words: bool) -> int:
@@ -301,16 +326,16 @@ def _check_cluster_size(cluster_size, N: int):
                          f"most the {nw} words of N={N}")
 
 
-def _plateau_cs(dev: torch.device, lib: str, entry: str, R: int, B: int, N: int, bf16: bool,
-                cluster_size, *query_args) -> int:
+def _plateau_cs(dev: torch.device, lib: str, entry: str, R: int, B: int, N: int, jtype: int,
+                cluster_size, head=(), tail=()) -> int:
     """The cluster size of a K1 classical or K4 launch: ``cluster_size`` if
     forced, else :func:`plateau_cluster_size` with the occupancy query
-    ``entry(N, *query_args, cs, bf16)`` of library ``lib``, once per shape."""
+    ``entry(N, *head, cs, jtype, *tail)`` of library ``lib``, once per shape."""
     if cluster_size is not None:
         return int(cluster_size)
-    return _cached((lib, dev.index, B, R, N, bf16), lambda: plateau_cluster_size(
+    return _cached((lib, dev.index, B, R, N, jtype), lambda: plateau_cluster_size(
         R, B, N, _sm_count(dev), lambda cs: _max_clusters(
-            dev, lib, entry, N, *query_args, cs, int(bf16))))
+            dev, lib, entry, N, *head, cs, jtype, *tail)))
 
 
 def _check_smem(what: str, smem: int):
@@ -330,14 +355,23 @@ def _launch(fn, lib, what: str, dev: torch.device, *args):
         raise KernelLaunchError(f"{what}: CUDA launch failed with error {err} ({msg})")
 
 
-_J_TYPES = (torch.float32, torch.bfloat16)
+# The dtypes K1, K1's ring mode, K3 and K4 take J in, in the order of the
+# type codes of csrc/jtype.cuh: each is widened exactly on load (every value
+# is an integer below 2^24, as the host rounded or wrapped it).
+_J_TYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.uint8, torch.int16,
+            torch.int32)
+
+
+def _jtype(J: torch.Tensor) -> int:
+    """J's type code (csrc/jtype.cuh)."""
+    return _J_TYPES.index(J.dtype)
 
 
 def local_field(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor) -> torch.Tensor:
     """K3: field = h + m @ J, int32 exact.
 
-    ``m`` (R, N) ±1 of any dtype, ``h`` (N,) integer, ``J`` (N, N) float32
-    or bfloat16, integer-valued.  Replaces
+    ``m`` (R, N) ±1 of any dtype, ``h`` (N,) integer, ``J`` (N, N) of any of
+    the seven dtypes of ``_J_TYPES``, integer-valued.  Replaces
     ``repro/kernels/ssa_update.py:local_field`` (``_field_kernel``).
     """
     return _local_field(m, h, J)
@@ -360,16 +394,16 @@ def _local_field(m: torch.Tensor, h: torch.Tensor, J: torch.Tensor,
     out = torch.empty((R, N), dtype=torch.int32, device=dev)
     if R == 0 or N == 0:
         return out
-    bf16 = int(J.dtype == torch.bfloat16)
+    jt = _jtype(J)
     if splits is None:
-        splits = _cached(("field", dev.index, R, N, bf16), lambda: _k3_splits(
+        splits = _cached(("field", dev.index, R, N, jt), lambda: _k3_splits(
             R, N, _sm_count(dev), lambda ks: _max_clusters(
-                dev, "field", "repro_local_field_max_clusters", N, ks, bf16)))
+                dev, "field", "repro_local_field_max_clusters", N, ks, jt)))
     elif not 1 <= int(splits) <= _K3_MAX_SPLITS:
         raise ValueError(f"splits={splits}: must be 1 to {_K3_MAX_SPLITS}")
     fn, lib = _entry("field", "repro_local_field")
     _launch(fn, lib, "local_field", dev, mf.data_ptr(), J.data_ptr(), h32.data_ptr(),
-            out.data_ptr(), R, N, bf16, int(splits))
+            out.data_ptr(), R, N, jt, int(splits))
     local_field.launches += 1
     return out
 
@@ -380,7 +414,7 @@ local_field.launches = 0
 def ssa_plateau_packed_batched(
     m_packed: torch.Tensor,       # (B, R, Nw) int32 words
     itanh: torch.Tensor,          # (B, R, N) int32
-    J: torch.Tensor,              # (B, N, N) float32 | bfloat16
+    J: torch.Tensor,              # (B, N, N), any dtype of _J_TYPES
     h: torch.Tensor,              # (B, N) int32
     rng: torch.Tensor,            # (B, 4, R, N) int32 xorshift lanes
     i0: int,
@@ -403,10 +437,13 @@ def ssa_plateau_packed_batched(
     runs the classical kernel; ``n_replicas > 0`` the SSQA ring-mode
     kernel, which adds ``jperp · (m[k-1] + m[k+1])`` over rings of
     ``n_replicas`` consecutive trials to the update field (R must be a
-    multiple of ``n_replicas``, at most MAX_RING of them per ring).  The
-    classical kernel runs each group of PLATEAU_GROUP trials as one
+    multiple of ``n_replicas``; a ring may hold any number of replicas).
+    The classical kernel runs each group of PLATEAU_GROUP trials as one
     thread-block cluster of :func:`plateau_cluster_size` blocks, the ring
-    mode each ring as one of :func:`ring_cluster_size` blocks;
+    mode each ring as one of :func:`ring_cluster_size` blocks, keeping the
+    ring's spin words in shared memory or, where they do not fit, in global
+    memory (:func:`ring_variant`; the last ring launch's in
+    ``ssa_plateau_packed_batched.last_ring_variant``);
     ``cluster_size`` forces that size, for tests and measurement (any of 1,
     2, 4, 8, 16 up to the word count of N; checked, then ignored, on the
     CPU).  The size and block count of the last launch are kept in
@@ -441,20 +478,22 @@ def ssa_plateau_packed_batched(
     _check("best_m_packed", best_m_packed, (B, R, nw), i32)
     if int(n_cycles) < 0:
         raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
-    bf16 = J.dtype == torch.bfloat16
+    jt = _jtype(J)
     if n_replicas:
         n_rings = R // n_replicas
         if cluster_size is None:
-            cs = _cached(("ring", dev.index, B, n_rings, N, n_replicas, bf16),
+            cs = _cached(("ring", dev.index, B, n_rings, N, n_replicas, jt),
                          lambda: ring_cluster_size(n_rings, B, N, _sm_count(dev), lambda c: (
                              _max_clusters(dev, "plateau", "repro_plateau_max_clusters",
-                                           N, n_replicas, c, int(bf16)))))
+                                           N, n_replicas, c, jt,
+                                           RING_VARIANTS.index(ring_variant(N, n_replicas, c))))))
         else:
             cs = int(cluster_size)
-        _check_smem(f"K1's ring mode at N={N}", _ring_smem(N, n_replicas, cs))
+        variant = ring_variant(N, n_replicas, cs)
     else:
-        cs = _plateau_cs(dev, "plateau", "repro_plateau_max_clusters", R, B, N, bf16,
-                         cluster_size, 0)  # n_replicas = 0: the classical kernel
+        # n_replicas = 0: the classical kernel (its words always in shared memory)
+        cs = _plateau_cs(dev, "plateau", "repro_plateau_max_clusters", R, B, N, jt,
+                         cluster_size, head=(0,), tail=(0,))
         _check_smem(f"K1 at N={N}", _plateau_smem(N, cs, best_words=True))
     outs = tuple(torch.empty_like(t) for t in
                  (m_packed, itanh, rng, best_H, best_m_packed))
@@ -462,18 +501,24 @@ def ssa_plateau_packed_batched(
         return outs
     mp_o, it_o, rng_o, bh_o, bmp_o = outs
     if n_replicas:
+        words = None  # the rings' spin words, where no block holds them
+        if variant == "global":
+            words = torch.empty(_ring_global_words(N, n_replicas, R, B), dtype=torch.int32,
+                                device=dev)
         fn, lib = _entry("plateau", "repro_ssa_plateau_packed_ring")
         _launch(
-            fn, lib, f"ssa_plateau_packed (ring mode, clusters of {cs} blocks, N={N})", dev,
+            fn, lib, f"ssa_plateau_packed (ring mode, rings of {n_replicas}, clusters of {cs} "
+            f"blocks, words {variant}, N={N})", dev,
             m_packed.data_ptr(), itanh.data_ptr(), J.data_ptr(), h.data_ptr(),
             rng.data_ptr(), int(i0), int(jperp), best_H.data_ptr(),
             best_m_packed.data_ptr(), mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(),
-            bh_o.data_ptr(), bmp_o.data_ptr(), B, R, N, int(n_cycles), int(n_rnd),
-            int(bool(eligible)), int(bf16), n_replicas, cs,
+            bh_o.data_ptr(), bmp_o.data_ptr(), None if words is None else words.data_ptr(),
+            B, R, N, int(n_cycles), int(n_rnd), int(bool(eligible)), jt, n_replicas, cs,
         )
         ssa_plateau_packed_batched.launches += 1
         ssa_plateau_packed_batched.ring_launches += 1
         ssa_plateau_packed_batched.last_cluster = (cs, n_rings * B * cs)
+        ssa_plateau_packed_batched.last_ring_variant = variant
         return outs
     fn, lib = _entry("plateau", "repro_ssa_plateau_packed")
     _launch(
@@ -482,7 +527,7 @@ def ssa_plateau_packed_batched(
         rng.data_ptr(), int(i0), best_H.data_ptr(), best_m_packed.data_ptr(),
         mp_o.data_ptr(), it_o.data_ptr(), rng_o.data_ptr(), bh_o.data_ptr(),
         bmp_o.data_ptr(), B, R, N, int(n_cycles), int(n_rnd), int(bool(eligible)),
-        int(bf16), cs,
+        jt, cs,
     )
     ssa_plateau_packed_batched.launches += 1
     ssa_plateau_packed_batched.last_cluster = (cs, plateau_groups(R) * B * cs)
@@ -492,6 +537,7 @@ def ssa_plateau_packed_batched(
 ssa_plateau_packed_batched.launches = 0
 ssa_plateau_packed_batched.ring_launches = 0
 ssa_plateau_packed_batched.last_cluster = None
+ssa_plateau_packed_batched.last_ring_variant = None
 
 
 def ssa_plateau_packed(
@@ -523,7 +569,7 @@ def ssa_plateau_packed(
 def ssa_plateau_batched(
     m: torch.Tensor,       # (B, R, N) float32 ±1
     itanh: torch.Tensor,   # (B, R, N) int32
-    J: torch.Tensor,       # (B, N, N) float32 | bfloat16
+    J: torch.Tensor,       # (B, N, N), any dtype of _J_TYPES
     h: torch.Tensor,       # (B, N) int32
     noise: torch.Tensor,   # (B, C, R, N) int8 ±1
     i0: int,
@@ -565,8 +611,8 @@ def ssa_plateau_batched(
     _check("noise", noise, (B, C, R, N), (torch.int8,))
     _check("best_H", best_H, (B, R), (torch.int32,))
     _check("best_m", best_m, (B, R, N), (torch.int8,))
-    bf16 = J.dtype == torch.bfloat16
-    cs = _plateau_cs(dev, "plateau_pregen", "repro_plateau_pregen_max_clusters", R, B, N, bf16,
+    jt = _jtype(J)
+    cs = _plateau_cs(dev, "plateau_pregen", "repro_plateau_pregen_max_clusters", R, B, N, jt,
                      cluster_size)
     _check_smem(f"K4 at N={N}", _plateau_smem(N, cs, best_words=False))
     outs = tuple(torch.empty_like(t) for t in (m, itanh, best_H, best_m))
@@ -579,7 +625,7 @@ def ssa_plateau_batched(
         m.data_ptr(), itanh.data_ptr(), J.data_ptr(), h.data_ptr(), noise.data_ptr(),
         int(i0), best_H.data_ptr(), best_m.data_ptr(),
         m_o.data_ptr(), it_o.data_ptr(), bh_o.data_ptr(), bm_o.data_ptr(),
-        B, R, N, C, int(n_rnd), int(bool(eligible)), int(bf16), cs,
+        B, R, N, C, int(n_rnd), int(bool(eligible)), jt, cs,
     )
     ssa_plateau_batched.launches += 1
     ssa_plateau_batched.last_cluster = (cs, plateau_groups(R) * B * cs)

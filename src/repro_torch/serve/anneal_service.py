@@ -441,7 +441,8 @@ class AnnealService:
         :class:`~repro_torch.core.config.SolverConfig`, replacing the
         individual arguments.  ``backend='auto'`` resolves per shape
         bucket (``engine.resolve_backend``: 'cuda' from
-        ``engine.MIN_RESIDENT_N`` spins, 'dense' below) and keeps the
+        ``engine.MIN_RESIDENT_N`` spins, 'dense' below; PT-SSA groups,
+        which no kernel runs, 'dense' at every bucket) and keeps the
         options of the backend chosen.  The service turns
         TF32 off for the process
         (:func:`~repro_torch.core.engine.exact_float32_matmul`): its dense
@@ -644,8 +645,10 @@ class AnnealService:
             backend, opts = self.backend, dict(self.backend_opts)
         if backend == "auto":
             # Per bucket (MIN_RESIDENT_N), keeping only the options of the
-            # backend chosen: an 'auto' caller passes their union.
-            backend = resolve_backend(backend, nb)
+            # backend chosen: an 'auto' caller passes their union.  PT-SSA's
+            # per-replica I0 has no kernel: its groups take the dense
+            # backend, the reference's 'auto' below its 256 spins.
+            backend = "dense" if kind == "ptssa" else resolve_backend(backend, nb)
             opts = filter_backend_opts(backend, opts, partition=self.partition_for(kind, nb))
         carried_events: List[ServiceEvent] = []
         while True:

@@ -22,6 +22,7 @@ from repro.core import SSAHyperParams as JHP  # noqa: E402
 from repro.core import anneal as janneal  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402
 from repro.core import gset as jgset  # noqa: E402
+from repro.core import ssqa as jssqa  # noqa: E402
 from repro.serve import AnnealRequest as JRequest  # noqa: E402
 from repro.serve import AnnealService as JService  # noqa: E402
 from repro.serve import StreamingAnnealService as JStream  # noqa: E402
@@ -198,20 +199,62 @@ def test_auto_spin_shard_matches_jax():
 
 
 def test_auto_ssqa_above_max_ring_raises():
-    """'auto' at or above the threshold is 'cuda': rings above MAX_RING
-    raise its ValueError on the kernels' path there too (no traces), and
-    nothing routes them to dense."""
-    from repro_torch.kernels.ssa_update import MAX_RING
-
+    """Rings above 32 replicas (the ring modes' former limit) at the
+    threshold: 'auto' and 'cuda' run K1's ring mode there (no traces) and
+    equal the JAX package's pallas run, and the service's 'auto' group of
+    the same request equals it too; nothing raises."""
     hp = SSQAHyperParams(n_trials=64, n_replicas=64, m_shot=1, tau=2, i0_max=4)
-    p = gset.toroidal_grid(MIN_N, seed=0)
+    jhp = jssqa.SSQAHyperParams(n_trials=64, n_replicas=64, m_shot=1, tau=2, i0_max=4)
+    p, jp = gset.toroidal_grid(MIN_N, seed=0), jgset.toroidal_grid(MIN_N, seed=0)
+    want = jssqa.anneal_ssqa(jp, jhp, seed=0, track_energy=False,
+                             config=JSolverConfig(backend="pallas", noise="xorshift"))
     for backend in ("cuda", "auto"):
-        with pytest.raises(ValueError, match=f"limit of {MAX_RING}"):
-            anneal(p, hp, device="cpu", track_energy=False,
-                   config=SolverConfig(backend=backend, noise="xorshift"))
-    with pytest.raises(ValueError, match=f"limit of {MAX_RING}"):
-        AnnealService(backend="auto", noise="xorshift", device="cpu").solve(
-            [AnnealRequest(problem=p, hp=hp, seed=0)])
+        got = anneal(p, hp, device="cpu", track_energy=False,
+                     config=SolverConfig(backend=backend, noise="xorshift"))
+        _assert_result_equal(got, want, traces=False)
+    resp = AnnealService(backend="auto", noise="xorshift", device="cpu").solve(
+        [AnnealRequest(problem=p, hp=hp, seed=0)])
+    assert resp[0].status == "ok"
+    _assert_result_equal(resp[0].result, want, traces=False)
+
+
+@pytest.mark.parametrize("n", [36, 100], ids=["bucket64", "bucket128"])
+def test_auto_service_ptssa_group_matches_jax(n):
+    """A PT-SSA request to AnnealService(backend='auto'): its group takes the
+    dense backend (no kernel runs a per-replica I0), the JAX package's
+    'auto' below 256 spins, at buckets 64 and 128 alike; both answer equal.
+    An explicit 'cuda' still rejects it, as the JAX package's 'pallas'
+    does."""
+    from repro.core.pt import PTSSAHyperParams as JPTSSA
+    from repro_torch.core.pt import PTSSAHyperParams
+    from repro_torch.serve import AdmissionError
+
+    kw = dict(n_replicas=4, n_rounds=4, tau=10)
+    want = JService(backend="auto", min_bucket=16).solve(
+        [JRequest(problem=jgset.toroidal_grid(n, seed=0), hp=JPTSSA(**kw), seed=0)])
+    req = [AnnealRequest(problem=gset.toroidal_grid(n, seed=0), hp=PTSSAHyperParams(**kw),
+                         seed=0)]
+    got = AnnealService(backend="auto", min_bucket=16, device="cpu").solve(req)
+    assert got[0].status == want[0].status == "ok"
+    assert got[0].bucket == want[0].bucket == {36: 64, 100: 128}[n]
+    assert engine.resolve_backend("auto", got[0].bucket) == "cuda"
+    _assert_result_equal(got[0].result, want[0].result, traces=False)
+    with pytest.raises(AdmissionError, match="per-replica I0"):
+        AnnealService(backend="cuda", min_bucket=16, device="cpu").solve(req)
+
+
+def test_auto_anneal_pt_ssa_matches_jax():
+    """anneal_pt_ssa(backend='auto') takes the dense backend at any size (the
+    JAX package's 'auto' is dense below 256 spins); both answer equal."""
+    from repro.core.pt import PTSSAHyperParams as JPTSSA
+    from repro.core.pt import anneal_pt_ssa as janneal_pt_ssa
+    from repro_torch.core.pt import PTSSAHyperParams, anneal_pt_ssa
+
+    kw = dict(n_replicas=4, n_rounds=3, tau=6)
+    want = janneal_pt_ssa(jgset.toroidal_grid(36, seed=0), JPTSSA(**kw), seed=2, backend="auto")
+    got = anneal_pt_ssa(gset.toroidal_grid(36, seed=0), PTSSAHyperParams(**kw), seed=2,
+                        backend="auto", device="cpu")
+    _assert_result_equal(got, want, traces=False)
 
 
 def test_launcher_backend_auto_matches_jax(capsys, monkeypatch):

@@ -86,6 +86,24 @@ def test_local_field_kernel_matches_plain(cuda_device, r, n, dtype, planes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(13, 100), (33, 257), (100, 2000)])
+@pytest.mark.parametrize("dtype", ["float16", "int8", "uint8", "int16", "int32"])
+def test_local_field_kernel_j_dtypes_match_plain(cuda_device, r, n, dtype):
+    """K3 with J in the other dtypes: 13-bit weights, rounded (float16) or
+    wrapped (int8, uint8) on the host as the backends hold them, so the
+    byte planes run from one (int8) to two (uint8 above 127, int16)."""
+    rs = np.random.default_rng(n + 7)
+    m = torch.as_tensor(rs.choice([-1.0, 1.0], size=(r, n)), dtype=torch.float32, device=cuda_device)
+    h = torch.as_tensor(rs.integers(-4, 5, size=(n,)), dtype=torch.int32, device=cuda_device)
+    J = np.triu(rs.integers(-4095, 4096, size=(n, n)), 1)
+    J = torch.from_numpy(J + J.T).to(getattr(torch, dtype)).to(cuda_device)
+    before = ssa_update.local_field.launches
+    got = ssa_update.local_field(m, h, J)
+    assert ssa_update.local_field.launches == before + 1
+    assert torch.equal(got, local_field_ref(m, h, J))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("r,n", [(100, 2000), (130, 600)])
 def test_local_field_kernel_k_split_leaves_the_result_alone(cuda_device, r, n):
     """K3 forced to every K split, 1 to MAX_KS blocks per cluster."""
@@ -129,7 +147,12 @@ PLATEAU_EDGES = [
     (1, 9, 4100, 1, False, None, "bfloat16"), (1, 4, 36, 5, False, 2, "float32"),
     (1, 5, 70, 6, False, 2, "float32"), (1, 13, 1001, 5, True, 4, "float32"),
 ] + [(2, 13, 1001, 5, False, cs, "float32")  # every cluster size, a ragged last word
-     for cs in (1, 2, 4, 8, 16)] + [(1, 100, 2000, 2, False, cs, "float32") for cs in (1, 16)]
+     for cs in (1, 2, 4, 8, 16)] + [(1, 100, 2000, 2, False, cs, "float32") for cs in (1, 16)] + [
+    # the other J dtypes (csrc/jtype.cuh): 4-, 8- and 16-byte vector loads, and scalar ones
+    (1, 100, 2000, 3, False, None, "float16"), (1, 100, 2000, 3, False, None, "int8"),
+    (2, 13, 1001, 3, False, None, "uint8"), (1, 9, 4100, 1, False, None, "int16"),
+    (1, 13, 2101, 2, False, None, "int32"), (1, 13, 1001, 3, False, None, "int8"),
+]
 
 
 def _check_last_cluster(wrapper, b, r, cs):
@@ -356,16 +379,18 @@ def test_popcount_chain_kernel_matches_plain(cuda_device, b, r, n, w_max, c, sch
     (2000, 1, 0, 1, "streamed"),
     (800, 1, 0, 2, "resident"),     # G11
     (2000, 1, 16, 16, "resident"),  # rings of 16, one per cluster of 16
-    (2000, 1, 16, 8, "streamed"),
+    (2000, 1, 16, 8, "resident"),   # the per-trial arrays sized by the ring's 16
+    (2000, 1, 64, 16, "streamed"),  # rings of 64: 164 KB of state alone
     (2000, 1, 32, 16, "resident"),
     (4100, 3, 0, 16, "streamed"),   # 4 planes of 129 words
     (37, 3, 0, 1, "resident"),
     (20000, 3, 0, 1, "streamed"),   # G81's width, every size
     (20000, 3, 16, 1, "streamed"),
-    (72960, 1, 0, 1, "streamed"),   # the group's words at the limit
-    (72961, 1, 0, 1, "global"),
+    (74624, 1, 0, 1, "streamed"),   # the group's words at the limit
+    (74625, 1, 0, 1, "global"),
     (120000, 1, 0, 16, "global"),
     (30000, 1, 32, 16, "global"),
+    (30000, 1, 64, 16, "global"),
 ])
 def test_popcount_variant_by_size(cuda_device, n, nb, nr, cs, want):
     """The block variant that the kernel's layout (repro_popcount_smem)
@@ -522,12 +547,21 @@ def test_sa_and_ptssa_on_card_launch_no_kernel_and_match_cpu(cuda_device):
     (1, 8, 2100, 2, 4, False, 1, "float32"), (1, 8, 2101, 2, 8, False, 2, "float32"),
     (1, 8, 4100, 1, 8, False, None, "bfloat16"),
 ] + [(2, 32, 1001, 5, nr, False, cs, "float32")  # every cluster size, a ragged last word
-     for nr in (2, 8, 16) for cs in (1, 2, 4, 8, 16)])
+     for nr in (2, 8, 16) for cs in (1, 2, 4, 8, 16)] + [
+    # rings above 32 replicas: two words, a ragged word, one ring; the words
+    # in global memory (N = 6000, rings of 128); other J dtypes
+    (1, 128, 2000, 3, 64, False, None, "float32"), (1, 66, 1001, 3, 33, False, None, "int8"),
+    (1, 100, 2000, 2, 100, False, 4, "float16"), (2, 64, 1001, 2, 64, False, 2, "uint8"),
+    (1, 128, 6000, 1, 128, False, None, "float32"), (1, 96, 2000, 3, 8, False, None, "int16"),
+    (1, 96, 2000, 3, 8, False, None, "int32"),
+])
 @pytest.mark.parametrize("eligible", [True, False])
 def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, cs, dtype,
                                            eligible):
     """K1's ring mode: N % 4 == 0 reads four neighbouring columns of J per
-    load, other N one; J in float32 and bfloat16."""
+    load, other N one; J in each of the seven dtypes; rings of any size,
+    their words in shared memory or, where they do not fit, in global
+    memory (``ring_variant``)."""
     args = _plateau_args(b, r, n, seed=n + c + nr, flat=flat, device=cuda_device)
     args["J"] = args["J"].to(getattr(torch, dtype))
     kw = dict(i0=8, n_cycles=c, eligible=eligible, jperp=3, n_replicas=nr)
@@ -540,6 +574,8 @@ def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, cs
     launched_cs, blocks = ssa_update.ssa_plateau_packed_batched.last_cluster
     assert cs is None or launched_cs == cs
     assert blocks == b * (r // nr) * launched_cs
+    assert (ssa_update.ssa_plateau_packed_batched.last_ring_variant
+            == ssa_update.ring_variant(n, nr, launched_cs))
     want = ssa_plateau_packed_ref(**args, **kw)
     for name, g, w in zip(OUTS, got, want):
         assert torch.equal(g, w), name
@@ -557,7 +593,11 @@ def test_plateau_ring_kernel_matches_plain(cuda_device, b, r, n, c, nr, flat, cs
     (2, 16, 4100, 7, 6, 8, None),     # streamed planes: 4 planes of 129 words
     (1, 32, 30000, 0, 3, 32, None),   # the spin words in global memory too
 ] + [(1, 96, 2000, 1, 20, nr, cs)    # every cluster size at rings of 8 and 16
-     for nr in (8, 16) for cs in (1, 2, 4, 8, 16)])
+     for nr in (8, 16) for cs in (1, 2, 4, 8, 16)] + [
+    # rings above 32 replicas
+    (1, 128, 2000, 1, 12, 64, None), (1, 100, 2000, 1, 12, 100, None),
+    (1, 66, 1001, 3, 9, 33, None), (1, 64, 30000, 0, 3, 64, None), (1, 64, 2000, 1, 12, 64, 1),
+])
 def test_popcount_ring_kernel_matches_plain(cuda_device, b, r, n, w_max, c, nr, cs):
     args = _popcount_args(b, r, n, w_max, c, "random", False, seed=n + c + nr,
                           device=cuda_device)

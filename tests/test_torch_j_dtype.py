@@ -7,8 +7,9 @@ to 4606 at 24 numbers, which bfloat16 rounds), through the dense and cuda
 backends (the cuda backend's K1, K3 and K4 as their plain versions), single
 and batched, with the trace path and threefry pregen, the service and the
 stream, and the fallback chain that carries it.  The tolerance everywhere
-is bit-identity.  The dense backend takes the other dtypes the JAX
-package's dense backend runs; the cuda backend raises ValueError for them.
+is bit-identity.  The other dtypes the JAX package runs (float16, int8,
+uint8, int16, int32) go through the dense and the cuda backend alike, and
+through K1, K1's ring mode, K3 and K4 (their plain versions).
 """
 import functools
 
@@ -187,23 +188,106 @@ def test_fallback_chain_carries_j_dtype():
     assert bk.j_mode == "tiled"
 
 
-@pytest.mark.parametrize("dtype", ["float16", "int8", "int16"])
+# The dtypes beside float32 and bfloat16; the integer ones wrap (int8,
+# uint8) or hold (int16, int32) partition's 13-bit weights.
+OTHER_DTYPES = ["float16", "int8", "uint8", "int16", "int32"]
+
+
+@pytest.mark.parametrize("dtype", OTHER_DTYPES)
 def test_j_dtype_other_dtypes_on_dense_match_jax(dtype):
-    """The dense backend takes every dtype the JAX package's dense backend
-    runs (rounded or wrapped into it as jnp.asarray does); the cuda backend
-    raises ValueError naming the dtypes its kernels take."""
+    """The dense and the cuda backend take every dtype the JAX package runs
+    (J rounded or wrapped into it as jnp.asarray does); 'cuda' and 'auto'
+    (cuda at 24 spins: K1, and K3 for the final fold) equal the JAX
+    package's pallas run, and the dense backend its dense run.  With a
+    uint8 J the JAX package's K3 wrapper casts the spins to uint8 (-1 to
+    255, src/repro/kernels/ssa_update.py:124), so its pallas run differs
+    from its own dense one; the port's K3 reads the spins as ±1 and every
+    port backend equals the JAX dense run there."""
     model = _model("partition")
+    cfg = dict(noise="xorshift", backend_opts={"j_dtype": getattr(torch, dtype)})
     got = anneal(model, SSAHyperParams(**HP), seed=1, device="cpu", track_energy=False,
-                 config=SolverConfig(backend="dense", noise="xorshift",
-                                     backend_opts={"j_dtype": getattr(torch, dtype)}))
-    _assert_result_equal(got, _jax_single("partition", "dense", "xorshift", False, dtype),
-                         traces=False)
-    with pytest.raises(ValueError, match="torch.float32, torch.bfloat16"):
-        engine.make_backend("cuda", model, n_trials=2, device="cpu",
-                            j_dtype=getattr(torch, dtype))
-    with pytest.raises(ValueError, match="torch.float32, torch.bfloat16"):
-        engine.make_batched_backend("cuda", n_bucket=32, n_trials=2, device="cpu",
-                                    j_dtype=getattr(torch, dtype))
+                 config=SolverConfig(backend="dense", **cfg))
+    dense = _jax_single("partition", "dense", "xorshift", False, dtype)
+    _assert_result_equal(got, dense, traces=False)
+    want = dense if dtype == "uint8" else _jax_single("partition", "cuda", "xorshift", False,
+                                                      dtype)
+    assert engine.resolve_backend("auto", model.n) == "cuda"
+    for backend in ("cuda", "auto"):
+        got = anneal(model, SSAHyperParams(**HP), seed=1, device="cpu", track_energy=False,
+                     config=SolverConfig(backend=backend, **cfg))
+        _assert_result_equal(got, want, traces=False)
+    bk = engine.make_batched_backend("cuda", n_bucket=32, n_trials=2, device="cpu",
+                                     j_dtype=getattr(torch, dtype))
+    assert bk.j_dtype == getattr(torch, dtype)
+
+
+def _dtype_j(rs, n, dtype):
+    """Partition-like 13-bit symmetric weights (±4095) in ``dtype``, rounded
+    or wrapped as the hosts of both packages hold them, and the same J as
+    the JAX side's array."""
+    J = np.triu(rs.integers(-4095, 4096, size=(n, n)), 1)
+    J = J + J.T
+    Jt = torch.from_numpy(J).to(getattr(torch, dtype))
+    Jj = jnp.asarray(J, getattr(jnp, dtype))
+    np.testing.assert_array_equal(Jt.float().numpy(), np.asarray(Jj, np.float32))
+    return Jt, Jj
+
+
+@pytest.mark.parametrize("dtype", OTHER_DTYPES)
+def test_j_dtype_kernel_wrappers_match_jax(dtype):
+    """K3, K1, K1's ring mode and K4 with J in each dtype (the wrappers' plain
+    versions on the CPU) against the JAX wrappers in interpret mode with
+    the same J.  K3 with a uint8 J is held against the JAX package's plain
+    field (``repro.kernels.ref.local_field_ref``): its Pallas wrapper casts
+    the spins to uint8 (see above)."""
+    from repro.kernels import bitplane as jbitplane
+    from repro.kernels import ref as jref
+    from repro.kernels import ssa_update as jssa
+    from repro_torch.core.rng import xorshift_init
+    from repro_torch.kernels import ssa_update
+
+    rs = np.random.default_rng(OTHER_DTYPES.index(dtype))
+    r, n, c = 8, 40, 3
+    Jt, Jj = _dtype_j(rs, n, dtype)
+    m = rs.choice([-1.0, 1.0], size=(r, n)).astype(np.float32)
+    h = rs.integers(-3, 4, size=n).astype(np.int32)
+    # K3
+    got = ssa_update.local_field(torch.from_numpy(m), torch.from_numpy(h), Jt)
+    jfield = jref.local_field_ref if dtype == "uint8" else jssa.local_field
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jfield(jnp.asarray(m),
+                                                                 jnp.asarray(h), Jj)))
+    # K1, classical and ring mode (rings of 4)
+    spins = rs.choice([-1, 1], size=(2, 1, r, n)).astype(np.int8)
+    case = dict(m_packed=np.asarray(jbitplane.pack_spins(jnp.asarray(spins[0]))),
+                itanh=rs.integers(-6, 6, size=(1, r, n)).astype(np.int32),
+                h=h[None], rng=np.asarray(xorshift_init(5, (r, n), "cpu"))[None],
+                best_H=np.full((1, r), 2**30, np.int32),
+                best_m_packed=np.asarray(jbitplane.pack_spins(jnp.asarray(spins[1]))))
+    tc = {k: torch.from_numpy(v.view(np.int32).copy() if v.dtype == np.uint32 else v)
+          for k, v in case.items()}
+    for kw in (dict(), dict(jperp=3, n_replicas=4)):
+        want = jssa.ssa_plateau_packed_batched(
+            jnp.asarray(case["m_packed"]), jnp.asarray(case["itanh"]), Jj[None],
+            jnp.asarray(case["h"]), jnp.asarray(case["rng"]), jnp.int32(8),
+            jnp.asarray(case["best_H"]), jnp.asarray(case["best_m_packed"]), n_cycles=c,
+            n_rnd=2, eligible=True, block_r=kw.get("n_replicas", 8), **kw)
+        got = ssa_update.ssa_plateau_packed_batched(**tc, J=Jt[None], i0=8, n_cycles=c,
+                                                    n_rnd=2, eligible=True, **kw)
+        for name, g, w in zip(("m_packed", "itanh", "rng", "best_H", "best_m_packed"),
+                              got, want):
+            np.testing.assert_array_equal(_np(g), _np(w), err_msg=f"{kw} {name}")
+    # K4
+    k4 = dict(m=spins[0].astype(np.float32), itanh=case["itanh"], h=case["h"],
+              noise=rs.choice([-1, 1], size=(1, c, r, n)).astype(np.int8),
+              best_H=case["best_H"], best_m=spins[1])
+    want = jssa.ssa_plateau_batched(
+        jnp.asarray(k4["m"]), jnp.asarray(k4["itanh"]), Jj[None], jnp.asarray(k4["h"]),
+        jnp.asarray(k4["noise"]), jnp.int32(8), jnp.asarray(k4["best_H"]),
+        jnp.asarray(k4["best_m"]), n_rnd=2, eligible=True, block_r=8)
+    got = ssa_update.ssa_plateau_batched(**{k: torch.from_numpy(v) for k, v in k4.items()},
+                                         J=Jt[None], i0=8, n_rnd=2, eligible=True)
+    for name, g, w in zip(("m", "itanh", "best_H", "best_m"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
 
 
 def test_j_dtype_keeps_the_exactness_contract():

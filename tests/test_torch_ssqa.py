@@ -407,6 +407,9 @@ def test_n_replicas_option_reaches_the_backend_like_jax():
 
 
 def test_wrappers_reject_bad_rings():
+    """A ring that does not divide the trials raises in both packages; a
+    ring of any size that does (33 here, above the 32 replicas of one word)
+    runs, equal to the JAX package's."""
     np_case = _k1_case(1, 8, 40, seed=2)
     with pytest.raises(ValueError, match="not divisible"):
         ssa_update.ssa_plateau_packed_batched(**_torch_case(np_case), i0=4, n_cycles=2,
@@ -416,10 +419,15 @@ def test_wrappers_reject_bad_rings():
             *(jnp.asarray(np_case[k]) for k in K1_ORDER), jnp.int32(4),
             jnp.asarray(np_case["best_H"]), jnp.asarray(np_case["best_m_packed"]),
             n_cycles=2, block_r=3, jperp=1, n_replicas=3)
-    big = _torch_case(_k1_case(1, 2 * (ssa_update.MAX_RING + 1), 8, seed=3))
-    with pytest.raises(ValueError, match=f"limit of {ssa_update.MAX_RING}"):
-        ssa_update.ssa_plateau_packed_batched(**big, i0=4, n_cycles=1, jperp=1,
-                                              n_replicas=ssa_update.MAX_RING + 1)
+    big = _k1_case(1, 66, 8, seed=3)
+    kw = dict(n_cycles=2, n_rnd=2, eligible=True)
+    want = jssa.ssa_plateau_packed_batched(
+        *(jnp.asarray(big[k]) for k in K1_ORDER), jnp.int32(4), jnp.asarray(big["best_H"]),
+        jnp.asarray(big["best_m_packed"]), block_r=33, jperp=1, n_replicas=33, **kw)
+    got = ssa_update.ssa_plateau_packed_batched(**_torch_case(big), i0=4, jperp=1,
+                                                n_replicas=33, **kw)
+    for name, g, w in zip(OUTS, got, want):
+        np.testing.assert_array_equal(*_as_np(g, w), err_msg=name)
 
 
 # ---------------------------------------------------------------------------
