@@ -7,8 +7,9 @@ the card, drives ``repro_torch.core.ssa.anneal`` and
 through the kernels, the problem families (QUBO, MIS, coloring, partition)
 through K1 and K2, the SA, PT and PT-SSA baselines, spin sharding over
 ``torch.distributed`` ranks (the plain loops: no kernel on that path), J in
-each of seven dtypes and SSQA rings above 32 replicas, and prints what it
-measured.
+each of seven dtypes and SSQA rings above 32 replicas, and the LM
+substrate's serving path (qwen3-1.7b at full width; no kernel on that
+path either), and prints what it measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
@@ -211,14 +212,25 @@ Phases (any failure raises and exits non-zero):
      equal to it;
  38. PT-SSA under 'auto' (``[pt-ssa auto]``): a request at bucket 64 on
      the card, no launch, equal to the dense service's run;
- 39. the card line again, the kernels line (each kernel's service launches
+ 39. the LM substrate's serving path (``[lm …]``; none of the six kernels
+     is on it, and none launches): qwen3-1.7b at full width (28 layers,
+     d_model 2048, vocab 151,936; random weights from ``init_params``)
+     through ``repro_torch.serve.lm.generate`` — 4 prompts of 128 tokens,
+     32 new tokens, greedy twice (equal tokens) and at temperature 1.0;
+     every logit finite; each greedy token the argmax of the teacher-forced
+     ``forward`` wherever the margin clears the tolerance; prefill ms, ms
+     per decode step, tokens/s and peak device bytes (measured, not
+     asserted); the same model cut to 2 layers, card against the CPU run of
+     the port; each of the ten reduced configs' prefill, decode and
+     generate, card against CPU;
+ 40. the card line again, the kernels line (each kernel's service launches
      in ``service_launches``, its stream launches in ``stream_launches``,
      its launches per family of phase 27 in ``family_launches``, those of
      phases 34–36 in ``auto_launches``, ``j_dtype_launches`` and
      ``paper_launches``, its bfloat16-J row in ``bf16``, its rows by J
      dtype in ``j_dtypes`` and, for the ring modes, its rows by ring in
      ``rings``: ring size, cluster size, blocks, where the words live,
-     times, bound and the launches of phase 37's run); 40. the contract
+     times, bound and the launches of phase 37's run); 41. the contract
      line (last).
 """
 from __future__ import annotations
@@ -3055,6 +3067,258 @@ def phase_paper():
             for k, i in (("K1", 0), ("K3", 1), ("K4", 2))}
 
 
+# ---------------------------------------------------------------------------
+# Phase 39: the LM substrate's serving path (none of the six kernels)
+# ---------------------------------------------------------------------------
+# qwen3-1.7b at full width; the serving cell: 4 prompts of 128 tokens, 32 new
+# tokens each (greedy and at temperature 1.0), seed 0.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "qwen3-1.7b", 4, 128, 32
+LM_PARAMS = 2_031_739_904
+# Tolerances in bfloat16 steps (2^-8 of the logits' largest magnitude): the
+# card's bf16 GEMMs (cuBLAS, possibly split-K with reduced-precision
+# reductions) and the CPU's sum in other orders, so each bf16 rounding of a
+# layer may land one ulp (two steps) away; a 2-layer or reduced model holds
+# a handful of such roundings per layer.
+LM_STEPS_SHALLOW = 8
+LM_STEPS_JAMBA = 16  # 8 layers, a residual stream of ~10^4 (one ulp 32-64)
+# The full 28-layer model, cached decode against the teacher-forced forward
+# (GEMMs of M = 4 rows against M = 640 on the card, other reduction orders):
+# 28 layers of such steps, bounded by 16 (the prediction in PERF.md).  A
+# greedy token must be the teacher-forced argmax wherever the top-2 margin
+# exceeds that bound: a swap there would need the two top logits to move
+# apart by more than it, where the measured differences are a few hundredths.
+LM_STEPS_DEEP = 16
+
+
+def _lm_tol(steps, logits) -> float:
+    return steps * 2.0 ** -8 * float(logits.abs().max())
+
+
+def _lm_greedy(params, batch, cfg, n_new, max_seq):
+    """Greedy prefill + decode as ``generate`` runs it, keeping each step's
+    logits ((B, n_new, V) float32) and timing the steps on the card:
+    (tokens (B, n_new) int32, logits, prefill ms, decode ms per step)."""
+    from repro_torch.serve import lm
+
+    prefill_step = lm.make_prefill_step(cfg, max_seq=max_seq)
+    decode = lm.make_decode_step(cfg)
+    dev = params["final_norm"]["scale"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill_step(params, batch)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    token = torch.argmax(logits, -1).to(torch.int32)
+    toks, steps = [token], [logits]
+    S = batch["tokens"].shape[1]
+    t0 = time.perf_counter()
+    for i in range(n_new - 1):
+        logits, caches = decode(params, caches, token, S + i)
+        token = torch.argmax(logits, -1).to(torch.int32)
+        toks.append(token)
+        steps.append(logits)
+    sync()
+    t_decode = (time.perf_counter() - t0) / max(n_new - 1, 1)
+    return (torch.stack(toks, 1).cpu().numpy(), torch.stack(steps, 1).float(),
+            t_prefill * 1e3, t_decode * 1e3)
+
+
+def _lm_teacher_forced(params, batch, cfg, tokens):
+    """The port's logits over prompt + ``tokens`` by one full forward."""
+    from repro_torch.models import forward
+    from repro_torch.models.transformer import lm_head_logits
+
+    dev = params["final_norm"]["scale"].device
+    full = dict(batch, tokens=torch.cat(
+        [batch["tokens"], torch.from_numpy(tokens).to(dev)], dim=1))
+    h, _ = forward(params, full, cfg)
+    return lm_head_logits(params, h, cfg)
+
+
+def _lm_margin_agree(what, got, want, logits, tol) -> int:
+    """Greedy tokens ``got`` equal ``want`` (the run whose logits (B, n, V)
+    are ``logits``) at every step up to a row's first difference, and a
+    difference comes only where the top-2 margin there is at most 2·tol —
+    where a logit difference within ``tol`` can swap the top two (both runs
+    had the same inputs up to that step); returns the tokens compared."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    compared = 0
+    for b in range(got.shape[0]):
+        for i in range(got.shape[1]):
+            if got[b, i] == want[b, i]:
+                compared += 1
+                continue
+            if margin[b, i] > 2 * tol:
+                _fail(f"{what}: row {b} step {i}: token {got[b, i]} != {want[b, i]} at a "
+                      f"top-2 margin {margin[b, i]:.4f} > 2·tol {2 * tol:.4f}")
+            break
+    return compared
+
+
+def _lm_batch(cfg, B, S, seed, dev):
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rs.integers(0, cfg.vocab, (B, S)).astype(np.int32))}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.from_numpy(
+            (rs.standard_normal((B, cfg.n_patches, cfg.d_model)) * 0.02).astype(np.float32))
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(
+            (rs.standard_normal((B, cfg.n_frames, cfg.d_model)) * 0.1).astype(np.float32))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _lm_card_vs_cpu(what, params, cfg, batch, n_new, max_seq, steps):
+    """prefill + decode logits and greedy tokens of ``params`` on the card
+    against the same parameters' CPU run; returns (max |Δ| logits, tol,
+    tokens compared)."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import lm
+
+    cpu = tree_map(lambda t: t.cpu(), params)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    tok_c, lg_c, _, _ = _lm_greedy(cpu, cpu_batch, cfg, n_new, max_seq)
+    tok_g, lg_g, _, _ = _lm_greedy(params, batch, cfg, n_new, max_seq)
+    if not bool(torch.isfinite(lg_g).all()):
+        _fail(f"{what}: a logit on the card is not finite")
+    # the card's decode from the CPU's tokens: the same inputs at every step
+    from repro_torch.models import decode_step, prefill
+
+    logits, caches = prefill(params, batch, cfg, max_seq=max_seq)
+    rows = [logits]
+    S = batch["tokens"].shape[1]
+    for i in range(n_new - 1):
+        logits, caches = decode_step(params, caches,
+                                     torch.from_numpy(tok_c[:, i]).to(logits.device), S + i, cfg)
+        rows.append(logits)
+    lg_same = torch.stack(rows, 1).float().cpu()
+    tol = _lm_tol(steps, lg_c)
+    err = float((lg_same - lg_c).abs().max())
+    compared = _lm_margin_agree(what, tok_g, tok_c, lg_c, tol)
+    gen = lm.generate(params, batch, cfg, lm.ServeConfig(max_seq=max_seq), n_new)
+    if not (gen == tok_g).all():
+        _fail(f"{what}: generate() on the card differs from its own greedy steps")
+    return err, tol, compared
+
+
+def phase_lm(card: str):
+    """Phase 39: ``repro_torch.serve.lm.generate`` on qwen3-1.7b at full
+    width, the 2-layer cut against the CPU, and the ten reduced configs
+    against the CPU.  The LM path runs none of the six kernels: the
+    counters must stay 0."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params, param_shapes, tree_map, tree_paths
+    from repro_torch.serve import lm
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config(LM_ARCH)
+    n_params = sum(t.numel() for _, t in tree_paths(param_shapes(model_defs(cfg))))
+    if (cfg.n_layers, cfg.d_model, cfg.vocab, n_params) != (28, 2048, 151936, LM_PARAMS):
+        _fail(f"lm: {LM_ARCH} is not the full-width config ({cfg}, {n_params} parameters)")
+    max_seq = LM_PROMPT + LM_NEW
+    failures = []
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(model_defs(cfg), seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    batch = _lm_batch(cfg, LM_BATCH, LM_PROMPT, 0, dev)
+    sc = lm.ServeConfig(max_seq=max_seq)
+    t0 = time.perf_counter()
+    out1 = lm.generate(params, batch, cfg, sc, LM_NEW)  # the first call: warm-up
+    t_first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out2 = lm.generate(params, batch, cfg, sc, LM_NEW)
+    t_gen = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not np.array_equal(out1, out2):
+        failures.append("two greedy generate() runs differ")
+    hot = lm.generate(params, batch, cfg, lm.ServeConfig(max_seq=max_seq, temperature=1.0),
+                      LM_NEW, seed=0)
+    if hot.shape != (LM_BATCH, LM_NEW) or hot.min() < 0 or hot.max() >= cfg.vocab:
+        failures.append(f"temperature 1.0 tokens out of range: {hot.shape}")
+    tok, lg_steps, _, _ = _lm_greedy(params, batch, cfg, LM_NEW, max_seq)
+    _, _, ms_prefill, ms_decode = _lm_greedy(params, batch, cfg, LM_NEW, max_seq)
+    if not np.array_equal(tok, out2):
+        failures.append("generate() differs from its own greedy steps")
+    if not bool(torch.isfinite(lg_steps).all()):
+        failures.append("a prefill or decode logit is not finite")
+    full = _lm_teacher_forced(params, batch, cfg, out2)[:, LM_PROMPT - 1: max_seq - 1].float()
+    if not bool(torch.isfinite(full).all()):
+        failures.append("a teacher-forced logit is not finite")
+    tol = _lm_tol(LM_STEPS_DEEP, full)
+    err_tf = float((lg_steps - full).abs().max())
+    top2 = torch.topk(full, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    clear = margin > tol
+    agree = (torch.from_numpy(out2).to(dev) == full.argmax(-1)) | ~clear
+    counts = _counts()
+    print(f"[lm qwen3-1.7b] full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{n_params} float32 parameters ({n_params * 4} B), init {t_init:.3f}s on {card}")
+    print(f"[lm qwen3-1.7b] generate(): {LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_NEW} new, "
+          f"greedy: wall {t_gen:.3f}s (first call {t_first:.3f}s), "
+          f"{LM_BATCH * LM_NEW / t_gen:.1f} tokens/s; prefill {ms_prefill:.3f} ms, decode "
+          f"{ms_decode:.3f} ms a step; peak device bytes {peak}; two greedy runs "
+          f"{'equal' if np.array_equal(out1, out2) else 'DIFFER'}; temperature 1.0 row 0 "
+          f"{hot[0, :8].tolist()}…; launches {counts}")
+    print(f"[lm qwen3-1.7b] decode against the teacher-forced forward: max |Δlogit| "
+          f"{err_tf:.4f} (tol {tol:.4f} = {LM_STEPS_DEEP} bf16 steps of {float(full.abs().max()):.3f}"
+          f"); greedy == argmax at {int(clear.sum())} of {clear.numel()} steps whose margin > "
+          f"tol, {int((~agree).sum())} disagree")
+    if err_tf > tol:
+        failures.append(f"decode vs teacher-forced |Δ| {err_tf} > {tol}")
+    if not bool(agree.all()):
+        failures.append("a greedy token is not the teacher-forced argmax at a clear margin")
+    if not bool(clear.any()):
+        failures.append("no step's top-2 margin clears the tolerance: nothing compared")
+    del params, full, lg_steps
+    torch.cuda.empty_cache()
+
+    # the same model cut to 2 layers, on the card and on the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params2 = init_params(model_defs(cfg2), seed=0, device=dev)
+    batch2 = _lm_batch(cfg2, 2, 16, 1, dev)
+    err2, tol2, n2 = _lm_card_vs_cpu("lm 2-layer", params2, cfg2, batch2, 4, 20,
+                                     LM_STEPS_SHALLOW)
+    print(f"[lm qwen3-1.7b 2 layers] card vs CPU: prefill + 3 decode steps max |Δlogit| "
+          f"{err2:.4f} (tol {tol2:.4f} = {LM_STEPS_SHALLOW} bf16 steps); greedy tokens "
+          f"equal at {n2} of 8 steps (up to a near tie)")
+    if err2 > tol2:
+        failures.append(f"2-layer card vs CPU |Δ| {err2} > {tol2}")
+    del params2
+    torch.cuda.empty_cache()
+
+    # the ten reduced configs, parameters drawn on the CPU and copied over
+    rows = []
+    for arch in configs.ARCH_NAMES:
+        rc = configs.get_config(arch, reduced=True)
+        p = tree_map(lambda t: t.to(dev), init_params(model_defs(rc), seed=0, device="cpu"))
+        S = 7 if rc.encoder_layers else 8
+        b = _lm_batch(rc, 2, S, 2, dev)
+        steps = LM_STEPS_JAMBA if arch.startswith("jamba") else LM_STEPS_SHALLOW
+        err, tol_r, n = _lm_card_vs_cpu(f"lm reduced {arch}", p, rc, b, 6, S + 6, steps)
+        rows.append(f"{arch} {err:.4f}/{tol_r:.4f} ({n}/12)")
+        if err > tol_r:
+            failures.append(f"reduced {arch} card vs CPU |Δ| {err} > {tol_r}")
+    counts = _counts()
+    print(f"[lm reduced] card vs CPU, prefill + decode + generate, max |Δlogit|/tol (tokens "
+          f"equal, of 12, up to a near tie): {'; '.join(rows)}; launches {counts}")
+    print(f"[lm] the LM path runs none of the six kernels: (K1, K3, K4, K2, K1 ring, K2 ring) "
+          f"= {counts}")
+    _counters_zero("lm", counts)
+    if failures:
+        _fail("lm: " + "; ".join(failures))
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--spin-rank":
         return _spin_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -3111,6 +3375,7 @@ def main():
     paper = phase_paper()
     ring_rows, ring_launches, ring_service = phase_big_rings(dev)
     phase_ptssa_auto()
+    phase_lm(card)
 
     def dtypes(kernel):  # a kernel's rows by J dtype
         return {name: jd_rows[name][kernel] for name in J_DTYPES}

@@ -1,4 +1,5 @@
-"""repro_torch — the HA-SSA annealer on PyTorch and CUDA (NVIDIA Hopper).
+"""repro_torch — the HA-SSA annealer on PyTorch and CUDA (NVIDIA Hopper),
+and the LM substrate's serving path.
 
 A port of the JAX package ``repro`` that keeps its module names, so each
 module's counterpart is found at the same path:
@@ -29,6 +30,14 @@ module's counterpart is found at the same path:
   benchmarks.other_problems,
   benchmarks.pt_compare, examples       — the family sweep, Table VII and
                                           the runnable drivers
+  models (params, layers, moe, mamba,
+  rwkv, transformer), configs,
+  serve.lm, examples.serve_lm           — the LM substrate's serving path:
+                                          dense, MoE, Mamba, RWKV and
+                                          encoder–decoder models, the ten
+                                          architecture configs, prefill,
+                                          decode and generate
+  sharding                              — the spin mesh; the LM rules
   convert                               — numpy hand-over of states/models
 
 The package imports torch and numpy only.  Entry points run on ``cuda``

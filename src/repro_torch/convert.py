@@ -1,5 +1,5 @@
-"""Carry models, engine states, SA carries and problem encodings across
-packages as numpy arrays.
+"""Carry models, engine states, SA carries, problem encodings and LM
+parameters and caches across packages as numpy arrays.
 
 The JAX package and this port agree on every layout, but not on dtypes:
 this port carries uint32 words (xorshift lanes, packed spins) as int32
@@ -21,7 +21,7 @@ from .problems import ColoringProblem, MISProblem, PartitionProblem, QUBOProblem
 
 __all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arrays",
            "packed_j_from_arrays", "sa_carry_from_arrays", "sa_carry_to_arrays",
-           "encoding_from_fields"]
+           "encoding_from_fields", "lm_params_from_arrays", "lm_caches_from_arrays"]
 
 _ENCODINGS = {"qubo": QUBOProblem, "mis": MISProblem, "coloring": ColoringProblem,
               "partition": PartitionProblem}
@@ -146,3 +146,36 @@ def encoding_from_fields(model: dict, **fields):
     fields = {k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
               for k, v in fields.items()}
     return cls(model=ising_from_arrays(**model), **fields)
+
+
+def _lm_leaf(a, device) -> torch.Tensor:
+    """One array of an LM tree as a tensor of its dtype; a bfloat16 array
+    (numpy has no bfloat16: ``ml_dtypes``' type, named 'bfloat16') goes
+    through float32, which holds it exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _lm_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _lm_tree(v, device) for k, v in tree.items()}
+    return _lm_leaf(tree, device)
+
+
+def lm_params_from_arrays(tree, device=None):
+    """The port's LM parameters (``repro_torch.models``) from another
+    package's: a nested dict of numpy arrays with the reference's paths
+    (``{"embed": {"tok": …}, "decoder": {"l0": {"mixer": {"wq": …}}}}``),
+    each leaf a tensor of its dtype on ``device``."""
+    return _lm_tree(tree, device)
+
+
+def lm_caches_from_arrays(tree, device=None):
+    """The port's prefill/decode caches from another package's nested dict
+    of numpy arrays (``{"decoder": {"l0": {"mixer": {"k": …}}}}``):
+    bfloat16 K/V, conv and shift leaves stay bfloat16, the float32 states
+    float32."""
+    return _lm_tree(tree, device)
+

@@ -1,0 +1,356 @@
+"""Core transformer layers: norms, RoPE, GQA attention (qk-norm, the
+chunked flash form, single-token decode), dense MLPs, embeddings.
+
+Port of ``repro.models.layers``.  Conventions, as in the reference:
+
+* parameters float32, compute bfloat16 (cast at use); softmax and norm
+  statistics float32;
+* activations (B, S, M); attention heads (B, S, H, D);
+* each ``.astype`` of the reference is a rounding made here at the same
+  place, and each ``preferred_element_type=float32`` product of bfloat16
+  operands is a float32 product of the bfloat16 values (``_mm_f32``).
+
+Every function takes ``mesh``/``rules`` like the reference's and passes its
+output through :func:`~repro_torch.sharding.constrain`, which raises on a
+mesh: the LM path runs on one device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..sharding import DEFAULT_RULES, ShardingRules, constrain
+from .params import ParamDef
+
+COMPUTE_DTYPE = torch.bfloat16
+F32 = torch.float32
+
+__all__ = [
+    "COMPUTE_DTYPE",
+    "rms_norm",
+    "layer_norm",
+    "norm_defs",
+    "apply_norm",
+    "rope",
+    "attn_defs",
+    "attention",
+    "attention_decode",
+    "mlp_defs",
+    "mlp",
+    "embed_defs",
+    "gelu",
+    "silu",
+]
+
+
+def mm(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
+    """Contract the last ``n_in`` dims of ``x`` with the first ``n_in`` of
+    ``w`` (``einsum('...m,m...->...')``) in the operands' dtype."""
+    k = math.prod(w.shape[:n_in])
+    out = x.reshape(-1, k) @ w.reshape(k, -1)
+    return out.reshape(x.shape[: x.dim() - n_in] + w.shape[n_in:])
+
+
+def mm_cd(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
+    """:func:`mm` of ``x`` and ``w`` cast to the compute dtype (bfloat16)."""
+    return mm(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE), n_in)
+
+
+def logistic(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x)) as XLA expands it, one op at a
+    time in the input's dtype (in bfloat16 every step rounds; torch's fused
+    ``sigmoid`` rounds once and differs)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x · logistic(x), each op in the input's dtype."""
+    return x * logistic(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``, whose default is the tanh approximation (torch's
+    default is the exact erf form), one op at a time in the input's dtype
+    with its constants in that dtype, as jax traces it."""
+    def c(v):  # the constant rounded to x's dtype, as a Python scalar
+        return float(torch.tensor(v, dtype=x.dtype))
+
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rms_norm(x, scale, eps=1e-6):
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.to(F32)
+    return out.to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale.to(F32) + bias.to(F32)
+    return out.to(x.dtype)
+
+
+def norm_defs(d_model: int, kind: str) -> Dict[str, ParamDef]:
+    if kind == "rmsnorm":
+        return {"scale": ParamDef((d_model,), ("d_model",), init="ones")}
+    if kind == "layernorm":
+        return {
+            "scale": ParamDef((d_model,), ("d_model",), init="ones"),
+            "bias": ParamDef((d_model,), ("d_model",), init="zeros"),
+        }
+    raise ValueError(kind)
+
+
+def apply_norm(p, x, kind: str):
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope(x, positions, theta: float = 1e4):
+    """Rotary embedding; x (..., S, H, D) with integer positions
+    broadcastable to x.shape[:-2]."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.pow(float(torch.tensor(theta, dtype=F32)),
+                     -torch.arange(0, half, dtype=F32, device=x.device) / half)
+    ang = positions.to(F32)[..., None, None] * freq  # (..., 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf1, xf2 = x[..., :half].to(F32), x[..., half:].to(F32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+def attn_defs(cfg) -> Dict[str, ParamDef]:
+    M, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    defs = {
+        "wq": ParamDef((M, H, D), ("d_model", "heads", "d_head")),
+        "wk": ParamDef((M, K, D), ("d_model", "kv_heads", "d_head")),
+        "wv": ParamDef((M, K, D), ("d_model", "kv_heads", "d_head")),
+        "wo": ParamDef((H, D, M), ("heads", "d_head", "d_model")),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((D,), ("d_head",), init="ones")
+        defs["k_norm"] = ParamDef((D,), ("d_head",), init="ones")
+    return defs
+
+
+def _q(p, x, cfg, positions):
+    q = mm_cd(x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    if cfg.rope_theta > 0:
+        q = rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def _kv(p, x_kv, cfg, positions_kv):
+    k = mm_cd(x_kv, p["wk"])
+    v = mm_cd(x_kv, p["wv"])
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"])
+    if cfg.rope_theta > 0:
+        k = rope(k, positions_kv, cfg.rope_theta)
+    return k, v
+
+
+def _qkv(p, x, x_kv, cfg, positions, positions_kv):
+    return (_q(p, x, cfg, positions),) + _kv(p, x_kv, cfg, positions_kv)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A float32 batched product of bfloat16 operands: every product of two
+    bfloat16 values is exact in float32, the sums are float32."""
+    return torch.matmul(a.to(F32), b.to(F32))
+
+
+def _flash(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
+           mesh=None, rules: ShardingRules = DEFAULT_RULES, kv_len=None):
+    """Chunked online-softmax attention with GQA grouping.
+
+    q (B,S,H,D), k/v (B,Skv,KVH,D).  Loops over q chunks (outer) and kv
+    chunks (inner), holding at most (B,KVH,G,Cq,Ck) scores: the reference's
+    two scans, with its padding, its -1e30 mask and its float32 softmax
+    statistics.
+    """
+    B, S, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, Skv)
+    S_orig, Skv_orig = S, Skv
+    if S % q_chunk:
+        q = F.pad(q, (0, 0, 0, 0, 0, -S % q_chunk))
+        S = q.shape[1]
+    if Skv % kv_chunk:
+        pad = -Skv % kv_chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        Skv = k.shape[1]
+        kv_len = Skv_orig if kv_len is None else min(kv_len, Skv_orig)
+    nq, nk = S // q_chunk, Skv // kv_chunk
+    scale = float(torch.tensor(1.0 / math.sqrt(D), dtype=F32))  # rounded to float32
+    dev = q.device
+
+    # (B, Cq, KVH, G, D) → (B, KVH, G, Cq, D); (B, Ck, KVH, D) → (B, KVH, 1, Ck, D)
+    qb = q.reshape(B, nq, q_chunk, KVH, G, D).permute(1, 0, 3, 4, 2, 5)
+    kb = k.reshape(B, nk, kv_chunk, KVH, D).permute(1, 0, 3, 2, 4).unsqueeze(3)
+    vb = v.reshape(B, nk, kv_chunk, KVH, D).permute(1, 0, 3, 2, 4).unsqueeze(3)
+    chunks = []
+    for qi in range(nq):
+        qc = qb[qi]
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        acc = torch.zeros((B, KVH, G, q_chunk, D), dtype=F32, device=dev)
+        mx = torch.full((B, KVH, G, q_chunk), -1e30, dtype=F32, device=dev)
+        dn = torch.zeros((B, KVH, G, q_chunk), dtype=F32, device=dev)
+        for ki in range(nk):
+            kc, vc = kb[ki], vb[ki]
+            k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+            s = _mm_f32(qc, kc.transpose(-1, -2)) * scale  # (B,KVH,G,Cq,Ck)
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if kv_len is not None:
+                mask &= k_pos[None, :] < kv_len
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(mx, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(mx - m_new)
+            dn = dn * corr + p.sum(dim=-1)
+            pv = _mm_f32(p.to(vc.dtype), vc)
+            acc = acc * corr[..., None] + pv
+            mx = m_new
+        out = acc / torch.clamp(dn[..., None], min=1e-30)  # (B,KVH,G,Cq,D)
+        chunks.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, D).to(q.dtype))
+    out = torch.cat(chunks, dim=1)[:, :S_orig]
+    return constrain(out, mesh, ("batch", "seq", "heads", "d_head"), rules)
+
+
+def attention(
+    p,
+    x,
+    cfg,
+    *,
+    mesh=None,
+    rules: ShardingRules = DEFAULT_RULES,
+    causal: bool = True,
+    x_kv: Optional[torch.Tensor] = None,   # cross-attention source
+    positions: Optional[torch.Tensor] = None,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence attention (train / prefill).  Returns (y, kv_cache)."""
+    B, S, _ = x.shape
+    x_kv = x if x_kv is None else x_kv
+    Skv = x_kv.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    pos_kv = torch.arange(Skv, device=x.device).expand(B, Skv)
+    q, k, v = _qkv(p, x, x_kv, cfg, positions, pos_kv)
+    out = _flash(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    y = mm_cd(out, p["wo"], 2)
+    return constrain(y, mesh, ("batch", "seq", "d_model"), rules), {"k": k, "v": v}
+
+
+def attention_decode(
+    p,
+    x,          # (B, 1, M) current token activations
+    cache,      # {"k": (B, Smax, KVH, D), "v": ...}
+    pos,        # int — current position (same across the batch)
+    cfg,
+    *,
+    mesh=None,
+    rules: ShardingRules = DEFAULT_RULES,
+    cross: bool = False,   # cross-attention: the cache is static, no update
+    cross_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token decode against the cache (a new cache is returned; the
+    one passed in is not written).  ``pos`` must lie inside the cache: the
+    reference's ``dynamic_update_slice`` clamps a start past the end, which
+    this raises on."""
+    B = x.shape[0]
+    pos = int(pos)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = _q(p, x, cfg, positions)
+    if cross:
+        k, v = cache["k"], cache["v"]
+        kv_len = cross_len if cross_len is not None else k.shape[1]
+    else:
+        if not 0 <= pos < cache["k"].shape[1]:
+            raise IndexError(f"attention_decode: position {pos} outside a cache of "
+                             f"{cache['k'].shape[1]}")
+        k_new, v_new = _kv(p, x, cfg, positions)
+        k, v = cache["k"].clone(), cache["v"].clone()
+        k[:, pos] = k_new[:, 0].to(k.dtype)
+        v[:, pos] = v_new[:, 0].to(v.dtype)
+        kv_len = pos + 1
+    Smax, KVH = k.shape[1], k.shape[2]
+    H = q.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, KVH, G, -1)                                   # (B,KVH,G,D)
+    s = _mm_f32(qg, k.permute(0, 2, 3, 1)) / float(
+        torch.tensor(math.sqrt(cfg.d_head), dtype=F32))            # (B,KVH,G,Smax)
+    live = torch.arange(Smax, device=x.device) < kv_len
+    s = torch.where(live, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    out = _mm_f32(w.to(v.dtype), v.permute(0, 2, 1, 3))            # (B,KVH,G,D)
+    out = out.reshape(B, 1, H, cfg.d_head).to(COMPUTE_DTYPE)
+    y = mm_cd(out, p["wo"], 2)
+    new_cache = cache if cross else {"k": k, "v": v}
+    return constrain(y, mesh, ("batch", "seq", "d_model"), rules), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP
+# ---------------------------------------------------------------------------
+def mlp_defs(cfg, d_ff: Optional[int] = None) -> Dict[str, ParamDef]:
+    M = cfg.d_model
+    F_ = d_ff or cfg.d_ff
+    defs = {"wo": ParamDef((F_, M), ("d_ff", "d_model"))}
+    if cfg.act == "swiglu":
+        defs["wi"] = ParamDef((M, 2, F_), ("d_model", None, "d_ff"))
+    else:
+        defs["wi"] = ParamDef((M, F_), ("d_model", "d_ff"))
+    return defs
+
+
+def mlp(p, x, cfg, *, mesh=None, rules: ShardingRules = DEFAULT_RULES):
+    if cfg.act == "swiglu":
+        gu = mm_cd(x, p["wi"])
+        h = silu(gu[..., 0, :]) * gu[..., 1, :]
+    elif cfg.act == "gelu":
+        h = gelu(mm_cd(x, p["wi"]))
+    elif cfg.act == "relu_sq":
+        h = torch.square(torch.relu(mm_cd(x, p["wi"])))
+    else:
+        raise ValueError(cfg.act)
+    y = mm_cd(h, p["wo"])
+    return constrain(y, mesh, ("batch", "seq", "d_model"), rules)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings / LM head
+# ---------------------------------------------------------------------------
+def embed_defs(cfg) -> Dict[str, ParamDef]:
+    defs = {
+        "tok": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "d_model"), init="embed", scale=0.02)
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((cfg.d_model, cfg.vocab), ("d_model", "vocab"))
+    return defs

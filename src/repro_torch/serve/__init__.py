@@ -2,8 +2,8 @@
 annealing half): shape-bucketed, batched, program-cached Max-Cut solving
 over the plateau engine, the paper's own workload, as one-shot batches
 (``AnnealService``) or a continuously batched stream
-(``StreamingAnnealService``).  The LM serving stack waits for ROADMAP.md
-queue 1 step 10."""
+(``StreamingAnnealService``).  The LM prefill/decode serving path is
+:mod:`repro_torch.serve.lm`."""
 from .anneal_service import (  # noqa: F401
     AnnealProgress,
     AnnealRequest,

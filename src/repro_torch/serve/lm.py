@@ -1,0 +1,118 @@
+"""LM serving: prefill and decode steps and a batched greedy / temperature
+sampler (port of ``repro.serve.lm``).
+
+``generate`` prefills the prompt batch, then decodes one token a step
+against the caches.  At temperature > 0 a token is drawn as
+``jax.random.categorical`` draws it (jax 0.9): ``argmax(gumbel + logits /
+T)`` with gumbel = ``-log(-log(u))``, ``u`` = ``uniform(key, minval=tiny,
+maxval=1)`` — threefry bits from :mod:`repro_torch.core.rng` and XLA's
+float32 logarithm from :mod:`repro_torch.core.xla_math`, so the same float32
+logits and seed give the JAX package's tokens.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core import rng
+from ..core.xla_math import xla_log
+from ..models import transformer as T
+from ..models.params import tree_map
+from ..sharding import DEFAULT_RULES, ShardingRules
+
+__all__ = ["ServeConfig", "make_prefill_step", "make_decode_step", "generate"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_seq: int
+    temperature: float = 0.0  # 0 → greedy
+    eos_id: int = -1          # -1 → never stop early
+
+
+def make_prefill_step(model_cfg, mesh=None, rules: ShardingRules = DEFAULT_RULES,
+                      max_seq: Optional[int] = None):
+    def prefill_step(params, batch):
+        return T.prefill(params, batch, model_cfg, mesh=mesh, rules=rules, max_seq=max_seq)
+
+    return prefill_step
+
+
+def make_decode_step(model_cfg, mesh=None, rules: ShardingRules = DEFAULT_RULES):
+    def decode_step(params, caches, token, pos):
+        return T.decode_step(params, caches, token, pos, model_cfg, mesh=mesh, rules=rules)
+
+    return decode_step
+
+
+def _gumbel(key, shape, device) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default ('low') mode."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    u = rng.uniform(key, shape, minval=tiny, maxval=1.0, device=device)
+    return -xla_log(-xla_log(u))
+
+
+def _sample(logits: torch.Tensor, key, temperature: float) -> torch.Tensor:
+    """Greedy argmax at temperature <= 0, else ``jax.random.categorical(key,
+    logits / temperature)``; int32 tokens.  Both argmaxes take the first
+    maximal index."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits.to(torch.float32) / torch.tensor(temperature, dtype=torch.float32)
+    g = _gumbel(key, tuple(logits.shape), logits.device)
+    return torch.argmax(g + scaled, dim=-1).to(torch.int32)
+
+
+def _on_device(tree, dev):
+    return tree_map(lambda t: torch.as_tensor(t).to(dev), tree)
+
+
+@torch.no_grad()
+def generate(
+    params,
+    batch: Dict[str, torch.Tensor],
+    model_cfg,
+    serve_cfg: ServeConfig,
+    n_new_tokens: int,
+    *,
+    mesh=None,
+    rules: ShardingRules = DEFAULT_RULES,
+    seed: int = 0,
+    device=None,
+) -> np.ndarray:
+    """Prefill the prompt batch, then decode ``n_new_tokens`` tokens.
+
+    Returns (B, n_new_tokens) int32.  Runs on ``device`` (``cuda`` unless
+    the caller passes another); parameters and inputs are moved there (a
+    tensor already there is not copied).  The key chain is the reference's:
+    ``key = PRNGKey(seed)`` split once before the first token and once
+    before each later one.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("generate: a CUDA device was requested but "
+                           "torch.cuda.is_available() is False; pass device='cpu'")
+    params, batch = _on_device(params, dev), _on_device(batch, dev)
+    B, S = batch["tokens"].shape
+    if S + n_new_tokens > serve_cfg.max_seq:
+        raise ValueError(f"generate: a prompt of {S} and {n_new_tokens} new tokens "
+                         f"exceed max_seq {serve_cfg.max_seq}")
+    prefill_step = make_prefill_step(model_cfg, mesh, rules, max_seq=serve_cfg.max_seq)
+    decode = make_decode_step(model_cfg, mesh, rules)
+
+    logits, caches = prefill_step(params, batch)
+    key = rng.PRNGKey(seed)
+    key, k0 = rng.split(key)
+    token = _sample(logits, k0, serve_cfg.temperature)
+    out = [token]
+    pos = S
+    for _ in range(n_new_tokens - 1):
+        logits, caches = decode(params, caches, token, pos)
+        key, ki = rng.split(key)
+        token = _sample(logits, ki, serve_cfg.temperature)
+        out.append(token)
+        pos += 1
+    return torch.stack(out, dim=1).cpu().numpy()

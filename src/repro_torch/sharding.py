@@ -1,5 +1,6 @@
 """The spin mesh: a ``torch.distributed`` process group, run SPMD (the spin
-half of ``repro.sharding``).
+half of ``repro.sharding``); and the LM half's logical-axis rules, which
+wait for a mesh (ROADMAP.md queue 1, step 10).
 
 The JAX package shards the spin axis of one instance over a 1-D
 ``jax.sharding.Mesh`` driven from one process.  Here the mesh is a process
@@ -24,12 +25,15 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = [
+    "ShardingRules",
+    "DEFAULT_RULES",
+    "constrain",
     "SpinMesh",
     "spin_mesh",
     "mesh_fingerprint",
@@ -40,6 +44,55 @@ __all__ = [
     "collective_counts",
     "reset_collective_counts",
 ]
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Logical axis name → mesh axis (str) or tuple of mesh axes: the JAX
+    package's rule table for the LM stack, kept as data.  Nothing reads it
+    until the LM path takes a mesh."""
+
+    rules: Tuple[Tuple[str, Any], ...] = (
+        ("batch", ("pod", "data")),
+        ("heads", "model"),
+        ("kv_heads", "model"),
+        ("d_ff", "model"),
+        ("experts", "model"),
+        ("vocab", "model"),
+        ("kv_seq", "model"),
+        ("ssm_state", None),
+        ("d_model", None),
+        ("seq", None),
+        ("d_head", None),
+        ("layers", None),
+    )
+
+    def lookup(self, logical: Optional[str]):
+        if logical is None:
+            return None
+        for k, v in self.rules:
+            if k == logical:
+                return v
+        return None
+
+    def replace(self, **kw) -> "ShardingRules":
+        d = dict(self.rules)
+        d.update(kw)
+        return ShardingRules(rules=tuple(d.items()))
+
+
+DEFAULT_RULES = ShardingRules()
+
+
+def constrain(x, mesh, axes, rules: ShardingRules = DEFAULT_RULES):
+    """The LM path's sharding constraint by logical axes: ``x`` itself
+    without a mesh.  Tensor-parallel LM serving over several GPUs is not
+    ported: a mesh raises NotImplementedError."""
+    if mesh is None:
+        return x
+    raise NotImplementedError(
+        "the LM path runs on one device: a mesh (tensor-parallel LM serving) is "
+        "ROADMAP.md queue 1, step 10, not ported yet")
+
 
 # Collectives issued since the last reset, by kind: the spin path's
 # per-cycle traffic is read from here.

@@ -49,6 +49,8 @@ def test_port_imports_without_jax():
         "import repro_torch.serve, repro_torch.serve.anneal_service, repro_torch.ft.faults\n"
         "import repro_torch.serve.stream, repro_torch.checkpoint.ckpt\n"
         "import repro_torch.benchmarks.serve_stream, repro_torch.benchmarks.chaos\n"
+        "import repro_torch.models, repro_torch.configs, repro_torch.serve.lm\n"
+        "import repro_torch.examples.serve_lm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
