@@ -8,8 +8,8 @@ through the kernels, the problem families (QUBO, MIS, coloring, partition)
 through K1 and K2, the SA, PT and PT-SSA baselines, spin sharding over
 ``torch.distributed`` ranks (the plain loops: no kernel on that path), J in
 each of seven dtypes and SSQA rings above 32 replicas, and the LM
-substrate's serving path (qwen3-1.7b at full width; no kernel on that
-path either), and prints what it measured.
+substrate's serving and training paths (qwen3-1.7b at full width; no
+kernel on either), and prints what it measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
@@ -223,14 +223,27 @@ Phases (any failure raises and exits non-zero):
      asserted); the same model cut to 2 layers, card against the CPU run of
      the port; each of the ten reduced configs' prefill, decode and
      generate, card against CPU;
- 40. the card line again, the kernels line (each kernel's service launches
+ 40. the LM substrate's training path (``[lm train …]``; none of the six
+     kernels is on it, and none launches): qwen3-1.7b at full width
+     (``remat="full"``) through ``repro_torch.launch.train.train`` — 4
+     AdamW steps of 8 × 512 tokens, no checkpoint: each step's ce_loss,
+     grad_norm and lr finite, opt.step 4, ms a step after the first,
+     tokens/s, peak device bytes and init (measured, not asserted) beside
+     the bound; the same widths cut to 2 layers (B = 2, S = 16) and each of
+     the ten reduced configs (phase 39's requests, labels the next token):
+     one step's loss and gradients on the card against the port's CPU run,
+     and ``adamw_update`` of the card's gradients on both devices;
+     determinism and resume on the card (tests/test_ft.py's config: two
+     20-step runs equal, a run killed at step 13 and resumed from step 10
+     equal to them) and 30 steps lowering the loss by more than 0.4;
+ 41. the card line again, the kernels line (each kernel's service launches
      in ``service_launches``, its stream launches in ``stream_launches``,
      its launches per family of phase 27 in ``family_launches``, those of
      phases 34–36 in ``auto_launches``, ``j_dtype_launches`` and
      ``paper_launches``, its bfloat16-J row in ``bf16``, its rows by J
      dtype in ``j_dtypes`` and, for the ring modes, its rows by ring in
      ``rings``: ring size, cluster size, blocks, where the words live,
-     times, bound and the launches of phase 37's run); 41. the contract
+     times, bound and the launches of phase 37's run); 42. the contract
      line (last).
 """
 from __future__ import annotations
@@ -249,6 +262,8 @@ import torch
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# Dense bfloat16 tensor-core operations (the same data sheet).
+PEAK_BF16_FLOPS = 989e12
 # Dense int8 tensor-core operations (the same data sheet).
 PEAK_INT8_OPS = 1979e12
 # 32-bit population counts: 16 per SM per clock, and 32-bit integer adds: 64
@@ -3319,6 +3334,307 @@ def phase_lm(card: str):
         _fail("lm: " + "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# Phase 40: the LM substrate's training path (none of the six kernels)
+# ---------------------------------------------------------------------------
+# qwen3-1.7b at full width through the launcher: 4 AdamW steps of 8 × 512
+# tokens, remat 'full' (the config's), no checkpoint inside the 4 steps.
+TRAIN_ARGV = ("--arch", "qwen3-1.7b", "--scale", "full", "--batch", "8", "--seq", "512",
+              "--steps", "4", "--ckpt-every", "1000", "--device", "cuda")
+TRAIN_TOKENS = 8 * 512
+# Tolerances, card against the port's CPU run on the same parameters and
+# batch: the loss within 1 bfloat16 step of its own size (2^-8 of it); each
+# gradient leaf within 16 steps of its largest magnitude (the forward's and
+# the backward's bf16 roundings, each possibly one ulp apart where cuBLAS
+# and the CPU sum in other orders; 8 in the CPU tests against the JAX
+# package), jamba 32 (a residual stream of ~10^4, 32 against JAX on the
+# CPU).  adamw_update on the card's gradients, both sides: the global norm
+# sums in another order on each device, so every new value within 4 float32
+# ulps of its leaf's largest magnitude (0 where the two norms are equal).
+TRAIN_LOSS_STEPS = 1
+TRAIN_GRAD_STEPS, TRAIN_GRAD_STEPS_JAMBA = 16, 32
+TRAIN_ADAMW_ULPS = 4
+# The reference tests' tiny configs (tests/test_ft.py, tests/
+# test_train_substrate.py) for the determinism, resume and loss checks.
+FT_MODEL = dict(name="tiny", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_head=16,
+                d_ff=64, vocab=53, remat="none")
+SUBSTRATE_MODEL = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                       d_head=16, d_ff=128, vocab=97, remat="none")
+
+
+def _grad_steps(got, want):
+    """(worst leaf's |Δ| in bf16 steps of its max |want|, that leaf) of two
+    gradient trees."""
+    from repro_torch.models.params import tree_paths
+
+    ref = dict(tree_paths(want))
+    worst, at = 0.0, ""
+    for path, g in tree_paths(got):
+        w = ref[path].float().cpu()
+        d = float((g.float().cpu() - w).abs().max())
+        steps = d / (2.0 ** -8 * max(float(w.abs().max()), 1e-30))
+        if steps > worst:
+            worst, at = steps, "/".join(path)
+    return worst, at
+
+
+def _adamw_ulps(got, want):
+    """Worst leaf's max |Δ| in float32 ulps of its max |want| (2^-23 each)."""
+    from repro_torch.models.params import tree_paths
+
+    ref = dict(tree_paths(want))
+    worst = 0.0
+    for path, x in tree_paths(got):
+        w = ref[path].float().cpu()
+        d = float((x.float().cpu() - w).abs().max())
+        worst = max(worst, d / (2.0 ** -23 * max(float(w.abs().max()), 1e-30)))
+    return worst
+
+
+def _train_card_vs_cpu(what, cfg, params_cpu, batch_cpu, grad_steps):
+    """One train step's loss and gradients on the card against the port's
+    CPU run of the same parameters and batch, then ``adamw_update`` of the
+    card's gradients on both devices; returns a report line, failing on a
+    tolerance."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train import TrainConfig, grad_with_aux, make_loss_fn
+    from repro_torch.train.step import deterministic_algorithms
+
+    dev = torch.device("cuda")
+    tc = TrainConfig(opt=AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=40))
+    loss_fn = make_loss_fn(cfg, tc)
+    params = tree_map(lambda t: t.to(dev), params_cpu)
+    batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        g_card, m_card = grad_with_aux(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        g_cpu, m_cpu = grad_with_aux(loss_fn, params_cpu, batch_cpu)
+    t_cpu = time.perf_counter() - t0 - t_card
+    loss_c, loss_h = float(m_card["ce_loss"]), float(m_cpu["ce_loss"])
+    if not all(bool(torch.isfinite(g).all()) for g in _leaves(g_card)):
+        _fail(f"{what}: a gradient on the card is not finite")
+    loss_steps = abs(loss_c - loss_h) / (2.0 ** -8 * abs(loss_h))
+    gsteps, gleaf = _grad_steps(g_card, g_cpu)
+    if loss_steps > TRAIN_LOSS_STEPS or gsteps > grad_steps:
+        _fail(f"{what}: card vs CPU loss {loss_c} / {loss_h} ({loss_steps:.3f} steps, tol "
+              f"{TRAIN_LOSS_STEPS}); worst gradient leaf {gleaf} {gsteps:.2f} steps (tol "
+              f"{grad_steps})")
+    # adamw_update with the card's gradients on both sides
+    t0 = time.perf_counter()
+    opt = adamw_init(params_cpu, tc.opt)
+    p_h, o_h, am_h = adamw_update(params_cpu, tree_map(lambda t: t.cpu(), g_card), opt, tc.opt)
+    t_adamw_cpu = time.perf_counter() - t0
+    p_c, o_c, am_c = adamw_update(params, g_card, adamw_init(params, tc.opt), tc.opt)
+    same_norm = float(am_c["grad_norm"]) == float(am_h["grad_norm"])
+    ulps = max(_adamw_ulps(p_c, p_h), _adamw_ulps(o_c.mu, o_h.mu), _adamw_ulps(o_c.nu, o_h.nu))
+    if ulps > (0 if same_norm else TRAIN_ADAMW_ULPS) or float(am_c["lr"]) != float(am_h["lr"]):
+        _fail(f"{what}: adamw_update card vs CPU {ulps:.2f} ulps of the leaf's scale (norms "
+              f"{float(am_c['grad_norm'])} / {float(am_h['grad_norm'])}), lr "
+              f"{float(am_c['lr'])} / {float(am_h['lr'])}")
+    return (f"loss {loss_c:.6f} vs {loss_h:.6f} ({loss_steps:.3f} steps); worst gradient leaf "
+            f"{gsteps:.2f} steps ({gleaf}); adamw {ulps:.2f} ulps (norm "
+            f"{'equal' if same_norm else 'differs'}); grads card {t_card:.2f}s, CPU "
+            f"{t_cpu:.2f}s, CPU adamw {t_adamw_cpu:.2f}s")
+
+
+def _leaves(tree):
+    from repro_torch.models.params import tree_paths
+
+    return [t for _, t in tree_paths(tree)]
+
+
+def _train_runs(tmp: str):
+    """Determinism and resume on the card (tests/test_ft.py's run): two
+    uninterrupted 20-step runs, and a run killed at step 13 and resumed
+    from its step-10 checkpoint; returns (losses, resumed losses, the two
+    final states equal)."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager, latest_step
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.ft import SimulatedFailure, run_training
+    from repro_torch.models import ModelConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = ModelConfig(**FT_MODEL)
+    tc = TrainConfig(opt=AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=40), loss_chunk=8)
+    dc = DataConfig(vocab=53, seq_len=16, global_batch=4, seed=0)
+
+    def kw(name):
+        return dict(init_state_fn=lambda: init_train_state(cfg, tc, 0, device="cuda"),
+                    train_step=make_train_step(cfg, tc),
+                    batch_fn=lambda s: synthetic_batch(dc, s, device="cuda"),
+                    ckpt=CheckpointManager(f"{tmp}/{name}", save_interval=5, keep=2,
+                                           async_save=False))
+
+    s1, ref = run_training(n_steps=20, **kw("ref"))
+    s2, again = run_training(n_steps=20, **kw("again"))
+    try:
+        run_training(n_steps=20, fail_at_step=13, **kw("killed"))
+        _fail("lm train resume: the run did not fail at step 13")
+    except SimulatedFailure:
+        pass
+    if latest_step(f"{tmp}/killed") != 10:
+        _fail(f"lm train resume: latest checkpoint {latest_step(f'{tmp}/killed')}, not 10")
+    s3, resumed = run_training(n_steps=20, **kw("killed"))
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(s1.params), _leaves(s3.params)))
+    same_again = all(torch.equal(a, b) for a, b in zip(_leaves(s1.params), _leaves(s2.params)))
+    return ref, again, resumed, same, same_again
+
+
+def _train_falls():
+    """tests/test_train_substrate.py::test_loss_decreases_over_training on
+    the card: 30 steps; returns the losses."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import ModelConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = ModelConfig(**SUBSTRATE_MODEL)
+    tc = TrainConfig(opt=AdamWConfig(lr_peak=1e-2, warmup_steps=5, total_steps=50),
+                     loss_chunk=16)
+    dc = DataConfig(vocab=97, seq_len=32, global_batch=8, seed=0)
+    state = init_train_state(cfg, tc, 0, device="cuda")
+    step = make_train_step(cfg, tc)
+    losses = []
+    for s in range(30):
+        state, m = step(state, synthetic_batch(dc, s, device="cuda"))
+        losses.append(float(m["ce_loss"]))
+    if int(state.opt.step) != 30:
+        _fail(f"lm train: opt.step {int(state.opt.step)} after 30 steps")
+    return losses
+
+
+def phase_lm_train(card: str):
+    """Phase 40: the LM substrate's training path — qwen3-1.7b at full width
+    through ``repro_torch.launch.train``, the 2-layer cut and the ten
+    reduced configs card against CPU, determinism, kill-and-resume and a
+    falling loss.  The path runs none of the six kernels: the counters must
+    stay 0."""
+    import math
+    import os
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params, param_shapes, tree_paths
+
+    torch.cuda.empty_cache()
+    _reset_counts()
+    cfg = configs.get_config("qwen3-1.7b")
+    n_params = sum(t.numel() for _, t in tree_paths(param_shapes(model_defs(cfg))))
+    if (cfg.n_layers, cfg.d_model, cfg.vocab, n_params, cfg.remat) != (
+            28, 2048, 151936, LM_PARAMS, "full"):
+        _fail(f"lm train: qwen3-1.7b is not the full-width config ({cfg})")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = launch_train.train(list(TRAIN_ARGV) + ["--ckpt-dir", f"{tmp}/full"], log_every=0)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        saved = os.listdir(f"{tmp}/full") if os.path.isdir(f"{tmp}/full") else []
+    hist = run.history
+    steps_ms = [h["wall_s"] * 1e3 for h in hist]
+    ms = sum(steps_ms[1:]) / max(len(steps_ms) - 1, 1)
+    flops = 8 * n_params * TRAIN_TOKENS       # (6 + 2 for remat) × N × tokens
+    adamw_bytes = 7 * 4 * n_params           # read p, g, m, v; write p, m, v (float32)
+    bound = max(flops / PEAK_BF16_FLOPS, adamw_bytes / PEAK_HBM_BYTES) * 1e3
+    by = "operations" if flops / PEAK_BF16_FLOPS >= adamw_bytes / PEAK_HBM_BYTES else "bytes"
+    counts = _counts()
+    rows = "; ".join(f"step {h['step']}: ce_loss {h['ce_loss']:.4f} grad_norm "
+                     f"{h['grad_norm']:.4f} lr {h['lr']:.6g} ({h['wall_s'] * 1e3:.1f} ms)"
+                     for h in hist)
+    print(f"[lm train qwen3-1.7b] full width via launch.train: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} float32 parameters, remat "
+          f"{cfg.remat}; {len(hist)} AdamW steps of 8 x 512 tokens on {card}: {rows}")
+    print(f"[lm train qwen3-1.7b] opt.step {int(run.state.opt.step)}; init {run.init_s:.3f}s on "
+          f"the card; {ms:.3f} ms a step after the first ({TRAIN_TOKENS / ms * 1e3:.1f} "
+          f"tokens/s; first step {steps_ms[0]:.1f} ms; wall {wall:.3f}s); peak device bytes "
+          f"{peak}; bound {bound:.3f} ms ({by}: {flops:.4g} bf16 FLOPs at 989 TFLOP/s, "
+          f"AdamW {adamw_bytes} B at 3.35 TB/s); checkpoints written {len(saved)}; "
+          f"launches {counts}")
+    finite = all(math.isfinite(h[k]) for h in hist for k in ("ce_loss", "grad_norm", "lr"))
+    if len(hist) != 4 or int(run.state.opt.step) != 4 or not finite or saved:
+        _fail(f"lm train qwen3-1.7b: {len(hist)} steps, opt.step {int(run.state.opt.step)}, "
+              f"finite {finite}, checkpoints {saved}")
+    # where a step's time goes: the loss and gradients, then AdamW, each
+    # timed alone on the run's final state and a fifth batch
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import TrainConfig, grad_with_aux, make_loss_fn
+    from repro_torch.train.step import deterministic_algorithms
+
+    batch = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8), 4,
+                            device="cuda")
+    tc = TrainConfig(loss_chunk=512)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        grads, _ = grad_with_aux(make_loss_fn(cfg, tc), run.state.params, batch)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = adamw_update(run.state.params, grads, run.state.opt, tc.opt)
+    torch.cuda.synchronize()
+    t_adamw = time.perf_counter() - t0
+    print(f"[lm train qwen3-1.7b] one step's parts, each alone: loss and gradients "
+          f"{t_grad * 1e3:.1f} ms, adamw_update {t_adamw * 1e3:.1f} ms")
+    del run, grads, out
+    torch.cuda.empty_cache()
+
+    # the same widths cut to 2 layers: one step, card against CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = init_params(model_defs(cfg2), seed=0, device="cpu")
+    dc2 = DataConfig(vocab=cfg2.vocab, seq_len=16, global_batch=2, seed=0)
+    b_cpu = synthetic_batch(dc2, 0, device="cpu")
+    b_card = synthetic_batch(dc2, 0, device="cuda")
+    if not all(torch.equal(b_cpu[k], b_card[k].cpu()) for k in b_cpu):
+        _fail("lm train: synthetic_batch on the card differs from the CPU's")
+    line = _train_card_vs_cpu("lm train 2-layer", cfg2, p2, b_cpu, TRAIN_GRAD_STEPS)
+    print(f"[lm train qwen3-1.7b 2 layers] B=2 S=16, card vs CPU: {line}")
+    del p2
+    torch.cuda.empty_cache()
+
+    # the ten reduced configs on phase 39's requests, labels the next token
+    rows = []
+    for arch in configs.ARCH_NAMES:
+        rc = configs.get_config(arch, reduced=True)
+        S = 7 if rc.encoder_layers else 8
+        b = {k: v.cpu() for k, v in _lm_batch(rc, 2, S, 2, "cpu").items()}
+        lab = torch.full_like(b["tokens"], -1)
+        lab[:, :-1] = b["tokens"][:, 1:]
+        b["labels"] = lab
+        steps = TRAIN_GRAD_STEPS_JAMBA if arch.startswith("jamba") else TRAIN_GRAD_STEPS
+        p = init_params(model_defs(rc), seed=0, device="cpu")
+        rows.append(f"{arch}: " + _train_card_vs_cpu(f"lm train reduced {arch}", rc, p, b, steps))
+    print(f"[lm train reduced] one step each, card vs CPU: {' | '.join(rows)}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, again, resumed, same, same_again = _train_runs(tmp)
+    falls = _train_falls()
+    t_ft = time.perf_counter() - t0
+    counts = _counts()
+    print(f"[lm train ft] tests/test_ft.py's config on the card: two 20-step runs "
+          f"{'equal' if ref == again and same_again else 'DIFFER'}; killed at step 13, resumed "
+          f"from step 10: steps 11-20 {'equal' if resumed == ref[10:20] else 'DIFFER'} to the "
+          f"uninterrupted run's, final parameters {'equal' if same else 'DIFFER'}; 30 steps "
+          f"(test_train_substrate's config): loss {falls[0]:.4f} → {falls[-1]:.4f} "
+          f"(fall {falls[0] - falls[-1]:.4f}, > 0.4 asked); {t_ft:.1f}s; launches {counts}")
+    if ref != again or not same_again:
+        _fail("lm train: two uninterrupted runs differ on the card")
+    if resumed != ref[10:20] or not same:
+        _fail("lm train: the resumed run differs from the uninterrupted one")
+    if not falls[-1] < falls[0] - 0.4:
+        _fail(f"lm train: the loss fell {falls[0] - falls[-1]} in 30 steps, not more than 0.4")
+    print(f"[lm train] the LM training path runs none of the six kernels: (K1, K3, K4, K2, "
+          f"K1 ring, K2 ring) = {counts}")
+    _counters_zero("lm train", counts)
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--spin-rank":
         return _spin_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -3376,6 +3692,7 @@ def main():
     ring_rows, ring_launches, ring_service = phase_big_rings(dev)
     phase_ptssa_auto()
     phase_lm(card)
+    phase_lm_train(card)
 
     def dtypes(kernel):  # a kernel's rows by J dtype
         return {name: jd_rows[name][kernel] for name in J_DTYPES}

@@ -1,5 +1,6 @@
-"""Carry models, engine states, SA carries, problem encodings and LM
-parameters and caches across packages as numpy arrays.
+"""Carry models, engine states, SA carries, problem encodings, LM
+parameters and caches and LM training states across packages as numpy
+arrays.
 
 The JAX package and this port agree on every layout, but not on dtypes:
 this port carries uint32 words (xorshift lanes, packed spins) as int32
@@ -21,7 +22,8 @@ from .problems import ColoringProblem, MISProblem, PartitionProblem, QUBOProblem
 
 __all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arrays",
            "packed_j_from_arrays", "sa_carry_from_arrays", "sa_carry_to_arrays",
-           "encoding_from_fields", "lm_params_from_arrays", "lm_caches_from_arrays"]
+           "encoding_from_fields", "lm_params_from_arrays", "lm_caches_from_arrays",
+           "train_state_from_arrays", "train_state_to_arrays"]
 
 _ENCODINGS = {"qubo": QUBOProblem, "mis": MISProblem, "coloring": ColoringProblem,
               "partition": PartitionProblem}
@@ -179,3 +181,28 @@ def lm_caches_from_arrays(tree, device=None):
     float32."""
     return _lm_tree(tree, device)
 
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def train_state_from_arrays(params, step, mu, nu, device=None):
+    """The port's :class:`~repro_torch.train.step.TrainState` from another
+    package's: the parameter tree, ``OptState.step`` (an integer) and the
+    ``mu``/``nu`` moment trees as numpy arrays, on ``device``."""
+    from .optim.adamw import OptState
+    from .train.step import TrainState
+
+    opt = OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+                   mu=_lm_tree(mu, device), nu=_lm_tree(nu, device))
+    return TrainState(params=_lm_tree(params, device), opt=opt)
+
+
+def train_state_to_arrays(state):
+    """(params, step, mu, nu) of a port TrainState as numpy: the trees of
+    arrays and the step as an int32 scalar, the reference's
+    ``TrainState(params, OptState(step, mu, nu))`` leaves."""
+    return (_np_tree(state.params), np.int32(int(state.opt.step)),
+            _np_tree(state.opt.mu), _np_tree(state.opt.nu))

@@ -20,9 +20,9 @@ penalty (Σ_i load_i·m_i)²) and anneal with the paper's algorithm.  D > 2
 devices are handled by recursive bisection, each level one HA-SSA run.
 
 This is the paper's technique as a feature of the training framework
-(DESIGN.md §3); the JAX package's ``launch.train --placement ssa`` applies it
-to the MoE archs, and this port runs the same placement on its own
-``anneal()`` (the LM substrate itself is not ported).
+(DESIGN.md §3): ``repro_torch.launch.train --placement ssa`` applies it to
+the MoE archs, as the JAX package's launcher does, on this port's own
+``anneal()``.
 """
 from __future__ import annotations
 

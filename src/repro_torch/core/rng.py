@@ -55,12 +55,14 @@ __all__ = [
     "threefry_noise",
     "threefry_noise_cycles",
     "PRNGKey",
+    "fold_in",
     "split",
     "split_keys",
     "random_bits",
     "uniform",
     "randint",
     "bernoulli",
+    "normal",
 ]
 
 
@@ -264,6 +266,13 @@ def PRNGKey(seed: int) -> Key:
     return threefry_key(seed)
 
 
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)``: the key hashed with the counter
+    pair (0, data mod 2^32) — ``threefry_seed(data)`` under the key."""
+    k0, k1 = key
+    return threefry2x32(k0, k1, 0, int(data) & _M32)
+
+
 def split(key: Key, num: int = 2) -> list:
     """``jax.random.split(key, num)`` on the host: ``num`` keys (pairs of
     Python ints); key i is ``threefry2x32(key, (0, i))``."""
@@ -344,3 +353,15 @@ def randint(key, shape: Tuple[int, ...], minval, maxval, device=None) -> torch.T
 def bernoulli(key, p: float, shape: Tuple[int, ...], device=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` in float32."""
     return uniform(key, shape, device=device) < torch.tensor(p, dtype=torch.float32)
+
+
+def normal(key, shape: Tuple[int, ...], device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32: a uniform on
+    [nextafter(−1, 0), 1) through XLA's ``erf_inv``
+    (:func:`~repro_torch.core.xla_math.xla_erf_inv`, bit for bit), times
+    float32 √2."""
+    from .xla_math import xla_erf_inv
+
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, minval=lo, maxval=1.0, device=device)
+    return torch.tensor(np.sqrt(2), dtype=torch.float32) * xla_erf_inv(u)

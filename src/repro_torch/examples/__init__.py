@@ -1,3 +1,3 @@
 """repro_torch.examples — runnable drivers of the port (``python -m
-repro_torch.examples.<name>``): the G-set batch with its SA column, and the
-MoE expert placement."""
+repro_torch.examples.<name>``): the G-set batch with its SA column, the
+MoE expert placement, and the LM serving and training drivers."""

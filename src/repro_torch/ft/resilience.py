@@ -1,0 +1,158 @@
+"""Fault tolerance of LM training: restartable runs, straggler detection,
+moving a state to other devices.
+
+Port of ``repro.ft.resilience``:
+
+1. **Checkpoint/restart** — :func:`run_training` drives (train_step,
+   batch_fn(step), CheckpointManager).  The data pipeline is a pure
+   function of the step, and the checkpoint holds (params, opt, step), so a
+   process killed at any point resumes bit for bit (the tests kill a run
+   and compare its losses with an uninterrupted one's).
+
+2. **Straggler detection** — :class:`StragglerMonitor` keeps an EMA of
+   each host's step time and flags hosts slower than ``threshold ×`` the
+   median EMA of the hosts past warm-up.  As in the reference, the step
+   time it is given is taken *before* the step's loss is read: on the card,
+   where the step's kernels run after the call returns, that is the time
+   to issue the step, not to run it (ROADMAP.md queue 3).
+
+3. **Re-placement** — :func:`remesh` moves a state tree leaf by leaf to
+   the devices a function names.  The reference re-shards onto a new mesh;
+   the LM mesh is ROADMAP.md queue 1, step 10, and a mesh or sharding
+   object raises until then.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..checkpoint.ckpt import CheckpointManager, latest_step
+
+__all__ = ["StragglerMonitor", "remesh", "run_training", "SimulatedFailure"]
+
+
+class SimulatedFailure(RuntimeError):
+    """Raised by tests to emulate a node loss mid-training."""
+
+
+# ---------------------------------------------------------------------------
+# Straggler detection
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class StragglerMonitor:
+    n_hosts: int
+    ema_decay: float = 0.9
+    threshold: float = 1.5   # flag if EMA > threshold × median EMA
+    warmup_steps: int = 3
+
+    def __post_init__(self):
+        self._ema = np.zeros(self.n_hosts)
+        self._count = np.zeros(self.n_hosts, dtype=int)
+
+    def record(self, host: int, step_time: float):
+        if self._count[host] == 0:
+            self._ema[host] = step_time
+        else:
+            self._ema[host] = (
+                self.ema_decay * self._ema[host] + (1 - self.ema_decay) * step_time
+            )
+        self._count[host] += 1
+
+    def stragglers(self) -> List[int]:
+        ready = self._count >= self.warmup_steps
+        if not ready.any():
+            return []
+        med = float(np.median(self._ema[ready]))
+        if med <= 0:
+            return []
+        return [
+            h for h in range(self.n_hosts)
+            if ready[h] and self._ema[h] > self.threshold * med
+        ]
+
+
+# ---------------------------------------------------------------------------
+# Re-placement
+# ---------------------------------------------------------------------------
+def _move(leaf, where):
+    if isinstance(where, (str, torch.device)):
+        return leaf.to(where) if isinstance(leaf, torch.Tensor) else leaf
+    raise NotImplementedError(
+        f"remesh: {type(where).__name__} is not a device; re-sharding onto a mesh needs "
+        "the LM mesh, ROADMAP.md queue 1, step 10, not ported yet")
+
+
+def _map2(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map2(fn, a, b) for a, b in zip(tree, other)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map2(fn, a, b) for a, b in zip(tree, other))
+    return fn(tree, other)
+
+
+def remesh(tree, shardings_fn: Callable[[Any], Any]):
+    """Move a tree (dicts, named tuples, tuples, lists of tensors) onto the
+    devices ``shardings_fn(tree)`` names, a matching tree of devices
+    (``torch.device`` or strings such as ``'cuda:0'``).  A value already on
+    its device is the same tensor."""
+    return _map2(_move, tree, shardings_fn(tree))
+
+
+# ---------------------------------------------------------------------------
+# Restartable training driver
+# ---------------------------------------------------------------------------
+def run_training(
+    *,
+    init_state_fn: Callable[[], Any],
+    train_step: Callable[[Any, Any], Tuple[Any, Dict]],
+    batch_fn: Callable[[int], Any],
+    n_steps: int,
+    ckpt: CheckpointManager,
+    fail_at_step: Optional[int] = None,
+    monitor: Optional[StragglerMonitor] = None,
+    log_every: int = 0,
+    history: Optional[List[Dict[str, float]]] = None,
+) -> Tuple[Any, List[float]]:
+    """Run (or resume) training to n_steps.  Returns (state, loss history).
+
+    Resume: if the checkpoint directory holds a saved state, start from it;
+    the step counter lives in ``state.opt.step`` and the data is replayed
+    from that cursor.  ``fail_at_step`` raises SimulatedFailure *after* that
+    step's optimizer update but before its checkpoint would complete — the
+    worst-case window.  ``history``, if given, gets one dict a step: the
+    step, ``issue_s`` (the time the monitor records), ``wall_s`` (to the
+    loss on the host) and the step's metrics as floats.
+    """
+    state = init_state_fn()
+    start = 0
+    if latest_step(ckpt.directory) is not None:
+        state, meta = ckpt.restore_latest(state)
+        start = int(meta["step"])
+
+    losses: List[float] = []
+    for step in range(start, n_steps):
+        t0 = time.perf_counter()
+        batch = batch_fn(step)
+        state, metrics = train_step(state, batch)
+        dt = time.perf_counter() - t0
+        if monitor is not None:
+            monitor.record(0, dt)
+        loss = float(metrics["ce_loss"])
+        losses.append(loss)
+        if history is not None:
+            history.append({**{k: float(v) for k, v in metrics.items()},
+                            "step": step + 1, "issue_s": dt,
+                            "wall_s": time.perf_counter() - t0})
+        if log_every and (step + 1) % log_every == 0:
+            print(f"step {step + 1}: loss {loss:.4f} ({dt*1e3:.0f} ms)")
+        if fail_at_step is not None and step + 1 == fail_at_step:
+            raise SimulatedFailure(f"simulated node loss at step {step + 1}")
+        ckpt.maybe_save(step + 1, state, meta={"data_step": step + 1})
+    ckpt.wait()
+    return state, losses

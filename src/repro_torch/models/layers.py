@@ -59,11 +59,31 @@ def mm_cd(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
     return mm(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE), n_in)
 
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic``: the value as XLA expands it, the gradient by the
+    primitive's rule g · (σ · (1 − σ)), each op in the input's dtype.  The
+    chain rule through the expansion would give inf · 0 = NaN wherever
+    exp(−x) overflows (x below about −88), where the primitive's rule gives
+    0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        return g * (ans * (1.0 - ans))
+
+
 def logistic(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid``: 1 / (1 + exp(-x)) as XLA expands it, one op at a
     time in the input's dtype (in bfloat16 every step rounds; torch's fused
-    ``sigmoid`` rounds once and differs)."""
-    return 1.0 / (1.0 + torch.exp(-x))
+    ``sigmoid`` rounds once and differs); differentiable as ``lax.logistic``
+    (:class:`_Logistic`)."""
+    return _Logistic.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -70,7 +70,9 @@ def _positions(onehot: torch.Tensor) -> torch.Tensor:
     then choice rank): (G, T, k) float, from onehot (G, T, k, E)."""
     G, T, k, E = onehot.shape
     flat = onehot.reshape(G, T * k, E)
-    pos = torch.cumsum(flat, dim=1) - flat
+    # the running count in int32: the same whole numbers as a float cumsum,
+    # and deterministic on the card (a floating cumsum is not, there)
+    pos = (torch.cumsum(flat.to(torch.int32), dim=1).to(flat.dtype)) - flat
     return torch.sum(pos * flat, dim=-1).reshape(G, T, k)  # one nonzero term: exact
 
 

@@ -13,16 +13,20 @@ arranged as repeats of a *block pattern*, a tuple of (mixer, ffn) pairs:
 The parameters of one pattern repeat ("group") are stacked on a leading
 axis (G, …), and a Python loop over the groups takes the place of the
 reference's ``lax.scan``; the KV/SSM caches keep the same (G, …) stacking.
-``remat``, ``remat_block`` and ``scan_layers`` choose how the reference
-compiles and checkpoints the stack for training; a forward pass without
-autograd computes the same values under every setting, so they are
-accepted and read nowhere.
+
+Training checkpoints the stack as the reference's ``jax.checkpoint`` with
+``nothing_saveable`` does: with ``remat="full"`` and autograd recording,
+each group runs under ``torch.utils.checkpoint`` (non-reentrant), which
+keeps only the group's inputs and recomputes the rest in the backward
+pass; ``remat_block = k`` checkpoints k groups at a time (G/k residual
+snapshots).  Neither changes a value.  ``scan_layers`` chooses between the
+reference's scan and its unrolled loop, which are one loop here.
 
 Entry points (pure functions of the parameters, a nested dict of tensors):
 
-  forward(...)      -> (final hidden states, aux loss)
-  prefill(...)      -> (last-position logits, caches)
-  decode_step(...)  -> (logits, updated caches)
+  forward(...)      -> (final hidden states, aux loss); differentiable
+  prefill(...)      -> (last-position logits, caches); no autograd
+  decode_step(...)  -> (logits, updated caches); no autograd
 
 :class:`LM` holds the parameters as an ``nn.Module`` (state-dict keys are
 the reference's tree paths joined with '.') and calls these functions.
@@ -35,6 +39,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..sharding import DEFAULT_RULES, constrain
@@ -91,7 +96,8 @@ class ModelConfig:
     norm: str = "rmsnorm"
     act: str = "swiglu"
     tie_embeddings: bool = False
-    # training-only compilation choices of the reference (read nowhere here)
+    # training: 'full' checkpoints each group (or remat_block groups) in the
+    # backward pass; scan_layers is the reference's scan-or-unroll choice
     remat: str = "full"  # 'full' | 'none'
     scan_layers: bool = True
     remat_block: int = 1
@@ -324,6 +330,14 @@ def _group(stack, g: int):
     return tree_map(lambda t: t[g], stack)
 
 
+def _groups(stack) -> list:
+    """Every group's slice of a (G, …)-stacked tree, by one ``unbind`` per
+    leaf: its backward stacks the G slices' gradients once, where G
+    separate slices would each add a full-size (G, …) gradient."""
+    unbound = tree_map(lambda t: t.unbind(0), stack)
+    return [tree_map(lambda ts, g=g: ts[g], unbound) for g in range(_n_groups(stack))]
+
+
 def _stack(trees):
     return tree_map(lambda *ts: torch.stack(ts), *trees)
 
@@ -336,15 +350,38 @@ def _n_groups(stack) -> int:
 
 def _scan_stack(stack_params, x, cfg, mesh, rules, *, make_cache, enc_out=None,
                 causal=True):
-    """The reference's scan over the stacked groups, as a loop."""
+    """The reference's scan over the stacked groups, as a loop.  Under
+    autograd with ``remat="full"`` each block of ``remat_block`` groups
+    (the reference's super-group; one group when it is 1) is
+    checkpointed."""
     aux = torch.zeros((), dtype=F32, device=x.device)
-    all_caches = []
-    for g in range(_n_groups(stack_params)):
-        x, caches, a = _apply_group(_group(stack_params, g), x, cfg, mesh, rules,
-                                    make_cache=make_cache, enc_out=enc_out, causal=causal)
-        aux = aux + a
-        all_caches.append(caches)
-    return x, (_stack(all_caches) if make_cache else None), aux
+    groups = _groups(stack_params)
+    k = cfg.remat_block if cfg.scan_layers and not make_cache else 1
+    if len(groups) % k:
+        raise ValueError(f"remat_block {k} does not divide the {len(groups)} groups")
+    if make_cache or cfg.remat != "full" or not torch.is_grad_enabled():
+        all_caches = []
+        for gp in groups:
+            x, caches, a = _apply_group(gp, x, cfg, mesh, rules, make_cache=make_cache,
+                                        enc_out=enc_out, causal=causal)
+            aux = aux + a
+            all_caches.append(caches)
+        return x, (_stack(all_caches) if make_cache else None), aux
+
+    def block(xx, aux_sum, gps):
+        for gp in gps:
+            xx, _, a = _apply_group(gp, xx, cfg, mesh, rules, make_cache=False,
+                                    enc_out=enc_out, causal=causal)
+            aux_sum = aux_sum + a
+        return xx, aux_sum
+
+    for i in range(0, len(groups), k):
+        # non-reentrant: the parameters reach the block by closure and still
+        # get their gradients; only x and aux are kept for the backward pass
+        x, aux = torch.utils.checkpoint.checkpoint(
+            lambda xx, aa, gps=groups[i: i + k]: block(xx, aa, gps), x, aux,
+            use_reentrant=False)
+    return x, None, aux
 
 
 # ---------------------------------------------------------------------------
@@ -378,9 +415,10 @@ def _encoder_out(params, batch, cfg, mesh, rules):
     return None
 
 
-@torch.no_grad()
 def forward(params, batch, cfg, *, mesh=None, rules=DEFAULT_RULES):
-    """Forward over the whole sequence → (hidden (B,S,M), aux_loss)."""
+    """Forward over the whole sequence → (hidden (B,S,M), aux_loss).
+    Differentiable: autograd records it where the parameters (or inputs)
+    require grad."""
     enc_out = _encoder_out(params, batch, cfg, mesh, rules)
     x = _embed_inputs(params, batch, cfg, mesh, rules)
     x, _, aux = _scan_stack(params["decoder"], x, cfg, mesh, rules, make_cache=False,

@@ -51,6 +51,9 @@ def test_port_imports_without_jax():
         "import repro_torch.benchmarks.serve_stream, repro_torch.benchmarks.chaos\n"
         "import repro_torch.models, repro_torch.configs, repro_torch.serve.lm\n"
         "import repro_torch.examples.serve_lm\n"
+        "import repro_torch.train.step, repro_torch.optim.adamw, repro_torch.data.pipeline\n"
+        "import repro_torch.ft.resilience, repro_torch.launch.train\n"
+        "import repro_torch.examples.train_lm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
