@@ -7,9 +7,11 @@ the card, drives ``repro_torch.core.ssa.anneal`` and
 through the kernels, the problem families (QUBO, MIS, coloring, partition)
 through K1 and K2, the SA, PT and PT-SSA baselines, spin sharding over
 ``torch.distributed`` ranks (the plain loops: no kernel on that path), J in
-each of seven dtypes and SSQA rings above 32 replicas, and the LM
+each of seven dtypes and SSQA rings above 32 replicas, the LM
 substrate's serving and training paths (qwen3-1.7b at full width; no
-kernel on either), and prints what it measured.
+kernel on either) and the fused iteration steps of
+``repro_torch.core.distributed`` (no kernel either), and prints what it
+measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
 
@@ -236,14 +238,30 @@ Phases (any failure raises and exits non-zero):
      determinism and resume on the card (tests/test_ft.py's config: two
      20-step runs equal, a run killed at step 13 and resumed from step 10
      equal to them) and 30 steps lowering the loss by more than 0.4;
- 41. the card line again, the kernels line (each kernel's service launches
+ 41. step 8's fused iteration steps (``[iteration step …]``;
+     ``core/distributed.py``, no kernel: the K1–K4 counters must stay 0):
+     (a) Table II at K2000 (100 trials, τ = 100, I0 1→32, m_shot 10)
+     through ``make_iteration_step`` from the state anneal() seeds — final
+     best_H and best_m equal to phase 6's K1 run; ms an iteration issued
+     from Python and with the step captured once in a CUDA graph and
+     replayed (its outputs equal to the issued run's; a capture that fails
+     is printed and not measured), peak device bytes, the bound; (b) the
+     JAX package's single lowering cell, N = 2000, T = 4096, one
+     iteration, the same numbers, best_m's energy equal to best_H; (c)
+     its batched cell, B = 8, T = 512, N = 2048 (eight 4-regular
+     tori, seeds 0–7; τ cut to 50: at 100 the popcount form takes ~33 s),
+     one iteration of ``make_batched_iteration_step`` in each of the
+     dense, packed, tiled (tile_n 512) and popcount forms — all
+     equal per problem in every leaf, problem 0 equal to the single step —
+     ms and peak device bytes per form;
+ 42. the card line again, the kernels line (each kernel's service launches
      in ``service_launches``, its stream launches in ``stream_launches``,
      its launches per family of phase 27 in ``family_launches``, those of
      phases 34–36 in ``auto_launches``, ``j_dtype_launches`` and
      ``paper_launches``, its bfloat16-J row in ``bf16``, its rows by J
      dtype in ``j_dtypes`` and, for the ring modes, its rows by ring in
      ``rings``: ring size, cluster size, blocks, where the words live,
-     times, bound and the launches of phase 37's run); 42. the contract
+     times, bound and the launches of phase 37's run); 43. the contract
      line (last).
 """
 from __future__ import annotations
@@ -3635,6 +3653,211 @@ def phase_lm_train(card: str):
     _counters_zero("lm train", counts)
 
 
+# The iteration steps' cells beyond Table II's: the JAX package's lowering
+# defaults, anneal_step_lowering's single cell (N = 2000, T = 4096) and
+# batched_anneal_step_lowering's (B = 8 problems, T = 512, N = 2048).
+STEP_TRIALS = 4096
+STEP_BATCH, STEP_BATCH_TRIALS, STEP_BATCH_N = 8, 512, 2048
+# (storage_layout, j_mode, field_mode) of the batched cell, dense first.
+STEP_FORMS = (("dense", "dense", "dense"), ("packed", "dense", "dense"),
+              ("dense", "tiled", "dense"), ("dense", "dense", "popcount"))
+# τ of the batched cell, cut from Table II's 100: at 100 its popcount form
+# takes ~33 s an iteration on an H100 (PERF.md §6).
+STEP_BATCH_TAU = 50
+
+
+def _seeded_state(seeds, T, N, dev):
+    """The iteration steps' start, as ``init_state`` seeds anneal(): lanes
+    seeded, one draw taken as m; one problem's (4, T, N) lanes or, for a
+    list of seeds, a batch's (4, B, T, N)."""
+    from repro_torch.core.engine import BIG_ENERGY
+    from repro_torch.core.rng import xorshift_init, xorshift_next_bits
+
+    batched = isinstance(seeds, (list, tuple))
+    lanes = torch.stack([xorshift_init(s, (T, N), device=dev) for s in seeds], dim=1) \
+        if batched else xorshift_init(seeds, (T, N), device=dev)
+    rng, r0 = xorshift_next_bits(lanes)
+    m = r0.to(torch.float32)
+    return (rng, m, torch.where(m > 0, 0, -1).to(torch.int32),
+            torch.full(m.shape[:-1], BIG_ENERGY, dtype=torch.int32, device=dev), r0.to(torch.int8))
+
+
+def _step_issued(step, state, problem, iters: int):
+    """``iters`` iterations issued from Python: (final state, ms an
+    iteration, peak device bytes: the operands and state it was given plus
+    the most it allocated on top of what was live before)."""
+    held = sum(t.numel() * t.element_size() for t in (*state, *problem))
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state = step(*state, *problem)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    return state, ms, held + torch.cuda.max_memory_allocated() - live
+
+
+def _step_graphed(what, step, state, problem, iters: int, want):
+    """The step captured once in a CUDA graph that writes its outputs back
+    into its state buffers, replayed ``iters`` times from ``state``: its ms
+    an iteration, by CUDA events, and its outputs equal to the issued
+    run's ``want``.  A measurement: a capture that fails is printed and
+    skipped."""
+    bufs = [t.clone() for t in state]
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(*bufs, *problem)  # warm-up outside the capture; the step mutates nothing
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step(*bufs, *problem)
+            for b, o in zip(bufs, out):
+                b.copy_(o)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"[iteration step] {what}: CUDA graph capture failed, not measured: {e}")
+        return None
+    del out
+    ms = _time_ms(graph.replay, iters, warmup=0)
+    if not all(torch.equal(b, w) for b, w in zip(bufs, want)):
+        _fail(f"iteration step {what}: the CUDA graph's replays differ from the issued run")
+    del graph
+    return ms
+
+
+def _graph_txt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def _step_bound_ms(hp, B, N):
+    """One iteration's float32 operations (a dense contraction of 2·B·T·N²
+    a cycle and one epilogue per eligible plateau: 601 at Table II's
+    schedule) against its bytes (state in and out, J read once), by the
+    larger."""
+    from repro_torch.core.engine import schedule_plateaus
+
+    T = hp.n_trials
+    contractions = sum(p.length + p.eligible for p in schedule_plateaus(hp.schedule("hassa")))
+    state_bytes = T * N * (16 + 4 + 4 + 1)  # lanes, m, itanh, best_m
+    return _bound_ms(B * (4 * N * N + 2 * state_bytes), contractions * 2 * B * T * N * N)
+
+
+def _check_best(what, best_H, best_m, J, h):
+    """best_m is ±1 and its energy, on the card, is best_H."""
+    from repro_torch.core.engine import energy_from_field
+    from repro_torch.core.ising import local_fields_dense
+
+    H = energy_from_field(best_m, local_fields_dense(best_m, h, J), h)
+    if not (torch.equal(best_m.abs(), torch.ones_like(best_m)) and torch.equal(H, best_H)):
+        _fail(f"iteration step {what}: best_m's energy is not best_H")
+
+
+def phase_iteration_step(card: str, production):
+    """Phase 41: step 8's fused iteration steps (``core/distributed.py``, no
+    kernel): (a) Table II at K2000 through ``make_iteration_step``, equal to
+    phase 6's K1 run; (b) the single lowering cell, T = 4096; (c) the batched
+    lowering cell in four forms, all equal per problem and problem 0 equal
+    to the single step.  The K1–K4 counters must stay 0."""
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.distributed import make_batched_iteration_step, make_iteration_step
+    from repro_torch.core.engine import pack_spins, unpack_spins
+    from repro_torch.core.ssa import SSAHyperParams
+    from repro_torch.kernels.bitplane import adjacency_weight_bits, pack_couplings_from_adjacency
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    _reset_counts()
+    # (a) Table II at K2000.
+    p = gset.load("K2000")
+    model = p.to_ising()
+    N, T = model.n, 100
+    hp = SSAHyperParams(n_trials=T, m_shot=M_SHOT_PRODUCTION, tau=100, i0_min=1, i0_max=32)
+    J = torch.from_numpy(model.dense_J()).to(dev, torch.float32)
+    h = torch.from_numpy(np.asarray(model.h, np.int32)).to(dev)
+    step = make_iteration_step(hp)
+    state0 = _seeded_state(0, T, N, dev)
+    step(*state0, J, h)  # warm-up
+    st, ms, peak = _step_issued(step, state0, (J, h), hp.m_shot)
+    if not (np.array_equal(st[3].cpu().numpy(), production.best_energy)
+            and np.array_equal(st[4].cpu().numpy(), production.best_m)):
+        _fail("iteration step K2000: best_H/best_m differ from phase 6's K1 run")
+    graph_ms = _step_graphed("K2000", step, state0, (J, h), hp.m_shot, st)
+    bound, by = _step_bound_ms(hp, 1, N)
+    print(f"[iteration step] K2000 N={N} T={T} tau={hp.tau} I0 1->32, {hp.m_shot} iterations "
+          f"== phase 6's K1 run: {ms:.3f} ms an iteration issued from Python, "
+          f"{_graph_txt(graph_ms)} by CUDA graph; "
+          f"bound {bound:.3f} ms ({by}); peak device bytes {peak}  ({card})")
+    # (b) The single lowering cell: K2000's J, T = 4096, one iteration.
+    T = STEP_TRIALS
+    hp = dataclasses.replace(hp, n_trials=T, m_shot=1)
+    step = make_iteration_step(hp)
+    state0 = _seeded_state(0, T, N, dev)
+    st, ms, peak = _step_issued(step, state0, (J, h), 1)
+    _check_best("T=4096", st[3], st[4], J, h)
+    graph_ms = _step_graphed("T=4096", step, state0, (J, h), 1, st)
+    bound, by = _step_bound_ms(hp, 1, N)
+    print(f"[iteration step] single cell N={N} T={T}, one iteration: {ms:.3f} ms issued, "
+          f"{_graph_txt(graph_ms)} by CUDA graph; "
+          f"bound {bound:.3f} ms ({by}); peak device bytes {peak}  ({card})")
+    del J, h, st, state0
+    torch.cuda.empty_cache()
+    # (c) The batched lowering cell: eight 4-regular tori, four forms.
+    B, T, N = STEP_BATCH, STEP_BATCH_TRIALS, STEP_BATCH_N
+    hp_b = SSAHyperParams(n_trials=T, m_shot=1, tau=STEP_BATCH_TAU, i0_min=1, i0_max=32)
+    models = [gset.toroidal_grid(N, seed=s).to_ising() for s in range(B)]
+    h = torch.from_numpy(np.stack([m.h for m in models]).astype(np.int32)).to(dev)
+    nb = max(adjacency_weight_bits(m.n, m.nbr_idx, m.nbr_w) for m in models)
+    state0 = _seeded_state(list(range(B)), T, N, dev)
+    cut = "" if STEP_BATCH_TAU == 100 else f" (tau cut 100 -> {STEP_BATCH_TAU} for this cell)"
+    dense_J = torch.from_numpy(np.stack([m.dense_J() for m in models])).to(dev, torch.float32)
+    pjs = [pack_couplings_from_adjacency(m.n, m.nbr_idx, m.nbr_w, n_bits=nb, device=dev)
+           for m in models]
+    operands = {
+        "dense": (dense_J,),
+        "tiled": tuple(torch.from_numpy(np.stack([getattr(m, k) for m in models])).to(
+            dev, torch.int32) for k in ("nbr_idx", "nbr_w")),
+        "popcount": tuple(torch.stack([getattr(pj, k) for pj in pjs])
+                          for k in ("sign", "mags", "base")),
+    }
+    results = {}
+    for layout, j_mode, field_mode in STEP_FORMS:
+        state = state0
+        if layout == "packed":
+            state = (state0[0], pack_spins(state0[1]), state0[2], state0[3],
+                     pack_spins(state0[4]))
+        step = make_batched_iteration_step(hp_b, storage_layout=layout, j_mode=j_mode,
+                                           field_mode=field_mode)
+        problem = operands["popcount" if field_mode == "popcount" else j_mode]
+        st, ms, peak = _step_issued(step, state, (*problem, h), 1)
+        if layout == "packed":
+            st = (st[0], unpack_spins(st[1], N).to(torch.float32), st[2], st[3],
+                  unpack_spins(st[4], N))
+        form = f"{layout}/{j_mode}/{field_mode}" + (f" nb={nb}" if field_mode == "popcount" else "")
+        print(f"[iteration step] batched cell B={B} T={T} N={N} {form}, one iteration{cut}: "
+              f"{ms:.3f} ms issued; peak device bytes {peak}  ({card})")
+        results[form] = st
+    ref = results[next(iter(results))]
+    for form, st in results.items():
+        if not all(torch.equal(a, b) for a, b in zip(st, ref)):
+            _fail(f"iteration step batched cell: {form} differs from the dense form")
+    _check_best("batched cell", ref[3], ref[4], dense_J, h[:, None])
+    single = make_iteration_step(hp_b)(state0[0][:, 0], *(x[0] for x in state0[1:]),
+                                       dense_J[0], h[0])
+    if not all(torch.equal(a, b) for a, b in zip(single, (ref[0][:, 0], *(x[0] for x in ref[1:])))):
+        _fail("iteration step batched cell: problem 0 differs from the single step")
+    bound, by = _step_bound_ms(hp_b, B, N)
+    print(f"[iteration step] batched cell: the {len(results)} forms equal per problem in every "
+          f"leaf, problem 0 == the single step; dense bound {bound:.3f} ms ({by})")
+    counts = _counts()
+    print(f"[iteration step] (K1, K3, K4, K2, K1 ring, K2 ring) = {counts}")
+    _counters_zero("iteration step", counts)
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--spin-rank":
         return _spin_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -3693,6 +3916,7 @@ def main():
     phase_ptssa_auto()
     phase_lm(card)
     phase_lm_train(card)
+    phase_iteration_step(card, streamed)
 
     def dtypes(kernel):  # a kernel's rows by J dtype
         return {name: jd_rows[name][kernel] for name in J_DTYPES}

@@ -1,6 +1,6 @@
-"""Carry models, engine states, SA carries, problem encodings, LM
-parameters and caches and LM training states across packages as numpy
-arrays.
+"""Carry models, engine states, the iteration steps' state tuples, SA
+carries, problem encodings, LM parameters and caches and LM training states
+across packages as numpy arrays.
 
 The JAX package and this port agree on every layout, but not on dtypes:
 this port carries uint32 words (xorshift lanes, packed spins) as int32
@@ -21,7 +21,8 @@ from .kernels.bitplane import PackedJ
 from .problems import ColoringProblem, MISProblem, PartitionProblem, QUBOProblem
 
 __all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arrays",
-           "packed_j_from_arrays", "sa_carry_from_arrays", "sa_carry_to_arrays",
+           "iteration_state_from_arrays", "iteration_state_to_arrays", "packed_j_from_arrays",
+           "sa_carry_from_arrays", "sa_carry_to_arrays",
            "encoding_from_fields", "lm_params_from_arrays", "lm_caches_from_arrays",
            "train_state_from_arrays", "train_state_to_arrays"]
 
@@ -116,6 +117,36 @@ def engine_state_to_arrays(
     if isinstance(state, PackedEngineState):
         m, bm = m.view(np.uint32), bm.view(np.uint32)
     return ns.view(np.uint32), m, it, bh, bm
+
+
+def iteration_state_from_arrays(rng: np.ndarray, m: np.ndarray, itanh: np.ndarray,
+                                best_H: np.ndarray, best_m: np.ndarray, *, packed: bool = False,
+                                device=None) -> Tuple[torch.Tensor, ...]:
+    """The state tuple of the iteration steps
+    (:mod:`repro_torch.core.distributed`) from another package's arrays,
+    one problem's or a batch's: ``rng`` (4, [B,] T, N) uint32 lanes, ``m``
+    float32 ±1 spins, ``itanh`` and ``best_H`` integers, ``best_m`` int8
+    spins; with ``packed``, ``m`` and ``best_m`` are (…, T, ceil(N/32))
+    uint32 words.  Lanes and words become int32 tensors of the same bits."""
+    if packed:
+        spins = (_as_i32(m, device), _as_i32(best_m, device))
+    else:
+        spins = (torch.from_numpy(np.asarray(m, np.float32).copy()).to(device),
+                 torch.from_numpy(np.asarray(best_m, np.int8).copy()).to(device))
+    return (_as_i32(rng, device), spins[0], _as_i32(itanh, device), _as_i32(best_H, device),
+            spins[1])
+
+
+def iteration_state_to_arrays(state) -> Tuple[np.ndarray, ...]:
+    """Inverse of :func:`iteration_state_from_arrays`: the lanes as uint32,
+    packed words (int32 spin leaves) as uint32, float32 and int8 spins as
+    they are."""
+    rng, m, it, bh, bm = (t.cpu().numpy() for t in state)
+    if m.dtype == np.int32:
+        m = m.view(np.uint32)
+    if bm.dtype == np.int32:
+        bm = bm.view(np.uint32)
+    return rng.view(np.uint32), m, it, bh, bm
 
 
 def sa_carry_from_arrays(key: np.ndarray, m: np.ndarray, H: np.ndarray, best_H: np.ndarray,

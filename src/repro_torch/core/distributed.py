@@ -1,5 +1,19 @@
-"""Spin-sharded execution, ``partition='spin'`` (port of the spin half of
-``repro.core.distributed``).
+"""The fused HA-SSA iteration steps and spin-sharded execution,
+``partition='spin'`` (port of ``repro.core.distributed``).
+
+:func:`make_iteration_step` runs one whole I0min→I0max HA-SSA iteration as
+a plain function of the state tuple: the chain of the iteration's
+constant-I0 plateaus through
+:func:`~repro_torch.core.engine.run_plateau_scan`, HA-SSA's storage policy
+as per-plateau eligibility and one field contraction per cycle.
+:func:`make_batched_iteration_step` runs the same chain over B stacked
+problems, with the dense J, the tiled adjacency (``j_mode='tiled'``), the
+XNOR-popcount planes (``field_mode='popcount'``) and packed spin words
+across the step (``storage_layout='packed'``), per problem equal to the
+single step.  Both run on the device their inputs live on, launch no CUDA
+kernel of ``repro_torch.kernels`` and make no host sync; the ``data`` ×
+``model`` mesh layout of the JAX package's steps is not ported (a mesh
+raises NotImplementedError).
 
 The problem-partitioned backends keep the whole spin axis of a problem on
 one device and scale out over the problem batch; a single giant instance
@@ -57,10 +71,120 @@ from .engine import (
     resolve_device,
     resolve_field_mode,
     run_plateau_scan,
+    schedule_plateaus,
 )
-from .ising import local_fields_popcount, local_fields_tiled
+from .ising import local_fields_dense, local_fields_popcount, local_fields_tiled
+from .rng import xorshift_next_bits
 
-__all__ = ["BatchedSpinShardedBackend", "SpinShardedBackend"]
+__all__ = ["make_iteration_step", "make_batched_iteration_step", "SPIN_AXIS",
+           "BatchedSpinShardedBackend", "SpinShardedBackend"]
+
+# The mesh-axis name the spin axis shards over.
+SPIN_AXIS = "model"
+
+
+# ---------------------------------------------------------------------------
+# The fused iteration steps
+# ---------------------------------------------------------------------------
+def _single_device(mesh, what: str):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} runs on one device: the data × model mesh layout of the iteration "
+            "steps is ROADMAP.md queue 1, step 10, not ported yet")
+
+
+def _run_iteration(plateaus, field_fn, h, n_rnd: int, state: EngineState) -> EngineState:
+    """One iteration's plateau chain, xorshift noise, no traces."""
+    for p in plateaus:
+        state, _, _ = run_plateau_scan(field_fn, xorshift_next_bits, h, n_rnd, state, p.i0,
+                                       length=p.length, eligible=p.eligible)
+    return state
+
+
+def make_iteration_step(hp, mesh=None):
+    """One full I0min→I0max iteration, HA-SSA's storage policy fused.
+
+    step(rng (4, T, N) int32 lanes, m (T, N) float32, itanh (T, N) int32,
+         best_H (T,) int32, best_m (T, N) int8, J (N, N) float32,
+         h (N,) int32) → (rng, m, itanh, best_H, best_m)
+
+    The field is ``h + m @ J`` in float32 with TF32 off
+    (:func:`~repro_torch.core.engine.exact_float32_matmul`), exact below
+    2^24.  ``mesh`` must be None.
+    """
+    _single_device(mesh, "make_iteration_step")
+    plateaus = schedule_plateaus(hp.schedule("hassa"), "i0max")
+    n_rnd = hp.n_rnd
+    exact_float32_matmul()
+
+    def step(rng, m, itanh, best_H, best_m, J, h):
+        st = _run_iteration(plateaus, lambda m8: local_fields_dense(m8, h, J), h, n_rnd,
+                            EngineState(rng, m.to(torch.int8), itanh, best_H, best_m))
+        return st.noise_state, st.m.to(torch.float32), st.itanh, st.best_H, st.best_m
+
+    return step
+
+
+def make_batched_iteration_step(hp, mesh=None, *, storage_layout: str = "dense",
+                                j_mode: str = "dense", tile_n: int = POPCOUNT_TILE_N,
+                                field_mode: str = "dense"):
+    """One full iteration over B stacked (bucket-padded) problems; per
+    problem equal to :func:`make_iteration_step`.
+
+    Default (dense layout, dense J):
+      step(rng (4, B, T, N) int32, m (B, T, N) float32, itanh (B, T, N) int32,
+           best_H (B, T) int32, best_m (B, T, N) int8, J (B, N, N) float32,
+           h (B, N) int32) → (rng, m, itanh, best_H, best_m)
+
+    ``storage_layout='packed'`` carries m and best_m across the step as
+    (B, T, ceil(N/32)) int32 words.  ``j_mode='tiled'`` takes ``nbr_idx,
+    nbr_w (B, N, D) int32, h`` in place of ``J, h`` and streams (tile_n, N)
+    float32 slabs per problem: no (B, N, N) buffer.  ``field_mode=
+    'popcount'`` (it takes precedence over ``j_mode``) takes the stacked
+    coupling planes ``sign (B, N, Nw), mags (B, nb, N, Nw), base (B, N),
+    h`` and contracts by XNOR-popcount, row-tiled at ``tile_n`` so that the
+    XNOR buffer stays (B, T, tile_n, Nw).  Every form gives the same numbers.
+    """
+    if storage_layout not in ("dense", "packed"):
+        raise ValueError(f"unknown storage_layout {storage_layout!r}")
+    if j_mode not in ("dense", "tiled"):
+        raise ValueError(f"unknown j_mode {j_mode!r}")
+    if field_mode not in ("dense", "popcount"):
+        raise ValueError(f"unknown field_mode {field_mode!r}")
+    _single_device(mesh, "make_batched_iteration_step")
+    plateaus = schedule_plateaus(hp.schedule("hassa"), "i0max")
+    n_rnd, tile_n = hp.n_rnd, int(tile_n)
+    packed = storage_layout == "packed"
+    if field_mode == "dense":
+        exact_float32_matmul()
+
+    def step(rng, m, itanh, best_H, best_m, *problem):
+        h3 = problem[-1][:, None]  # (B, 1, N): broadcasts against (B, T, N) spins
+        if field_mode == "popcount":
+            pj = PackedJ(*(a[:, None] for a in problem[:3]))
+
+            def field_fn(m8):
+                return local_fields_popcount(pack_spins(m8), h3, pj, tile_n=tile_n)
+        elif j_mode == "tiled":
+            nbr_idx, nbr_w, _ = problem
+
+            def field_fn(m8):
+                return local_fields_tiled(m8, h3, nbr_idx, nbr_w, tile_n=tile_n)
+        else:
+            def field_fn(m8):
+                return local_fields_dense(m8, h3, problem[0])
+
+        n = itanh.shape[-1]
+        if packed:
+            m8, bm8 = unpack_spins(m, n), unpack_spins(best_m, n)
+        else:
+            m8, bm8 = m.to(torch.int8), best_m
+        st = _run_iteration(plateaus, field_fn, h3, n_rnd, EngineState(rng, m8, itanh, best_H, bm8))
+        if packed:
+            return st.noise_state, pack_spins(st.m), st.itanh, st.best_H, pack_spins(st.best_m)
+        return st.noise_state, st.m.to(torch.float32), st.itanh, st.best_H, st.best_m
+
+    return step
 
 
 def _require_xorshift(noise: str):

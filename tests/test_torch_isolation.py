@@ -43,7 +43,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys\n"
         "import repro_torch.core.ssa, repro_torch.launch.anneal, repro_torch.convert\n"
-        "import repro_torch.core.rng, repro_torch.core.memory\n"
+        "import repro_torch.core.rng, repro_torch.core.memory, repro_torch.core.distributed\n"
         "import repro_torch.core.ssqa, repro_torch.core.autotune\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ssa_update, repro_torch.kernels.ref\n"
         "import repro_torch.serve, repro_torch.serve.anneal_service, repro_torch.ft.faults\n"
