@@ -10,7 +10,8 @@ through K1 and K2, the SA, PT and PT-SSA baselines, spin sharding over
 each of seven dtypes and SSQA rings above 32 replicas, the LM
 substrate's serving and training paths (qwen3-1.7b at full width; no
 kernel on either) and the fused iteration steps of
-``repro_torch.core.distributed`` (no kernel either), and prints what it
+``repro_torch.core.distributed`` (no kernel either), alone and on a
+``data`` × ``model`` mesh with their dry-run lowerings, and prints what it
 measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
@@ -254,14 +255,33 @@ Phases (any failure raises and exits non-zero):
      dense, packed, tiled (tile_n 512) and popcount forms — all
      equal per problem in every leaf, problem 0 equal to the single step —
      ms and peak device bytes per form;
- 42. the card line again, the kernels line (each kernel's service launches
+ 42. the iteration steps on a ``data`` × ``model`` mesh (``[mesh step …]``,
+     ``[mesh lowering …]``; no kernel): (a) phase 41's K2000 chain through
+     ``make_iteration_step`` on a one-rank 1 × 1 NCCL mesh
+     (``launch.mesh.make_mesh``, blocks cut and joined by
+     ``convert.iteration_state_block`` / ``_join``) — every leaf equal to
+     phase 41's mesh=None run; ms an iteration issued from Python, the
+     collectives an iteration, peak device bytes; (b) two gloo ranks
+     sharing the card as meshes of 1 × 2 and 2 × 1, one iteration of the
+     single step and of the batched step in four forms (B = 2 complete
+     graphs of 2000 spins, 100 trials), joined and equal to mesh=None in
+     every leaf; (c) ``anneal_step_lowering`` (N = 2000, T = 4096) and
+     ``batched_anneal_step_lowering`` (B = 8, T = 512, N = 2048, four forms)
+     at abstract 16 × 16 and 2 × 16 × 16 meshes, traced on fake tensors in
+     worker processes while (b) runs: per device the argument bytes, the
+     peak estimate, FLOPs, collective bytes by kind and the roofline terms
+     of ``launch/hlo_analysis.py`` on the H100 with the dominant one; (d)
+     the lowering at 1 × 1 of phase 41's cells (a) and (b): its compute
+     term at 67 TFLOP/s equal to phase 41's bound within 0.1%, its peak
+     estimate beside phase 41's measured peak;
+ 43. the card line again, the kernels line (each kernel's service launches
      in ``service_launches``, its stream launches in ``stream_launches``,
      its launches per family of phase 27 in ``family_launches``, those of
      phases 34–36 in ``auto_launches``, ``j_dtype_launches`` and
      ``paper_launches``, its bfloat16-J row in ``bf16``, its rows by J
      dtype in ``j_dtypes`` and, for the ring modes, its rows by ring in
      ``rings``: ring size, cluster size, blocks, where the words live,
-     times, bound and the launches of phase 37's run); 43. the contract
+     times, bound and the launches of phase 37's run); 44. the contract
      line (last).
 """
 from __future__ import annotations
@@ -3788,6 +3808,7 @@ def phase_iteration_step(card: str, production):
         _fail("iteration step K2000: best_H/best_m differ from phase 6's K1 run")
     graph_ms = _step_graphed("K2000", step, state0, (J, h), hp.m_shot, st)
     bound, by = _step_bound_ms(hp, 1, N)
+    k2000 = dict(state=st, ms=ms, peak=peak)
     print(f"[iteration step] K2000 N={N} T={T} tau={hp.tau} I0 1->32, {hp.m_shot} iterations "
           f"== phase 6's K1 run: {ms:.3f} ms an iteration issued from Python, "
           f"{_graph_txt(graph_ms)} by CUDA graph; "
@@ -3801,6 +3822,7 @@ def phase_iteration_step(card: str, production):
     _check_best("T=4096", st[3], st[4], J, h)
     graph_ms = _step_graphed("T=4096", step, state0, (J, h), 1, st)
     bound, by = _step_bound_ms(hp, 1, N)
+    k2000["peak_T4096"] = peak
     print(f"[iteration step] single cell N={N} T={T}, one iteration: {ms:.3f} ms issued, "
           f"{_graph_txt(graph_ms)} by CUDA graph; "
           f"bound {bound:.3f} ms ({by}); peak device bytes {peak}  ({card})")
@@ -3856,11 +3878,268 @@ def phase_iteration_step(card: str, production):
     counts = _counts()
     print(f"[iteration step] (K1, K3, K4, K2, K1 ring, K2 ring) = {counts}")
     _counters_zero("iteration step", counts)
+    return k2000
+
+
+# ---------------------------------------------------------------------------
+# Phase 42: the iteration steps on a data × model mesh
+# ---------------------------------------------------------------------------
+MESH_AXES = ("data", "model")
+# (b)'s meshes, over two gloo ranks sharing the card.
+MESH_P2_SHAPES = ((1, 2), (2, 1))
+# (c)'s production meshes, and the worker processes that trace the lowerings.
+MESH_PRODUCTION = (((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")))
+MESH_LOWER_WORKERS = 6
+
+
+def _table2(T: int, m_shot: int = 1) -> dict:
+    return dict(n_trials=T, m_shot=m_shot, tau=100, i0_min=1, i0_max=32)
+
+
+def _mesh_p2_cases(dev):
+    """(b)'s cases, one iteration at (a)'s shapes: (name, batched, form,
+    state, operands) for the single step on K2000 and the batched step in
+    each of phase 41's four forms on B = 2 complete graphs of 2000 spins
+    (K2000 and a second seed: equal degrees, so the adjacency stacks)."""
+    import numpy as np
+
+    from repro_torch.core import gset
+    from repro_torch.core.engine import pack_spins
+    from repro_torch.kernels.bitplane import adjacency_weight_bits, pack_couplings_from_adjacency
+
+    models = [gset.load("K2000").to_ising(), gset.complete_graph(2000, seed=1).to_ising()]
+    N, T = 2000, 100
+    h = torch.from_numpy(np.stack([m.h for m in models]).astype(np.int32)).to(dev)
+    dense_J = torch.from_numpy(np.stack([m.dense_J() for m in models])).to(dev, torch.float32)
+    cases = [("single", False, {}, _seeded_state(0, T, N, dev), (dense_J[0], h[0]))]
+    nb = max(adjacency_weight_bits(m.n, m.nbr_idx, m.nbr_w) for m in models)
+    pjs = [pack_couplings_from_adjacency(m.n, m.nbr_idx, m.nbr_w, n_bits=nb, device=dev)
+           for m in models]
+    operands = {
+        "dense": (dense_J,),
+        "tiled": tuple(torch.from_numpy(np.stack([getattr(m, k) for m in models])).to(
+            dev, torch.int32) for k in ("nbr_idx", "nbr_w")),
+        "popcount": tuple(torch.stack([getattr(pj, k) for pj in pjs])
+                          for k in ("sign", "mags", "base")),
+    }
+    state0 = _seeded_state([0, 1], T, N, dev)
+    for layout, j_mode, field_mode in STEP_FORMS:
+        state = state0
+        if layout == "packed":
+            state = (state0[0], pack_spins(state0[1]), state0[2], state0[3],
+                     pack_spins(state0[4]))
+        form = dict(storage_layout=layout, j_mode=j_mode, field_mode=field_mode)
+        problem = operands["popcount" if field_mode == "popcount" else j_mode]
+        cases.append((f"{layout}/{j_mode}/{field_mode}", True, form, state, (*problem, h)))
+    return cases
+
+
+def _mesh_step_fn(batched, form, mesh):
+    from repro_torch.core.distributed import make_batched_iteration_step, make_iteration_step
+    from repro_torch.core.ssa import SSAHyperParams
+
+    hp = SSAHyperParams(**_table2(100))
+    if batched:
+        return make_batched_iteration_step(hp, mesh, **form)
+    return make_iteration_step(hp, mesh)
+
+
+def _mesh_worker(rank: int, world: int, store: str, out_path: str):
+    """Phase 42 (b)'s ranks: gloo over a file rendezvous, sharing the card;
+    each case's blocks after one iteration on each mesh, saved for the
+    parent to join."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import convert
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    cases = _mesh_p2_cases(torch.device("cuda"))
+    out = {}
+    t0 = time.time()
+    for shape in MESH_P2_SHAPES:
+        mesh = make_mesh(shape, MESH_AXES)
+        for name, batched, form, state, problem in cases:
+            st, prob = convert.iteration_state_block(state, problem, mesh, batched=batched,
+                                                     **form)
+            out[shape, name] = [t.cpu() for t in _mesh_step_fn(batched, form, mesh)(*st, *prob)]
+    torch.cuda.synchronize()
+    torch.save(out, out_path.format(rank=rank))
+    if rank == 0:
+        print(f"MESH_P2 {time.time() - t0:.3f}", flush=True)
+    dist.destroy_process_group()
+
+
+def _lower_cell(what: str, mesh_shape, axes, form, shape_kw: dict, hp_kw: dict) -> dict:
+    """One lowering traced in a worker process: per device its argument
+    bytes, peak estimate, FLOPs, collective bytes by kind and roofline
+    terms on the H100 (and the compute term at PEAK_F32_FLOPS, phase 41's
+    bound's rate)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core.distributed import anneal_step_lowering, batched_anneal_step_lowering
+    from repro_torch.core.ssa import SSAHyperParams
+    from repro_torch.launch.hlo_analysis import HW, collective_bytes, roofline
+    from repro_torch.sharding import abstract_mesh
+
+    mesh = abstract_mesh(mesh_shape, axes)
+    hp = SSAHyperParams(**hp_kw)
+    t0 = time.perf_counter()
+    if form is None:
+        low = anneal_step_lowering(mesh, hp=hp, **shape_kw)
+    else:
+        low = batched_anneal_step_lowering(mesh, hp=hp, **form, **shape_kw)
+    secs = time.perf_counter() - t0
+    rep = roofline(low)
+    return dict(what=what, mesh="x".join(map(str, mesh_shape)), seconds=secs,
+                args=low.argument_bytes, peak=low.peak_bytes, flops=low.flops,
+                coll={k: v for k, v in collective_bytes(low).items() if v},
+                n_coll=len(low.collectives), n_ops=len(low.ops), report=rep.asdict(),
+                t_compute_67=roofline(low, hw=HW(peak_flops_f32=PEAK_F32_FLOPS)).t_compute)
+
+
+def _lower_cells():
+    """(c)'s lowerings at the production meshes, then (d)'s at 1 × 1."""
+    cells = []
+    for shape, axes in MESH_PRODUCTION:
+        cells.append(("single N=2000 T=4096", shape, axes, None, {}, _table2(4096)))
+        for layout, j_mode, field_mode in STEP_FORMS:
+            cells.append((f"batched B=8 T=512 N=2048 {layout}/{j_mode}/{field_mode}", shape,
+                          axes, dict(storage_layout=layout, j_mode=j_mode,
+                                     field_mode=field_mode), {}, _table2(512)))
+    for T in (100, STEP_TRIALS):
+        cells.append((f"phase 41 cell N=2000 T={T}", (1, 1), MESH_AXES, None,
+                      dict(n_spins=2000, n_trials=T), _table2(T)))
+    # The popcount and tiled traces are the longest: start them first.
+    return sorted(cells, key=lambda c: c[3] is None or c[3]["j_mode"] == "dense"
+                  and c[3]["field_mode"] == "dense")
+
+
+def phase_mesh_step(card: str, production, it41):
+    """Phase 42: the iteration steps on a data × model mesh (no kernel; the
+    K1–K4 counters must stay 0).  (a) K2000 on a one-rank 1 × 1 NCCL mesh
+    == phase 41's mesh=None run; (b) two gloo ranks as 1 × 2 and 2 × 1 ==
+    mesh=None; (c) the lowerings at the production meshes; (d) at 1 × 1,
+    the compute term against phase 41's bound."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import convert, sharding
+    from repro_torch.core import gset
+    from repro_torch.core.distributed import make_iteration_step
+    from repro_torch.core.ssa import SSAHyperParams
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    _reset_counts()
+    # (a) phase 41's K2000 chain on a one-rank NCCL mesh.
+    model = gset.load("K2000").to_ising()
+    N, T = model.n, 100
+    hp = SSAHyperParams(**_table2(T, M_SHOT_PRODUCTION))
+    mesh = make_mesh((1, 1), MESH_AXES)
+    state0 = _seeded_state(0, T, N, dev)
+    J = torch.from_numpy(model.dense_J()).to(dev, torch.float32)
+    h = torch.from_numpy(np.asarray(model.h, np.int32)).to(dev)
+    st, prob = convert.iteration_state_block(state0, (J, h), mesh)
+    del J
+    step = make_iteration_step(hp, mesh)
+    step(*st, *prob)  # warm-up
+    sharding.reset_collective_counts()
+    st, ms, peak = _step_issued(step, st, prob, hp.m_shot)
+    colls = {k: v // hp.m_shot for k, v in sorted(sharding.collective_counts.items())}
+    whole = convert.iteration_state_join([st], mesh, state0)
+    if not all(torch.equal(a, b) for a, b in zip(whole, it41["state"])):
+        _fail("mesh step (a): the 1 x 1 mesh's leaves differ from phase 41's mesh=None run")
+    if not (np.array_equal(whole[3].cpu().numpy(), production.best_energy)
+            and np.array_equal(whole[4].cpu().numpy(), production.best_m)):
+        _fail("mesh step (a): best_H/best_m differ from phase 6's K1 run")
+    print(f"[mesh step] (a) K2000 N={N} T={T} tau={hp.tau} I0 1->32, {hp.m_shot} iterations on a "
+          f"one-rank 1 x 1 {mesh.backend} mesh: == phase 41's mesh=None run in every leaf "
+          f"(== phase 6's K1 run); {ms:.3f} ms an iteration issued from Python (phase 41: "
+          f"{it41['ms']:.3f}); collectives an iteration {colls}; peak device bytes {peak} "
+          f"(phase 41: {it41['peak']})  ({card})")
+    del st, prob, whole, step, state0
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    # (b) two gloo ranks sharing the card, while (c) and (d) trace in workers.
+    cells = _lower_cells()
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ProcessPoolExecutor(
+            MESH_LOWER_WORKERS, mp_context=spawn) as pool:
+        futures = [pool.submit(_lower_cell, *cell) for cell in cells]
+        cases = _mesh_p2_cases(dev)
+        refs = {name: [t.cpu() for t in _mesh_step_fn(batched, form, None)(*state, *problem)]
+                for name, batched, form, state, problem in cases}
+        out_path = str(Path(tmp) / "rank{rank}.pt")
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                                   str(r), "2", str(Path(tmp) / "store"), out_path],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        try:
+            outs = [pr.communicate(timeout=600) for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        wall = time.time() - t0
+        for r, (pr, (_, err)) in enumerate(zip(procs, outs)):
+            if pr.returncode:
+                _fail(f"mesh step (b): rank {r} exited {pr.returncode}: {err[-1500:]}")
+        blocks = [torch.load(out_path.format(rank=r)) for r in range(2)]
+        results = [f.result() for f in futures]
+    line = next(ln for ln in outs[0][0].splitlines() if ln.startswith("MESH_P2"))
+    for shape in MESH_P2_SHAPES:
+        for name, batched, form, *_ in cases:
+            joined = convert.iteration_state_join(
+                [b[shape, name] for b in blocks], sharding.abstract_mesh(shape, MESH_AXES),
+                refs[name], batched=batched, **form)
+            if not all(torch.equal(a, b) for a, b in zip(joined, refs[name])):
+                _fail(f"mesh step (b): {name} on the {shape} mesh differs from mesh=None")
+    print(f"[mesh step] (b) two gloo ranks sharing the card, meshes "
+          f"{' and '.join('x'.join(map(str, s)) for s in MESH_P2_SHAPES)}, one iteration "
+          f"(N=2000, T=100; B=2): the single step and the batched "
+          f"{', '.join(c[0] for c in cases[1:])} == mesh=None in every leaf; ranks "
+          f"{line.split()[1]} s of steps, processes {wall:.3f} s; the ranks share the SMs "
+          f"and the lowerings' workers the cores, so no speed is read")
+    # (c) the production meshes.
+    for r in results:
+        if r["mesh"] == "1x1":
+            continue
+        rep = r["report"]
+        print(f"[mesh lowering] {r['mesh']} {r['what']}, per device: args {r['args']} B, peak "
+              f"estimate {r['peak']} B, {r['flops']:.4g} FLOPs, collective bytes {r['coll']} "
+              f"({r['n_coll']} collectives); H100 terms compute {rep['t_compute_s'] * 1e3:.3f} "
+              f"ms, memory {rep['t_memory_s'] * 1e3:.3f} ms, collective "
+              f"{rep['t_collective_s'] * 1e3:.3f} ms ({rep['coll_link']}): "
+              f"{rep['dominant']}-bound ({r['n_ops']} ops traced in {r['seconds']:.1f} s)")
+    # (d) phase 41's cells at 1 x 1: the compute term against phase 41's bound.
+    for r, (T, measured) in zip([r for r in results if r["mesh"] == "1x1"],
+                                ((100, it41["peak"]), (STEP_TRIALS, it41["peak_T4096"]))):
+        bound, by = _step_bound_ms(SSAHyperParams(**_table2(T)), 1, 2000)
+        term = r["t_compute_67"] * 1e3
+        if by != "operations" or abs(term - bound) > 1e-3 * bound:
+            _fail(f"mesh lowering (d) T={T}: compute term {term:.4f} ms != phase 41's bound "
+                  f"{bound:.4f} ms ({by})")
+        print(f"[mesh lowering] (d) 1x1 {r['what']}: compute term {term:.3f} ms at 67 TFLOP/s "
+              f"== phase 41's bound {bound:.3f} ms (ratio {term / bound:.6f}); peak estimate "
+              f"{r['peak']} B against phase 41's measured {measured} B (ratio "
+              f"{r['peak'] / measured:.3f})  ({card})")
+    counts = _counts()
+    print(f"[mesh step] (K1, K3, K4, K2, K1 ring, K2 ring) = {counts}")
+    _counters_zero("mesh step", counts)
 
 
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--spin-rank":
         return _spin_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        return _mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -3916,7 +4195,8 @@ def main():
     phase_ptssa_auto()
     phase_lm(card)
     phase_lm_train(card)
-    phase_iteration_step(card, streamed)
+    it41 = phase_iteration_step(card, streamed)
+    phase_mesh_step(card, streamed, it41)
 
     def dtypes(kernel):  # a kernel's rows by J dtype
         return {name: jd_rows[name][kernel] for name in J_DTYPES}

@@ -1,6 +1,7 @@
 """Carry models, engine states, the iteration steps' state tuples, SA
 carries, problem encodings, LM parameters and caches and LM training states
-across packages as numpy arrays.
+across packages as numpy arrays; and cut the iteration steps' arguments
+into a mesh rank's blocks and join the blocks back.
 
 The JAX package and this port agree on every layout, but not on dtypes:
 this port carries uint32 words (xorshift lanes, packed spins) as int32
@@ -14,14 +15,16 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .core.engine import EngineState, PackedEngineState
+from .core.distributed import iteration_specs
+from .core.engine import BIG_ENERGY, EngineState, PackedEngineState
 from .core.ising import IsingModel
 from .core.sa import SACarry
 from .kernels.bitplane import PackedJ
 from .problems import ColoringProblem, MISProblem, PartitionProblem, QUBOProblem
 
 __all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arrays",
-           "iteration_state_from_arrays", "iteration_state_to_arrays", "packed_j_from_arrays",
+           "iteration_state_from_arrays", "iteration_state_to_arrays",
+           "iteration_state_block", "iteration_state_join", "packed_j_from_arrays",
            "sa_carry_from_arrays", "sa_carry_to_arrays",
            "encoding_from_fields", "lm_params_from_arrays", "lm_caches_from_arrays",
            "train_state_from_arrays", "train_state_to_arrays"]
@@ -147,6 +150,88 @@ def iteration_state_to_arrays(state) -> Tuple[np.ndarray, ...]:
     if bm.dtype == np.int32:
         bm = bm.view(np.uint32)
     return rng.view(np.uint32), m, it, bh, bm
+
+
+def _form_specs(batched: bool, form: dict):
+    specs = iteration_specs(batched, **form)
+    return [spec for _, spec in specs], [name for name, _ in specs]
+
+
+def _coords(mesh, rank: int) -> dict:
+    from .sharding import mesh_coords
+
+    return dict(zip(mesh.shape, mesh_coords(tuple(mesh.shape.values()), rank)))
+
+
+def iteration_state_block(state, problem, mesh, *, rank: Optional[int] = None,
+                          batched: bool = False, **form) -> Tuple[tuple, tuple]:
+    """(state block, operand block): rank ``rank``'s blocks (the mesh's own
+    rank when None) of a whole state tuple and of the step's whole
+    operands (``J, h``, or the batched forms' ``*problem, h``), placed as
+    :func:`~repro_torch.core.distributed.iteration_specs` says for
+    ``batched`` and ``form`` (``storage_layout``, ``j_mode``,
+    ``field_mode``).
+
+    A dim its axis does not divide is padded to ranks × ceil(dim / ranks):
+    pad spins +1, lanes, itanh, words and operands 0, best_H BIG_ENERGY.
+    The dense J is cut as Jᵀ, so a rank holds the coupling rows of its own
+    spins — J's own rows for the symmetric J of an Ising model."""
+    specs, names = _form_specs(batched, form)
+    coords = _coords(mesh, mesh.rank if rank is None else rank)
+    blocks = []
+    for name, spec, a in zip(names, specs, (*state, *problem)):
+        if name == "J":
+            a = a.transpose(-1, -2)
+        pad = {"m": 1, "best_m": 1, "best_H": BIG_ENERGY}.get(name, 0)
+        if a.dtype == torch.int32 and name in ("m", "best_m"):
+            pad = 0  # packed words
+        for dim, axis in enumerate(spec):
+            ranks = int(mesh.shape.get(axis, 1)) if axis else 1
+            if ranks == 1:
+                continue
+            n = a.shape[dim]
+            blk = -(-n // ranks)
+            if blk * ranks != n:
+                widths = [0, 0] * (a.dim() - dim - 1) + [0, blk * ranks - n]
+                a = torch.nn.functional.pad(a, widths, value=pad)
+            a = a.narrow(dim, coords[axis] * blk, blk)
+        blocks.append(a.contiguous())
+    k = len(state)
+    return tuple(blocks[:k]), tuple(blocks[k:])
+
+
+def iteration_state_join(blocks, mesh, shapes, *, batched: bool = False, **form) -> tuple:
+    """The whole state tuple from every rank's state block (``blocks[r]``:
+    rank r's), inverse of :func:`iteration_state_block`: each leaf's blocks
+    concatenated along its sharded dims, cut back to ``shapes`` (the whole
+    leaves' shapes, or any arrays of those shapes).  Ranks that hold a replica of a
+    block (every rank of an axis the leaf is not placed on) must agree:
+    ValueError otherwise."""
+    specs, names = _form_specs(batched, form)
+    out = []
+    for leaf, (spec, name) in enumerate(zip(specs[:5], names[:5])):
+        axes = [a for a in spec if a is not None]
+        grid = {}
+        for rank, blk in enumerate(blocks):
+            c = _coords(mesh, rank)
+            key = tuple(c.get(a, 0) for a in axes)
+            if key not in grid:
+                grid[key] = blk[leaf]
+            elif not torch.equal(grid[key], blk[leaf]):
+                raise ValueError(f"{name}: rank {rank}'s replica of block {key} differs")
+        # Collapse the sharded dims, the last first.
+        for i in reversed(range(len(axes))):
+            dim = spec.index(axes[i])
+            merged = {}
+            for key in sorted(grid):
+                merged.setdefault(key[:i], []).append(grid[key])
+            grid = {k: torch.cat(v, dim=dim) for k, v in merged.items()}
+        whole = grid[()]
+        shape = tuple(getattr(shapes[leaf], "shape", shapes[leaf]))
+        for dim, n in enumerate(shape):
+            whole = whole.narrow(dim, 0, n)
+        out.append(whole.contiguous())
+    return tuple(out)
 
 
 def sa_carry_from_arrays(key: np.ndarray, m: np.ndarray, H: np.ndarray, best_H: np.ndarray,

@@ -1,5 +1,6 @@
-"""The fused HA-SSA iteration steps and spin-sharded execution,
-``partition='spin'`` (port of ``repro.core.distributed``).
+"""The fused HA-SSA iteration steps on a ``data`` × ``model`` mesh, their
+dry-run lowerings, and spin-sharded execution, ``partition='spin'`` (port
+of ``repro.core.distributed``).
 
 :func:`make_iteration_step` runs one whole I0min→I0max HA-SSA iteration as
 a plain function of the state tuple: the chain of the iteration's
@@ -11,9 +12,40 @@ problems, with the dense J, the tiled adjacency (``j_mode='tiled'``), the
 XNOR-popcount planes (``field_mode='popcount'``) and packed spin words
 across the step (``storage_layout='packed'``), per problem equal to the
 single step.  Both run on the device their inputs live on, launch no CUDA
-kernel of ``repro_torch.kernels`` and make no host sync; the ``data`` ×
-``model`` mesh layout of the JAX package's steps is not ported (a mesh
-raises NotImplementedError).
+kernel of ``repro_torch.kernels`` and make no host sync.
+
+On a mesh (:func:`repro_torch.launch.mesh.make_mesh`, axes ``data`` and
+``model``; a :class:`~repro_torch.sharding.SpinMesh` is a mesh of one
+``model`` axis) the steps run SPMD: each rank passes its own block of
+every argument and gets its own block back, the JAX package's
+``in_shardings`` (:func:`iteration_specs`; ``convert.iteration_state_block``
+cuts a rank's blocks out of whole arrays and ``iteration_state_join`` puts
+them back together).  Trials, or problems, split over ``data`` with no
+collective.  The ``model`` axis is the spin sharding of
+:class:`BatchedSpinShardedBackend` and reuses its collectives:
+
+* dense J: rank (·, j) holds its spins' columns of every leaf and the
+  coupling rows of its spins, Jᵀ's row slab (J's own for the symmetric J
+  of an Ising model).  Each cycle it all-gathers the spins and contracts
+  them against the slab: it gathers int8 spins, or 32-bit words where its
+  block is whole words, where the JAX package lets GSPMD all-reduce
+  float32 partial fields.  Both give the same integers (every float32 sum
+  is of integers below 2^24); the gather moves 4× to 32× fewer bytes.  A
+  fold all-reduces the per-shard energy sums before the floor division.
+* tiled adjacency and popcount planes: the spins are replicated over
+  ``model`` inside the step and the loop has no collective (the JAX
+  package's own caveat): the model-sharded leaves are gathered once on
+  entry and each rank keeps its own columns on exit.
+* packed words are replicated over ``model`` (the JAX package's layout).
+
+A dim that its axis does not divide is padded, as a GSPMD shard is: a
+rank's block is ceil(dim / ranks) long, the pad spins carry zero
+couplings and fields (so they enter no live field and no energy), pad
+trials and problems are independent of the live ones, and the join drops
+every pad.  :func:`anneal_step_lowering` and
+:func:`batched_anneal_step_lowering` trace one rank's step on fake tensors
+(:mod:`repro_torch.core.lowering`) at any mesh, the production 16 × 16
+included.
 
 The problem-partitioned backends keep the whole spin axis of a problem on
 one device and scale out over the problem batch; a single giant instance
@@ -47,13 +79,15 @@ under spin sharding: no kernel is launched on this path.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels.bitplane import PackedJ, pack_couplings_from_adjacency, pack_spins, unpack_spins
-from ..sharding import SpinMesh, all_gather_last, all_reduce, spin_mesh
+from ..sharding import (AbstractMesh, Mesh, SpinMesh, all_gather_last, all_reduce,
+                        mesh_axis_rank, mesh_axis_size, spin_mesh)
 from .engine import (
     BIG_ENERGY,
     BatchedBackend,
@@ -76,28 +110,91 @@ from .engine import (
 from .ising import local_fields_dense, local_fields_popcount, local_fields_tiled
 from .rng import xorshift_next_bits
 
-__all__ = ["make_iteration_step", "make_batched_iteration_step", "SPIN_AXIS",
+__all__ = ["make_iteration_step", "make_batched_iteration_step", "anneal_step_lowering",
+           "batched_anneal_step_lowering", "iteration_specs", "SPIN_AXIS", "DATA_AXIS",
            "BatchedSpinShardedBackend", "SpinShardedBackend"]
 
-# The mesh-axis name the spin axis shards over.
+# The mesh-axis names the spin axis and the trials (or problems) shard over.
 SPIN_AXIS = "model"
+DATA_AXIS = "data"
+
+
+# ---------------------------------------------------------------------------
+# The spin axis's collectives, shared by the meshed steps and the
+# spin-sharded backends
+# ---------------------------------------------------------------------------
+def _gather_words(mesh, m_local, axis=None):
+    """This rank's spins → every spin of the axis as packed words (the
+    collective): words move where the block is whole words, int8 spins
+    otherwise."""
+    if m_local.shape[-1] % 32 == 0:
+        return all_gather_last(mesh, pack_spins(m_local), axis)
+    return pack_spins(all_gather_last(mesh, m_local, axis))
+
+
+def _gather_spins(mesh, m_local, axis=None):
+    """This rank's spins → every spin of the axis as int8, moved packed
+    where the block is whole words."""
+    if m_local.shape[-1] % 32 == 0:
+        words = _gather_words(mesh, m_local, axis)
+        return unpack_spins(words, 32 * words.shape[-1])
+    return all_gather_last(mesh, m_local, axis)
+
+
+def _sharded_energy(mesh, m, field, h, axis=None):
+    """energy_from_field with the trial sums all-reduced over the axis's
+    ranks before the floor division."""
+    m32 = m.to(torch.int32)
+    s = (h * m32).sum(dim=-1, dtype=torch.int32) + (m32 * field).sum(dim=-1, dtype=torch.int32)
+    return -all_reduce(mesh, s, axis=axis) // 2
 
 
 # ---------------------------------------------------------------------------
 # The fused iteration steps
 # ---------------------------------------------------------------------------
-def _single_device(mesh, what: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} runs on one device: the data × model mesh layout of the iteration "
-            "steps is ROADMAP.md queue 1, step 10, not ported yet")
+def iteration_specs(batched: bool = False, *, storage_layout: str = "dense",
+                    j_mode: str = "dense", field_mode: str = "dense"):
+    """((name, spec), ...) of the step's arguments in order: the mesh axis
+    (or None) of each dim, the JAX package's ``in_shardings``
+    (``anneal_step_lowering`` and ``batched_anneal_step_lowering``)."""
+    d, p = DATA_AXIS, SPIN_AXIS
+    if not batched:
+        return (("rng", (None, d, p)), ("m", (d, p)), ("itanh", (d, p)), ("best_H", (d,)),
+                ("best_m", (d, p)), ("J", (p, None)), ("h", (None,)))
+    spins = (d, None, None) if storage_layout == "packed" else (d, None, p)
+    state = (("rng", (None, d, None, p)), ("m", spins), ("itanh", (d, None, p)),
+             ("best_H", (d, None)), ("best_m", spins))
+    if field_mode == "popcount":
+        problem = (("sign", (d, None, None)), ("mags", (d, None, None, None)),
+                   ("base", (d, None)))
+    elif j_mode == "tiled":
+        problem = (("nbr_idx", (d, None, None)), ("nbr_w", (d, None, None)))
+    else:
+        problem = (("J", (d, p, None)),)
+    return state + problem + (("h", (d, None)),)
 
 
-def _run_iteration(plateaus, field_fn, h, n_rnd: int, state: EngineState) -> EngineState:
+def _check_mesh(mesh):
+    if not isinstance(mesh, (Mesh, AbstractMesh, SpinMesh)):
+        raise TypeError(f"mesh must be a repro_torch.sharding Mesh, AbstractMesh or SpinMesh "
+                        f"(repro_torch.launch.mesh.make_mesh), got {type(mesh).__name__}")
+
+
+def _own_columns(a, ranks: int, j: int, n_loc: int, value=0):
+    """Rank j's block of the last axis, padded with ``value`` to ranks·n_loc."""
+    pad = ranks * n_loc - a.shape[-1]
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad), value=value)
+    return a[..., j * n_loc:(j + 1) * n_loc]
+
+
+def _run_iteration(plateaus, field_fn, h, n_rnd: int, state: EngineState,
+                   energy_fn=None) -> EngineState:
     """One iteration's plateau chain, xorshift noise, no traces."""
     for p in plateaus:
         state, _, _ = run_plateau_scan(field_fn, xorshift_next_bits, h, n_rnd, state, p.i0,
-                                       length=p.length, eligible=p.eligible)
+                                       length=p.length, eligible=p.eligible,
+                                       energy_fn=energy_fn)
     return state
 
 
@@ -110,19 +207,38 @@ def make_iteration_step(hp, mesh=None):
 
     The field is ``h + m @ J`` in float32 with TF32 off
     (:func:`~repro_torch.core.engine.exact_float32_matmul`), exact below
-    2^24.  ``mesh`` must be None.
+    2^24.  On a ``mesh`` every argument is this rank's block, placed as
+    :func:`iteration_specs` says (J's block: the coupling rows of the
+    rank's spins), and so is every result.
     """
-    _single_device(mesh, "make_iteration_step")
     plateaus = schedule_plateaus(hp.schedule("hassa"), "i0max")
     n_rnd = hp.n_rnd
     exact_float32_matmul()
+    if mesh is None:
+        def step(rng, m, itanh, best_H, best_m, J, h):
+            st = _run_iteration(plateaus, lambda m8: local_fields_dense(m8, h, J), h, n_rnd,
+                                EngineState(rng, m.to(torch.int8), itanh, best_H, best_m))
+            return st.noise_state, st.m.to(torch.float32), st.itanh, st.best_H, st.best_m
 
-    def step(rng, m, itanh, best_H, best_m, J, h):
-        st = _run_iteration(plateaus, lambda m8: local_fields_dense(m8, h, J), h, n_rnd,
-                            EngineState(rng, m.to(torch.int8), itanh, best_H, best_m))
+        return step
+    _check_mesh(mesh)
+    ranks, j = mesh_axis_size(mesh, SPIN_AXIS), mesh_axis_rank(mesh, SPIN_AXIS)
+
+    energy = functools.partial(_sharded_energy, mesh, axis=SPIN_AXIS)
+
+    def mesh_step(rng, m, itanh, best_H, best_m, J, h):
+        n = h.shape[-1]
+        h_own = _own_columns(h, ranks, j, itanh.shape[-1])
+        J_cols = J.transpose(-1, -2)  # (N, n_loc): J's columns of this rank's spins
+
+        def field_fn(m8):
+            return local_fields_dense(_gather_spins(mesh, m8, SPIN_AXIS)[..., :n], h_own, J_cols)
+
+        st = _run_iteration(plateaus, field_fn, h_own, n_rnd,
+                            EngineState(rng, m.to(torch.int8), itanh, best_H, best_m), energy)
         return st.noise_state, st.m.to(torch.float32), st.itanh, st.best_H, st.best_m
 
-    return step
+    return mesh_step
 
 
 def make_batched_iteration_step(hp, mesh=None, *, storage_layout: str = "dense",
@@ -144,6 +260,8 @@ def make_batched_iteration_step(hp, mesh=None, *, storage_layout: str = "dense",
     coupling planes ``sign (B, N, Nw), mags (B, nb, N, Nw), base (B, N),
     h`` and contracts by XNOR-popcount, row-tiled at ``tile_n`` so that the
     XNOR buffer stays (B, T, tile_n, Nw).  Every form gives the same numbers.
+    On a ``mesh`` every argument and result is this rank's block, placed as
+    :func:`iteration_specs` says.
     """
     if storage_layout not in ("dense", "packed"):
         raise ValueError(f"unknown storage_layout {storage_layout!r}")
@@ -151,40 +269,145 @@ def make_batched_iteration_step(hp, mesh=None, *, storage_layout: str = "dense",
         raise ValueError(f"unknown j_mode {j_mode!r}")
     if field_mode not in ("dense", "popcount"):
         raise ValueError(f"unknown field_mode {field_mode!r}")
-    _single_device(mesh, "make_batched_iteration_step")
+    if mesh is not None:
+        _check_mesh(mesh)
     plateaus = schedule_plateaus(hp.schedule("hassa"), "i0max")
     n_rnd, tile_n = hp.n_rnd, int(tile_n)
     packed = storage_layout == "packed"
     if field_mode == "dense":
         exact_float32_matmul()
 
-    def step(rng, m, itanh, best_H, best_m, *problem):
+    def whole_field_fn(problem):
+        """The field of whole-width spins from whole-width operands."""
         h3 = problem[-1][:, None]  # (B, 1, N): broadcasts against (B, T, N) spins
         if field_mode == "popcount":
             pj = PackedJ(*(a[:, None] for a in problem[:3]))
-
-            def field_fn(m8):
-                return local_fields_popcount(pack_spins(m8), h3, pj, tile_n=tile_n)
-        elif j_mode == "tiled":
+            return lambda m8: local_fields_popcount(pack_spins(m8), h3, pj, tile_n=tile_n)
+        if j_mode == "tiled":
             nbr_idx, nbr_w, _ = problem
+            return lambda m8: local_fields_tiled(m8, h3, nbr_idx, nbr_w, tile_n=tile_n)
+        return lambda m8: local_fields_dense(m8, h3, problem[0])
 
-            def field_fn(m8):
-                return local_fields_tiled(m8, h3, nbr_idx, nbr_w, tile_n=tile_n)
-        else:
-            def field_fn(m8):
-                return local_fields_dense(m8, h3, problem[0])
-
+    def step(rng, m, itanh, best_H, best_m, *problem):
         n = itanh.shape[-1]
         if packed:
             m8, bm8 = unpack_spins(m, n), unpack_spins(best_m, n)
         else:
             m8, bm8 = m.to(torch.int8), best_m
-        st = _run_iteration(plateaus, field_fn, h3, n_rnd, EngineState(rng, m8, itanh, best_H, bm8))
+        st = _run_iteration(plateaus, whole_field_fn(problem), problem[-1][:, None], n_rnd,
+                            EngineState(rng, m8, itanh, best_H, bm8))
         if packed:
             return st.noise_state, pack_spins(st.m), st.itanh, st.best_H, pack_spins(st.best_m)
         return st.noise_state, st.m.to(torch.float32), st.itanh, st.best_H, st.best_m
 
-    return step
+    if mesh is None:
+        return step
+    ranks, j = mesh_axis_size(mesh, SPIN_AXIS), mesh_axis_rank(mesh, SPIN_AXIS)
+
+    def whole(a, n):
+        """Every column of a model-sharded leaf, live ones only."""
+        return all_gather_last(mesh, a, SPIN_AXIS)[..., :n]
+
+    def replicated_step(rng, m, itanh, best_H, best_m, *problem):
+        """Tiled and popcount: the spins whole on every rank of ``model``,
+        gathered on entry; no collective in the loop."""
+        n, n_loc = problem[-1].shape[-1], itanh.shape[-1]
+        if not packed:
+            m, best_m = whole(m, n), whole(best_m, n)
+        out = step(whole(rng, n), m, whole(itanh, n), best_H, best_m, *problem)
+        own = lambda a: _own_columns(a, ranks, j, n_loc)  # noqa: E731
+        if packed:
+            return own(out[0]), out[1], own(out[2]), out[3], out[4]
+        return own(out[0]), own(out[1]), own(out[2]), out[3], own(out[4])
+
+    energy = functools.partial(_sharded_energy, mesh, axis=SPIN_AXIS)
+
+    def sharded_step(rng, m, itanh, best_H, best_m, J, h):
+        """Dense J: the spins over ``model``, gathered each cycle."""
+        n, n_loc = h.shape[-1], itanh.shape[-1]
+        h3 = _own_columns(h, ranks, j, n_loc)[:, None]
+        J_cols = J.transpose(-1, -2)  # (B, N, n_loc)
+
+        def field_fn(m8):
+            return local_fields_dense(_gather_spins(mesh, m8, SPIN_AXIS)[..., :n], h3, J_cols)
+
+        if packed:
+            m8 = _own_columns(unpack_spins(m, n), ranks, j, n_loc, value=1)
+            bm8 = _own_columns(unpack_spins(best_m, n), ranks, j, n_loc, value=1)
+        else:
+            m8, bm8 = m.to(torch.int8), best_m
+        st = _run_iteration(plateaus, field_fn, h3, n_rnd,
+                            EngineState(rng, m8, itanh, best_H, bm8), energy)
+        if packed:
+            return (st.noise_state, pack_spins(_gather_spins(mesh, st.m, SPIN_AXIS)[..., :n]),
+                    st.itanh, st.best_H,
+                    pack_spins(_gather_spins(mesh, st.best_m, SPIN_AXIS)[..., :n]))
+        return st.noise_state, st.m.to(torch.float32), st.itanh, st.best_H, st.best_m
+
+    if field_mode == "popcount" or j_mode == "tiled":
+        return replicated_step
+    return sharded_step
+
+
+def _arg_infos(specs, shapes, dtypes, mesh):
+    from .lowering import ArgInfo, block_shape
+
+    return tuple(ArgInfo(name, tuple(shape), dtype, spec, block_shape(shape, spec, mesh))
+                 for (name, spec), shape, dtype in zip(specs, shapes, dtypes))
+
+
+def anneal_step_lowering(mesh, n_spins: int = 2000, n_trials: int = 4096, hp=None):
+    """The dry-run lowering of :func:`make_iteration_step` on ``mesh``: rank
+    0's step traced on fake tensors, nothing allocated, no collective
+    issued (:func:`repro_torch.core.lowering.lower`).  ``mesh`` is a running
+    mesh or an :func:`~repro_torch.sharding.abstract_mesh`, such as the
+    production 16 × 16.  The JAX package's defaults and argument order."""
+    from .lowering import lower
+    from .ssa import SSAHyperParams
+
+    hp = hp or SSAHyperParams(n_trials=n_trials)
+    T, N = n_trials, n_spins
+    i32, f32 = torch.int32, torch.float32
+    shapes = ((4, T, N), (T, N), (T, N), (T,), (T, N), (N, N), (N,))
+    dtypes = (i32, f32, i32, i32, torch.int8, f32, i32)
+    return lower(lambda m: make_iteration_step(hp, m),
+                 _arg_infos(iteration_specs(), shapes, dtypes, mesh), mesh)
+
+
+def batched_anneal_step_lowering(mesh, n_problems: int = 8, n_spins: int = 2048,
+                                 n_trials: int = 512, hp=None, *, storage_layout: str = "dense",
+                                 j_mode: str = "dense", max_degree: int = 4,
+                                 tile_n: int = POPCOUNT_TILE_N, field_mode: str = "dense",
+                                 j_bits: int = 1):
+    """The dry-run lowering of :func:`make_batched_iteration_step` on
+    ``mesh``, as :func:`anneal_step_lowering`; the JAX package's defaults."""
+    from .lowering import lower
+    from .ssa import SSAHyperParams
+
+    hp = hp or SSAHyperParams(n_trials=n_trials)
+    B, T, N = n_problems, n_trials, n_spins
+    nw = -(-N // 32)
+    i32 = torch.int32
+    spins = ((B, T, nw), i32, (B, T, nw), i32) if storage_layout == "packed" else \
+        ((B, T, N), torch.float32, (B, T, N), torch.int8)
+    shapes = [(4, B, T, N), spins[0], (B, T, N), (B, T), spins[2]]
+    dtypes = [i32, spins[1], i32, i32, spins[3]]
+    if field_mode == "popcount":
+        shapes += [(B, N, nw), (B, j_bits, N, nw), (B, N)]
+        dtypes += [i32, i32, i32]
+    elif j_mode == "tiled":
+        shapes += [(B, N, max_degree)] * 2
+        dtypes += [i32, i32]
+    else:
+        shapes += [(B, N, N)]
+        dtypes += [torch.float32]
+    shapes.append((B, N))
+    dtypes.append(i32)
+    specs = iteration_specs(True, storage_layout=storage_layout, j_mode=j_mode,
+                            field_mode=field_mode)
+    return lower(lambda m: make_batched_iteration_step(
+        hp, m, storage_layout=storage_layout, j_mode=j_mode, tile_n=tile_n,
+        field_mode=field_mode), _arg_infos(specs, shapes, dtypes, mesh), mesh)
 
 
 def _require_xorshift(noise: str):
@@ -305,33 +528,16 @@ class BatchedSpinShardedBackend(BatchedBackend):
         return self._pack_local(st) if self.storage_layout == "packed" else st
 
     def _energy_local(self, m, field, h):
-        """energy_from_field with the trial sums all-reduced over the ranks
-        before the floor division."""
-        m32 = m.to(torch.int32)
-        s = (h * m32).sum(dim=-1, dtype=torch.int32) + (m32 * field).sum(dim=-1,
-                                                                          dtype=torch.int32)
-        return -all_reduce(self.mesh, s) // 2
-
-    def _gather_words(self, m_local):
-        """This rank's spins → every spin as packed words (the collective)."""
-        if self._words_shardable:
-            return all_gather_last(self.mesh, pack_spins(m_local))
-        return pack_spins(all_gather_last(self.mesh, m_local))
-
-    def _gather_spins(self, m_local):
-        """This rank's spins → every spin as int8, moved packed when aligned."""
-        if self._words_shardable:
-            return unpack_spins(self._gather_words(m_local), self.n_bucket)
-        return all_gather_last(self.mesh, m_local)
+        return _sharded_energy(self.mesh, m, field, h)
 
     def _field_local(self, prob, m_local):
         """This rank's fields from its J rows and the all-gathered spins."""
         h = prob["h"][:, None]
         if self.field_style == "popcount":
             pj = PackedJ(*(prob[k][:, None] for k in ("sign", "mags", "base")))
-            return local_fields_popcount(self._gather_words(m_local), h, pj,
+            return local_fields_popcount(_gather_words(self.mesh, m_local), h, pj,
                                          tile_n=self._pc_tile)
-        m_full = self._gather_spins(m_local)
+        m_full = _gather_spins(self.mesh, m_local)
         if self.field_style == "sparse":
             B, T, _ = m_full.shape
             idx = prob["nbr_idx"]

@@ -1,6 +1,6 @@
-"""The spin mesh: a ``torch.distributed`` process group, run SPMD (the spin
-half of ``repro.sharding``); and the LM half's logical-axis rules, which
-wait for a mesh (ROADMAP.md queue 1, step 10).
+"""The meshes: ``torch.distributed`` process groups run SPMD (the mesh half
+of ``repro.sharding``); and the LM half's logical-axis rules, which wait
+for a mesh (ROADMAP.md queue 1, step 10).
 
 The JAX package shards the spin axis of one instance over a 1-D
 ``jax.sharding.Mesh`` driven from one process.  Here the mesh is a process
@@ -13,19 +13,25 @@ gloo ranks may share one card: the collectives then copy each operand to
 host memory and back, explicitly, because gloo is the backend the group
 was made with.  At P = 1 every collective is still issued.
 
-:func:`spin_mesh` is the only public way to reach a group.  Without a
-default process group and with ``n in (None, 1)`` it makes a one-rank group
-(NCCL on ``cuda``, gloo on ``cpu``) from an in-process ``HashStore``; a
-group of several ranks is joined beforehand — by ``torchrun`` (see
-:func:`repro_torch.launch.mesh.make_spin_mesh`) or by
+:func:`spin_mesh` (a 1-D :class:`SpinMesh`) and
+:func:`repro_torch.launch.mesh.make_mesh` (an N-D :class:`Mesh`, such as
+the annealer's ``data`` × ``model`` grid) are the public ways to reach a
+group.  Without a default process group and with one rank asked for, each
+makes a one-rank group (NCCL on ``cuda``, gloo on ``cpu``) from an
+in-process ``HashStore``; a group of several ranks is joined beforehand —
+by ``torchrun`` (see :func:`repro_torch.launch.mesh.make_spin_mesh`) or by
 ``torch.distributed.init_process_group`` with a ``file://`` rendezvous.
+:func:`abstract_mesh` is a mesh's shape alone: the dry-run lowerings take
+it to analyse one rank of a mesh that is not running, and it issues no
+collective.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,8 +42,14 @@ __all__ = [
     "constrain",
     "SpinMesh",
     "spin_mesh",
+    "Mesh",
+    "AbstractMesh",
+    "abstract_mesh",
     "mesh_fingerprint",
     "mesh_axis_size",
+    "mesh_axis_rank",
+    "mesh_coords",
+    "axis_groups",
     "all_gather_last",
     "all_reduce",
     "max_over_ranks",
@@ -137,6 +149,49 @@ def _local_rank(rank: int) -> int:
     return int(os.environ.get("LOCAL_RANK", rank))
 
 
+def _requested_device(what: str, device) -> torch.device:
+    """``cuda`` unless the caller passes another device; no fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: a CUDA device was requested but "
+                           "torch.cuda.is_available() is False; pass device='cpu'")
+    return dev
+
+
+def _join_one_rank(dev: torch.device) -> None:
+    """A one-rank default group on an in-process store: NCCL on the card,
+    gloo on the CPU."""
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+
+
+def _rank_device(what: str, dev: torch.device) -> Tuple[str, torch.device]:
+    """(the running group's backend, the device this rank's shards live on).
+    An NCCL group with more ranks than GPUs raises ValueError naming both,
+    and so does a running one-rank gloo group asked for on the card."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    backend = dist.get_backend()
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError(f"{what}: an NCCL group runs on the card; pass "
+                             "device='cuda' or join a gloo group for the CPU")
+        have = torch.cuda.device_count()
+        if world > have:
+            raise ValueError(f"{what}: an NCCL group of {world} ranks needs "
+                             f"{world} GPUs, {have} exist; use gloo ranks to share one")
+        dev = torch.device("cuda", _local_rank(rank))
+    elif dev.type == "cuda":
+        if world == 1:
+            raise ValueError(
+                f"{what}: a one-rank mesh on the card is an NCCL group, but a "
+                f"{backend} group is running; call torch.distributed.destroy_process_group() "
+                "first, or pass device='cpu'")
+        dev = torch.device("cuda", _local_rank(rank) % torch.cuda.device_count())
+    return backend, dev
+
+
 def spin_mesh(n: Optional[int] = None, *, axis: str = "model", device=None) -> SpinMesh:
     """The 1-D spin mesh over ``n`` ranks (None: every rank of the group).
 
@@ -148,22 +203,15 @@ def spin_mesh(n: Optional[int] = None, *, axis: str = "model", device=None) -> S
     An NCCL group with more ranks than GPUs raises ValueError naming both,
     and so does a running one-rank gloo group asked for on the card.
     """
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("spin_mesh: a CUDA device was requested but "
-                           "torch.cuda.is_available() is False; pass device='cpu'")
+    dev = _requested_device("spin_mesh", device)
     if not dist.is_initialized():
         if n not in (None, 1):
             raise ValueError(
                 f"spin_mesh: need 1 <= n <= 1 ranks, got {n}: no process group is "
                 "running; start the ranks with torchrun (or join a group with "
                 "torch.distributed.init_process_group) before asking for more")
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-        if backend == "nccl":
-            torch.cuda.set_device(dev.index or 0)
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+        _join_one_rank(dev)
     world = dist.get_world_size()
-    rank = dist.get_rank()
     k = world if n is None else int(n)
     if not 1 <= k <= world:
         raise ValueError(f"spin_mesh: need 1 <= n <= {world} ranks, got {k}")
@@ -171,38 +219,152 @@ def spin_mesh(n: Optional[int] = None, *, axis: str = "model", device=None) -> S
         raise ValueError(
             f"spin_mesh: the process group has {world} ranks and a spin mesh spans "
             f"all of them; start {k} ranks to shard over {k}")
-    backend = dist.get_backend()
-    if backend == "nccl":
-        if dev.type != "cuda":
-            raise ValueError("spin_mesh: an NCCL group runs on the card; pass "
-                             "device='cuda' or join a gloo group for the CPU")
-        have = torch.cuda.device_count()
-        if world > have:
-            raise ValueError(f"spin_mesh: an NCCL group of {world} ranks needs "
-                             f"{world} GPUs, {have} exist; use gloo ranks to share one")
-        dev = torch.device("cuda", _local_rank(rank))
-    elif dev.type == "cuda":
-        if world == 1:
-            raise ValueError(
-                "spin_mesh: a one-rank spin mesh on the card is an NCCL group, but a "
-                f"{backend} group is running; call torch.distributed.destroy_process_group() "
-                "first, or pass device='cpu'")
-        dev = torch.device("cuda", _local_rank(rank) % torch.cuda.device_count())
-    return SpinMesh(axis=axis, size=world, rank=rank, device=dev, backend=backend)
+    backend, dev = _rank_device("spin_mesh", dev)
+    return SpinMesh(axis=axis, size=world, rank=dist.get_rank(), device=dev, backend=backend)
 
 
-def mesh_fingerprint(mesh: Optional[SpinMesh]) -> tuple:
-    """Hashable mesh identity: ((axis, P),) and the ranks 0..P-1 — the JAX
-    package's fingerprint of a P-device mesh, so that equal options give
-    equal ``SolverConfig.signature()`` digests in both packages."""
+class _Grid:
+    """The shape of an N-D mesh: ``axis_names``, ``axis_sizes`` and this
+    process's ``rank`` on it."""
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        return mesh_coords(self.axis_sizes, self.rank)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh(_Grid):
+    """An N-D mesh over every rank of the running process group, such as the
+    annealer's ``("data", "model")`` grid.
+
+    Rank r sits at ``coords``, r unravelled row-major over ``axis_sizes``
+    (the last axis varies fastest: with a ``model`` axis last, a model
+    group is a run of consecutive ranks, one node's GPUs where it fits).
+    ``groups[i]`` is the process group of the ranks that share every
+    coordinate but axis i's, the group a collective over that axis runs
+    in; None where the axis spans the whole group (the default group).
+    ``device`` and ``backend`` are as :class:`SpinMesh`'s.  Build one with
+    :func:`repro_torch.launch.mesh.make_mesh`."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    rank: int
+    device: torch.device
+    backend: str
+    groups: Tuple[Any, ...]
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+
+def mesh_coords(axis_sizes: Sequence[int], rank: int) -> Tuple[int, ...]:
+    """A rank's coordinates, unravelled row-major over ``axis_sizes``."""
+    out = []
+    for size in reversed(tuple(axis_sizes)):
+        rank, c = divmod(rank, int(size))
+        out.append(c)
+    return tuple(reversed(out))
+
+
+def axis_groups(axis_sizes: Sequence[int], rank: int) -> Tuple[Any, ...]:
+    """The process group of each axis that holds ``rank`` (None where an axis
+    spans every rank).  Every rank makes every group, in the same order, as
+    ``torch.distributed.new_group`` requires."""
+    sizes = tuple(int(s) for s in axis_sizes)
+    world = math.prod(sizes)
+    strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+    mine = []
+    for i, size in enumerate(sizes):
+        if size == world:
+            mine.append(None)
+            continue
+        group = None
+        for base in range(world):
+            if mesh_coords(sizes, base)[i]:
+                continue  # one group per line of the axis, from its coordinate 0
+            ranks = [base + k * strides[i] for k in range(size)]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                group = g
+        mine.append(group)
+    return tuple(mine)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AbstractMesh(_Grid):
+    """A mesh's shape alone: no process group, no device.  The dry-run
+    lowerings (:func:`repro_torch.core.distributed.anneal_step_lowering`)
+    take one to analyse rank 0 of a mesh that need not be running, such as
+    the production 16 × 16.  It issues no collective: a lowering gives it a
+    ``record`` hook that notes each collective and returns a fake result;
+    without one, a collective raises RuntimeError."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    record: Optional[Callable] = None
+    rank: int = 0
+
+
+def abstract_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str]) -> AbstractMesh:
+    """The shape-only mesh of ``axis_sizes`` over ``axis_names`` (the JAX
+    package's ``abstract_mesh``, same argument order)."""
+    sizes, names = tuple(int(s) for s in axis_sizes), tuple(axis_names)
+    if len(sizes) != len(names):
+        raise ValueError(f"mesh shape {sizes} rank != axes {names}")
+    return AbstractMesh(names, sizes)
+
+
+def mesh_fingerprint(mesh) -> tuple:
+    """Hashable mesh identity: the (axis, size) pairs and the ranks 0..P-1 —
+    the JAX package's fingerprint of a mesh of P devices, so that equal
+    options give equal ``SolverConfig.signature()`` digests in both
+    packages."""
     if mesh is None:
         return ()
-    return (((mesh.axis, mesh.size),), tuple(range(mesh.size)))
+    return (tuple(mesh.shape.items()), tuple(range(mesh.size)))
 
 
-def mesh_axis_size(mesh: Optional[SpinMesh], axis: str = "model") -> int:
-    """Ranks on a mesh axis (1 for no mesh or an absent axis)."""
-    return 1 if mesh is None else int(mesh.shape.get(axis, 1))
+def mesh_axis_size(mesh, axis="model") -> int:
+    """Ranks on a mesh axis, or the product over a tuple of axes (1 for no
+    mesh, no axis or an absent axis)."""
+    if mesh is None or axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        return math.prod(mesh_axis_size(mesh, a) for a in axis)
+    return int(mesh.shape.get(axis, 1))
+
+
+def mesh_axis_rank(mesh, axis: str = "model") -> int:
+    """This rank's coordinate on a mesh axis (0 for an absent axis)."""
+    if isinstance(mesh, SpinMesh):
+        return mesh.rank if axis == mesh.axis else 0
+    if axis not in mesh.axis_names:
+        return 0
+    return mesh.coords[mesh.axis_names.index(axis)]
+
+
+def _axis_group(mesh, axis):
+    """(ranks on the collective's axis, its process group): a spin mesh's
+    one axis runs in the default group."""
+    if isinstance(mesh, SpinMesh):
+        return mesh.size, None
+    i = mesh.axis_names.index(axis)
+    return mesh.axis_sizes[i], (None if isinstance(mesh, AbstractMesh) else mesh.groups[i])
+
+
+def _abstract(mesh: AbstractMesh, kind: str, axis: str, x: torch.Tensor, shape) -> torch.Tensor:
+    if mesh.record is None:
+        raise RuntimeError(f"an abstract mesh issues no collective ({kind} over {axis!r}); "
+                           "lower the step instead of calling it")
+    return mesh.record(kind, axis, x, tuple(shape))
 
 
 def _to_wire(mesh: SpinMesh, x: torch.Tensor) -> torch.Tensor:
@@ -217,28 +379,34 @@ def _to_wire(mesh: SpinMesh, x: torch.Tensor) -> torch.Tensor:
 _gather_dim0 = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
-def all_gather_last(mesh: SpinMesh, x: torch.Tensor) -> torch.Tensor:
-    """Concatenate every rank's ``x`` along its last axis, rank-major.
+def all_gather_last(mesh, x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along its last axis, rank-major over
+    the mesh ``axis`` (a spin mesh's one axis when None).
 
     The collective concatenates along dim 0 (P·x.shape[0], ...); the rank
     blocks are moved to the last axis, where the spin columns live."""
+    size, group = _axis_group(mesh, axis)
+    shape = tuple(x.shape)
+    if isinstance(mesh, AbstractMesh):
+        return _abstract(mesh, "all-gather", axis, x, shape[:-1] + (size * shape[-1],))
     collective_counts["all_gather"] += 1
     src = _to_wire(mesh, x)
-    shape = tuple(src.shape)
-    out = torch.empty((mesh.size * shape[0],) + shape[1:], dtype=src.dtype, device=src.device)
-    _gather_dim0(out, src)
-    out = out.view((mesh.size,) + shape).movedim(0, -2).reshape(
-        shape[:-1] + (mesh.size * shape[-1],))
+    out = torch.empty((size * shape[0],) + shape[1:], dtype=src.dtype, device=src.device)
+    _gather_dim0(out, src, group=group)
+    out = out.view((size,) + shape).movedim(0, -2).reshape(shape[:-1] + (size * shape[-1],))
     return out.to(x.device)
 
 
-def all_reduce(mesh: SpinMesh, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """Elementwise sum (or max) of ``x`` over the ranks; a new tensor.  Integer
-    sums are exact and order-free, so an int32 energy sum equals the
-    unsharded one."""
+def all_reduce(mesh, x: torch.Tensor, op: str = "sum", axis: Optional[str] = None) -> torch.Tensor:
+    """Elementwise sum (or max) of ``x`` over the ranks of the mesh ``axis``
+    (a spin mesh's one axis when None); a new tensor.  Integer sums are
+    exact and order-free, so an int32 energy sum equals the unsharded one."""
+    _, group = _axis_group(mesh, axis)
+    if isinstance(mesh, AbstractMesh):
+        return _abstract(mesh, "all-reduce", axis, x, x.shape)
     collective_counts["all_reduce"] += 1
     buf = _to_wire(mesh, x).clone()
-    dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op])
+    dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=group)
     return buf.to(x.device)
 
 

@@ -54,6 +54,8 @@ def test_port_imports_without_jax():
         "import repro_torch.train.step, repro_torch.optim.adamw, repro_torch.data.pipeline\n"
         "import repro_torch.ft.resilience, repro_torch.launch.train\n"
         "import repro_torch.examples.train_lm\n"
+        "import repro_torch.core.lowering, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.launch.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

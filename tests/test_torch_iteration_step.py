@@ -229,7 +229,12 @@ def test_batched_step_rejects_unknown_modes(kw, message):
                                   distributed.make_batched_iteration_step],
                          ids=["single", "batched"])
 def test_mesh_raises_not_implemented(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, step 10"):
+    """The steps take a data × model mesh now (tests/test_torch_mesh_step.py):
+    a mesh builds a step, and only an object that is no mesh raises."""
+    from repro_torch.sharding import abstract_mesh
+
+    assert callable(make(SSAHyperParams(**SMALL), mesh=abstract_mesh((1, 1), ("data", "model"))))
+    with pytest.raises(TypeError, match="mesh must be"):
         make(SSAHyperParams(**SMALL), mesh=object())
 
 
