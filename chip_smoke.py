@@ -11,7 +11,8 @@ each of seven dtypes and SSQA rings above 32 replicas, the LM
 substrate's serving and training paths (qwen3-1.7b at full width; no
 kernel on either) and the fused iteration steps of
 ``repro_torch.core.distributed`` (no kernel either), alone and on a
-``data`` × ``model`` mesh with their dry-run lowerings, and prints what it
+``data`` × ``model`` mesh with their dry-run lowerings, the LM served on
+such a mesh with its serving dry-run (no kernel), and prints what it
 measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
@@ -274,14 +275,30 @@ Phases (any failure raises and exits non-zero):
      the lowering at 1 × 1 of phase 41's cells (a) and (b): its compute
      term at 67 TFLOP/s equal to phase 41's bound within 0.1%, its peak
      estimate beside phase 41's measured peak;
- 43. the card line again, the kernels line (each kernel's service launches
+ 43. the LM served on a ``data`` × ``model`` mesh (``[lm mesh …]``; no
+     kernel): (a) qwen3-1.7b at full width through ``generate()`` (4 × 128
+     + LM_MESH_NEW) on a one-rank 1 × 1 NCCL mesh — the greedy tokens equal
+     to mesh=None's, prefill and decode logits within LM_STEPS_DEEP bf16
+     steps; (b) two
+     gloo ranks sharing the card as 1 × 2 (model-parallel), each holding
+     its half of the split weights (``convert.lm_params_block``): prefill
+     and LM_MESH_STEPS decode steps fed mesh=None's greedy tokens within
+     LM_STEPS_DEEP bf16 steps of mesh=None's logits, ``generate()``'s
+     tokens equal to mesh=None's up to a near tie; ms a decode step,
+     collectives a step, peak device bytes per rank; (c) the serving
+     dry-run (``launch.dryrun.run_cell``) of qwen3-1.7b at prefill_32k and
+     decode_32k on the abstract 16 × 16 and 2 × 16 × 16 meshes, traced in
+     worker processes while (a) and (b) run: per device the argument bytes, the
+     peak estimate, FLOPs, collective bytes and the three H100 roofline
+     terms;
+ 44. the card line again, the kernels line (each kernel's service launches
      in ``service_launches``, its stream launches in ``stream_launches``,
      its launches per family of phase 27 in ``family_launches``, those of
      phases 34–36 in ``auto_launches``, ``j_dtype_launches`` and
      ``paper_launches``, its bfloat16-J row in ``bf16``, its rows by J
      dtype in ``j_dtypes`` and, for the ring modes, its rows by ring in
      ``rings``: ring size, cluster size, blocks, where the words live,
-     times, bound and the launches of phase 37's run); 44. the contract
+     times, bound and the launches of phase 37's run); 45. the contract
      line (last).
 """
 from __future__ import annotations
@@ -4135,17 +4152,239 @@ def phase_mesh_step(card: str, production, it41):
     _counters_zero("mesh step", counts)
 
 
+# ---------------------------------------------------------------------------
+# Phase 43: the LM served on a data × model mesh (no kernel)
+# ---------------------------------------------------------------------------
+# (a) and (b): the new tokens of generate() and the decode steps fed
+# mesh=None's greedy tokens (a prompt of LM_PROMPT: max_seq 136 is cut by
+# sequence on model = 2, so (b)'s decode is flash-decode and its prefill's
+# caches go through an all-to-all).
+LM_MESH_NEW = 8
+LM_MESH_STEPS = LM_MESH_NEW - 1
+LM_MESH_CELLS = (("prefill_32k", "single"), ("prefill_32k", "pod"), ("decode_32k", "single"),
+                 ("decode_32k", "pod"))
+
+
+def _lm_steps(params, batch, cfg, tokens, max_seq, mesh=None):
+    """(prefill logits, decode logits fed ``tokens`` step by step, ms a
+    decode step, collectives a decode step): float32 logits on the CPU."""
+    from repro_torch import sharding
+    from repro_torch.models import decode_step, prefill
+
+    logits, caches = prefill(params, batch, cfg, mesh=mesh, max_seq=max_seq)
+    S = batch["tokens"].shape[1]
+    rows = []
+    torch.cuda.synchronize()
+    sharding.reset_collective_counts()
+    t0 = time.perf_counter()
+    for i in range(tokens.shape[1]):
+        lg, caches = decode_step(params, caches, tokens[:, i], S + i, cfg, mesh=mesh,
+                                 max_seq=max_seq)
+        rows.append(lg.float().cpu())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / tokens.shape[1]
+    colls = {k: v / tokens.shape[1] for k, v in sorted(sharding.collective_counts.items())}
+    return logits.float().cpu(), torch.stack(rows, 1), ms, colls
+
+
+def _lm_mesh_worker(rank: int, world: int, store: str, ref_path: str, out_path: str):
+    """Phase 43 (b)'s ranks: gloo over a file rendezvous, sharing the card;
+    each holds its blocks of qwen3-1.7b's parameters and runs prefill,
+    the decode steps fed mesh=None's tokens, and generate()."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import configs, convert
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params, tree_paths
+    from repro_torch.serve import lm
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    mesh = make_mesh((1, world), MESH_AXES)
+    dev = mesh.device
+    ref = torch.load(ref_path)
+    cfg = configs.get_config(LM_ARCH)
+    whole = init_params(model_defs(cfg), seed=0, device=dev)
+    params = convert.lm_params_block(whole, cfg, mesh.shape, mesh.coords)
+    del whole
+    torch.cuda.empty_cache()
+    held = sum(t.numel() * t.element_size() for _, t in tree_paths(params))
+    batch = {k: v.to(dev) for k, v in ref["batch"].items()}
+    max_seq = LM_PROMPT + LM_MESH_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = dict(zip(("prefill", "decode", "ms", "colls"), _lm_steps(
+        params, batch, cfg, ref["tokens"][:, :LM_MESH_STEPS].to(dev), max_seq, mesh)))
+    out["tokens"] = torch.from_numpy(lm.generate(params, batch, cfg,
+                                                 lm.ServeConfig(max_seq=max_seq), LM_MESH_NEW,
+                                                 mesh=mesh))
+    out.update(peak=torch.cuda.max_memory_allocated(), held=held, seconds=time.time() - t0)
+    torch.save(out, out_path.format(rank=rank))
+    dist.destroy_process_group()
+
+
+def _lm_lower_cell(shape_name: str, mesh_kind: str) -> dict:
+    """One serving dry-run cell traced in a worker process."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.dryrun import run_cell
+
+    return run_cell(LM_ARCH, shape_name, mesh_kind, verbose=False, analysis=True)
+
+
+def phase_lm_mesh(card: str):
+    """Phase 43: qwen3-1.7b served on a data × model mesh (no kernel; the
+    K1–K4 counters must stay 0).  (a) a one-rank 1 × 1 NCCL mesh ==
+    mesh=None; (b) two gloo ranks sharing the card as 1 × 2 within
+    LM_STEPS_DEEP bf16 steps; (c) the serving dry-run at the production
+    meshes."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params, tree_paths
+    from repro_torch.serve import lm
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    _reset_counts()
+    cfg = configs.get_config(LM_ARCH)
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ProcessPoolExecutor(
+            len(LM_MESH_CELLS), mp_context=spawn) as pool:
+        # (c) first: its traces run on the host's cores while (a) and (b) run
+        futures = [pool.submit(_lm_lower_cell, *cell) for cell in LM_MESH_CELLS]
+        params = init_params(model_defs(cfg), seed=0, device=dev)
+        batch = _lm_batch(cfg, LM_BATCH, LM_PROMPT, 0, dev)
+        # (a) a one-rank NCCL mesh against mesh=None; mesh=None's run is (b)'s reference
+        max_seq = LM_PROMPT + LM_MESH_NEW
+        sc = lm.ServeConfig(max_seq=max_seq)
+        ref_tokens = lm.generate(params, batch, cfg, sc, LM_MESH_NEW)
+        mesh = make_mesh((1, 1), MESH_AXES)
+        got = lm.generate(params, batch, cfg, sc, LM_MESH_NEW, mesh=mesh)
+        toks = torch.from_numpy(ref_tokens[:, :LM_MESH_STEPS]).to(dev)
+        ref_pre, ref_dec, ms_ref, _ = _lm_steps(params, batch, cfg, toks, max_seq)
+        pre_m, dec_m, ms_m, colls_m = _lm_steps(params, batch, cfg, toks, max_seq, mesh)
+        tol_a = _lm_tol(LM_STEPS_DEEP, ref_dec)
+        err_a = max(float((pre_m - ref_pre).abs().max()), float((dec_m - ref_dec).abs().max()))
+        print(f"[lm mesh] (a) {LM_ARCH} full width, generate() {LM_BATCH} x {LM_PROMPT} + "
+              f"{LM_MESH_NEW} greedy on a one-rank 1 x 1 {mesh.backend} mesh: tokens "
+              f"{'==' if np.array_equal(got, ref_tokens) else '!='} mesh=None's; prefill + "
+              f"{LM_MESH_STEPS} decode steps max |Δlogit| {err_a:.4f} (tol {tol_a:.4f} = "
+              f"{LM_STEPS_DEEP} bf16 steps); {ms_m:.3f} ms a decode step (mesh=None "
+              f"{ms_ref:.3f}); collectives a step {colls_m}  ({card})")
+        if not np.array_equal(got, ref_tokens):
+            _fail("lm mesh (a): the 1 x 1 mesh's greedy tokens differ from mesh=None's")
+        if err_a > tol_a:
+            _fail(f"lm mesh (a): |Δlogit| {err_a} > {tol_a}")
+        torch.distributed.destroy_process_group()
+        whole_bytes = sum(t.numel() * t.element_size() for _, t in tree_paths(params))
+        del params, pre_m, dec_m
+        torch.cuda.empty_cache()
+        # (b) two gloo ranks sharing the card
+        ref_path = str(Path(tmp) / "ref.pt")
+        torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                    "tokens": torch.from_numpy(ref_tokens)}, ref_path)
+        out_path = str(Path(tmp) / "rank{rank}.pt")
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--lm-mesh-rank", str(r), "2", str(Path(tmp) / "store"),
+                                   ref_path, out_path],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        try:
+            outs = [pr.communicate(timeout=600) for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        wall = time.time() - t0
+        for r, (pr, (_, err)) in enumerate(zip(procs, outs)):
+            if pr.returncode:
+                _fail(f"lm mesh (b): rank {r} exited {pr.returncode}: {err[-1500:]}")
+        ranks = [torch.load(out_path.format(rank=r)) for r in range(2)]
+        for o in ranks:
+            o["tokens"] = o["tokens"].numpy()
+        records = [f.result() for f in futures]
+    tol_b = _lm_tol(LM_STEPS_DEEP, ref_dec)
+    errs = [max(float((o["prefill"] - ref_pre).abs().max()),
+                float((o["decode"] - ref_dec).abs().max())) for o in ranks]
+    for r, o in enumerate(ranks):
+        if errs[r] > tol_b:
+            _fail(f"lm mesh (b): rank {r}'s logits |Δ| {errs[r]} > {tol_b}")
+        if not np.array_equal(o["tokens"], ranks[0]["tokens"]):
+            _fail("lm mesh (b): the ranks' tokens differ")
+    all_logits = torch.cat([ref_pre[:, None], ref_dec], 1)
+    compared = _lm_margin_agree("lm mesh (b)", ranks[0]["tokens"], ref_tokens, all_logits,
+                                _lm_tol(LM_STEPS_DEEP, all_logits))
+    r0 = ranks[0]
+    print(f"[lm mesh] (b) two gloo ranks sharing the card as 1 x 2: each holds "
+          f"{r0['held']} B of parameters ({r0['held'] / whole_bytes:.3f} of {whole_bytes}); "
+          f"prefill + {LM_MESH_STEPS} decode steps fed mesh=None's tokens max |Δlogit| "
+          f"{max(errs):.4f} (tol {tol_b:.4f} = {LM_STEPS_DEEP} bf16 steps); generate() "
+          f"{LM_MESH_NEW} new tokens == mesh=None's at {compared} of {ref_tokens.size} (up to "
+          f"a near tie); {r0['ms']:.3f} ms a decode step (mesh=None {ms_ref:.3f}); collectives "
+          f"a step {r0['colls']}; peak device bytes per rank "
+          f"{[o['peak'] for o in ranks]}; ranks {max(o['seconds'] for o in ranks):.3f} s, "
+          f"processes {wall:.3f} s  ({card})")
+    for rec in records:
+        if rec["status"] != "ok":
+            _fail(f"lm mesh (c): {rec}")
+        coll = {k: v for k, v in rec["coll_breakdown"].items() if v and k != "total"}
+        print(f"[lm mesh lowering] {LM_ARCH} {rec['shape']} {rec['mesh']} ({rec['n_chips']} "
+              f"ranks), per device: args {rec['argument_bytes_per_device']} B, peak estimate "
+              f"{rec['peak_bytes_per_device']:.0f} B (fits 80 GB: {rec['fits_hbm_80g']}), "
+              f"{rec['flops_per_device']:.4g} FLOPs, collective bytes {coll}; H100 terms compute "
+              f"{rec['t_compute_s'] * 1e3:.3f} ms, memory {rec['t_memory_s'] * 1e3:.3f} ms, "
+              f"collective {rec['t_collective_s'] * 1e3:.3f} ms ({rec['coll_link']}): "
+              f"{rec['dominant']}-bound (traced in {rec['t_lower_s']:.1f} + "
+              f"{rec['t_analysis_s']:.1f} s)")
+    counts = _counts()
+    print(f"[lm mesh] (K1, K3, K4, K2, K1 ring, K2 ring) = {counts}")
+    _counters_zero("lm mesh", counts)
+
+
+def _time_phases() -> None:
+    """Print each phase's wall seconds, and the script's seconds so far, to
+    stderr as it ends (stdout keeps its lines): where the time limit goes."""
+    t0 = time.perf_counter()
+    g = globals()
+    for name, fn in list(g.items()):
+        if not (name.startswith("phase_") and callable(fn)):
+            continue
+
+        def timed(*args, _fn=fn, _name=name, **kwargs):
+            t = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                now = time.perf_counter()
+                print(f"[time] {_name} {now - t:.1f} s (at {now - t0:.1f} s)", file=sys.stderr,
+                      flush=True)
+
+        g[name] = functools.wraps(fn)(timed)
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--spin-rank":
         return _spin_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         return _mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--lm-mesh-rank":
+        return _lm_mesh_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.kernels.ssa_update  # noqa: F401 — fails alone, before any output
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: exact f32
     dev = torch.device("cuda")
+    _time_phases()
     card = phase_card()
     phase_build()
     k3 = phase_k3(dev)
@@ -4197,6 +4436,7 @@ def main():
     phase_lm_train(card)
     it41 = phase_iteration_step(card, streamed)
     phase_mesh_step(card, streamed, it41)
+    phase_lm_mesh(card)
 
     def dtypes(kernel):  # a kernel's rows by J dtype
         return {name: jd_rows[name][kernel] for name in J_DTYPES}

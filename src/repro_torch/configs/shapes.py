@@ -8,15 +8,20 @@
 
 decode_*/long_* are one decode step (a new token against a KV cache of
 seq_len).  long_500k needs sub-quadratic decode state: it applies to the
-SSM/hybrid archs only.  The ``*_input_specs`` functions feed the dry-run
-analysis, which is not ported yet (ROADMAP.md queue 1, step 10).
+SSM/hybrid archs only.  The ``*_input_specs`` functions give each cell's
+inputs as meta-device tensors (shapes and dtypes, no storage), as
+``models.params.param_shapes`` gives the parameters; the dry-run
+(``launch/lowering.py``) reads them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
 
-__all__ = ["ShapeCell", "SHAPES", "applicable"]
+import torch
+
+__all__ = ["ShapeCell", "SHAPES", "applicable", "train_input_specs",
+           "prefill_input_specs", "decode_input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,3 +48,41 @@ def applicable(cfg, shape: ShapeCell) -> Tuple[bool, str]:
             "state (run for SSM/hybrid only) — see DESIGN.md §Arch-applicability"
         )
     return True, ""
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _frontend_specs(cfg, batch: int):
+    extra = {}
+    if cfg.frontend == "vision" and cfg.n_patches:
+        extra["patches"] = _meta((batch, cfg.n_patches, cfg.d_model), torch.float32)
+    if cfg.encoder_layers > 0:
+        extra["frames"] = _meta((batch, cfg.n_frames, cfg.d_model), torch.float32)
+    return extra
+
+
+def train_input_specs(cfg, shape: ShapeCell):
+    B, S = shape.global_batch, shape.seq_len
+    return {
+        "tokens": _meta((B, S), torch.int32),
+        "labels": _meta((B, S), torch.int32),
+        **_frontend_specs(cfg, B),
+    }
+
+
+def prefill_input_specs(cfg, shape: ShapeCell):
+    B, S = shape.global_batch, shape.seq_len
+    return {
+        "tokens": _meta((B, S), torch.int32),
+        **_frontend_specs(cfg, B),
+    }
+
+
+def decode_input_specs(cfg, shape: ShapeCell):
+    """(token, pos) — the caches come from ``models.cache_defs``."""
+    return {
+        "token": _meta((shape.global_batch,), torch.int32),
+        "pos": _meta((), torch.int32),
+    }

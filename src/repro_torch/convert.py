@@ -1,7 +1,8 @@
 """Carry models, engine states, the iteration steps' state tuples, SA
 carries, problem encodings, LM parameters and caches and LM training states
 across packages as numpy arrays; and cut the iteration steps' arguments
-into a mesh rank's blocks and join the blocks back.
+and the LM's parameters, caches and inputs into a mesh rank's blocks and
+join the blocks back.
 
 The JAX package and this port agree on every layout, but not on dtypes:
 this port carries uint32 words (xorshift lanes, packed spins) as int32
@@ -27,6 +28,8 @@ __all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arr
            "iteration_state_block", "iteration_state_join", "packed_j_from_arrays",
            "sa_carry_from_arrays", "sa_carry_to_arrays",
            "encoding_from_fields", "lm_params_from_arrays", "lm_caches_from_arrays",
+           "lm_params_block", "lm_params_join", "lm_caches_block", "lm_caches_join",
+           "lm_batch_block",
            "train_state_from_arrays", "train_state_to_arrays"]
 
 _ENCODINGS = {"qubo": QUBOProblem, "mis": MISProblem, "coloring": ColoringProblem,
@@ -157,10 +160,65 @@ def _form_specs(batched: bool, form: dict):
     return [spec for _, spec in specs], [name for name, _ in specs]
 
 
-def _coords(mesh, rank: int) -> dict:
+def _coords(mesh_shape, rank: int) -> dict:
+    """Rank ``rank``'s coordinate on each axis of ``mesh_shape`` (axis →
+    size, in the mesh's order; ranks row-major)."""
     from .sharding import mesh_coords
 
-    return dict(zip(mesh.shape, mesh_coords(tuple(mesh.shape.values()), rank)))
+    return dict(zip(mesh_shape, mesh_coords(tuple(mesh_shape.values()), rank)))
+
+
+def _block_index(entry, mesh_shape, coords: dict) -> Tuple[int, int]:
+    """(blocks, this rank's block) along a dim placed on ``entry``: a mesh
+    axis, a tuple of them (row-major, the first outermost) or None; an axis
+    the mesh lacks counts as one rank."""
+    idx, n = 0, 1
+    for a in (() if entry is None else entry if isinstance(entry, tuple) else (entry,)):
+        idx, n = idx * mesh_shape.get(a, 1) + coords.get(a, 0), n * mesh_shape.get(a, 1)
+    return n, idx
+
+
+def _cut(a: torch.Tensor, spec, mesh_shape, coords: dict, pad=0) -> torch.Tensor:
+    """A rank's block of ``a`` placed by ``spec``; a dim its blocks do not
+    divide is first padded with ``pad`` to blocks × ceil(dim / blocks)."""
+    for dim, entry in enumerate(spec):
+        n, idx = _block_index(entry, mesh_shape, coords)
+        if n == 1:
+            continue
+        blk = -(-a.shape[dim] // n)
+        if blk * n != a.shape[dim]:
+            widths = [0, 0] * (a.dim() - dim - 1) + [0, blk * n - a.shape[dim]]
+            a = torch.nn.functional.pad(a, widths, value=pad)
+        a = a.narrow(dim, idx * blk, blk)
+    return a.clone(memory_format=torch.contiguous_format)
+
+
+def _join(blocks, spec, mesh_shape, shape, name: str) -> torch.Tensor:
+    """The whole array of ``shape`` from every rank's block (``blocks[r]``:
+    rank r's, placed by ``spec``), inverse of :func:`_cut`: the blocks
+    concatenated along the placed dims, the last first, and the padding
+    cut off.  Ranks that hold a replica of a block (every rank of an axis
+    the array is not placed on) must agree: ValueError otherwise."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    grid = {}
+    for rank, blk in enumerate(blocks):
+        c = _coords(mesh_shape, rank)
+        key = tuple(_block_index(e, mesh_shape, c)[1] for e in spec)
+        if key not in grid:
+            grid[key] = blk
+        elif not torch.equal(grid[key], blk):
+            raise ValueError(f"{name}: rank {rank}'s replica of block {key} differs")
+    for dim in reversed(range(len(spec))):
+        merged = {}
+        for key in sorted(grid):
+            merged.setdefault(key[:dim], []).append(grid[key])
+        grid = {k: v[0] if len(v) == 1 else torch.cat(v, dim=dim) for k, v in merged.items()}
+    whole = grid[()]
+    for dim, n in enumerate(shape):
+        if whole.shape[dim] < n:
+            raise ValueError(f"{name}: joined shape {tuple(whole.shape)} < {tuple(shape)}")
+        whole = whole.narrow(dim, 0, n)
+    return whole.contiguous()
 
 
 def iteration_state_block(state, problem, mesh, *, rank: Optional[int] = None,
@@ -177,7 +235,7 @@ def iteration_state_block(state, problem, mesh, *, rank: Optional[int] = None,
     The dense J is cut as Jᵀ, so a rank holds the coupling rows of its own
     spins — J's own rows for the symmetric J of an Ising model."""
     specs, names = _form_specs(batched, form)
-    coords = _coords(mesh, mesh.rank if rank is None else rank)
+    coords = _coords(mesh.shape, mesh.rank if rank is None else rank)
     blocks = []
     for name, spec, a in zip(names, specs, (*state, *problem)):
         if name == "J":
@@ -185,17 +243,7 @@ def iteration_state_block(state, problem, mesh, *, rank: Optional[int] = None,
         pad = {"m": 1, "best_m": 1, "best_H": BIG_ENERGY}.get(name, 0)
         if a.dtype == torch.int32 and name in ("m", "best_m"):
             pad = 0  # packed words
-        for dim, axis in enumerate(spec):
-            ranks = int(mesh.shape.get(axis, 1)) if axis else 1
-            if ranks == 1:
-                continue
-            n = a.shape[dim]
-            blk = -(-n // ranks)
-            if blk * ranks != n:
-                widths = [0, 0] * (a.dim() - dim - 1) + [0, blk * ranks - n]
-                a = torch.nn.functional.pad(a, widths, value=pad)
-            a = a.narrow(dim, coords[axis] * blk, blk)
-        blocks.append(a.contiguous())
+        blocks.append(_cut(a, spec, mesh.shape, coords, pad))
     k = len(state)
     return tuple(blocks[:k]), tuple(blocks[k:])
 
@@ -208,30 +256,9 @@ def iteration_state_join(blocks, mesh, shapes, *, batched: bool = False, **form)
     block (every rank of an axis the leaf is not placed on) must agree:
     ValueError otherwise."""
     specs, names = _form_specs(batched, form)
-    out = []
-    for leaf, (spec, name) in enumerate(zip(specs[:5], names[:5])):
-        axes = [a for a in spec if a is not None]
-        grid = {}
-        for rank, blk in enumerate(blocks):
-            c = _coords(mesh, rank)
-            key = tuple(c.get(a, 0) for a in axes)
-            if key not in grid:
-                grid[key] = blk[leaf]
-            elif not torch.equal(grid[key], blk[leaf]):
-                raise ValueError(f"{name}: rank {rank}'s replica of block {key} differs")
-        # Collapse the sharded dims, the last first.
-        for i in reversed(range(len(axes))):
-            dim = spec.index(axes[i])
-            merged = {}
-            for key in sorted(grid):
-                merged.setdefault(key[:i], []).append(grid[key])
-            grid = {k: torch.cat(v, dim=dim) for k, v in merged.items()}
-        whole = grid[()]
-        shape = tuple(getattr(shapes[leaf], "shape", shapes[leaf]))
-        for dim, n in enumerate(shape):
-            whole = whole.narrow(dim, 0, n)
-        out.append(whole.contiguous())
-    return tuple(out)
+    return tuple(_join([blk[leaf] for blk in blocks], spec, mesh.shape,
+                       tuple(getattr(shapes[leaf], "shape", shapes[leaf])), name)
+                 for leaf, (spec, name) in enumerate(zip(specs[:5], names[:5])))
 
 
 def sa_carry_from_arrays(key: np.ndarray, m: np.ndarray, H: np.ndarray, best_H: np.ndarray,
@@ -322,3 +349,95 @@ def train_state_to_arrays(state):
     ``TrainState(params, OptState(step, mu, nu))`` leaves."""
     return (_np_tree(state.params), np.int32(int(state.opt.step)),
             _np_tree(state.opt.mu), _np_tree(state.opt.nu))
+
+
+# ---------------------------------------------------------------------------
+# The LM's blocks on a mesh
+# ---------------------------------------------------------------------------
+def _spec_mesh(mesh_shape):
+    from .sharding import abstract_mesh
+
+    return abstract_mesh(tuple(mesh_shape.values()), tuple(mesh_shape))
+
+
+def lm_params_block(params, cfg, mesh_shape, coords):
+    """A rank's blocks of the LM parameters (whole trees with the
+    reference's paths): each leaf cut as ``models.params.param_pspecs``
+    places it.  ``mesh_shape`` maps each mesh axis to its size, in the
+    mesh's order (``mesh.shape``); ``coords`` are the rank's coordinates
+    (``mesh.coords``).  The placements are DEFAULT_RULES', the only
+    rules a mesh runs."""
+    from .models import model_defs
+    from .models.params import tree_map
+    from .sharding import logical_to_spec
+
+    m, c = _spec_mesh(mesh_shape), dict(zip(mesh_shape, coords))
+    return tree_map(lambda a, d: _cut(a, logical_to_spec(m, d.shape, d.axes),
+                                      mesh_shape, c), params, model_defs(cfg))
+
+
+def lm_params_join(blocks, cfg, mesh_shape):
+    """The whole parameters from every rank's blocks (``blocks[r]``: rank
+    r's, r row-major over ``mesh_shape``); replicas must agree."""
+    from .models import model_defs
+
+    return _join_tree(blocks, model_defs(cfg), mesh_shape)
+
+
+def _join_tree(blocks, defs, mesh_shape):
+    """Each leaf of ``defs`` (ParamDefs: the whole shapes and logical axes)
+    joined from the blocks at its path."""
+    from .models.params import tree_paths
+    from .sharding import logical_to_spec
+
+    m = _spec_mesh(mesh_shape)
+    out: dict = {}
+    for path, d in tree_paths(defs):
+        leaves = []
+        for b in blocks:
+            for k in path:
+                b = b[k]
+            leaves.append(b)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _join(leaves, logical_to_spec(m, d.shape, d.axes), mesh_shape,
+                               d.shape, "/".join(path))
+    return out
+
+
+def _cache_axes(cfg):
+    from .models import cache_defs
+
+    return cache_defs(cfg, 1, 1)
+
+
+def lm_caches_block(caches, cfg, mesh_shape, coords):
+    """A rank's blocks of whole prefill/decode caches (``{"decoder": …}``),
+    placed as the JAX package's ``decode_lowering`` places them: K/V by
+    ("batch", "kv_seq", "kv_heads", "d_head") under the layer stack."""
+    from .models.params import tree_map
+    from .sharding import logical_to_spec
+
+    m, c = _spec_mesh(mesh_shape), dict(zip(mesh_shape, coords))
+    return tree_map(lambda a, d: _cut(a, logical_to_spec(m, a.shape, d.axes),
+                                      mesh_shape, c), caches, _cache_axes(cfg))
+
+
+def lm_caches_join(blocks, cfg, batch: int, max_seq: int, mesh_shape):
+    """The whole caches of ``batch`` rows and ``max_seq`` positions from
+    every rank's blocks; replicas must agree."""
+    from .models import cache_defs
+
+    return _join_tree(blocks, cache_defs(cfg, batch, max_seq), mesh_shape)
+
+
+def lm_batch_block(batch, mesh_shape, coords):
+    """A rank's rows of the model inputs (tokens, patches, frames, a decode
+    step's tokens): each placed by ("batch", None, …), as the JAX
+    package's ``batch_shardings``."""
+    from .sharding import logical_to_spec
+
+    m, c = _spec_mesh(mesh_shape), dict(zip(mesh_shape, coords))
+    return {k: _cut(v, logical_to_spec(m, v.shape, ("batch",) + (None,) * (v.dim() - 1)),
+                    mesh_shape, c) for k, v in batch.items()}

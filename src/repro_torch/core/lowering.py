@@ -18,7 +18,9 @@ integer work counts none); the bytes touched — each aten op's input plus
 output bytes, views excepted, the counterpart of "bytes accessed" before
 any fusion; the collectives; a peak-bytes estimate from the fakes'
 liveness (arguments, plus every op output from its creation until Python
-drops it); and the op trace itself (aten op, output shapes and dtypes).
+drops it), also per phase of the program where it calls
+:func:`~repro_torch.sharding.mark_phase` on its mesh (the LM marks each
+layer group: the dry-run extrapolates each phase's peak over depth); and the op trace itself (aten op, output shapes and dtypes).
 
 The fakes are CPU tensors: the steps traced here issue the same ops on
 either device, and a fake CUDA tensor cannot be sliced in a CPU build of
@@ -120,6 +122,7 @@ class Lowering:
     bytes_accessed: int
     argument_bytes: int
     peak_bytes: int
+    phases: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
 
     def as_text(self) -> str:
         """The trace, one line an op or collective, in order; shapes as the
@@ -163,11 +166,19 @@ class _Tracer(TorchDispatchMode):
         self.collectives: List[CollectiveRecord] = []
         self.live = self.peak = 0
         self._quiet = False
+        self.phases: List[Tuple[str, int]] = [("prologue", 0)]
+
+    def mark(self, label: str) -> None:
+        """Start a phase: its peak begins at the bytes live now."""
+        self.phases.append((label, self.live))
 
     def _track(self, t: torch.Tensor) -> None:
         nbytes = t.untyped_storage().nbytes()
         self.live += nbytes
         self.peak = max(self.peak, self.live)
+        label, top = self.phases[-1]
+        if self.live > top:
+            self.phases[-1] = (label, self.live)
         weakref.finalize(t, self._free, nbytes)
 
     def _free(self, nbytes: int) -> None:
@@ -225,8 +236,8 @@ def lower(build: Callable, args: Sequence[ArgInfo], mesh) -> Lowering:
     tracer = _Tracer()
     rec_mesh = AbstractMesh(tuple(mesh.shape), tuple(mesh.shape.values()))
     rec_mesh = dataclasses.replace(
-        rec_mesh, record=lambda kind, axis, x, shape: tracer.collective(rec_mesh, kind, axis, x,
-                                                                        shape))
+        rec_mesh, phase=tracer.mark,
+        record=lambda kind, axis, x, shape: tracer.collective(rec_mesh, kind, axis, x, shape))
     fn = build(rec_mesh)
     with FakeTensorMode(allow_non_fake_inputs=True):
         blocks = [torch.empty(a.local_shape, dtype=a.dtype) for a in args]
@@ -244,4 +255,4 @@ def lower(build: Callable, args: Sequence[ArgInfo], mesh) -> Lowering:
         mesh_shape=dict(mesh.shape), args_info=tuple(args), ops=tracer.ops,
         collectives=tracer.collectives, flops=flops, flops_by_dtype=by_dtype,
         bytes_accessed=sum(op.bytes for op in tracer.ops), argument_bytes=arg_bytes,
-        peak_bytes=arg_bytes + tracer.peak)
+        peak_bytes=arg_bytes + tracer.peak, phases=tracer.phases)

@@ -18,8 +18,8 @@ Port of ``repro.ft.resilience``:
 
 3. **Re-placement** — :func:`remesh` moves a state tree leaf by leaf to
    the devices a function names.  The reference re-shards onto a new mesh;
-   the LM mesh is ROADMAP.md queue 1, step 10, and a mesh or sharding
-   object raises until then.
+   training on a mesh is ROADMAP.md queue 1, step 10, and a mesh or
+   sharding object raises until then.
 """
 from __future__ import annotations
 
@@ -82,8 +82,8 @@ def _move(leaf, where):
     if isinstance(where, (str, torch.device)):
         return leaf.to(where) if isinstance(leaf, torch.Tensor) else leaf
     raise NotImplementedError(
-        f"remesh: {type(where).__name__} is not a device; re-sharding onto a mesh needs "
-        "the LM mesh, ROADMAP.md queue 1, step 10, not ported yet")
+        f"remesh: {type(where).__name__} is not a device; re-sharding a training state "
+        "onto a mesh is training on a mesh, ROADMAP.md queue 1, step 10, not ported yet")
 
 
 def _map2(fn, tree, other):

@@ -1,0 +1,323 @@
+"""The LM's dry-run lowerings on a mesh (port of ``repro.launch.lowering``,
+the serving half).
+
+Torch has no SPMD compiler: a cell is lowered by tracing the program one
+rank runs (:mod:`repro_torch.core.lowering`, rank 0 of an
+:class:`~repro_torch.sharding.AbstractMesh`, on fake tensors), the serving
+program of :mod:`repro_torch.models.transformer`.  Each argument carries
+the JAX package's placement (:func:`prefill_args`, :func:`decode_args`: the
+reference's ``in_shardings``).
+
+A trace visits every op, so trace time grows with depth: prefill at 32,768
+tokens in chunks of 1,024 runs 528 live chunk pairs a layer.  A lowering
+therefore traces the program at two and at three layer groups and
+extrapolates, ``total(G) = f2 + (G − 2)·(f3 − f2)`` (the reference's rule
+for its analysis lowering, from depths 2 and 3: the first group differs in
+its peak), and the peak phase by phase; this is exact where the groups are
+alike, as in every attention + MLP family.  :func:`prefill_lowering` and
+:func:`decode_lowering` trace the deployment program (the configs' chunks:
+the peak estimate); :func:`analysis_costs` traces :func:`analysis_config`
+(``q_chunk = kv_chunk = S``, the reference's analysis lowering: its FLOPs,
+bytes and collectives are what the roofline terms read).
+
+Training on a mesh is not ported: ``cell_lowering`` of a train cell raises
+NotImplementedError citing ROADMAP.md queue 1, step 10.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import time
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..configs import shapes as shp
+from ..core.lowering import ArgInfo, CollectiveRecord, Lowering, block_shape, lower
+from ..models import cache_defs, model_defs
+from ..models import transformer as T
+from ..models.params import tree_paths
+from ..sharding import DEFAULT_RULES, NamedSharding, logical_to_spec, unported_on_mesh
+
+__all__ = [
+    "count_params",
+    "batch_shardings",
+    "prefill_args",
+    "decode_args",
+    "CellLowering",
+    "prefill_lowering",
+    "decode_lowering",
+    "cell_lowering",
+    "analysis_config",
+    "analysis_costs",
+]
+
+
+# ---------------------------------------------------------------------------
+# Parameter counting (MODEL_FLOPS)
+# ---------------------------------------------------------------------------
+def count_params(cfg) -> Tuple[int, int]:
+    """(total, active) parameter counts.  Active discounts expert weights by
+    top_k / n_experts (MoE): MODEL_FLOPS = 6·N_active·D."""
+    total = active = 0
+    for path, d in tree_paths(model_defs(cfg)):
+        n = math.prod(d.shape)
+        total += n
+        is_expert = (cfg.n_experts > 0 and "ffn" in path and cfg.n_experts in d.shape
+                     and "router" not in path)
+        active += int(n * cfg.top_k / cfg.n_experts) if is_expert else n
+    return total, active
+
+
+# ---------------------------------------------------------------------------
+# Placements
+# ---------------------------------------------------------------------------
+def batch_shardings(mesh, specs: Dict[str, torch.Tensor]) -> Dict[str, NamedSharding]:
+    """Each input placed by ("batch", None, …)."""
+    return {k: NamedSharding(mesh, logical_to_spec(
+        mesh, v.shape, ("batch",) + (None,) * (v.dim() - 1))) for k, v in specs.items()}
+
+
+def _param_shardings(defs, mesh):
+    return {"/".join(path): NamedSharding(mesh, logical_to_spec(mesh, d.shape, d.axes))
+            for path, d in tree_paths(defs)}
+
+
+def _arg(name, shape, dtype, sharding: NamedSharding, mesh) -> ArgInfo:
+    spec = tuple(sharding.spec) + (None,) * (len(shape) - len(sharding.spec))
+    return ArgInfo(name, tuple(shape), dtype, spec, block_shape(shape, spec, mesh))
+
+
+def _def_args(prefix: str, defs, mesh) -> List[ArgInfo]:
+    """ArgInfos of a ParamDef tree."""
+    shard = _param_shardings(defs, mesh)
+    return [_arg(f"{prefix}/{'/'.join(path)}", d.shape, d.dtype, shard["/".join(path)], mesh)
+            for path, d in tree_paths(defs)]
+
+
+def prefill_args(cfg, shape: shp.ShapeCell, mesh) -> Tuple[ArgInfo, ...]:
+    """The prefill step's arguments: ``params/…`` (the parameter paths)
+    and ``batch/…``, each with the reference's placement."""
+    specs = shp.prefill_input_specs(cfg, shape)
+    bshard = batch_shardings(mesh, specs)
+    return tuple(_def_args("params", model_defs(cfg), mesh)
+                 + [_arg(f"batch/{k}", v.shape, v.dtype, bshard[k], mesh)
+                    for k, v in specs.items()])
+
+
+def decode_args(cfg, shape: shp.ShapeCell, mesh) -> Tuple[ArgInfo, ...]:
+    """The decode step's arguments: ``params/…``, ``caches/…`` (a cache of
+    ``seq_len`` positions), ``token`` and ``pos`` (replicated)."""
+    specs = shp.decode_input_specs(cfg, shape)
+    tok = NamedSharding(mesh, logical_to_spec(mesh, specs["token"].shape, ("batch",)))
+    return tuple(_def_args("params", model_defs(cfg), mesh)
+                 + _def_args("caches", cache_defs(cfg, shape.global_batch, shape.seq_len), mesh)
+                 + [_arg("token", specs["token"].shape, torch.int32, tok, mesh),
+                    _arg("pos", (), torch.int32, NamedSharding(mesh, ()), mesh)])
+
+
+def _trees(args, blocks) -> Dict[str, Any]:
+    """``{"params": {...}, "batch": {...}, ...}`` from the flat blocks."""
+    out: Dict[str, Any] = {}
+    for a, b in zip(args, blocks):
+        node, *path = a.name.split("/")
+        if not path:
+            out[node] = b
+            continue
+        d = out.setdefault(node, {})
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = b
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Lowerings
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class CellLowering:
+    """A cell's lowering on one rank (every number per device), in the
+    shape :func:`repro_torch.launch.hlo_analysis.roofline` reads: the whole
+    program's arguments and, for the whole depth of ``n_groups`` groups,
+    the numbers extrapolated from the traces at two and three groups
+    (``traces``): FLOPs (and by dtype), bytes touched, the ops' count and
+    the collectives (one group's repeated), and the peak estimate phase by
+    phase."""
+
+    kind: str
+    mesh_shape: Dict[str, int]
+    args_info: Tuple[ArgInfo, ...]
+    argument_bytes: int
+    n_groups: int
+    flops: int
+    flops_by_dtype: Dict[torch.dtype, int]
+    bytes_accessed: int
+    peak_bytes: int
+    n_ops: int
+    collectives: List[CollectiveRecord]
+    traces: Tuple[Lowering, Lowering]
+    seconds: float
+
+
+def _depth(cfg, groups: int):
+    return dataclasses.replace(cfg, n_layers=len(cfg.block) * groups)
+
+
+# The depths traced: from the second group on every group is alike (the
+# first differs: the embedding's output is still held while it runs).
+DEPTHS = (2, 3)
+
+
+def _extrapolate(f2, f3, G: int):
+    """f(G) of a quantity linear in the depth from its values at 2 and 3."""
+    return f2 + (G - 2) * (f3 - f2)
+
+
+def _peak(l2: Lowering, l3: Lowering, G: int, argument_bytes: int) -> int:
+    """The peak at ``G`` groups, phase by phase (the program marks each
+    group and its epilogue, ``sharding.mark_phase``): from the second group
+    on, group k holds what the groups before it left, so its peak is linear
+    in k; the epilogue's and the arguments' are linear in the depth; the
+    prologue's and the first group's are fixed."""
+    if [label for label, _ in l3.phases] != ["prologue"] + ["group"] * 3 + ["epilogue"] or [
+            label for label, _ in l2.phases] != ["prologue"] + ["group"] * 2 + ["epilogue"]:
+        raise RuntimeError(f"unexpected phases {l2.phases} / {l3.phases}")
+    (_, pro), (_, g1), (_, g2), (_, g3), (_, e3) = l3.phases
+    e2 = l2.phases[-1][1]
+    return argument_bytes + max(pro, g1, g2, _extrapolate(g2, g3, G), _extrapolate(e2, e3, G))
+
+
+def _per_group_collectives(l2: Lowering, l3: Lowering) -> List[CollectiveRecord]:
+    """The collectives the third group adds (l3's less l2's, as a multiset
+    of kind, axis, shape and dtype)."""
+    def key(c):
+        return c.kind, c.axis, c.ranks, c.shape, c.dtype
+
+    left = collections.Counter(key(c) for c in l2.collectives)
+    extra = []
+    for c in l3.collectives:
+        if left[key(c)]:
+            left[key(c)] -= 1
+        else:
+            extra.append(c)
+    return extra
+
+
+def _lower_cell(kind, cfg, shape, mesh, args_fn, program) -> CellLowering:
+    """Trace ``program`` at two and three groups of ``cfg`` and extrapolate
+    to its ``n_groups`` (at most three: traced whole); the arguments are
+    those of the whole depth."""
+    t0 = time.perf_counter()
+    G = cfg.n_groups
+
+    def trace(groups):
+        cfg_g = _depth(cfg, groups)
+        args = args_fn(cfg_g, shape, mesh)
+        return lower(lambda m: program(cfg_g, m, args), args, mesh), args
+
+    if G <= DEPTHS[-1]:
+        whole, args = trace(G)
+        return CellLowering(
+            kind=kind, mesh_shape=dict(mesh.shape), args_info=args,
+            argument_bytes=whole.argument_bytes, n_groups=G, flops=whole.flops,
+            flops_by_dtype=dict(whole.flops_by_dtype), bytes_accessed=whole.bytes_accessed,
+            peak_bytes=whole.peak_bytes, n_ops=len(whole.ops),
+            collectives=list(whole.collectives), traces=(whole, whole),
+            seconds=time.perf_counter() - t0)
+    (l2, _), (l3, _) = trace(DEPTHS[0]), trace(DEPTHS[1])
+    args = args_fn(cfg, shape, mesh)
+    arg_bytes = sum(a.local_bytes for a in args)
+    by_dtype = {dt: _extrapolate(l2.flops_by_dtype.get(dt, 0), l3.flops_by_dtype.get(dt, 0), G)
+                for dt in {*l2.flops_by_dtype, *l3.flops_by_dtype}}
+    per_group = _per_group_collectives(l2, l3)
+    return CellLowering(
+        kind=kind, mesh_shape=dict(mesh.shape), args_info=args, argument_bytes=arg_bytes,
+        n_groups=G, flops=_extrapolate(l2.flops, l3.flops, G), flops_by_dtype=by_dtype,
+        bytes_accessed=_extrapolate(l2.bytes_accessed, l3.bytes_accessed, G),
+        peak_bytes=_peak(l2, l3, G, arg_bytes),
+        n_ops=_extrapolate(len(l2.ops), len(l3.ops), G),
+        collectives=list(l2.collectives) + (G - 2) * per_group,
+        traces=(l2, l3), seconds=time.perf_counter() - t0)
+
+
+def prefill_lowering(cfg, shape: shp.ShapeCell, mesh) -> CellLowering:
+    """The prefill step of (arch × prefill cell × mesh), its caches padded
+    to ``seq_len``: rank 0 traced on fakes.  No allocation."""
+    T.check_mesh(cfg, mesh, DEFAULT_RULES, "prefill_lowering")
+
+    def program(cfg_g, m, args):
+        def fn(*blocks):
+            tree = _trees(args, blocks)
+            return T.prefill(tree["params"], tree["batch"], cfg_g, mesh=m, max_seq=shape.seq_len)
+        return fn
+
+    return _lower_cell("prefill", cfg, shape, mesh, prefill_args, program)
+
+
+def decode_lowering(cfg, shape: shp.ShapeCell, mesh) -> CellLowering:
+    """serve_step: one new token against a KV cache of ``seq_len``, rank 0
+    traced on fakes.  ``pos`` is an argument of the reference's program;
+    here the position is a Python int, and the trace takes position 0,
+    which rank 0 holds, so that the traced rank is the one that writes the
+    new K/V (the costlier case)."""
+    T.check_mesh(cfg, mesh, DEFAULT_RULES, "decode_lowering")
+
+    def program(cfg_g, m, args):
+        def fn(*blocks):
+            tree = _trees(args, blocks)
+            return T.decode_step(tree["params"], tree["caches"], tree["token"], 0, cfg_g,
+                                 mesh=m, max_seq=shape.seq_len)
+        return fn
+
+    return _lower_cell("decode", cfg, shape, mesh, decode_args, program)
+
+
+def cell_lowering(cfg, shape: shp.ShapeCell, mesh) -> CellLowering:
+    if shape.kind == "train":
+        unported_on_mesh(mesh, "train_lowering (training)")
+    if shape.kind == "prefill":
+        return prefill_lowering(cfg, shape, mesh)
+    if shape.kind == "decode":
+        return decode_lowering(cfg, shape, mesh)
+    raise ValueError(shape.kind)
+
+
+# ---------------------------------------------------------------------------
+# The analysis lowering: the reference's chunks widened to the whole
+# sequence, traced at depths 2 and 3 and extrapolated.
+# ---------------------------------------------------------------------------
+def analysis_config(cfg, shape: shp.ShapeCell, depth_groups: int):
+    """The reference's analysis config: ``depth_groups`` groups, unrolled,
+    no remat, attention in one chunk of the whole sequence."""
+    S = shape.seq_len
+    return dataclasses.replace(cfg, n_layers=len(cfg.block) * depth_groups, scan_layers=False,
+                               remat="none", q_chunk=S, kv_chunk=S)
+
+
+def analysis_costs(cfg, shape: shp.ShapeCell, mesh) -> Dict[str, Any]:
+    """Extrapolated whole-model FLOPs, bytes touched and collective bytes
+    per device (the reference's keys: ``flops``, ``hbm_bytes``,
+    ``coll_bytes``, each with ``_g1`` and ``_per_group``, and
+    ``coll_breakdown``), and ``flops_f32`` and ``coll_ranks`` for the
+    H100's terms."""
+    from .hlo_analysis import collective_bytes
+
+    wide = dataclasses.replace(analysis_config(cfg, shape, 1), n_layers=cfg.n_layers)
+    low = cell_lowering(wide, shape, mesh)
+    l2, l3 = low.traces
+    whole = l2 is l3  # three groups or fewer: traced whole, no per-group figure
+    c2, c3 = collective_bytes(l2), collective_bytes(l3)
+    G = cfg.n_groups
+    out: Dict[str, Any] = {}
+    for k, (a, b) in {"flops": (l2.flops, l3.flops),
+                      "hbm_bytes": (l2.bytes_accessed, l3.bytes_accessed),
+                      "coll_bytes": (c2["total"], c3["total"])}.items():
+        out[k] = a if whole else _extrapolate(a, b, G)
+        out[f"{k}_g1"] = None if whole else _extrapolate(a, b, 1)
+        out[f"{k}_per_group"] = None if whole else b - a
+    out["coll_breakdown"] = c2 if whole else {k: _extrapolate(c2[k], c3[k], G) for k in c2}
+    out["flops_f32"] = low.flops_by_dtype.get(torch.float32, 0)
+    out["coll_ranks"] = max((c.ranks for c in low.collectives), default=1)
+    out["seconds"] = low.seconds
+    return out

@@ -10,8 +10,8 @@ Port of ``repro.launch.train``, with ``--device`` (default ``cuda``):
 parameters, which with their gradients, AdamW moments and remat fit one
 H100).  The run resumes from ``--ckpt-dir`` if it holds a checkpoint.
 ``--mesh none`` runs on one device; ``single``, ``pod`` and ``shrunken``
-(the reference's TPU meshes) raise NotImplementedError until the LM mesh
-is ported (ROADMAP.md queue 1, step 10).  :func:`train` takes the same
+(the reference's TPU meshes) raise NotImplementedError until training on
+a mesh is ported (ROADMAP.md queue 1, step 10).  :func:`train` takes the same
 arguments as a list and returns the state, the losses and each step's
 figures.
 """
@@ -41,7 +41,7 @@ def build_mesh(kind: str):
         return None
     if kind in ("single", "pod", "shrunken"):
         raise NotImplementedError(
-            f"--mesh {kind}: the LM mesh is ROADMAP.md queue 1, step 10, not ported yet; "
+            f"--mesh {kind}: training on a mesh is ROADMAP.md queue 1, step 10, not ported yet; "
             "--mesh none trains on one device")
     raise ValueError(kind)
 

@@ -10,9 +10,23 @@ Port of ``repro.models.layers``.  Conventions, as in the reference:
   place, and each ``preferred_element_type=float32`` product of bfloat16
   operands is a float32 product of the bfloat16 values (``_mm_f32``).
 
-Every function takes ``mesh``/``rules`` like the reference's and passes its
-output through :func:`~repro_torch.sharding.constrain`, which raises on a
-mesh: the LM path runs on one device.
+Every function takes ``mesh``/``rules`` like the reference's.  On a mesh
+(``sharding.Mesh``, or an ``AbstractMesh`` being lowered) it is one rank's
+program, run SPMD on that rank's blocks, placed by
+:func:`~repro_torch.sharding.logical_to_spec` under DEFAULT_RULES:
+
+* attention is head-parallel: a rank holds its q heads (and its KV heads
+  where ``model`` divides them, all of them where it does not), reads the
+  KV heads its q heads map to, and ``wo`` is row-parallel;
+* the MLP is column-parallel into ``d_ff`` and row-parallel out of it;
+* a row-parallel product is the float32 product of the bfloat16 operands
+  on each rank, summed over ``model`` (all-reduce) and rounded to bfloat16
+  once, as the whole product is;
+* decode against a cache cut by sequence (``kv_seq`` takes ``model``
+  first, so its KV heads are whole) is flash-decode: every rank scores all
+  q heads against its positions, and the softmax's max, sum and weighted
+  values are all-reduced over ``model``; the rank holding ``pos`` writes
+  the new K/V.
 """
 from __future__ import annotations
 
@@ -22,7 +36,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding import DEFAULT_RULES, ShardingRules, constrain
+from ..sharding import (DEFAULT_RULES, ShardingRules, all_gather, all_reduce, axis_index,
+                        constrain, logical_to_spec, mesh_axis_size, require_default_rules,
+                        unported_on_mesh)
 from .params import ParamDef
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -200,6 +216,66 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(F32), b.to(F32))
 
 
+def split_axis(mesh, n: int, logical: str, rules: ShardingRules = DEFAULT_RULES):
+    """(mesh axis, ranks, this rank's index along it) of a dim of ``n``
+    carrying ``logical``, as :func:`~repro_torch.sharding.logical_to_spec`
+    places it; (None, 1, 0) where the dim stays whole (no mesh, or an axis
+    that does not divide it).  A mesh runs DEFAULT_RULES only."""
+    if mesh is None:
+        return None, 1, 0
+    require_default_rules(rules, f"the {logical!r} placement")
+    spec = logical_to_spec(mesh, (n,), (logical,), rules)
+    if not spec:
+        return None, 1, 0
+    return spec[0], mesh_axis_size(mesh, spec[0]), axis_index(mesh, spec[0])
+
+
+def cache_seq_axis(cfg, mesh, max_seq: int, rules: ShardingRules = DEFAULT_RULES):
+    """The mesh axis a cache of ``max_seq`` positions is cut over by
+    sequence (("batch", "kv_seq", "kv_heads", "d_head")), or None."""
+    if mesh is None:
+        return None
+    spec = logical_to_spec(mesh, (max_seq, cfg.n_kv_heads, cfg.d_head),
+                           ("kv_seq", "kv_heads", "d_head"), rules)
+    return spec[0] if spec else None
+
+
+def check_block(t: torch.Tensor, dim: int, n: int, what: str) -> None:
+    """ValueError unless ``t`` holds ``n`` along ``dim``: a rank passes its
+    blocks (``convert.lm_params_block``), not the whole arrays."""
+    if t.shape[dim] != n:
+        raise ValueError(f"{what}: this rank's block has {t.shape[dim]} along dim {dim}, its "
+                         f"placement gives {n}; pass the rank's blocks "
+                         "(repro_torch.convert.lm_params_block / lm_caches_block)")
+
+
+def row_parallel(x, w, n_in: int, mesh, axis):
+    """``mm_cd(x, w, n_in)`` where the contracted dims are cut across the
+    mesh ``axis``: each rank's float32 product of the bfloat16 operands,
+    summed over the axis, then rounded to bfloat16 once."""
+    if axis is None:
+        return mm_cd(x, w, n_in)
+    part = mm(x.to(COMPUTE_DTYPE).to(F32), w.to(COMPUTE_DTYPE).to(F32), n_in)
+    return all_reduce(mesh, part, "sum", axis).to(COMPUTE_DTYPE)
+
+
+def _kv_for_heads(k, v, q_lo: int, n_q: int, group: int, kv_lo: int):
+    """The K/V heads (dim 2) read by q heads [q_lo, q_lo + n_q), q head h
+    reading KV head h // ``group``; ``k`` and ``v`` hold KV heads from
+    ``kv_lo`` on.  Contiguous runs of equal length stay a slice (GQA
+    grouping); otherwise each q head's KV head is gathered (group 1)."""
+    first, last = q_lo // group, (q_lo + n_q - 1) // group
+    n_kv = last - first + 1
+    if n_q % n_kv == 0 and all((q_lo + j) // group == first + j // (n_q // n_kv)
+                               for j in range(n_q)):
+        lo = first - kv_lo
+        if lo == 0 and n_kv == k.shape[2]:
+            return k, v
+        return k[:, :, lo: lo + n_kv], v[:, :, lo: lo + n_kv]
+    idx = torch.tensor([(q_lo + j) // group - kv_lo for j in range(n_q)], device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _flash(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
            mesh=None, rules: ShardingRules = DEFAULT_RULES, kv_len=None):
     """Chunked online-softmax attention with GQA grouping.
@@ -227,33 +303,44 @@ def _flash(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
     nq, nk = S // q_chunk, Skv // kv_chunk
     scale = float(torch.tensor(1.0 / math.sqrt(D), dtype=F32))  # rounded to float32
     dev = q.device
+    pos = torch.arange(max(S, Skv), device=dev)
+    # Chunk pairs whose every key is masked for every query (causal, or past
+    # kv_len) are skipped: each row has met a live key in kv chunk 0, so such
+    # a pair would add p = exp(-1e30 - max) = 0 with corr = 1 and change no bit.
+    skip = kv_len is None or kv_len >= 1
 
-    # (B, Cq, KVH, G, D) → (B, KVH, G, Cq, D); (B, Ck, KVH, D) → (B, KVH, 1, Ck, D)
-    qb = q.reshape(B, nq, q_chunk, KVH, G, D).permute(1, 0, 3, 4, 2, 5)
-    kb = k.reshape(B, nk, kv_chunk, KVH, D).permute(1, 0, 3, 2, 4).unsqueeze(3)
-    vb = v.reshape(B, nk, kv_chunk, KVH, D).permute(1, 0, 3, 2, 4).unsqueeze(3)
+    # float32 operands cast once, laid out as each chunk's product reads them:
+    # q (nq, B, KVH, G, Cq, D), kᵀ (nk, B, KVH, 1, D, Ck), v (nk, B, KVH, 1, Ck, D)
+    f32 = dict(dtype=F32, memory_format=torch.contiguous_format)
+    qb = q.reshape(B, nq, q_chunk, KVH, G, D).permute(1, 0, 3, 4, 2, 5).to(**f32)
+    kb = k.reshape(B, nk, kv_chunk, KVH, D).permute(1, 0, 3, 4, 2).unsqueeze(3).to(**f32)
+    vb = v.reshape(B, nk, kv_chunk, KVH, D).permute(1, 0, 3, 2, 4).unsqueeze(3).to(**f32)
     chunks = []
     for qi in range(nq):
         qc = qb[qi]
-        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        q_pos = pos[qi * q_chunk: (qi + 1) * q_chunk]
+        n_live = nk
+        if skip and causal:
+            n_live = min(n_live, ((qi + 1) * q_chunk - 1) // kv_chunk + 1)
+        if skip and kv_len is not None:
+            n_live = min(n_live, -(-kv_len // kv_chunk))
         acc = torch.zeros((B, KVH, G, q_chunk, D), dtype=F32, device=dev)
         mx = torch.full((B, KVH, G, q_chunk), -1e30, dtype=F32, device=dev)
         dn = torch.zeros((B, KVH, G, q_chunk), dtype=F32, device=dev)
-        for ki in range(nk):
-            kc, vc = kb[ki], vb[ki]
-            k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
-            s = _mm_f32(qc, kc.transpose(-1, -2)) * scale  # (B,KVH,G,Cq,Ck)
-            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= q_pos[:, None] >= k_pos[None, :]
+        for ki in range(n_live):
+            k_pos = pos[ki * kv_chunk: (ki + 1) * kv_chunk]
+            s = torch.matmul(qc, kb[ki]) * scale  # (B,KVH,G,Cq,Ck)
+            mask = q_pos[:, None] >= k_pos[None, :] if causal else None
             if kv_len is not None:
-                mask &= k_pos[None, :] < kv_len
-            s = torch.where(mask, s, -1e30)
+                live = k_pos[None, :] < kv_len
+                mask = live if mask is None else mask & live
+            if mask is not None:
+                s = torch.where(mask, s, -1e30)
             m_new = torch.maximum(mx, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(mx - m_new)
             dn = dn * corr + p.sum(dim=-1)
-            pv = _mm_f32(p.to(vc.dtype), vc)
+            pv = torch.matmul(p.to(v.dtype).to(F32), vb[ki])
             acc = acc * corr[..., None] + pv
             mx = m_new
         out = acc / torch.clamp(dn[..., None], min=1e-30)  # (B,KVH,G,Cq,D)
@@ -275,17 +362,39 @@ def attention(
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence attention (train / prefill).  Returns (y, kv_cache)."""
+    """Full-sequence attention (train / prefill).  Returns (y, kv_cache).
+
+    On a mesh: this rank's q heads and KV heads, the cache those KV heads
+    over the whole sequence (``transformer.prefill`` re-cuts it by
+    sequence for decode)."""
+    if x_kv is not None:
+        unported_on_mesh(mesh, "cross-attention (whisper's decoder)")
     B, S, _ = x.shape
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    qa, q_ranks, q_idx = split_axis(mesh, H, "heads", rules)
+    _, k_ranks, k_idx = split_axis(mesh, K, "kv_heads", rules)
+    n_q, n_kv = H // q_ranks, K // k_ranks
+    check_block(p["wq"], 1, n_q, "attention: wq")
+    check_block(p["wk"], 1, n_kv, "attention: wk")
     x_kv = x if x_kv is None else x_kv
     Skv = x_kv.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     pos_kv = torch.arange(Skv, device=x.device).expand(B, Skv)
     q, k, v = _qkv(p, x, x_kv, cfg, positions, pos_kv)
-    out = _flash(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    y = mm_cd(out, p["wo"], 2)
+    ks, vs = _kv_for_heads(k, v, q_idx * n_q, n_q, H // K, k_idx * n_kv)
+    out = _flash(q, ks, vs, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk, mesh=mesh,
+                 rules=rules)
+    y = row_parallel(out, p["wo"], 2, mesh, qa)
     return constrain(y, mesh, ("batch", "seq", "d_model"), rules), {"k": k, "v": v}
+
+
+def _write(cache, pos: int, k_new, v_new):
+    """A copy of the cache with position ``pos`` (a local index) set."""
+    k, v = cache["k"].clone(), cache["v"].clone()
+    k[:, pos] = k_new[:, 0].to(k.dtype)
+    v[:, pos] = v_new[:, 0].to(v.dtype)
+    return k, v
 
 
 def attention_decode(
@@ -299,39 +408,81 @@ def attention_decode(
     rules: ShardingRules = DEFAULT_RULES,
     cross: bool = False,   # cross-attention: the cache is static, no update
     cross_len: Optional[int] = None,
+    max_seq: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token decode against the cache (a new cache is returned; the
     one passed in is not written).  ``pos`` must lie inside the cache: the
     reference's ``dynamic_update_slice`` clamps a start past the end, which
-    this raises on."""
+    this raises on.
+
+    On a mesh ``cache`` is this rank's block of a cache of ``max_seq``
+    positions (required there), placed by ("batch", "kv_seq", "kv_heads",
+    "d_head"): cut by sequence where ``model`` divides ``max_seq``
+    (flash-decode), else by KV heads where it divides them."""
     B = x.shape[0]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = _q(p, x, cfg, positions)
     if cross:
-        k, v = cache["k"], cache["v"]
-        kv_len = cross_len if cross_len is not None else k.shape[1]
+        unported_on_mesh(mesh, "cross-attention (whisper's decoder)")
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // K
+    qa, q_ranks, q_idx = split_axis(mesh, H, "heads", rules)
+    ka, k_ranks, k_idx = split_axis(mesh, K, "kv_heads", rules)
+    n_q, n_kv = H // q_ranks, K // k_ranks
+    check_block(p["wq"], 1, n_q, "attention_decode: wq")
+    check_block(p["wk"], 1, n_kv, "attention_decode: wk")
+    if mesh is None:
+        max_seq = cache["k"].shape[1]
+    elif max_seq is None:
+        raise ValueError("attention_decode on a mesh needs max_seq, the cache's whole length")
+    if not cross and not 0 <= pos < max_seq:
+        raise IndexError(f"attention_decode: position {pos} outside a cache of {max_seq}")
+    sa = cache_seq_axis(cfg, mesh, max_seq, rules)
+    q = _q(p, x, cfg, positions)                                   # (B,1,n_q,D)
+    scale = float(torch.tensor(math.sqrt(D), dtype=F32))
+    if sa is None:
+        # the whole sequence of this rank's KV heads (all K where model does not divide it)
+        check_block(cache["k"], 2, n_kv, "attention_decode: the cache")
+        check_block(cache["k"], 1, max_seq, "attention_decode: the cache")
+        if cross:
+            k, v = cache["k"], cache["v"]
+            kv_len = cross_len if cross_len is not None else max_seq
+        else:
+            k, v = _write(cache, pos, *_kv(p, x, cfg, positions))
+            kv_len = pos + 1
+        ks, vs = _kv_for_heads(k, v, q_idx * n_q, n_q, G, k_idx * n_kv)
+        n_sel = ks.shape[2]
+        qg = q.reshape(B, n_sel, n_q // n_sel, D)                  # (B,KVH,G,D)
+        s = _mm_f32(qg, ks.permute(0, 2, 3, 1)) / scale            # (B,KVH,G,Smax)
+        live = torch.arange(max_seq, device=x.device) < kv_len
+        s = torch.where(live, s, -1e30)
+        w = torch.softmax(s, dim=-1)
+        out = _mm_f32(w.to(vs.dtype), vs.permute(0, 2, 1, 3))      # (B,KVH,G,D)
+        out = out.reshape(B, 1, n_q, D).to(COMPUTE_DTYPE)
     else:
-        if not 0 <= pos < cache["k"].shape[1]:
-            raise IndexError(f"attention_decode: position {pos} outside a cache of "
-                             f"{cache['k'].shape[1]}")
-        k_new, v_new = _kv(p, x, cfg, positions)
-        k, v = cache["k"].clone(), cache["v"].clone()
-        k[:, pos] = k_new[:, 0].to(k.dtype)
-        v[:, pos] = v_new[:, 0].to(v.dtype)
-        kv_len = pos + 1
-    Smax, KVH = k.shape[1], k.shape[2]
-    H = q.shape[2]
-    G = H // KVH
-    qg = q.reshape(B, KVH, G, -1)                                   # (B,KVH,G,D)
-    s = _mm_f32(qg, k.permute(0, 2, 3, 1)) / float(
-        torch.tensor(math.sqrt(cfg.d_head), dtype=F32))            # (B,KVH,G,Smax)
-    live = torch.arange(Smax, device=x.device) < kv_len
-    s = torch.where(live, s, -1e30)
-    w = torch.softmax(s, dim=-1)
-    out = _mm_f32(w.to(v.dtype), v.permute(0, 2, 1, 3))            # (B,KVH,G,D)
-    out = out.reshape(B, 1, H, cfg.d_head).to(COMPUTE_DTYPE)
-    y = mm_cd(out, p["wo"], 2)
+        # flash-decode: this rank's positions [lo, lo + n_s) of every KV head
+        n_s = max_seq // mesh_axis_size(mesh, sa)
+        lo = axis_index(mesh, sa) * n_s
+        check_block(cache["k"], 1, n_s, "attention_decode: the cache")
+        check_block(cache["k"], 2, K, "attention_decode: the cache")
+        k_new, v_new = _kv(p, x, cfg, positions)                   # (B,1,n_kv,D)
+        if ka is not None:
+            k_new, v_new = all_gather(mesh, k_new, 2, ka), all_gather(mesh, v_new, 2, ka)
+        if lo <= pos < lo + n_s:
+            k, v = _write(cache, pos - lo, k_new, v_new)
+        else:
+            k, v = cache["k"], cache["v"]
+        qf = all_gather(mesh, q, 2, qa) if qa is not None else q    # every q head
+        s = _mm_f32(qf.reshape(B, K, G, D), k.permute(0, 2, 3, 1)) / scale  # (B,K,G,n_s)
+        live = torch.arange(lo, lo + n_s, device=x.device) < pos + 1
+        s = torch.where(live, s, -1e30)
+        mx = all_reduce(mesh, s.amax(dim=-1), "max", sa)
+        e = torch.exp(s - mx[..., None])
+        den = all_reduce(mesh, e.sum(dim=-1), "sum", sa)
+        w = e / den[..., None]
+        out = all_reduce(mesh, _mm_f32(w.to(v.dtype), v.permute(0, 2, 1, 3)), "sum", sa)
+        out = out.reshape(B, 1, H, D).to(COMPUTE_DTYPE)[:, :, q_idx * n_q: (q_idx + 1) * n_q]
+    y = row_parallel(out, p["wo"], 2, mesh, qa)
     new_cache = cache if cross else {"k": k, "v": v}
     return constrain(y, mesh, ("batch", "seq", "d_model"), rules), new_cache
 
@@ -351,6 +502,10 @@ def mlp_defs(cfg, d_ff: Optional[int] = None) -> Dict[str, ParamDef]:
 
 
 def mlp(p, x, cfg, *, mesh=None, rules: ShardingRules = DEFAULT_RULES):
+    """On a mesh ``wi`` and ``wo`` are this rank's blocks of ``d_ff``:
+    column-parallel in, row-parallel out."""
+    fa, f_ranks, _ = split_axis(mesh, cfg.d_ff, "d_ff", rules)
+    check_block(p["wo"], 0, cfg.d_ff // f_ranks, "mlp: wo")
     if cfg.act == "swiglu":
         gu = mm_cd(x, p["wi"])
         h = silu(gu[..., 0, :]) * gu[..., 1, :]
@@ -360,7 +515,7 @@ def mlp(p, x, cfg, *, mesh=None, rules: ShardingRules = DEFAULT_RULES):
         h = torch.square(torch.relu(mm_cd(x, p["wi"])))
     else:
         raise ValueError(cfg.act)
-    y = mm_cd(h, p["wo"])
+    y = row_parallel(h, p["wo"], 1, mesh, fa)
     return constrain(y, mesh, ("batch", "seq", "d_model"), rules)
 
 

@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..sharding import DEFAULT_RULES, ShardingRules, constrain
+from ..sharding import DEFAULT_RULES, ShardingRules, constrain, unported_on_mesh
 from .layers import COMPUTE_DTYPE, F32, mm, mm_cd, silu
 from .params import ParamDef
 
@@ -81,7 +81,9 @@ def mamba(
     h0: Optional[torch.Tensor] = None,
     conv0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence Mamba.  Returns (y (B,S,M), cache{conv,ssm})."""
+    """Full-sequence Mamba.  Returns (y (B,S,M), cache{conv,ssm}).  One
+    device only."""
+    unported_on_mesh(mesh, "mamba")
     B, S, M = x.shape
     DI, R, N, K = _dims(cfg)
     cd = COMPUTE_DTYPE
@@ -133,6 +135,7 @@ def mamba_decode(
     mesh=None,
     rules: ShardingRules = DEFAULT_RULES,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    unported_on_mesh(mesh, "mamba_decode")
     cd = COMPUTE_DTYPE
     A = -torch.exp(p["a_log"].to(F32))
     D_skip = p["d_skip"].to(F32)

@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding import DEFAULT_RULES, ShardingRules, constrain
+from ..sharding import DEFAULT_RULES, ShardingRules, constrain, unported_on_mesh
 from .layers import COMPUTE_DTYPE, F32, gelu, mm, silu
 from .params import ParamDef
 
@@ -185,7 +185,8 @@ def moe_ffn(
     rules: ShardingRules = DEFAULT_RULES,
     seq_chunk: int = 512,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B,S,M), aux_loss scalar float32)."""
+    """Returns (y (B,S,M), aux_loss scalar float32).  One device only."""
+    unported_on_mesh(mesh, "moe_ffn (MoE expert parallelism)")
     B, S, M = x.shape
     impl = getattr(cfg, "moe_impl", "einsum")
     run = _run_group_gather if impl == "gather" else _run_group_einsum

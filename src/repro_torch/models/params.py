@@ -5,10 +5,10 @@ nested dict of ParamDef``; from that tree come
 
 * ``init_params``  — materialized tensors, each leaf drawn from its own
                      ``torch.Generator``,
-* ``param_shapes`` — meta-device tensors (shapes and dtypes, no storage).
-
-``param_pspecs`` and ``param_shardings`` wait for the LM mesh (ROADMAP.md
-queue 1, step 10).
+* ``param_shapes``    — meta-device tensors (shapes and dtypes, no storage),
+* ``param_pspecs``    — specs by the logical-axis rules
+                        (:func:`repro_torch.sharding.logical_to_spec`),
+* ``param_shardings`` — :class:`~repro_torch.sharding.NamedSharding` of a mesh.
 """
 from __future__ import annotations
 
@@ -19,8 +19,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamDef", "init_params", "param_shapes", "stack_defs", "tree_defs_map",
-           "tree_map", "tree_paths"]
+from ..sharding import DEFAULT_RULES, NamedSharding, ShardingRules, logical_to_spec
+
+__all__ = ["ParamDef", "init_params", "param_shapes", "param_pspecs", "param_shardings",
+           "stack_defs", "tree_defs_map", "tree_map", "tree_paths"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +115,14 @@ def init_params(defs, seed: int = 0, device=None):
 def param_shapes(defs):
     """Meta-device tensors of the defs' shapes and dtypes."""
     return tree_defs_map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+
+
+def param_pspecs(defs, mesh, rules: ShardingRules = DEFAULT_RULES):
+    """Each leaf's spec on ``mesh`` by the logical-axis rules."""
+    return tree_defs_map(lambda d: logical_to_spec(mesh, d.shape, d.axes, rules), defs)
+
+
+def param_shardings(defs, mesh, rules: ShardingRules = DEFAULT_RULES):
+    """Each leaf's :class:`~repro_torch.sharding.NamedSharding` on ``mesh``."""
+    return tree_defs_map(
+        lambda d: NamedSharding(mesh, logical_to_spec(mesh, d.shape, d.axes, rules)), defs)

@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..sharding import DEFAULT_RULES, ShardingRules, constrain
+from ..sharding import DEFAULT_RULES, ShardingRules, constrain, unported_on_mesh
 from .layers import COMPUTE_DTYPE, F32, mm, mm_cd, rms_norm, silu
 from .params import ParamDef
 
@@ -108,6 +108,7 @@ def rwkv_time_mix(
     rules: ShardingRules = DEFAULT_RULES,
     cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    unported_on_mesh(mesh, "rwkv_time_mix")
     B, S, M = x.shape
     H, D = _dims(cfg)
     xf = x.to(F32)
@@ -149,6 +150,7 @@ def rwkv_channel_defs(cfg) -> Dict[str, ParamDef]:
 def rwkv_channel_mix(
     p, x, cfg, *, mesh=None, rules=DEFAULT_RULES, cache=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    unported_on_mesh(mesh, "rwkv_channel_mix")
     B, S, M = x.shape
     cd = COMPUTE_DTYPE
     xf = x.to(F32)

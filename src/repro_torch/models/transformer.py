@@ -28,6 +28,20 @@ Entry points (pure functions of the parameters, a nested dict of tensors):
   prefill(...)      -> (last-position logits, caches); no autograd
   decode_step(...)  -> (logits, updated caches); no autograd
 
+``prefill`` and ``decode_step`` take a ``data`` × ``model`` (or ``pod`` ×
+``data`` × ``model``) mesh for the families built of ``attn`` and
+``dense`` blocks only, under DEFAULT_RULES: each rank passes its blocks
+(``convert.lm_params_block``, ``lm_caches_block``, ``lm_batch_block``) and
+runs the same call.  The batch splits over ``("pod", "data")`` with no
+collective; the layers are tensor-parallel over ``model``
+(:mod:`.layers`); the embedding is vocab-parallel where ``model`` divides
+the vocabulary (one all-reduce), and the logits come back gathered over the
+vocabulary.  prefill's caches come out in decode's placement: KV cut by
+sequence where ``model`` divides ``max_seq`` (an all-to-all of each
+group's head-cut K/V), by KV heads otherwise.  MoE, Mamba, RWKV, the encoder and
+training (``forward``) on a mesh raise NotImplementedError citing
+ROADMAP.md queue 1, step 10.
+
 :class:`LM` holds the parameters as an ``nn.Module`` (state-dict keys are
 the reference's tree paths joined with '.') and calls these functions.
 """
@@ -42,7 +56,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..sharding import DEFAULT_RULES, constrain
+from ..sharding import (DEFAULT_RULES, AbstractMesh, Mesh, all_gather, all_reduce, all_to_all,
+                        axis_index, constrain, mark_phase, mesh_axis_size,
+                        require_default_rules, unported_on_mesh)
 from . import layers as L
 from . import mamba as MB
 from . import moe as MOE
@@ -241,15 +257,34 @@ def cache_defs(cfg: ModelConfig, batch: int, max_seq: int):
 # Embedding / head
 # ---------------------------------------------------------------------------
 def _embed_tokens(params, tokens, cfg, mesh, rules):
-    x = params["embed"]["tok"][tokens.long()].to(L.COMPUTE_DTYPE)
+    """The token rows, cast to bfloat16.  Vocab-parallel on a mesh where
+    ``model`` divides the vocabulary: a rank looks up the tokens of its
+    rows, zeros elsewhere, and one all-reduce sums them (one nonzero term:
+    exact)."""
+    tbl = params["embed"]["tok"]
+    va, v_ranks, v_idx = L.split_axis(mesh, cfg.vocab, "vocab", rules)
+    if va is None:
+        x = tbl[tokens.long()].to(L.COMPUTE_DTYPE)
+    else:
+        n_v = cfg.vocab // v_ranks
+        L.check_block(tbl, 0, n_v, "embed: tok")
+        t = tokens.long() - v_idx * n_v
+        rows = tbl[t.clamp(0, n_v - 1)].to(L.COMPUTE_DTYPE)
+        x = all_reduce(mesh, torch.where(((t >= 0) & (t < n_v))[..., None], rows, 0), "sum", va)
     return constrain(x, mesh, ("batch", "seq", "d_model"), rules)
 
 
 def lm_head_logits(params, x, cfg, mesh=None, rules=DEFAULT_RULES):
     """x (B, S, M) → logits (B, S, V) float32: a bfloat16 product (the
-    logits are bfloat16 values) cast to float32, as the reference's."""
+    logits are bfloat16 values) cast to float32, as the reference's.  On a
+    mesh each rank computes its vocabulary block and the logits are
+    gathered over it, so that every rank samples from all of them."""
     head = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["head"]
+    va, v_ranks, _ = L.split_axis(mesh, cfg.vocab, "vocab", rules)
+    L.check_block(head, 1, cfg.vocab // v_ranks, "lm head")
     logits = L.mm_cd(x, head).to(F32)
+    if va is not None:
+        logits = all_gather(mesh, logits, -1, va)
     return constrain(logits, mesh, ("batch", "seq", "vocab"), rules)
 
 
@@ -349,11 +384,12 @@ def _n_groups(stack) -> int:
 
 
 def _scan_stack(stack_params, x, cfg, mesh, rules, *, make_cache, enc_out=None,
-                causal=True):
+                causal=True, place_cache=None):
     """The reference's scan over the stacked groups, as a loop.  Under
     autograd with ``remat="full"`` each block of ``remat_block`` groups
     (the reference's super-group; one group when it is 1) is
-    checkpointed."""
+    checkpointed.  ``place_cache`` maps each group's caches as they are
+    made (prefill on a mesh: to decode's placement)."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     groups = _groups(stack_params)
     k = cfg.remat_block if cfg.scan_layers and not make_cache else 1
@@ -362,10 +398,12 @@ def _scan_stack(stack_params, x, cfg, mesh, rules, *, make_cache, enc_out=None,
     if make_cache or cfg.remat != "full" or not torch.is_grad_enabled():
         all_caches = []
         for gp in groups:
+            mark_phase(mesh, "group")
             x, caches, a = _apply_group(gp, x, cfg, mesh, rules, make_cache=make_cache,
                                         enc_out=enc_out, causal=causal)
             aux = aux + a
-            all_caches.append(caches)
+            all_caches.append(place_cache(caches) if place_cache else caches)
+        mark_phase(mesh, "epilogue")
         return x, (_stack(all_caches) if make_cache else None), aux
 
     def block(xx, aux_sum, gps):
@@ -389,6 +427,7 @@ def _scan_stack(stack_params, x, cfg, mesh, rules, *, make_cache, enc_out=None,
 # ---------------------------------------------------------------------------
 def encode(params, frames, cfg, *, mesh=None, rules=DEFAULT_RULES):
     """frames (B, F, M): precomputed conv-frontend embeddings (a stub)."""
+    unported_on_mesh(mesh, "the encoder (whisper)")
     x = frames.to(L.COMPUTE_DTYPE)
     x = x + _sincos_pos(x.shape[1], cfg.d_model, device=x.device).to(x.dtype)
     x, _, _ = _scan_stack(params["encoder"], x, cfg, mesh, rules, make_cache=False,
@@ -418,7 +457,8 @@ def _encoder_out(params, batch, cfg, mesh, rules):
 def forward(params, batch, cfg, *, mesh=None, rules=DEFAULT_RULES):
     """Forward over the whole sequence → (hidden (B,S,M), aux_loss).
     Differentiable: autograd records it where the parameters (or inputs)
-    require grad."""
+    require grad.  On one device only: training on a mesh is not ported."""
+    unported_on_mesh(mesh, "forward (training)")
     enc_out = _encoder_out(params, batch, cfg, mesh, rules)
     x = _embed_inputs(params, batch, cfg, mesh, rules)
     x, _, aux = _scan_stack(params["decoder"], x, cfg, mesh, rules, make_cache=False,
@@ -426,20 +466,50 @@ def forward(params, batch, cfg, *, mesh=None, rules=DEFAULT_RULES):
     return L.apply_norm(params["final_norm"], x, cfg.norm), aux
 
 
-def _pad_self_kv(caches, cfg, max_seq):
-    """Pad the self-attention K/V leaves (those of an 'attn' mixer, by their
-    place in the tree) along the sequence to ``max_seq``.  The reference
-    pads every rank-5 leaf whose axis 2 equals the prompt length, which
-    also catches an RWKV state when the prompt length equals the head count
-    and whisper's cross-attention K/V when it equals ``n_frames``; those
-    stay as they are here."""
+def check_mesh(cfg, mesh, rules, what: str) -> None:
+    """The serving program runs on a mesh for the families built of
+    ``attn`` and ``dense`` blocks, under DEFAULT_RULES: anything else raises
+    NotImplementedError citing ROADMAP.md queue 1, step 10."""
+    if not isinstance(mesh, (Mesh, AbstractMesh)):
+        raise TypeError(f"{what}: mesh must be a repro_torch.sharding Mesh or AbstractMesh "
+                        f"(repro_torch.launch.mesh.make_mesh), got {type(mesh).__name__}")
+    require_default_rules(rules, what)
+    others = sorted({b for pair in cfg.block for b in pair} - {"attn", "dense"})
+    if others:
+        unported_on_mesh(mesh, f"{what}: {cfg.name}'s {', '.join(others)} blocks (MoE expert "
+                               "parallelism, Mamba and RWKV)")
+    if cfg.encoder_layers > 0:
+        unported_on_mesh(mesh, f"{what}: {cfg.name}'s encoder and cross-attention")
+
+
+def _decode_placement(caches, cfg, mesh, rules, max_seq):
+    """One group's prefill K/V, (B, S, KVH', D), padded along the sequence
+    to ``max_seq`` and, on a mesh, placed as decode reads them: cut by
+    sequence where it takes ``model`` (an all-to-all from the head cut, or
+    a slice where the heads are whole), else as they are.  Only the 'attn'
+    mixers' K/V are padded: the reference pads every rank-5 leaf whose
+    axis 2 equals the prompt length, which also catches an RWKV state when
+    the prompt is as long as the head count and whisper's cross-attention
+    K/V when it is ``n_frames`` long; those stay as they are here."""
+    sa = L.cache_seq_axis(cfg, mesh, max_seq, rules)
+    ka = L.split_axis(mesh, cfg.n_kv_heads, "kv_heads", rules)[0]
     out = dict(caches)
     for li, (mixer, _) in enumerate(cfg.block):
-        if mixer == "attn":
-            lc = dict(out[f"l{li}"])
-            lc["mixer"] = {name: F.pad(c, (0, 0, 0, 0, 0, max_seq - c.shape[2]))
-                           for name, c in lc["mixer"].items()}
-            out[f"l{li}"] = lc
+        if mixer != "attn":
+            continue
+        lc = dict(out[f"l{li}"])
+        kv = {}
+        for name, c in lc["mixer"].items():
+            if max_seq != c.shape[1]:
+                c = F.pad(c, (0, 0, 0, 0, 0, max_seq - c.shape[1]))
+            if sa is not None and ka is not None:
+                c = all_to_all(mesh, c, 1, 2, sa)
+            elif sa is not None:
+                n_s = max_seq // mesh_axis_size(mesh, sa)
+                c = c.narrow(1, axis_index(mesh, sa) * n_s, n_s).clone()
+            kv[name] = c
+        lc["mixer"] = kv
+        out[f"l{li}"] = lc
     return out
 
 
@@ -448,18 +518,21 @@ def prefill(params, batch, cfg, *, mesh=None, rules=DEFAULT_RULES, max_seq=None)
     """Prefill → (last-position logits (B,V), caches).
 
     The self-attention caches are padded to ``max_seq`` (default: the
-    prompt length) so that decode can continue.
+    prompt length) so that decode can continue.  On a mesh the arguments
+    and the caches are this rank's blocks and the logits this rank's
+    batch rows over the whole vocabulary.
     """
+    if mesh is not None:
+        check_mesh(cfg, mesh, rules, "prefill")
     enc_out = _encoder_out(params, batch, cfg, mesh, rules)
     x = _embed_inputs(params, batch, cfg, mesh, rules)
     S = x.shape[1]
-    x, caches, _ = _scan_stack(params["decoder"], x, cfg, mesh, rules, make_cache=True,
-                               enc_out=enc_out)
     max_seq = max_seq or S
     if max_seq < S:
         raise ValueError(f"prefill: max_seq {max_seq} is shorter than the prompt ({S})")
-    if max_seq != S:
-        caches = _pad_self_kv(caches, cfg, max_seq)
+    x, caches, _ = _scan_stack(
+        params["decoder"], x, cfg, mesh, rules, make_cache=True, enc_out=enc_out,
+        place_cache=lambda c: _decode_placement(c, cfg, mesh, rules, max_seq))
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     logits = lm_head_logits(params, x[:, -1:], cfg, mesh, rules)[:, 0]
     return logits, {"decoder": caches}
@@ -475,10 +548,17 @@ def _sincos_table_lookup(cfg, pos: int, device):
 
 
 @torch.no_grad()
-def decode_step(params, caches, token, pos, cfg, *, mesh=None, rules=DEFAULT_RULES):
+def decode_step(params, caches, token, pos, cfg, *, mesh=None, rules=DEFAULT_RULES,
+                max_seq=None):
     """One decode step.  token (B,), pos int → (logits (B,V), new caches);
-    the caches passed in are not written."""
+    the caches passed in are not written.  On a mesh the arguments are this
+    rank's blocks and ``max_seq`` (required there) is the caches' whole
+    sequence length, which their placement depends on."""
     pos = int(pos)
+    if mesh is not None:
+        check_mesh(cfg, mesh, rules, "decode_step")
+        if max_seq is None:
+            raise ValueError("decode_step on a mesh needs max_seq, the caches' whole length")
     x = _embed_tokens(params, token[:, None], cfg, mesh, rules)
     if cfg.pos_embed == "learned":
         x = x + params["pos"][pos: pos + 1].to(x.dtype)
@@ -486,15 +566,17 @@ def decode_step(params, caches, token, pos, cfg, *, mesh=None, rules=DEFAULT_RUL
         x = x + _sincos_table_lookup(cfg, pos, x.device).to(x.dtype)
     outs = []
     for g in range(_n_groups(params["decoder"])):
-        x, new_gc = _decode_group(_group(params["decoder"], g),
-                                  _group(caches["decoder"], g), x, pos, cfg, mesh, rules)
+        mark_phase(mesh, "group")
+        x, new_gc = _decode_group(_group(params["decoder"], g), _group(caches["decoder"], g),
+                                  x, pos, cfg, mesh, rules, max_seq)
         outs.append(new_gc)
+    mark_phase(mesh, "epilogue")
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     logits = lm_head_logits(params, x, cfg, mesh, rules)[:, 0]
     return logits, {"decoder": _stack(outs)}
 
 
-def _decode_group(gp, gc, x, pos, cfg, mesh, rules):
+def _decode_group(gp, gc, x, pos, cfg, mesh, rules, max_seq=None):
     new_cache = {}
     for li, (mixer, ffn) in enumerate(cfg.block):
         lp = gp[f"l{li}"]
@@ -503,7 +585,7 @@ def _decode_group(gp, gc, x, pos, cfg, mesh, rules):
         h = L.apply_norm(lp["norm1"], x, cfg.norm)
         if mixer == "attn":
             y, c = L.attention_decode(lp["mixer"], h, lc["mixer"], pos, cfg, mesh=mesh,
-                                      rules=rules)
+                                      rules=rules, max_seq=max_seq)
             nc["mixer"] = c
         elif mixer == "mamba":
             y, c = MB.mamba_decode(lp["mixer"], h, lc["mixer"], cfg, mesh=mesh, rules=rules)

@@ -21,9 +21,10 @@ Port of ``repro.optim.adamw``, as XLA compiles it on the CPU, in float32:
   apart.
 
 Everything is a pure function: ``adamw_update`` returns new tensors and
-writes into none it was given.  ZeRO-1 (``zero1_spec``, moment sharding
-over a data axis) needs the LM mesh: without one it is the identity, with
-one it raises, citing ROADMAP.md queue 1, step 10.
+writes into none it was given.  ``zero1_spec`` gives the ZeRO-1 moments'
+placement on a mesh (the parameter's spec plus ``data``); moments sharded
+on a mesh are training on a mesh, so ``adamw_init`` and ``adamw_update``
+given one raise, citing ROADMAP.md queue 1, step 10.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
-    zero1: bool = True  # shard moments over the data axis (needs the LM mesh)
+    zero1: bool = True  # shard moments over the data axis (training on a mesh)
 
 
 class OptState(NamedTuple):
@@ -70,7 +71,7 @@ class OptState(NamedTuple):
 def _no_mesh(mesh, what: str):
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}: ZeRO-1 moment sharding needs the LM mesh, ROADMAP.md queue 1, "
+            f"{what}: ZeRO-1 moment sharding is training on a mesh, ROADMAP.md queue 1, "
             "step 10, not ported yet")
 
 
@@ -135,8 +136,27 @@ def clip_by_global_norm(tree, max_norm):
 
 
 def zero1_spec(spec, shape, mesh):
-    """The ZeRO-1 moment spec: ``spec`` itself without a mesh."""
-    _no_mesh(mesh, "zero1_spec")
+    """A parameter's spec extended with ``data`` on the first free dim that
+    ``data`` divides (the ZeRO-1 moments' placement); ``spec`` itself where
+    the mesh has no ``data`` axis or the spec already uses it.  Specs are
+    :func:`~repro_torch.sharding.logical_to_spec`'s tuples."""
+    if "data" not in mesh.shape:
+        return spec
+    data = mesh.shape["data"]
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for e in entries:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a:
+                used.add(a)
+    if "data" in used:
+        return spec
+    for i, (dim, e) in enumerate(zip(shape, entries)):
+        if e is None and dim % data == 0 and dim >= data:
+            entries[i] = "data"
+            while entries and entries[-1] is None:
+                entries.pop()
+            return tuple(entries)
     return spec
 
 

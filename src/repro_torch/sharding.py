@@ -1,6 +1,15 @@
-"""The meshes: ``torch.distributed`` process groups run SPMD (the mesh half
-of ``repro.sharding``); and the LM half's logical-axis rules, which wait
-for a mesh (ROADMAP.md queue 1, step 10).
+"""The meshes: ``torch.distributed`` process groups run SPMD, and the LM's
+logical-axis rules (port of ``repro.sharding``).
+
+Every parameter and activation of the LM carries *logical* axis names; a
+rule table maps them to mesh axes.  :func:`logical_to_spec` is the JAX
+package's: divisibility-aware (a dim its axes do not divide stays whole),
+each mesh axis used at most once, first come first served, trimmed from
+the right.  A spec is a tuple with one entry per dim — a mesh axis name, a
+tuple of names, or None — trailing Nones trimmed, the entries of the JAX
+package's ``PartitionSpec``.  The LM's per-rank serving program
+(``repro_torch.models``) places every block by it; torch has no sharding
+propagation, so :func:`constrain` moves nothing.
 
 The JAX package shards the spin axis of one instance over a 1-D
 ``jax.sharding.Mesh`` driven from one process.  Here the mesh is a process
@@ -37,9 +46,17 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "Axes",
     "ShardingRules",
     "DEFAULT_RULES",
+    "SERVE_WEIGHT_STATIONARY_RULES",
+    "TRAIN_FSDP_SP_RULES",
+    "logical_to_spec",
+    "NamedSharding",
+    "named_sharding",
     "constrain",
+    "require_default_rules",
+    "unported_on_mesh",
     "SpinMesh",
     "spin_mesh",
     "Mesh",
@@ -50,18 +67,24 @@ __all__ = [
     "mesh_axis_rank",
     "mesh_coords",
     "axis_groups",
+    "axis_index",
+    "all_gather",
     "all_gather_last",
     "all_reduce",
+    "all_to_all",
+    "mark_phase",
     "max_over_ranks",
     "collective_counts",
     "reset_collective_counts",
 ]
 
+Axes = Tuple[Optional[str], ...]  # logical names per dim (None = replicated)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
     """Logical axis name → mesh axis (str) or tuple of mesh axes: the JAX
-    package's rule table for the LM stack, kept as data.  Nothing reads it
-    until the LM path takes a mesh."""
+    package's rule table for the LM stack."""
 
     rules: Tuple[Tuple[str, Any], ...] = (
         ("batch", ("pod", "data")),
@@ -94,16 +117,108 @@ class ShardingRules:
 
 DEFAULT_RULES = ShardingRules()
 
+# The JAX package's rule presets.  Weight-stationary serving: the data axis
+# also shards the weights' d_model and long KV spreads over every free
+# axis.  Megatron-SP + FSDP training: the residual stream's sequence over
+# model, the weights' d_model over data.  Their specs are computed here;
+# the serving program executes DEFAULT_RULES only.
+SERVE_WEIGHT_STATIONARY_RULES = DEFAULT_RULES.replace(
+    d_model=("data",),
+    kv_seq=("model", "data"),
+)
+TRAIN_FSDP_SP_RULES = DEFAULT_RULES.replace(
+    d_model=("data",),
+    seq=("model",),
+)
+
+
+def _present(mesh, axis):
+    """An axis spec filtered down to the axes the mesh has."""
+    if axis is None:
+        return None
+    if isinstance(axis, (tuple, list)):
+        kept = tuple(a for a in axis if a in mesh.shape)
+        if not kept:
+            return None
+        return kept if len(kept) > 1 else kept[0]
+    return axis if axis in mesh.shape else None
+
+
+def logical_to_spec(mesh, shape: Sequence[int], axes: Axes,
+                    rules: ShardingRules = DEFAULT_RULES) -> tuple:
+    """The placement of an array of ``shape`` whose dims carry the logical
+    ``axes``: one entry per dim (a mesh axis, a tuple of them, or None),
+    trailing Nones trimmed.  An assignment that does not divide its dim is
+    trimmed from the right until it does (or dropped); a mesh axis is used
+    at most once, first come first served in dim order."""
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} rank != shape {shape}")
+    used = set()
+    out = []
+    for dim, logical in zip(shape, axes):
+        axis = _present(mesh, rules.lookup(logical))
+        if axis is None:
+            out.append(None)
+            continue
+        parts = [a for a in (list(axis) if isinstance(axis, tuple) else [axis]) if a not in used]
+        while parts and (mesh_axis_size(mesh, tuple(parts)) <= 1
+                         or dim % mesh_axis_size(mesh, tuple(parts)) != 0):
+            parts.pop()
+        if not parts:
+            out.append(None)
+            continue
+        used.update(parts)
+        out.append(tuple(parts) if len(parts) > 1 else parts[0])
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec (:func:`logical_to_spec`'s form): the JAX
+    package's ``NamedSharding``."""
+
+    mesh: Any
+    spec: tuple
+
+
+def named_sharding(mesh, shape: Sequence[int], axes: Axes,
+                   rules: ShardingRules = DEFAULT_RULES) -> NamedSharding:
+    return NamedSharding(mesh, logical_to_spec(mesh, shape, axes, rules))
+
+
+_STEP10 = "ROADMAP.md queue 1, step 10"
+
+
+def require_default_rules(rules: ShardingRules, what: str) -> None:
+    """The serving program executes DEFAULT_RULES only: any other table on a
+    mesh raises NotImplementedError."""
+    if rules != DEFAULT_RULES:
+        raise NotImplementedError(
+            f"{what}: a mesh executes DEFAULT_RULES only; other rule tables "
+            f"(SERVE_WEIGHT_STATIONARY_RULES, TRAIN_FSDP_SP_RULES) are {_STEP10}, "
+            "not ported yet")
+
+
+def unported_on_mesh(mesh, what: str) -> None:
+    """Raise NotImplementedError citing step 10 for a path that runs on one
+    device only (``what`` names it), when it is given a mesh."""
+    if mesh is not None:
+        raise NotImplementedError(f"{what} on a mesh is {_STEP10}, not ported yet")
+
 
 def constrain(x, mesh, axes, rules: ShardingRules = DEFAULT_RULES):
-    """The LM path's sharding constraint by logical axes: ``x`` itself
-    without a mesh.  Tensor-parallel LM serving over several GPUs is not
-    ported: a mesh raises NotImplementedError."""
-    if mesh is None:
-        return x
-    raise NotImplementedError(
-        "the LM path runs on one device: a mesh (tensor-parallel LM serving) is "
-        "ROADMAP.md queue 1, step 10, not ported yet")
+    """The LM path's sharding constraint by logical axes: ``x`` itself.
+
+    Without a mesh nothing is placed.  On a mesh ``x`` is this rank's block
+    and the per-rank program has already placed it (the layers cut heads,
+    d_ff and vocab by :func:`logical_to_spec` and issue their collectives
+    themselves), so nothing moves; a rule table other than DEFAULT_RULES
+    raises NotImplementedError."""
+    if mesh is not None:
+        require_default_rules(rules, "constrain")
+    return x
 
 
 # Collectives issued since the last reset, by kind: the spin path's
@@ -305,12 +420,23 @@ class AbstractMesh(_Grid):
     take one to analyse rank 0 of a mesh that need not be running, such as
     the production 16 × 16.  It issues no collective: a lowering gives it a
     ``record`` hook that notes each collective and returns a fake result;
-    without one, a collective raises RuntimeError."""
+    without one, a collective raises RuntimeError.  A lowering's ``phase``
+    hook takes the program's :func:`mark_phase` calls."""
 
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     record: Optional[Callable] = None
     rank: int = 0
+    phase: Optional[Callable] = None
+
+
+def mark_phase(mesh, label: str) -> None:
+    """A phase of the program starts (``'group'`` before each layer group,
+    ``'epilogue'`` after them): passed to the mesh's ``phase`` hook, which
+    only a lowering's mesh has (the dry-run reads each phase's peak)."""
+    hook = getattr(mesh, "phase", None)
+    if hook is not None:
+        hook(label)
 
 
 def abstract_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str]) -> AbstractMesh:
@@ -379,22 +505,69 @@ def _to_wire(mesh: SpinMesh, x: torch.Tensor) -> torch.Tensor:
 _gather_dim0 = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
-def all_gather_last(mesh, x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
-    """Concatenate every rank's ``x`` along its last axis, rank-major over
-    the mesh ``axis`` (a spin mesh's one axis when None).
+def axis_index(mesh, axes) -> int:
+    """This rank's place along a mesh axis or a tuple of axes (row-major
+    over the tuple, the first axis outermost: GSPMD's order of the blocks
+    of a dim placed on several axes); 0 for None."""
+    if axes is None:
+        return 0
+    idx = 0
+    for a in (axes if isinstance(axes, (tuple, list)) else (axes,)):
+        idx = idx * mesh_axis_size(mesh, a) + mesh_axis_rank(mesh, a)
+    return idx
+
+
+def all_gather(mesh, x: torch.Tensor, dim: int, axis: Optional[str] = None) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim``, rank-major over the
+    mesh ``axis`` (a spin mesh's one axis when None).
 
     The collective concatenates along dim 0 (P·x.shape[0], ...); the rank
-    blocks are moved to the last axis, where the spin columns live."""
+    blocks are then moved to ``dim``."""
     size, group = _axis_group(mesh, axis)
     shape = tuple(x.shape)
+    dim = dim % len(shape)
+    out_shape = shape[:dim] + (size * shape[dim],) + shape[dim + 1:]
     if isinstance(mesh, AbstractMesh):
-        return _abstract(mesh, "all-gather", axis, x, shape[:-1] + (size * shape[-1],))
+        return _abstract(mesh, "all-gather", axis, x, out_shape)
     collective_counts["all_gather"] += 1
     src = _to_wire(mesh, x)
     out = torch.empty((size * shape[0],) + shape[1:], dtype=src.dtype, device=src.device)
     _gather_dim0(out, src, group=group)
-    out = out.view((size,) + shape).movedim(0, -2).reshape(shape[:-1] + (size * shape[-1],))
+    out = out.view((size,) + shape).movedim(0, dim).reshape(out_shape)
     return out.to(x.device)
+
+
+def all_gather_last(mesh, x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+    """:func:`all_gather` along the last axis, where the spin columns live."""
+    return all_gather(mesh, x, -1, axis)
+
+
+def all_to_all(mesh, x: torch.Tensor, split_dim: int, concat_dim: int,
+               axis: Optional[str] = None) -> torch.Tensor:
+    """Cut ``x`` into P equal blocks along ``split_dim`` and send block j to
+    rank j of the mesh ``axis``; the blocks received are concatenated along
+    ``concat_dim`` in rank order.  Such as a (B, S, K/P, D) cache cut by
+    heads turned into the (B, S/P, K, D) cut by sequence."""
+    size, group = _axis_group(mesh, axis)
+    shape = list(x.shape)
+    split_dim, concat_dim = split_dim % len(shape), concat_dim % len(shape)
+    if shape[split_dim] % size:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(shape)} is not a multiple "
+                         f"of the {size} ranks of {axis!r}")
+    out_shape = list(shape)
+    out_shape[split_dim] //= size
+    out_shape[concat_dim] *= size
+    if isinstance(mesh, AbstractMesh):
+        return _abstract(mesh, "all-to-all", axis, x, tuple(out_shape))
+    collective_counts["all_to_all"] += 1
+    # (P, block...) with block j to go to rank j, contiguous
+    blocks = x.unflatten(split_dim, (size, shape[split_dim] // size)).movedim(split_dim, 0)
+    src = _to_wire(mesh, blocks)
+    recv = torch.empty_like(src)
+    dist.all_to_all_single(recv, src, group=group)
+    # recv[i] is rank i's block: move the rank index next to concat_dim
+    recv = recv.to(x.device).movedim(0, concat_dim)
+    return recv.flatten(concat_dim, concat_dim + 1)
 
 
 def all_reduce(mesh, x: torch.Tensor, op: str = "sum", axis: Optional[str] = None) -> torch.Tensor:

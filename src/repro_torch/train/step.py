@@ -41,7 +41,7 @@ from ..models import transformer as T
 from ..models.layers import COMPUTE_DTYPE, F32, mm
 from ..models.params import init_params, tree_map, tree_paths
 from ..optim.adamw import AdamWConfig, OptState, adamw_init, adamw_update
-from ..sharding import DEFAULT_RULES, ShardingRules, constrain
+from ..sharding import DEFAULT_RULES, ShardingRules, constrain, unported_on_mesh
 
 __all__ = ["TrainState", "TrainConfig", "chunked_ce_loss", "make_loss_fn", "grad_with_aux",
            "make_train_step", "init_train_state", "deterministic_algorithms"]
@@ -111,8 +111,9 @@ def chunked_ce_loss(params, hidden, labels, cfg, *, mesh=None, rules=DEFAULT_RUL
 
     hidden (B,S,M); labels (B,S) int32 (-1 = masked).  Runs S in chunks;
     under autograd each chunk is checkpointed, so only one (B, chunk, V)
-    block of logits is live at a time in either pass.
+    block of logits is live at a time in either pass.  One device only.
     """
+    unported_on_mesh(mesh, "chunked_ce_loss (training)")
     B, S, M = hidden.shape
     head = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["head"]
     chunk = min(chunk, S)
@@ -200,7 +201,7 @@ def make_train_step(
     function (new tensors out, none written in place)."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_train_step: the LM training path runs on one device; a mesh is "
+            "make_train_step: training on a mesh (ZeRO-1, TRAIN_FSDP_SP_RULES) is "
             "ROADMAP.md queue 1, step 10, not ported yet")
     loss_fn = make_loss_fn(model_cfg, train_cfg, mesh, rules)
 

@@ -56,6 +56,8 @@ def test_port_imports_without_jax():
         "import repro_torch.examples.train_lm\n"
         "import repro_torch.core.lowering, repro_torch.launch.hlo_analysis\n"
         "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.lowering, repro_torch.launch.dryrun, repro_torch.sharding\n"
+        "import repro_torch.models.params, repro_torch.configs.shapes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

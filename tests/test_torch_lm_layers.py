@@ -379,9 +379,24 @@ def test_sharding_rules_mirror_jax_and_a_mesh_raises():
     assert r.rules == jr.rules and r.lookup("seq") == "model" and r.lookup(None) is None
     x = torch.ones(2)
     assert sharding.constrain(x, None, ("batch",)) is x
+    # On a mesh constrain moves nothing (the per-rank program places its
+    # blocks itself); the paths still unported raise citing step 10: rule
+    # tables other than DEFAULT_RULES, and the MoE, Mamba and RWKV layers.
+    mesh = sharding.abstract_mesh((1, 2), ("data", "model"))
+    assert sharding.constrain(x, mesh, ("batch",)) is x
     with pytest.raises(NotImplementedError, match="step 10"):
-        sharding.constrain(x, object(), ("batch",))
+        sharding.constrain(x, mesh, ("batch",), sharding.TRAIN_FSDP_SP_RULES)
     cfg, tcfg = _cfgs("granite-3-8b")
     _, pt = _both(JL.mlp_defs(cfg), 0)
     with pytest.raises(NotImplementedError, match="step 10"):
-        TL.mlp(pt, torch.zeros((1, 2, cfg.d_model)), tcfg, mesh=object())
+        TL.mlp(pt, torch.zeros((1, 2, cfg.d_model)), tcfg, mesh=mesh,
+               rules=sharding.SERVE_WEIGHT_STATIONARY_RULES)
+    for arch, fn, defs, args in [
+            ("olmoe-1b-7b", TM.moe_ffn, JM.moe_defs, ()),
+            ("jamba-1.5-large-398b", TMB.mamba, JMB.mamba_defs, ()),
+            ("rwkv6-3b", TR.rwkv_time_mix, JR.rwkv_defs, ()),
+            ("rwkv6-3b", TR.rwkv_channel_mix, JR.rwkv_channel_defs, ())]:
+        cfg, tcfg = _cfgs(arch)
+        _, pt = _both(defs(cfg), 0)
+        with pytest.raises(NotImplementedError, match="step 10"):
+            fn(pt, torch.zeros((1, 2, cfg.d_model)), tcfg, *args, mesh=mesh)

@@ -313,12 +313,20 @@ def test_adamw_update_is_pure_and_moves_toward_minimum():
 
 
 def test_a_mesh_raises_in_the_optimizer():
+    """Moments sharded on a mesh are training on a mesh, still unported:
+    adamw_init and adamw_update given a mesh raise citing step 10.
+    zero1_spec, a spec function, is ported (tests/test_torch_lm_sharding.py
+    holds it to the reference on every mesh)."""
+    from repro_torch.sharding import abstract_mesh
+
     p = {"w": torch.zeros(4)}
+    mesh = abstract_mesh((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError, match="step 10"):
-        TA.adamw_init(p, TA.AdamWConfig(), mesh=object())
-    assert TA.zero1_spec(("model",), (4,), None) == ("model",)
+        TA.adamw_init(p, TA.AdamWConfig(), mesh=mesh)
+    opt = TA.adamw_init(p, TA.AdamWConfig())
     with pytest.raises(NotImplementedError, match="step 10"):
-        TA.zero1_spec(("model",), (4,), object())
+        TA.adamw_update(p, p, opt, TA.AdamWConfig(), mesh=mesh)
+    assert TA.zero1_spec(("model",), (4, 6), mesh) == ("model", "data")
 
 
 # ---------------------------------------------------------------------------
@@ -675,8 +683,10 @@ def test_train_step_leaves_its_inputs_and_raises_on_a_mesh():
     assert int(state.opt.step) == 0 and int(new.opt.step) == 1
     assert not any(t.requires_grad for _, t in tree_paths(new.params))
     assert not torch.are_deterministic_algorithms_enabled()
+    from repro_torch.sharding import abstract_mesh
+
     with pytest.raises(NotImplementedError, match="step 10"):
-        TS.make_train_step(cfg, tc, mesh=object())
+        TS.make_train_step(cfg, tc, mesh=abstract_mesh((1, 2), ("data", "model")))
 
 
 # ---------------------------------------------------------------------------
