@@ -11,8 +11,8 @@ each of seven dtypes and SSQA rings above 32 replicas, the LM
 substrate's serving and training paths (qwen3-1.7b at full width; no
 kernel on either) and the fused iteration steps of
 ``repro_torch.core.distributed`` (no kernel either), alone and on a
-``data`` × ``model`` mesh with their dry-run lowerings, the LM served on
-such a mesh with its serving dry-run (no kernel), and prints what it
+``data`` × ``model`` mesh with their dry-run lowerings, the LM served and
+trained on such a mesh with its dry-run (no kernel), and prints what it
 measured.
 
     python3 chip_smoke.py          # needs one CUDA GPU and nvcc
@@ -291,14 +291,34 @@ Phases (any failure raises and exits non-zero):
      worker processes while (a) and (b) run: per device the argument bytes, the
      peak estimate, FLOPs, collective bytes and the three H100 roofline
      terms;
- 44. the card line again, the kernels line (each kernel's service launches
+ 44. the LM trained on a ``data`` × ``model`` mesh (``[lm train mesh …]``;
+     no kernel): (a) phase 40's 4 AdamW steps of qwen3-1.7b at full width
+     (8 × 512, remat "full", seed 0) through ``make_train_step(mesh=)`` on a
+     one-rank 1 × 1 NCCL mesh — each step's ce_loss, grad_norm and lr equal
+     to phase 40's and every final parameter and moment leaf equal to
+     phase 40's bit for bit (digests of the bits taken on the card); ms a
+     step beside phase 40's, the collectives a step, peak device bytes;
+     (b) two gloo ranks sharing the card as 1 × 2 and 2 × 1, qwen3-1.7b's
+     widths cut to 2 layers, B = 4, S = 128, each rank holding its blocks
+     (``convert.train_state_block``): its gradient blocks within GRAD_STEPS
+     bf16 steps of the mesh=None run's on the card, its ZeRO-1 update of
+     the joined gradients equal to mesh=None's bit for bit (the clip not
+     acting), at 2 × 1 half the moment bytes of every leaf ZeRO-1 cuts; ms
+     a step, collectives by kind and peak bytes per rank; (c) the train
+     dry-run (``launch.dryrun.run_cell``) of qwen3-1.7b at train_4k on the
+     abstract 16 × 16 and 2 × 16 × 16 meshes: per device the argument
+     bytes, the peak estimate, FLOPs, collective bytes by kind, the three
+     H100 terms with the dominant one and ``useful_flops_ratio``.  The
+     dry-run traces of phases 43 and 44 start before phase 39, in two
+     worker processes;
+ 45. the card line again, the kernels line (each kernel's service launches
      in ``service_launches``, its stream launches in ``stream_launches``,
      its launches per family of phase 27 in ``family_launches``, those of
      phases 34–36 in ``auto_launches``, ``j_dtype_launches`` and
      ``paper_launches``, its bfloat16-J row in ``bf16``, its rows by J
      dtype in ``j_dtypes`` and, for the ring modes, its rows by ring in
      ``rings``: ring size, cluster size, blocks, where the words live,
-     times, bound and the launches of phase 37's run); 45. the contract
+     times, bound and the launches of phase 37's run); 46. the contract
      line (last).
 """
 from __future__ import annotations
@@ -1872,7 +1892,7 @@ def _lane_bytes(directory, n_bucket) -> int:
     size = 0
     for path in sorted(Path(directory).rglob("ckpt_*.npz")):
         with np.load(path) as z:
-            key = [k for k in z.files if k.startswith("noise_state")][0]
+            key = [k for k in z.files if k.lstrip(".").startswith("noise_state")][0]
             if z[key].shape[0] == 1 and z[key].shape[-1] == n_bucket:
                 size = path.stat().st_size
     return size
@@ -3501,6 +3521,29 @@ def _leaves(tree):
     return [t for _, t in tree_paths(tree)]
 
 
+def _digest(t: torch.Tensor):
+    """Two integers of a tensor's bits, taken on its device in slices: the
+    sum of its 32-bit words and their sum weighted by position mod 65521
+    (int64, wrapping: the same whatever the order of the sum)."""
+    words = t.detach().contiguous().view(torch.int32).reshape(-1)
+    total = weighted = 0
+    for lo in range(0, words.numel(), 1 << 26):
+        w = words[lo: lo + (1 << 26)].to(torch.int64)
+        pos = (torch.arange(lo, lo + w.numel(), device=w.device, dtype=torch.int64) % 65521) + 1
+        total += int(w.sum())
+        weighted += int((w * pos).sum())
+    return total, weighted
+
+
+def _state_digests(state) -> dict:
+    """Each leaf's :func:`_digest` of a TrainState's parameters and moments."""
+    from repro_torch.models.params import tree_paths
+
+    return {(field,) + path: _digest(t) for field, tree in (
+        ("params", state.params), ("mu", state.opt.mu), ("nu", state.opt.nu))
+        for path, t in tree_paths(tree)}
+
+
 def _train_runs(tmp: str):
     """Determinism and resume on the card (tests/test_ft.py's run): two
     uninterrupted 20-step runs, and a run killed at step 13 and resumed
@@ -3637,6 +3680,7 @@ def phase_lm_train(card: str):
     t_adamw = time.perf_counter() - t0
     print(f"[lm train qwen3-1.7b] one step's parts, each alone: loss and gradients "
           f"{t_grad * 1e3:.1f} ms, adamw_update {t_adamw * 1e3:.1f} ms")
+    full = dict(history=hist, ms=ms, digests=_state_digests(run.state))
     del run, grads, out
     torch.cuda.empty_cache()
 
@@ -3688,6 +3732,7 @@ def phase_lm_train(card: str):
     print(f"[lm train] the LM training path runs none of the six kernels: (K1, K3, K4, K2, "
           f"K1 ring, K2 ring) = {counts}")
     _counters_zero("lm train", counts)
+    return full
 
 
 # The iteration steps' cells beyond Table II's: the JAX package's lowering
@@ -4232,13 +4277,16 @@ def _lm_lower_cell(shape_name: str, mesh_kind: str) -> dict:
     return run_cell(LM_ARCH, shape_name, mesh_kind, verbose=False, analysis=True)
 
 
-def phase_lm_mesh(card: str):
+def phase_lm_mesh(card: str, traces=None):
     """Phase 43: qwen3-1.7b served on a data × model mesh (no kernel; the
     K1–K4 counters must stay 0).  (a) a one-rank 1 × 1 NCCL mesh ==
     mesh=None; (b) two gloo ranks sharing the card as 1 × 2 within
     LM_STEPS_DEEP bf16 steps; (c) the serving dry-run at the production
-    meshes."""
+    meshes (``traces``: futures of :func:`_lm_lower_cell` started before
+    phase 39; traced here in worker processes while (a) and (b) run when
+    None)."""
     import concurrent.futures
+    import contextlib
     import multiprocessing
     import tempfile
 
@@ -4255,10 +4303,11 @@ def phase_lm_mesh(card: str):
     _reset_counts()
     cfg = configs.get_config(LM_ARCH)
     spawn = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ProcessPoolExecutor(
-            len(LM_MESH_CELLS), mp_context=spawn) as pool:
+    with tempfile.TemporaryDirectory() as tmp, (
+            contextlib.nullcontext() if traces else concurrent.futures.ProcessPoolExecutor(
+                len(LM_MESH_CELLS), mp_context=spawn)) as pool:
         # (c) first: its traces run on the host's cores while (a) and (b) run
-        futures = [pool.submit(_lm_lower_cell, *cell) for cell in LM_MESH_CELLS]
+        futures = traces or [pool.submit(_lm_lower_cell, *cell) for cell in LM_MESH_CELLS]
         params = init_params(model_defs(cfg), seed=0, device=dev)
         batch = _lm_batch(cfg, LM_BATCH, LM_PROMPT, 0, dev)
         # (a) a one-rank NCCL mesh against mesh=None; mesh=None's run is (b)'s reference
@@ -4350,6 +4399,245 @@ def phase_lm_mesh(card: str):
     _counters_zero("lm mesh", counts)
 
 
+# ---------------------------------------------------------------------------
+# Phase 44: the LM trained on a data × model mesh (none of the six kernels)
+# ---------------------------------------------------------------------------
+# (b)'s cut: qwen3-1.7b's full widths at 2 layers, B = 4, S = 128 (one loss
+# chunk), phase 40's AdamW schedule with a clip that does not act (the
+# update is then bit for bit mesh=None's); the gradients' tolerance is the
+# CPU tests' GRAD_STEPS (tests/test_torch_train.py).
+LM_TRAIN_MESH_B, LM_TRAIN_MESH_S, LM_TRAIN_MESH_LAYERS = 4, 128, 2
+LM_TRAIN_MESH_SHAPES = ((1, 2), (2, 1))
+GRAD_STEPS = 8
+LM_TRAIN_CELLS = (("train_4k", "single"), ("train_4k", "pod"))
+LM_TRACE_WORKERS = 2
+
+
+def _lm_train_mesh_worker(rank: int, world: int, store: str, out_path: str):
+    """Phase 44 (b)'s ranks: gloo over a file rendezvous, sharing the card.
+    On each mesh a rank cuts its blocks of the whole 2-layer state
+    (``convert.train_state_block``), runs one step — the gradients, then
+    the ZeRO-1 update, timed together — and checks on the card what it
+    holds: its gradient blocks against the mesh=None run's, its update of
+    them against mesh=None's update of the joined gradients."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import configs, convert, sharding
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params, param_pspecs, tree_map, tree_paths
+    from repro_torch.optim import AdamWConfig, OptState, adamw_init, adamw_update
+    from repro_torch.train import TrainConfig, TrainState, make_grad_fn
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), n_layers=LM_TRAIN_MESH_LAYERS)
+    tc = TrainConfig(opt=AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=40,
+                                     clip_norm=1e9), loss_chunk=LM_TRAIN_MESH_S)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_MESH_S, global_batch=LM_TRAIN_MESH_B)
+    out = {}
+    for shape in LM_TRAIN_MESH_SHAPES:
+        mesh = make_mesh(shape, MESH_AXES)
+        dev = mesh.device
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        pspecs = param_pspecs(model_defs(cfg), mesh)
+        params = init_params(model_defs(cfg), 0, dev)
+        zeros = tree_map(lambda p: torch.zeros((), device=dev).expand(p.shape), params)
+        whole = TrainState(params, OptState(torch.zeros((), dtype=torch.int32, device=dev),
+                                            zeros, zeros))  # the moments' zeros unallocated
+        sb = convert.train_state_block(whole, cfg, mesh.shape, mesh.coords)
+        batch = synthetic_batch(dc, 0, device=dev)
+        bb = convert.lm_batch_block(batch, mesh.shape, mesh.coords)
+        gn, mn = make_grad_fn(cfg, tc)(params, batch)  # mesh=None on the whole state
+        # one step on the mesh: its gradients, then its ZeRO-1 update
+        torch.cuda.synchronize(dev)
+        sharding.reset_collective_counts()
+        t1 = time.perf_counter()
+        grads, metrics = make_grad_fn(cfg, tc, mesh)(sb.params, bb)
+        pm, om, am = adamw_update(sb.params, grads, sb.opt, tc.opt, mesh=mesh,
+                                  param_specs=pspecs)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t1) * 1e3
+        colls = dict(sharding.collective_counts)
+        steps, leaf = _grad_steps(grads, convert.lm_params_block(gn, cfg, mesh.shape,
+                                                                 mesh.coords))
+        loss = (float(metrics["ce_loss"]), float(mn["ce_loss"]))
+        del gn
+        # mesh=None's update of the joined gradients, cut as this rank holds it
+        joined = tree_map(lambda g, sp: sharding.unshard(mesh, g, sp), grads, pspecs)
+        pn, on, _ = adamw_update(params, joined, adamw_init(params, tc.opt), tc.opt)
+        want = convert.train_state_block(TrainState(pn, on), cfg, mesh.shape, mesh.coords)
+        del joined, pn, on, whole, params, zeros
+        same = all(torch.equal(a, b) for a, b in zip(
+            _leaves(pm) + _leaves(om.mu) + _leaves(om.nu),
+            _leaves(want.params) + _leaves(want.opt.mu) + _leaves(want.opt.nu)))
+        del pm, om, want, grads
+        # ZeRO-1: the moment bytes this rank holds of each leaf that data cuts
+        held = whole_b = 0
+        for (path, m), (_, p) in zip(tree_paths(sb.opt.mu), tree_paths(sb.params)):
+            if m.shape != p.shape:
+                held += m.numel() * m.element_size()
+                whole_b += p.numel() * 4
+        out["x".join(map(str, shape))] = dict(
+            steps=steps, leaf=leaf, loss=loss, same=same, tokens=float(metrics["tokens"]),
+            grad_norm=float(am["grad_norm"]), zero1_share=held / whole_b if whole_b else None,
+            ms=ms, colls=colls, peak=torch.cuda.max_memory_allocated(dev),
+            seconds=time.time() - t0)
+        del sb
+        torch.cuda.empty_cache()
+    torch.save(out, out_path.format(rank=rank))
+    dist.destroy_process_group()
+
+
+def _lm_train_one_rank(card: str, full: dict):
+    """(a): phase 40's run on a one-rank 1 × 1 NCCL mesh, step by step."""
+    from repro_torch import configs, convert, sharding
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = configs.get_config(LM_ARCH)
+    args = launch_train.parse_args(list(TRAIN_ARGV))
+    tc, dc = launch_train.run_configs(args, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((1, 1), MESH_AXES)
+    state = init_train_state(cfg, tc, 0, mesh=mesh)
+    step = make_train_step(cfg, tc, mesh=mesh)
+    hist, colls = [], []
+    for s in range(args.steps):
+        batch = convert.lm_batch_block(synthetic_batch(dc, s, device=mesh.device), mesh.shape,
+                                       mesh.coords)
+        torch.cuda.synchronize()
+        sharding.reset_collective_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        row = {k: float(m[k]) for k in ("ce_loss", "grad_norm", "lr")}
+        torch.cuda.synchronize()
+        row["ms"] = (time.perf_counter() - t0) * 1e3
+        hist.append(row)
+        colls.append(dict(sharding.collective_counts))
+    peak = torch.cuda.max_memory_allocated()
+    digests = _state_digests(state)
+    del state
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    same_metrics = all(h[k] == f[k] for h, f in zip(hist, full["history"])
+                       for k in ("ce_loss", "grad_norm", "lr")) and len(hist) == len(
+        full["history"])
+    differ = [k for k in digests if digests[k] != full["digests"][k]]
+    ms = sum(h["ms"] for h in hist[1:]) / max(len(hist) - 1, 1)
+    rows = "; ".join(f"step {i + 1}: ce_loss {h['ce_loss']:.4f} grad_norm {h['grad_norm']:.4f} "
+                     f"lr {h['lr']:.6g} ({h['ms']:.1f} ms)" for i, h in enumerate(hist))
+    print(f"[lm train mesh] (a) {LM_ARCH} full width, phase 40's {len(hist)} AdamW steps of 8 x "
+          f"512 on a one-rank 1 x 1 {mesh.backend} mesh: {rows}; ce_loss, grad_norm and lr "
+          f"{'==' if same_metrics else '!='} phase 40's at every step; final parameters, mu "
+          f"and nu {'==' if not differ else '!='} phase 40's in all {len(digests)} leaves "
+          f"(bit digests on the card); {ms:.3f} ms a step after the first (phase 40 "
+          f"{full['ms']:.3f}); collectives a step {colls[-1]}; peak device bytes {peak}  "
+          f"({card})")
+    if not same_metrics:
+        _fail(f"lm train mesh (a): metrics differ from phase 40's: {hist} / {full['history']}")
+    if differ:
+        _fail(f"lm train mesh (a): leaves differ from phase 40's: {differ[:5]}")
+
+
+def _lm_train_mesh_ranks(card: str):
+    """(b): two gloo ranks sharing the card, at 1 × 2 and 2 × 1."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = str(Path(tmp) / "rank{rank}.pt")
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--lm-train-mesh-rank", str(r), "2", str(Path(tmp) / "store"),
+                                   out_path], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for r in range(2)]
+        try:
+            outs = [pr.communicate(timeout=600) for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        wall = time.time() - t0
+        for r, (pr, (_, err)) in enumerate(zip(procs, outs)):
+            if pr.returncode:
+                _fail(f"lm train mesh (b): rank {r} exited {pr.returncode}: {err[-1500:]}")
+        ranks = [torch.load(out_path.format(rank=r)) for r in range(2)]
+    for shape in LM_TRAIN_MESH_SHAPES:
+        key = "x".join(map(str, shape))
+        rs = [o[key] for o in ranks]
+        steps = max(r["steps"] for r in rs)
+        share = [r["zero1_share"] for r in rs]
+        print(f"[lm train mesh] (b) two gloo ranks sharing the card as {shape[0]} x {shape[1]}, "
+              f"{LM_ARCH} widths at {LM_TRAIN_MESH_LAYERS} layers, B={LM_TRAIN_MESH_B} "
+              f"S={LM_TRAIN_MESH_S}: gradient blocks within {steps:.3f} bf16 steps of mesh=None's "
+              f"on the card (tol {GRAD_STEPS}; worst leaf {rs[0]['leaf']}); ce_loss "
+              f"{rs[0]['loss'][0]:.6f} vs mesh=None {rs[0]['loss'][1]:.6f}; ZeRO-1 adamw_update "
+              f"of the joined gradients {'==' if all(r['same'] for r in rs) else '!='} "
+              f"mesh=None's bit for bit (clip not acting: grad_norm {rs[0]['grad_norm']:.4f}); "
+              f"moment bytes held of the data-cut leaves {share}; ms a step per rank "
+              f"{[round(r['ms'], 3) for r in rs]}; collectives a step {rs[0]['colls']}; peak "
+              f"device bytes per rank {[r['peak'] for r in rs]}; ranks "
+              f"{max(r['seconds'] for r in rs):.1f} s, processes {wall:.1f} s  ({card})")
+        if steps > GRAD_STEPS:
+            _fail(f"lm train mesh (b) {shape}: gradients {steps} bf16 steps from mesh=None's")
+        if not all(r["same"] for r in rs):
+            _fail(f"lm train mesh (b) {shape}: the ZeRO-1 update differs from mesh=None's")
+        if shape[0] == 2 and any(abs(x - 0.5) > 1e-12 for x in share):
+            _fail(f"lm train mesh (b) {shape}: ranks hold {share} of the moment bytes, not 0.5")
+
+
+def _lm_train_records(records):
+    for rec in records:
+        if rec["status"] != "ok" or not 0.01 < rec["useful_flops_ratio"] < 100:
+            _fail(f"lm train mesh (c): {rec}")
+        coll = {k: v for k, v in rec["coll_breakdown"].items() if v and k != "total"}
+        print(f"[lm train mesh lowering] {LM_ARCH} {rec['shape']} {rec['mesh']} "
+              f"({rec['n_chips']} ranks), per device: args {rec['argument_bytes_per_device']} B, "
+              f"peak estimate {rec['peak_bytes_per_device']:.0f} B (fits 80 GB: "
+              f"{rec['fits_hbm_80g']}), {rec['flops_per_device']:.4g} FLOPs, collective bytes "
+              f"{coll}; H100 terms compute {rec['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{rec['t_memory_s'] * 1e3:.3f} ms, collective {rec['t_collective_s'] * 1e3:.3f} ms "
+              f"({rec['coll_link']}): {rec['dominant']}-bound; useful_flops_ratio "
+              f"{rec['useful_flops_ratio']:.4f} (traced in {rec['t_lower_s']:.1f} + "
+              f"{rec['t_analysis_s']:.1f} s)")
+
+
+def phase_lm_train_mesh(card: str, full: dict, traces=None):
+    """Phase 44: qwen3-1.7b trained on a data × model mesh (no kernel; the
+    K1–K4 counters must stay 0).  (a) phase 40's run on a one-rank 1 × 1
+    NCCL mesh == phase 40 bit for bit; (b) two gloo ranks sharing the card
+    as 1 × 2 and 2 × 1; (c) the train dry-run at the production meshes
+    (``traces``: futures of :func:`_lm_lower_cell` started before phase
+    39; traced here in worker processes when None)."""
+    import concurrent.futures
+    import multiprocessing
+
+    _reset_counts()
+    pool = None
+    if traces is None:
+        pool = concurrent.futures.ProcessPoolExecutor(
+            len(LM_TRAIN_CELLS), mp_context=multiprocessing.get_context("spawn"))
+        traces = [pool.submit(_lm_lower_cell, *cell) for cell in LM_TRAIN_CELLS]
+    try:
+        _lm_train_one_rank(card, full)
+        _lm_train_mesh_ranks(card)
+        records = [f.result() for f in traces]
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+    _lm_train_records(records)
+    counts = _counts()
+    print(f"[lm train mesh] (K1, K3, K4, K2, K1 ring, K2 ring) = {counts}")
+    _counters_zero("lm train mesh", counts)
+
+
 def _time_phases() -> None:
     """Print each phase's wall seconds, and the script's seconds so far, to
     stderr as it ends (stdout keeps its lines): where the time limit goes."""
@@ -4378,6 +4666,8 @@ def main():
         return _mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--lm-mesh-rank":
         return _lm_mesh_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    if len(sys.argv) > 1 and sys.argv[1] == "--lm-train-mesh-rank":
+        return _lm_train_mesh_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -4432,11 +4722,24 @@ def main():
     paper = phase_paper()
     ring_rows, ring_launches, ring_service = phase_big_rings(dev)
     phase_ptssa_auto()
-    phase_lm(card)
-    phase_lm_train(card)
-    it41 = phase_iteration_step(card, streamed)
-    phase_mesh_step(card, streamed, it41)
-    phase_lm_mesh(card)
+    # The LM dry-run traces of phases 43 and 44 (~2 minutes on two of the
+    # host's cores) run while phases 39-41 keep the card busy.
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            LM_TRACE_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        traces = [pool.submit(_lm_lower_cell, *cell) for cell in LM_MESH_CELLS + LM_TRAIN_CELLS]
+        try:
+            phase_lm(card)
+            full40 = phase_lm_train(card)
+            it41 = phase_iteration_step(card, streamed)
+            phase_mesh_step(card, streamed, it41)
+            phase_lm_mesh(card, traces[:len(LM_MESH_CELLS)])
+            phase_lm_train_mesh(card, full40, traces[len(LM_MESH_CELLS):])
+        finally:
+            for f in traces:
+                f.cancel()
 
     def dtypes(kernel):  # a kernel's rows by J dtype
         return {name: jd_rows[name][kernel] for name in J_DTYPES}

@@ -2,10 +2,12 @@
 ``repro.checkpoint.ckpt``).
 
 Format: one ``.npz`` per checkpoint holding every leaf of a state tree
-(named by its path) and a JSON sidecar with the step and the caller's
-metadata.  Each file is written to a temp file, then ``os.replace``d
-(atomic on POSIX), so a crash mid-save never corrupts the latest
-checkpoint.
+(named by its path, as the JAX package names it: dict keys and sequence
+indices as they are, a named tuple's fields as ``.field``, joined by
+``//``) and a JSON sidecar with the step and the caller's metadata, so
+that either package restores the other's files.  Each file is written to
+a temp file, then ``os.replace``d (atomic on POSIX), so a crash mid-save
+never corrupts the latest checkpoint.
 
 A state tree is any nesting of dicts, named tuples (``EngineState``,
 ``PackedEngineState``), tuples and lists whose leaves are
@@ -13,6 +15,15 @@ A state tree is any nesting of dicts, named tuples (``EngineState``,
 None.  :func:`restore` rebuilds the template's structure and puts each
 leaf back on the template leaf's device and dtype, so a state saved from
 the card restores onto the card.
+
+On a mesh (a :class:`CheckpointManager` given ``shardings``: a tree like
+the state of :class:`~repro_torch.sharding.NamedSharding`, each leaf's
+placement on a running mesh) the state is every rank's blocks.  Saving is
+collective: each leaf is all-gathered whole (``sharding.unshard``), one
+at a time, and rank 0 alone writes the joined state, in the one-file
+format above — the same file restores at ``mesh=None``, onto another
+mesh or in the JAX package.  Restoring reads the file on every rank (its
+directory shared) and cuts each leaf's block as it is read.
 """
 from __future__ import annotations
 
@@ -43,7 +54,7 @@ def _items(tree):
     if isinstance(tree, dict):
         return list(tree.items())
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return list(zip(tree._fields, tree))
+        return list(zip(("." + f for f in tree._fields), tree))
     if isinstance(tree, (tuple, list)):
         return list(enumerate(tree))
     return None
@@ -146,17 +157,56 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory: str, template, step: Optional[int] = None):
+def _gather_flat(tree, shardings) -> Dict[str, np.ndarray]:
+    """Each leaf of a state's blocks all-gathered whole, one at a time
+    (collective); rank 0 keeps the host copies, the other ranks none."""
+    from ..sharding import unshard
+
+    flat: Dict[str, np.ndarray] = {}
+    places = dict(_leaves(shardings))
+    for name, leaf in _leaves(tree):
+        if leaf is None:
+            continue
+        ns = places[name]
+        whole = unshard(ns.mesh, leaf, ns.spec)
+        if ns.mesh.rank == 0:
+            flat[name] = _host(whole)
+        del whole
+    return flat
+
+
+class _Blocks:
+    """An ``.npz`` read leaf by leaf, each array cut to this rank's block
+    of its placement as it is read."""
+
+    def __init__(self, z, shardings):
+        self._z, self._places = z, dict(_leaves(shardings))
+
+    def __contains__(self, name) -> bool:
+        return name in self._z.files
+
+    def __getitem__(self, name) -> np.ndarray:
+        from ..sharding import block
+
+        ns = self._places[name]
+        return block(ns.mesh, torch.from_numpy(self._z[name]), ns.spec).numpy()
+
+
+def restore(directory: str, template, step: Optional[int] = None, *, shardings=None):
     """(tree, meta) of checkpoint ``step`` (default: the latest); ``template``
-    gives the structure and each leaf's device and dtype."""
+    gives the structure and each leaf's device and dtype.  With
+    ``shardings`` (a tree like the template of NamedShardings on a running
+    mesh) each leaf comes back as this rank's block of it."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {directory}")
     path = _ckpt_path(directory, step)
     with np.load(path) as z:
-        flat = {k: z[k] for k in z.files}
-    tree = _unflatten(template, flat)
+        if shardings is None:
+            tree = _unflatten(template, {k: z[k] for k in z.files})
+        else:
+            tree = _unflatten(template, _Blocks(z, shardings))
     with open(path.replace(".npz", ".json")) as f:
         meta = json.load(f)
     return tree, meta
@@ -186,13 +236,25 @@ def purge(directory: str):
 
 @dataclasses.dataclass
 class CheckpointManager:
-    """Save every k-th step, keep the last n, write asynchronously, resume."""
+    """Save every k-th step, keep the last n, write asynchronously, resume.
+
+    ``shardings`` (a tree like the state of NamedShardings on a running
+    mesh) makes it a mesh's manager: every rank calls it with its blocks,
+    saving gathers them and rank 0 writes, restoring cuts each rank's
+    blocks (see the module's docstring)."""
 
     directory: str
     save_interval: int = 100
     keep: int = 3
     async_save: bool = True
+    shardings: Any = None
     _pending: Optional[threading.Thread] = None
+
+    def _mesh(self):
+        return next(ns for _, ns in _leaves(self.shardings)).mesh
+
+    def _writer(self) -> bool:
+        return self.shardings is None or self._mesh().rank == 0
 
     def due(self, step: int) -> bool:
         """Whether :meth:`maybe_save` writes at ``step``."""
@@ -202,12 +264,26 @@ class CheckpointManager:
         if not self.due(step):
             return False
         self.wait()
+        flat = _flatten(tree) if self.shardings is None else _gather_flat(tree, self.shardings)
+        if not self._writer():
+            return True
         if self.async_save:
-            self._pending = save_async(self.directory, step, tree, meta)
+            self._pending = threading.Thread(target=_write,
+                                             args=(self.directory, step, flat, meta))
+            self._pending.start()
         else:
-            save(self.directory, step, tree, meta)
+            _write(self.directory, step, flat, meta)
         self._gc()
         return True
+
+    def latest(self) -> Optional[int]:
+        """The latest checkpoint's step (None: none), once this manager's
+        pending write is done; on a mesh after every rank's (a barrier), so
+        that all ranks see the same files."""
+        self.wait()
+        if self.shardings is not None:
+            self._mesh().barrier()
+        return latest_step(self.directory)
 
     def wait(self):
         if self._pending is not None:
@@ -228,7 +304,7 @@ class CheckpointManager:
 
     def restore_latest(self, template):
         self.wait()
-        return restore(self.directory, template)
+        return restore(self.directory, template, shardings=self.shardings)
 
     def purge(self):
         self.wait()

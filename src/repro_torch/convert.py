@@ -29,7 +29,7 @@ __all__ = ["ising_from_arrays", "engine_state_from_arrays", "engine_state_to_arr
            "sa_carry_from_arrays", "sa_carry_to_arrays",
            "encoding_from_fields", "lm_params_from_arrays", "lm_caches_from_arrays",
            "lm_params_block", "lm_params_join", "lm_caches_block", "lm_caches_join",
-           "lm_batch_block",
+           "lm_batch_block", "train_state_block", "train_state_join",
            "train_state_from_arrays", "train_state_to_arrays"]
 
 _ENCODINGS = {"qubo": QUBOProblem, "mis": MISProblem, "coloring": ColoringProblem,
@@ -181,16 +181,15 @@ def _block_index(entry, mesh_shape, coords: dict) -> Tuple[int, int]:
 def _cut(a: torch.Tensor, spec, mesh_shape, coords: dict, pad=0) -> torch.Tensor:
     """A rank's block of ``a`` placed by ``spec``; a dim its blocks do not
     divide is first padded with ``pad`` to blocks × ceil(dim / blocks)."""
-    for dim, entry in enumerate(spec):
-        n, idx = _block_index(entry, mesh_shape, coords)
-        if n == 1:
-            continue
-        blk = -(-a.shape[dim] // n)
-        if blk * n != a.shape[dim]:
-            widths = [0, 0] * (a.dim() - dim - 1) + [0, blk * n - a.shape[dim]]
-            a = torch.nn.functional.pad(a, widths, value=pad)
-        a = a.narrow(dim, idx * blk, blk)
-    return a.clone(memory_format=torch.contiguous_format)
+    import dataclasses
+
+    from .sharding import block
+
+    sizes = tuple(mesh_shape.values())
+    rank = 0
+    for axis, size in zip(mesh_shape, sizes):
+        rank = rank * size + coords.get(axis, 0)
+    return block(dataclasses.replace(_spec_mesh(mesh_shape), rank=rank), a, spec, pad)
 
 
 def _join(blocks, spec, mesh_shape, shape, name: str) -> torch.Tensor:
@@ -441,3 +440,62 @@ def lm_batch_block(batch, mesh_shape, coords):
     m, c = _spec_mesh(mesh_shape), dict(zip(mesh_shape, coords))
     return {k: _cut(v, logical_to_spec(m, v.shape, ("batch",) + (None,) * (v.dim() - 1)),
                     mesh_shape, c) for k, v in batch.items()}
+
+
+def _state_shardings(cfg, mesh_shape):
+    from .train.step import TrainConfig, train_state_shardings
+
+    return train_state_shardings(cfg, TrainConfig(), _spec_mesh(mesh_shape))
+
+
+def train_state_block(state, cfg, mesh_shape, coords):
+    """A rank's blocks of a whole TrainState: the parameters as
+    :func:`lm_params_block` cuts them, ``step`` whole, the moments by
+    their ZeRO-1 placement (``optim.adamw.zero1_spec``: the parameter's
+    spec plus ``data``)."""
+    from .models.params import tree_map
+    from .optim.adamw import OptState
+    from .train.step import TrainState
+
+    sh = _state_shardings(cfg, mesh_shape)
+    c = dict(zip(mesh_shape, coords))
+
+    def cut(tree, shardings):
+        return tree_map(lambda a, ns: _cut(a, ns.spec, mesh_shape, c), tree, shardings)
+
+    return TrainState(params=cut(state.params, sh.params),
+                      opt=OptState(step=state.opt.step.clone(), mu=cut(state.opt.mu, sh.opt.mu),
+                                   nu=cut(state.opt.nu, sh.opt.nu)))
+
+
+def train_state_join(blocks, cfg, mesh_shape):
+    """The whole TrainState from every rank's blocks (``blocks[r]``: rank
+    r's, r row-major over ``mesh_shape``), inverse of
+    :func:`train_state_block`; replicas (``step`` included) must agree."""
+    from .models import model_defs
+    from .models.params import tree_paths
+    from .optim.adamw import OptState
+    from .train.step import TrainState
+
+    sh = _state_shardings(cfg, mesh_shape)
+    defs = dict(tree_paths(model_defs(cfg)))
+
+    def join(field):
+        out: dict = {}
+        for path, ns in tree_paths(getattr(sh.opt, field) if field != "params" else sh.params):
+            leaves = []
+            for b in blocks:
+                t = b.params if field == "params" else getattr(b.opt, field)
+                for k in path:
+                    t = t[k]
+                leaves.append(t)
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = _join(leaves, ns.spec, mesh_shape, defs[path].shape,
+                                   "/".join((field,) + path))
+        return out
+
+    step = _join([b.opt.step for b in blocks], (), mesh_shape, (), "opt/step")
+    return TrainState(params=join("params"),
+                      opt=OptState(step=step, mu=join("mu"), nu=join("nu")))

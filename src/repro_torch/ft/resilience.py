@@ -17,9 +17,15 @@ Port of ``repro.ft.resilience``:
    to issue the step, not to run it (ROADMAP.md queue 3).
 
 3. **Re-placement** — :func:`remesh` moves a state tree leaf by leaf to
-   the devices a function names.  The reference re-shards onto a new mesh;
-   training on a mesh is ROADMAP.md queue 1, step 10, and a mesh or
-   sharding object raises until then.
+   the devices a function names, or re-shards a state's blocks onto a new
+   mesh (the NamedShardings a function gives), values unchanged.  Torch
+   tensors carry no placement, so the blocks' own placement on the
+   running mesh is passed as ``src``.
+
+On a mesh every rank calls :func:`run_training` with its blocks and a
+:class:`~repro_torch.checkpoint.ckpt.CheckpointManager` given the state's
+shardings: saving is collective, rank 0 writes the joined state, and a
+resumed run restores each rank's blocks from it.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..checkpoint.ckpt import CheckpointManager, latest_step
+from ..checkpoint.ckpt import CheckpointManager
+from ..sharding import NamedSharding
 
 __all__ = ["StragglerMonitor", "remesh", "run_training", "SimulatedFailure"]
 
@@ -78,30 +85,54 @@ class StragglerMonitor:
 # ---------------------------------------------------------------------------
 # Re-placement
 # ---------------------------------------------------------------------------
-def _move(leaf, where):
+def _reshard(leaf, where: NamedSharding, src):
+    """A leaf's block on ``where``'s mesh from its block on ``src``'s: joined
+    over the old mesh (collective), cut for this rank on the new one."""
+    from ..sharding import block, unshard
+
+    if not isinstance(src, NamedSharding):
+        raise ValueError("remesh onto NamedShardings needs src, the blocks' placement on the "
+                         "running mesh (a matching tree of NamedSharding): a tensor carries "
+                         "none")
+    out = block(where.mesh, unshard(src.mesh, leaf, src.spec), where.spec)
+    dev = getattr(where.mesh, "device", None)
+    return out if dev is None else out.to(dev)
+
+
+def _move(leaf, where, src=None):
     if isinstance(where, (str, torch.device)):
         return leaf.to(where) if isinstance(leaf, torch.Tensor) else leaf
-    raise NotImplementedError(
-        f"remesh: {type(where).__name__} is not a device; re-sharding a training state "
-        "onto a mesh is training on a mesh, ROADMAP.md queue 1, step 10, not ported yet")
+    if isinstance(where, NamedSharding):
+        return _reshard(leaf, where, src)
+    raise TypeError(f"remesh: {type(where).__name__} is neither a device nor a NamedSharding")
 
 
-def _map2(fn, tree, other):
+def _map(fn, tree, *others):
     if isinstance(tree, dict):
-        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+        return {k: _map(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map2(fn, a, b) for a, b in zip(tree, other)))
+        return type(tree)(*(_map(fn, *ab) for ab in zip(tree, *others)))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map2(fn, a, b) for a, b in zip(tree, other))
-    return fn(tree, other)
+        return type(tree)(_map(fn, *ab) for ab in zip(tree, *others))
+    return fn(tree, *others)
 
 
-def remesh(tree, shardings_fn: Callable[[Any], Any]):
-    """Move a tree (dicts, named tuples, tuples, lists of tensors) onto the
-    devices ``shardings_fn(tree)`` names, a matching tree of devices
-    (``torch.device`` or strings such as ``'cuda:0'``).  A value already on
-    its device is the same tensor."""
-    return _map2(_move, tree, shardings_fn(tree))
+def remesh(tree, shardings_fn: Callable[[Any], Any], *, src=None):
+    """Move a tree (dicts, named tuples, tuples, lists of tensors) onto
+    ``shardings_fn(tree)``, a matching tree of devices (``torch.device`` or
+    strings such as ``'cuda:0'``) or of NamedShardings of a new mesh.  A
+    value already on its device is the same tensor.
+
+    Onto NamedShardings the leaves are this rank's blocks on the running
+    mesh, placed as ``src`` (a matching tree of NamedSharding) says; each
+    leaf is gathered whole over that mesh and cut for this rank's
+    coordinates on the new one (a running ``Mesh``, or an ``AbstractMesh``
+    with ``rank`` set), one leaf at a time, values unchanged.  Collective
+    on the running mesh."""
+    where = shardings_fn(tree)
+    if src is None:
+        return _map(_move, tree, where)
+    return _map(_move, tree, where, src)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +162,7 @@ def run_training(
     """
     state = init_state_fn()
     start = 0
-    if latest_step(ckpt.directory) is not None:
+    if ckpt.latest() is not None:
         state, meta = ckpt.restore_latest(state)
         start = int(meta["step"])
 

@@ -1,8 +1,8 @@
-"""The LM's serving dry-run: lower every (architecture × prefill/decode
+"""The LM's dry-run: lower every (architecture × train/prefill/decode
 cell) on the production meshes and extract the roofline terms on the H100
-(port of ``repro.launch.dryrun``, the serving half).
+(port of ``repro.launch.dryrun``).
 
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape decode_32k --mesh both
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k --mesh both
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single --out experiments/dryrun
 
 Each cell is traced on rank 0 of an abstract 16 × 16 (``single``) or 2 ×
@@ -13,9 +13,11 @@ allocated and no card is needed.  A JSON record per cell is written to
 is the lowering: nothing is compiled).  The roofline terms come from the
 analysis lowering on the single-pod mesh.  A cell that does not apply
 (long_500k on a full-attention arch) is skipped with the reference's
-reason; a train cell and the families that do not run on a mesh yet
-(MoE, Mamba, RWKV, whisper) raise NotImplementedError citing ROADMAP.md
-queue 1, step 10, recorded as an error.
+reason; the families that do not run on a mesh yet (MoE, Mamba, RWKV,
+whisper) raise NotImplementedError citing ROADMAP.md queue 1, steps
+10.2–10.4, recorded as an error.  A train cell traces one train step —
+forward, backward, the gradient sums and the ZeRO-1 AdamW update — and
+its ``useful_flops_ratio`` is 6·N·D over the traced FLOPs.
 """
 from __future__ import annotations
 

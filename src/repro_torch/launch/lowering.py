@@ -1,11 +1,13 @@
-"""The LM's dry-run lowerings on a mesh (port of ``repro.launch.lowering``,
-the serving half).
+"""The LM's dry-run lowerings on a mesh (port of ``repro.launch.lowering``).
 
 Torch has no SPMD compiler: a cell is lowered by tracing the program one
 rank runs (:mod:`repro_torch.core.lowering`, rank 0 of an
-:class:`~repro_torch.sharding.AbstractMesh`, on fake tensors), the serving
-program of :mod:`repro_torch.models.transformer`.  Each argument carries
-the JAX package's placement (:func:`prefill_args`, :func:`decode_args`: the
+:class:`~repro_torch.sharding.AbstractMesh`, on fake tensors): the serving
+program of :mod:`repro_torch.models.transformer`, or the train step of
+:mod:`repro_torch.train.step` — forward, backward (the collectives of
+the backward pass recorded too), the gradient sums and the ZeRO-1 AdamW
+update.  Each argument carries the JAX package's placement
+(:func:`train_args`, :func:`prefill_args`, :func:`decode_args`: the
 reference's ``in_shardings``).
 
 A trace visits every op, so trace time grows with depth: prefill at 32,768
@@ -20,8 +22,10 @@ the peak estimate); :func:`analysis_costs` traces :func:`analysis_config`
 (``q_chunk = kv_chunk = S``, the reference's analysis lowering: its FLOPs,
 bytes and collectives are what the roofline terms read).
 
-Training on a mesh is not ported: ``cell_lowering`` of a train cell raises
-NotImplementedError citing ROADMAP.md queue 1, step 10.
+The train step's peak phase by phase: the forward pass marks its groups
+(prologue, each group, epilogue), and the epilogue holds the loss, the
+backward pass and the optimizer, whose peak the extrapolation takes as
+linear in the depth (the tests hold it to a whole trace at 5 groups).
 """
 from __future__ import annotations
 
@@ -37,15 +41,18 @@ from ..configs import shapes as shp
 from ..core.lowering import ArgInfo, CollectiveRecord, Lowering, block_shape, lower
 from ..models import cache_defs, model_defs
 from ..models import transformer as T
-from ..models.params import tree_paths
-from ..sharding import DEFAULT_RULES, NamedSharding, logical_to_spec, unported_on_mesh
+from ..models.params import param_pspecs, tree_paths
+from ..optim.adamw import OptState
+from ..sharding import DEFAULT_RULES, NamedSharding, logical_to_spec
 
 __all__ = [
     "count_params",
     "batch_shardings",
+    "train_args",
     "prefill_args",
     "decode_args",
     "CellLowering",
+    "train_lowering",
     "prefill_lowering",
     "decode_lowering",
     "cell_lowering",
@@ -94,6 +101,25 @@ def _def_args(prefix: str, defs, mesh) -> List[ArgInfo]:
     shard = _param_shardings(defs, mesh)
     return [_arg(f"{prefix}/{'/'.join(path)}", d.shape, d.dtype, shard["/".join(path)], mesh)
             for path, d in tree_paths(defs)]
+
+
+def train_args(cfg, shape: shp.ShapeCell, mesh) -> Tuple[ArgInfo, ...]:
+    """The train step's arguments: ``params/…``, ``opt/step`` (replicated),
+    ``opt/mu/…`` and ``opt/nu/…`` (ZeRO-1) and ``batch/…``, each with the
+    reference's placement (its ``train_lowering``'s ``in_shardings``)."""
+    from ..train.step import TrainConfig, train_state_shardings
+
+    defs = model_defs(cfg)
+    shapes = dict(tree_paths(defs))
+    opt = train_state_shardings(cfg, TrainConfig(), mesh).opt
+    moments = [_arg(f"opt/{field}/{'/'.join(path)}", shapes[path].shape, torch.float32, ns, mesh)
+               for field in ("mu", "nu") for path, ns in tree_paths(getattr(opt, field))]
+    specs = shp.train_input_specs(cfg, shape)
+    bshard = batch_shardings(mesh, specs)
+    return tuple(_def_args("params", defs, mesh)
+                 + [_arg("opt/step", (), torch.int32, opt.step, mesh)] + moments
+                 + [_arg(f"batch/{k}", v.shape, v.dtype, bshard[k], mesh)
+                    for k, v in specs.items()])
 
 
 def prefill_args(cfg, shape: shp.ShapeCell, mesh) -> Tuple[ArgInfo, ...]:
@@ -188,20 +214,39 @@ def _peak(l2: Lowering, l3: Lowering, G: int, argument_bytes: int) -> int:
     return argument_bytes + max(pro, g1, g2, _extrapolate(g2, g3, G), _extrapolate(e2, e3, G))
 
 
-def _per_group_collectives(l2: Lowering, l3: Lowering) -> List[CollectiveRecord]:
-    """The collectives the third group adds (l3's less l2's, as a multiset
-    of kind, axis, shape and dtype)."""
+def _depth_collectives(l2: Lowering, l3: Lowering, G: int) -> List[CollectiveRecord]:
+    """The collectives at ``G`` groups from the traces at two and three.
+
+    A collective of both traces (same kind, axis, shape and dtype) is
+    issued once at any depth; one over a stacked leaf (a train step's
+    gradient sums and ZeRO-1 gathers: its leading dim the group count, 2
+    and then 3) once with that dim at ``G``; the rest of the third trace's
+    (one group's own) ``G − 2`` times.  Exact where the ZeRO-1 ``data``
+    axis divides neither 2 nor 3 (else it cuts the stacked dim at one of
+    the depths and not at the other): 4, 8 and 16 do not."""
     def key(c):
         return c.kind, c.axis, c.ranks, c.shape, c.dtype
 
-    left = collections.Counter(key(c) for c in l2.collectives)
-    extra = []
+    c2 = collections.Counter(key(c) for c in l2.collectives)
+    common = c2 & collections.Counter(key(c) for c in l3.collectives)
+    only2 = c2 - common
+    left = collections.Counter(common)
+    out, per_group = [], []
     for c in l3.collectives:
-        if left[key(c)]:
-            left[key(c)] -= 1
+        k = key(c)
+        if left[k]:
+            left[k] -= 1
+            out.append(c)
+            continue
+        twin = k[:3] + ((2,) + c.shape[1:], k[4])
+        if c.shape[:1] == (3,) and only2[twin]:
+            only2[twin] -= 1
+            out.append(dataclasses.replace(c, shape=(G,) + c.shape[1:], bytes=c.bytes // 3 * G))
         else:
-            extra.append(c)
-    return extra
+            per_group.append(c)
+    if sum(only2.values()):
+        raise RuntimeError(f"collectives of the two-group trace with no counterpart: {only2}")
+    return out + (G - 2) * per_group
 
 
 def _lower_cell(kind, cfg, shape, mesh, args_fn, program) -> CellLowering:
@@ -230,15 +275,36 @@ def _lower_cell(kind, cfg, shape, mesh, args_fn, program) -> CellLowering:
     arg_bytes = sum(a.local_bytes for a in args)
     by_dtype = {dt: _extrapolate(l2.flops_by_dtype.get(dt, 0), l3.flops_by_dtype.get(dt, 0), G)
                 for dt in {*l2.flops_by_dtype, *l3.flops_by_dtype}}
-    per_group = _per_group_collectives(l2, l3)
     return CellLowering(
         kind=kind, mesh_shape=dict(mesh.shape), args_info=args, argument_bytes=arg_bytes,
         n_groups=G, flops=_extrapolate(l2.flops, l3.flops, G), flops_by_dtype=by_dtype,
         bytes_accessed=_extrapolate(l2.bytes_accessed, l3.bytes_accessed, G),
         peak_bytes=_peak(l2, l3, G, arg_bytes),
         n_ops=_extrapolate(len(l2.ops), len(l3.ops), G),
-        collectives=list(l2.collectives) + (G - 2) * per_group,
+        collectives=_depth_collectives(l2, l3, G),
         traces=(l2, l3), seconds=time.perf_counter() - t0)
+
+
+def train_lowering(cfg, shape: shp.ShapeCell, mesh) -> CellLowering:
+    """One train step of (arch × train cell × mesh) with the reference's
+    ``TrainConfig()``, rank 0 traced on fakes.  ``opt/step`` is an argument of the reference's program; here
+    the schedule's step is a Python int (the host computes the learning
+    rate from it), and the trace takes step 0."""
+    from ..train.step import TrainConfig, TrainState, make_train_step
+
+    T.check_mesh(cfg, mesh, DEFAULT_RULES, "train_lowering")
+
+    def program(cfg_g, m, args):
+        step = make_train_step(cfg_g, TrainConfig(), mesh=m,
+                               param_specs=param_pspecs(model_defs(cfg_g), m))
+
+        def fn(*blocks):
+            tree = _trees(args, blocks)
+            opt = OptState(step=0, mu=tree["opt"]["mu"], nu=tree["opt"]["nu"])
+            return step(TrainState(tree["params"], opt), tree["batch"])
+        return fn
+
+    return _lower_cell("train", cfg, shape, mesh, train_args, program)
 
 
 def prefill_lowering(cfg, shape: shp.ShapeCell, mesh) -> CellLowering:
@@ -275,7 +341,7 @@ def decode_lowering(cfg, shape: shp.ShapeCell, mesh) -> CellLowering:
 
 def cell_lowering(cfg, shape: shp.ShapeCell, mesh) -> CellLowering:
     if shape.kind == "train":
-        unported_on_mesh(mesh, "train_lowering (training)")
+        return train_lowering(cfg, shape, mesh)
     if shape.kind == "prefill":
         return prefill_lowering(cfg, shape, mesh)
     if shape.kind == "decode":

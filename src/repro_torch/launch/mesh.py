@@ -97,17 +97,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None):
     return sharding.Mesh(axes, shape, rank, dev, backend, sharding.axis_groups(shape, rank))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device=None):
     """16 × 16 = 256 ranks over ``("data", "model")``; 2 × 16 × 16 = 512
     over ``("pod", "data", "model")`` multi-pod."""
     if multi_pod:
-        return make_mesh((2, 16, 16), ("pod", "data", "model"))
-    return make_mesh((16, 16), ("data", "model"))
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), device=device)
+    return make_mesh((16, 16), ("data", "model"), device=device)
 
 
-def make_shrunken_mesh():
+def make_shrunken_mesh(*, device=None):
     """The elastic-degraded mesh (half a pod lost): 8 × 16 = 128 ranks."""
-    return make_mesh((8, 16), ("data", "model"))
+    return make_mesh((8, 16), ("data", "model"), device=device)
 
 
 def make_spin_mesh(spec: Optional[str] = None, *, axis: str = "model", device=None):

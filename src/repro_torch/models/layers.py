@@ -22,6 +22,14 @@ program, run SPMD on that rank's blocks, placed by
 * a row-parallel product is the float32 product of the bfloat16 operands
   on each rank, summed over ``model`` (all-reduce) and rounded to bfloat16
   once, as the whole product is;
+* under autograd (training) the activation that enters a region cut over
+  ``model`` passes :func:`~repro_torch.sharding.copy_to`, so its gradient,
+  partial on each rank, is summed over ``model`` on the way back, and the
+  row-parallel sum (:func:`~repro_torch.sharding.reduce_from`) passes the
+  whole cotangent back unchanged.  Where ``model`` cuts the q heads but not
+  the KV heads, ``wk``, ``wv``, ``q_norm`` and ``k_norm`` are whole on every
+  rank and each rank's gradient of them is partial
+  (:func:`attn_partial_grads`);
 * decode against a cache cut by sequence (``kv_seq`` takes ``model``
   first, so its KV heads are whole) is flash-decode: every rank scores all
   q heads against its positions, and the softmax's max, sum and weighted
@@ -37,8 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from ..sharding import (DEFAULT_RULES, ShardingRules, all_gather, all_reduce, axis_index,
-                        constrain, logical_to_spec, mesh_axis_size, require_default_rules,
-                        unported_on_mesh)
+                        constrain, copy_to, logical_to_spec, mesh_axis_size, reduce_from,
+                        require_default_rules, unported_on_mesh)
 from .params import ParamDef
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -256,7 +264,7 @@ def row_parallel(x, w, n_in: int, mesh, axis):
     if axis is None:
         return mm_cd(x, w, n_in)
     part = mm(x.to(COMPUTE_DTYPE).to(F32), w.to(COMPUTE_DTYPE).to(F32), n_in)
-    return all_reduce(mesh, part, "sum", axis).to(COMPUTE_DTYPE)
+    return reduce_from(mesh, part, axis).to(COMPUTE_DTYPE)
 
 
 def _kv_for_heads(k, v, q_lo: int, n_q: int, group: int, kv_lo: int):
@@ -368,7 +376,7 @@ def attention(
     over the whole sequence (``transformer.prefill`` re-cuts it by
     sequence for decode)."""
     if x_kv is not None:
-        unported_on_mesh(mesh, "cross-attention (whisper's decoder)")
+        unported_on_mesh(mesh, "cross-attention (whisper's decoder)", ".4")
     B, S, _ = x.shape
     H, K = cfg.n_heads, cfg.n_kv_heads
     qa, q_ranks, q_idx = split_axis(mesh, H, "heads", rules)
@@ -381,12 +389,26 @@ def attention(
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     pos_kv = torch.arange(Skv, device=x.device).expand(B, Skv)
+    if qa is not None:  # self-attention: a mesh runs no cross-attention
+        x = x_kv = copy_to(mesh, x, qa)
     q, k, v = _qkv(p, x, x_kv, cfg, positions, pos_kv)
     ks, vs = _kv_for_heads(k, v, q_idx * n_q, n_q, H // K, k_idx * n_kv)
     out = _flash(q, ks, vs, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk, mesh=mesh,
                  rules=rules)
     y = row_parallel(out, p["wo"], 2, mesh, qa)
     return constrain(y, mesh, ("batch", "seq", "d_model"), rules), {"k": k, "v": v}
+
+
+def attn_partial_grads(cfg, mesh, rules: ShardingRules = DEFAULT_RULES) -> Dict[str, bool]:
+    """Which attention parameters a rank holds whole while its gradient of
+    them is partial: where ``model`` cuts the q heads, ``q_norm`` and
+    ``k_norm`` (each rank normalises its own heads), and ``wk``/``wv``
+    where it leaves the KV heads whole (each rank reads only the KV heads
+    of its q heads).  Their per-rank gradients sum over ``model``."""
+    qa = split_axis(mesh, cfg.n_heads, "heads", rules)[0]
+    ka = split_axis(mesh, cfg.n_kv_heads, "kv_heads", rules)[0]
+    return {name: qa is not None and (name in ("q_norm", "k_norm") or ka is None)
+            for name in attn_defs(cfg) if name not in ("wq", "wo")}
 
 
 def _write(cache, pos: int, k_new, v_new):
@@ -423,7 +445,7 @@ def attention_decode(
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     if cross:
-        unported_on_mesh(mesh, "cross-attention (whisper's decoder)")
+        unported_on_mesh(mesh, "cross-attention (whisper's decoder)", ".4")
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     G = H // K
     qa, q_ranks, q_idx = split_axis(mesh, H, "heads", rules)
@@ -506,6 +528,7 @@ def mlp(p, x, cfg, *, mesh=None, rules: ShardingRules = DEFAULT_RULES):
     column-parallel in, row-parallel out."""
     fa, f_ranks, _ = split_axis(mesh, cfg.d_ff, "d_ff", rules)
     check_block(p["wo"], 0, cfg.d_ff // f_ranks, "mlp: wo")
+    x = copy_to(mesh, x, fa)
     if cfg.act == "swiglu":
         gu = mm_cd(x, p["wi"])
         h = silu(gu[..., 0, :]) * gu[..., 1, :]

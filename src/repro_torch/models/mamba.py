@@ -83,7 +83,7 @@ def mamba(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba.  Returns (y (B,S,M), cache{conv,ssm}).  One
     device only."""
-    unported_on_mesh(mesh, "mamba")
+    unported_on_mesh(mesh, "mamba", ".3")
     B, S, M = x.shape
     DI, R, N, K = _dims(cfg)
     cd = COMPUTE_DTYPE
@@ -135,7 +135,7 @@ def mamba_decode(
     mesh=None,
     rules: ShardingRules = DEFAULT_RULES,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    unported_on_mesh(mesh, "mamba_decode")
+    unported_on_mesh(mesh, "mamba_decode", ".3")
     cd = COMPUTE_DTYPE
     A = -torch.exp(p["a_log"].to(F32))
     D_skip = p["d_skip"].to(F32)

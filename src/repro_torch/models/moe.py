@@ -186,7 +186,7 @@ def moe_ffn(
     seq_chunk: int = 512,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,M), aux_loss scalar float32).  One device only."""
-    unported_on_mesh(mesh, "moe_ffn (MoE expert parallelism)")
+    unported_on_mesh(mesh, "moe_ffn (MoE expert parallelism)", ".2")
     B, S, M = x.shape
     impl = getattr(cfg, "moe_impl", "einsum")
     run = _run_group_gather if impl == "gather" else _run_group_einsum

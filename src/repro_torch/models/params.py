@@ -75,7 +75,7 @@ def _leaf_seed(seed: int, path: Tuple[str, ...]) -> int:
     return zlib.crc32(f"{int(seed)}:{'/'.join(path)}".encode())
 
 
-def init_params(defs, seed: int = 0, device=None):
+def init_params(defs, seed: int = 0, device=None, *, place=None):
     """Materialize ``defs`` on ``device`` (``cuda`` unless the caller passes
     another).  Zeros and ones as named; 'normal' leaves are N(0, std²) with
     std = ``scale`` or 1/sqrt(fan-in) (the second-to-last dim), 'embed'
@@ -84,7 +84,9 @@ def init_params(defs, seed: int = 0, device=None):
     ``torch.Generator`` on ``device`` seeded by :func:`_leaf_seed`, so the
     values depend on the seed, the path and the device's generator: the
     CPU's and the card's differ, and a comparison across devices moves one
-    set of parameters."""
+    set of parameters.  ``place(path, d, leaf)``, where given, maps each
+    leaf as it is drawn (a mesh rank keeps its block), so the whole tree
+    is never held at once."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_params: a CUDA device was requested but "
@@ -108,7 +110,9 @@ def init_params(defs, seed: int = 0, device=None):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = init_one(path, d)
+        leaf = init_one(path, d)
+        node[path[-1]] = leaf if place is None else place(path, d, leaf)
+        del leaf
     return out
 
 

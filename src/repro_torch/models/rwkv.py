@@ -108,7 +108,7 @@ def rwkv_time_mix(
     rules: ShardingRules = DEFAULT_RULES,
     cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    unported_on_mesh(mesh, "rwkv_time_mix")
+    unported_on_mesh(mesh, "rwkv_time_mix", ".3")
     B, S, M = x.shape
     H, D = _dims(cfg)
     xf = x.to(F32)
@@ -150,7 +150,7 @@ def rwkv_channel_defs(cfg) -> Dict[str, ParamDef]:
 def rwkv_channel_mix(
     p, x, cfg, *, mesh=None, rules=DEFAULT_RULES, cache=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    unported_on_mesh(mesh, "rwkv_channel_mix")
+    unported_on_mesh(mesh, "rwkv_channel_mix", ".3")
     B, S, M = x.shape
     cd = COMPUTE_DTYPE
     xf = x.to(F32)

@@ -28,19 +28,24 @@ Entry points (pure functions of the parameters, a nested dict of tensors):
   prefill(...)      -> (last-position logits, caches); no autograd
   decode_step(...)  -> (logits, updated caches); no autograd
 
-``prefill`` and ``decode_step`` take a ``data`` × ``model`` (or ``pod`` ×
-``data`` × ``model``) mesh for the families built of ``attn`` and
-``dense`` blocks only, under DEFAULT_RULES: each rank passes its blocks
-(``convert.lm_params_block``, ``lm_caches_block``, ``lm_batch_block``) and
-runs the same call.  The batch splits over ``("pod", "data")`` with no
-collective; the layers are tensor-parallel over ``model``
-(:mod:`.layers`); the embedding is vocab-parallel where ``model`` divides
-the vocabulary (one all-reduce), and the logits come back gathered over the
-vocabulary.  prefill's caches come out in decode's placement: KV cut by
+``forward``, ``prefill`` and ``decode_step`` take a ``data`` × ``model``
+(or ``pod`` × ``data`` × ``model``) mesh for the families built of
+``attn`` and ``dense`` blocks only, under DEFAULT_RULES: each rank passes
+its blocks (``convert.lm_params_block``, ``lm_caches_block``,
+``lm_batch_block``) and runs the same call.  The batch splits over
+``("pod", "data")`` with no collective; the layers are tensor-parallel
+over ``model`` (:mod:`.layers`); the embedding is vocab-parallel where
+``model`` divides the vocabulary (one all-reduce), and the logits come
+back gathered over the vocabulary.  prefill's caches come out in decode's placement: KV cut by
 sequence where ``model`` divides ``max_seq`` (an all-to-all of each
-group's head-cut K/V), by KV heads otherwise.  MoE, Mamba, RWKV, the encoder and
-training (``forward``) on a mesh raise NotImplementedError citing
-ROADMAP.md queue 1, step 10.
+group's head-cut K/V), by KV heads otherwise.  ``forward`` on a mesh is
+differentiable: autograd passes back through the collectives
+(``sharding.copy_to`` / ``reduce_from``), and under ``remat="full"`` each
+checkpointed group is recomputed whole in the backward pass (early stop
+off), so every rank issues the group's collectives again in the forward
+pass's order (:func:`_scan_stack`).  MoE, Mamba, RWKV and the encoder on
+a mesh raise NotImplementedError citing ROADMAP.md queue 1, steps
+10.2–10.4.
 
 :class:`LM` holds the parameters as an ``nn.Module`` (state-dict keys are
 the reference's tree paths joined with '.') and calls these functions.
@@ -56,8 +61,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..sharding import (DEFAULT_RULES, AbstractMesh, Mesh, all_gather, all_reduce, all_to_all,
-                        axis_index, constrain, mark_phase, mesh_axis_size,
+from ..sharding import (DEFAULT_RULES, AbstractMesh, Mesh, all_to_all, axis_index, constrain,
+                        gather_from, mark_phase, mesh_axis_size, reduce_from,
                         require_default_rules, unported_on_mesh)
 from . import layers as L
 from . import mamba as MB
@@ -260,7 +265,7 @@ def _embed_tokens(params, tokens, cfg, mesh, rules):
     """The token rows, cast to bfloat16.  Vocab-parallel on a mesh where
     ``model`` divides the vocabulary: a rank looks up the tokens of its
     rows, zeros elsewhere, and one all-reduce sums them (one nonzero term:
-    exact)."""
+    exact); under autograd the gradient reaches this rank's rows only."""
     tbl = params["embed"]["tok"]
     va, v_ranks, v_idx = L.split_axis(mesh, cfg.vocab, "vocab", rules)
     if va is None:
@@ -270,7 +275,7 @@ def _embed_tokens(params, tokens, cfg, mesh, rules):
         L.check_block(tbl, 0, n_v, "embed: tok")
         t = tokens.long() - v_idx * n_v
         rows = tbl[t.clamp(0, n_v - 1)].to(L.COMPUTE_DTYPE)
-        x = all_reduce(mesh, torch.where(((t >= 0) & (t < n_v))[..., None], rows, 0), "sum", va)
+        x = reduce_from(mesh, torch.where(((t >= 0) & (t < n_v))[..., None], rows, 0), va)
     return constrain(x, mesh, ("batch", "seq", "d_model"), rules)
 
 
@@ -278,13 +283,15 @@ def lm_head_logits(params, x, cfg, mesh=None, rules=DEFAULT_RULES):
     """x (B, S, M) → logits (B, S, V) float32: a bfloat16 product (the
     logits are bfloat16 values) cast to float32, as the reference's.  On a
     mesh each rank computes its vocabulary block and the logits are
-    gathered over it, so that every rank samples from all of them."""
+    gathered over it, so that every rank samples from all of them; under
+    autograd each rank's slice of their gradient flows back to its
+    block."""
     head = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["head"]
     va, v_ranks, _ = L.split_axis(mesh, cfg.vocab, "vocab", rules)
     L.check_block(head, 1, cfg.vocab // v_ranks, "lm head")
     logits = L.mm_cd(x, head).to(F32)
     if va is not None:
-        logits = all_gather(mesh, logits, -1, va)
+        logits = gather_from(mesh, logits, -1, va)
     return constrain(logits, mesh, ("batch", "seq", "vocab"), rules)
 
 
@@ -413,12 +420,21 @@ def _scan_stack(stack_params, x, cfg, mesh, rules, *, make_cache, enc_out=None,
             aux_sum = aux_sum + a
         return xx, aux_sum
 
+    # On a mesh every rank must issue the same collectives in the same
+    # order.  The backward pass runs its nodes in the reverse of their
+    # creation order, the same on every rank, and a checkpointed block's
+    # recomputation starts at its first saved tensor; with early stop off
+    # it runs the block whole, every collective of its forward pass
+    # included, whatever tensors each rank's ops save.
     for i in range(0, len(groups), k):
+        for _ in range(k):
+            mark_phase(mesh, "group")
         # non-reentrant: the parameters reach the block by closure and still
         # get their gradients; only x and aux are kept for the backward pass
         x, aux = torch.utils.checkpoint.checkpoint(
             lambda xx, aa, gps=groups[i: i + k]: block(xx, aa, gps), x, aux,
-            use_reentrant=False)
+            use_reentrant=False, early_stop=mesh is None)
+    mark_phase(mesh, "epilogue")
     return x, None, aux
 
 
@@ -427,7 +443,7 @@ def _scan_stack(stack_params, x, cfg, mesh, rules, *, make_cache, enc_out=None,
 # ---------------------------------------------------------------------------
 def encode(params, frames, cfg, *, mesh=None, rules=DEFAULT_RULES):
     """frames (B, F, M): precomputed conv-frontend embeddings (a stub)."""
-    unported_on_mesh(mesh, "the encoder (whisper)")
+    unported_on_mesh(mesh, "the encoder (whisper)", ".4")
     x = frames.to(L.COMPUTE_DTYPE)
     x = x + _sincos_pos(x.shape[1], cfg.d_model, device=x.device).to(x.dtype)
     x, _, _ = _scan_stack(params["encoder"], x, cfg, mesh, rules, make_cache=False,
@@ -457,8 +473,10 @@ def _encoder_out(params, batch, cfg, mesh, rules):
 def forward(params, batch, cfg, *, mesh=None, rules=DEFAULT_RULES):
     """Forward over the whole sequence → (hidden (B,S,M), aux_loss).
     Differentiable: autograd records it where the parameters (or inputs)
-    require grad.  On one device only: training on a mesh is not ported."""
-    unported_on_mesh(mesh, "forward (training)")
+    require grad.  On a mesh the arguments are this rank's blocks and the
+    hidden states its batch rows, whole over ``model``."""
+    if mesh is not None:
+        check_mesh(cfg, mesh, rules, "forward")
     enc_out = _encoder_out(params, batch, cfg, mesh, rules)
     x = _embed_inputs(params, batch, cfg, mesh, rules)
     x, _, aux = _scan_stack(params["decoder"], x, cfg, mesh, rules, make_cache=False,
@@ -467,19 +485,37 @@ def forward(params, batch, cfg, *, mesh=None, rules=DEFAULT_RULES):
 
 
 def check_mesh(cfg, mesh, rules, what: str) -> None:
-    """The serving program runs on a mesh for the families built of
-    ``attn`` and ``dense`` blocks, under DEFAULT_RULES: anything else raises
-    NotImplementedError citing ROADMAP.md queue 1, step 10."""
+    """The LM runs on a mesh for the families built of ``attn`` and
+    ``dense`` blocks, under DEFAULT_RULES: anything else raises
+    NotImplementedError citing ROADMAP.md queue 1, step 10 (10.2–10.5)."""
     if not isinstance(mesh, (Mesh, AbstractMesh)):
         raise TypeError(f"{what}: mesh must be a repro_torch.sharding Mesh or AbstractMesh "
                         f"(repro_torch.launch.mesh.make_mesh), got {type(mesh).__name__}")
     require_default_rules(rules, what)
     others = sorted({b for pair in cfg.block for b in pair} - {"attn", "dense"})
     if others:
-        unported_on_mesh(mesh, f"{what}: {cfg.name}'s {', '.join(others)} blocks (MoE expert "
-                               "parallelism, Mamba and RWKV)")
+        # MoE expert parallelism is step 10.2, Mamba and RWKV 10.3
+        unported_on_mesh(mesh, f"{what}: {cfg.name}'s {', '.join(others)} blocks",
+                         ".2" if others == ["moe"] else ".3")
     if cfg.encoder_layers > 0:
-        unported_on_mesh(mesh, f"{what}: {cfg.name}'s encoder and cross-attention")
+        unported_on_mesh(mesh, f"{what}: {cfg.name}'s encoder and cross-attention", ".4")
+
+
+def model_partial_grads(cfg, mesh, rules=DEFAULT_RULES):
+    """A tree like the parameters: True where a rank holds the leaf whole
+    while its gradient of it is partial, so that the ranks' gradients sum
+    over ``model`` (:func:`repro_torch.models.layers.attn_partial_grads`);
+    every other leaf's gradient is whole on each rank of a ``model`` line
+    (its own block, or a leaf used outside the regions cut over
+    ``model``)."""
+    from .params import tree_defs_map
+
+    out = tree_defs_map(lambda d: False, model_defs(cfg))
+    attn = L.attn_partial_grads(cfg, mesh, rules)
+    for li, (mixer, _) in enumerate(cfg.block):
+        if mixer == "attn":
+            out["decoder"][f"l{li}"]["mixer"].update(attn)
+    return out
 
 
 def _decode_placement(caches, cfg, mesh, rules, max_seq):

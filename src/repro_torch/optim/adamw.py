@@ -21,10 +21,21 @@ Port of ``repro.optim.adamw``, as XLA compiles it on the CPU, in float32:
   apart.
 
 Everything is a pure function: ``adamw_update`` returns new tensors and
-writes into none it was given.  ``zero1_spec`` gives the ZeRO-1 moments'
-placement on a mesh (the parameter's spec plus ``data``); moments sharded
-on a mesh are training on a mesh, so ``adamw_init`` and ``adamw_update``
-given one raise, citing ROADMAP.md queue 1, step 10.
+writes into none it was given.
+
+On a mesh (``sharding.Mesh``, or an ``AbstractMesh`` being lowered) the
+parameters and gradients are this rank's blocks, placed by
+``param_specs`` (``models.params.param_pspecs``), the gradients already
+summed over the batch axes (``train.step``), and the moments ZeRO-1's:
+each rank holds the ``zero1_spec`` block of ``mu``/``nu`` — the
+parameter's spec plus ``data`` on the first free dim that ``data``
+divides.  A rank updates its ``data`` slice of each parameter block with
+its moments and all-gathers the new slices over ``data``; a leaf with no
+such dim is updated whole on every rank.  The update is elementwise, so
+the parameters and moments are those of the ``mesh=None`` update of the
+joined gradients bit for bit, while the clip does not act; the global
+norm counts each element once (squares summed over ``model`` only for the
+leaves it cuts), its sum in another order than ``mesh=None``'s.
 """
 from __future__ import annotations
 
@@ -37,10 +48,11 @@ import torch
 
 from ..core.xla_math import xla_sqrt
 from ..models.params import tree_map
+from ..sharding import all_gather, axis_index, mesh_axis_size, reduce_from
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
            "cosine_schedule", "global_norm", "clip_by_global_norm",
-           "zero1_spec", "tree_leaves"]
+           "zero1_spec", "moment_spec", "tree_leaves"]
 
 F32, F64 = torch.float32, torch.float64
 # Elements per slice of the update: bounds its float64 temporaries (on the
@@ -59,20 +71,13 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
-    zero1: bool = True  # shard moments over the data axis (training on a mesh)
+    zero1: bool = True  # shard moments over the data axis (on a mesh)
 
 
 class OptState(NamedTuple):
     step: torch.Tensor  # int32 scalar
     mu: Any             # tree like params, float32
     nu: Any             # tree like params, float32
-
-
-def _no_mesh(mesh, what: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}: ZeRO-1 moment sharding is training on a mesh, ROADMAP.md queue 1, "
-            "step 10, not ported yet")
 
 
 def tree_leaves(tree):
@@ -112,11 +117,32 @@ def _bias_correction(b: float, t: int) -> np.float32:
     return _f32(1.0) - _f32(math.pow(float(_f32(b)), float(_f32(t))))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """√(Σ leaves Σ x²) in float32, the leaves in sorted-key order."""
+def _axes_of(spec) -> tuple:
+    """The mesh axes a spec places its dims on, in order."""
+    return tuple(a for e in spec for a in (e if isinstance(e, tuple) else (e,)) if a)
+
+
+def global_norm(tree, *, mesh=None, param_specs=None) -> torch.Tensor:
+    """√(Σ leaves Σ x²) in float32, the leaves in sorted-key order.  On a
+    mesh ``tree`` holds this rank's blocks, placed by ``param_specs``:
+    each element counts once — a leaf's sum of squares is summed over the
+    axes that cut it (one all-reduce of the per-leaf sums per set of
+    axes), and the leaves are added in the same order."""
+    leaves = tree_leaves(tree)
+    sums = [torch.sum(torch.square(leaf.to(F32))) for leaf in leaves]
+    if mesh is not None:
+        by_axes: dict = {}
+        for i, spec in enumerate(tree_leaves(param_specs)):
+            axes = tuple(a for a in _axes_of(spec) if mesh_axis_size(mesh, a) > 1)
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in sorted(by_axes.items()):
+            whole = reduce_from(mesh, torch.stack([sums[i] for i in idx]), axes)
+            for j, i in enumerate(idx):
+                sums[i] = whole[j]
     total = 0
-    for leaf in tree_leaves(tree):
-        total = total + torch.sum(torch.square(leaf.to(F32)))
+    for s in sums:
+        total = total + s
     return xla_sqrt(torch.as_tensor(total, dtype=F32))
 
 
@@ -160,11 +186,53 @@ def zero1_spec(spec, shape, mesh):
     return spec
 
 
+def _whole_shape(block_shape, spec, mesh) -> tuple:
+    entries = tuple(spec) + (None,) * (len(block_shape) - len(spec))
+    return tuple(d * mesh_axis_size(mesh, e) for d, e in zip(block_shape, entries))
+
+
+def moment_spec(spec, block_shape, mesh, cfg: AdamWConfig) -> tuple:
+    """The placement of a parameter block's moments: ``zero1_spec`` of
+    the parameter's (``block_shape`` placed by ``spec``), or the
+    parameter's own where ``cfg.zero1`` is off."""
+    return zero1_spec(spec, _whole_shape(block_shape, spec, mesh), mesh) if cfg.zero1 else spec
+
+
+def _data_dim(spec, mspec):
+    """The dim ZeRO-1 placed on ``data`` (None where it placed none)."""
+    for i, e in enumerate(mspec):
+        if e == "data" and (i >= len(spec) or spec[i] != "data"):
+            return i
+    return None
+
+
+def _specs(param_specs, what: str):
+    if param_specs is None:
+        raise ValueError(f"{what} on a mesh needs param_specs, the parameters' placements "
+                         "(repro_torch.models.params.param_pspecs)")
+    return param_specs
+
+
 def adamw_init(params, cfg: AdamWConfig, *, mesh=None, param_specs=None) -> OptState:
-    """Zero float32 moments like ``params`` and step 0 (on their device)."""
-    _no_mesh(mesh, "adamw_init")
-    mu = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
-    nu = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
+    """Zero float32 moments like ``params`` and step 0 (on their device).
+    On a mesh ``params`` are this rank's blocks and the moments its
+    :func:`moment_spec` blocks."""
+    if mesh is None:
+        mu = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
+        nu = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
+    else:
+        specs = _specs(param_specs, "adamw_init")
+
+        def zeros(p, spec):
+            mspec = moment_spec(spec, p.shape, mesh, cfg)
+            i = _data_dim(spec, mspec)
+            shape = list(p.shape)
+            if i is not None:
+                shape[i] //= mesh_axis_size(mesh, "data")
+            return torch.zeros(shape, dtype=F32, device=p.device)
+
+        mu = tree_map(zeros, params, specs)
+        nu = tree_map(zeros, params, specs)
     dev = tree_leaves(params)[0].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev), mu=mu, nu=nu)
 
@@ -208,15 +276,33 @@ def _update_leaf(p, g, m, v, scale, lr, b1c, b2c, cfg: AdamWConfig):
 def adamw_update(params, grads, opt: OptState, cfg: AdamWConfig, *, mesh=None,
                  param_specs=None):
     """One AdamW step.  Returns (new_params, new_opt, metrics) with
-    metrics ``grad_norm`` (before clipping) and ``lr``."""
-    _no_mesh(mesh, "adamw_update")
-    norm = global_norm(grads)
+    metrics ``grad_norm`` (before clipping) and ``lr``.  On a mesh the
+    trees are this rank's blocks (the moments ZeRO-1's, as
+    :func:`adamw_init` makes them) and ``param_specs`` their placements."""
+    specs = None if mesh is None else _specs(param_specs, "adamw_update")
+    norm = global_norm(grads, mesh=mesh, param_specs=specs)
     scale = _clip_scale(norm, cfg.clip_norm)
     t = int(opt.step) + 1
     lr = _schedule_np(cfg, t)
     b1c, b2c = _bias_correction(cfg.b1, t), _bias_correction(cfg.b2, t)
-    out = tree_map(lambda p, g, m, v: _update_leaf(p, g, m, v, scale, lr, b1c, b2c, cfg),
-                   params, grads, opt.mu, opt.nu)
+
+    def upd(p, g, m, v):
+        return _update_leaf(p, g, m, v, scale, lr, b1c, b2c, cfg)
+
+    if mesh is None:
+        out = tree_map(upd, params, grads, opt.mu, opt.nu)
+    else:
+        def one(p, g, m, v, spec):
+            i = _data_dim(spec, moment_spec(spec, p.shape, mesh, cfg))
+            if i is None:
+                return upd(p, g, m, v)
+            n = m.shape[i]
+            lo = axis_index(mesh, "data") * n
+            p_s, m_new, v_new = upd(p.narrow(i, lo, n).contiguous(),
+                                    g.narrow(i, lo, n).contiguous(), m, v)
+            return all_gather(mesh, p_s, i, "data"), m_new, v_new
+
+        out = tree_map(one, params, grads, opt.mu, opt.nu, specs)
     new_params, new_mu, new_nu = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
     step = opt.step + 1
     metrics = {"grad_norm": norm,

@@ -72,6 +72,12 @@ __all__ = [
     "all_gather_last",
     "all_reduce",
     "all_to_all",
+    "reduce_from",
+    "copy_to",
+    "gather_from",
+    "unshard",
+    "block",
+    "batch_axes",
     "mark_phase",
     "max_over_ranks",
     "collective_counts",
@@ -192,20 +198,21 @@ _STEP10 = "ROADMAP.md queue 1, step 10"
 
 
 def require_default_rules(rules: ShardingRules, what: str) -> None:
-    """The serving program executes DEFAULT_RULES only: any other table on a
-    mesh raises NotImplementedError."""
+    """A mesh executes DEFAULT_RULES only: any other table on a mesh raises
+    NotImplementedError (step 10.5)."""
     if rules != DEFAULT_RULES:
         raise NotImplementedError(
             f"{what}: a mesh executes DEFAULT_RULES only; other rule tables "
-            f"(SERVE_WEIGHT_STATIONARY_RULES, TRAIN_FSDP_SP_RULES) are {_STEP10}, "
+            f"(SERVE_WEIGHT_STATIONARY_RULES, TRAIN_FSDP_SP_RULES) are {_STEP10}.5, "
             "not ported yet")
 
 
-def unported_on_mesh(mesh, what: str) -> None:
-    """Raise NotImplementedError citing step 10 for a path that runs on one
-    device only (``what`` names it), when it is given a mesh."""
+def unported_on_mesh(mesh, what: str, step: str = "") -> None:
+    """Raise NotImplementedError citing step 10 (its sub-step ``step``, such
+    as ``".2"``) for a path that runs on one device only (``what`` names
+    it), when it is given a mesh."""
     if mesh is not None:
-        raise NotImplementedError(f"{what} on a mesh is {_STEP10}, not ported yet")
+        raise NotImplementedError(f"{what} on a mesh is {_STEP10}{step}, not ported yet")
 
 
 def constrain(x, mesh, axes, rules: ShardingRules = DEFAULT_RULES):
@@ -581,6 +588,137 @@ def all_reduce(mesh, x: torch.Tensor, op: str = "sum", axis: Optional[str] = Non
     buf = _to_wire(mesh, x).clone()
     dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=group)
     return buf.to(x.device)
+
+
+def _axes(axis) -> Tuple[str, ...]:
+    """A mesh axis, a tuple of them or None as a tuple of names."""
+    if axis is None:
+        return ()
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def _sum_over(mesh, x: torch.Tensor, axis) -> torch.Tensor:
+    """:func:`all_reduce` sums over each axis of ``axis`` in turn."""
+    for a in _axes(axis):
+        x = all_reduce(mesh, x, "sum", a)
+    return x
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Sum over the axes in the forward pass; the identity in the backward
+    pass (every rank holds the whole sum, and its cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _sum_over(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity in the forward pass; in the backward pass the ranks'
+    partial cotangents summed over the axes, in float32, rounded once to
+    the cotangent's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(ctx.mesh, g.to(torch.float32), ctx.axis).to(g.dtype), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """:func:`all_gather` along ``dim`` in the forward pass; this rank's
+    slice of the cotangent in the backward pass."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis, ctx.n = mesh, dim % x.dim(), axis, x.shape[dim]
+        return all_gather(mesh, x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = axis_index(ctx.mesh, ctx.axis) * ctx.n
+        return g.narrow(ctx.dim, lo, ctx.n), None, None, None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def reduce_from(mesh, x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` summed over the mesh ``axis`` (or each axis of a tuple in
+    turn): the value of :func:`all_reduce`'s sum, and under autograd the
+    identity on the way back.  It ends a region cut over ``axis`` (a
+    row-parallel product, the vocab-parallel lookup, the loss's sums):
+    every rank holds the whole result and the same cotangent of it."""
+    if not _differentiable(x):
+        return _sum_over(mesh, x, axis)
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def copy_to(mesh, x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` itself where a tensor replicated over the mesh ``axis`` enters
+    a region cut over it; under autograd its cotangent, partial on each
+    rank, is summed over ``axis`` on the way back (in float32, rounded
+    once).  None for ``axis``: ``x``."""
+    if axis is None or not _differentiable(x):
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def gather_from(mesh, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """:func:`all_gather` of ``x`` along ``dim``; under autograd each rank
+    takes back its own slice of the cotangent."""
+    if not _differentiable(x):
+        return all_gather(mesh, x, dim, axis)
+    return _GatherFrom.apply(x, mesh, dim, axis)
+
+
+def unshard(mesh, x: torch.Tensor, spec) -> torch.Tensor:
+    """The whole array of which ``x`` is this rank's block, placed by
+    ``spec`` (:func:`logical_to_spec`'s form): all-gathered over each
+    placed dim's axes, the last axis of a tuple first.  Collective: every
+    rank of the mesh calls it with its own block."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(_axes(entry)):
+            if mesh_axis_size(mesh, a) > 1:
+                x = all_gather(mesh, x, dim, a)
+    return x
+
+
+def block(mesh, x: torch.Tensor, spec, pad=None) -> torch.Tensor:
+    """This rank's block of the whole array ``x`` placed by ``spec`` (a
+    contiguous copy); the inverse of :func:`unshard`.  A placed dim that is
+    not a multiple of its axes' ranks raises ValueError, or with ``pad`` is
+    first padded with it to ranks × ceil(dim / ranks), as a GSPMD shard
+    is."""
+    for dim, entry in enumerate(spec):
+        n = mesh_axis_size(mesh, entry)
+        if n == 1:
+            continue
+        size = -(-x.shape[dim] // n)
+        if size * n != x.shape[dim]:
+            if pad is None:
+                raise ValueError(f"block: dim {dim} of {tuple(x.shape)} is not a multiple of "
+                                 f"the {n} ranks of {entry!r}")
+            widths = [0, 0] * (x.dim() - dim - 1) + [0, size * n - x.shape[dim]]
+            x = torch.nn.functional.pad(x, widths, value=pad)
+        x = x.narrow(dim, axis_index(mesh, entry) * size, size)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def batch_axes(mesh, rules: ShardingRules = DEFAULT_RULES) -> Tuple[str, ...]:
+    """The mesh axes the batch is cut over (DEFAULT_RULES: ``pod`` and
+    ``data``, those the mesh has): the axes a training step sums its loss
+    and gradients over.  A one-rank axis is kept: its sum is issued, and
+    exact."""
+    return tuple(a for a in _axes(rules.lookup("batch")) if a in mesh.shape)
 
 
 def max_over_ranks(mesh: Optional[SpinMesh], values):

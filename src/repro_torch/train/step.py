@@ -19,6 +19,24 @@ has the reference's form.  The bfloat16 roundings of the backward pass are
 torch's and not XLA's transpose: the tests hold loss and gradients to the
 JAX package within stated bfloat16 steps.
 
+On a ``data`` × ``model`` (or ``pod`` × ``data`` × ``model``) mesh, for
+the attention + MLP families under DEFAULT_RULES, every rank runs the same
+step on its blocks (``convert.train_state_block``, ``lm_batch_block``;
+its batch rows cut over the batch axes, ``sharding.batch_axes``):
+
+* the loss is vocab-parallel where ``model`` cuts the vocabulary: each
+  rank's (B, chunk, V/m) logits, the log-sum-exp's max and sum over
+  ``model``, the label's logit from the rank that owns it; the full
+  logits are never gathered and the backward pass stays local;
+* ``tot`` and ``cnt`` are summed over the batch axes before ``tot /
+  max(cnt, 1)``, so every rank's ``ce_loss`` and ``tokens`` are the whole
+  batch's;
+* each gradient leaf (after the microbatches) is summed over the batch
+  axes, and over ``model`` too where a rank holds the leaf whole and its
+  gradient is partial (``transformer.model_partial_grads``), in float32,
+  rounded once to the gradient's dtype;
+* AdamW keeps ZeRO-1 moments (``optim.adamw``).
+
 A train step runs with ``torch.use_deterministic_algorithms`` on (and
 ``CUBLAS_WORKSPACE_CONFIG`` set if it was not): the embedding gather's
 backward (an accumulating index put), the MoE gather path's scatter and
@@ -38,13 +56,15 @@ import torch
 import torch.utils.checkpoint
 
 from ..models import transformer as T
-from ..models.layers import COMPUTE_DTYPE, F32, mm
-from ..models.params import init_params, tree_map, tree_paths
-from ..optim.adamw import AdamWConfig, OptState, adamw_init, adamw_update
-from ..sharding import DEFAULT_RULES, ShardingRules, constrain, unported_on_mesh
+from ..models.layers import COMPUTE_DTYPE, F32, mm, split_axis
+from ..models.params import init_params, param_pspecs, tree_map, tree_paths
+from ..optim.adamw import AdamWConfig, OptState, adamw_init, adamw_update, zero1_spec
+from ..sharding import (DEFAULT_RULES, NamedSharding, ShardingRules, all_reduce, batch_axes,
+                        block, constrain, copy_to, reduce_from)
 
 __all__ = ["TrainState", "TrainConfig", "chunked_ce_loss", "make_loss_fn", "grad_with_aux",
-           "make_train_step", "init_train_state", "deterministic_algorithms"]
+           "make_grad_fn", "make_train_step", "init_train_state", "train_state_shardings",
+           "deterministic_algorithms"]
 
 
 class TrainState(NamedTuple):
@@ -86,21 +106,37 @@ def deterministic_algorithms():
         torch.utils.deterministic.fill_uninitialized_memory = prev[2]
 
 
-def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+def _logsumexp(x: torch.Tensor, mesh=None, axis=None) -> torch.Tensor:
     """``jax.nn.logsumexp`` over the last axis: the finite row maximum held
-    constant (``stop_gradient``), log Σ exp(x − max) + max."""
+    constant (``stop_gradient``), log Σ exp(x − max) + max.  With a mesh
+    ``axis`` the last axis is cut over it: the maximum and the sum are
+    taken over the axis's ranks too."""
     amax = x.detach().amax(dim=-1, keepdim=True)
+    if axis is not None:
+        amax = all_reduce(mesh, amax, "max", axis)
     amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
-    sumexp = torch.abs(torch.sum(torch.exp(x - amax), dim=-1))
-    return torch.log(sumexp) + amax[..., 0]
+    sumexp = torch.sum(torch.exp(x - amax), dim=-1)
+    if axis is not None:
+        sumexp = reduce_from(mesh, sumexp, axis)
+    return torch.log(torch.abs(sumexp)) + amax[..., 0]
 
 
-def _chunk_ce(h, head, lab, mesh, rules):
-    """(Σ CE over the chunk's unmasked positions, their count)."""
+def _chunk_ce(h, head, lab, mesh, rules, va=None, v_lo=0):
+    """(Σ CE over the chunk's unmasked positions, their count).  ``va``: the
+    mesh axis that cuts the vocabulary (``head`` is this rank's columns
+    from ``v_lo`` on), or None."""
+    h = copy_to(mesh, h, va)
     logits = mm(h.to(COMPUTE_DTYPE), head.to(COMPUTE_DTYPE)).to(F32)
     logits = constrain(logits, mesh, ("batch", "seq", "vocab"), rules.replace(seq=None))
-    lse = _logsumexp(logits)
-    ll = torch.gather(logits, -1, torch.clamp(lab, min=0).long()[..., None])[..., 0]
+    lse = _logsumexp(logits, mesh, va)
+    if va is None:
+        ll = torch.gather(logits, -1, torch.clamp(lab, min=0).long()[..., None])[..., 0]
+    else:
+        # the label's logit, from the rank whose columns hold it
+        n_v = logits.shape[-1]
+        t = lab.long() - v_lo
+        ll = torch.gather(logits, -1, t.clamp(0, n_v - 1)[..., None])[..., 0]
+        ll = reduce_from(mesh, torch.where((t >= 0) & (t < n_v), ll, 0.0), va)
     mask = (lab >= 0).to(F32)
     return torch.sum((lse - ll) * mask), torch.sum(mask)
 
@@ -111,11 +147,15 @@ def chunked_ce_loss(params, hidden, labels, cfg, *, mesh=None, rules=DEFAULT_RUL
 
     hidden (B,S,M); labels (B,S) int32 (-1 = masked).  Runs S in chunks;
     under autograd each chunk is checkpointed, so only one (B, chunk, V)
-    block of logits is live at a time in either pass.  One device only.
+    block of logits is live at a time in either pass.  On a mesh the
+    arguments are this rank's blocks (its batch rows; its vocabulary
+    columns of the head where ``model`` cuts the vocabulary: vocab-parallel
+    as :func:`_chunk_ce` says) and the sums this rank's rows'.
     """
-    unported_on_mesh(mesh, "chunked_ce_loss (training)")
     B, S, M = hidden.shape
     head = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["head"]
+    va, v_ranks, v_idx = split_axis(mesh, cfg.vocab, "vocab", rules)
+    v_lo = v_idx * (cfg.vocab // v_ranks)
     chunk = min(chunk, S)
     if S % chunk:
         chunk = S
@@ -125,10 +165,11 @@ def chunked_ce_loss(params, hidden, labels, cfg, *, mesh=None, rules=DEFAULT_RUL
     for i in range(0, S, chunk):
         h, lab = hidden[:, i: i + chunk], labels[:, i: i + chunk]
         if grad:
-            t, c = torch.utils.checkpoint.checkpoint(_chunk_ce, h, head, lab, mesh, rules,
-                                                     use_reentrant=False)
+            t, c = torch.utils.checkpoint.checkpoint(_chunk_ce, h, head, lab, mesh, rules, va,
+                                                     v_lo, use_reentrant=False,
+                                                     early_stop=mesh is None)
         else:
-            t, c = _chunk_ce(h, head, lab, mesh, rules)
+            t, c = _chunk_ce(h, head, lab, mesh, rules, va, v_lo)
         tot, cnt = tot + t, cnt + c
     return tot, cnt
 
@@ -143,6 +184,9 @@ def make_loss_fn(model_cfg, train_cfg: TrainConfig, mesh=None, rules=DEFAULT_RUL
             labels = torch.where(prefix[None, :], torch.full_like(labels, -1), labels)
         tot, cnt = chunked_ce_loss(params, hidden, labels, model_cfg, mesh=mesh, rules=rules,
                                    chunk=train_cfg.loss_chunk, scan=train_cfg.scan_loss_chunks)
+        if mesh is not None:  # the whole batch's sums on every rank
+            tot = reduce_from(mesh, tot, batch_axes(mesh, rules))
+            cnt = reduce_from(mesh, cnt, batch_axes(mesh, rules))
         loss = tot / torch.clamp(cnt, min=1.0)
         total = loss + train_cfg.aux_coef * aux
         return total, {"ce_loss": loss, "aux_loss": aux, "tokens": cnt}
@@ -190,25 +234,26 @@ def _microbatch_grads(loss_fn, params, batch, n_micro: int, accum_dtype,
     return grads, out
 
 
-def make_train_step(
-    model_cfg,
-    train_cfg: TrainConfig,
-    mesh=None,
-    rules: ShardingRules = DEFAULT_RULES,
-    param_specs=None,
-):
-    """Returns ``train_step(state, batch) -> (state, metrics)``: a pure
-    function (new tensors out, none written in place)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step: training on a mesh (ZeRO-1, TRAIN_FSDP_SP_RULES) is "
-            "ROADMAP.md queue 1, step 10, not ported yet")
+def make_grad_fn(model_cfg, train_cfg: TrainConfig, mesh=None,
+                 rules: ShardingRules = DEFAULT_RULES):
+    """Returns ``grad_fn(params, batch) -> (grads, metrics)``: the gradients
+    a train step hands to AdamW — taken at the ``param_compute_dtype``
+    copies, over ``microbatches``, and on a mesh summed over the batch
+    axes (and over ``model`` for :func:`~repro_torch.models.transformer.
+    model_partial_grads`' leaves), in float32 and rounded once."""
     loss_fn = make_loss_fn(model_cfg, train_cfg, mesh, rules)
+    if mesh is not None:
+        T.check_mesh(model_cfg, mesh, rules, "make_train_step")
+        partial = T.model_partial_grads(model_cfg, mesh, rules)
+        axes = batch_axes(mesh, rules)
 
-    def train_step(state: TrainState, batch):
+        def summed(g, part):
+            return reduce_from(mesh, g.to(F32), axes + (("model",) if part else ())).to(g.dtype)
+
+    def grad_fn(params, batch):
         cdt = train_cfg.param_compute_dtype
-        params_c = (tree_map(lambda p: p.to(cdt) if p.is_floating_point() else p,
-                             state.params) if cdt is not None else state.params)
+        params_c = (tree_map(lambda p: p.to(cdt) if p.is_floating_point() else p, params)
+                    if cdt is not None else params)
         with deterministic_algorithms():
             if train_cfg.microbatches > 1:
                 grads, metrics = _microbatch_grads(
@@ -217,6 +262,35 @@ def make_train_step(
             else:
                 grads, metrics = grad_with_aux(loss_fn, params_c, batch)
             del params_c
+            if mesh is not None:
+                grads = tree_map(summed, grads, partial)
+        return grads, metrics
+
+    return grad_fn
+
+
+def make_train_step(
+    model_cfg,
+    train_cfg: TrainConfig,
+    mesh=None,
+    rules: ShardingRules = DEFAULT_RULES,
+    param_specs=None,
+):
+    """Returns ``train_step(state, batch) -> (state, metrics)``: a pure
+    function (new tensors out, none written in place).
+
+    On a mesh ``state`` and ``batch`` are this rank's blocks
+    (:func:`init_train_state`, ``convert.train_state_block``,
+    ``lm_batch_block``) and ``param_specs`` the parameters' placements
+    (``models.params.param_pspecs`` of the mesh when None); the metrics
+    are the whole batch's on every rank."""
+    grad_fn = make_grad_fn(model_cfg, train_cfg, mesh, rules)
+    if mesh is not None and param_specs is None:
+        param_specs = param_pspecs(T.model_defs(model_cfg), mesh, rules)
+
+    def train_step(state: TrainState, batch):
+        with deterministic_algorithms():
+            grads, metrics = grad_fn(state.params, batch)
             new_params, new_opt, opt_metrics = adamw_update(
                 state.params, grads, state.opt, train_cfg.opt, mesh=mesh,
                 param_specs=param_specs)
@@ -230,7 +304,34 @@ def init_train_state(model_cfg, train_cfg: TrainConfig, seed: int = 0, *, device
                      mesh=None, param_specs=None) -> TrainState:
     """Parameters from :func:`~repro_torch.models.params.init_params`
     (``seed``) and zero AdamW moments, on ``device`` (``cuda`` unless the
-    caller passes another)."""
-    params = init_params(T.model_defs(model_cfg), seed, device)
+    caller passes another; on a mesh, the mesh's device).  On a mesh this
+    rank's blocks (placed by ``param_specs``, ``param_pspecs`` of the mesh
+    when None): each leaf drawn whole, as ``mesh=None`` draws it, and cut
+    before the next is drawn, and the moments ZeRO-1's."""
+    defs = T.model_defs(model_cfg)
+    if mesh is None:
+        params = init_params(defs, seed, device)
+    else:
+        if param_specs is None:
+            param_specs = param_pspecs(defs, mesh)
+        specs = dict(tree_paths(param_specs))
+        params = init_params(defs, seed, mesh.device if device is None else device,
+                             place=lambda path, d, leaf: block(mesh, leaf, specs[path]))
     opt = adamw_init(params, train_cfg.opt, mesh=mesh, param_specs=param_specs)
     return TrainState(params=params, opt=opt)
+
+
+def train_state_shardings(model_cfg, train_cfg: TrainConfig, mesh,
+                          rules: ShardingRules = DEFAULT_RULES) -> TrainState:
+    """A TrainState of :class:`~repro_torch.sharding.NamedSharding`: each
+    parameter's placement on ``mesh``, ``step`` replicated and the moments'
+    ZeRO-1 placements (``optim.adamw.zero1_spec``) — the JAX package's
+    ``train_lowering`` ``in_shardings``."""
+    defs = T.model_defs(model_cfg)
+    pspecs = param_pspecs(defs, mesh, rules)
+
+    zero1 = train_cfg.opt.zero1
+    mom = tree_map(lambda d, sp: NamedSharding(mesh, zero1_spec(sp, d.shape, mesh) if zero1
+                                               else sp), defs, pspecs)
+    return TrainState(params=tree_map(lambda sp: NamedSharding(mesh, sp), pspecs),
+                      opt=OptState(step=NamedSharding(mesh, ()), mu=mom, nu=mom))

@@ -12,9 +12,12 @@ package where the two compute the same thing.
   runs drift apart from there);
 * ``StragglerMonitor``: the reference's cases, each against the JAX
   monitor on the same records;
-* ``remesh``: a state moved to a device, values equal; a mesh raises;
-* the launcher: ``--mesh none`` trains, the TPU meshes raise citing step
-  10, ``--placement ssa`` anneals the JAX launcher's placement.
+* ``remesh``: a state moved to a device, values equal; onto a mesh's
+  NamedShardings it needs the blocks' own placement (the re-sharding
+  itself runs on gloo ranks in tests/test_torch_lm_train_mesh.py);
+* the launcher: ``--mesh none`` trains, the production meshes started as
+  one process raise naming the ranks they need, ``--placement ssa``
+  anneals the JAX launcher's placement.
 """
 import numpy as np
 import pytest
@@ -168,8 +171,13 @@ def test_remesh_to_a_device():
     assert moved.params["embed"]["tok"] is state.params["embed"]["tok"]
     by_name = remesh(state.params, lambda tree: jax.tree_util.tree_map(lambda _: "cpu", tree))
     assert all(t.device.type == "cpu" for _, t in tree_paths(by_name))
-    with pytest.raises(NotImplementedError, match="step 10"):
+    with pytest.raises(TypeError, match="neither a device nor a NamedSharding"):
         remesh(state.params, lambda tree: jax.tree_util.tree_map(lambda _: object(), tree))
+    from repro_torch.sharding import NamedSharding, abstract_mesh
+
+    onto = NamedSharding(abstract_mesh((1, 2), ("data", "model")), ())
+    with pytest.raises(ValueError, match="needs src"):
+        remesh(state.params, lambda tree: jax.tree_util.tree_map(lambda _: onto, tree))
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +185,10 @@ def test_remesh_to_a_device():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("mesh", ["single", "pod", "shrunken"])
 def test_launcher_meshes_raise(mesh, tmp_path):
-    with pytest.raises(NotImplementedError, match="step 10"):
+    """The production meshes need 256, 512 and 128 ranks (torchrun): one
+    process raises, naming both counts."""
+    need = {"single": 256, "pod": 512, "shrunken": 128}[mesh]
+    with pytest.raises(ValueError, match=f"needs {need} ranks but only 1 exist"):
         launch_train.train(["--mesh", mesh, "--device", "cpu", "--steps", "1",
                             "--ckpt-dir", str(tmp_path)])
 

@@ -1,5 +1,7 @@
 """The LM's serving dry-run in the port (``repro_torch.launch.lowering``,
-``launch.dryrun``) against the JAX package's, on the CPU.
+``launch.dryrun``) against the JAX package's, on the CPU; the train cells
+are tests/test_torch_lm_train_dryrun.py's, with this file's reference
+script.
 
 The placements: every argument of the port's prefill and decode
 lowerings has the global shape, dtype and placement of the reference's
@@ -63,10 +65,11 @@ REFERENCE = textwrap.dedent("""
         shards = jax.tree_util.tree_leaves(lowered.compile().input_shardings[0])
         leaves = jax.tree_util.tree_flatten_with_path(lowered.args_info[0])[0]
         assert len(leaves) == len(shards)
-        names = (["params", "batch"] if SHAPES[shape_name].kind == "prefill"
-                 else ["params", "caches", "token", "pos"])
+        names = {"train": [None, "batch"], "prefill": ["params", "batch"],
+                 "decode": ["params", "caches", "token", "pos"]}[SHAPES[shape_name].kind]
+        key = lambda k: str(getattr(k, "key", getattr(k, "name", None)))
         out["|".join([arch, shape_name, "x".join(map(str, mesh_shape))])] = [
-            ["/".join([names[path[0].idx]] + [str(k.key) for k in path[1:]]),
+            ["/".join([n for n in [names[path[0].idx]] if n] + [key(k) for k in path[1:]]),
              list(info.shape), str(info.dtype),
              [list(e) if isinstance(e, tuple) else e for e in sh.spec]]
             for (path, info), sh in zip(leaves, shards)]
@@ -74,33 +77,37 @@ REFERENCE = textwrap.dedent("""
 """)
 
 
-@functools.lru_cache(maxsize=None)
-def _reference_placements():
-    cells = [(a, s, *PLACEMENT_MESHES[i]) for a, s, i in CELLS]
+def reference_placements(cells):
+    """The reference's compiled input placements of ``cells`` ((arch, shape
+    name, index into PLACEMENT_MESHES)), from one subprocess."""
+    cells = [(a, s, *PLACEMENT_MESHES[i]) for a, s, i in cells]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
     out = subprocess.run([sys.executable, "-c", REFERENCE, json.dumps(cells)], env=env,
-                         capture_output=True, text=True, timeout=600)
+                         capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_placements():
+    return reference_placements(CELLS)
 
 
 def _spec(entries):
     return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
 
 
-@pytest.mark.parametrize("arch,shape_name,mesh_i", CELLS,
-                         ids=[f"{a}-{s}-{'x'.join(map(str, PLACEMENT_MESHES[i][0]))}"
-                              for a, s, i in CELLS])
-def test_lowered_args_match_reference_placements(arch, shape_name, mesh_i):
-    """Global shape, dtype and placement of every argument, by name; each
-    rank's block is the shard shape of its placement."""
+def check_placements(arch, shape_name, mesh_i, want):
+    """Global shape, dtype and placement of every argument of the port's
+    lowering, by name, against the reference's (``want``); each rank's
+    block is the shard shape of its placement."""
     mesh_shape, axes = PLACEMENT_MESHES[mesh_i]
     mesh = sharding.abstract_mesh(mesh_shape, axes)
     cell = TC.SHAPES[shape_name]
-    fn = LOW.prefill_args if cell.kind == "prefill" else LOW.decode_args
+    fn = {"train": LOW.train_args, "prefill": LOW.prefill_args,
+          "decode": LOW.decode_args}[cell.kind]
     got = {a.name: a for a in fn(TC.get_config(arch), cell, mesh)}
-    want = _reference_placements()["|".join([arch, shape_name, "x".join(map(str, mesh_shape))])]
     assert set(got) == {w[0] for w in want}
     for name, shape, dtype, spec in want:
         a = got[name]
@@ -110,6 +117,18 @@ def test_lowered_args_match_reference_placements(arch, shape_name, mesh_i):
         assert a.spec == spec, (name, a.spec, spec)
         assert a.local_shape == tuple(d // sharding.mesh_axis_size(mesh, e)
                                       for d, e in zip(shape, spec)), name
+
+
+def cell_key(arch, shape_name, mesh_i):
+    return "|".join([arch, shape_name, "x".join(map(str, PLACEMENT_MESHES[mesh_i][0]))])
+
+
+@pytest.mark.parametrize("arch,shape_name,mesh_i", CELLS,
+                         ids=[f"{a}-{s}-{'x'.join(map(str, PLACEMENT_MESHES[i][0]))}"
+                              for a, s, i in CELLS])
+def test_lowered_args_match_reference_placements(arch, shape_name, mesh_i):
+    check_placements(arch, shape_name, mesh_i,
+                     _reference_placements()[cell_key(arch, shape_name, mesh_i)])
 
 
 def test_production_placements_of_qwen3():

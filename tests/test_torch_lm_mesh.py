@@ -309,8 +309,9 @@ def test_gumbel_rows_on_a_mesh():
 
 def test_unported_mesh_paths_raise():
     """Rules other than DEFAULT_RULES, the MoE, Mamba, RWKV and encoder
-    families, and a train cell on a mesh raise citing step 10; decode on a
-    mesh needs max_seq; a mesh must be a sharding.Mesh or AbstractMesh."""
+    families (their serving and train cells too) on a mesh raise citing
+    step 10; decode on a mesh needs max_seq; a mesh must be a
+    sharding.Mesh or AbstractMesh."""
     from repro_torch import configs as TC
     from repro_torch.configs import SHAPES
     from repro_torch.launch import lowering as LOW
@@ -334,8 +335,9 @@ def test_unported_mesh_paths_raise():
                         max_seq=8)
         with pytest.raises(NotImplementedError, match="step 10"):
             LOW.decode_lowering(TC.get_config(arch), SHAPES["decode_32k"], mesh)
-    with pytest.raises(NotImplementedError, match="step 10"):
-        LOW.cell_lowering(TC.get_config("qwen3-1.7b"), SHAPES["train_4k"], mesh)
+    for arch in ("olmoe-1b-7b", "rwkv6-3b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="step 10"):
+            LOW.cell_lowering(TC.get_config(arch), SHAPES["train_4k"], mesh)
     with pytest.raises(ValueError, match="max_seq"):
         decode_step(params, {}, torch.zeros(2, dtype=torch.int32), 0, cfg, mesh=mesh)
     with pytest.raises(TypeError, match="Mesh"):

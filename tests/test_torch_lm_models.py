@@ -181,18 +181,24 @@ def test_lm_module_holds_the_tree_by_dotted_paths():
 
 
 def test_a_mesh_or_a_short_max_seq_raises():
-    """Training's forward on a mesh, and prefill on a mesh for a family
-    that is not attention + MLP only, raise citing step 10."""
-    from repro_torch.sharding import abstract_mesh
+    """Training's forward and prefill on a mesh raise citing step 10 for a
+    family that is not attention + MLP only (10.2–10.4) and under a rule
+    table other than DEFAULT_RULES (10.5); an attention + MLP forward on a
+    mesh takes the rank's blocks, not the whole parameters."""
+    from repro_torch.sharding import TRAIN_FSDP_SP_RULES, abstract_mesh
 
     _, tcfg, _, tp, batch = _case("granite-3-8b")
     mesh = abstract_mesh((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="step 10"):
+    with pytest.raises(ValueError, match="rank's block"):
         forward(tp, _tb(batch), tcfg, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="step 10"):
+        forward(tp, _tb(batch), tcfg, mesh=mesh, rules=TRAIN_FSDP_SP_RULES)
     for arch in ("olmoe-1b-7b", "jamba-1.5-large-398b", "rwkv6-3b", "whisper-tiny"):
         _, acfg, _, ap, abatch = _case(arch)
         with pytest.raises(NotImplementedError, match="step 10"):
             prefill(ap, _tb(abatch), acfg, mesh=mesh, max_seq=MAX_SEQ)
+        with pytest.raises(NotImplementedError, match="step 10"):
+            forward(ap, _tb(abatch), acfg, mesh=mesh)
     with pytest.raises(ValueError, match="shorter than the prompt"):
         prefill(tp, _tb(batch), tcfg, max_seq=4)
 

@@ -313,19 +313,25 @@ def test_adamw_update_is_pure_and_moves_toward_minimum():
 
 
 def test_a_mesh_raises_in_the_optimizer():
-    """Moments sharded on a mesh are training on a mesh, still unported:
-    adamw_init and adamw_update given a mesh raise citing step 10.
-    zero1_spec, a spec function, is ported (tests/test_torch_lm_sharding.py
-    holds it to the reference on every mesh)."""
+    """On a mesh the optimizer needs the parameters' placements (a
+    ValueError without them); adamw_init makes the ZeRO-1 moment blocks
+    (a (4, 6) leaf cut over model on dim 0: (2, 3) moments, data on dim 1),
+    and adamw_update, which all-gathers over data, raises on an abstract
+    mesh, which issues no collective.  tests/test_torch_lm_train_mesh.py
+    holds the update on running meshes to mesh=None's."""
     from repro_torch.sharding import abstract_mesh
 
-    p = {"w": torch.zeros(4)}
+    p = {"w": torch.zeros(2, 6)}  # this rank's block of a (4, 6) leaf
+    specs = {"w": ("model",)}
     mesh = abstract_mesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="step 10"):
+    with pytest.raises(ValueError, match="param_specs"):
         TA.adamw_init(p, TA.AdamWConfig(), mesh=mesh)
-    opt = TA.adamw_init(p, TA.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="step 10"):
+    opt = TA.adamw_init(p, TA.AdamWConfig(), mesh=mesh, param_specs=specs)
+    assert tuple(opt.mu["w"].shape) == tuple(opt.nu["w"].shape) == (2, 3)
+    with pytest.raises(ValueError, match="param_specs"):
         TA.adamw_update(p, p, opt, TA.AdamWConfig(), mesh=mesh)
+    with pytest.raises(RuntimeError, match="abstract mesh issues no collective"):
+        TA.adamw_update(p, p, opt, TA.AdamWConfig(), mesh=mesh, param_specs=specs)
     assert TA.zero1_spec(("model",), (4, 6), mesh) == ("model", "data")
 
 
@@ -683,10 +689,17 @@ def test_train_step_leaves_its_inputs_and_raises_on_a_mesh():
     assert int(state.opt.step) == 0 and int(new.opt.step) == 1
     assert not any(t.requires_grad for _, t in tree_paths(new.params))
     assert not torch.are_deterministic_algorithms_enabled()
-    from repro_torch.sharding import abstract_mesh
+    # on a mesh: the MoE, Mamba, RWKV and encoder families (step 10.2-10.4)
+    # and the rule tables other than DEFAULT_RULES (10.5) still raise
+    from repro_torch import configs
+    from repro_torch.sharding import TRAIN_FSDP_SP_RULES, abstract_mesh
 
+    mesh = abstract_mesh((1, 2), ("data", "model"))
+    for arch in ("olmoe-1b-7b", "jamba-1.5-large-398b", "rwkv6-3b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="step 10"):
+            TS.make_train_step(configs.get_config(arch, reduced=True), tc, mesh=mesh)
     with pytest.raises(NotImplementedError, match="step 10"):
-        TS.make_train_step(cfg, tc, mesh=abstract_mesh((1, 2), ("data", "model")))
+        TS.make_train_step(cfg, tc, mesh=mesh, rules=TRAIN_FSDP_SP_RULES)
 
 
 # ---------------------------------------------------------------------------
